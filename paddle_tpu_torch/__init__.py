@@ -1,0 +1,36 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of the JAX package, for
+NVIDIA Hopper.
+
+It serves GPT token generation through the same entry points as the JAX
+package (`serving.DecodeEngine`, `serving.Server`), with prefill
+attention on a hand-written CUDA kernel (`kernels/flash_attention.py`).
+It imports torch and never jax, and nothing of the JAX package.
+
+Devices are explicit: every entry point runs on `cuda` unless the
+caller passes `device="cpu"`, and raises when asked for `cuda` on a
+machine without a GPU. There is no silent fallback to the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__all__ = ["resolve_device"]
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """`device` as a torch.device; None means `cuda`. Raises when CUDA
+    is asked for and not available (pass device="cpu" to run on the
+    CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "paddle_tpu_torch runs on cuda by default and no CUDA device "
+            "is available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

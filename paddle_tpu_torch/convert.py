@@ -1,0 +1,51 @@
+"""Carry parameters across from the JAX package.
+
+Both packages keep params as a flat dict with the same names and the
+same layouts, so a conversion is a copy per tensor: no renames and no
+transposes. Callers hand over numpy arrays (`np.asarray` of each JAX
+array), which keeps this module free of any JAX import.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import resolve_device
+
+__all__ = ["params_from_numpy"]
+
+
+def params_from_numpy(params: Mapping[str, np.ndarray], device,
+                      dtype: Optional[torch.dtype] = None, *,
+                      expected: Optional[Mapping[str, Tuple[int, ...]]]
+                      = None) -> Dict[str, torch.Tensor]:
+    """{name: array} -> {name: tensor on `device`}, same names, shapes
+    and values. `dtype`, when given, casts floating arrays (integer ones
+    keep theirs). `expected` ({name: shape}, e.g. from
+    `models.gpt.param_shapes`) makes a missing or extra name, or another
+    shape, an error."""
+    dev = resolve_device(device)
+    if expected is not None:
+        missing = sorted(set(expected) - set(params))
+        extra = sorted(set(params) - set(expected))
+        if missing or extra:
+            raise KeyError(f"param names differ: missing {missing}, "
+                           f"extra {extra}")
+        for name, shape in expected.items():
+            if tuple(np.shape(params[name])) != tuple(shape):
+                raise ValueError(f"{name}: shape {np.shape(params[name])} "
+                                 f"!= expected {tuple(shape)}")
+    out = {}
+    for name, value in params.items():
+        a = np.array(value, copy=True)
+        if a.dtype.name == "bfloat16":  # ml_dtypes: no torch.from_numpy
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out[name] = t.to(dev)
+    return out

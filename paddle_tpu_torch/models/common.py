@@ -1,0 +1,82 @@
+"""Shared building blocks of the model zoo, in PyTorch.
+
+Counterpart of the JAX package's `models/common.py`. Params are flat
+dicts {name: tensor} keyed by the same names and held in the same
+layouts (`x @ w` with w `[in, out]`), so parameters carry across by
+name (see `convert.params_from_numpy`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+ParamAxes = Dict[str, Tuple[Optional[str], ...]]
+
+__all__ = ["ParamStore", "Params", "raw_layer_norm", "layer_norm", "gelu"]
+
+
+class ParamStore:
+    """Accumulates params and their logical axes during init. Random
+    values come from the caller's `torch.Generator`, on the generator's
+    device, and are then moved to `device`."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+        self.generator = generator
+        self.device = device
+        self.dtype = dtype
+        self.params: Params = {}
+        self.axes: ParamAxes = {}
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.generator,
+                        device=self.generator.device, dtype=self.dtype)
+        return (x * scale).to(self.device)
+
+    def add(self, name: str, value: torch.Tensor,
+            axes: Tuple[Optional[str], ...]) -> torch.Tensor:
+        if name in self.params:
+            raise ValueError(f"duplicate param {name}")
+        if value.ndim != len(axes):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} does not "
+                             f"match axes {axes}")
+        self.params[name] = value
+        self.axes[name] = axes
+        return value
+
+    def layer_norm(self, name: str, dim: int, axis: Optional[str] = None):
+        self.add(f"{name}.scale", torch.ones(dim, dtype=self.dtype,
+                                             device=self.device), (axis,))
+        self.add(f"{name}.bias", torch.zeros(dim, dtype=self.dtype,
+                                             device=self.device), (axis,))
+
+    def embedding(self, name: str, vocab: int, dim: int,
+                  axes=("vocab", "embed"), scale: float = 0.02):
+        self.add(f"{name}.w", self.normal((vocab, dim), scale), axes)
+
+
+def raw_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """Layer norm over the last axis, computed in f32 and cast back to
+    x's dtype (population variance, as jnp.var)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def layer_norm(params: Params, name: str, x: torch.Tensor,
+               eps: float = 1e-12) -> torch.Tensor:
+    return raw_layer_norm(x, params[f"{name}.scale"], params[f"{name}.bias"],
+                          eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, as jax.nn.gelu(approximate=True)."""
+    return F.gelu(x, approximate="tanh")

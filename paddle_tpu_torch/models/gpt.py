@@ -1,0 +1,259 @@
+"""GPT (decoder-only transformer), dense configs, in PyTorch.
+
+Counterpart of the JAX package's `models/gpt.py` for the serving path:
+`GPTConfig`, `init`, the full forward `apply`, and the two decode
+phases `apply_prefill` / `apply_decode_step` over the paged KV cache.
+Params are the JAX package's flat dict, by name and in its layouts:
+per-layer params stacked on a leading [L] axis ("blk.wqkv" [L, H, 3H],
+...), matrices applied as `x @ w`. The JAX package's `lax.scan` over the
+stacked layers is a Python loop over l here.
+
+Mixture-of-experts configs are refused: their expert-dispatch MLP is
+not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..ops.attention import mha
+from ..ops.beam import beam_search
+from ..serving import kv_cache as kvc
+from .common import (ParamAxes, Params, ParamStore, gelu,
+                     layer_norm as _ln_named, raw_layer_norm)
+
+__all__ = ["GPTConfig", "init", "param_shapes", "apply", "apply_prefill",
+           "apply_decode_step"]
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_dim: int = 3072
+    max_len: int = 1024
+    n_experts: int = 0          # 0 = dense MLP; >0 = Switch top-1 MoE
+    capacity_factor: float = 1.25
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def tiny(n_experts: int = 0) -> "GPTConfig":
+        return GPTConfig(vocab_size=512, hidden=64, layers=4, heads=4,
+                         mlp_dim=128, max_len=128, n_experts=n_experts)
+
+    @property
+    def head_dim(self):
+        return self.hidden // self.heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+def _refuse_moe(cfg: GPTConfig):
+    if cfg.n_experts:
+        raise ValueError("mixture-of-experts GPT configs are not ported: "
+                         "serve a dense config (n_experts=0)")
+
+
+def param_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
+    """{name: shape} of a dense config's params, as `init` makes them."""
+    _refuse_moe(cfg)
+    L, H, M = cfg.layers, cfg.hidden, cfg.mlp_dim
+    return {
+        "wte.w": (cfg.vocab_size, H), "wpe.w": (cfg.max_len, H),
+        "blk.ln1.scale": (L, H), "blk.ln1.bias": (L, H),
+        "blk.wqkv": (L, H, 3 * H), "blk.bqkv": (L, 3 * H),
+        "blk.wo": (L, H, H), "blk.bo": (L, H),
+        "blk.ln2.scale": (L, H), "blk.ln2.bias": (L, H),
+        "blk.w1": (L, H, M), "blk.b1": (L, M),
+        "blk.w2": (L, M, H), "blk.b2": (L, H),
+        "ln_f.scale": (H,), "ln_f.bias": (H,),
+    }
+
+
+def init(generator: torch.Generator, cfg: GPTConfig, device=None
+         ) -> Tuple[Params, ParamAxes]:
+    """Random f32 params with the JAX package's names, shapes and
+    scales (not its values: torch and jax draw different numbers).
+    Layer params are stacked on a leading [L] axis. `device` defaults
+    to cuda (see `resolve_device`)."""
+    from .. import resolve_device
+
+    _refuse_moe(cfg)
+    s = ParamStore(generator, resolve_device(device))
+    s.embedding("wte", cfg.vocab_size, cfg.hidden, axes=("vocab", "embed"))
+    s.embedding("wpe", cfg.max_len, cfg.hidden, axes=(None, "embed"))
+    L, H, M = cfg.layers, cfg.hidden, cfg.mlp_dim
+
+    def stacked(key, shape, scale, axes):
+        s.add(key, s.normal((L,) + shape, scale), ("layer",) + axes)
+
+    a = math.sqrt(2.0 / (H + H))
+    stacked("blk.ln1.scale", (H,), 0.0, (None,))
+    s.params["blk.ln1.scale"] += 1.0
+    stacked("blk.ln1.bias", (H,), 0.0, (None,))
+    stacked("blk.wqkv", (H, 3 * H), a, ("embed", "heads"))
+    stacked("blk.bqkv", (3 * H,), 0.0, ("heads",))
+    stacked("blk.wo", (H, H), a / math.sqrt(2 * L), ("heads", "embed"))
+    stacked("blk.bo", (H,), 0.0, (None,))
+    stacked("blk.ln2.scale", (H,), 0.0, (None,))
+    s.params["blk.ln2.scale"] += 1.0
+    stacked("blk.ln2.bias", (H,), 0.0, (None,))
+    am = math.sqrt(2.0 / (H + M))
+    stacked("blk.w1", (H, M), am, ("embed", "mlp"))
+    stacked("blk.b1", (M,), 0.0, ("mlp",))
+    stacked("blk.w2", (M, H), am / math.sqrt(2 * L), ("mlp", "embed"))
+    stacked("blk.b2", (H,), 0.0, (None,))
+    s.layer_norm("ln_f", H)
+    return s.params, s.axes
+
+
+def _ln(x, scale, bias, eps=1e-5):
+    return raw_layer_norm(x, scale, bias, eps)
+
+
+def _layer(params: Params, l: int) -> Params:
+    """Layer l's slice of the stacked "blk.*" params."""
+    return {k: v[l] for k, v in params.items() if k.startswith("blk.")}
+
+
+def _qkv(lp, y, cfg: GPTConfig, shape):
+    qkv = y @ lp["blk.wqkv"].to(y.dtype) + lp["blk.bqkv"].to(y.dtype)
+    q, k, v = qkv.split(cfg.hidden, dim=-1)
+    return q.view(shape), k.view(shape), v.view(shape)
+
+
+def _decode_mlp(lp, x):
+    h = gelu(x @ lp["blk.w1"].to(x.dtype) + lp["blk.b1"].to(x.dtype))
+    return h @ lp["blk.w2"].to(x.dtype) + lp["blk.b2"].to(x.dtype)
+
+
+def _block(lp, x, cfg: GPTConfig):
+    """One transformer block with this layer's (unstacked) params."""
+    B, T, H = x.shape
+    h = _ln(x, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
+    q, k, v = _qkv(lp, h, cfg, (B, T, cfg.heads, cfg.head_dim))
+    ctx = mha(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim))
+    x = x + (ctx.reshape(B, T, H) @ lp["blk.wo"].to(x.dtype) +
+             lp["blk.bo"].to(x.dtype))
+    h = _ln(x, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
+    return x + _decode_mlp(lp, h)
+
+
+def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor) -> torch.Tensor:
+    """ids [B, T] -> logits [B, T, vocab], in cfg.dtype."""
+    _refuse_moe(cfg)
+    T = ids.shape[1]
+    x = (params["wte.w"][ids] + params["wpe.w"][:T][None]) \
+        .to(cfg.torch_dtype)
+    for l in range(cfg.layers):
+        x = _block(_layer(params, l), x, cfg)
+    x = _ln_named(params, "ln_f", x)
+    return x @ params["wte.w"].T.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode path (serving/decode.py): paged-KV prefill + single-token steps.
+# Both phases write K/V into the pools IN PLACE (the JAX versions donate
+# the pools and return new ones) and sample greedily through
+# ops.beam.beam_search with beam_size=1, whose finished-freeze keeps a
+# slot whose previous token is eos emitting eos.
+# ---------------------------------------------------------------------------
+
+
+def _beam_top1(prev_ids: torch.Tensor, logits: torch.Tensor,
+               eos_id: int) -> torch.Tensor:
+    """Greedy next token through the beam_search step (K=1).
+    prev_ids [S], logits [S, vocab] -> [S] int64."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    out = beam_search(prev_ids[:, None],
+                      torch.zeros(logp.shape[0], 1, device=logp.device),
+                      logp[:, None, :], beam_size=1, end_id=int(eos_id),
+                      is_accumulated=True)
+    return out["selected_ids"][:, 0]
+
+
+def apply_prefill(params: Params, cfg: GPTConfig, ids: torch.Tensor,
+                  length: int, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                  block_table: torch.Tensor, *, block_size: int,
+                  eos_id: int) -> torch.Tensor:
+    """One prompt through the stack, filling its KV blocks.
+
+    ids [1, T] (edge-padded to the prefill bucket T), length = true
+    prompt length, block_table [MB] (the sequence's row). Writes every
+    position's K/V into k_pool/v_pool in place and returns the first
+    sampled token [1]. Padded tail positions write the null block or
+    slots that later writes overwrite, and, being causally after every
+    real position, never reach the last real position's logits.
+    Attention is mha(causal=True): the K1-fwd kernel on CUDA.
+    """
+    B, T = ids.shape
+    nh, hd = cfg.heads, cfg.head_dim
+    x = (params["wte.w"][ids] + params["wpe.w"][:T][None]).to(k_pool.dtype)
+    h = x
+    for l in range(cfg.layers):
+        lp = _layer(params, l)
+        y = _ln(h, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
+        q, k, v = _qkv(lp, y, cfg, (B, T, nh, hd))
+        kvc.write_prefill_kv(k_pool[l], k[0], block_table, block_size)
+        kvc.write_prefill_kv(v_pool[l], v[0], block_table, block_size)
+        ctx = mha(q, k, v, causal=True, scale=1.0 / math.sqrt(hd))
+        ctx = ctx.reshape(B, T, cfg.hidden)
+        h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
+        y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
+        h = h + _decode_mlp(lp, y)
+    x = _ln_named(params, "ln_f", h)
+    last = max(int(length), 1) - 1
+    logits = (x[0, last] @ params["wte.w"].T.to(x.dtype))[None]
+    return _beam_top1(ids[0, last][None], logits, eos_id)
+
+
+def apply_decode_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
+                      positions: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, block_tables: torch.Tensor, *,
+                      block_size: int, eos_id: int) -> torch.Tensor:
+    """One decode step for S resident slots.
+
+    ids [S] (each slot's previous token), positions [S] (where this
+    token's K/V lands = current sequence length), block_tables [S, MB].
+    Writes each slot's K/V into the pools in place and returns the next
+    tokens [S]. Every row's math touches only that row's activations
+    and its own blocks, so a slot's tokens do not depend on what else
+    shares the batch. Attention gathers each slot's blocks and masks
+    positions past its own (plain torch, as the JAX package's step is
+    plain XLA)."""
+    S = ids.shape[0]
+    nh, hd = cfg.heads, cfg.head_dim
+    adt = k_pool.dtype
+    x = (params["wte.w"][ids] + params["wpe.w"][positions]).to(adt)
+    scale = 1.0 / math.sqrt(hd)
+    h = x
+    for l in range(cfg.layers):
+        lp = _layer(params, l)
+        y = _ln(h, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
+        q, k, v = _qkv(lp, y, cfg, (S, nh, hd))
+        kvc.write_token_kv(k_pool[l], k, block_tables, positions, block_size)
+        kvc.write_token_kv(v_pool[l], v, block_tables, positions, block_size)
+        keys = kvc.gather_kv(k_pool[l], block_tables)  # [S, M, nh, hd]
+        vals = kvc.gather_kv(v_pool[l], block_tables)
+        scores = torch.einsum("snd,smnd->snm", q, keys) * scale
+        m = keys.shape[1]
+        mask = torch.arange(m, device=ids.device)[None, :] \
+            <= positions[:, None]
+        scores = torch.where(mask[:, None, :], scores, -1e9)
+        att = torch.softmax(scores.float(), dim=-1)
+        ctx = torch.einsum("snm,smnd->snd", att.to(adt), vals)
+        ctx = ctx.reshape(S, cfg.hidden)
+        h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
+        y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
+        h = h + _decode_mlp(lp, y)
+    x = _ln_named(params, "ln_f", h)
+    logits = x @ params["wte.w"].T.to(x.dtype)          # [S, vocab]
+    return _beam_top1(ids, logits, eos_id)

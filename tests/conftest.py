@@ -37,6 +37,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "thread_leak_ok: this test intentionally leaves "
         "threads behind (exempt from the thread-leak sentinel)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel of the "
+        "PyTorch port); skips inside the test when there is none")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,89 @@
+"""Import hygiene of the PyTorch port: `paddle_tpu_torch` and
+`chip_smoke.py` load neither jax nor any module of the JAX package, and
+the stdlib module the port copied from the JAX package has not
+drifted from its source."""
+
+import os
+import re
+import subprocess
+import sys
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_REPO, "paddle_tpu_torch")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import paddle_tpu_torch
+names = ["paddle_tpu_torch"]
+for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "paddle_tpu"
+             or m.startswith("paddle_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 15, r.stdout
+
+
+def _sources():
+    for root, _, files in os.walk(_PKG):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(root, f)
+    yield os.path.join(_REPO, "chip_smoke.py")
+
+
+def test_no_jax_import_in_port_sources():
+    pat = re.compile(r"import jax|from jax|paddle_tpu\.|"
+                     r"from paddle_tpu\b(?!_)|import paddle_tpu\b(?!_)")
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if pat.search(line):
+                    hits.append(f"{os.path.relpath(path, _REPO)}:{i}: "
+                                f"{line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_copied_httpbase_matches_its_source():
+    src = os.path.join(_REPO, "paddle_tpu", "observability", "httpbase.py")
+    copy = os.path.join(_PKG, "observability", "httpbase.py")
+    with open(copy) as f:
+        lines = f.read().splitlines(keepends=True)
+    assert "paddle_tpu/observability/httpbase.py" in lines[0]
+    body = "".join(lines[2:])
+    with open(src) as f:
+        assert body == f.read()
+
+
+def test_chip_smoke_prints_no_result_without_a_gpu(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line when there
+    is no CUDA device, from the repo and from a directory that holds
+    nothing but the script."""
+    import shutil
+
+    import torch
+
+    if torch.cuda.is_available():
+        import pytest
+
+        pytest.skip("this machine has a GPU")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(_REPO, "chip_smoke.py"), alone)
+    for cwd, script in ((_REPO, "chip_smoke.py"), (str(tmp_path), str(alone))):
+        r = subprocess.run([sys.executable, script], cwd=cwd,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
