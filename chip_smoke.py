@@ -6,10 +6,15 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. environment: the card's name and power limit, and the build of every
-   kernel of the serving path from the sources in this checkout;
+   kernel from the sources in this checkout (one nvcc per source, all
+   started together);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes, with its time beside the plain
-   version's, one PyTorch library call's and the card's bound;
+   with its time beside the plain version's, one PyTorch library
+   call's and the card's bound: K1-fwd at the serving path's shapes,
+   K1-fwd with its LSE output and K1-bwd (delta, dkv and dq launches)
+   at BERT-base's training shape (B=32, T=128, full) and GPT-2-small's
+   (B=1, T=1024, causal), both bf16, plus f32 and f16 at one shape
+   each;
 3. slice: GPT-2-small (random weights from a seed) served at bf16 by
    DecodeEngine behind the HTTP Server; 8 concurrent streamed
    /v1/generate requests whose prompts fill every prefill bucket up to
@@ -18,8 +23,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. profile: the slice's requests straight into a fresh engine, twice,
    then under torch.profiler (device busy share, largest kernels);
 5. greedy: a 2-layer, full-width f32 engine's greedy tokens against the
-   step-by-step full forward on the card.
+   step-by-step full forward on the card;
+6. train-parity: one `make_train_step` step of a 2-layer, full-width
+   BERT at f32 (TF32 off) on the card (kernels) and on the CPU (plain
+   versions) from the same params and batch: loss, every gradient and
+   the updated params;
+7. train: BERT-base under mixed_bf16 with dropout on, at 256 x 128 and
+   32 x 512 (3 warm-up and 20 timed steps each): step time, samples/s,
+   MFU, a finite and falling loss, kernel launches per step, and one
+   step under torch.profiler (device idle share);
+8. gpt-train: GPT-2-small `lm_loss` under mixed_bf16 at 8 x 1024
+   (2 warm-up and 10 timed steps): the causal backward kernel.
 
+The kernels' launch counts are set to 0 just before each path's run and
+read just after (phase 3 for serving, phases 7 and 8 for training).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
@@ -65,21 +82,32 @@ def time_ms(fn, reps=30):
     return statistics.median(times)
 
 
-def attention_bound_ms(q, k, causal=True):
-    """Least time for one attention call on these inputs: q, k, v read
-    once and o written once over the memory rate, against the products
-    the (causal) mask leaves over the peak rate of q's dtype."""
+def bound_ms(nbytes, flops, peak):
+    """Least time for `nbytes` of memory traffic and `flops` operations
+    at `peak` FLOP/s: (ms, "bytes" or "operations")."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def attention_bound_ms(q, k, causal=True, products=2, tensors=4,
+                       row_floats=0):
+    """Least time for attention work on these inputs: `tensors` tensors
+    of q's size read or written once, plus `row_floats` f32 rows of
+    [B, N, T] (LSE, delta), over the memory rate, against `products`
+    matrix products of 2 * pairs * H per (batch, head) over the peak
+    rate of q's dtype, pairs being the (query, key) pairs the mask
+    leaves. The forward is 2 products over q, k, v and o; the backward
+    5 products over q, k, v, o, dO, dq, dk and dv."""
     import torch
 
     B, T, N, H = q.shape
     Tk = k.shape[1]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     pairs = sum(min(t + 1, Tk) for t in range(T)) if causal else T * Tk
-    flops = 4 * B * N * H * pairs
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(by_bytes, by_ops) * 1e3, \
-        "bytes" if by_bytes >= by_ops else "operations"
+    nbytes = tensors * q.numel() * q.element_size() + row_floats * B * N * T * 4
+    flops = products * 2 * B * N * H * pairs
+    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    return bound_ms(nbytes, flops, peak)
 
 
 def phase_environment():
@@ -103,7 +131,7 @@ def phase_environment():
                       "built": sorted(took)}))
 
 
-def phase_kernels():
+def _serving_kernel_row():
     import torch
     import torch.nn.functional as F
 
@@ -146,12 +174,165 @@ def phase_kernels():
     # the serving path runs bf16: its error is the worst bf16 check
     timing["max_abs_err"] = max(c["max_abs_err"] for c in checks
                                 if c["dtype"] == "bfloat16")
-    row = {"name": "flash_attention_fwd",
-           "replaces": "K1 attention.py:_splash_mha (causal fwd)",
-           "tol": 2e-2, "checks": checks, **timing,
-           "launches": fa.flash_attention.launches}
-    print(json.dumps({"phase": "kernels", "kernels": [row]}))
-    return row
+    return {"name": "flash_attention_fwd",
+            "replaces": "K1 attention.py:_splash_mha (causal fwd)",
+            "tol": 2e-2, "checks": checks, **timing}
+
+
+# K1 at the training path's shapes: (label, B, T, causal, dtype name);
+# BERT-base's and GPT-2-small's attention calls at bf16 are timed
+TRAIN_KERNEL_CASES = (("bert", 32, 128, False, "bfloat16"),
+                      ("gpt", 1, 1024, True, "bfloat16"),
+                      ("f32", 2, 256, True, "float32"),
+                      ("f16", 4, 128, False, "float16"))
+TRAIN_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
+
+
+def _rel_err(got, want):
+    """Max abs error over the largest reference value (at least 1)."""
+    want = want.float()
+    return ((got.float() - want).abs().max() /
+            want.abs().max().clamp(min=1.0)).item()
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, scale):
+    """The backward of F.scaled_dot_product_attention at the same shape,
+    timed through torch.autograd.grad: the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         scale=scale)
+    dot = do.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+
+
+def _training_kernel_rows():
+    """K1-fwd with LSE and K1-bwd (whole, and each of its three
+    launches) against their plain versions; times at the bf16 cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    N, H = 12, 64
+    scale = 1.0 / H ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    checks, timings = [], {}
+    for label, B, T, causal, dname in TRAIN_KERNEL_CASES:
+        dtype, tol = getattr(torch, dname), TRAIN_TOL[dname]
+        qkv = torch.randn(B, T, 3 * N * H, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (t.view(B, T, N, H) for t in qkv.split(N * H, dim=-1))
+        do = torch.randn(B, T, N, H, generator=gen, device="cuda").to(dtype)
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale, causal)
+        delta = fa.attention_delta(out, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                       causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
+                                                  with_lse=True)
+        # the backward's plain version from the kernels' own residuals,
+        # and the whole backward from the plain forward's
+        ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, scale, causal)
+        whole = fa.flash_attention_bwd(q, k, v, ref_out, ref_lse, do, scale,
+                                       causal)
+        whole_ref = fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do,
+                                               scale, causal)
+        errs = {"out": _rel_err(out, ref_out),
+                "lse": (lse - ref_lse).abs().max().item(),
+                "delta": _rel_err(delta, fa.attention_delta_ref(out, do)),
+                "dq": _rel_err(dq, ref_dq), "dk": _rel_err(dk, ref_dk),
+                "dv": _rel_err(dv, ref_dv),
+                "bwd": max(_rel_err(a, b) for a, b in zip(whole, whole_ref))}
+        abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                    for n, a, b in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                    ("dv", dv, ref_dv), ("out", out, ref_out))}
+        checks.append({"case": label, "shape": [B, T, N, H], "causal": causal,
+                       "dtype": dname, "tol": tol, "rel_err": errs,
+                       "max_abs_err": abs_errs})
+        for name, err in errs.items():
+            limit = 1e-4 if name == "lse" else (
+                1e-3 if name == "delta" else tol)
+            check(err <= limit, f"K1 {label} {name}: error {err} > {limit}")
+        if dname != "bfloat16":
+            continue
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = {"shape": [B, T, N, H], "causal": causal}
+        t["fwd_lse"] = {
+            "ms": time_ms(lambda: fa.flash_attention_with_lse(
+                q, k, v, scale, causal)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                q, k, v, scale, causal, with_lse=True)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale)),
+            "bound": attention_bound_ms(q, k, causal, 2, 4, 1)}
+        t["bwd"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, out, lse, do, scale, causal)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, scale, causal)),
+            "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, scale),
+            "bound": attention_bound_ms(q, k, causal, 5, 8, 2)}
+        nb = B * N * T * 4
+        t["delta"] = {
+            "ms": time_ms(lambda: fa.attention_delta(out, do)),
+            "plain_ms": time_ms(lambda: fa.attention_delta_ref(out, do)),
+            "library_ms": None,
+            "bound": bound_ms(2 * out.numel() * out.element_size() + nb,
+                              2 * out.numel(), F32_FLOPS_PER_S)}
+        t["dkv"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, scale, causal)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
+                q, k, v, do, lse, delta, scale, causal)),
+            "library_ms": None,
+            "bound": attention_bound_ms(q, k, causal, 4, 6, 2)}
+        t["dq"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, scale, causal)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_ref(
+                q, k, v, do, lse, delta, scale, causal)),
+            "library_ms": None,
+            "bound": attention_bound_ms(q, k, causal, 3, 5, 2)}
+        timings[label] = t
+    # the training path runs bf16: a row's error is its worst bf16 check
+    bf16 = [c for c in checks if c["dtype"] == "bfloat16"]
+
+    def worst(*names):
+        return max(c["max_abs_err"][n] for c in bf16 for n in names)
+
+    rows = []
+    for name, key, err, replaces in (
+            ("flash_attention_fwd_lse", "fwd_lse", worst("out"),
+             "K1/K3 attention.py:_splash_mha fwd with LSE"),
+            ("flash_attention_bwd", "bwd", worst("dq", "dk", "dv"),
+             "K1-bwd attention.py:356 splash dq+dkv (3 launches)"),
+            ("flash_attention_bwd_delta", "delta",
+             max(c["rel_err"]["delta"] for c in bf16),
+             "K1-bwd splash vjp di = rowsum(o*do)"),
+            ("flash_attention_bwd_dkv", "dkv", worst("dk", "dv"),
+             "K1-bwd splash dkv kernel"),
+            ("flash_attention_bwd_dq", "dq", worst("dq"),
+             "K1-bwd splash dq kernel")):
+        rows.append({"name": name, "replaces": replaces, "max_abs_err": err,
+                     "timings": {label: t[key]
+                                 for label, t in timings.items()}})
+    return rows, checks
+
+
+def phase_kernels():
+    serving = _serving_kernel_row()
+    training, checks = _training_kernel_rows()
+    print(json.dumps({"phase": "kernels", "kernels": [serving] + training,
+                      "training_checks": checks}))
+    return serving, training
 
 
 def _generate(port, ids, max_new, out):
@@ -271,12 +452,47 @@ def phase_slice():
     return launches
 
 
+def _device_time(prof, wall_s):
+    """From a torch.profiler run over `wall_s` seconds: the device's
+    busy time (the union of its kernel intervals), idle share, K1's
+    kernel time by kernel and the ten largest kernels by name."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        tot = by_name.setdefault(e.name, [0, 0.0])
+        tot[0] += 1
+        tot[1] += (e.time_range.end - e.time_range.start) / 1e3
+    busy_us, last = 0.0, None
+    for a, b in sorted(spans):          # union of the device intervals
+        if last is None or a > last:
+            busy_us += b - a
+            last = b
+        elif b > last:
+            busy_us += b - last
+            last = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    busy_ms = busy_us / 1e3 if spans else None
+    k1 = {kern: sum(t[1] for n, t in by_name.items() if kern in n)
+          for kern in ("flash_fwd_kernel", "delta_kernel",
+                       "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+    return {"device_events": len(spans), "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / (wall_s * 1e3))
+            if spans else None,
+            "flash_attention_ms": k1["flash_fwd_kernel"],
+            "k1_kernel_ms": k1,
+            "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
+                            for n, (c, ms) in top]}
+
+
 def phase_profile():
     """The slice's requests again, straight into a fresh engine (no
     HTTP, in a process whose kernels phase 3 already loaded): two rounds
     timed on the host clock, then one under torch.profiler for the
     device's busy time and its largest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _, engine, prompts = _slice_setup()
@@ -303,33 +519,7 @@ def phase_profile():
             profiled = run_round()
     finally:
         engine.stop()
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        tot = by_name.setdefault(e.name, [0, 0.0])
-        tot[0] += 1
-        tot[1] += (e.time_range.end - e.time_range.start) / 1e3
-    busy_us, last = 0.0, None
-    for a, b in sorted(spans):          # union of the device intervals
-        if last is None or a > last:
-            busy_us += b - a
-            last = b
-        elif b > last:
-            busy_us += b - last
-            last = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    busy_ms = busy_us / 1e3 if spans else None
-    profiled.update({
-        "device_events": len(spans),
-        "device_busy_ms": busy_ms,
-        "device_idle_share": (1 - busy_ms / (profiled["wall_s"] * 1e3))
-        if spans else None,
-        "flash_attention_ms": sum(t[1] for n, t in by_name.items()
-                                  if "flash_fwd_kernel" in n),
-        "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
-                        for n, (c, ms) in top]})
+    profiled.update(_device_time(prof, profiled["wall_s"]))
     print(json.dumps({"phase": "profile", "requests": len(prompts),
                       "first": first, "second": second,
                       "profiled": profiled}))
@@ -382,6 +572,244 @@ def phase_greedy():
                       "tokens_per_prompt": max_new, "prompts": report}))
 
 
+LR = 1e-4
+
+
+def _adamw(params):
+    """The counterpart of optax.adamw(1e-4), bench.py's optimizer: b1
+    0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every param."""
+    import torch
+
+    return torch.optim.AdamW(params, lr=LR, weight_decay=1e-4)
+
+
+def _k1_counts(reset=False):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    fns = {"flash_attention_fwd": fa.flash_attention,
+           "flash_attention_fwd_lse": fa.flash_attention_with_lse,
+           "flash_attention_bwd": fa.flash_attention_bwd,
+           "flash_attention_bwd_delta": fa.attention_delta,
+           "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+           "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def phase_train_parity():
+    """One f32 train step of a 2-layer, full-width BERT on the card and
+    on the CPU from the same params and batch. Tolerances: loss within
+    1e-5 relative; each gradient within 2e-4 of its tensor's largest
+    CPU value plus 1e-7 (f32 sums in other orders through two layers;
+    the floor is for the key biases, whose exact gradient is 0, since
+    a shift of every key adds a constant to a row's logits, and whose
+    computed one is rounding noise of about 1e-9 on both devices); the
+    updated params: every update within 2 lr of the CPU's (AdamW's
+    first step moves each element by about lr times the sign of its
+    gradient, so a gradient near zero may move the other way), and at
+    most 0.1% of the elements more than 1e-6 apart."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    cfg = bert.BertConfig(layers=2, dtype="float32")
+    params, _ = bert.init(torch.Generator().manual_seed(2), cfg,
+                          device="cpu")
+    batch = bert.make_batch(np.random.RandomState(2), cfg, 4, seq_len=128,
+                            device="cpu")
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=True)
+
+    result = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss = loss_fn(p, b, None)
+        grads = torch.autograd.grad(loss, list(p.values()),
+                                    allow_unused=True)
+        grads = {k: (torch.zeros_like(v) if g is None else g).cpu()
+                 for (k, v), g in zip(p.items(), grads)}
+        counts = _k1_counts(reset=True)
+        init, step = make_train_step(loss_fn, _adamw, device=dev,
+                                     precision="f32")
+        state, step_loss = step(init(params), b, 0)
+        counts = _k1_counts()
+        result[dev] = (loss.item(), grads,
+                       {k: v.detach().cpu() for k, v in state.params.items()},
+                       step_loss.item(), counts)
+    (lc, gc, pc, slc, kc), (lp, gp, pp, slp, _) = result["cuda"], result["cpu"]
+    check(kc["flash_attention_bwd"] == cfg.layers,
+          f"train-parity: the CUDA step ran {kc} K1 launches")
+    check(abs(lc - lp) <= 1e-5 * abs(lp) and abs(slc - slp) <= 1e-5 * abs(slp),
+          f"train-parity loss {lc} vs {lp}")
+    grad_err = sorted((((gc[k] - gp[k]).abs().max() /
+                        (2e-4 * gp[k].abs().max() + 1e-7)).item(), k,
+                       gp[k].abs().max().item()) for k in gp)[::-1]
+    check(grad_err[0][0] <= 1.0,
+          f"train-parity grads: worst (error / tolerance, name, largest "
+          f"CPU value) {grad_err[:3]}")
+    upd_err, n_far, n_all = 0.0, 0, 0
+    for k, p0 in params.items():
+        d = ((pc[k] - p0) - (pp[k] - p0)).abs()
+        upd_err = max(upd_err, d.max().item())
+        n_far += int((d > 1e-6).sum())
+        n_all += d.numel()
+    check(upd_err <= 2 * LR and n_far <= 1e-3 * n_all,
+          f"train-parity params: max update difference {upd_err}, "
+          f"{n_far} of {n_all} elements more than 1e-6 apart")
+    print(json.dumps({"phase": "train-parity",
+                      "model": "BertConfig(layers=2), f32, 4 x 128",
+                      "loss_cuda": lc, "loss_cpu": lp,
+                      "grad_err_over_tol_worst3": grad_err[:3],
+                      "param_update_max_abs_err": upd_err,
+                      "param_elements_apart": n_far, "param_elements": n_all,
+                      "launches": kc}))
+
+
+def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
+               steps, k1_per_step):
+    """`warmup` + `steps` mixed_bf16 steps on one fixed batch; the
+    kernels' counts are set to 0 just before the timed steps and read
+    just after; then one step is traced under torch.profiler for the
+    device's busy time against that step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    init, step = make_train_step(loss_fn, _adamw, device="cuda",
+                                 precision="mixed_bf16")
+    state = init(params)
+    del params
+    n = next(iter(batch.values())).shape[0]
+    losses = []
+    for i in range(warmup):
+        state, loss = step(state, batch, i)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    counts = _k1_counts(reset=True)
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, warmup + i)
+        losses.append(loss.item())      # also waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _k1_counts()
+    # two more steps under the profiler (device activity only): the
+    # first absorbs the tracer's start-up, the second is recorded
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, warmup + steps + i)
+            loss.item()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            prof.step()
+    profiled = _device_time(prof, wall_s)
+    profiled["wall_ms"] = wall_s * 1e3
+    ms = statistics.median(times)
+    samples_s = n / (ms / 1e3)
+    row = {"run": label, "batch": n, "warmup": warmup, "steps": steps,
+           "step_ms_median": ms, "step_ms_min": min(times),
+           "step_ms_max": max(times), "samples_per_s": samples_s,
+           "flops_per_sample": flops_per_sample,
+           "mfu": flops_per_sample * samples_s / BF16_FLOPS_PER_S,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "loss_scale": state.loss_scale,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profiled_step": profiled}
+    check(all(np.isfinite(losses)), f"{label}: nonfinite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"{label}: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for name in ("flash_attention_fwd_lse", "flash_attention_bwd",
+                 "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        check(counts[name] == k1_per_step * steps,
+              f"{label}: {name} launched {counts[name]} times in {steps} "
+              f"steps, not {k1_per_step} a step")
+    check(counts["flash_attention_fwd"] == 0,
+          f"{label}: the forward ran without its LSE under grad")
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return row
+
+
+def phase_train():
+    """BERT-base pretraining (bench.py bench_bert's model and optimizer,
+    dropout on as there) under mixed_bf16, at the first rung of its
+    ladder (256 x 128) and at 32 x 512."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=False)
+
+    rows, counts = [], {}
+    for B, T in ((256, 128), (32, 512)):
+        params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+        batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                                cfg, B, seq_len=T)
+        P = batch["masked_positions"].shape[1]
+        row = _train_run(f"bert-base {B}x{T}", loss_fn, params, batch,
+                         cfg.train_flops_per_seq(T, P), 3, 20, cfg.layers)
+        row["masked_per_seq"] = P
+        rows.append(row)
+        for k, v in row["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    print(json.dumps({"phase": "train", "model": "BERT-base "
+                      "(BertConfig.base()), mixed_bf16, dropout 0.1",
+                      "optimizer": "AdamW lr 1e-4 wd 1e-4",
+                      "runs": rows}))
+    return counts
+
+
+def gpt_train_flops_per_seq(cfg, T):
+    """Training FLOPs per sequence of the dense GPT: 3x forward; forward
+    = 2*T*(per-layer matmul params + tied vocab head) + the causal
+    attention products (QK^T and PV over T(T+1)/2 pairs)."""
+    H, L = cfg.hidden, cfg.layers
+    matmul = L * (4 * H * H + 2 * H * cfg.mlp_dim) + H * cfg.vocab_size
+    fwd = 2 * T * matmul + L * 4 * H * T * (T + 1) / 2
+    return 3 * fwd
+
+
+def phase_gpt_train():
+    """GPT-2-small `lm_loss` under mixed_bf16 at 8 x 1024: the causal
+    backward kernel on a real path."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig()
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(3), cfg,
+                         device="cuda")
+    batch = gpt.make_batch(torch.Generator(device="cuda").manual_seed(4),
+                           cfg, 8)
+
+    def loss_fn(p, b, g):
+        return gpt.lm_loss(p, cfg, b, rng=g)
+
+    row = _train_run("gpt-2-small 8x1024", loss_fn, params, batch,
+                     gpt_train_flops_per_seq(cfg, cfg.max_len), 2, 10,
+                     cfg.layers)
+    print(json.dumps({"phase": "gpt-train", "model": "GPT-2-small "
+                      "(GPTConfig()), mixed_bf16", "run": row}))
+    return row["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -394,18 +822,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
-    row = phase_kernels()
-    launches = phase_slice()
+    serving_row, training_rows = phase_kernels()
+    launches = {"flash_attention_fwd": phase_slice()}
     phase_profile()
     phase_greedy()
-    print(json.dumps({"kernels": [{
-        "name": row["name"], "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+    phase_train_parity()
+    bert_counts = phase_train()
+    gpt_counts = phase_gpt_train()
+    for name in bert_counts:
+        if name != "flash_attention_fwd":
+            launches[name] = bert_counts[name] + gpt_counts[name]
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the main paths was never launched: {launches}")
+    src = "paddle_tpu_torch/kernels/csrc/"
+    rows = [{
+        "name": serving_row["name"], "route": "cuda",
+        "source": src + "flash_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/attention.py:361",
-        "launches": launches, "max_abs_err": row["max_abs_err"],
-        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"]}]}))
+        "launches": launches[serving_row["name"]],
+        "max_abs_err": serving_row["max_abs_err"],
+        "ms": serving_row["kernel_ms"], "plain_ms": serving_row["plain_ms"],
+        "bound_ms": serving_row["bound_ms"],
+        "bound_by": serving_row["bound_by"],
+        "library_ms": serving_row["library_ms"]}]
+    for row in training_rows:
+        # the row's numbers at BERT-base's shape, the training flagship
+        t = row["timings"]["bert"]
+        rows.append({
+            "name": row["name"], "route": "cuda",
+            "source": src + ("flash_attention.cu" if row["name"].endswith(
+                "fwd_lse") else "flash_attention_bwd.cu"),
+            "replaces": "paddle_tpu/ops/pallas/attention.py:" + (
+                "374" if row["name"].endswith("fwd_lse") else "356"),
+            "launches": launches[row["name"]],
+            "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

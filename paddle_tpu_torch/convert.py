@@ -24,9 +24,9 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device,
                       = None) -> Dict[str, torch.Tensor]:
     """{name: array} -> {name: tensor on `device`}, same names, shapes
     and values. `dtype`, when given, casts floating arrays (integer ones
-    keep theirs). `expected` ({name: shape}, e.g. from
-    `models.gpt.param_shapes`) makes a missing or extra name, or another
-    shape, an error."""
+    keep theirs). `expected` ({name: shape}, from
+    `models.gpt.param_shapes` or `models.bert.param_shapes`) makes a
+    missing or extra name, or another shape, an error."""
     dev = resolve_device(device)
     if expected is not None:
         missing = sorted(set(expected) - set(params))

@@ -3,8 +3,9 @@
 Each kernel is one source under `csrc/` with a plain C interface. It is
 compiled at first use with `nvcc` for Hopper (`sm_90a`) into a shared
 library under `build/` (listed in `.gitignore`) and loaded with
-`ctypes`. A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale build is never loaded.
+`ctypes`. A library's file name carries a hash of its source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source or
+header is rebuilt and a stale build is never loaded.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without `nvcc`.
@@ -29,7 +30,8 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"flash_attention": "flash_attention.cu"}
+SOURCES = {"flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -53,8 +55,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -8,7 +8,11 @@
 // q is multiplied by the scale and rounded to q's dtype before the
 // product (splash applies no scale itself; its caller folds it into q),
 // scores, the running max and sum, and the output accumulator are f32,
-// and the output is written in the input dtype.
+// and the output is written in the input dtype. With an `lse` pointer
+// the kernel also writes each row's logsumexp m + log(l) in f32
+// ([B, N, Tq]), the residual of the backward kernels
+// (flash_attention_bwd.cu) and the output of the JAX package's
+// _splash_block_with_lse (ring attention's block); serving passes NULL.
 //
 // Bound on the H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): at the
 // serving path's largest call (B=1, T=1024, N=12, H=64, bf16, causal)
@@ -34,12 +38,14 @@
 // shuffles.
 //
 // C interface (loaded with ctypes): paddle_flash_attention_fwd returns
-// cudaGetLastError() after the launch; it does not synchronise.
+// cudaGetLastError() after the launch; it does not synchronise. Inputs
+// are float32, bfloat16 or float16.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -52,28 +58,11 @@ constexpr int RPT = BQ / TY;        // query rows per thread
 constexpr int CPT = BK / TX;        // score columns per thread
 constexpr int LDP = BK + 1;         // padded row length of the score tile
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int N,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int N,
                  int Tq, int Tk, int64_t q_sb, int64_t q_st, int64_t q_sn,
                  int64_t k_sb, int64_t k_st, int64_t k_sn, int64_t v_sb,
                  int64_t v_st, int64_t v_sn, float scale, int causal) {
@@ -101,7 +90,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < BQ * HD; i += NTHREADS) {
     const int r = i / HD, c = i % HD, t = q0 + r;
     float x = 0.f;
-    if (t < Tq) x = to_f32(from_f32<T>(to_f32(qb[t * q_st + c]) * scale));
+    if (t < Tq) x = round_to<T>(to_f32(qb[t * q_st + c]) * scale);
     Qs[r * LD + c] = x;
   }
 
@@ -209,6 +198,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + ((static_cast<int64_t>(b) * Tq + row) * N + n) * HD;
 #pragma unroll
     for (int d = 0; d < DPT; ++d) orow[tx + TX * d] = from_f32<T>(acc[i][d] * inv);
+    // lse is contiguous [B, N, Tq]; blockIdx.y = b * N + n
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * Tq + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -220,7 +212,7 @@ constexpr size_t smem_bytes() {
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int N, int Tq, int Tk, const int64_t* st,
+                   float* lse, int B, int N, int Tq, int Tk, const int64_t* st,
                    float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kernel = flash_fwd_kernel<T, HD>;
@@ -231,35 +223,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Tq + BQ - 1) / BQ, B * N);
   kernel<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), N, Tq, Tk, st[0], st[1],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, N, Tq, Tk, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Strides are in
-// elements; the last dimension of q, k and v must have stride 1.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
+// Strides are in elements; the last dimension of q, k and v must have
+// stride 1. lse: NULL, or f32 [B, N, Tq] to receive each row's
+// logsumexp.
 extern "C" int paddle_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int N,
     int Tq, int Tk, int head_dim, int dtype, long long q_sb, long long q_st,
     long long q_sn, long long k_sb, long long k_st, long long k_sn,
     long long v_sb, long long v_st, long long v_sn, float scale, int causal,
-    void* stream) {
+    void* lse, void* stream) {
   if (B < 1 || N < 1 || Tq < 1 || Tk < 1 || B * N > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st, v_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define PADDLE_FWD(TYPE, HD) \
+  launch<TYPE, HD>(q, k, v, o, l, B, N, Tq, Tk, st, scale, causal, s)
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64)
-    err = launch<float, 64>(q, k, v, o, B, N, Tq, Tk, st, scale, causal, s);
-  else if (dtype == 0 && head_dim == 128)
-    err = launch<float, 128>(q, k, v, o, B, N, Tq, Tk, st, scale, causal, s);
-  else if (dtype == 1 && head_dim == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, B, N, Tq, Tk, st, scale,
-                                    causal, s);
-  else if (dtype == 1 && head_dim == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, B, N, Tq, Tk, st, scale,
-                                     causal, s);
+  if (dtype == 0 && head_dim == 64) err = PADDLE_FWD(float, 64);
+  else if (dtype == 0 && head_dim == 128) err = PADDLE_FWD(float, 128);
+  else if (dtype == 1 && head_dim == 64) err = PADDLE_FWD(__nv_bfloat16, 64);
+  else if (dtype == 1 && head_dim == 128) err = PADDLE_FWD(__nv_bfloat16, 128);
+  else if (dtype == 2 && head_dim == 64) err = PADDLE_FWD(__half, 64);
+  else if (dtype == 2 && head_dim == 128) err = PADDLE_FWD(__half, 128);
+#undef PADDLE_FWD
   return static_cast<int>(err);
 }

@@ -1,0 +1,501 @@
+// Flash-attention backward for Hopper (sm_90a): dq, dk and dv of exact
+// softmax attention over [B, T, N, H] tensors, causal or full, from the
+// forward's saved per-row logsumexp (LSE).
+//
+// Replaces: the JAX package's ops/pallas/attention.py::_splash_mha
+// backward, i.e. the dq and dkv Pallas kernels of jax's splash attention
+// (the custom vjp that make_splash_mha builds, attention.py:356), which
+// jax.grad runs through models/bert.py::pretrain_loss and
+// models/gpt.py::lm_loss. Three launches, each step for step splash's:
+//
+//   delta  delta = rowsum(f32(o) * f32(do)), from the stored output in
+//          the input dtype (splash's `di`);
+//   dkv    one block per (batch*head, 64-key tile), looping over the
+//          query tiles: P = exp(S - lse), dP = dO V^T,
+//          dS = (dP - delta) * P, dV += round(P)^T dO,
+//          dK += round(dS)^T Q;
+//   dq     one block per (batch*head, 64-query tile), looping over the
+//          key tiles: the same P and dS, dQ += round(dS) K.
+//
+// round() is the rounding to the input dtype that splash applies before
+// each product (a no-op at f32); scores, P, dS and every accumulator
+// are f32. LSE and delta are inputs, so a caller holding them already
+// (the ring attention's global LSE) passes its own. Q is multiplied by
+// the scale and rounded to the input dtype before use, as the forward
+// does; the returned dq is round(round(dQ) * scale), the gradient that
+// jax takes through that multiply, so dq is with respect to the
+// unscaled q.
+//
+// Bound on the H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): the
+// backward reads q, k, v, o and dO and writes dq, dk and dv (8 tensors
+// of B*T*N*H) plus the LSE and delta rows, against 5 products of
+// 2*T*Tk*H per head (halved when causal). At BERT-base's shape
+// (B=32, T=128, N=12, H=64, bf16) that is 50 MB and 12.9 GFLOP: 15 us
+// at the memory rate, 13 us at the tensor-core rate.
+//
+// What this simple design does about that bound: the T x Tk scores and
+// their gradients never leave the SM (registers and two 64 x 64
+// shared-memory tiles), so device traffic stays O(T*H); tiles above the
+// diagonal are skipped; the dkv and dq blocks each own their
+// accumulators, so no atomics. The products run on the f32 FMA pipes
+// from shared memory (no mma/wgmma, no TMA), and S and dP are computed
+// twice (once in dkv, once in dq), so the kernels are compute-limited
+// far above the bound; tensor cores are later work.
+//
+// Layout of one 256-thread block (16 x 16 threads, (ty, tx)): in the
+// score phase a thread holds rows ty + 16*i and columns tx + 16*j
+// (i, j < 4) of the 64 x 64 tile, as the forward does; in the
+// accumulation phase it holds accumulator rows ty + 16*i and head
+// columns tx + 16*d.
+//
+// C interface (loaded with ctypes): each paddle_flash_attention_bwd_*
+// function returns cudaGetLastError() after its launch; none
+// synchronises. o, dO, dq, dk and dv are contiguous [B, T, N, H]; lse
+// and delta contiguous f32 [B, N, Tq]; q, k and v take strides.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "dtypes.cuh"
+
+namespace {
+
+constexpr int BQ = 64;              // query rows per tile
+constexpr int BK = 64;              // key rows per tile (== BQ: the
+                                    // causal loops start at the diagonal)
+constexpr int TX = 16;
+constexpr int TY = 16;
+constexpr int NTHREADS = TX * TY;   // 256
+constexpr int RPT = BQ / TY;        // rows per thread
+constexpr int CPT = BK / TX;        // score columns per thread
+constexpr int LDP = BK + 1;         // padded row length of a score tile
+
+struct Strides {
+  int64_t q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st, v_sn;
+};
+
+// rows [t0, t0 + 64) of one (b, n) slice of a [B, T, N, HD] tensor with
+// row stride `st` into a [64][HD + 1] f32 tile; rows past T are zero.
+// With `scale`, each value is multiplied and rounded to T first (q).
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int64_t st, int t0, int T_len,
+                                          float scale, bool scaled) {
+  constexpr int LD = HD + 1;
+  for (int i = threadIdx.x; i < BQ * HD; i += NTHREADS) {
+    const int r = i / HD, c = i % HD, t = t0 + r;
+    float x = 0.f;
+    if (t < T_len) {
+      x = to_f32(src[t * st + c]);
+      if (scaled) x = round_to<T>(x * scale);
+    }
+    dst[r * LD + c] = x;
+  }
+}
+
+// S = Q K^T and dP = dO V^T for one 64 x 64 tile pair, then P and dS:
+// p[i][j] and ds[i][j] for query row q0 + ty + 16i, key k0 + tx + 16j.
+// Masked entries (past Tq or Tk, or above the diagonal) get P = dS = 0.
+template <int HD>
+__device__ __forceinline__ void tile_p_ds(
+    const float* Qs, const float* Ds, const float* Ks, const float* Vs,
+    const float* Ls, const float* Es, int q0, int k0, int Tq, int Tk,
+    int causal, float (&p)[RPT][CPT], float (&ds)[RPT][CPT]) {
+  constexpr int LD = HD + 1;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int h = 0; h < HD; ++h) {
+    float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qv[i] = Qs[(ty + TY * i) * LD + h];
+      dov[i] = Ds[(ty + TY * i) * LD + h];
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      kv[j] = Ks[(tx + TX * j) * LD + h];
+      vv[j] = Vs[(tx + TX * j) * LD + h];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = ty + TY * i, row = q0 + r;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int col = k0 + tx + TX * j;
+      const bool live = row < Tq && col < Tk && !(causal && col > row);
+      p[i][j] = live ? expf(s[i][j] - Ls[r]) : 0.f;
+      ds[i][j] = live ? (dp[i][j] - Es[r]) * p[i][j] : 0.f;
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void delta_kernel(const T* __restrict__ o,
+                             const T* __restrict__ dout,
+                             float* __restrict__ delta, int N, int Tq,
+                             int64_t rows) {
+  // one warp per row of the [B, Tq, N] row space (o's own order)
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // whole warps leave together
+  const T* orow = o + row * HD;
+  const T* drow = dout + row * HD;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < HD; c += 32)
+    acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int64_t n = row % N, bt = row / N, t = bt % Tq, b = bt / Tq;
+    delta[(b * N + n) * Tq + t] = acc;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int N, int Tq, int Tk, Strides st,
+                     float scale, int causal) {
+  constexpr int LD = HD + 1;
+  constexpr int DPT = HD / TX;      // head columns per thread
+  extern __shared__ float smem[];
+  float* Ks = smem;                 // [BK][LD]
+  float* Vs = Ks + BK * LD;         // [BK][LD]
+  float* Qs = Vs + BK * LD;         // [BQ][LD], scaled q
+  float* Ds = Qs + BQ * LD;         // [BQ][LD], dO
+  float* Ps = Ds + BQ * LD;         // [BQ][LDP], round(P)
+  float* Ss = Ps + BQ * LDP;        // [BQ][LDP], round(dS)
+  float* Ls = Ss + BQ * LDP;        // [BQ] lse
+  float* Es = Ls + BQ;              // [BQ] delta
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int k0 = blockIdx.x * BK;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int64_t row_st = static_cast<int64_t>(N) * HD;  // dO, dk, dv
+  const T* qb = q + b * st.q_sb + n * st.q_sn;
+  const T* dob = dout + (static_cast<int64_t>(b) * Tq * N + n) * HD;
+  const float* lb = lse + static_cast<int64_t>(bn) * Tq;
+  const float* eb = delta + static_cast<int64_t>(bn) * Tq;
+
+  load_tile<T, HD>(Ks, k + b * st.k_sb + n * st.k_sn, st.k_st, k0, Tk, 0.f,
+                   false);
+  load_tile<T, HD>(Vs, v + b * st.v_sb + n * st.v_sn, st.v_st, k0, Tk, 0.f,
+                   false);
+
+  float acc_k[RPT][DPT], acc_v[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc_k[i][d] = acc_v[i][d] = 0.f;
+
+  // causal: query tiles wholly above this key tile see none of it
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, HD>(Qs, qb, st.q_st, q0, Tq, scale, true);
+    load_tile<T, HD>(Ds, dob, row_st, q0, Tq, 0.f, false);
+    for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+      const bool in = q0 + r < Tq;
+      Ls[r] = in ? lb[q0 + r] : 0.f;
+      Es[r] = in ? eb[q0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    float p[RPT][CPT], ds[RPT][CPT];
+    tile_p_ds<HD>(Qs, Ds, Ks, Vs, Ls, Es, q0, k0, Tq, Tk, causal, p, ds);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        Ps[(ty + TY * i) * LDP + tx + TX * j] = round_to<T>(p[i][j]);
+        Ss[(ty + TY * i) * LDP + tx + TX * j] = round_to<T>(ds[i][j]);
+      }
+    __syncthreads();
+
+    // dV[key][h] += sum_q P[q][key] dO[q][h]; dK likewise with dS and Q
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {
+      float pv[RPT], sv[RPT], dov[DPT], qv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        pv[i] = Ps[r * LDP + ty + TY * i];
+        sv[i] = Ss[r * LDP + ty + TY * i];
+      }
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) {
+        dov[d] = Ds[r * LD + tx + TX * d];
+        qv[d] = Qs[r * LD + tx + TX * d];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int d = 0; d < DPT; ++d) {
+          acc_v[i][d] = fmaf(pv[i], dov[d], acc_v[i][d]);
+          acc_k[i][d] = fmaf(sv[i], qv[d], acc_k[i][d]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int key = k0 + ty + TY * i;
+    if (key >= Tk) continue;
+    const int64_t off = (static_cast<int64_t>(b) * Tk + key) * row_st +
+                        static_cast<int64_t>(n) * HD;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) {
+      dk[off + tx + TX * d] = from_f32<T>(acc_k[i][d]);
+      dv[off + tx + TX * d] = from_f32<T>(acc_v[i][d]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int N, int Tq, int Tk, Strides st, float scale,
+                    int causal) {
+  constexpr int LD = HD + 1;
+  constexpr int DPT = HD / TX;
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [BQ][LD], scaled q
+  float* Ds = Qs + BQ * LD;         // [BQ][LD], dO
+  float* Ks = Ds + BQ * LD;         // [BK][LD]
+  float* Vs = Ks + BK * LD;         // [BK][LD]
+  float* Ss = Vs + BK * LD;         // [BQ][LDP], round(dS)
+  float* Ls = Ss + BQ * LDP;        // [BQ]
+  float* Es = Ls + BQ;              // [BQ]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = blockIdx.x * BQ;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int64_t row_st = static_cast<int64_t>(N) * HD;  // dO, dq
+  const T* kb = k + b * st.k_sb + n * st.k_sn;
+  const T* vb = v + b * st.v_sb + n * st.v_sn;
+  const float* lb = lse + static_cast<int64_t>(bn) * Tq;
+  const float* eb = delta + static_cast<int64_t>(bn) * Tq;
+
+  load_tile<T, HD>(Qs, q + b * st.q_sb + n * st.q_sn, st.q_st, q0, Tq, scale,
+                   true);
+  load_tile<T, HD>(Ds, dout + (static_cast<int64_t>(b) * Tq * N + n) * HD,
+                   row_st, q0, Tq, 0.f, false);
+  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+    const bool in = q0 + r < Tq;
+    Ls[r] = in ? lb[q0 + r] : 0.f;
+    Es[r] = in ? eb[q0 + r] : 0.f;
+  }
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc[i][d] = 0.f;
+
+  // causal: keys past this tile's last row are masked for every row
+  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, HD>(Ks, kb, st.k_st, k0, Tk, 0.f, false);
+    load_tile<T, HD>(Vs, vb, st.v_st, k0, Tk, 0.f, false);
+    __syncthreads();
+
+    float p[RPT][CPT], ds[RPT][CPT];
+    tile_p_ds<HD>(Qs, Ds, Ks, Vs, Ls, Es, q0, k0, Tq, Tk, causal, p, ds);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        Ss[(ty + TY * i) * LDP + tx + TX * j] = round_to<T>(ds[i][j]);
+    __syncthreads();
+
+    // dQ[q][h] += sum_key dS[q][key] K[key][h]
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float sv[RPT], kv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) sv[i] = Ss[(ty + TY * i) * LDP + c];
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) kv[d] = Ks[c * LD + tx + TX * d];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int d = 0; d < DPT; ++d) acc[i][d] = fmaf(sv[i], kv[d], acc[i][d]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= Tq) continue;
+    T* out = dq + (static_cast<int64_t>(b) * Tq + row) * row_st +
+             static_cast<int64_t>(n) * HD;
+    // dq of the scaled q, rounded, then times the scale in T: the
+    // gradient through splash's caller's q * scale
+#pragma unroll
+    for (int d = 0; d < DPT; ++d)
+      out[tx + TX * d] = from_f32<T>(round_to<T>(acc[i][d]) * scale);
+  }
+}
+
+template <int HD>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (4 * static_cast<size_t>(BQ) * (HD + 1) +
+                          2 * static_cast<size_t>(BQ) * LDP + 2 * BQ);
+}
+
+template <int HD>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * static_cast<size_t>(BQ) * (HD + 1) +
+                          static_cast<size_t>(BQ) * LDP + 2 * BQ);
+}
+
+template <typename T, int HD>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         int B, int N, int Tq, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(B) * Tq * N;
+  constexpr int threads = 256;                 // 8 rows per block
+  const int64_t blocks = (rows * 32 + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  delta_kernel<T, HD><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, N, Tq,
+      rows);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int B, int N,
+                       int Tq, int Tk, Strides st, float scale, int causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem<HD>();
+  auto kernel = flash_bwd_dkv_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tk + BK - 1) / BK, B * N);
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), N, Tq, Tk, st, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int N, int Tq, int Tk, Strides st,
+                      float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem<HD>();
+  auto kernel = flash_bwd_dq_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + BQ - 1) / BQ, B * N);
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), N, Tq, Tk, st, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Runs the statement given as the macro's tail with T (storage type)
+// and HD (head dim) bound, or returns cudaErrorInvalidValue for a
+// combination the kernels do not take. dtype: 0 = float32,
+// 1 = bfloat16, 2 = float16; head_dim 64 or 128.
+#define PADDLE_CASE(code, hd, type, dtype, head_dim, ...)                 \
+  if (dtype == code && head_dim == hd) {                                  \
+    using T = type;                                                       \
+    constexpr int HD = hd;                                                \
+    __VA_ARGS__;                                                          \
+  }
+#define PADDLE_DISPATCH(dtype, head_dim, ...)                             \
+  PADDLE_CASE(0, 64, float, dtype, head_dim, __VA_ARGS__)                 \
+  PADDLE_CASE(0, 128, float, dtype, head_dim, __VA_ARGS__)                \
+  PADDLE_CASE(1, 64, __nv_bfloat16, dtype, head_dim, __VA_ARGS__)         \
+  PADDLE_CASE(1, 128, __nv_bfloat16, dtype, head_dim, __VA_ARGS__)        \
+  PADDLE_CASE(2, 64, __half, dtype, head_dim, __VA_ARGS__)                \
+  PADDLE_CASE(2, 128, __half, dtype, head_dim, __VA_ARGS__)               \
+  return static_cast<int>(cudaErrorInvalidValue)
+
+extern "C" int paddle_flash_attention_bwd_delta(const void* o,
+                                                const void* dout,
+                                                void* delta, int B, int N,
+                                                int Tq, int head_dim,
+                                                int dtype, void* stream) {
+  if (B < 1 || N < 1 || Tq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* e = static_cast<float*>(delta);
+  PADDLE_DISPATCH(dtype, head_dim,
+                  return static_cast<int>(
+                      launch_delta<T, HD>(o, dout, e, B, N, Tq, s)));
+}
+
+extern "C" int paddle_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int N,
+    int Tq, int Tk, int head_dim, int dtype, long long q_sb, long long q_st,
+    long long q_sn, long long k_sb, long long k_st, long long k_sn,
+    long long v_sb, long long v_st, long long v_sn, float scale, int causal,
+    void* stream) {
+  if (B < 1 || N < 1 || Tq < 1 || Tk < 1 || B * N > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st, v_sn};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* e = static_cast<const float*>(delta);
+  PADDLE_DISPATCH(dtype, head_dim,
+                  return static_cast<int>(launch_dkv<T, HD>(
+                      q, k, v, dout, l, e, dk, dv, B, N, Tq, Tk, st, scale,
+                      causal, s)));
+}
+
+extern "C" int paddle_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int N, int Tq,
+    int Tk, int head_dim, int dtype, long long q_sb, long long q_st,
+    long long q_sn, long long k_sb, long long k_st, long long k_sn,
+    long long v_sb, long long v_st, long long v_sn, float scale, int causal,
+    void* stream) {
+  if (B < 1 || N < 1 || Tq < 1 || Tk < 1 || B * N > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st, v_sn};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* e = static_cast<const float*>(delta);
+  PADDLE_DISPATCH(dtype, head_dim,
+                  return static_cast<int>(launch_dq<T, HD>(
+                      q, k, v, dout, l, e, dq, B, N, Tq, Tk, st, scale,
+                      causal, s)));
+}

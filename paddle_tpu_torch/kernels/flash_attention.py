@@ -1,65 +1,158 @@
-"""K1-fwd: causal (or full) flash-attention forward, a CUDA kernel for
-Hopper, and its plain PyTorch version.
+"""K1: flash attention, forward (K1-fwd, optionally with the per-row
+logsumexp) and backward (K1-bwd), CUDA kernels for Hopper, and their
+plain PyTorch versions.
 
-The kernel (`csrc/flash_attention.cu`) replaces the JAX package's
-`ops/pallas/attention.py::_splash_mha`, jax's Pallas splash-attention
-forward. `flash_attention` is its wrapper: on a CUDA tensor it launches
-the kernel or raises; on a CPU tensor it computes `flash_attention_ref`.
-There is no fallback from the card to the plain version.
+The kernels replace the JAX package's `ops/pallas/attention.py`
+splash attention: `csrc/flash_attention.cu` its forward
+(`_splash_mha`, and `_splash_block_with_lse` with the LSE output), and
+`csrc/flash_attention_bwd.cu` its dq/dkv backward (the custom vjp of
+`make_splash_mha`). Each wrapper launches its kernel on a CUDA tensor
+or raises, and computes the plain version on a CPU tensor; there is no
+fallback from the card to the plain version. Each counts its kernel
+launches in `.launches`.
 
-Semantics (splash's): q is scaled in q's dtype before the product, the
-scores, softmax and accumulation are f32, and the output has q's dtype.
-Layout `[B, T, N, H]` as `mha` receives it; any strides with a last-dim
-stride of 1, so the q/k/v views split out of a fused qkv projection
-need no copy. H is 64 or 128; any T >= 1.
+Semantics (splash's): q is scaled in q's dtype before the product; the
+scores, softmax, LSE and every accumulator are f32; outputs have q's
+dtype. The backward rounds P and dS to q's dtype before their products
+and takes `delta = rowsum(f32(o) * f32(do))` from the stored output, as
+splash's vjp does; dq is the gradient through the scale multiply
+(`round(dq_scaled) * scale` in q's dtype), applied inside the dq
+kernel. Layout `[B, T, N, H]` as `mha` receives it; q/k/v take any
+strides with a last-dim stride of 1, so the views split out of a fused
+qkv projection need no copy. H is 64 or 128; any T >= 1; float32,
+bfloat16 or float16.
+
+`flash_attention` is differentiable: under grad it runs the
+`FlashAttention` autograd Function, whose backward is K1-bwd on the
+card and `flash_attention_bwd_ref` on the CPU. Without grad (serving,
+`torch.inference_mode()`), it launches K1-fwd alone and saves nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_ref",
+           "flash_attention_with_lse", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "attention_delta",
+           "attention_delta_ref", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dq_ref", "HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_STRIDED = [ctypes.c_longlong] * 9
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (any device; the wrappers take them for CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale in q's dtype, as splash's caller folds the scale in."""
+    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+
+
+def _keep(T: int, Tk: int, device) -> torch.Tensor:
+    return torch.ones(T, Tk, dtype=torch.bool, device=device).tril()
+
+
+def _logits(q, k, scale, causal):
+    """f32 scores of the scaled q, -inf above the diagonal when causal."""
+    s = torch.einsum("btnh,bsnh->bnts", _scaled(q, scale).float(), k.float())
+    if causal:
+        s = s.masked_fill(~_keep(q.shape[1], k.shape[1], q.device),
+                          float("-inf"))
+    return s
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, causal: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device: q pre-scaled
-    in q.dtype, f32 logits, causal by masking, f32 softmax."""
-    qs = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)).float()
-    logits = torch.einsum("btnh,bsnh->bnts", qs, k.float())
-    if causal:
-        T, Tk = q.shape[1], k.shape[1]
-        keep = torch.ones(T, Tk, dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~keep, float("-inf"))
+                        scale: float, causal: bool = True,
+                        with_lse: bool = False):
+    """Plain PyTorch version of K1-fwd: q pre-scaled in q.dtype, f32
+    logits, causal by masking, f32 softmax. With `with_lse`, returns
+    (out, lse) with lse the f32 logsumexp of each row, [B, N, T]."""
+    logits = _logits(q, k, scale, causal)
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bnts,bsnh->btnh", probs, v.float()).to(q.dtype)
+    out = torch.einsum("bnts,bsnh->btnh", probs, v.float()).to(q.dtype)
+    if with_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.paddle_flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
-                       [ctypes.c_longlong] * 9 +
-                       [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def attention_delta_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(f32(o) * f32(do)), f32 [B, N, T]."""
+    return torch.einsum("btnh,btnh->bnt", o.float(), do.float())
+
+
+def _p_ds(q, k, v, do, lse, delta, scale, causal):
+    """P = exp(S - lse) (0 where masked) and dS = (dO V^T - delta) * P,
+    both f32 [B, N, T, Tk], as each backward kernel recomputes them."""
+    s = torch.einsum("btnh,bsnh->bnts", _scaled(q, scale).float(), k.float())
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(~_keep(q.shape[1], k.shape[1], q.device), 0.0)
+    dp = torch.einsum("btnh,bsnh->bnts", do.float(), v.float())
+    return p, (dp - delta[..., None]) * p
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale: float,
+                                causal: bool):
+    """Plain version of the dkv kernel: (dk, dv) in q's dtype, from
+    round(dS)^T Q_scaled and round(P)^T dO."""
+    dt = q.dtype
+    p, ds = _p_ds(q, k, v, do, lse, delta, scale, causal)
+    dv = torch.einsum("bnts,btnh->bsnh", p.to(dt).float(), do.float())
+    dk = torch.einsum("bnts,btnh->bsnh", ds.to(dt).float(),
+                      _scaled(q, scale).float())
+    return dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale: float,
+                               causal: bool):
+    """Plain version of the dq kernel: round(dS) K, rounded to q's dtype,
+    times the scale in q's dtype (the gradient through q * scale)."""
+    dt = q.dtype
+    _, ds = _p_ds(q, k, v, do, lse, delta, scale, causal)
+    dq = torch.einsum("bnts,bsnh->btnh", ds.to(dt).float(), k.float())
+    return _scaled(dq.to(dt), scale)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float,
+                            causal: bool = True):
+    """Plain version of K1-bwd, step for step what the kernels do: the
+    delta pass, then dk/dv and dq from the saved LSE and delta (not
+    autograd of the forward). Returns (dq, dk, dv) in q's dtype."""
+    delta = attention_delta_ref(o, do)
+    dk, dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
+                                         causal)
+    dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
 
 
 def _check(q, k, v):
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError("flash_attention takes [B, T, N, H] tensors")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"flash_attention takes float32 or bfloat16 q/k/v "
-                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"flash_attention takes float32, bfloat16 or "
+                         f"float16 q/k/v of one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
     B, T, N, H = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (N, H):
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
@@ -76,35 +169,222 @@ def _check(q, k, v):
             raise ValueError(f"{name} needs a last-dim stride of 1")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, causal: bool = True) -> torch.Tensor:
-    """Attention over [B, T, N, H]. CUDA tensors launch the K1-fwd
-    kernel on the current stream (counted in `flash_attention.launches`);
-    CPU tensors take `flash_attention_ref`."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device.type}")
-    fn = _bind(_build.load("flash_attention"))
+def _fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _strides(q, k, v):
+    return (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), v.stride(0), v.stride(1), v.stride(2))
+
+
+def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
+    """The scale as splash's caller holds it: rounded to q's dtype."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def _run(what: str, device: torch.device, launch) -> None:
+    with torch.cuda.device(device):
+        rc = launch(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _fwd_kernel(q, k, v, scale, causal, with_lse):
+    """Launch K1-fwd; returns (out, lse or None)."""
+    fn = _fn("flash_attention", "paddle_flash_attention_fwd",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDED +
+             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p])
     B, T, N, H = q.shape
     out = torch.empty((B, T, N, H), dtype=q.dtype, device=q.device)
-    # splash's caller multiplies by the scale held in q's dtype
-    s = float(torch.tensor(scale, dtype=q.dtype))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, N, T, k.shape[1], H, _DTYPE_CODE[q.dtype],
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                s, int(bool(causal)), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+    lse = (torch.empty((B, N, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _run("flash_attention", q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, N, T, k.shape[1], H, _DTYPE_CODE[q.dtype], *_strides(q, k, v),
+        _dtype_scale(scale, q.dtype), int(bool(causal)),
+        lse.data_ptr() if with_lse else None, stream))
+    return out, lse
+
+
+def _forward_with_lse(q, k, v, scale, causal):
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale, causal, with_lse=True)
+    out, lse = _fwd_kernel(q, k, v, scale, causal, with_lse=True)
+    flash_attention_with_lse.launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta=None):
+    B, T, N, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError("do must be a contiguous tensor of q's shape and "
+                         "dtype")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.shape != (B, N, T) or
+                              t.dtype != torch.float32 or
+                              not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 [B, N, T]")
+    if any(t is not None and t.device != q.device for t in (do, lse, delta)):
+        raise ValueError("do, lse and delta must be on q's device")
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(f32(o) * f32(do)), f32 [B, N, T]: K1-bwd's first
+    launch on CUDA tensors (contiguous [B, T, N, H] of one dtype), the
+    plain version on CPU tensors."""
+    if o.device.type == "cpu":
+        return attention_delta_ref(o, do)
+    if (o.shape != do.shape or o.dtype != do.dtype or o.dtype not in
+            _DTYPE_CODE or not (o.is_contiguous() and do.is_contiguous())
+            or o.shape[-1] not in HEAD_DIMS or do.device != o.device):
+        raise ValueError("attention_delta takes contiguous [B, T, N, H] o "
+                         "and do of one shape, dtype and device")
+    fn = _fn("flash_attention_bwd", "paddle_flash_attention_bwd_delta",
+             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    B, T, N, H = o.shape
+    delta = torch.empty((B, N, T), dtype=torch.float32, device=o.device)
+    _run("attention_delta", o.device, lambda stream: fn(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, N, T, H,
+        _DTYPE_CODE[o.dtype], stream))
+    attention_delta.launches += 1
+    return delta
+
+
+# q, k, v, do, lse, delta, dk, dv; B, N, Tq, Tk, H, dtype; strides;
+# scale, causal, stream (the dq launch has one output pointer fewer)
+_BWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + _STRIDED +
+             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float,
+                            causal: bool = True):
+    """(dk, dv): K1-bwd's dkv launch on CUDA tensors, the plain version
+    on CPU tensors."""
+    _check(q, k, v)
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
+                                           causal)
+    fn = _fn("flash_attention_bwd", "paddle_flash_attention_bwd_dkv",
+             _BWD_ARGS)
+    B, T, N, H = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _run("flash_attention_bwd_dkv", q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, N, T, k.shape[1], H, _DTYPE_CODE[q.dtype], *_strides(q, k, v),
+        _dtype_scale(scale, q.dtype), int(bool(causal)), stream))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float,
+                           causal: bool = True):
+    """dq (with respect to the unscaled q): K1-bwd's dq launch on CUDA
+    tensors, the plain version on CPU tensors."""
+    _check(q, k, v)
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                          causal)
+    fn = _fn("flash_attention_bwd", "paddle_flash_attention_bwd_dq",
+             [ctypes.c_void_p] * 7 + _BWD_ARGS[8:])
+    B, T, N, H = q.shape
+    dq = torch.empty((B, T, N, H), dtype=q.dtype, device=q.device)
+    _run("flash_attention_bwd_dq", q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        B, N, T, k.shape[1], H, _DTYPE_CODE[q.dtype], *_strides(q, k, v),
+        _dtype_scale(scale, q.dtype), int(bool(causal)), stream))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float,
+                        causal: bool = True,
+                        delta: Optional[torch.Tensor] = None):
+    """K1-bwd: (dq, dk, dv) from the forward's output `o` and LSE. On
+    CUDA tensors, three launches (delta, dkv, dq); a caller that holds
+    `delta` already (f32 [B, N, T]) passes it and the delta launch is
+    skipped. On CPU tensors, the plain versions of the same steps."""
+    _check(q, k, v)
+    do = do.to(q.dtype).contiguous()
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cuda":
+        flash_attention_bwd.launches += 1
+    if delta is None:
+        delta = attention_delta(o.contiguous(), do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a K1 forward and a K1 backward: saves q, k, v, the
+    output and the LSE, and returns (out, lse) with lse not
+    differentiable. CUDA tensors run the kernels, CPU tensors the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        out, lse = _forward_with_lse(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.scale,
+                                         ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = True) -> torch.Tensor:
+    """Attention over [B, T, N, H]. Under grad, through `FlashAttention`
+    (K1-fwd with LSE, K1-bwd in backward); otherwise CUDA tensors launch
+    K1-fwd alone (counted in `flash_attention.launches`) and CPU tensors
+    take `flash_attention_ref`."""
+    _check(q, k, v)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, scale, causal)[0]
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale, causal)
+    out, _ = _fwd_kernel(q, k, v, scale, causal, with_lse=False)
     flash_attention.launches += 1
     return out
 
 
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, scale: float = 1.0,
+                             causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse [B, N, T] f32): the K1-fwd kernel with its LSE output
+    (counted in `flash_attention_with_lse.launches`), the counterpart of
+    the JAX package's `_splash_block_with_lse` (full mask, q pre-scaled:
+    scale 1.0). Differentiable in `out` through `FlashAttention`."""
+    _check(q, k, v)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, scale, causal)
+    return _forward_with_lse(q, k, v, scale, causal)
+
+
 flash_attention.launches = 0
+flash_attention_with_lse.launches = 0
+attention_delta.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd.launches = 0

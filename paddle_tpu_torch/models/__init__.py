@@ -1,1 +1,2 @@
-"""Models of the port: GPT (decoder-only transformer) and shared blocks."""
+"""Models of the port: GPT (decoder-only transformer), BERT (encoder)
+and shared blocks."""

@@ -10,13 +10,16 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
 ParamAxes = Dict[str, Tuple[Optional[str], ...]]
 
-__all__ = ["ParamStore", "Params", "raw_layer_norm", "layer_norm", "gelu"]
+__all__ = ["ParamStore", "Params", "raw_layer_norm", "layer_norm", "gelu",
+           "dense", "dropout", "is_trainable"]
 
 
 class ParamStore:
@@ -48,6 +51,15 @@ class ParamStore:
         self.axes[name] = axes
         return value
 
+    def dense(self, name: str, d_in: int, d_out: int,
+              axes=("embed", "mlp")):
+        """`{name}.w` [d_in, d_out] (normal, scale sqrt(2/(d_in+d_out)))
+        and a zero `{name}.b` [d_out]."""
+        scale = math.sqrt(2.0 / (d_in + d_out))
+        self.add(f"{name}.w", self.normal((d_in, d_out), scale), axes)
+        self.add(f"{name}.b", torch.zeros(d_out, dtype=self.dtype,
+                                          device=self.device), (axes[1],))
+
     def layer_norm(self, name: str, dim: int, axis: Optional[str] = None):
         self.add(f"{name}.scale", torch.ones(dim, dtype=self.dtype,
                                              device=self.device), (axis,))
@@ -57,6 +69,36 @@ class ParamStore:
     def embedding(self, name: str, vocab: int, dim: int,
                   axes=("vocab", "embed"), scale: float = 0.02):
         self.add(f"{name}.w", self.normal((vocab, dim), scale), axes)
+
+
+def is_trainable(name: str) -> bool:
+    """False for running statistics (BN `.mean`/`.var`), which sit in the
+    same dict but are state, not parameters."""
+    return not (name.endswith(".mean") or name.endswith(".var"))
+
+
+def dense(params: Params, name: str, x: torch.Tensor,
+          act=None) -> torch.Tensor:
+    """`x @ w + b` with w and b cast to x's dtype, then `act`."""
+    y = x @ params[f"{name}.w"].to(x.dtype)
+    b = params.get(f"{name}.b")
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return act(y) if act is not None else y
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor,
+            rate: float, deterministic: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate) in x's dtype. The identity when
+    deterministic, at rate 0 or without a generator. The bits come from
+    `generator` (on x's device), so they are not jax.random's bits."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def raw_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -1,8 +1,10 @@
 """GPT (decoder-only transformer), dense configs, in PyTorch.
 
-Counterpart of the JAX package's `models/gpt.py` for the serving path:
-`GPTConfig`, `init`, the full forward `apply`, and the two decode
-phases `apply_prefill` / `apply_decode_step` over the paged KV cache.
+Counterpart of the JAX package's `models/gpt.py` for serving and dense
+training: `GPTConfig`, `init`, the full forward `apply` (differentiable:
+under grad its attention runs the K1 forward and backward kernels on
+CUDA), `lm_loss` and `make_batch`, and the two decode phases
+`apply_prefill` / `apply_decode_step` over the paged KV cache.
 Params are the JAX package's flat dict, by name and in its layouts:
 per-layer params stacked on a leading [L] axis ("blk.wqkv" [L, H, 3H],
 ...), matrices applied as `x @ w`. The JAX package's `lax.scan` over the
@@ -16,9 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import mha
 from ..ops.beam import beam_search
@@ -26,8 +29,8 @@ from ..serving import kv_cache as kvc
 from .common import (ParamAxes, Params, ParamStore, gelu,
                      layer_norm as _ln_named, raw_layer_norm)
 
-__all__ = ["GPTConfig", "init", "param_shapes", "apply", "apply_prefill",
-           "apply_decode_step"]
+__all__ = ["GPTConfig", "init", "param_shapes", "apply", "lm_loss",
+           "make_batch", "apply_prefill", "apply_decode_step"]
 
 
 @dataclasses.dataclass
@@ -157,6 +160,28 @@ def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor) -> torch.Tensor:
         x = _block(_layer(params, l), x, cfg)
     x = _ln_named(params, "ln_f", x)
     return x @ params["wte.w"].T.to(x.dtype)
+
+
+def lm_loss(params: Params, cfg: GPTConfig, batch: Dict[str, torch.Tensor],
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Next-token cross entropy, a f32 scalar; batch = {"ids": [B, T+1]}.
+    `rng` is unused (the dense model has no dropout), as in the JAX
+    package; its pipeline microbatching is not ported."""
+    ids = batch["ids"]
+    logits = apply(params, cfg, ids[:, :-1]).float()
+    logp = F.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, ids[:, 1:, None].long())[..., 0]
+    return -ll.mean()
+
+
+def make_batch(generator: torch.Generator, cfg: GPTConfig, batch_size: int,
+               seq_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """{"ids": [B, T+1]} uniform token ids (int64) on the generator's
+    device; T defaults to cfg.max_len."""
+    T = seq_len or cfg.max_len
+    return {"ids": torch.randint(0, cfg.vocab_size, (batch_size, T + 1),
+                                 generator=generator,
+                                 device=generator.device)}
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,12 @@ default scale 1/sqrt(H).
 
 Dispatch is by the device of the tensors, never by a fallback:
 
-- CUDA, mask None: the K1-fwd flash-attention kernel
-  (`kernels/flash_attention.py`) at every T. A call it cannot take
-  (another head dim or dtype) raises.
+- CUDA, mask None: the K1 flash-attention kernels
+  (`kernels/flash_attention.py`) at every T. Under grad the call goes
+  through their autograd Function (K1-fwd with its LSE, K1-bwd in
+  backward), so the output is never cut off from autograd; without
+  grad (serving) K1-fwd runs alone and nothing is saved. A call the
+  kernels cannot take (another head dim or dtype) raises.
 - CUDA with an additive mask: raises. That is the K2 (masked flash
   attention) kernel's work, which is not ported yet.
 - CPU: the plain path, a mirror of the JAX package's `_xla_mha`

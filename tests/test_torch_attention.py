@@ -102,8 +102,8 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     q = torch.zeros(1, 8, 2, 32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, 0.1)
-    q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         fa.flash_attention(q, q, q, 0.1)
     q = torch.zeros(1, 8, 2, 128)[..., ::2]
     with pytest.raises(ValueError, match="stride"):

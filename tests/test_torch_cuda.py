@@ -1,6 +1,15 @@
-"""The port's CUDA kernel on the card: K1-fwd against its plain PyTorch
+"""The port's CUDA kernels on the card: K1-fwd against its plain PyTorch
 version at the serving path's shapes (B=1, N=12, H=64, causal, q/k/v as
-strided views of one fused qkv projection).
+strided views of one fused qkv projection), and K1-fwd with its LSE
+output and K1-bwd (delta, dkv and dq launches) against theirs at the
+training path's shapes: BERT-base's (B=32, T=128, full) and
+GPT-2-small's (B=1, T=1024, causal), both bf16, plus f32, f16 and a
+ragged T at one shape each.
+
+Tolerances of the backward are relative to the largest reference value
+(at least 1): 2e-2 at bf16 and 5e-3 at f16 (one rounding of a
+gradient to the storage type, after f32 sums taken in another order
+than the plain version's), 1e-4 at f32.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on the GPU machine it runs
@@ -18,6 +27,13 @@ from paddle_tpu_torch.ops import attention as ta
 torch.set_num_threads(2)
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+
+# (B, T, causal, dtype): BERT-base's and GPT-2-small's attention calls,
+# then one shape each at f32 and f16 and a ragged causal T
+BWD_CASES = [(32, 128, False, torch.bfloat16), (1, 1024, True, torch.bfloat16),
+             (2, 256, True, torch.float32), (4, 128, False, torch.float16),
+             (2, 100, True, torch.float32)]
 
 
 def _need_card():
@@ -55,3 +71,72 @@ def test_mha_on_cuda_launches_or_raises():
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.randn(1, 16, 2, 32, device="cuda")
         ta.mha(x, x, x, causal=True)
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max() /
+            want.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,causal,dtype", BWD_CASES)
+def test_backward_kernels_match_plain_version(B, T, causal, dtype):
+    _need_card()
+    N, H, scale = 12, 64, 0.125
+    g = torch.Generator(device="cuda").manual_seed(T + B)
+    # strided q/k/v, as a fused qkv projection's split views reach it
+    qkv = torch.randn(B, T, 3 * N * H, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.view(B, T, N, H) for t in qkv.split(N * H, dim=-1))
+    do = torch.randn(B, T, N, H, generator=g, device="cuda").to(dtype)
+
+    before = fa.flash_attention_with_lse.launches
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale, causal)
+    assert fa.flash_attention_with_lse.launches == before + 1
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
+                                              with_lse=True)
+    assert _rel_err(out, ref_out) <= BWD_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+    counts = [f.launches for f in (fa.attention_delta,
+                                   fa.flash_attention_bwd_dkv,
+                                   fa.flash_attention_bwd_dq)]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.attention_delta,
+                                 fa.flash_attention_bwd_dkv,
+                                 fa.flash_attention_bwd_dq)] == \
+        [c + 1 for c in counts]
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == (B, T, N, H)
+        err = _rel_err(a, b)
+        assert err <= BWD_TOL[dtype], f"{name}: {err}"
+    delta = fa.attention_delta(out, do)
+    assert (delta - fa.attention_delta_ref(out, do)).abs().max().item() \
+        <= 1e-3 * max(1.0, delta.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_mha_under_grad_runs_the_backward_kernel():
+    """A CUDA mha call under grad is never cut off from autograd: its
+    output's grad_fn is the Function's, and backward launches K1-bwd."""
+    _need_card()
+    x = torch.randn(2, 128, 2, 64, device="cuda", requires_grad=True)
+    out = ta.mha(x, x * 2, x * 3, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    before = fa.flash_attention_bwd.launches
+    out.sum().backward()
+    assert fa.flash_attention_bwd.launches == before + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    # no grad: K1-fwd alone, nothing saved
+    with torch.inference_mode():
+        assert ta.mha(x, x, x, causal=True).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_mha_with_mask_under_grad_raises():
+    _need_card()
+    x = torch.randn(1, 16, 2, 64, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="mask"):
+        ta.mha(x, x, x, mask=torch.zeros(1, 1, 1, 16, device="cuda"))
