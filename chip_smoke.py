@@ -12,9 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with its time beside the plain version's, one PyTorch library
    call's and the card's bound: K1-fwd at the serving path's shapes,
    K1-fwd with its LSE output and K1-bwd (delta, dkv and dq launches)
-   at BERT-base's training shape (B=32, T=128, full) and GPT-2-small's
-   (B=1, T=1024, causal), both bf16, plus f32 and f16 at one shape
-   each;
+   at the training phases' own shapes (BERT-base 256 x 128 and
+   32 x 512, full; GPT-2-small 8 x 1024, causal) and at batch 32 and 1
+   of the same models, all bf16, plus f32 and f16 at one shape each;
+   every output is held per element against the plain version's, at a
+   limit relative to its own RMS (`ELEM_TOL`);
 3. slice: GPT-2-small (random weights from a seed) served at bf16 by
    DecodeEngine behind the HTTP Server; 8 concurrent streamed
    /v1/generate requests whose prompts fill every prefill bucket up to
@@ -179,20 +181,50 @@ def _serving_kernel_row():
             "tol": 2e-2, "checks": checks, **timing}
 
 
-# K1 at the training path's shapes: (label, B, T, causal, dtype name);
-# BERT-base's and GPT-2-small's attention calls at bf16 are timed
-TRAIN_KERNEL_CASES = (("bert", 32, 128, False, "bfloat16"),
-                      ("gpt", 1, 1024, True, "bfloat16"),
+# K1 at the training path's shapes: (label, B, T, causal, dtype name).
+# The first three are the main path's own calls (phase 7's BERT-base at
+# 256 x 128 and 32 x 512, phase 8's GPT-2-small at 8 x 1024), then
+# BERT-base and GPT-2-small at batch 32 and 1, then f32 and f16 at one
+# shape each. Every bf16 case is timed.
+TRAIN_KERNEL_CASES = (("bert", 256, 128, False, "bfloat16"),
+                      ("bert512", 32, 512, False, "bfloat16"),
+                      ("gpt", 8, 1024, True, "bfloat16"),
+                      ("bert32", 32, 128, False, "bfloat16"),
+                      ("gpt1", 1, 1024, True, "bfloat16"),
                       ("f32", 2, 256, True, "float32"),
                       ("f16", 4, 128, False, "float16"))
-TRAIN_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
+# Limits of a kernel's result against its plain version, per element:
+# |got - want| <= rtol |want| + atol rms(want). rtol is one rounding
+# step of the dtype (both round the same f32 sums to it, so a sum taken
+# in another order may move one rounding). atol, a share of the
+# tensor's own RMS, covers a rounding of P or dS to the dtype that falls
+# the other way after f32 sums in another order: one step of a large dS
+# times a q or k element, landing on a dq or dk element of any size.
+# The largest such reading on an H100 was 1.07e-2 of RMS at bf16,
+# 1.9e-4 at f16 and 2.8e-6 at f32 (PERF.md); the limits are 2-5 times
+# those. Each gradient is held to its own scale, so a result wrong on
+# some rows fails, however large the largest value is.
+ELEM_TOL = {"bfloat16": (2 ** -7, 2e-2), "float16": (2 ** -10, 1e-3),
+            "float32": (1e-5, 1e-5)}
 
 
-def _rel_err(got, want):
-    """Max abs error over the largest reference value (at least 1)."""
+def held(got, want, dname):
+    """`got` against `want` under ELEM_TOL[dname]: the max abs error,
+    the reference's RMS (its typical value) and largest value, `ratio`
+    (the worst element's error over its limit; at most 1 passes) and
+    `atol_rms` (the least atol, in RMS, that would pass at this
+    rtol)."""
+    import torch
+
+    rtol, atol = ELEM_TOL[dname]
     want = want.float()
-    return ((got.float() - want).abs().max() /
-            want.abs().max().clamp(min=1.0)).item()
+    err = (got.float() - want).abs()
+    rms = want.square().mean().sqrt().clamp(min=torch.finfo().tiny)
+    return {"max_abs_err": err.max().item(), "rms": rms.item(),
+            "max_ref": want.abs().max().item(),
+            "ratio": (err / (rtol * want.abs() + atol * rms)).max().item(),
+            "atol_rms": ((err - rtol * want.abs()).clamp(min=0).max()
+                         / rms).item()}
 
 
 def _sdpa_bwd_ms(q, k, v, do, causal, scale):
@@ -210,112 +242,129 @@ def _sdpa_bwd_ms(q, k, v, do, causal, scale):
                                                retain_graph=True))
 
 
-def _training_kernel_rows():
-    """K1-fwd with LSE and K1-bwd (whole, and each of its three
-    launches) against their plain versions; times at the bf16 cases."""
+def _training_kernel_case(fa, B, T, causal, dname, gen):
+    """One case: K1-fwd with LSE and the three K1-bwd launches against
+    their plain versions, and the whole backward (from the plain
+    forward's residuals) against its plain version."""
     import torch
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.kernels import flash_attention as fa
 
     N, H = 12, 64
     scale = 1.0 / H ** 0.5
+    dtype = getattr(torch, dname)
+    qkv = torch.randn(B, T, 3 * N * H, generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (t.view(B, T, N, H) for t in qkv.split(N * H, dim=-1))
+    do = torch.randn(B, T, N, H, generator=gen, device="cuda").to(dtype)
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale, causal)
+    delta = fa.attention_delta(out, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                        causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
+                                              with_lse=True)
+    # each launch's plain version from the kernels' own residuals
+    ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, scale, causal)))
+    errs = {"out": held(out, ref_out, dname),
+            "delta": held(delta, fa.attention_delta_ref(out, do),
+                          "float32"),
+            "dq": held(dq, ref["dq"], dname), "dk": held(dk, ref["dk"], dname),
+            "dv": held(dv, ref["dv"], dname)}
+    whole = fa.flash_attention_bwd(q, k, v, ref_out, ref_lse, do, scale,
+                                   causal)
+    whole_ref = fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do,
+                                           scale, causal)
+    for name, a, b in zip(("bwd_dq", "bwd_dk", "bwd_dv"), whole, whole_ref):
+        errs[name] = held(a, b, dname)
+    lse_err = (lse - ref_lse).abs().max().item()
+    return (q, k, v, do, out, lse, delta, scale), errs, lse_err
+
+
+def _training_kernel_timings(fa, case, causal):
+    """ms, plain_ms, library_ms and the bound of K1-fwd-LSE, the whole
+    K1-bwd and each of its three launches, at one case's inputs."""
+    import torch.nn.functional as F
+
+    q, k, v, do, out, lse, delta, scale = case
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    B, T, N, _ = q.shape
+    t = {"fwd_lse": {
+        "ms": time_ms(lambda: fa.flash_attention_with_lse(
+            q, k, v, scale, causal)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+            q, k, v, scale, causal, with_lse=True)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale)),
+        "bound": attention_bound_ms(q, k, causal, 2, 4, 1)}}
+    # the whole backward (delta, dkv and dq launches) is no kernel row
+    # of its own: its launches are the three rows'
+    t["bwd_whole"] = {
+        "ms": time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, scale, causal)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, scale, causal)),
+        "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, scale),
+        "bound": attention_bound_ms(q, k, causal, 5, 8, 2)}
+    t["delta"] = {
+        "ms": time_ms(lambda: fa.attention_delta(out, do)),
+        "plain_ms": time_ms(lambda: fa.attention_delta_ref(out, do)),
+        "library_ms": None,
+        "bound": bound_ms(2 * out.numel() * out.element_size() +
+                          B * N * T * 4, 2 * out.numel(), F32_FLOPS_PER_S)}
+    t["dkv"] = {
+        "ms": time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, scale, causal)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, scale, causal)),
+        "library_ms": None,
+        "bound": attention_bound_ms(q, k, causal, 4, 6, 2)}
+    t["dq"] = {
+        "ms": time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, scale, causal)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta, scale, causal)),
+        "library_ms": None,
+        "bound": attention_bound_ms(q, k, causal, 3, 5, 2)}
+    return t
+
+
+def _training_kernel_rows():
+    """K1-fwd with LSE and K1-bwd's three launches against their plain
+    versions at every case, and their times at the bf16 cases. Returns
+    the kernel rows, every case's readings and the failed checks."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    checks, timings = [], {}
+    checks, timings, failed = [], {}, []
     for label, B, T, causal, dname in TRAIN_KERNEL_CASES:
-        dtype, tol = getattr(torch, dname), TRAIN_TOL[dname]
-        qkv = torch.randn(B, T, 3 * N * H, generator=gen,
-                          device="cuda").to(dtype)
-        q, k, v = (t.view(B, T, N, H) for t in qkv.split(N * H, dim=-1))
-        do = torch.randn(B, T, N, H, generator=gen, device="cuda").to(dtype)
-        out, lse = fa.flash_attention_with_lse(q, k, v, scale, causal)
-        delta = fa.attention_delta(out, do)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                            causal)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
-                                       causal)
-        torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
-                                                  with_lse=True)
-        # the backward's plain version from the kernels' own residuals,
-        # and the whole backward from the plain forward's
-        ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_ref(
-            q, k, v, out, lse, do, scale, causal)
-        whole = fa.flash_attention_bwd(q, k, v, ref_out, ref_lse, do, scale,
-                                       causal)
-        whole_ref = fa.flash_attention_bwd_ref(q, k, v, ref_out, ref_lse, do,
-                                               scale, causal)
-        errs = {"out": _rel_err(out, ref_out),
-                "lse": (lse - ref_lse).abs().max().item(),
-                "delta": _rel_err(delta, fa.attention_delta_ref(out, do)),
-                "dq": _rel_err(dq, ref_dq), "dk": _rel_err(dk, ref_dk),
-                "dv": _rel_err(dv, ref_dv),
-                "bwd": max(_rel_err(a, b) for a, b in zip(whole, whole_ref))}
-        abs_errs = {n: (a.float() - b.float()).abs().max().item()
-                    for n, a, b in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
-                                    ("dv", dv, ref_dv), ("out", out, ref_out))}
-        checks.append({"case": label, "shape": [B, T, N, H], "causal": causal,
-                       "dtype": dname, "tol": tol, "rel_err": errs,
-                       "max_abs_err": abs_errs})
-        for name, err in errs.items():
-            limit = 1e-4 if name == "lse" else (
-                1e-3 if name == "delta" else tol)
-            check(err <= limit, f"K1 {label} {name}: error {err} > {limit}")
-        if dname != "bfloat16":
-            continue
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        t = {"shape": [B, T, N, H], "causal": causal}
-        t["fwd_lse"] = {
-            "ms": time_ms(lambda: fa.flash_attention_with_lse(
-                q, k, v, scale, causal)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_ref(
-                q, k, v, scale, causal, with_lse=True)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale)),
-            "bound": attention_bound_ms(q, k, causal, 2, 4, 1)}
-        t["bwd"] = {
-            "ms": time_ms(lambda: fa.flash_attention_bwd(
-                q, k, v, out, lse, do, scale, causal)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_ref(
-                q, k, v, out, lse, do, scale, causal)),
-            "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, scale),
-            "bound": attention_bound_ms(q, k, causal, 5, 8, 2)}
-        nb = B * N * T * 4
-        t["delta"] = {
-            "ms": time_ms(lambda: fa.attention_delta(out, do)),
-            "plain_ms": time_ms(lambda: fa.attention_delta_ref(out, do)),
-            "library_ms": None,
-            "bound": bound_ms(2 * out.numel() * out.element_size() + nb,
-                              2 * out.numel(), F32_FLOPS_PER_S)}
-        t["dkv"] = {
-            "ms": time_ms(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, scale, causal)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_ref(
-                q, k, v, do, lse, delta, scale, causal)),
-            "library_ms": None,
-            "bound": attention_bound_ms(q, k, causal, 4, 6, 2)}
-        t["dq"] = {
-            "ms": time_ms(lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, scale, causal)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_ref(
-                q, k, v, do, lse, delta, scale, causal)),
-            "library_ms": None,
-            "bound": attention_bound_ms(q, k, causal, 3, 5, 2)}
-        timings[label] = t
-    # the training path runs bf16: a row's error is its worst bf16 check
+        case, errs, lse_err = _training_kernel_case(fa, B, T, causal, dname,
+                                                    gen)
+        checks.append({"case": label, "shape": [B, T, 12, 64],
+                       "causal": causal, "dtype": dname,
+                       "tol": ELEM_TOL[dname], "lse_max_abs_err": lse_err,
+                       "held": errs})
+        failed += [f"K1 {label} {name}: {e}" for name, e in errs.items()
+                   if not e["ratio"] <= 1.0]
+        if not lse_err <= 1e-4:
+            failed.append(f"K1 {label} lse: max abs error {lse_err} > 1e-4")
+        if dname == "bfloat16":
+            timings[label] = {"shape": [B, T, 12, 64], "causal": causal,
+                              **_training_kernel_timings(fa, case, causal)}
+        del case
+    # the training path runs bf16: a row's error is its worst bf16 one
     bf16 = [c for c in checks if c["dtype"] == "bfloat16"]
 
     def worst(*names):
-        return max(c["max_abs_err"][n] for c in bf16 for n in names)
+        return max(c["held"][n]["max_abs_err"] for c in bf16 for n in names)
 
     rows = []
     for name, key, err, replaces in (
             ("flash_attention_fwd_lse", "fwd_lse", worst("out"),
              "K1/K3 attention.py:_splash_mha fwd with LSE"),
-            ("flash_attention_bwd", "bwd", worst("dq", "dk", "dv"),
-             "K1-bwd attention.py:356 splash dq+dkv (3 launches)"),
-            ("flash_attention_bwd_delta", "delta",
-             max(c["rel_err"]["delta"] for c in bf16),
+            ("flash_attention_bwd_delta", "delta", worst("delta"),
              "K1-bwd splash vjp di = rowsum(o*do)"),
             ("flash_attention_bwd_dkv", "dkv", worst("dk", "dv"),
              "K1-bwd splash dkv kernel"),
@@ -324,14 +373,17 @@ def _training_kernel_rows():
         rows.append({"name": name, "replaces": replaces, "max_abs_err": err,
                      "timings": {label: t[key]
                                  for label, t in timings.items()}})
-    return rows, checks
+    whole = {label: t["bwd_whole"] for label, t in timings.items()}
+    return rows, checks, whole, failed
 
 
 def phase_kernels():
     serving = _serving_kernel_row()
-    training, checks = _training_kernel_rows()
+    training, checks, whole, failed = _training_kernel_rows()
     print(json.dumps({"phase": "kernels", "kernels": [serving] + training,
-                      "training_checks": checks}))
+                      "bwd_whole": whole, "training_checks": checks}))
+    check(not failed, "kernel against its plain version: " +
+          "; ".join(failed))
     return serving, training
 
 
@@ -588,7 +640,6 @@ def _k1_counts(reset=False):
 
     fns = {"flash_attention_fwd": fa.flash_attention,
            "flash_attention_fwd_lse": fa.flash_attention_with_lse,
-           "flash_attention_bwd": fa.flash_attention_bwd,
            "flash_attention_bwd_delta": fa.attention_delta,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
@@ -642,7 +693,8 @@ def phase_train_parity():
                        {k: v.detach().cpu() for k, v in state.params.items()},
                        step_loss.item(), counts)
     (lc, gc, pc, slc, kc), (lp, gp, pp, slp, _) = result["cuda"], result["cpu"]
-    check(kc["flash_attention_bwd"] == cfg.layers,
+    check(all(kc[name] == cfg.layers for name in kc
+              if name != "flash_attention_fwd"),
           f"train-parity: the CUDA step ran {kc} K1 launches")
     check(abs(lc - lp) <= 1e-5 * abs(lp) and abs(slc - slp) <= 1e-5 * abs(slp),
           f"train-parity loss {lc} vs {lp}")
@@ -729,9 +781,8 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     check(all(np.isfinite(losses)), f"{label}: nonfinite loss {losses}")
     check(losses[-1] < losses[0],
           f"{label}: loss did not fall ({losses[0]} -> {losses[-1]})")
-    for name in ("flash_attention_fwd_lse", "flash_attention_bwd",
-                 "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq"):
+    for name in ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         check(counts[name] == k1_per_step * steps,
               f"{label}: {name} launched {counts[name]} times in {steps} "
               f"steps, not {k1_per_step} a step")
@@ -846,7 +897,7 @@ def main() -> int:
         "bound_by": serving_row["bound_by"],
         "library_ms": serving_row["library_ms"]}]
     for row in training_rows:
-        # the row's numbers at BERT-base's shape, the training flagship
+        # the row's times at phase 7's first run (BERT-base 256 x 128)
         t = row["timings"]["bert"]
         rows.append({
             "name": row["name"], "route": "cuda",

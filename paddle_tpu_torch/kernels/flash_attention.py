@@ -31,7 +31,7 @@ card and `flash_attention_bwd_ref` on the CPU. Without grad (serving,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -308,19 +308,16 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float,
-                        causal: bool = True,
-                        delta: Optional[torch.Tensor] = None):
+                        causal: bool = True):
     """K1-bwd: (dq, dk, dv) from the forward's output `o` and LSE. On
-    CUDA tensors, three launches (delta, dkv, dq); a caller that holds
-    `delta` already (f32 [B, N, T]) passes it and the delta launch is
-    skipped. On CPU tensors, the plain versions of the same steps."""
+    CUDA tensors, three launches (delta, dkv, dq), each counted by its
+    own wrapper; on CPU tensors, the plain versions of the same steps.
+    A caller that holds delta already (f32 [B, N, T]) calls
+    `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` itself."""
     _check(q, k, v)
     do = do.to(q.dtype).contiguous()
-    _check_bwd(q, k, v, do, lse, delta)
-    if q.device.type == "cuda":
-        flash_attention_bwd.launches += 1
-    if delta is None:
-        delta = attention_delta(o.contiguous(), do)
+    _check_bwd(q, k, v, do, lse)
+    delta = attention_delta(o.contiguous(), do)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     return dq, dk, dv
@@ -387,4 +384,3 @@ flash_attention_with_lse.launches = 0
 attention_delta.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd.launches = 0

@@ -2,14 +2,22 @@
 version at the serving path's shapes (B=1, N=12, H=64, causal, q/k/v as
 strided views of one fused qkv projection), and K1-fwd with its LSE
 output and K1-bwd (delta, dkv and dq launches) against theirs at the
-training path's shapes: BERT-base's (B=32, T=128, full) and
-GPT-2-small's (B=1, T=1024, causal), both bf16, plus f32, f16 and a
-ragged T at one shape each.
+training path's shapes: the training runs' own (BERT-base 256 x 128
+and 32 x 512, full; GPT-2-small 8 x 1024, causal) and batch 32 and 1
+of the same models, all bf16, plus f32, f16 and a ragged T at one
+shape each.
 
-Tolerances of the backward are relative to the largest reference value
-(at least 1): 2e-2 at bf16 and 5e-3 at f16 (one rounding of a
-gradient to the storage type, after f32 sums taken in another order
-than the plain version's), 1e-4 at f32.
+Tolerances of the training shapes hold every element:
+|got - want| <= rtol |want| + atol rms(want), with rtol one rounding
+step of the dtype (2^-7 at bf16, 2^-10 at f16, 1e-5 at f32: both sides
+round the same f32 sums, taken in other orders, to the dtype) and atol
+a share of the tensor's own RMS (2e-2 at bf16, 1e-3 at f16, 1e-5 at
+f32) for a rounding of dS that falls the other way: one step of a large
+dS times a q or k element, which lands on dq or dk elements of any
+size. The limits are 2-5 times the largest readings on an H100
+(`chip_smoke.py`'s kernels phase). So each gradient is held to its own
+scale, and a result wrong on some rows fails however large the largest
+value is. The delta rows are f32 and take the f32 limits.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on the GPU machine it runs
@@ -27,11 +35,16 @@ from paddle_tpu_torch.ops import attention as ta
 torch.set_num_threads(2)
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+ELEM_TOL = {torch.bfloat16: (2 ** -7, 2e-2), torch.float16: (2 ** -10, 1e-3),
+            torch.float32: (1e-5, 1e-5)}
 
-# (B, T, causal, dtype): BERT-base's and GPT-2-small's attention calls,
-# then one shape each at f32 and f16 and a ragged causal T
-BWD_CASES = [(32, 128, False, torch.bfloat16), (1, 1024, True, torch.bfloat16),
+# (B, T, causal, dtype): the training runs' attention calls (BERT-base
+# 256 x 128 and 32 x 512, GPT-2-small 8 x 1024), the same models at
+# batch 32 and 1, then one shape each at f32 and f16 and a ragged
+# causal T
+BWD_CASES = [(256, 128, False, torch.bfloat16),
+             (32, 512, False, torch.bfloat16), (8, 1024, True, torch.bfloat16),
+             (32, 128, False, torch.bfloat16), (1, 1024, True, torch.bfloat16),
              (2, 256, True, torch.float32), (4, 128, False, torch.float16),
              (2, 100, True, torch.float32)]
 
@@ -73,10 +86,14 @@ def test_mha_on_cuda_launches_or_raises():
         ta.mha(x, x, x, causal=True)
 
 
-def _rel_err(got, want):
+def _held(got, want, dtype):
+    """The worst element's error over its limit under ELEM_TOL[dtype]
+    (at most 1 passes), and the reference's RMS, its typical value."""
+    rtol, atol = ELEM_TOL[dtype]
     want = want.float()
-    return ((got.float() - want).abs().max() /
-            want.abs().max().clamp(min=1.0)).item()
+    err = (got.float() - want).abs()
+    rms = want.square().mean().sqrt().clamp(min=torch.finfo().tiny)
+    return (err / (rtol * want.abs() + atol * rms)).max().item(), rms.item()
 
 
 @pytest.mark.cuda
@@ -95,7 +112,7 @@ def test_backward_kernels_match_plain_version(B, T, causal, dtype):
     assert fa.flash_attention_with_lse.launches == before + 1
     ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
                                               with_lse=True)
-    assert _rel_err(out, ref_out) <= BWD_TOL[dtype]
+    assert _held(out, ref_out, dtype)[0] <= 1.0
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
     counts = [f.launches for f in (fa.attention_delta,
@@ -110,11 +127,11 @@ def test_backward_kernels_match_plain_version(B, T, causal, dtype):
     want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == (B, T, N, H)
-        err = _rel_err(a, b)
-        assert err <= BWD_TOL[dtype], f"{name}: {err}"
+        ratio, rms = _held(a, b, dtype)
+        assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
     delta = fa.attention_delta(out, do)
-    assert (delta - fa.attention_delta_ref(out, do)).abs().max().item() \
-        <= 1e-3 * max(1.0, delta.abs().max().item())
+    ratio, rms = _held(delta, fa.attention_delta_ref(out, do), torch.float32)
+    assert ratio <= 1.0, f"delta: error / limit {ratio}, RMS {rms}"
 
 
 @pytest.mark.cuda
@@ -125,9 +142,11 @@ def test_mha_under_grad_runs_the_backward_kernel():
     x = torch.randn(2, 128, 2, 64, device="cuda", requires_grad=True)
     out = ta.mha(x, x * 2, x * 3, causal=True)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
-    before = fa.flash_attention_bwd.launches
+    launched = (fa.attention_delta, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq)
+    before = [f.launches for f in launched]
     out.sum().backward()
-    assert fa.flash_attention_bwd.launches == before + 1
+    assert [f.launches for f in launched] == [c + 1 for c in before]
     assert x.grad is not None and torch.isfinite(x.grad).all()
     # no grad: K1-fwd alone, nothing saved
     with torch.inference_mode():
