@@ -35,10 +35,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    MFU, a finite and falling loss, kernel launches per step, and one
    step under torch.profiler (device idle share);
 8. gpt-train: GPT-2-small `lm_loss` under mixed_bf16 at 8 x 1024
-   (2 warm-up and 10 timed steps): the causal backward kernel.
+   (2 warm-up and 10 timed steps): the causal backward kernel;
+9. nmt-parity: a 2 + 2-layer Transformer at Transformer-big's widths,
+   f32 (TF32 off), 4 x 128 with ragged source and target lengths:
+   `nmt_loss`, every gradient and one Adam step on the card (K1 and the
+   padding-masked K2) against the CPU (plain versions), and
+   `beam_search`'s tokens and scores;
+10. nmt-train: Transformer-big (`TransformerConfig.big()`, 6 + 6 layers)
+   as bench.py's bench_transformer_big runs its first rung: 128 pairs of
+   128 x 128 tokens from `make_batch`, Adam(1e-4), f32 params with bf16
+   compute (3 warm-up and 20 timed steps): K2 fwd, dkv and dq 12 times
+   a step (encoder self- and cross-attention), K1 6 times;
+11. nmt-beam: Transformer-big `beam_search` under inference_mode, 8
+   sources of 128 tokens with ragged lengths, beam 4, 32 steps;
+12. bert-padded: BERT-base at 32 x 512 with an attention_mask (lengths
+   uniform in [256, 512]) under mixed_bf16: every layer's attention on
+   K2, forward and backward.
+
+Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
+versions at those paths' shapes (Transformer-big's encoder and cross
+attention, the beam search's 32 x 128, padded BERT-base 32 x 512),
+causal with full biases at f32 and f16, a ragged pair and a bias
+gradient.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phase 3 for serving, phases 7 and 8 for training).
+read just after (phase 3 for serving, phases 7, 8, 10 and 12 for
+training, phase 11 for beam search).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
@@ -46,6 +68,7 @@ device, and when the package is not beside this script.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -377,14 +400,210 @@ def _training_kernel_rows():
     return rows, checks, whole, failed
 
 
+# K2 at the main paths' shapes: (label, B, Tq, Tk, N, causal, dtype,
+# bias). "nmt" is Transformer-big's encoder self- and cross-attention
+# (key padding from make_batch's src_len), "beam" the beam search's
+# cross-attention (8 sources x 4 beams, 32 target positions against
+# 128 source keys), "bert512" padded BERT-base (lengths uniform in
+# [256, 512], BERT's bf16 fill of -3e4); then causal with a full
+# [B, N, T, T] bias at f32 and f16, a ragged pair, and the bias
+# gradient. The first three are timed.
+K2_KERNEL_CASES = (("nmt", 128, 128, 128, 16, False, "bfloat16", "src_len"),
+                   ("beam", 32, 32, 128, 16, False, "bfloat16", "src_len"),
+                   ("bert512", 32, 512, 512, 12, False, "bfloat16", "bert"),
+                   ("causal_f32", 2, 256, 256, 12, True, "float32", "full"),
+                   ("causal_f16", 4, 128, 128, 12, True, "float16", "full"),
+                   ("ragged", 2, 100, 164, 12, False, "bfloat16", "src_len"),
+                   ("dbias", 2, 128, 128, 4, False, "float32", "full"))
+K2_TIMED = ("nmt", "beam", "bert512")
+
+
+def k2_bound_ms(q, k, bias, causal, products, q_tensors, k_tensors, rows,
+                extra_bytes=0):
+    """Least time for K2 work on these inputs: `q_tensors` tensors of
+    q's size and `k_tensors` of k's read or written once, the bias as
+    the kernel reads it (its own elements, not the broadcast), `rows`
+    f32 rows of [B, N, Tq] (l, m, delta) and `extra_bytes`, over the
+    memory rate, against `products` matrix products of 2 * pairs * H
+    per (batch, head) over the peak rate of q's dtype."""
+    import torch
+
+    B, Tq, N, H = q.shape
+    Tk = k.shape[1]
+    pairs = sum(min(t + 1, Tk) for t in range(Tq)) if causal else Tq * Tk
+    nbytes = ((q_tensors * q.numel() + k_tensors * k.numel()) *
+              q.element_size() + bias.numel() * 4 + rows * B * N * Tq * 4 +
+              extra_bytes)
+    flops = products * 2 * B * N * H * pairs
+    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    return bound_ms(nbytes, flops, peak)
+
+
+def _k2_inputs(B, Tq, Tk, N, dname, kind, gen):
+    """q, k, v, do [B, T, N, 64] and the bias: a [B, 1, 1, Tk] key mask
+    (-1e9 past make_batch-style lengths, or BERT's -3e4 past lengths in
+    [256, 512]) or a full [B, N, Tq, Tk] f32 bias."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+
+    dtype = getattr(torch, dname)
+    q, k, v = (torch.randn(B, t, N, 64, generator=gen, device="cuda")
+               .to(dtype) for t in (Tq, Tk, Tk))
+    do = torch.randn(B, Tq, N, 64, generator=gen, device="cuda").to(dtype)
+    if kind == "full":
+        return q, k, v, do, torch.randn(B, N, Tq, Tk, generator=gen,
+                                        device="cuda")
+    if kind == "bert":
+        lens, fill = torch.randint(256, 513, (B,), generator=gen,
+                                   device="cuda"), -3e4
+    else:   # the beam search repeats each source's length per beam
+        beams = 4 if B == 32 and Tq == 32 else 1
+        cfg = transformer.TransformerConfig(src_vocab=8, tgt_vocab=8)
+        lens = transformer.make_batch(gen, cfg, B // beams, src_T=Tk,
+                                      tgt_T=Tq)["src_len"] \
+            .repeat_interleave(beams)
+        fill = -1e9
+    keep = torch.arange(Tk, device="cuda")[None] < lens[:, None]
+    return q, k, v, do, torch.where(keep, 0.0, fill)[:, None, None, :]
+
+
+def _k2_timings(fa, fb, case):
+    """ms, plain_ms, library_ms and the bound of K2-fwd, its dkv and dq
+    launches and the whole backward (delta, dkv, dq) at one case."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, do, bias, out, l, m, delta, scale = case
+    args = (q, k, v, bias, do, l, m, delta, scale, False)
+    qt, kt, vt = (t.detach().transpose(1, 2) for t in (q, k, v))
+    # SDPA adds its mask after the scale, K2 its bias before
+    amask = (bias * scale).to(q.dtype)
+
+    def whole():
+        d = fa.attention_delta(out, do)
+        a = (q, k, v, bias, do, l, m, d, scale, False)
+        return fb.flash_attention_bias_bwd_dkv(*a), \
+            fb.flash_attention_bias_bwd_dq(*a)
+
+    def whole_ref():
+        d = fa.attention_delta_ref(out, do)
+        a = (q, k, v, bias, do, l, m, d, scale, False)
+        return fb.flash_attention_bias_bwd_dkv_ref(*a), \
+            fb.flash_attention_bias_bwd_dq_ref(*a)
+
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=amask,
+                                              scale=scale)
+    dot = do.transpose(1, 2)
+    return {
+        "fwd": {"ms": time_ms(lambda: fb.flash_attention_bias_fwd(
+                    q, k, v, bias, scale)),
+                "plain_ms": time_ms(lambda: fb.flash_attention_bias_ref(
+                    q, k, v, bias, scale)),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=amask, scale=scale)),
+                "bound": k2_bound_ms(q, k, bias, False, 2, 2, 2, 2)},
+        "dkv": {"ms": time_ms(lambda: fb.flash_attention_bias_bwd_dkv(*args)),
+                "plain_ms": time_ms(
+                    lambda: fb.flash_attention_bias_bwd_dkv_ref(*args)),
+                "library_ms": None,
+                "bound": k2_bound_ms(q, k, bias, False, 4, 2, 4, 3)},
+        "dq": {"ms": time_ms(lambda: fb.flash_attention_bias_bwd_dq(*args)),
+               "plain_ms": time_ms(
+                   lambda: fb.flash_attention_bias_bwd_dq_ref(*args)),
+               "library_ms": None,
+               "bound": k2_bound_ms(q, k, bias, False, 3, 3, 2, 3)},
+        "bwd_whole": {
+            "ms": time_ms(whole), "plain_ms": time_ms(whole_ref),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
+            "bound": k2_bound_ms(q, k, bias, False, 5, 4, 4, 2)}}
+
+
+def _k2_kernel_rows():
+    """K2-fwd and K2-bwd's dkv and dq launches against their plain
+    versions at every case, per element under ELEM_TOL, and their times
+    at the timed cases. Returns the kernel rows, every case's readings,
+    the whole backward's times and the failed checks."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import flash_attention_bias as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checks, timings, failed = [], {}, []
+    for label, B, Tq, Tk, N, causal, dname, kind in K2_KERNEL_CASES:
+        q, k, v, do, bias = _k2_inputs(B, Tq, Tk, N, dname, kind, gen)
+        scale = 0.125
+        with_dbias = label == "dbias"
+        out, l, m = fb.flash_attention_bias_fwd(q, k, v, bias, scale,
+                                                causal)
+        delta = fa.attention_delta(out, do)
+        args = (q, k, v, bias, do, l, m, delta, scale, causal)
+        dk, dv = fb.flash_attention_bias_bwd_dkv(*args)
+        dq = fb.flash_attention_bias_bwd_dq(*args, with_dbias=with_dbias)
+        torch.cuda.synchronize()
+        ref_out, ref_l, ref_m = fb.flash_attention_bias_ref(
+            q, k, v, bias, scale, causal)
+        ref_dk, ref_dv = fb.flash_attention_bias_bwd_dkv_ref(*args)
+        ref_dq = fb.flash_attention_bias_bwd_dq_ref(*args,
+                                                    with_dbias=with_dbias)
+        errs = {"out": held(out, ref_out, dname),
+                "delta": held(delta, fa.attention_delta_ref(out, do),
+                              "float32"),
+                "dk": held(dk, ref_dk, dname), "dv": held(dv, ref_dv, dname)}
+        if with_dbias:
+            errs["dq"] = held(dq[0], ref_dq[0], dname)
+            errs["dbias"] = held(dq[1], ref_dq[1], "float32")
+        else:
+            errs["dq"] = held(dq, ref_dq, dname)
+        # l and m: the same f32 sums and maxima in another order
+        lm = {"l_rel_err": ((l - ref_l).abs() / ref_l).max().item(),
+              "m_max_abs_err": (m - ref_m).abs().max().item()}
+        checks.append({"case": label, "shape": [B, Tq, Tk, N, 64],
+                       "causal": causal, "dtype": dname, "bias": kind,
+                       "tol": ELEM_TOL[dname], **lm, "held": errs})
+        failed += [f"K2 {label} {name}: {e}" for name, e in errs.items()
+                   if not e["ratio"] <= 1.0]
+        if not (lm["l_rel_err"] <= 1e-5 and lm["m_max_abs_err"] <= 1e-4):
+            failed.append(f"K2 {label} l/m: {lm}")
+        if label in K2_TIMED:
+            timings[label] = {"shape": [B, Tq, Tk, N, 64],
+                              **_k2_timings(fa, fb, (q, k, v, do, bias, out,
+                                                     l, m, delta, scale))}
+    bf16 = [c for c in checks if c["dtype"] == "bfloat16"]
+
+    def worst(*names):
+        return max(c["held"][n]["max_abs_err"] for c in bf16 for n in names)
+
+    rows = []
+    for name, key, err, replaces in (
+            ("flash_attention_bias_fwd", "fwd", worst("out"),
+             "K2 attention.py:_pallas_mha flash_attention fwd"),
+            ("flash_attention_bias_bwd_dkv", "dkv", worst("dk", "dv"),
+             "K2 flash_attention _flash_attention_bwd_dkv"),
+            ("flash_attention_bias_bwd_dq", "dq", worst("dq"),
+             "K2 flash_attention _flash_attention_bwd_dq")):
+        rows.append({"name": name, "replaces": replaces, "max_abs_err": err,
+                     "timings": {label: t[key]
+                                 for label, t in timings.items()}})
+    whole = {label: t["bwd_whole"] for label, t in timings.items()}
+    return rows, checks, whole, failed
+
+
 def phase_kernels():
     serving = _serving_kernel_row()
     training, checks, whole, failed = _training_kernel_rows()
-    print(json.dumps({"phase": "kernels", "kernels": [serving] + training,
-                      "bwd_whole": whole, "training_checks": checks}))
+    k2_rows, k2_checks, k2_whole, k2_failed = _k2_kernel_rows()
+    print(json.dumps({"phase": "kernels",
+                      "kernels": [serving] + training + k2_rows,
+                      "bwd_whole": whole, "training_checks": checks,
+                      "k2_bwd_whole": k2_whole, "k2_checks": k2_checks}))
+    failed += k2_failed
     check(not failed, "kernel against its plain version: " +
           "; ".join(failed))
-    return serving, training
+    return serving, training, k2_rows
 
 
 def _generate(port, ids, max_new, out):
@@ -506,8 +725,8 @@ def phase_slice():
 
 def _device_time(prof, wall_s):
     """From a torch.profiler run over `wall_s` seconds: the device's
-    busy time (the union of its kernel intervals), idle share, K1's
-    kernel time by kernel and the ten largest kernels by name."""
+    busy time (the union of its kernel intervals), idle share, K1's and
+    K2's kernel time by kernel and the ten largest kernels by name."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
@@ -528,14 +747,17 @@ def _device_time(prof, wall_s):
             last = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     busy_ms = busy_us / 1e3 if spans else None
-    k1 = {kern: sum(t[1] for n, t in by_name.items() if kern in n)
-          for kern in ("flash_fwd_kernel", "delta_kernel",
-                       "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+    k1, k2 = ({kern: sum(t[1] for n, t in by_name.items() if kern in n)
+               for kern in kerns} for kerns in (
+        ("flash_fwd_kernel", "delta_kernel", "flash_bwd_dkv_kernel",
+         "flash_bwd_dq_kernel"),
+        ("flash_bias_fwd_kernel", "flash_bias_bwd_dkv_kernel",
+         "flash_bias_bwd_dq_kernel")))
     return {"device_events": len(spans), "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / (wall_s * 1e3))
             if spans else None,
             "flash_attention_ms": k1["flash_fwd_kernel"],
-            "k1_kernel_ms": k1,
+            "k1_kernel_ms": k1, "k2_kernel_ms": k2,
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
                             for n, (c, ms) in top]}
 
@@ -635,14 +857,25 @@ def _adamw(params):
     return torch.optim.AdamW(params, lr=LR, weight_decay=1e-4)
 
 
-def _k1_counts(reset=False):
+K1_TRAIN = ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
+            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+K2_NAMES = ("flash_attention_bias_fwd", "flash_attention_bias_bwd_dkv",
+            "flash_attention_bias_bwd_dq")
+
+
+def _kernel_counts(reset=False):
+    """Every kernel wrapper's launch count, set to 0 first with reset."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import flash_attention_bias as fb
 
     fns = {"flash_attention_fwd": fa.flash_attention,
            "flash_attention_fwd_lse": fa.flash_attention_with_lse,
            "flash_attention_bwd_delta": fa.attention_delta,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-           "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+           "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+           "flash_attention_bias_fwd": fb.flash_attention_bias_fwd,
+           "flash_attention_bias_bwd_dkv": fb.flash_attention_bias_bwd_dkv,
+           "flash_attention_bias_bwd_dq": fb.flash_attention_bias_bwd_dq}
     if reset:
         for fn in fns.values():
             fn.launches = 0
@@ -684,18 +917,18 @@ def phase_train_parity():
                                     allow_unused=True)
         grads = {k: (torch.zeros_like(v) if g is None else g).cpu()
                  for (k, v), g in zip(p.items(), grads)}
-        counts = _k1_counts(reset=True)
+        counts = _kernel_counts(reset=True)
         init, step = make_train_step(loss_fn, _adamw, device=dev,
                                      precision="f32")
         state, step_loss = step(init(params), b, 0)
-        counts = _k1_counts()
+        counts = _kernel_counts()
         result[dev] = (loss.item(), grads,
                        {k: v.detach().cpu() for k, v in state.params.items()},
                        step_loss.item(), counts)
     (lc, gc, pc, slc, kc), (lp, gp, pp, slp, _) = result["cuda"], result["cpu"]
-    check(all(kc[name] == cfg.layers for name in kc
-              if name != "flash_attention_fwd"),
-          f"train-parity: the CUDA step ran {kc} K1 launches")
+    check(all(kc[name] == cfg.layers for name in K1_TRAIN) and
+          all(kc[name] == 0 for name in K2_NAMES),
+          f"train-parity: the CUDA step ran {kc} launches")
     check(abs(lc - lp) <= 1e-5 * abs(lp) and abs(slc - slp) <= 1e-5 * abs(slp),
           f"train-parity loss {lc} vs {lp}")
     grad_err = sorted((((gc[k] - gp[k]).abs().max() /
@@ -723,18 +956,20 @@ def phase_train_parity():
 
 
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
-               steps, k1_per_step):
-    """`warmup` + `steps` mixed_bf16 steps on one fixed batch; the
-    kernels' counts are set to 0 just before the timed steps and read
-    just after; then one step is traced under torch.profiler for the
-    device's busy time against that step's wall time."""
+               steps, per_step, optimizer=None, precision="mixed_bf16"):
+    """`warmup` + `steps` steps on one fixed batch (AdamW and mixed_bf16
+    unless given); the kernels' counts are set to 0 just before the
+    timed steps and read just after, and each must equal `per_step`
+    ({name: launches a step}, 0 for every kernel it does not name)
+    times the steps; then one step is traced under torch.profiler for
+    the device's busy time against that step's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from paddle_tpu_torch.parallel.train import make_train_step
 
-    init, step = make_train_step(loss_fn, _adamw, device="cuda",
-                                 precision="mixed_bf16")
+    init, step = make_train_step(loss_fn, optimizer or _adamw,
+                                 device="cuda", precision=precision)
     state = init(params)
     del params
     n = next(iter(batch.values())).shape[0]
@@ -743,14 +978,14 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
         state, loss = step(state, batch, i)
         losses.append(loss.item())
     torch.cuda.synchronize()
-    counts = _k1_counts(reset=True)
+    counts = _kernel_counts(reset=True)
     times = []
     for i in range(steps):
         t0 = time.perf_counter()
         state, loss = step(state, batch, warmup + i)
         losses.append(loss.item())      # also waits for the step
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = _k1_counts()
+    counts = _kernel_counts()
     # two more steps under the profiler (device activity only): the
     # first absorbs the tracer's start-up, the second is recorded
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
@@ -775,19 +1010,17 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
            "loss_first": losses[0], "loss_last": losses[-1],
            "launches": counts,
            "launches_per_step": {k: v / steps for k, v in counts.items()},
-           "loss_scale": state.loss_scale,
+           "loss_scale": state.loss_scale, "precision": precision,
            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "profiled_step": profiled}
     check(all(np.isfinite(losses)), f"{label}: nonfinite loss {losses}")
     check(losses[-1] < losses[0],
           f"{label}: loss did not fall ({losses[0]} -> {losses[-1]})")
-    for name in ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
-                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        check(counts[name] == k1_per_step * steps,
-              f"{label}: {name} launched {counts[name]} times in {steps} "
-              f"steps, not {k1_per_step} a step")
-    check(counts["flash_attention_fwd"] == 0,
-          f"{label}: the forward ran without its LSE under grad")
+    for name, n in counts.items():
+        want = per_step.get(name, 0)
+        check(n == want * steps,
+              f"{label}: {name} launched {n} times in {steps} steps, not "
+              f"{want} a step")
     del state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -815,7 +1048,8 @@ def phase_train():
                                 cfg, B, seq_len=T)
         P = batch["masked_positions"].shape[1]
         row = _train_run(f"bert-base {B}x{T}", loss_fn, params, batch,
-                         cfg.train_flops_per_seq(T, P), 3, 20, cfg.layers)
+                         cfg.train_flops_per_seq(T, P), 3, 20,
+                         dict.fromkeys(K1_TRAIN, cfg.layers))
         row["masked_per_seq"] = P
         rows.append(row)
         for k, v in row["launches"].items():
@@ -824,7 +1058,7 @@ def phase_train():
                       "(BertConfig.base()), mixed_bf16, dropout 0.1",
                       "optimizer": "AdamW lr 1e-4 wd 1e-4",
                       "runs": rows}))
-    return counts
+    return counts, rows[1]
 
 
 def gpt_train_flops_per_seq(cfg, T):
@@ -855,9 +1089,226 @@ def phase_gpt_train():
 
     row = _train_run("gpt-2-small 8x1024", loss_fn, params, batch,
                      gpt_train_flops_per_seq(cfg, cfg.max_len), 2, 10,
-                     cfg.layers)
+                     dict.fromkeys(K1_TRAIN, cfg.layers))
     print(json.dumps({"phase": "gpt-train", "model": "GPT-2-small "
                       "(GPTConfig()), mixed_bf16", "run": row}))
+    return row["launches"]
+
+
+def _adam(params):
+    """The counterpart of optax.adam(1e-4), bench.py's Transformer
+    optimizer: b1 0.9, b2 0.999, eps 1e-8, no weight decay."""
+    import torch
+
+    return torch.optim.Adam(params, lr=LR)
+
+
+# per training step of Transformer-big: K2 in the 6 encoder self- and 6
+# cross-attention calls, K1 in the 6 causal decoder self-attention
+# calls, K1's delta launch in all 18 backwards
+def nmt_per_step(cfg):
+    k2 = cfg.enc_layers + cfg.dec_layers
+    return {**dict.fromkeys(K2_NAMES, k2),
+            **dict.fromkeys(K1_TRAIN, cfg.dec_layers),
+            "flash_attention_bwd_delta": k2 + cfg.dec_layers}
+
+
+def phase_nmt_parity():
+    """A 2 + 2-layer Transformer at Transformer-big's widths, f32 (TF32
+    off), on the card (K1 and K2) and on the CPU (plain versions) from
+    the same params and a ragged batch: the loss within 1e-5 relative,
+    each gradient within 2e-4 of its tensor's largest CPU value plus
+    1e-7 (phase 6's rule: f32 sums in other orders through four
+    layers), and one Adam step's params within 2 lr (Adam's first step
+    moves each element by about lr times the sign of its gradient, so a
+    gradient near zero may move the other way). Then `beam_search` on 2
+    sources, beam 4, 16 steps: the same tokens, scores within 1e-5
+    relative, from the step's starting params."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    cfg = transformer.TransformerConfig.big()
+    cfg.enc_layers = cfg.dec_layers = 2
+    cfg.dtype = "float32"
+    params, _ = transformer.init(torch.Generator().manual_seed(6), cfg,
+                                 device="cpu")
+    batch = transformer.make_batch(np.random.RandomState(6), cfg, 4, 128,
+                                   128, device="cpu")
+
+    def loss_fn(p, b, g):
+        return transformer.nmt_loss(p, cfg, b, rng=g)
+
+    result = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss = loss_fn(p, b, None)
+        grads = torch.autograd.grad(loss, list(p.values()),
+                                    allow_unused=True)
+        grads = {k: (torch.zeros_like(v) if g is None else g).cpu()
+                 for (k, v), g in zip(p.items(), grads)}
+        _kernel_counts(reset=True)
+        init, step = make_train_step(loss_fn, _adam, device=dev,
+                                     precision="f32")
+        state, step_loss = step(init(params), b, 0)
+        counts = _kernel_counts()
+        with torch.inference_mode():     # from the shared params
+            toks, scores = transformer.beam_search(
+                p, cfg, b["src_ids"][:2], b["src_len"][:2], beam_size=4,
+                max_len=16)
+        result[dev] = (loss.item(), grads,
+                       {k: v.detach().cpu() for k, v in state.params.items()},
+                       counts, toks.cpu(), scores.cpu())
+    (lc, gc, pc, kc, tc, sc), (lp, gp, pp, _, tp, sp) = \
+        result["cuda"], result["cpu"]
+    want = nmt_per_step(cfg)
+    check(all(kc[name] == want.get(name, 0) for name in kc),
+          f"nmt-parity: the CUDA step ran {kc} launches, not {want}")
+    check(abs(lc - lp) <= 1e-5 * abs(lp), f"nmt-parity loss {lc} vs {lp}")
+    grad_err = sorted((((gc[k] - gp[k]).abs().max() /
+                        (2e-4 * gp[k].abs().max() + 1e-7)).item(), k,
+                       gp[k].abs().max().item()) for k in gp)[::-1]
+    check(grad_err[0][0] <= 1.0,
+          f"nmt-parity grads: worst (error / tolerance, name, largest CPU "
+          f"value) {grad_err[:3]}")
+    upd_err, n_far, n_all = 0.0, 0, 0
+    for k, p0 in params.items():
+        d = ((pc[k] - p0) - (pp[k] - p0)).abs()
+        upd_err = max(upd_err, d.max().item())
+        n_far += int((d > 1e-6).sum())
+        n_all += d.numel()
+    check(upd_err <= 2 * LR, f"nmt-parity params: max update difference "
+                             f"{upd_err}")
+    check(torch.equal(tc, tp), f"nmt-parity beam tokens differ: {tc} vs {tp}")
+    score_err = ((sc - sp).abs() / sp.abs()).max().item()
+    check(score_err <= 1e-5, f"nmt-parity beam scores: {sc} vs {sp}")
+    print(json.dumps({"phase": "nmt-parity",
+                      "model": "TransformerConfig.big() widths, 2 + 2 "
+                               "layers, f32, 4 x (128, 128)",
+                      "src_len": batch["src_len"].tolist(),
+                      "tgt_len": batch["tgt_len"].tolist(),
+                      "loss_cuda": lc, "loss_cpu": lp,
+                      "grad_err_over_tol_worst3": grad_err[:3],
+                      "param_update_max_abs_err": upd_err,
+                      "param_elements_apart": n_far, "param_elements": n_all,
+                      "beam_scores_cuda": sc.tolist(),
+                      "beam_score_max_rel_err": score_err,
+                      "launches": kc}))
+
+
+def phase_nmt_train():
+    """Transformer-big (bench.py bench_transformer_big's model, optimizer
+    and first rung: 128 pairs of 128 x 128 tokens, Adam(1e-4), policy
+    f32 with bf16 compute) on one `make_batch` batch."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig.big()
+    params, _ = transformer.init(
+        torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
+    batch = transformer.make_batch(
+        torch.Generator(device="cuda").manual_seed(8), cfg, 128, 128, 128)
+
+    def loss_fn(p, b, g):
+        return transformer.nmt_loss(p, cfg, b, rng=g)
+
+    n_params = sum(v.numel() for v in params.values())
+    row = _train_run("transformer-big 128x(128,128)", loss_fn, params, batch,
+                     cfg.train_flops_per_seq(128, 128), 3, 20,
+                     nmt_per_step(cfg), optimizer=_adam, precision="f32")
+    print(json.dumps({"phase": "nmt-train",
+                      "model": "Transformer-big (TransformerConfig.big()), "
+                               "f32 params, bf16 compute",
+                      "optimizer": "Adam lr 1e-4", "params": n_params,
+                      "src_len_mean": batch["src_len"].float().mean().item(),
+                      "tgt_len_mean": batch["tgt_len"].float().mean().item(),
+                      "run": row}))
+    return row["launches"]
+
+
+def phase_nmt_beam():
+    """Transformer-big `beam_search` under inference_mode: 8 sources of
+    128 tokens with ragged lengths, beam 4, 32 steps, run twice (the
+    launch counts are read around the first)."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig.big()
+    params, _ = transformer.init(
+        torch.Generator(device="cuda").manual_seed(9), cfg, device="cuda")
+    batch = transformer.make_batch(
+        torch.Generator(device="cuda").manual_seed(10), cfg, 8, 128, 32)
+    K, L = 4, 32
+    walls = []
+    with torch.inference_mode():
+        for i in range(2):
+            if i == 0:
+                _kernel_counts(reset=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, scores = transformer.beam_search(
+                params, cfg, batch["src_ids"], batch["src_len"],
+                beam_size=K, max_len=L)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                counts = _kernel_counts()
+    want = {"flash_attention_bias_fwd": cfg.enc_layers + cfg.dec_layers * L,
+            "flash_attention_fwd": cfg.dec_layers * L}
+    check(all(n == want.get(name, 0) for name, n in counts.items()),
+          f"nmt-beam: launches {counts}, not {want}")
+    check(toks.shape == (8, K, L), f"nmt-beam: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.tgt_vocab)).all()),
+          "nmt-beam: token out of range")
+    check(bool(torch.isfinite(scores).all()) and
+          bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"nmt-beam: scores not finite and sorted: {scores}")
+    print(json.dumps({"phase": "nmt-beam",
+                      "model": "Transformer-big, bf16 compute",
+                      "sources": 8, "beam": K, "max_len": L,
+                      "src_len": batch["src_len"].tolist(),
+                      "wall_ms": walls, "best_scores": scores[:, 0].tolist(),
+                      "launches": counts}))
+    return counts
+
+
+def phase_bert_padded(unpadded):
+    """BERT-base at 32 x 512 with an attention_mask (lengths uniform in
+    [256, 512] from a seed) under mixed_bf16, dropout on, as phase 7's
+    unpadded 32 x 512 (`unpadded`, its run row)."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    B, T = 32, 512
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=False)
+
+    params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                          device="cuda")
+    batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, B, seq_len=T)
+    lens = torch.randint(256, T + 1, (B,), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(11))
+    batch["attention_mask"] = (torch.arange(T, device="cuda")[None]
+                               < lens[:, None]).long()
+    P = batch["masked_positions"].shape[1]
+    per_step = {**dict.fromkeys(K2_NAMES, cfg.layers),
+                "flash_attention_bwd_delta": cfg.layers}
+    row = _train_run(f"bert-base {B}x{T} padded", loss_fn, params, batch,
+                     cfg.train_flops_per_seq(T, P), 3, 20, per_step)
+    row["mean_length"] = lens.float().mean().item()
+    print(json.dumps({"phase": "bert-padded", "model": "BERT-base, "
+                      "mixed_bf16, dropout 0.1, attention_mask",
+                      "run": row,
+                      "unpadded_step_ms_median": unpadded["step_ms_median"]}))
     return row["launches"]
 
 
@@ -873,17 +1324,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
-    serving_row, training_rows = phase_kernels()
-    launches = {"flash_attention_fwd": phase_slice()}
+    serving_row, training_rows, k2_rows = phase_kernels()
+    launches = collections.Counter({"flash_attention_fwd": phase_slice()})
     phase_profile()
     phase_greedy()
     phase_train_parity()
-    bert_counts = phase_train()
+    bert_counts, bert512 = phase_train()
     gpt_counts = phase_gpt_train()
-    for name in bert_counts:
-        if name != "flash_attention_fwd":
-            launches[name] = bert_counts[name] + gpt_counts[name]
-    check(all(n > 0 for n in launches.values()),
+    phase_nmt_parity()
+    nmt_counts = phase_nmt_train()
+    beam_counts = phase_nmt_beam()
+    padded_counts = phase_bert_padded(bert512)
+    for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
+                   padded_counts):
+        launches.update(counts)
+    check(all(launches[row["name"]] > 0 for row in
+              [serving_row] + training_rows + k2_rows),
           f"a kernel of the main paths was never launched: {launches}")
     src = "paddle_tpu_torch/kernels/csrc/"
     rows = [{
@@ -905,6 +1361,21 @@ def main() -> int:
                 "fwd_lse") else "flash_attention_bwd.cu"),
             "replaces": "paddle_tpu/ops/pallas/attention.py:" + (
                 "374" if row["name"].endswith("fwd_lse") else "356"),
+            "launches": launches[row["name"]],
+            "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    jax_fa = "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+    for row in k2_rows:
+        # the row's times at phase 10's calls (Transformer-big 128 x 128)
+        t = row["timings"]["nmt"]
+        fwd = row["name"].endswith("fwd")
+        rows.append({
+            "name": row["name"], "route": "cuda",
+            "source": src + ("flash_attention_bias.cu" if fwd
+                             else "flash_attention_bias_bwd.cu"),
+            "replaces": "paddle_tpu/ops/pallas/attention.py:393" if fwd
+            else jax_fa + ("941" if row["name"].endswith("dkv") else "1287"),
             "launches": launches[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

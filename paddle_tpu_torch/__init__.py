@@ -1,10 +1,13 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of the JAX package, for
 NVIDIA Hopper.
 
-It serves GPT token generation through the same entry points as the JAX
-package (`serving.DecodeEngine`, `serving.Server`), with prefill
-attention on a hand-written CUDA kernel (`kernels/flash_attention.py`).
-It imports torch and never jax, and nothing of the JAX package.
+It serves GPT token generation (`serving.DecodeEngine`,
+`serving.Server`), trains BERT, GPT and Transformer NMT
+(`parallel.train.make_train_step`) and beam-searches the Transformer,
+through the same entry points as the JAX package, with attention on
+hand-written CUDA kernels (`kernels/flash_attention.py`,
+`kernels/flash_attention_bias.py`). It imports torch and never jax,
+and nothing of the JAX package.
 
 Devices are explicit: every entry point runs on `cuda` unless the
 caller passes `device="cpu"`, and raises when asked for `cuda` on a

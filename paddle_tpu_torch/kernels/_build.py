@@ -31,7 +31,9 @@ BUILD_DIR = _HERE / "build"
 
 # kernel name -> source file under csrc/
 SOURCES = {"flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_bias": "flash_attention_bias.cu",
+           "flash_attention_bias_bwd": "flash_attention_bias_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

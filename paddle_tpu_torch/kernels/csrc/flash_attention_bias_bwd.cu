@@ -1,0 +1,472 @@
+// Flash-attention backward with an additive bias for Hopper (sm_90a):
+// dq, dk, dv (and, when asked, the bias gradient) of the attention in
+// flash_attention_bias.cu, from its saved per-row l and m.
+//
+// Replaces: the dkv and dq Pallas kernels of jax's legacy
+// `flash_attention` (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// _flash_attention_bwd_dkv and _flash_attention_bwd_dq), the custom vjp
+// that jax.grad runs through the JAX package's
+// ops/pallas/attention.py::_pallas_mha. Two launches, each step for step
+// the reference's; the third step, di = rowsum(f32(o) * f32(do)), is
+// plain jnp there and K1's delta launch here (flash_attention_bwd.cu):
+//
+//   dkv  one block per (batch*head, 64-key tile), looping over the
+//        query tiles: s recomputed with the bias, scale and causal
+//        MASK_VALUE, p = exp(s - m) * (1/l), dp = dO V^T,
+//        ds = (dp - di) * p * scale, dV += round(p)^T dO,
+//        dK += round(ds)^T Q (the unscaled q);
+//   dq   one block per (batch*head, 64-query tile), looping over the
+//        key tiles: the same p and ds, dQ += round(ds) K, and with a
+//        dbias pointer each tile of ds written in f32 (the gradient of
+//        the bias, as the reference's ds output).
+//
+// round() is the rounding to the input dtype that the reference applies
+// before each product (a no-op at f32); scores, p, ds and every
+// accumulator are f32, and dq, dk and dv are rounded once at the end.
+// Causal tiles wholly above the diagonal are skipped (their p is 0);
+// dbias must then come zeroed, as the wrapper allocates it.
+//
+// Bound on the H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): the
+// backward reads q, k, v, o and dO and writes dq, dk and dv (8 tensors
+// of B*T*N*H) plus the l, m and delta rows, against 5 products of
+// 2*T*Tk*H per head. At Transformer-big's shape (B=128, T=Tk=128,
+// N=16, H=64, bf16) that is 269 MB and 21.5 GFLOP: 80 us at the memory
+// rate, 22 us at the tensor-core rate.
+//
+// What this simple design does about that bound: as K1's backward, the
+// T x Tk scores and their gradients never leave the SM, the dkv and dq
+// blocks each own their accumulators (no atomics), at the price of
+// computing s and dp twice; the products run on the f32 FMA pipes, so
+// the kernels are compute-limited far above the bound.
+//
+// Layout of one 256-thread block (16 x 16 threads, (ty, tx)): in the
+// score phase a thread holds rows ty + 16*i and columns tx + 16*j
+// (i, j < 4) of the 64 x 64 tile; in the accumulation phase accumulator
+// rows ty + 16*i and head columns tx + 16*d.
+//
+// C interface (loaded with ctypes): each paddle_flash_attention_bias_bwd_*
+// function returns cudaGetLastError() after its launch; none
+// synchronises. dO, dq, dk and dv are contiguous [B, T, N, H]; l, m and
+// delta contiguous f32 [B, N, Tq]; dbias contiguous f32 [B, N, Tq, Tk];
+// q, k, v and the bias take strides.
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "dtypes.cuh"
+
+namespace {
+
+constexpr int BQ = 64;              // query rows per tile
+constexpr int BK = 64;              // key rows per tile (== BQ: the
+                                    // causal loops start at the diagonal)
+constexpr int TX = 16;
+constexpr int TY = 16;
+constexpr int NTHREADS = TX * TY;   // 256
+constexpr int RPT = BQ / TY;        // rows per thread
+constexpr int CPT = BK / TX;        // score columns per thread
+constexpr int LDP = BK + 1;         // padded row length of a score tile
+constexpr float MASK_VALUE = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
+
+struct Strides {
+  int64_t q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st, v_sn;
+  int64_t a_sb, a_sn, a_st, a_ss;
+};
+
+// rows [t0, t0 + 64) of one (b, n) slice of a [B, T, N, HD] tensor with
+// row stride `st` into a [64][HD + 1] f32 tile; rows past T are zero.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int64_t st, int t0, int T_len) {
+  constexpr int LD = HD + 1;
+  for (int i = threadIdx.x; i < BQ * HD; i += NTHREADS) {
+    const int r = i / HD, c = i % HD, t = t0 + r;
+    dst[r * LD + c] = t < T_len ? to_f32(src[t * st + c]) : 0.f;
+  }
+}
+
+// each query row's 1/l, m and delta for rows [q0, q0 + 64)
+__device__ __forceinline__ void load_rows(float* Li, float* Ms, float* Es,
+                                          const float* lb, const float* mb,
+                                          const float* eb, int q0, int Tq) {
+  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+    const bool in = q0 + r < Tq;
+    Li[r] = in ? 1.f / lb[q0 + r] : 0.f;
+    Ms[r] = in ? mb[q0 + r] : 0.f;
+    Es[r] = in ? eb[q0 + r] : 0.f;
+  }
+}
+
+// s = Q K^T and dP = dO V^T for one 64 x 64 tile pair, then p and ds:
+// p[i][j] and ds[i][j] for query row q0 + ty + 16i, key k0 + tx + 16j.
+// Entries past Tq or Tk get p = ds = 0.
+template <int HD>
+__device__ __forceinline__ void tile_p_ds(
+    const float* Qs, const float* Ds, const float* Ks, const float* Vs,
+    const float* Li, const float* Ms, const float* Es, const float* ab,
+    const Strides& st, int q0, int k0, int Tq, int Tk, float scale,
+    int causal, float (&p)[RPT][CPT], float (&ds)[RPT][CPT]) {
+  constexpr int LD = HD + 1;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int h = 0; h < HD; ++h) {
+    float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qv[i] = Qs[(ty + TY * i) * LD + h];
+      dov[i] = Ds[(ty + TY * i) * LD + h];
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      kv[j] = Ks[(tx + TX * j) * LD + h];
+      vv[j] = Vs[(tx + TX * j) * LD + h];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = ty + TY * i, row = q0 + r;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int col = k0 + tx + TX * j;
+      if (row < Tq && col < Tk) {
+        float x = (s[i][j] + ab[row * st.a_st + col * st.a_ss]) * scale;
+        if (causal && col > row) x += MASK_VALUE;
+        p[i][j] = expf(x - Ms[r]) * Li[r];
+        ds[i][j] = (dp[i][j] - Es[r]) * p[i][j] * scale;
+      } else {
+        p[i][j] = ds[i][j] = 0.f;
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bias_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ bias,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ l,
+                          const float* __restrict__ m,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int N, int Tq, int Tk,
+                          Strides st, float scale, int causal) {
+  constexpr int LD = HD + 1;
+  constexpr int DPT = HD / TX;      // head columns per thread
+  extern __shared__ float smem[];
+  float* Ks = smem;                 // [BK][LD]
+  float* Vs = Ks + BK * LD;         // [BK][LD]
+  float* Qs = Vs + BK * LD;         // [BQ][LD], unscaled q
+  float* Ds = Qs + BQ * LD;         // [BQ][LD], dO
+  float* Ps = Ds + BQ * LD;         // [BQ][LDP], round(p)
+  float* Ss = Ps + BQ * LDP;        // [BQ][LDP], round(ds)
+  float* Li = Ss + BQ * LDP;        // [BQ] 1/l
+  float* Ms = Li + BQ;              // [BQ] m
+  float* Es = Ms + BQ;              // [BQ] delta
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int k0 = blockIdx.x * BK;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int64_t row_st = static_cast<int64_t>(N) * HD;  // dO, dk, dv
+  const T* qb = q + b * st.q_sb + n * st.q_sn;
+  const T* dob = dout + (static_cast<int64_t>(b) * Tq * N + n) * HD;
+  const float* ab = bias + b * st.a_sb + n * st.a_sn;
+  const int64_t rows = static_cast<int64_t>(bn) * Tq;
+
+  load_tile<T, HD>(Ks, k + b * st.k_sb + n * st.k_sn, st.k_st, k0, Tk);
+  load_tile<T, HD>(Vs, v + b * st.v_sb + n * st.v_sn, st.v_st, k0, Tk);
+
+  float acc_k[RPT][DPT], acc_v[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc_k[i][d] = acc_v[i][d] = 0.f;
+
+  // causal: query tiles wholly above this key tile see none of it
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, HD>(Qs, qb, st.q_st, q0, Tq);
+    load_tile<T, HD>(Ds, dob, row_st, q0, Tq);
+    load_rows(Li, Ms, Es, l + rows, m + rows, delta + rows, q0, Tq);
+    __syncthreads();
+
+    float p[RPT][CPT], ds[RPT][CPT];
+    tile_p_ds<HD>(Qs, Ds, Ks, Vs, Li, Ms, Es, ab, st, q0, k0, Tq, Tk, scale,
+                  causal, p, ds);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        Ps[(ty + TY * i) * LDP + tx + TX * j] = round_to<T>(p[i][j]);
+        Ss[(ty + TY * i) * LDP + tx + TX * j] = round_to<T>(ds[i][j]);
+      }
+    __syncthreads();
+
+    // dV[key][h] += sum_q P[q][key] dO[q][h]; dK likewise with dS and Q
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {
+      float pv[RPT], sv[RPT], dov[DPT], qv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        pv[i] = Ps[r * LDP + ty + TY * i];
+        sv[i] = Ss[r * LDP + ty + TY * i];
+      }
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) {
+        dov[d] = Ds[r * LD + tx + TX * d];
+        qv[d] = Qs[r * LD + tx + TX * d];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int d = 0; d < DPT; ++d) {
+          acc_v[i][d] = fmaf(pv[i], dov[d], acc_v[i][d]);
+          acc_k[i][d] = fmaf(sv[i], qv[d], acc_k[i][d]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int key = k0 + ty + TY * i;
+    if (key >= Tk) continue;
+    const int64_t off = (static_cast<int64_t>(b) * Tk + key) * row_st +
+                        static_cast<int64_t>(n) * HD;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) {
+      dk[off + tx + TX * d] = from_f32<T>(acc_k[i][d]);
+      dv[off + tx + TX * d] = from_f32<T>(acc_v[i][d]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bias_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ l,
+                         const float* __restrict__ m,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         float* __restrict__ dbias, int N, int Tq, int Tk,
+                         Strides st, float scale, int causal) {
+  constexpr int LD = HD + 1;
+  constexpr int DPT = HD / TX;
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [BQ][LD], unscaled q
+  float* Ds = Qs + BQ * LD;         // [BQ][LD], dO
+  float* Ks = Ds + BQ * LD;         // [BK][LD]
+  float* Vs = Ks + BK * LD;         // [BK][LD]
+  float* Ss = Vs + BK * LD;         // [BQ][LDP], round(ds)
+  float* Li = Ss + BQ * LDP;        // [BQ]
+  float* Ms = Li + BQ;              // [BQ]
+  float* Es = Ms + BQ;              // [BQ]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = blockIdx.x * BQ;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int64_t row_st = static_cast<int64_t>(N) * HD;  // dO, dq
+  const T* kb = k + b * st.k_sb + n * st.k_sn;
+  const T* vb = v + b * st.v_sb + n * st.v_sn;
+  const float* ab = bias + b * st.a_sb + n * st.a_sn;
+  const int64_t rows = static_cast<int64_t>(bn) * Tq;
+
+  load_tile<T, HD>(Qs, q + b * st.q_sb + n * st.q_sn, st.q_st, q0, Tq);
+  load_tile<T, HD>(Ds, dout + (static_cast<int64_t>(b) * Tq * N + n) * HD,
+                   row_st, q0, Tq);
+  load_rows(Li, Ms, Es, l + rows, m + rows, delta + rows, q0, Tq);
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc[i][d] = 0.f;
+
+  // causal: keys past this tile's last row are masked for every row
+  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, HD>(Ks, kb, st.k_st, k0, Tk);
+    load_tile<T, HD>(Vs, vb, st.v_st, k0, Tk);
+    __syncthreads();
+
+    float p[RPT][CPT], ds[RPT][CPT];
+    tile_p_ds<HD>(Qs, Ds, Ks, Vs, Li, Ms, Es, ab, st, q0, k0, Tq, Tk, scale,
+                  causal, p, ds);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = q0 + ty + TY * i;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int col = k0 + tx + TX * j;
+        Ss[(ty + TY * i) * LDP + tx + TX * j] = round_to<T>(ds[i][j]);
+        if (dbias != nullptr && row < Tq && col < Tk)
+          dbias[(rows + row) * Tk + col] = ds[i][j];
+      }
+    }
+    __syncthreads();
+
+    // dQ[q][h] += sum_key dS[q][key] K[key][h]
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float sv[RPT], kv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) sv[i] = Ss[(ty + TY * i) * LDP + c];
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) kv[d] = Ks[c * LD + tx + TX * d];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int d = 0; d < DPT; ++d) acc[i][d] = fmaf(sv[i], kv[d], acc[i][d]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= Tq) continue;
+    T* out = dq + (static_cast<int64_t>(b) * Tq + row) * row_st +
+             static_cast<int64_t>(n) * HD;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) out[tx + TX * d] = from_f32<T>(acc[i][d]);
+  }
+}
+
+template <int HD>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (4 * static_cast<size_t>(BQ) * (HD + 1) +
+                          2 * static_cast<size_t>(BQ) * LDP + 3 * BQ);
+}
+
+template <int HD>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * static_cast<size_t>(BQ) * (HD + 1) +
+                          static_cast<size_t>(BQ) * LDP + 3 * BQ);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *bias, *l, *m, *delta;
+  int B, N, Tq, Tk;
+  Strides st;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  constexpr size_t smem = dkv_smem<HD>();
+  auto kernel = flash_bias_bwd_dkv_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Tk + BK - 1) / BK, a.B * a.N);
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, static_cast<const T*>(a.dout), a.l,
+      a.m, a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.N, a.Tq, a.Tk,
+      a.st, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_dq(const Args& a, void* dq, float* dbias) {
+  constexpr size_t smem = dq_smem<HD>();
+  auto kernel = flash_bias_bwd_dq_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.N);
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, static_cast<const T*>(a.dout), a.l,
+      a.m, a.delta, static_cast<T*>(dq), dbias, a.N, a.Tq, a.Tk, a.st,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Runs the statement given as the macro's tail with T (storage type)
+// and HD (head dim) bound, or returns cudaErrorInvalidValue for a
+// combination the kernels do not take. dtype: 0 = float32,
+// 1 = bfloat16, 2 = float16; head_dim 64 or 128.
+#define PADDLE_CASE(code, hd, type, dtype, head_dim, ...)                 \
+  if (dtype == code && head_dim == hd) {                                  \
+    using T = type;                                                       \
+    constexpr int HD = hd;                                                \
+    __VA_ARGS__;                                                          \
+  }
+#define PADDLE_DISPATCH(dtype, head_dim, ...)                             \
+  PADDLE_CASE(0, 64, float, dtype, head_dim, __VA_ARGS__)                 \
+  PADDLE_CASE(0, 128, float, dtype, head_dim, __VA_ARGS__)                \
+  PADDLE_CASE(1, 64, __nv_bfloat16, dtype, head_dim, __VA_ARGS__)         \
+  PADDLE_CASE(1, 128, __nv_bfloat16, dtype, head_dim, __VA_ARGS__)        \
+  PADDLE_CASE(2, 64, __half, dtype, head_dim, __VA_ARGS__)                \
+  PADDLE_CASE(2, 128, __half, dtype, head_dim, __VA_ARGS__)               \
+  return static_cast<int>(cudaErrorInvalidValue)
+
+// Both entry points take, in order: q, k, v, bias, dO, l, m, delta, the
+// outputs (dk, dv or dq, dbias; dbias may be NULL), B, N, Tq, Tk,
+// head_dim, dtype, the 9 q/k/v strides ([B, T, N, H]), the 4 bias
+// strides ([B, N, Tq, Tk]), scale, causal and the stream.
+#define PADDLE_BWD_ARGS                                                   \
+  const void *q, const void *k, const void *v, const void *bias,          \
+      const void *dout, const void *l, const void *m, const void *delta
+#define PADDLE_BWD_TAIL                                                   \
+  int B, int N, int Tq, int Tk, int head_dim, int dtype, long long q_sb,  \
+      long long q_st, long long q_sn, long long k_sb, long long k_st,     \
+      long long k_sn, long long v_sb, long long v_st, long long v_sn,     \
+      long long a_sb, long long a_sn, long long a_st, long long a_ss,     \
+      float scale, int causal, void *stream
+#define PADDLE_BWD_PACK                                                   \
+  if (B < 1 || N < 1 || Tq < 1 || Tk < 1 || B * N > 65535)                \
+    return static_cast<int>(cudaErrorInvalidValue);                       \
+  const Args a{q, k, v, dout,                                             \
+               static_cast<const float*>(bias),                           \
+               static_cast<const float*>(l),                              \
+               static_cast<const float*>(m),                              \
+               static_cast<const float*>(delta), B, N, Tq, Tk,            \
+               Strides{q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st,    \
+                       v_sn, a_sb, a_sn, a_st, a_ss},                     \
+               scale, causal, static_cast<cudaStream_t>(stream)}
+
+extern "C" int paddle_flash_attention_bias_bwd_dkv(PADDLE_BWD_ARGS, void* dk,
+                                                   void* dv,
+                                                   PADDLE_BWD_TAIL) {
+  PADDLE_BWD_PACK;
+  PADDLE_DISPATCH(dtype, head_dim,
+                  return static_cast<int>(launch_dkv<T, HD>(a, dk, dv)));
+}
+
+extern "C" int paddle_flash_attention_bias_bwd_dq(PADDLE_BWD_ARGS, void* dq,
+                                                  void* dbias,
+                                                  PADDLE_BWD_TAIL) {
+  PADDLE_BWD_PACK;
+  PADDLE_DISPATCH(dtype, head_dim,
+                  return static_cast<int>(launch_dq<T, HD>(
+                      a, dq, static_cast<float*>(dbias))));
+}

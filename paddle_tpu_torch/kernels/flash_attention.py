@@ -220,18 +220,19 @@ def _forward_with_lse(q, k, v, scale, causal):
     return out, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta=None):
+def _check_bwd(q, do, **rows):
+    """do: contiguous, of q's shape, dtype and device; each of `rows`
+    (lse, delta, l, m): contiguous f32 [B, N, T] on q's device."""
     B, T, N, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
-        raise ValueError("do must be a contiguous tensor of q's shape and "
-                         "dtype")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t is not None and (t.shape != (B, N, T) or
-                              t.dtype != torch.float32 or
-                              not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32 [B, N, T]")
-    if any(t is not None and t.device != q.device for t in (do, lse, delta)):
-        raise ValueError("do, lse and delta must be on q's device")
+    if do.shape != q.shape or do.dtype != q.dtype or \
+            not do.is_contiguous() or do.device != q.device:
+        raise ValueError("do must be a contiguous tensor of q's shape, "
+                         "dtype and device")
+    for name, t in rows.items():
+        if (t.shape != (B, N, T) or t.dtype != torch.float32 or
+                not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous f32 [B, N, T] on "
+                             f"q's device")
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -267,7 +268,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float,
     """(dk, dv): K1-bwd's dkv launch on CUDA tensors, the plain version
     on CPU tensors."""
     _check(q, k, v)
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
                                            causal)
@@ -290,7 +291,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float,
     """dq (with respect to the unscaled q): K1-bwd's dq launch on CUDA
     tensors, the plain version on CPU tensors."""
     _check(q, k, v)
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
                                           causal)
@@ -316,7 +317,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float,
     `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` itself."""
     _check(q, k, v)
     do = do.to(q.dtype).contiguous()
-    _check_bwd(q, k, v, do, lse)
+    _check_bwd(q, do, lse=lse)
     delta = attention_delta(o.contiguous(), do)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)

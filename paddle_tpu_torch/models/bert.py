@@ -9,8 +9,8 @@ counterpart on one device and are dropped.
 
 Attention goes through `ops.attention.mha`: on CUDA with no
 `attention_mask` it runs the K1 flash-attention kernels, forward and
-backward; a padding mask on CUDA raises, since the masked kernel (K2)
-is not ported yet. Dropout draws from a `torch.Generator`: its bits are
+backward; with one, the padding mask goes to the K2 kernels (additive
+bias), forward and backward. Dropout draws from a `torch.Generator`: its bits are
 not jax.random's, so parity checks run with `deterministic=True`.
 """
 

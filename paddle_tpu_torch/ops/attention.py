@@ -13,14 +13,19 @@ Dispatch is by the device of the tensors, never by a fallback:
   backward), so the output is never cut off from autograd; without
   grad (serving) K1-fwd runs alone and nothing is saved. A call the
   kernels cannot take (another head dim or dtype) raises.
-- CUDA with an additive mask: raises. That is the K2 (masked flash
-  attention) kernel's work, which is not ported yet.
+- CUDA with an additive mask: the K2 flash-attention kernels
+  (`kernels/flash_attention_bias.py`), the counterpart of the JAX
+  package's `_pallas_mha`: the mask goes in as the kernel's f32 bias,
+  read through stride-0 views (never broadcast to [B, N, T, Tk]), and
+  `causal` is the kernel's own causal mask on top of it. Under grad
+  through their autograd Function (K2-fwd, then K1's delta launch and
+  K2's dkv and dq); the mask gets a gradient when it requires one.
 - CPU: the plain path, a mirror of the JAX package's `_xla_mha`
   including its bf16 branch (bf16 logits, f32 softmax), so the port
   matches the JAX package as that runs on the CPU.
 
-`GATE_COUNTS` counts calls per path ("flash_cuda", "plain") so a run
-can show which one served it.
+`GATE_COUNTS` counts calls per path ("flash_cuda", "flash_bias_cuda",
+"plain") so a run can show which one served it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention_bias import flash_attention_bias
 
 __all__ = ["mha", "GATE_COUNTS"]
 
@@ -72,9 +78,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
         if mask is not None:
-            raise ValueError(
-                "mha on CUDA takes no additive mask: the masked kernel "
-                "(K2) is not ported yet")
+            out = flash_attention_bias(q, k, v, mask, scale, causal)
+            GATE_COUNTS["flash_bias_cuda"] += 1
+            return out
         out = flash_attention(q, k, v, scale, causal)
         GATE_COUNTS["flash_cuda"] += 1
         return out

@@ -5,7 +5,10 @@ output and K1-bwd (delta, dkv and dq launches) against theirs at the
 training path's shapes: the training runs' own (BERT-base 256 x 128
 and 32 x 512, full; GPT-2-small 8 x 1024, causal) and batch 32 and 1
 of the same models, all bf16, plus f32, f16 and a ragged T at one
-shape each.
+shape each. K2 (the additive-bias kernels: forward, dkv, dq with its
+bias gradient) against its plain versions at small shapes with key
+masks and full biases; `chip_smoke.py` checks it at the main paths'
+own shapes. A masked `mha` and a padded BERT `encode` run K2.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -30,6 +33,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import flash_attention_bias as fb
 from paddle_tpu_torch.ops import attention as ta
 
 torch.set_num_threads(2)
@@ -74,13 +78,19 @@ def test_kernel_matches_plain_version(T, dtype):
 
 @pytest.mark.cuda
 def test_mha_on_cuda_launches_or_raises():
+    """A CUDA mha launches K1-fwd without a mask and K2-fwd with one
+    (never the plain version), and raises on what neither takes."""
     _need_card()
     q = torch.randn(1, 16, 2, 64, device="cuda")
     before = ta.GATE_COUNTS["flash_cuda"]
     ta.mha(q, q, q, causal=True)
     assert ta.GATE_COUNTS["flash_cuda"] == before + 1
-    with pytest.raises(ValueError, match="mask"):
-        ta.mha(q, q, q, mask=torch.zeros(1, 1, 1, 16, device="cuda"))
+    gates, k2 = dict(ta.GATE_COUNTS), fb.flash_attention_bias_fwd.launches
+    ta.mha(q, q, q, mask=torch.zeros(1, 1, 1, 16, device="cuda"))
+    assert fb.flash_attention_bias_fwd.launches == k2 + 1
+    assert ta.GATE_COUNTS["flash_bias_cuda"] == \
+        gates.get("flash_bias_cuda", 0) + 1
+    assert ta.GATE_COUNTS["plain"] == gates.get("plain", 0)
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.randn(1, 16, 2, 32, device="cuda")
         ta.mha(x, x, x, causal=True)
@@ -155,7 +165,110 @@ def test_mha_under_grad_runs_the_backward_kernel():
 
 @pytest.mark.cuda
 def test_mha_with_mask_under_grad_raises():
+    """A masked CUDA mha under grad (it raised before K2 was ported) runs
+    K2's autograd Function: K2-fwd, then K1's delta launch and K2's dkv
+    and dq in backward, with finite gradients for q, k and v."""
     _need_card()
     x = torch.randn(1, 16, 2, 64, device="cuda", requires_grad=True)
-    with pytest.raises(ValueError, match="mask"):
-        ta.mha(x, x, x, mask=torch.zeros(1, 1, 1, 16, device="cuda"))
+    mask = torch.zeros(1, 1, 1, 16, device="cuda")
+    mask[..., 12:] = -1e9
+    launched = (fb.flash_attention_bias_fwd, fa.attention_delta,
+                fb.flash_attention_bias_bwd_dkv,
+                fb.flash_attention_bias_bwd_dq)
+    before = [f.launches for f in launched]
+    out = ta.mha(x, x * 2, x * 3, mask=mask)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBiasBackward"
+    out.sum().backward()
+    assert [f.launches for f in launched] == [c + 1 for c in before]
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+# K2 at small shapes: (B, T, Tk, N, H, causal, dtype, full bias). The
+# encoder/cross shape with a key-padding mask, its causal form with
+# Tk = 2 T, the beam search's 32 queries against 128 keys, a ragged
+# pair with a full [B, N, T, Tk] bias, causal with a full bias, and
+# head_dim 128.
+K2_CASES = [(2, 128, 128, 4, 64, False, torch.bfloat16, False),
+            (2, 128, 256, 4, 64, True, torch.bfloat16, False),
+            (4, 32, 128, 4, 64, False, torch.float32, False),
+            (2, 100, 164, 2, 64, False, torch.float16, True),
+            (2, 256, 256, 2, 64, True, torch.float32, True),
+            (2, 100, 192, 2, 128, True, torch.bfloat16, False)]
+
+
+def _k2_inputs(B, T, Tk, N, H, dtype, full, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(B, T, N, H, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    # k and v as the views of one fused kv projection
+    kv = torch.randn(B, Tk, 2 * N * H, generator=g, device="cuda").to(dtype)
+    k, v = (t.view(B, Tk, N, H) for t in kv.split(N * H, dim=-1))
+    if full:
+        bias = torch.randn(B, N, T, Tk, generator=g, device="cuda")
+    else:
+        lens = torch.randint(Tk // 2, Tk + 1, (B,), generator=g,
+                             device="cuda")
+        keep = torch.arange(Tk, device="cuda")[None] < lens[:, None]
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+    return q, k, v, do, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Tk,N,H,causal,dtype,full", K2_CASES)
+def test_k2_kernels_match_plain_version(B, T, Tk, N, H, causal, dtype, full):
+    _need_card()
+    q, k, v, do, bias = _k2_inputs(B, T, Tk, N, H, dtype, full, T + Tk)
+    scale = 0.125
+    counts = [f.launches for f in (fb.flash_attention_bias_fwd,
+                                   fb.flash_attention_bias_bwd_dkv,
+                                   fb.flash_attention_bias_bwd_dq)]
+    out, l, m = fb.flash_attention_bias_fwd(q, k, v, bias, scale, causal)
+    delta = fa.attention_delta(out, do)
+    args = (q, k, v, bias, do, l, m, delta, scale, causal)
+    dk, dv = fb.flash_attention_bias_bwd_dkv(*args)
+    dq, dbias = fb.flash_attention_bias_bwd_dq(*args, with_dbias=True)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fb.flash_attention_bias_fwd,
+                                 fb.flash_attention_bias_bwd_dkv,
+                                 fb.flash_attention_bias_bwd_dq)] == \
+        [c + 1 for c in counts]
+    ref_out, ref_l, ref_m = fb.flash_attention_bias_ref(q, k, v, bias, scale,
+                                                        causal)
+    ratio, rms = _held(out, ref_out, dtype)
+    assert ratio <= 1.0, f"out: error / limit {ratio}, RMS {rms}"
+    assert torch.allclose(l, ref_l, rtol=1e-5, atol=0)
+    assert torch.allclose(m, ref_m, rtol=1e-6, atol=1e-6)
+    ref_dk, ref_dv = fb.flash_attention_bias_bwd_dkv_ref(*args)
+    ref_dq, ref_ds = fb.flash_attention_bias_bwd_dq_ref(*args,
+                                                        with_dbias=True)
+    for name, a, b, dt in (("dq", dq, ref_dq, dtype), ("dk", dk, ref_dk, dtype),
+                           ("dv", dv, ref_dv, dtype),
+                           ("dbias", dbias, ref_ds, torch.float32)):
+        ratio, rms = _held(a, b, dt)
+        assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
+
+
+@pytest.mark.cuda
+def test_padded_bert_encode_on_cuda_equals_the_cpu():
+    """BERT with an attention_mask: every layer's attention on K2 on the
+    card, its plain mirror of _xla_mha on the CPU; f32, TF32 off, within
+    1e-5 of the largest value (f32 sums in other orders)."""
+    _need_card()
+    from paddle_tpu_torch.models import bert
+
+    # tiny's widths with head_dim 64, which the kernels take
+    cfg = bert.BertConfig(vocab_size=1024, hidden=128, layers=2, heads=2,
+                          mlp_dim=256, max_len=64, dropout=0.0,
+                          dtype="float32")
+    params, _ = bert.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (3, 64), generator=g)
+    mask = (torch.arange(64)[None] < torch.tensor([64, 40, 17])[:, None]) \
+        .long()
+    want = bert.encode(params, cfg, ids, attention_mask=mask)
+    k2 = fb.flash_attention_bias_fwd.launches
+    got = bert.encode({k: t.cuda() for k, t in params.items()}, cfg,
+                      ids.cuda(), attention_mask=mask.cuda())
+    assert fb.flash_attention_bias_fwd.launches == k2 + cfg.layers
+    err = (got.cpu() - want).abs().max() / want.abs().max().clamp(min=1)
+    assert err <= 1e-5

@@ -33,12 +33,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 18, r.stdout
-    # the training slice's modules are among those imported
+    assert n_modules >= 20, r.stdout
+    # the training and NMT slices' modules are among those imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
-                 "paddle_tpu_torch.kernels.flash_attention"):
+                 "paddle_tpu_torch.kernels.flash_attention",
+                 "paddle_tpu_torch.kernels.flash_attention_bias",
+                 "paddle_tpu_torch.models.transformer"):
         assert name in r.stdout.split(), name
 
 
