@@ -50,17 +50,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sources of 128 tokens with ragged lengths, beam 4, 32 steps;
 12. bert-padded: BERT-base at 32 x 512 with an attention_mask (lengths
    uniform in [256, 512]) under mixed_bf16: every layer's attention on
-   K2, forward and backward.
+   K2, forward and backward;
+13. bottleneck: the fused bottleneck slice at ResNet-50's widths (M
+   50176, C 1024 -> 256 -> 1024, f32, TF32 off), matmul_stats (K4) ->
+   fold_bn -> bn_act_matmul (K5), against the unfused plain composition,
+   values and gradients: K5's path;
+14. resnet-parity: full-width ResNet-50 at f64 activations, 4 x 64 x 64,
+   `fused_1x1`: on the card fused (K4, K6) against unfused (cuDNN), at
+   the JAX package's limits for that comparison; the card against the
+   CPU (plain versions), loss, BN updates, gradients and one
+   SGD-momentum step;
+15. resnet-train: ResNet-50 as bench.py's bench_resnet50 runs its first
+   rung (bs 256 at 224 x 224, NHWC, bf16 activations, f32 params,
+   SGD(0.1, momentum 0.9), 3 warm-up and 20 timed steps), unfused, then
+   `fused_1x1` with K4 and K6 16 times a step each.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
 attention, the beam search's 32 x 128, padded BERT-base 32 x 512),
 causal with full biases at f32 and f16, a ragged pair and a bias
-gradient.
+gradient; and K4, K5 and K6 (the fused matmul+BN kernels) at one
+ResNet-50 bs-256 shape of each stage group (bf16, timed beside
+cuBLAS's bare product), at f32, f16 and f64, at a ragged (1000, 72, 40)
+and with the ReLU off.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phase 3 for serving, phases 7, 8, 10 and 12 for
-training, phase 11 for beam search).
+read just after (phase 3 for serving, phases 7, 8, 10, 12 and 15 for
+training, phase 11 for beam search, phase 13 for the bottleneck).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
@@ -228,7 +244,7 @@ TRAIN_KERNEL_CASES = (("bert", 256, 128, False, "bfloat16"),
 # those. Each gradient is held to its own scale, so a result wrong on
 # some rows fails, however large the largest value is.
 ELEM_TOL = {"bfloat16": (2 ** -7, 2e-2), "float16": (2 ** -10, 1e-3),
-            "float32": (1e-5, 1e-5)}
+            "float32": (1e-5, 1e-5), "float64": (1e-12, 1e-12)}
 
 
 def held(got, want, dname):
@@ -592,18 +608,161 @@ def _k2_kernel_rows():
     return rows, checks, whole, failed
 
 
+# K4-K6 (the fused matmul+BN kernels): (kernel, label, M, K, N, dtype,
+# relu). K4 is conv1 and K6 conv3 of a ResNet-50 bottleneck at bs 256,
+# 224 x 224 (M = B*H*W), one shape of each stage group g0-g3; K5 is
+# phase 13's second product (M 50176, C 256 -> 1024) and runs at K6's
+# shapes too. Then f32, f16 and f64 at one shape, a ragged shape at
+# every dtype, and the ReLU off. The bf16 main-path shapes are timed.
+FDB_GROUPS = {"k4": ((802816, 256, 64), (200704, 512, 128),
+                     (50176, 1024, 256), (12544, 2048, 512)),
+              "k6": ((802816, 64, 256), (200704, 128, 512),
+                     (50176, 256, 1024), (12544, 512, 2048))}
+FDB_GROUPS["k5"] = FDB_GROUPS["k6"]
+FDB_KERNEL_CASES = tuple(
+    [(k, f"g{i}", *shape, "bfloat16", True)
+     for k in ("k4", "k5", "k6") for i, shape in enumerate(FDB_GROUPS[k])] +
+    [(k, dt, 12544, 256, 256, dt, True) for k in ("k4", "k5", "k6")
+     for dt in ("float32", "float16", "float64")] +
+    [(k, f"ragged_{dt}", 1000, 72, 40, dt, True) for k in ("k4", "k5", "k6")
+     for dt in ("bfloat16", "float32", "float16", "float64")] +
+    [(k, "norelu", 12544, 256, 256, "bfloat16", False) for k in ("k5", "k6")] +
+    [(k, "ragged_norelu", 1000, 72, 40, "bfloat16", False)
+     for k in ("k5", "k6")])
+# the row of the kernels line: the mid stage's shape (g2), K5 at phase
+# 13's product
+FDB_LINE_SHAPE = "g2"
+FDB_NAMES = {"k4": "matmul_stats_fwd", "k5": "bn_act_matmul_fwd",
+             "k6": "bn_act_matmul_stats_fwd"}
+FDB_REPLACES = {"k4": "paddle_tpu/ops/pallas/fused_dense_bn.py:80",
+                "k5": "paddle_tpu/ops/pallas/fused_dense_bn.py:152",
+                "k6": "paddle_tpu/ops/pallas/fused_dense_bn.py:254"}
+# mean and var against the scale of the summed values, E[y^2]: the
+# kernel sums the same accumulator in another order, which moves a sum
+# of M terms by a few steps of that scale whatever the mean's own size
+STATS_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def fdb_bound_ms(M, K, N, dtype, prologue, stats):
+    """Least time for one K4-K6 call: x, w and y read or written once,
+    scale and shift (f32 or f64 [K]) and the partial sums ([M / BM, N],
+    two rows of the accumulator's dtype) over the memory rate, against
+    the product's 2 M K N operations over the dtype's peak (the
+    prologue's 3 M K are not counted)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_dense_bn as fdb
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    acc = 8 if dtype == torch.float64 else 4
+    nbytes = (M * K + K * N + M * N) * es
+    if prologue:
+        nbytes += 2 * K * acc
+    if stats:
+        nbytes += 2 * -(-M // fdb.block_m(dtype)) * N * acc
+    peak = BF16_FLOPS_PER_S if dtype in (torch.bfloat16, torch.float16) \
+        else F32_FLOPS_PER_S
+    return bound_ms(nbytes, 2 * M * K * N, peak)
+
+
+def _fdb_case(fdb, kernel, M, K, N, dname, relu, gen):
+    """Inputs of one case and its readings: y per element under
+    ELEM_TOL, mean and var under STATS_TOL."""
+    import torch
+
+    dtype = getattr(torch, dname)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5) \
+        .to(dtype)
+    args = (x, w)
+    if kernel != "k4":
+        scale = torch.rand(K, generator=gen, device="cuda", dtype=acc) + 0.5
+        shift = torch.randn(K, generator=gen, device="cuda", dtype=acc) * 0.5
+        args = (x, scale, shift, w)
+    kw = {} if kernel == "k4" else {"relu": relu}
+    fn = getattr(fdb, FDB_NAMES[kernel])
+    ref = {"k4": fdb.mm_stats_ref, "k5": fdb.bn_mm_ref,
+           "k6": fdb.bn_mm_stats_ref}[kernel]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = {"y": held(got[0], want[0], dname)}
+    if len(got) == 3:
+        tol = STATS_TOL["float64" if dtype == torch.float64 else "float32"]
+        mean, var = want[1].double(), want[2].double()
+        ey2 = var + mean * mean
+        errs["mean_ratio"] = ((got[1].double() - mean).abs() /
+                              (tol * (mean.abs() + ey2.sqrt()))).max().item()
+        errs["var_ratio"] = ((got[2].double() - var).abs() /
+                             (tol * (var.abs() + ey2))).max().item()
+    return (fn, ref, args, kw), errs
+
+
+def _fdb_kernel_rows():
+    """K4, K5 and K6 against their plain versions at every case, and
+    their times at the timed ones. Returns the kernel rows, every case's
+    readings and the failed checks."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_dense_bn as fdb
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    checks, timings, failed = [], {"k4": {}, "k5": {}, "k6": {}}, []
+    for kernel, label, M, K, N, dname, relu in FDB_KERNEL_CASES:
+        (fn, ref, args, kw), errs = _fdb_case(fdb, kernel, M, K, N, dname,
+                                              relu, gen)
+        checks.append({"kernel": kernel, "case": label, "shape": [M, K, N],
+                       "dtype": dname, "relu": relu, "tol": ELEM_TOL[dname],
+                       "held": errs})
+        ratios = [errs["y"]["ratio"]] + [errs[k] for k in
+                                         ("mean_ratio", "var_ratio")
+                                         if k in errs]
+        if not all(r <= 1.0 for r in ratios):
+            failed.append(f"{kernel} {label}: {errs}")
+        if dname == "bfloat16" and label.startswith("g"):
+            x, w = args[0], args[-1]
+            bound = fdb_bound_ms(M, K, N, x.dtype, kernel != "k4",
+                                 kernel != "k5")
+            timings[kernel][label] = {
+                "shape": [M, K, N], "ms": time_ms(lambda: fn(*args, **kw)),
+                "plain_ms": time_ms(lambda: ref(*args, **kw)),
+                # cuBLAS's bf16 product alone: no one PyTorch call
+                # computes the fused function, and the product is its floor
+                "library_ms": time_ms(lambda: torch.matmul(x, w)),
+                "bound": bound}
+        del args
+    rows = []
+    for kernel in ("k4", "k5", "k6"):
+        bf16 = [c for c in checks if c["kernel"] == kernel and
+                c["dtype"] == "bfloat16"]
+        rows.append({"name": FDB_NAMES[kernel], "kernel": kernel.upper(),
+                     "replaces": FDB_REPLACES[kernel],
+                     "max_abs_err": max(c["held"]["y"]["max_abs_err"]
+                                        for c in bf16),
+                     "library": "torch.matmul (cuBLAS product only)",
+                     "timings": timings[kernel]})
+    return rows, checks, failed
+
+
 def phase_kernels():
     serving = _serving_kernel_row()
     training, checks, whole, failed = _training_kernel_rows()
     k2_rows, k2_checks, k2_whole, k2_failed = _k2_kernel_rows()
+    t0 = time.perf_counter()
+    fdb_rows, fdb_checks, fdb_failed = _fdb_kernel_rows()
     print(json.dumps({"phase": "kernels",
-                      "kernels": [serving] + training + k2_rows,
+                      "kernels": [serving] + training + k2_rows + fdb_rows,
                       "bwd_whole": whole, "training_checks": checks,
-                      "k2_bwd_whole": k2_whole, "k2_checks": k2_checks}))
-    failed += k2_failed
+                      "k2_bwd_whole": k2_whole, "k2_checks": k2_checks,
+                      "fdb_checks": fdb_checks,
+                      "fdb_s": time.perf_counter() - t0}))
+    failed += k2_failed + fdb_failed
     check(not failed, "kernel against its plain version: " +
           "; ".join(failed))
-    return serving, training, k2_rows
+    return serving, training, k2_rows, fdb_rows
 
 
 def _generate(port, ids, max_new, out):
@@ -723,10 +882,24 @@ def phase_slice():
     return launches
 
 
+def _fdb_kernel(name):
+    """"k4", "k5" or "k6" for a fused matmul+BN kernel's profiler name
+    (its template flags: prologue, stats), else None."""
+    if "fused_mm_bn" not in name:
+        return None
+    flags = ("true, true", "true, false", "false, true")
+    mangled = ("Lb1ELb1E", "Lb1ELb0E", "Lb0ELb1E")
+    for kern, f, m in zip(("k6", "k5", "k4"), flags, mangled):
+        if f in name or m in name:
+            return kern
+    return None
+
+
 def _device_time(prof, wall_s):
     """From a torch.profiler run over `wall_s` seconds: the device's
-    busy time (the union of its kernel intervals), idle share, K1's and
-    K2's kernel time by kernel and the ten largest kernels by name."""
+    busy time (the union of its kernel intervals), idle share, K1's,
+    K2's and K4-K6's kernel time by kernel and the ten largest kernels
+    by name."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
@@ -753,11 +926,16 @@ def _device_time(prof, wall_s):
          "flash_bwd_dq_kernel"),
         ("flash_bias_fwd_kernel", "flash_bias_bwd_dkv_kernel",
          "flash_bias_bwd_dq_kernel")))
+    fdb = {"k4": 0.0, "k5": 0.0, "k6": 0.0}
+    for n, t in by_name.items():
+        kern = _fdb_kernel(n)
+        if kern:
+            fdb[kern] += t[1]
     return {"device_events": len(spans), "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / (wall_s * 1e3))
             if spans else None,
             "flash_attention_ms": k1["flash_fwd_kernel"],
-            "k1_kernel_ms": k1, "k2_kernel_ms": k2,
+            "k1_kernel_ms": k1, "k2_kernel_ms": k2, "k4_k6_kernel_ms": fdb,
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
                             for n, (c, ms) in top]}
 
@@ -867,15 +1045,17 @@ def _kernel_counts(reset=False):
     """Every kernel wrapper's launch count, set to 0 first with reset."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import flash_attention_bias as fb
+    from paddle_tpu_torch.kernels import fused_dense_bn as fdb
 
-    fns = {"flash_attention_fwd": fa.flash_attention,
+    fns = {name: getattr(fdb, name) for name in FDB_NAMES.values()}
+    fns.update({"flash_attention_fwd": fa.flash_attention,
            "flash_attention_fwd_lse": fa.flash_attention_with_lse,
            "flash_attention_bwd_delta": fa.attention_delta,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
            "flash_attention_bias_fwd": fb.flash_attention_bias_fwd,
            "flash_attention_bias_bwd_dkv": fb.flash_attention_bias_bwd_dkv,
-           "flash_attention_bias_bwd_dq": fb.flash_attention_bias_bwd_dq}
+           "flash_attention_bias_bwd_dq": fb.flash_attention_bias_bwd_dq})
     if reset:
         for fn in fns.values():
             fn.launches = 0
@@ -956,9 +1136,11 @@ def phase_train_parity():
 
 
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
-               steps, per_step, optimizer=None, precision="mixed_bf16"):
+               steps, per_step, optimizer=None, precision="mixed_bf16",
+               has_aux=False):
     """`warmup` + `steps` steps on one fixed batch (AdamW and mixed_bf16
-    unless given); the kernels' counts are set to 0 just before the
+    unless given; `has_aux` for a loss_fn that also returns state
+    updates); the kernels' counts are set to 0 just before the
     timed steps and read just after, and each must equal `per_step`
     ({name: launches a step}, 0 for every kernel it does not name)
     times the steps; then one step is traced under torch.profiler for
@@ -969,7 +1151,8 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     from paddle_tpu_torch.parallel.train import make_train_step
 
     init, step = make_train_step(loss_fn, optimizer or _adamw,
-                                 device="cuda", precision=precision)
+                                 device="cuda", precision=precision,
+                                 has_aux=has_aux)
     state = init(params)
     del params
     n = next(iter(batch.values())).shape[0]
@@ -1008,7 +1191,7 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
            "flops_per_sample": flops_per_sample,
            "mfu": flops_per_sample * samples_s / BF16_FLOPS_PER_S,
            "loss_first": losses[0], "loss_last": losses[-1],
-           "launches": counts,
+           "losses": losses, "launches": counts,
            "launches_per_step": {k: v / steps for k, v in counts.items()},
            "loss_scale": state.loss_scale, "precision": precision,
            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1312,6 +1495,300 @@ def phase_bert_padded(unpadded):
     return row["launches"]
 
 
+def phase_bottleneck():
+    """The fused bottleneck slice at ResNet-50's g2 widths, f32 (TF32
+    off): matmul_stats (K4) -> fold_bn -> bn_act_matmul (K5), against
+    the plain unfused composition (x @ w1, one-pass BN, ReLU, @ w2),
+    values within 2e-4 and the gradients of all five inputs within 2e-3
+    (|got - want| <= tol (1 + |want|), the limits of the JAX package's
+    tests/test_fused_dense_bn.py). K5's main path: its launch count is
+    read around the fused forward."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_dense_bn as fdb
+
+    t0 = time.perf_counter()
+    M, C1, C2, C3 = 50176, 1024, 256, 1024
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ins = [torch.randn(M, C1, generator=gen, device="cuda"),
+           torch.randn(C1, C2, generator=gen, device="cuda") * 0.1,
+           torch.rand(C2, generator=gen, device="cuda") + 0.5,
+           torch.randn(C2, generator=gen, device="cuda") * 0.1,
+           torch.randn(C2, C3, generator=gen, device="cuda") * 0.1]
+    ct = torch.randn(M, C3, generator=gen, device="cuda")
+
+    def fused(x, w1, gamma, beta, w2):
+        y, mean, var = fdb.matmul_stats(x, w1)
+        scale, shift = fdb.fold_bn(mean, var, gamma, beta)
+        return fdb.bn_act_matmul(y, scale, shift, w2, relu=True)
+
+    def unfused(x, w1, gamma, beta, w2):
+        y = x @ w1
+        mean = y.mean(0)
+        var = torch.clamp_min((y * y).mean(0) - mean * mean, 0.0)
+        yn = (y - mean) * torch.rsqrt(var + 1e-5) * gamma + beta
+        return torch.relu(yn) @ w2
+
+    out = {}
+    for name, fn in (("fused", fused), ("unfused", unfused)):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        counts = _kernel_counts(reset=True)
+        y = fn(*leaves)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        grads = torch.autograd.grad((y * ct).sum(), leaves)
+        out[name] = (y.detach(), [g.detach() for g in grads], counts)
+    (yf, gf, kc), (yu, gu, _) = out["fused"], out["unfused"]
+    check(kc["matmul_stats_fwd"] == 1 and kc["bn_act_matmul_fwd"] == 1 and
+          sum(kc.values()) == 2, f"bottleneck: the fused forward ran {kc}")
+
+    def ratio(a, b, tol):
+        return ((a - b).abs() / (tol * (1 + b.abs()))).max().item()
+
+    val = ratio(yf, yu, 2e-4)
+    grad = [ratio(a, b, 2e-3) for a, b in zip(gf, gu)]
+    check(val <= 1.0 and max(grad) <= 1.0,
+          f"bottleneck: values {val}, gradients {grad} of their limits")
+    with torch.no_grad():
+        times = {"fused_fwd_ms": time_ms(lambda: fused(*ins), reps=10),
+                 "unfused_fwd_ms": time_ms(lambda: unfused(*ins), reps=10)}
+    print(json.dumps({"phase": "bottleneck",
+                      "shape": {"M": M, "C": [C1, C2, C3]}, "dtype": "float32",
+                      "launches": kc, "value_ratio": val,
+                      "grad_ratios": grad, **times,
+                      "seconds": time.perf_counter() - t0}))
+    return kc
+
+
+def _sgd(params):
+    """The counterpart of optax.sgd(0.1, momentum=0.9), bench.py
+    bench_resnet50's optimizer: both set the first trace to g, then
+    g + 0.9 trace."""
+    import torch
+
+    return torch.optim.SGD(params, lr=0.1, momentum=0.9)
+
+
+def _resnet_grads(params, cfg, batch, dev):
+    """(loss, {name: BN update}, {name: grad}, launches) of one forward
+    and backward of `resnet.loss_fn` on `dev`, on the CPU."""
+    import torch
+
+    from paddle_tpu_torch.models import resnet
+
+    p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+    b = {k: v.to(dev) for k, v in batch.items()}
+    _kernel_counts(reset=True)
+    loss, upd = resnet.loss_fn(p, cfg, b, data_format="NHWC")
+    counts = _kernel_counts()
+    grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+    return (loss.item(), {k: v.detach().cpu() for k, v in upd.items()},
+            {k: (torch.zeros_like(v) if g is None else g).cpu()
+             for (k, v), g in zip(p.items(), grads)}, counts)
+
+
+def phase_resnet_parity():
+    """Full-width ResNet-50 (1000 classes) at f64 activations, 4 images of
+    64 x 64 (the spatial size cut for the CPU's sake; widths and depth
+    full), `fused_1x1` on. Two gates:
+
+    - on the card, fused (K4, K6) against unfused (cuDNN convs), the JAX
+      package's own limits for that comparison
+      (test_resnet_fused_1x1_matches_unfused): loss within 1e-9
+      relative, every BN update within rtol 1e-8 (atol 1e-10), every
+      gradient within rtol 1e-6 (atol 1e-8);
+    - the card's fused run against the CPU's (plain versions): BN
+      updates within rtol 1e-8 (f64 end to end); the loss within 1e-6
+      relative and each gradient within 1e-5 of its tensor's largest
+      value, because the head and the log-softmax compute in f32 by
+      design and cuBLAS and the CPU sum them in other orders (the same
+      limits tests/test_torch_resnet.py sets against the JAX package,
+      which measured 1.0e-7 and 2.0e-6 there); and one SGD(0.1,
+      momentum 0.9) step through make_train_step: each trainable param
+      within 1e-4 of its largest update plus one f32 step of its
+      largest value, the BN statistics it writes within 1e-6 relative
+      (f64 updates stored in f32)."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.convert import params_from_numpy
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(resnet.ResNetConfig.resnet50(),
+                              dtype="float64", fused_1x1=True)
+    params, _ = resnet.init(torch.Generator().manual_seed(14), cfg,
+                            device="cpu")
+    batch = resnet.make_batch(np.random.RandomState(14), cfg, 4, hw=64,
+                              data_format="NHWC", device="cpu")
+    card = _resnet_grads(params, cfg, batch, "cuda")
+    unfused = _resnet_grads(params, dataclasses.replace(cfg, fused_1x1=False),
+                            batch, "cuda")
+    cpu = _resnet_grads(params, cfg, batch, "cpu")
+    want = {"matmul_stats_fwd": 16, "bn_act_matmul_stats_fwd": 16}
+    check(all(n == want.get(k, 0) for k, n in card[3].items()),
+          f"resnet-parity: the fused forward ran {card[3]}")
+    check(all(n == 0 for n in unfused[3].values()),
+          f"resnet-parity: the unfused forward ran {unfused[3]}")
+
+    def upd_ratio(a, b):
+        return max(((a[k] - b[k]).abs() / (1e-8 * b[k].abs() + 1e-10))
+                   .max().item() for k in b)
+
+    def tight_grad_ratio(a, b):
+        return max(((a[k].double() - b[k].double()).abs() /
+                    (1e-6 * b[k].double().abs() + 1e-8)).max().item()
+                   for k in b)
+
+    def grad_ratio(a, b):
+        worst = (0.0, None)
+        for k in b:
+            scale = b[k].double().abs().max().item()
+            if scale:
+                worst = max(worst, ((a[k].double() - b[k].double()).abs()
+                                    .max().item() / (1e-5 * scale), k),
+                            key=lambda t: t[0])
+        return worst
+
+    r = {"fused_vs_unfused": {
+            "loss_rel": abs(card[0] - unfused[0]) / abs(unfused[0]),
+            "upd_ratio": upd_ratio(card[1], unfused[1]),
+            "grad_ratio": tight_grad_ratio(card[2], unfused[2])},
+         "card_vs_cpu": {
+            "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0]),
+            "upd_ratio": upd_ratio(card[1], cpu[1]),
+            "grad_ratio": grad_ratio(card[2], cpu[2])}}
+    fu, cc = r["fused_vs_unfused"], r["card_vs_cpu"]
+    check(fu["loss_rel"] <= 1e-9 and fu["upd_ratio"] <= 1.0 and
+          fu["grad_ratio"] <= 1.0, f"resnet-parity fused vs unfused: {fu}")
+    check(cc["loss_rel"] <= 1e-6 and cc["upd_ratio"] <= 1.0 and
+          cc["grad_ratio"][0] <= 1.0, f"resnet-parity card vs cpu: {cc}")
+
+    stepped = {}
+    for dev in ("cuda", "cpu"):
+        init, step = make_train_step(
+            lambda p, b, g: resnet.loss_fn(p, cfg, b, g, data_format="NHWC"),
+            _sgd, device=dev, has_aux=True)
+        state, loss = step(init(params), batch, 0)
+        stepped[dev] = (loss.item(), {k: v.detach().cpu()
+                                      for k, v in state.params.items()})
+    worst, worst_bn = (0.0, None), (0.0, None)
+    for k, p0 in params.items():
+        a, b = stepped["cuda"][1][k].double(), stepped["cpu"][1][k].double()
+        err = (a - b).abs().max().item()
+        if k.endswith((".mean", ".var")):
+            worst_bn = max(worst_bn, (((a - b).abs() / (1e-6 * b.abs() +
+                                                       1e-10)).max().item(),
+                                      k), key=lambda t: t[0])
+            continue
+        lim = 1e-4 * (b - p0.double()).abs().max().item() + \
+            float(np.spacing(np.float32(b.abs().max().item())))
+        worst = max(worst, (err / lim, k), key=lambda t: t[0])
+    r["sgd_step"] = {"loss_cuda": stepped["cuda"][0],
+                     "loss_cpu": stepped["cpu"][0], "param_ratio": worst,
+                     "bn_state_ratio": worst_bn}
+    check(worst[0] <= 1.0 and worst_bn[0] <= 1.0,
+          f"resnet-parity SGD step: {r['sgd_step']}")
+    print(json.dumps({"phase": "resnet-parity",
+                      "model": "ResNetConfig.resnet50(), f64 activations, "
+                               "fused_1x1, 4 x 64 x 64",
+                      "loss_cuda": card[0], "loss_cuda_unfused": unfused[0],
+                      "loss_cpu": cpu[0], "launches": card[3], **r,
+                      "seconds": time.perf_counter() - t0}))
+
+
+def _resnet_grad_agreement(B=32, hw=224):
+    """Cosine similarity of ResNet-50's whole gradient (and of its worst
+    tensor) at bs `B`, fused and unfused, f32 and bf16 activations,
+    against the unfused f32 gradient, from one set of params and one
+    batch: how far the bf16 runs' steps follow the f32 direction, for
+    each path. Reported, not gated (phase 14 gates the fused path)."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.models import resnet
+
+    base = resnet.ResNetConfig.resnet50()
+    params, _ = resnet.init(torch.Generator(device="cuda").manual_seed(0),
+                            base, device="cuda")
+    batch = resnet.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                              base, B, hw=hw, data_format="NHWC")
+    grads = {}
+    for fused in (False, True):
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, fused_1x1=fused, dtype=dt)
+            p = {k: v.clone().requires_grad_() for k, v in params.items()}
+            loss, _ = resnet.loss_fn(p, cfg, batch, data_format="NHWC")
+            g = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+            grads[(fused, dt)] = (loss.item(), {k: x.double() for k, x in
+                                                zip(p, g) if x is not None})
+    ref = grads[(False, "float32")][1]
+    out = {}
+    for (fused, dt), (loss, g) in grads.items():
+        whole = torch.cat([g[k].flatten() for k in ref]), \
+            torch.cat([ref[k].flatten() for k in ref])
+        worst = min(((g[k].flatten() @ ref[k].flatten()) /
+                     (g[k].norm() * ref[k].norm())).item() for k in ref)
+        out[f"{'fused' if fused else 'unfused'} {dt}"] = {
+            "loss": loss, "cos_whole": ((whole[0] @ whole[1]) /
+                                        (whole[0].norm() * whole[1].norm()))
+            .item(), "cos_worst_tensor": worst}
+    return {"batch": B, "hw": hw, "against": "unfused float32", **out}
+
+
+def phase_resnet_train():
+    """ResNet-50 as bench.py bench_resnet50 runs its first rung: bs 256 at
+    224 x 224, NHWC, bf16 activations, f32 params (policy f32),
+    SGD(0.1, momentum 0.9), 3 warm-up and 20 timed steps, first unfused
+    (cuDNN convs), then with `fused_1x1` (K4 and K6 16 times a step).
+    Before them, the first step's gradient of each path at f32 and bf16
+    against the unfused f32 one (`_resnet_grad_agreement`)."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    agreement = _resnet_grad_agreement()
+    runs, counts = [], {}
+    B, hw = 256, 224
+    for fused in (False, True):
+        cfg = dataclasses.replace(resnet.ResNetConfig.resnet50(),
+                                  fused_1x1=fused)
+        params, _ = resnet.init(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, device="cuda")
+        batch = resnet.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                                  cfg, B, hw=hw, data_format="NHWC")
+
+        def loss_fn(p, b, g, cfg=cfg):
+            return resnet.loss_fn(p, cfg, b, g, data_format="NHWC")
+
+        per_step = {"matmul_stats_fwd": 16, "bn_act_matmul_stats_fwd": 16} \
+            if fused else {}
+        row = _train_run(f"resnet-50 {B}x{hw}^2 " +
+                         ("fused_1x1" if fused else "unfused"), loss_fn,
+                         params, batch, cfg.flops_per_image(hw), 3, 20,
+                         per_step, optimizer=_sgd, precision="f32",
+                         has_aux=True)
+        del params, batch
+        runs.append(row)
+        for k, v in row["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    print(json.dumps({"phase": "resnet-train",
+                      "model": "ResNet-50 (ResNetConfig.resnet50()), bf16 "
+                               "activations, f32 params, NHWC",
+                      "optimizer": "SGD lr 0.1 momentum 0.9",
+                      "first_losses": {r["run"]: r["loss_first"]
+                                       for r in runs},
+                      "grad_agreement": agreement,
+                      "runs": runs, "seconds": time.perf_counter() - t0}))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1324,7 +1801,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
-    serving_row, training_rows, k2_rows = phase_kernels()
+    serving_row, training_rows, k2_rows, fdb_rows = phase_kernels()
     launches = collections.Counter({"flash_attention_fwd": phase_slice()})
     phase_profile()
     phase_greedy()
@@ -1335,11 +1812,14 @@ def main() -> int:
     nmt_counts = phase_nmt_train()
     beam_counts = phase_nmt_beam()
     padded_counts = phase_bert_padded(bert512)
+    bottleneck_counts = phase_bottleneck()
+    phase_resnet_parity()
+    resnet_counts = phase_resnet_train()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
-                   padded_counts):
+                   padded_counts, bottleneck_counts, resnet_counts):
         launches.update(counts)
     check(all(launches[row["name"]] > 0 for row in
-              [serving_row] + training_rows + k2_rows),
+              [serving_row] + training_rows + k2_rows + fdb_rows),
           f"a kernel of the main paths was never launched: {launches}")
     src = "paddle_tpu_torch/kernels/csrc/"
     rows = [{
@@ -1376,6 +1856,17 @@ def main() -> int:
                              else "flash_attention_bias_bwd.cu"),
             "replaces": "paddle_tpu/ops/pallas/attention.py:393" if fwd
             else jax_fa + ("941" if row["name"].endswith("dkv") else "1287"),
+            "launches": launches[row["name"]],
+            "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    for row in fdb_rows:
+        # the row's times at the g2 shape (K5 at phase 13's product)
+        t = row["timings"][FDB_LINE_SHAPE]
+        rows.append({
+            "name": row["name"], "route": "cuda",
+            "source": src + "fused_dense_bn.cu",
+            "replaces": row["replaces"],
             "launches": launches[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

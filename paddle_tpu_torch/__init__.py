@@ -2,12 +2,13 @@
 NVIDIA Hopper.
 
 It serves GPT token generation (`serving.DecodeEngine`,
-`serving.Server`), trains BERT, GPT and Transformer NMT
+`serving.Server`), trains BERT, GPT, Transformer NMT and ResNet
 (`parallel.train.make_train_step`) and beam-searches the Transformer,
 through the same entry points as the JAX package, with attention on
 hand-written CUDA kernels (`kernels/flash_attention.py`,
-`kernels/flash_attention_bias.py`). It imports torch and never jax,
-and nothing of the JAX package.
+`kernels/flash_attention_bias.py`) and ResNet's fused 1x1 convs on the
+hand-written matmul+BN kernels (`kernels/fused_dense_bn.py`). It
+imports torch and never jax, and nothing of the JAX package.
 
 Devices are explicit: every entry point runs on `cuda` unless the
 caller passes `device="cpu"`, and raises when asked for `cuda` on a

@@ -25,7 +25,7 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device,
     """{name: array} -> {name: tensor on `device`}, same names, shapes
     and values. `dtype`, when given, casts floating arrays (integer ones
     keep theirs). `expected` ({name: shape}, from
-    `models.gpt.param_shapes` or `models.bert.param_shapes`) makes a
+    a model's `param_shapes`, such as `models.resnet.param_shapes`) makes a
     missing or extra name, or another shape, an error."""
     dev = resolve_device(device)
     if expected is not None:

@@ -33,7 +33,8 @@ BUILD_DIR = _HERE / "build"
 SOURCES = {"flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "flash_attention_bias": "flash_attention_bias.cu",
-           "flash_attention_bias_bwd": "flash_attention_bias_bwd.cu"}
+           "flash_attention_bias_bwd": "flash_attention_bias_bwd.cu",
+           "fused_dense_bn": "fused_dense_bn.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

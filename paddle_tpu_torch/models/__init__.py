@@ -1,2 +1,3 @@
 """Models of the port: GPT (decoder-only transformer), BERT (encoder),
-Transformer NMT (encoder-decoder with beam search) and shared blocks."""
+Transformer NMT (encoder-decoder with beam search), ResNet (the ImageNet
+CNN, with the fused 1x1 path) and shared blocks."""

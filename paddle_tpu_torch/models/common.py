@@ -19,7 +19,8 @@ Params = Dict[str, torch.Tensor]
 ParamAxes = Dict[str, Tuple[Optional[str], ...]]
 
 __all__ = ["ParamStore", "Params", "raw_layer_norm", "layer_norm", "gelu",
-           "dense", "dropout", "is_trainable"]
+           "dense", "dropout", "is_trainable", "same_pads", "conv2d_nhwc",
+           "conv2d_nhwc_auto"]
 
 
 class ParamStore:
@@ -69,6 +70,25 @@ class ParamStore:
     def embedding(self, name: str, vocab: int, dim: int,
                   axes=("vocab", "embed"), scale: float = 0.02):
         self.add(f"{name}.w", self.normal((vocab, dim), scale), axes)
+
+    def conv(self, name: str, kh: int, kw: int, cin: int, cout: int,
+             axes=(None, None, None, "conv_out")):
+        """`{name}.w` [kh, kw, cin, cout] (HWIO), normal with scale
+        sqrt(2 / fan_in)."""
+        scale = math.sqrt(2.0 / (kh * kw * cin))
+        self.add(f"{name}.w", self.normal((kh, kw, cin, cout), scale), axes)
+
+    def bn(self, name: str, dim: int):
+        """BatchNorm: trainable `.scale` (ones) and `.bias` (zeros) in the
+        store's dtype, and the running statistics `.mean` (zeros) and
+        `.var` (ones) in f32, state kept in the same dict (see
+        `is_trainable`)."""
+        for key, fill, dtype in (("scale", 1.0, self.dtype),
+                                 ("bias", 0.0, self.dtype),
+                                 ("mean", 0.0, torch.float32),
+                                 ("var", 1.0, torch.float32)):
+            self.add(f"{name}.{key}", torch.full((dim,), fill, dtype=dtype,
+                                                 device=self.device), (None,))
 
 
 def is_trainable(name: str) -> bool:
@@ -122,3 +142,50 @@ def layer_norm(params: Params, name: str, x: torch.Tensor,
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh form, as jax.nn.gelu(approximate=True)."""
     return F.gelu(x, approximate="tanh")
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: (before, after), with
+    total = max((ceil(size / stride) - 1) * stride + k - size, 0) and
+    the odd one after. Asymmetric at stride 2 on an even size, where
+    a symmetric k // 2 would shift the window."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                padding="SAME") -> torch.Tensor:
+    """NHWC conv with HWIO weights, as jax.lax.conv_general_dilated with
+    ("NHWC", "HWIO", "NHWC"). `padding` is "SAME" (XLA's) or "VALID".
+    The input goes to the conv as an NCHW view of NHWC memory
+    (channels_last), so the result, permuted back, is contiguous NHWC
+    again: no transpose is copied."""
+    kh, kw = w.shape[0], w.shape[1]
+    if padding == "SAME":
+        (top, bottom), (left, right) = (same_pads(x.shape[1], kh, stride),
+                                        same_pads(x.shape[2], kw, stride))
+    elif padding == "VALID":
+        top = bottom = left = right = 0
+    else:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    if top == bottom and left == right:
+        conv_pad = (top, left)
+    else:
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+        conv_pad = (0, 0)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 stride=stride, padding=conv_pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv2d_nhwc_auto(params: Params, name: str, x: torch.Tensor,
+                     stride: int = 1, padding="SAME") -> torch.Tensor:
+    """The conv the model zoo shares: `{name}.w` cast to x's dtype. int8
+    weights (the JAX package's int8 serving path) are not ported yet
+    and raise."""
+    w = params[f"{name}.w"]
+    if w.dtype == torch.int8:
+        raise NotImplementedError(
+            f"{name}: int8 conv weights (quantize_conv_weights_int8) are "
+            f"not ported yet")
+    return conv2d_nhwc(x, w.to(x.dtype), stride, padding)

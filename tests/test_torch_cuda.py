@@ -8,7 +8,10 @@ of the same models, all bf16, plus f32, f16 and a ragged T at one
 shape each. K2 (the additive-bias kernels: forward, dkv, dq with its
 bias gradient) against its plain versions at small shapes with key
 masks and full biases; `chip_smoke.py` checks it at the main paths'
-own shapes. A masked `mha` and a padded BERT `encode` run K2.
+own shapes. A masked `mha` and a padded BERT `encode` run K2. K4, K5
+and K6 (the fused matmul+BN kernels) against their plain versions at
+one ResNet-50 shape of each stage group (bs 256 at 224 x 224), at f32,
+f16 and f64 and at a ragged shape, with the ReLU on and off.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -34,6 +37,7 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import flash_attention_bias as fb
+from paddle_tpu_torch.kernels import fused_dense_bn as fdb
 from paddle_tpu_torch.ops import attention as ta
 
 torch.set_num_threads(2)
@@ -272,3 +276,96 @@ def test_padded_bert_encode_on_cuda_equals_the_cpu():
     assert fb.flash_attention_bias_fwd.launches == k2 + cfg.layers
     err = (got.cpu() - want).abs().max() / want.abs().max().clamp(min=1)
     assert err <= 1e-5
+
+
+# K4-K6: (kernel, M, K, N, dtype, relu). K4 is conv1 and K6 conv3 of a
+# bottleneck at ResNet-50 bs 256 (one shape of each stage group, M =
+# B*H*W), K5 the bottleneck slice's second product; then f32, f16 and
+# f64 at one shape, a ragged shape at every dtype and the ReLU off.
+FDB_CASES = ([("k4", 802816, 256, 64, torch.bfloat16, True),
+              ("k4", 200704, 512, 128, torch.bfloat16, True),
+              ("k4", 50176, 1024, 256, torch.bfloat16, True),
+              ("k4", 12544, 2048, 512, torch.bfloat16, True),
+              ("k6", 802816, 64, 256, torch.bfloat16, True),
+              ("k6", 200704, 128, 512, torch.bfloat16, True),
+              ("k6", 50176, 256, 1024, torch.bfloat16, True),
+              ("k6", 12544, 512, 2048, torch.bfloat16, True),
+              ("k5", 50176, 256, 1024, torch.bfloat16, True)] +
+             [(k, 12544, 256, 256, dt, True) for k in ("k4", "k5", "k6")
+              for dt in (torch.float32, torch.float16, torch.float64)] +
+             [(k, 1000, 72, 40, dt, True) for k in ("k4", "k5", "k6")
+              for dt in (torch.bfloat16, torch.float32, torch.float16,
+                         torch.float64)] +
+             [(k, 1000, 72, 40, torch.bfloat16, False) for k in ("k5", "k6")])
+FDB_FNS = {"k4": fdb.matmul_stats_fwd, "k5": fdb.bn_act_matmul_fwd,
+           "k6": fdb.bn_act_matmul_stats_fwd}
+FDB_REFS = {"k4": fdb.mm_stats_ref, "k5": fdb.bn_mm_ref,
+            "k6": fdb.bn_mm_stats_ref}
+# y per element under ELEM_TOL (f64: one step of 1e-12); mean and var
+# against the scale of the summed values, E[y^2]: a sum of M terms in
+# another order moves by a few steps of that scale, whatever the mean's
+# own size (1e-5 for the f32 accumulator, 1e-12 for f64)
+FDB_ELEM_TOL = {**ELEM_TOL, torch.float64: (1e-12, 1e-12)}
+
+
+def _fdb_inputs(kernel, M, K, N, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(K, N, generator=g, device="cuda") / K ** 0.5).to(dtype)
+    if kernel == "k4":
+        return (x, w)
+    scale = torch.rand(K, generator=g, device="cuda", dtype=acc) + 0.5
+    shift = torch.randn(K, generator=g, device="cuda", dtype=acc) * 0.5
+    return (x, scale, shift, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,M,K,N,dtype,relu", FDB_CASES)
+def test_fused_dense_bn_kernels_match_plain_version(kernel, M, K, N, dtype,
+                                                    relu):
+    _need_card()
+    args = _fdb_inputs(kernel, M, K, N, dtype, M + K + N)
+    kw = {} if kernel == "k4" else {"relu": relu}
+    fn = FDB_FNS[kernel]
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = FDB_REFS[kernel](*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert got[0].dtype == dtype and got[0].shape == (M, N)
+    rtol, atol = FDB_ELEM_TOL[dtype]
+    err = (got[0].double() - want[0].double()).abs()
+    rms = want[0].double().square().mean().sqrt()
+    assert (err / (rtol * want[0].double().abs() + atol * rms)).max() <= 1.0
+    if kernel == "k4" or kernel == "k6":
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        mean, var = want[1].double(), want[2].double()
+        ey2 = var + mean * mean
+        assert ((got[1] - mean).abs() <= tol * (mean.abs() + ey2.sqrt())).all()
+        assert ((got[2] - var).abs() <= tol * (var.abs() + ey2)).all()
+
+
+@pytest.mark.cuda
+def test_fused_dense_bn_autograd_on_cuda():
+    """The public ops on CUDA tensors run their kernels forward and the
+    plain version's autograd backward: gradients equal the plain
+    version's own, launched once each."""
+    _need_card()
+    x, scale, shift, w = (t.double().requires_grad_() for t in
+                          _fdb_inputs("k6", 1000, 72, 40, torch.float64, 3))
+    before = fdb.bn_act_matmul_stats_fwd.launches
+    y, mean, var = fdb.bn_act_matmul_stats(x, scale, shift, w)
+    assert fdb.bn_act_matmul_stats_fwd.launches == before + 1
+    loss = y.square().sum() + mean.sum() + var.sum()
+    got = torch.autograd.grad(loss, (x, scale, shift, w))
+    y, mean, var = fdb.bn_mm_stats_ref(x, scale, shift, w)
+    want = torch.autograd.grad(y.square().sum() + mean.sum() + var.sum(),
+                               (x, scale, shift, w))
+    assert fdb.bn_act_matmul_stats_fwd.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=1e-10, atol=1e-10)
+    with pytest.raises(ValueError, match="scale and shift"):
+        fdb.bn_act_matmul_fwd(x.float(), scale, shift, w.float())

@@ -34,13 +34,16 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
-    # the training and NMT slices' modules are among those imported
+    # the training, NMT and ResNet slices' modules are among those
+    # imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
                  "paddle_tpu_torch.kernels.flash_attention",
                  "paddle_tpu_torch.kernels.flash_attention_bias",
-                 "paddle_tpu_torch.models.transformer"):
+                 "paddle_tpu_torch.models.transformer",
+                 "paddle_tpu_torch.kernels.fused_dense_bn",
+                 "paddle_tpu_torch.models.resnet"):
         assert name in r.stdout.split(), name
 
 
@@ -95,3 +98,15 @@ def test_chip_smoke_prints_no_result_without_a_gpu(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_every_cuda_source_is_built():
+    """`_build.SOURCES` names every CUDA source under kernels/csrc, the
+    fused matmul+BN kernels with the four attention kernels, so one
+    build compiles them all."""
+    from paddle_tpu_torch.kernels import _build
+
+    csrc = os.path.join(_PKG, "kernels", "csrc")
+    on_disk = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert sorted(_build.SOURCES.values()) == on_disk
+    assert _build.SOURCES["fused_dense_bn"] == "fused_dense_bn.cu"
