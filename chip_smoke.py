@@ -63,7 +63,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 15. resnet-train: ResNet-50 as bench.py's bench_resnet50 runs its first
    rung (bs 256 at 224 x 224, NHWC, bf16 activations, f32 params,
    SGD(0.1, momentum 0.9), 3 warm-up and 20 timed steps), unfused, then
-   `fused_1x1` with K4 and K6 16 times a step each.
+   `fused_1x1` with K4 and K6 16 times a step each;
+16. ring-parity: an in-process sp=4 ring on the card (four virtual
+   ranks, what one card can show of the sp axis) at f32, TF32 off:
+   ring_splash (K3 blocks) against its plain version and against
+   single-device K1, causal ring_attention against K1 causal, out and
+   gradients; then one step of a 2-layer, full-width BERT-base at
+   2 x 1024 under MeshConfig(sp=4) against no mesh (K1) on the card and
+   against the CPU: loss, every gradient and one AdamW step;
+17. bert-long-sp: BERT-base at T 4096 as bench.py's bench_bert_long
+   builds it (`BertConfig(max_len=4096, dropout=0.0)`), mixed_bf16,
+   under MeshConfig(sp=4) on the in-process ring at the first rung of
+   [8, 4, 2, 1] that fits (2 warm-up and 10 timed steps, K3 192 times
+   a step), then the same step with no mesh (K1 at T 4096).
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -72,11 +84,13 @@ causal with full biases at f32 and f16, a ragged pair and a bias
 gradient; and K4, K5 and K6 (the fused matmul+BN kernels) at one
 ResNet-50 bs-256 shape of each stage group (bf16, timed beside
 cuBLAS's bare product), at f32, f16 and f64, at a ragged (1000, 72, 40)
-and with the ReLU off.
+and with the ReLU off; and K3 (the ring's block, K1-fwd with its LSE
+at scale 1 on a pre-scaled q) at phase 17's block (8 x 1024 x 12 heads,
+bf16), at f32 and at f16.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phase 3 for serving, phases 7, 8, 10, 12 and 15 for
-training, phase 11 for beam search, phase 13 for the bottleneck).
+read just after (phase 3 for serving, phases 7, 8, 10, 12, 15 and 17
+for training, phase 11 for beam search, phase 13 for the bottleneck).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
@@ -247,15 +261,16 @@ ELEM_TOL = {"bfloat16": (2 ** -7, 2e-2), "float16": (2 ** -10, 1e-3),
             "float32": (1e-5, 1e-5), "float64": (1e-12, 1e-12)}
 
 
-def held(got, want, dname):
-    """`got` against `want` under ELEM_TOL[dname]: the max abs error,
+def held(got, want, dname, tol=None):
+    """`got` against `want` under ELEM_TOL[dname] (or `tol`, an (rtol,
+    atol) pair): the max abs error,
     the reference's RMS (its typical value) and largest value, `ratio`
     (the worst element's error over its limit; at most 1 passes) and
     `atol_rms` (the least atol, in RMS, that would pass at this
     rtol)."""
     import torch
 
-    rtol, atol = ELEM_TOL[dname]
+    rtol, atol = tol or ELEM_TOL[dname]
     want = want.float()
     err = (got.float() - want).abs()
     rms = want.square().mean().sqrt().clamp(min=torch.finfo().tiny)
@@ -402,7 +417,7 @@ def _training_kernel_rows():
     rows = []
     for name, key, err, replaces in (
             ("flash_attention_fwd_lse", "fwd_lse", worst("out"),
-             "K1/K3 attention.py:_splash_mha fwd with LSE"),
+             "K1 attention.py:_splash_mha fwd with LSE (under grad)"),
             ("flash_attention_bwd_delta", "delta", worst("delta"),
              "K1-bwd splash vjp di = rowsum(o*do)"),
             ("flash_attention_bwd_dkv", "dkv", worst("dk", "dv"),
@@ -608,6 +623,58 @@ def _k2_kernel_rows():
     return rows, checks, whole, failed
 
 
+# K3 (the ring's block, `splash_block_with_lse`): (label, B, T, dtype).
+# "ring" is phase 17's block, BERT-base at T 4096 over an sp=4 ring
+# (1024 queries against 1024 keys, bf16, q pre-scaled); then one f32
+# and one f16 shape. The first is timed.
+K3_KERNEL_CASES = (("ring", 8, 1024, "bfloat16"), ("f32", 2, 512, "float32"),
+                   ("f16", 4, 1024, "float16"))
+
+
+def _k3_kernel_row():
+    """K3 against its plain version per element (`ELEM_TOL`) at every
+    case, its LSE within 1e-4, and its times at the ring's block."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    checks, failed, timing = [], [], None
+    for label, B, T, dname in K3_KERNEL_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(B, T, 12, 64, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        q = q * torch.tensor(0.125, dtype=dtype)   # pre-scaled, as the ring
+        out, lse = fa.splash_block_with_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.splash_block_with_lse_ref(q, k, v)
+        err = held(out, ref_out, dname)
+        lse_err = (lse - ref_lse).abs().max().item()
+        checks.append({"case": label, "shape": [B, T, 12, 64],
+                       "dtype": dname, "tol": ELEM_TOL[dname],
+                       "lse_max_abs_err": lse_err, "held": {"out": err}})
+        if not err["ratio"] <= 1.0:
+            failed.append(f"K3 {label} out: {err}")
+        if not lse_err <= 1e-4:
+            failed.append(f"K3 {label} lse: max abs error {lse_err} > 1e-4")
+        if label == "ring":
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            bound, bound_by = attention_bound_ms(q, k, False, 2, 4, 1)
+            timing = {
+                "shape": [B, T, 12, 64], "dtype": dname,
+                "ms": time_ms(lambda: fa.splash_block_with_lse(q, k, v)),
+                "plain_ms": time_ms(
+                    lambda: fa.splash_block_with_lse_ref(q, k, v)),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, scale=1.0)),
+                "bound_ms": bound, "bound_by": bound_by,
+                "max_abs_err": err["max_abs_err"]}
+    return {"name": "splash_block_with_lse",
+            "replaces": "K3 attention.py:_splash_block_with_lse (ring block)",
+            "checks": checks, **timing}, failed
+
+
 # K4-K6 (the fused matmul+BN kernels): (kernel, label, M, K, N, dtype,
 # relu). K4 is conv1 and K6 conv3 of a ResNet-50 bottleneck at bs 256,
 # 224 x 224 (M = B*H*W), one shape of each stage group g0-g3; K5 is
@@ -751,18 +818,20 @@ def phase_kernels():
     serving = _serving_kernel_row()
     training, checks, whole, failed = _training_kernel_rows()
     k2_rows, k2_checks, k2_whole, k2_failed = _k2_kernel_rows()
+    k3_row, k3_failed = _k3_kernel_row()
     t0 = time.perf_counter()
     fdb_rows, fdb_checks, fdb_failed = _fdb_kernel_rows()
     print(json.dumps({"phase": "kernels",
-                      "kernels": [serving] + training + k2_rows + fdb_rows,
+                      "kernels": [serving] + training + k2_rows + [k3_row] +
+                      fdb_rows,
                       "bwd_whole": whole, "training_checks": checks,
                       "k2_bwd_whole": k2_whole, "k2_checks": k2_checks,
                       "fdb_checks": fdb_checks,
                       "fdb_s": time.perf_counter() - t0}))
-    failed += k2_failed + fdb_failed
+    failed += k2_failed + k3_failed + fdb_failed
     check(not failed, "kernel against its plain version: " +
           "; ".join(failed))
-    return serving, training, k2_rows, fdb_rows
+    return serving, training, k2_rows, k3_row, fdb_rows
 
 
 def _generate(port, ids, max_new, out):
@@ -1050,6 +1119,7 @@ def _kernel_counts(reset=False):
     fns = {name: getattr(fdb, name) for name in FDB_NAMES.values()}
     fns.update({"flash_attention_fwd": fa.flash_attention,
            "flash_attention_fwd_lse": fa.flash_attention_with_lse,
+           "splash_block_with_lse": fa.splash_block_with_lse,
            "flash_attention_bwd_delta": fa.attention_delta,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
@@ -1064,20 +1134,12 @@ def _kernel_counts(reset=False):
 
 def phase_train_parity():
     """One f32 train step of a 2-layer, full-width BERT on the card and
-    on the CPU from the same params and batch. Tolerances: loss within
-    1e-5 relative; each gradient within 2e-4 of its tensor's largest
-    CPU value plus 1e-7 (f32 sums in other orders through two layers;
-    the floor is for the key biases, whose exact gradient is 0, since
-    a shift of every key adds a constant to a row's logits, and whose
-    computed one is rounding noise of about 1e-9 on both devices); the
-    updated params: every update within 2 lr of the CPU's (AdamW's
-    first step moves each element by about lr times the sign of its
-    gradient, so a gradient near zero may move the other way), and at
-    most 0.1% of the elements more than 1e-6 apart."""
+    on the CPU from the same params and batch, at `_hold_train_step`'s
+    tolerances (the card's loss, gradients and updated params against
+    the CPU's)."""
     import torch
 
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.parallel.train import make_train_step
 
     cfg = bert.BertConfig(layers=2, dtype="float32")
     params, _ = bert.init(torch.Generator().manual_seed(2), cfg,
@@ -1088,51 +1150,76 @@ def phase_train_parity():
     def loss_fn(p, b, g):
         return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=True)
 
-    result = {}
-    for dev in ("cuda", "cpu"):
-        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
-        b = {k: v.to(dev) for k, v in batch.items()}
-        loss = loss_fn(p, b, None)
-        grads = torch.autograd.grad(loss, list(p.values()),
-                                    allow_unused=True)
-        grads = {k: (torch.zeros_like(v) if g is None else g).cpu()
-                 for (k, v), g in zip(p.items(), grads)}
-        counts = _kernel_counts(reset=True)
-        init, step = make_train_step(loss_fn, _adamw, device=dev,
-                                     precision="f32")
-        state, step_loss = step(init(params), b, 0)
-        counts = _kernel_counts()
-        result[dev] = (loss.item(), grads,
-                       {k: v.detach().cpu() for k, v in state.params.items()},
-                       step_loss.item(), counts)
-    (lc, gc, pc, slc, kc), (lp, gp, pp, slp, _) = result["cuda"], result["cpu"]
+    cuda = _one_train_step(loss_fn, params, batch, "cuda")
+    cpu = _one_train_step(loss_fn, params, batch, "cpu")
+    kc = cuda["counts"]
     check(all(kc[name] == cfg.layers for name in K1_TRAIN) and
           all(kc[name] == 0 for name in K2_NAMES),
           f"train-parity: the CUDA step ran {kc} launches")
+    print(json.dumps({"phase": "train-parity",
+                      "model": "BertConfig(layers=2), f32, 4 x 128",
+                      **_hold_train_step("train-parity", cuda, cpu, params),
+                      "launches": kc}))
+
+
+def _one_train_step(loss_fn, params, batch, dev):
+    """On `dev`: the loss and every gradient at `params`, then one
+    AdamW `make_train_step` step (f32) from them, with the kernels'
+    launches over that step."""
+    import torch
+
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+    b = {k: v.to(dev) for k, v in batch.items()}
+    loss = loss_fn(p, b, None)
+    grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+    grads = {k: (torch.zeros_like(v) if g is None else g).cpu()
+             for (k, v), g in zip(p.items(), grads)}
+    _kernel_counts(reset=True)
+    init, step = make_train_step(loss_fn, _adamw, device=dev,
+                                 precision="f32")
+    state, step_loss = step(init(params), b, 0)
+    return {"loss": loss.item(), "grads": grads,
+            "params": {k: v.detach().cpu() for k, v in state.params.items()},
+            "step_loss": step_loss.item(), "counts": _kernel_counts()}
+
+
+def _hold_train_step(label, got, want, params):
+    """`got` against `want` (two `_one_train_step` results) at f32:
+    loss within 1e-5 relative; each gradient within 2e-4 of its tensor's
+    largest `want` value plus 1e-7 (f32 sums in other orders through two
+    layers; the floor is for the key biases, whose exact gradient is 0,
+    since a shift of every key adds a constant to a row's logits, and
+    whose computed one is rounding noise of about 1e-9 on both sides);
+    the updated params: every update within 2 lr of `want`'s (AdamW's
+    first step moves each element by about lr times the sign of its
+    gradient, so a gradient near zero may move the other way), and at
+    most 0.1% of the elements more than 1e-6 apart."""
+    lc, lp = got["loss"], want["loss"]
+    slc, slp = got["step_loss"], want["step_loss"]
     check(abs(lc - lp) <= 1e-5 * abs(lp) and abs(slc - slp) <= 1e-5 * abs(slp),
-          f"train-parity loss {lc} vs {lp}")
+          f"{label} loss {lc} vs {lp}")
+    gc, gp = got["grads"], want["grads"]
     grad_err = sorted((((gc[k] - gp[k]).abs().max() /
                         (2e-4 * gp[k].abs().max() + 1e-7)).item(), k,
                        gp[k].abs().max().item()) for k in gp)[::-1]
     check(grad_err[0][0] <= 1.0,
-          f"train-parity grads: worst (error / tolerance, name, largest "
-          f"CPU value) {grad_err[:3]}")
+          f"{label} grads: worst (error / tolerance, name, largest "
+          f"reference value) {grad_err[:3]}")
     upd_err, n_far, n_all = 0.0, 0, 0
     for k, p0 in params.items():
-        d = ((pc[k] - p0) - (pp[k] - p0)).abs()
+        d = ((got["params"][k] - p0) - (want["params"][k] - p0)).abs()
         upd_err = max(upd_err, d.max().item())
         n_far += int((d > 1e-6).sum())
         n_all += d.numel()
     check(upd_err <= 2 * LR and n_far <= 1e-3 * n_all,
-          f"train-parity params: max update difference {upd_err}, "
+          f"{label} params: max update difference {upd_err}, "
           f"{n_far} of {n_all} elements more than 1e-6 apart")
-    print(json.dumps({"phase": "train-parity",
-                      "model": "BertConfig(layers=2), f32, 4 x 128",
-                      "loss_cuda": lc, "loss_cpu": lp,
-                      "grad_err_over_tol_worst3": grad_err[:3],
-                      "param_update_max_abs_err": upd_err,
-                      "param_elements_apart": n_far, "param_elements": n_all,
-                      "launches": kc}))
+    return {"loss_got": lc, "loss_want": lp,
+            "grad_err_over_tol_worst3": grad_err[:3],
+            "param_update_max_abs_err": upd_err,
+            "param_elements_apart": n_far, "param_elements": n_all}
 
 
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
@@ -1789,6 +1876,198 @@ def phase_resnet_train():
     return counts
 
 
+SP = 4   # the ring of phases 16 and 17: MeshConfig(sp=4) on one card
+
+
+def _sp_mesh():
+    """An in-process sp=4 ring: four virtual ranks on the card, run in
+    turn by this process (what one card can show of the sp axis)."""
+    import torch
+
+    from paddle_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    return make_mesh(MeshConfig(sp=SP), devices=[torch.device("cuda", 0)] * SP)
+
+
+# Causal ring_attention's gradients against K1's, per element: f32
+# with ten times ELEM_TOL's atol. In the rows with few keys the exact dq
+# is near 0 and ds = p (dp - delta) cancels, and the two sides round the
+# logits at different points (q k^T, then the scale, as the JAX
+# package's _block_attn; K1 scales q first), so their f32 noise there
+# differs: measured 1.27e-5 of the RMS on an H100 at 2 x 2048 x 12 heads.
+CAUSAL_RING_TOL = (1e-5, 1e-4)
+
+
+def _ring_op_parity(mesh):
+    """f32 on the card: ring_splash (K3 blocks) against its plain
+    version (K3's plain version in every block) and against
+    single-device K1, out and the q/k/v gradients; causal
+    ring_attention against K1 causal. Every element under
+    ELEM_TOL["float32"] (the same f32 attention, summed in other
+    orders), causal ring_attention's gradients under CAUSAL_RING_TOL."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    B, T, N, H = 2, 2048, 12, 64
+    scale = 1.0 / H ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, ct = (torch.randn(B, T, N, H, generator=gen, device="cuda")
+                   for _ in range(4))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad((out * ct).sum(),
+                                                         leaves))
+
+    before = fa.splash_block_with_lse.launches
+    ring = run(lambda a, b, c: ra.ring_splash(a, b, c, mesh, scale=scale))
+    launches = fa.splash_block_with_lse.launches - before
+    check(launches == SP * SP,
+          f"ring-parity: ring_splash launched K3 {launches} times, not "
+          f"{SP * SP}")
+    refs = {
+        "ring_splash_vs_plain_ring": (ring, run(
+            lambda a, b, c: ra.ring_splash_ref(a, b, c, mesh, scale=scale))),
+        "ring_splash_vs_k1": (ring, run(
+            lambda a, b, c: fa.flash_attention(a, b, c, scale, False))),
+        "causal_ring_attention_vs_k1": (run(
+            lambda a, b, c: ra.ring_attention(a, b, c, mesh, causal=True,
+                                              scale=scale)),
+            run(lambda a, b, c: fa.flash_attention(a, b, c, scale, True)))}
+    report, failed = {}, []
+    for label, (got, want) in refs.items():
+        grad_tol = CAUSAL_RING_TOL if label.startswith("causal") else None
+        report[label] = {name: held(a, b, "float32",
+                                    None if name == "out" else grad_tol)
+                         for name, a, b in zip(("out", "dq", "dk", "dv"),
+                                               got, want)}
+        failed += [f"{label} {n}: {e}" for n, e in report[label].items()
+                   if not e["ratio"] <= 1.0]
+    check(not failed, "ring-parity: " + "; ".join(failed))
+    return {"shape": [B, T, N, H], "k3_launches": launches, **report}
+
+
+def phase_ring_parity():
+    """The sp=4 in-process ring on the card at f32 (TF32 off): the op
+    level (`_ring_op_parity`), then one step of a 2-layer, full-width
+    BERT-base at 2 x 1024 under MeshConfig(sp=4) (every attention on
+    ring_splash, K3 blocks) against the same step with no mesh on the
+    card (K1) and on the CPU (plain versions): loss, every gradient and
+    one AdamW step, at `_hold_train_step`'s tolerances."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    t0 = time.perf_counter()
+    mesh = _sp_mesh()
+    ops = _ring_op_parity(mesh)
+    cfg = bert.BertConfig(layers=2, max_len=1024, dtype="float32")
+    params, _ = bert.init(torch.Generator().manual_seed(16), cfg,
+                          device="cpu")
+    batch = bert.make_batch(np.random.RandomState(16), cfg, 2, seq_len=1024,
+                            device="cpu")
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=True)
+
+    attn.GATE_COUNTS.clear()
+    with mesh_guard(mesh):
+        sp = _one_train_step(loss_fn, params, batch, "cuda")
+    gates = dict(attn.GATE_COUNTS)
+    k3 = sp["counts"]["splash_block_with_lse"]
+    # the model runs twice under the mesh (the grad call, then the step,
+    # whose launches are counted): one ring call a layer, S blocks on
+    # each of S ranks
+    check(gates == {"ring_splash": 2 * cfg.layers} and
+          k3 == cfg.layers * SP * SP and
+          all(n == 0 for name, n in sp["counts"].items()
+              if name != "splash_block_with_lse"),
+          f"ring-parity: gates {gates}, launches of the step {sp['counts']}")
+    k1 = _one_train_step(loss_fn, params, batch, "cuda")
+    cpu = _one_train_step(loss_fn, params, batch, "cpu")
+    print(json.dumps({
+        "phase": "ring-parity", "ring": f"in-process sp={SP} on one card",
+        "ops": ops,
+        "model": "BertConfig(layers=2, max_len=1024), f32, 2 x 1024",
+        "gate_counts": gates, "k3_launches_step": k3,
+        "sp_vs_k1": _hold_train_step("ring-parity sp vs K1", sp, k1, params),
+        "sp_vs_cpu": _hold_train_step("ring-parity sp vs CPU", sp, cpu,
+                                      params),
+        "seconds": time.perf_counter() - t0}))
+
+
+def phase_bert_long_sp():
+    """BERT-base at T 4096 as bench.py's bench_bert_long builds it
+    (`BertConfig(max_len=4096, dropout=0.0)`, deterministic, AdamW),
+    under mixed_bf16: first under MeshConfig(sp=4) on the in-process
+    ring (every layer's attention on ring_splash, K3 16 times a call),
+    at the first rung of bench_bert_long's ladder [8, 4, 2, 1] that
+    fits, 2 warm-up and 10 timed steps; then the same step with no mesh
+    (K1 at T 4096) on the same params and batch, so the ring's cost on
+    one card is a number."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    t0 = time.perf_counter()
+    T = 4096
+    cfg = bert.BertConfig(max_len=T, dropout=0.0)
+    mesh = _sp_mesh()
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=True)
+
+    def setup(B):
+        params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+        batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                                cfg, B, seq_len=T)
+        return params, batch, cfg.train_flops_per_seq(
+            T, batch["masked_positions"].shape[1])
+
+    torch.cuda.reset_peak_memory_stats()
+    did_not_fit, sp_row = [], None
+    for B in (8, 4, 2, 1):
+        params, batch, flops = setup(B)
+        try:
+            with mesh_guard(mesh):
+                sp_row = _train_run(
+                    f"bert-base {B}x{T} sp={SP}", loss_fn, params, batch,
+                    flops, 2, 10,
+                    {"splash_block_with_lse": cfg.layers * SP * SP})
+        except torch.cuda.OutOfMemoryError:
+            did_not_fit.append(B)
+        del params, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if sp_row is not None:
+            break
+    check(sp_row is not None, "bert-long-sp: no rung of [8, 4, 2, 1] fit")
+    params, batch, flops = setup(B)
+    k1_row = _train_run(f"bert-base {B}x{T} no mesh", loss_fn, params,
+                        batch, flops, 2, 10,
+                        dict.fromkeys(K1_TRAIN, cfg.layers))
+    del params, batch
+    print(json.dumps({
+        "phase": "bert-long-sp",
+        "model": f"BERT-base (BertConfig(max_len={T}, dropout=0.0)), "
+                 f"mixed_bf16, deterministic",
+        "optimizer": "AdamW lr 1e-4 wd 1e-4",
+        "ring": f"in-process sp={SP} on one card", "batch": B,
+        "rungs_that_did_not_fit": did_not_fit,
+        "k3_launches_per_step": sp_row["launches_per_step"][
+            "splash_block_with_lse"],
+        "ring_cost_ms": sp_row["step_ms_median"] - k1_row["step_ms_median"],
+        "runs": [sp_row, k1_row], "seconds": time.perf_counter() - t0}))
+    return sp_row["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1801,7 +2080,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
-    serving_row, training_rows, k2_rows, fdb_rows = phase_kernels()
+    serving_row, training_rows, k2_rows, k3_row, fdb_rows = phase_kernels()
     launches = collections.Counter({"flash_attention_fwd": phase_slice()})
     phase_profile()
     phase_greedy()
@@ -1815,11 +2094,14 @@ def main() -> int:
     bottleneck_counts = phase_bottleneck()
     phase_resnet_parity()
     resnet_counts = phase_resnet_train()
+    phase_ring_parity()
+    sp_counts = phase_bert_long_sp()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
-                   padded_counts, bottleneck_counts, resnet_counts):
+                   padded_counts, bottleneck_counts, resnet_counts,
+                   sp_counts):
         launches.update(counts)
     check(all(launches[row["name"]] > 0 for row in
-              [serving_row] + training_rows + k2_rows + fdb_rows),
+              [serving_row] + training_rows + k2_rows + [k3_row] + fdb_rows),
           f"a kernel of the main paths was never launched: {launches}")
     src = "paddle_tpu_torch/kernels/csrc/"
     rows = [{
@@ -1840,7 +2122,7 @@ def main() -> int:
             "source": src + ("flash_attention.cu" if row["name"].endswith(
                 "fwd_lse") else "flash_attention_bwd.cu"),
             "replaces": "paddle_tpu/ops/pallas/attention.py:" + (
-                "374" if row["name"].endswith("fwd_lse") else "356"),
+                "361" if row["name"].endswith("fwd_lse") else "356"),
             "launches": launches[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
@@ -1860,6 +2142,15 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    # K3's times at phase 17's block (8 x 1024 x 12 heads, bf16)
+    rows.append({
+        "name": k3_row["name"], "route": "cuda",
+        "source": src + "flash_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/attention.py:374",
+        "launches": launches[k3_row["name"]],
+        **{key: k3_row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}})
     for row in fdb_rows:
         # the row's times at the g2 shape (K5 at phase 13's product)
         t = row["timings"][FDB_LINE_SHAPE]

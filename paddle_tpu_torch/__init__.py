@@ -7,8 +7,11 @@ It serves GPT token generation (`serving.DecodeEngine`,
 through the same entry points as the JAX package, with attention on
 hand-written CUDA kernels (`kernels/flash_attention.py`,
 `kernels/flash_attention_bias.py`) and ResNet's fused 1x1 convs on the
-hand-written matmul+BN kernels (`kernels/fused_dense_bn.py`). It
-imports torch and never jax, and nothing of the JAX package.
+hand-written matmul+BN kernels (`kernels/fused_dense_bn.py`). Under a
+mesh with an `sp` ring (`parallel/mesh.py`), attention runs as ring
+attention over the sequence (`ops/ring_attention.py`), full-mask blocks
+on the K3 kernel. It imports torch and never jax, and nothing of the
+JAX package.
 
 Devices are explicit: every entry point runs on `cuda` unless the
 caller passes `device="cpu"`, and raises when asked for `cuda` on a

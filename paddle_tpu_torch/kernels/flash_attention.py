@@ -3,10 +3,11 @@ logsumexp) and backward (K1-bwd), CUDA kernels for Hopper, and their
 plain PyTorch versions.
 
 The kernels replace the JAX package's `ops/pallas/attention.py`
-splash attention: `csrc/flash_attention.cu` its forward
-(`_splash_mha`, and `_splash_block_with_lse` with the LSE output), and
-`csrc/flash_attention_bwd.cu` its dq/dkv backward (the custom vjp of
-`make_splash_mha`). Each wrapper launches its kernel on a CUDA tensor
+splash attention: `csrc/flash_attention.cu` its forward (`_splash_mha`;
+with the LSE output, splash's forward with `save_residuals`, which is
+also K3, the ring's block `_splash_block_with_lse`:
+`splash_block_with_lse`), and `csrc/flash_attention_bwd.cu` its dq/dkv
+backward (the custom vjp of `make_splash_mha`). Each wrapper launches its kernel on a CUDA tensor
 or raises, and computes the plain version on a CPU tensor; there is no
 fallback from the card to the plain version. Each counts its kernel
 launches in `.launches`.
@@ -42,7 +43,8 @@ __all__ = ["FlashAttention", "flash_attention", "flash_attention_ref",
            "flash_attention_bwd_ref", "attention_delta",
            "attention_delta_ref", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dq_ref", "HEAD_DIMS"]
+           "flash_attention_bwd_dq_ref", "splash_block_with_lse",
+           "splash_block_with_lse_ref", "HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -371,17 +373,54 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse [B, N, T] f32): the K1-fwd kernel with its LSE output
-    (counted in `flash_attention_with_lse.launches`), the counterpart of
-    the JAX package's `_splash_block_with_lse` (full mask, q pre-scaled:
-    scale 1.0). Differentiable in `out` through `FlashAttention`."""
+    (counted in `flash_attention_with_lse.launches`): splash's forward
+    as its vjp runs it, saving the LSE. Differentiable in `out` through
+    `FlashAttention`. The ring's block (K3) is `splash_block_with_lse`,
+    the same kernel counted on its own."""
     _check(q, k, v)
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, scale, causal)
     return _forward_with_lse(q, k, v, scale, causal)
 
 
+def splash_block_with_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: full-mask attention of a pre-scaled q, (out
+    in q's dtype, lse f32 [B, N, T])."""
+    return flash_attention_ref(q, k, v, 1.0, causal=False, with_lse=True)
+
+
+def splash_block_with_lse(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3, the counterpart of the JAX package's `_splash_block_with_lse`
+    (`ops/pallas/attention.py:374`): one full-mask block of the ring,
+    q pre-scaled, returning (out in q's dtype, lse f32 [B, N, T]).
+
+    On CUDA tensors it launches K1-fwd with its LSE output at scale 1.0,
+    non-causal (counted in `splash_block_with_lse.launches`): splash's
+    forward with `save_residuals` computes that function. On CPU tensors
+    it runs `splash_block_with_lse_ref`. It has no backward: the ring's
+    autograd Function (`ops/ring_attention.py::RingSplash`) calls it in
+    its forward, and the ring's backward is blockwise from the merged
+    LSE. A call whose inputs require grad under grad raises, rather
+    than return an output cut off from autograd."""
+    _check(q, k, v)
+    if _needs_grad(q, k, v):
+        raise RuntimeError("splash_block_with_lse has no backward; call it "
+                           "under torch.no_grad() or from an autograd "
+                           "Function's forward (ring_splash)")
+    if q.device.type == "cpu":
+        return splash_block_with_lse_ref(q, k, v)
+    out, lse = _fwd_kernel(q, k, v, 1.0, False, with_lse=True)
+    splash_block_with_lse.launches += 1
+    return out, lse
+
+
 flash_attention.launches = 0
 flash_attention_with_lse.launches = 0
+splash_block_with_lse.launches = 0
 attention_delta.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0

@@ -10,8 +10,12 @@ counterpart on one device and are dropped.
 Attention goes through `ops.attention.mha`: on CUDA with no
 `attention_mask` it runs the K1 flash-attention kernels, forward and
 backward; with one, the padding mask goes to the K2 kernels (additive
-bias), forward and backward. Dropout draws from a `torch.Generator`: its bits are
-not jax.random's, so parity checks run with `deterministic=True`.
+bias), forward and backward. Under a mesh with `sp` > 1
+(`parallel/mesh.py::mesh_guard`), `mha` takes the ring instead: with
+no mask, every layer's attention is `ring_splash`, K3 blocks merged by
+logsumexp (see `ops/attention.py`). Dropout draws from a
+`torch.Generator`: its bits are not jax.random's, so parity checks run
+with `deterministic=True`.
 """
 
 from __future__ import annotations

@@ -10,6 +10,10 @@ per-layer params stacked on a leading [L] axis ("blk.wqkv" [L, H, 3H],
 ...), matrices applied as `x @ w`. The JAX package's `lax.scan` over the
 stacked layers is a Python loop over l here.
 
+Under a mesh with `sp` > 1 (`parallel/mesh.py::mesh_guard`), each
+block's causal attention is `ops/ring_attention.py::ring_attention`
+over the sp ring, as the JAX package's `_attention` does.
+
 Mixture-of-experts configs are refused: their expert-dispatch MLP is
 not ported.
 """
@@ -25,6 +29,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import mha
 from ..ops.beam import beam_search
+from ..ops.ring_attention import ring_attention
+from ..parallel.mesh import current_mesh
 from ..serving import kv_cache as kvc
 from .common import (ParamAxes, Params, ParamStore, gelu,
                      layer_norm as _ln_named, raw_layer_norm)
@@ -143,7 +149,13 @@ def _block(lp, x, cfg: GPTConfig):
     B, T, H = x.shape
     h = _ln(x, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
     q, k, v = _qkv(lp, h, cfg, (B, T, cfg.heads, cfg.head_dim))
-    ctx = mha(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim))
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+        # the JAX package's explicit ring over 'sp' (its exception inside
+        # the 'pp' pipeline's manual region waits for the pipeline port)
+        ctx = ring_attention(q, k, v, mesh, axis="sp", causal=True)
+    else:
+        ctx = mha(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim))
     x = x + (ctx.reshape(B, T, H) @ lp["blk.wo"].to(x.dtype) +
              lp["blk.bo"].to(x.dtype))
     h = _ln(x, lp["blk.ln2.scale"], lp["blk.ln2.bias"])

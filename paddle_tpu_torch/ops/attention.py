@@ -24,8 +24,28 @@ Dispatch is by the device of the tensors, never by a fallback:
   including its bf16 branch (bf16 logits, f32 softmax), so the port
   matches the JAX package as that runs on the CPU.
 
+Under a mesh (`parallel/mesh.py::current_mesh()`) whose sequence axis
+(`current_rules().mesh_axis("seq")`, `sp` by default) is larger than 1,
+a call with no mask takes the sequence-parallel part of the JAX
+package's `_multichip_splash_route`:
+
+- "ring": `ring_splash` (`ops/ring_attention.py`), each block on K3,
+  when the call is not causal, Tk == T, T/sp is a multiple of 128 and
+  the head dim is one K1 takes (`HEAD_DIMS`);
+- "ring_xla": `ring_attention` (plain-torch blocks, as the JAX
+  package's XLA ones) for the other shapes, causal ones included.
+
+T is the whole sequence: the in-process ring's full tensor, or a
+process ring's shard times sp. There is no `T >= 1024` gate as in the
+JAX package's auto mode: on CUDA `mha` takes the K1 kernels at every T.
+A call whose T (or Tk) does not split over sp raises rather than
+gather the sequence. A masked call under sp takes the single-device
+route (K2 on CUDA), as the JAX package leaves it to GSPMD; the dp/tp
+route (`shardmap`) waits for ROADMAP item 20.
+
 `GATE_COUNTS` counts calls per path ("flash_cuda", "flash_bias_cuda",
-"plain") so a run can show which one served it.
+"plain", and under sp the JAX package's keys "ring_splash" and
+"ring_xla") so a run can show which one served it.
 """
 
 from __future__ import annotations
@@ -36,8 +56,11 @@ from typing import Optional
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.flash_attention_bias import flash_attention_bias
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import current_rules
+from . import ring_attention as ra
 
 __all__ = ["mha", "GATE_COUNTS"]
 
@@ -69,6 +92,26 @@ def _merge_causal(mask: Optional[torch.Tensor], T: int,
     return cm if mask is None else mask + cm
 
 
+def _sp_route(q, k, mask, causal):
+    """(route, mesh, axis): "ring", "ring_xla" or None (no sp ring)."""
+    m = current_mesh()
+    axis = current_rules().mesh_axis("seq")
+    sp = m.shape.get(axis, 1) if (m is not None and axis) else 1
+    if sp == 1 or mask is not None or q.ndim != 4:
+        return None, m, axis
+    ring = m.rings[axis]
+    shards = sp // len(ring.ranks)   # 1 in-process, sp on a process ring
+    T, Tk = q.shape[1] * shards, k.shape[1] * shards
+    if T % sp or Tk != T:
+        raise ValueError(
+            f"mha under a mesh with {axis}={sp} needs q and k of one "
+            f"length T divisible by {sp}, got T={T}, Tk={Tk}; the port does "
+            f"not gather the sequence")
+    if causal or (T // sp) % 128 or q.shape[-1] not in HEAD_DIMS:
+        return "ring_xla", m, axis
+    return "ring", m, axis
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
         causal: bool = False) -> torch.Tensor:
@@ -76,6 +119,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, T, N, H] in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    route, mesh, axis = _sp_route(q, k, mask, causal)
+    if route == "ring":
+        out = ra.ring_splash(q, k, v, mesh, s_axis=axis, scale=scale)
+        GATE_COUNTS["ring_splash"] += 1
+        return out
+    if route == "ring_xla":
+        out = ra.ring_attention(q, k, v, mesh, axis=axis, causal=causal,
+                                scale=scale)
+        GATE_COUNTS["ring_xla"] += 1
+        return out
     if q.device.type == "cuda":
         if mask is not None:
             out = flash_attention_bias(q, k, v, mask, scale, causal)

@@ -1,1 +1,3 @@
-"""Training on one device: the train-step builder (`train.py`)."""
+"""Training and its parallel layout: the train-step builder
+(`train.py`), the device mesh (`mesh.py`), logical-axis rules
+(`sharding.py`) and the rings that carry a mesh axis (`ring.py`)."""

@@ -11,7 +11,11 @@ masks and full biases; `chip_smoke.py` checks it at the main paths'
 own shapes. A masked `mha` and a padded BERT `encode` run K2. K4, K5
 and K6 (the fused matmul+BN kernels) against their plain versions at
 one ResNet-50 shape of each stage group (bs 256 at 224 x 224), at f32,
-f16 and f64 and at a ragged shape, with the ReLU on and off.
+f16 and f64 and at a ragged shape, with the ReLU on and off. K3 (the
+ring's block, `splash_block_with_lse`) against its plain version at
+BERT-long's sp=4 block (8 x 1024, bf16) and at f32 and f16; and the
+sp=4 in-process ring on the card against single-device K1: ring_splash
+(K3 blocks) and causal ring_attention, out and gradients at f32.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -39,6 +43,8 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import flash_attention_bias as fb
 from paddle_tpu_torch.kernels import fused_dense_bn as fdb
 from paddle_tpu_torch.ops import attention as ta
+from paddle_tpu_torch.ops import ring_attention as tra
+from paddle_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(2)
 
@@ -100,10 +106,11 @@ def test_mha_on_cuda_launches_or_raises():
         ta.mha(x, x, x, causal=True)
 
 
-def _held(got, want, dtype):
-    """The worst element's error over its limit under ELEM_TOL[dtype]
-    (at most 1 passes), and the reference's RMS, its typical value."""
-    rtol, atol = ELEM_TOL[dtype]
+def _held(got, want, dtype, tol=None):
+    """The worst element's error over its limit under ELEM_TOL[dtype] or
+    `tol` (at most 1 passes), and the reference's RMS, its typical
+    value."""
+    rtol, atol = tol or ELEM_TOL[dtype]
     want = want.float()
     err = (got.float() - want).abs()
     rms = want.square().mean().sqrt().clamp(min=torch.finfo().tiny)
@@ -369,3 +376,81 @@ def test_fused_dense_bn_autograd_on_cuda():
         assert torch.allclose(a, b, rtol=1e-10, atol=1e-10)
     with pytest.raises(ValueError, match="scale and shift"):
         fdb.bn_act_matmul_fwd(x.float(), scale, shift, w.float())
+
+
+# K3: (B, T, dtype): BERT-long's ring block (T 4096 over sp=4), then one
+# f32 and one f16 shape
+K3_CASES = [(8, 1024, torch.bfloat16), (2, 512, torch.float32),
+            (4, 1024, torch.float16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,dtype", K3_CASES)
+def test_k3_matches_plain_version(B, T, dtype):
+    """splash_block_with_lse launches K1-fwd with its LSE at scale 1.0,
+    full mask, on a pre-scaled q; per element against its plain version,
+    LSE within 1e-4. Under grad it raises rather than detach."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T + B)
+    q, k, v = (torch.randn(B, T, 12, 64, generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    q = q * torch.tensor(0.125, dtype=dtype)
+    before = fa.splash_block_with_lse.launches
+    out, lse = fa.splash_block_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.splash_block_with_lse.launches == before + 1
+    want_out, want_lse = fa.splash_block_with_lse_ref(q, k, v)
+    ratio, rms = _held(out, want_out, dtype)
+    assert ratio <= 1.0, f"out: error / limit {ratio}, RMS {rms}"
+    assert lse.dtype == torch.float32 and lse.shape == (B, 12, T)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.splash_block_with_lse(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_sp4_ring_on_the_card_matches_k1(causal):
+    """The in-process sp=4 ring on the card at f32: ring_splash (K3, 16
+    launches) or causal ring_attention, out and the q/k/v gradients, per
+    element against single-device K1 under ELEM_TOL[f32] (the same f32
+    attention summed in other orders); ring_splash also against its
+    plain version (K3's plain version in every block). Causal
+    ring_attention's gradients take ten times the f32 atol: in the rows
+    with few keys the exact dq is near 0, ds = p (dp - delta) cancels,
+    and the ring rounds the logits at other points than K1 (q k^T, then
+    the scale, as the JAX package's `_block_attn`), so the f32 noise
+    there differs (measured 1.1e-5 of the RMS on an H100)."""
+    _need_card()
+    B, T, N, H, scale = 2, 1024, 12, 64, 0.125
+    g = torch.Generator(device="cuda").manual_seed(20 + causal)
+    q, k, v, ct = (torch.randn(B, T, N, H, generator=g, device="cuda")
+                   for _ in range(4))
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(sp=4),
+                           devices=[torch.device("cuda", 0)] * 4)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        return [out] + list(torch.autograd.grad((out * ct).sum(), leaves))
+
+    before = fa.splash_block_with_lse.launches
+    if causal:
+        got = run(lambda a, b, c: tra.ring_attention(a, b, c, mesh,
+                                                     causal=True,
+                                                     scale=scale))
+        wants = [run(lambda a, b, c: fa.flash_attention(a, b, c, scale,
+                                                        True))]
+    else:
+        got = run(lambda a, b, c: tra.ring_splash(a, b, c, mesh,
+                                                  scale=scale))
+        assert fa.splash_block_with_lse.launches == before + 16
+        wants = [run(lambda a, b, c: fa.flash_attention(a, b, c, scale,
+                                                        False)),
+                 run(lambda a, b, c: tra.ring_splash_ref(a, b, c, mesh,
+                                                         scale=scale))]
+    for want in wants:
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            tol = (1e-5, 1e-4) if causal and name != "out" else None
+            ratio, rms = _held(a, b, torch.float32, tol)
+            assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
