@@ -15,8 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at the training phases' own shapes (BERT-base 256 x 128 and
    32 x 512, full; GPT-2-small 8 x 1024, causal) and at batch 32 and 1
    of the same models, all bf16, plus f32 and f16 at one shape each;
-   every output is held per element against the plain version's, at a
-   limit relative to its own RMS (`ELEM_TOL`);
+   K1-fwd with its LSE alone at phase 17's no-mesh call (8 x 4096,
+   timed), at head_dim 128, on the views of one fused [B, T, 3, N, H]
+   projection and at a ragged T; every output is held per element
+   against the plain version's, at a limit relative to its own RMS
+   (`ELEM_TOL`). bf16 and f16 run the Hopper forwards (wgmma, TMA), f32
+   the FMA ones;
 3. slice: GPT-2-small (random weights from a seed) served at bf16 by
    DecodeEngine behind the HTTP Server; 8 concurrent streamed
    /v1/generate requests whose prompts fill every prefill bucket up to
@@ -75,15 +79,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    builds it (`BertConfig(max_len=4096, dropout=0.0)`), mixed_bf16,
    under MeshConfig(sp=4) on the in-process ring at the first rung of
    [8, 4, 2, 1] that fits (2 warm-up and 10 timed steps, K3 192 times
-   a step), then the same step with no mesh (K1 at T 4096).
+   a step), then the same step with no mesh (K1 at T 4096);
+18. head-dim-gate: two mixed_bf16 train steps of `BertConfig.tiny()`
+   (head dim 16) on the card, every attention call on mha's "xla"
+   route, no attention kernel launched.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
 attention, the beam search's 32 x 128, padded BERT-base 32 x 512),
-causal with full biases at f32 and f16, a ragged pair and a bias
-gradient; and K4, K5 and K6 (the fused matmul+BN kernels) at one
-ResNet-50 bs-256 shape of each stage group (bf16, timed beside
-cuBLAS's bare product), at f32, f16 and f64, at a ragged (1000, 72, 40)
+causal with full biases at f32 and f16, a ragged pair, a bias gradient
+and head_dim 128 with 300 keys; and K4, K5 and K6 (the fused matmul+BN
+kernels) at one ResNet-50 bs-256 shape of each stage group (bf16, timed
+beside cuBLAS's bare product), at f32, f16 and f64, at a ragged (1000, 72, 40)
 and with the ReLU off; and K3 (the ring's block, K1-fwd with its LSE
 at scale 1 on a pre-scaled q) at phase 17's block (8 x 1024 x 12 heads,
 bf16), at f32 and at f16.
@@ -209,10 +216,14 @@ def _serving_kernel_row():
             torch.cuda.synchronize()
             ref = fa.flash_attention_ref(q, k, v, scale, causal=True)
             err = (out.float() - ref.float()).abs().max().item()
-            checks.append({"dtype": str(dtype).replace("torch.", ""),
-                           "T": T, "max_abs_err": err, "tol": tol})
+            dname = str(dtype).replace("torch.", "")
+            elem = held(out, ref, dname)
+            checks.append({"dtype": dname, "T": T, "max_abs_err": err,
+                           "tol": tol, "held": elem})
             check(err <= tol, f"flash_attention T={T} {dtype}: max abs "
                               f"err {err} > {tol}")
+            check(elem["ratio"] <= 1.0, f"flash_attention T={T} {dtype}: "
+                                        f"per element {elem}")
             if dtype == torch.bfloat16 and T == 1024:
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 bound, bound_by = attention_bound_ms(q, k)
@@ -431,6 +442,69 @@ def _training_kernel_rows():
     return rows, checks, whole, failed
 
 
+# K1-fwd with its LSE beyond the training cases, forward only (the plain
+# backward at T 4096 would take tens of GB): (label, B, T, N, H, causal,
+# dtype, layout). "long" is phase 17's no-mesh call (BERT-base at
+# 8 x 4096), timed; then H 128, the strided views of one fused
+# [B, T, 3, N, H] projection, and a ragged T at f16.
+K1_FWD_CASES = (("long", 8, 4096, 12, 64, False, "bfloat16", "plain"),
+                ("h128", 2, 1024, 16, 128, True, "bfloat16", "plain"),
+                ("fused3", 4, 512, 12, 64, False, "bfloat16", "fused"),
+                ("ragged_f16", 2, 300, 12, 64, True, "float16", "fused"))
+
+
+def _k1_fwd_rows():
+    """K1-fwd with its LSE at K1_FWD_CASES against its plain version, per
+    element under ELEM_TOL and the LSE within 1e-4; times at "long"."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    checks, failed, timing = [], [], None
+    for label, B, T, N, H, causal, dname, layout in K1_FWD_CASES:
+        dtype = getattr(torch, dname)
+        if layout == "fused":
+            qkv = torch.randn(B, T, 3, N, H, generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = qkv.unbind(2)
+        else:
+            q, k, v = (torch.randn(B, T, N, H, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+        scale = 1.0 / H ** 0.5
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
+                                                  with_lse=True)
+        err = held(out, ref_out, dname)
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref_out, ref_lse
+        checks.append({"case": label, "shape": [B, T, N, H], "causal": causal,
+                       "dtype": dname, "layout": layout,
+                       "tol": ELEM_TOL[dname], "lse_max_abs_err": lse_err,
+                       "held": {"out": err}})
+        if not err["ratio"] <= 1.0:
+            failed.append(f"K1 {label} out: {err}")
+        if not lse_err <= 1e-4:
+            failed.append(f"K1 {label} lse: max abs error {lse_err} > 1e-4")
+        if label == "long":
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            bound, bound_by = attention_bound_ms(q, k, causal, 2, 4, 1)
+            timing = {
+                "shape": [B, T, N, H], "dtype": dname,
+                "ms": time_ms(lambda: fa.flash_attention_with_lse(
+                    q, k, v, scale, causal), reps=10),
+                "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                    q, k, v, scale, causal, with_lse=True), reps=3),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale), reps=10),
+                "bound_ms": bound, "bound_by": bound_by}
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return {"checks": checks, "long": timing}, failed
+
+
 # K2 at the main paths' shapes: (label, B, Tq, Tk, N, causal, dtype,
 # bias). "nmt" is Transformer-big's encoder self- and cross-attention
 # (key padding from make_batch's src_len), "beam" the beam search's
@@ -445,7 +519,11 @@ K2_KERNEL_CASES = (("nmt", 128, 128, 128, 16, False, "bfloat16", "src_len"),
                    ("causal_f32", 2, 256, 256, 12, True, "float32", "full"),
                    ("causal_f16", 4, 128, 128, 12, True, "float16", "full"),
                    ("ragged", 2, 100, 164, 12, False, "bfloat16", "src_len"),
-                   ("dbias", 2, 128, 128, 4, False, "float32", "full"))
+                   ("dbias", 2, 128, 128, 4, False, "float32", "full"),
+                   ("h128_ragged", 4, 256, 300, 8, False, "bfloat16",
+                    "src_len"))
+# the head dim of each case: 64, but 128 for "h128_ragged"
+K2_HEAD_DIM = {"h128_ragged": 128}
 K2_TIMED = ("nmt", "beam", "bert512")
 
 
@@ -470,8 +548,8 @@ def k2_bound_ms(q, k, bias, causal, products, q_tensors, k_tensors, rows,
     return bound_ms(nbytes, flops, peak)
 
 
-def _k2_inputs(B, Tq, Tk, N, dname, kind, gen):
-    """q, k, v, do [B, T, N, 64] and the bias: a [B, 1, 1, Tk] key mask
+def _k2_inputs(B, Tq, Tk, N, dname, kind, gen, H=64):
+    """q, k, v, do [B, T, N, H] and the bias: a [B, 1, 1, Tk] key mask
     (-1e9 past make_batch-style lengths, or BERT's -3e4 past lengths in
     [256, 512]) or a full [B, N, Tq, Tk] f32 bias."""
     import torch
@@ -479,9 +557,9 @@ def _k2_inputs(B, Tq, Tk, N, dname, kind, gen):
     from paddle_tpu_torch.models import transformer
 
     dtype = getattr(torch, dname)
-    q, k, v = (torch.randn(B, t, N, 64, generator=gen, device="cuda")
+    q, k, v = (torch.randn(B, t, N, H, generator=gen, device="cuda")
                .to(dtype) for t in (Tq, Tk, Tk))
-    do = torch.randn(B, Tq, N, 64, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(B, Tq, N, H, generator=gen, device="cuda").to(dtype)
     if kind == "full":
         return q, k, v, do, torch.randn(B, N, Tq, Tk, generator=gen,
                                         device="cuda")
@@ -565,7 +643,8 @@ def _k2_kernel_rows():
     gen = torch.Generator(device="cuda").manual_seed(5)
     checks, timings, failed = [], {}, []
     for label, B, Tq, Tk, N, causal, dname, kind in K2_KERNEL_CASES:
-        q, k, v, do, bias = _k2_inputs(B, Tq, Tk, N, dname, kind, gen)
+        H = K2_HEAD_DIM.get(label, 64)
+        q, k, v, do, bias = _k2_inputs(B, Tq, Tk, N, dname, kind, gen, H)
         scale = 0.125
         with_dbias = label == "dbias"
         out, l, m = fb.flash_attention_bias_fwd(q, k, v, bias, scale,
@@ -592,7 +671,7 @@ def _k2_kernel_rows():
         # l and m: the same f32 sums and maxima in another order
         lm = {"l_rel_err": ((l - ref_l).abs() / ref_l).max().item(),
               "m_max_abs_err": (m - ref_m).abs().max().item()}
-        checks.append({"case": label, "shape": [B, Tq, Tk, N, 64],
+        checks.append({"case": label, "shape": [B, Tq, Tk, N, H],
                        "causal": causal, "dtype": dname, "bias": kind,
                        "tol": ELEM_TOL[dname], **lm, "held": errs})
         failed += [f"K2 {label} {name}: {e}" for name, e in errs.items()
@@ -819,16 +898,18 @@ def phase_kernels():
     training, checks, whole, failed = _training_kernel_rows()
     k2_rows, k2_checks, k2_whole, k2_failed = _k2_kernel_rows()
     k3_row, k3_failed = _k3_kernel_row()
+    k1_fwd, k1_fwd_failed = _k1_fwd_rows()
     t0 = time.perf_counter()
     fdb_rows, fdb_checks, fdb_failed = _fdb_kernel_rows()
     print(json.dumps({"phase": "kernels",
                       "kernels": [serving] + training + k2_rows + [k3_row] +
                       fdb_rows,
                       "bwd_whole": whole, "training_checks": checks,
+                      "k1_fwd": k1_fwd,
                       "k2_bwd_whole": k2_whole, "k2_checks": k2_checks,
                       "fdb_checks": fdb_checks,
                       "fdb_s": time.perf_counter() - t0}))
-    failed += k2_failed + k3_failed + fdb_failed
+    failed += k2_failed + k3_failed + k1_fwd_failed + fdb_failed
     check(not failed, "kernel against its plain version: " +
           "; ".join(failed))
     return serving, training, k2_rows, k3_row, fdb_rows
@@ -989,12 +1070,13 @@ def _device_time(prof, wall_s):
             last = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     busy_ms = busy_us / 1e3 if spans else None
+    # the forwards: the FMA kernel (f32) and the Hopper one (bf16, f16)
     k1, k2 = ({kern: sum(t[1] for n, t in by_name.items() if kern in n)
                for kern in kerns} for kerns in (
-        ("flash_fwd_kernel", "delta_kernel", "flash_bwd_dkv_kernel",
-         "flash_bwd_dq_kernel"),
-        ("flash_bias_fwd_kernel", "flash_bias_bwd_dkv_kernel",
-         "flash_bias_bwd_dq_kernel")))
+        ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "delta_kernel",
+         "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
+        ("flash_bias_fwd_kernel", "flash_bias_fwd_sm90_kernel",
+         "flash_bias_bwd_dkv_kernel", "flash_bias_bwd_dq_kernel")))
     fdb = {"k4": 0.0, "k5": 0.0, "k6": 0.0}
     for n, t in by_name.items():
         kern = _fdb_kernel(n)
@@ -1003,7 +1085,8 @@ def _device_time(prof, wall_s):
     return {"device_events": len(spans), "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / (wall_s * 1e3))
             if spans else None,
-            "flash_attention_ms": k1["flash_fwd_kernel"],
+            "flash_attention_ms": k1["flash_fwd_kernel"] +
+            k1["flash_fwd_sm90_kernel"],
             "k1_kernel_ms": k1, "k2_kernel_ms": k2, "k4_k6_kernel_ms": fdb,
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
                             for n, (c, ms) in top]}
@@ -2068,6 +2151,46 @@ def phase_bert_long_sp():
     return sp_row["launches"]
 
 
+def phase_head_dim_gate():
+    """BertConfig.tiny() (head dim 16, which the kernels do not take):
+    one mixed_bf16 train step on the card, every attention call on
+    mha's "xla" route (the JAX package's `_xla_mha` for hd % 64 != 0),
+    decided by shape before any launch; no K1 or K2 kernel runs."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import attention as ta
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    cfg = bert.BertConfig.tiny()
+    params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                          device="cuda")
+    batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, 8, seq_len=64)
+    init, step = make_train_step(
+        lambda p, b, g: bert.pretrain_loss(p, cfg, b, rng=g,
+                                           deterministic=True),
+        _adamw, device="cuda", precision="mixed_bf16")
+    state = init(params)
+    xla = ta.GATE_COUNTS["xla"]
+    _kernel_counts(reset=True)
+    losses = []
+    for i in range(2):
+        state, loss = step(state, batch, i)
+        losses.append(loss.item())
+    counts, routed = _kernel_counts(), ta.GATE_COUNTS["xla"] - xla
+    check(all(np.isfinite(losses)), f"head-dim-gate: loss {losses}")
+    check(routed == 2 * cfg.layers,
+          f"head-dim-gate: {routed} calls on the xla route, not "
+          f"{2 * cfg.layers}")
+    check(not any(counts.values()),
+          f"head-dim-gate: kernels launched {counts}")
+    print(json.dumps({"phase": "head-dim-gate",
+                      "model": "BertConfig.tiny() (head dim 16), mixed_bf16",
+                      "batch": [8, 64], "losses": losses,
+                      "xla_calls": routed, "launches": counts}))
+
+
 def main() -> int:
     import torch
 
@@ -2096,6 +2219,7 @@ def main() -> int:
     resnet_counts = phase_resnet_train()
     phase_ring_parity()
     sp_counts = phase_bert_long_sp()
+    phase_head_dim_gate()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts):

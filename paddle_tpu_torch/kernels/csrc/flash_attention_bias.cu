@@ -37,34 +37,59 @@
 // plus a 64 KB key mask, against 2 products of 2*T*Tk*H per head,
 // 8.6 GFLOP (8.7 us at the tensor-core rate): memory-bound at 40 us.
 //
-// What this simple design does about that bound: every byte of q, k
-// and v is read once per query tile that needs it, and the T x Tk
-// scores never leave the SM (registers and one 64 x 128 shared-memory
-// tile), so device traffic stays O(T*H); the bias is read once per
-// score, a broadcast mask from cache. The products run on the f32 FMA
-// pipes from shared memory, not the tensor cores (no mma/wgmma, no
-// TMA), so the kernel is compute-limited far above the bound; tensor
-// cores are later work.
+// Two kernels share the tiling idea: every byte of q, k and v is read
+// once per query tile that needs it, and the T x Tk scores never leave
+// the SM, so device traffic stays O(T*H); the bias is read once per
+// score, a broadcast mask from cache.
 //
-// Layout of one block: 256 threads as a 16 x 16 grid own a 64-query
-// tile of one (batch, head): thread (ty, tx) holds score rows
-// ty + 16*i (i < 4) and columns tx + 16*j (j < 8) of each 64 x 128
-// score tile, and output columns tx + 16*d of the same rows. The p
-// tile reuses the k tile's shared memory once the scores are taken, so
-// the q, k and v tiles take 83 KB at H=64 (two blocks per SM) and
-// 165 KB at H=128 (one).
+// bf16 and f16: flash_bias_fwd_sm90_kernel, on the tensor cores, with
+// the pipeline of flash_attention.cu's Hopper kernel (sm90.cuh): 128
+// query rows a block in two consumer warpgroups and one producer warp,
+// q once and k and v in tiles of 128 keys (the reference's block) by
+// TMA through a two-stage ring of mbarriers, S = Q K^T and O += P V on
+// wgmma, P rounded to v's dtype as the reference rounds it and fed from
+// registers. The bias is read in the accumulator's register layout from
+// global memory and L2; mha's key mask ([B, 1, 1, Tk], stride 0 across
+// heads and rows, 8-byte aligned) takes a variant that reads it as
+// pairs of columns before the product, so the loads overlap it. With
+// 128-row query tiles the reference's causal skip is tile-aligned. The
+// reference renormalises its accumulator on every key block; this one
+// keeps it unnormalised (rescaled by exp(m - m_next)) and divides by l
+// once, which moves only f32 roundings; the one-step case divides p by
+// l before its rounding, as the reference (a / l from 1 / l and one
+// residual step). This removes the FMA kernel's limit (the products on
+// the FP32 pipes from f32 shared memory); within a warpgroup the
+// softmax still waits for its product, which is later work.
+//
+// f32: flash_bias_fwd_kernel, on the FP32 FMA pipes: wgmma has no
+// full-f32 form and TF32 would not pass the f32 parity gates
+// (chip_smoke.py phases 9 and 14, TF32 off). 256 threads as a 16 x 16
+// grid own a 64-query tile of one (batch, head): thread (ty, tx) holds
+// score rows ty + 16*i (i < 4) and columns tx + 16*j (j < 8) of each
+// 64 x 128 score tile, and output columns tx + 16*d of the same rows.
+// The p tile reuses the k tile's shared memory once the scores are
+// taken, so the q, k and v tiles take 83 KB at H=64 (two blocks per SM)
+// and 165 KB at H=128 (one).
 //
 // C interface (loaded with ctypes): paddle_flash_attention_bias_fwd
-// returns cudaGetLastError() after the launch; it does not synchronise.
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// when TMA refuses a bf16/f16 tensor: the wrapper checks its rules
+// first); it does not synchronise.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dtypes.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: the FMA kernel (BK, QB, MASK_VALUE and Strides serve both kernels)
 
 constexpr int BQ = 64;              // query rows per block
 constexpr int BK = 128;             // key rows per tile: the reference's
@@ -283,6 +308,244 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 and f16: the Hopper kernel (wgmma, TMA, a producer warp)
+
+constexpr int H_STAGES = 2;    // k/v tiles in flight
+constexpr float LOG2E = 1.4426950408889634f;
+
+// a / b correctly rounded from r = 1 / b (one residual step): the
+// reference's p / l without a division per element
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = a * r;
+  return fmaf(fmaf(-q, b, a), r, q);
+}
+
+// KEY_MASK: the bias is one row of Tk values for every query row (mha's
+// [B, 1, 1, Tk] padding mask: a_st 0, a_ss 1, 8-byte aligned rows), read
+// as pairs of columns before the product so that the loads overlap it;
+// otherwise every score reads its own element through the four strides
+template <typename T, int HD, bool KEY_MASK>
+__global__ void __launch_bounds__(sm90::ATT_THREADS, 1)
+flash_bias_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const float* __restrict__ bias, T* __restrict__ o,
+                           float* __restrict__ l_out,
+                           float* __restrict__ m_out, int N, int Tq, int Tk,
+                           int64_t a_sb, int64_t a_sn, int64_t a_st,
+                           int64_t a_ss, float scale, int causal) {
+  using L = sm90::AttnSmem<HD, BK, H_STAGES>;
+  static_assert(sm90::ATT_BQ == QB, "query tiles are the reference's blocks");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + H_STAGES;
+  uint64_t* empty = v_full + H_STAGES;
+
+  // causal: the longest rows (the last query tiles) are launched first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * sm90::ATT_BQ;
+  const int b = blockIdx.y / N;
+  const int n = blockIdx.y % N;
+  // causal: key blocks wholly above this 128-row query block are
+  // skipped, as the reference skips them; keys that fit one block take
+  // the one-step softmax
+  const int k_end = causal ? min(Tk, q0 + QB) : Tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const bool one_step = Tk <= BK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bars, 1);
+    for (int s = 0; s < H_STAGES; ++s) {
+      sm90::mbar_init(k_full + s, 1);
+      sm90::mbar_init(v_full + s, 1);
+      sm90::mbar_init(empty + s, sm90::ATT_CONSUMERS);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= sm90::ATT_CONSUMERS) {   // the producer warp
+    if (threadIdx.x == sm90::ATT_CONSUMERS)
+      sm90::attn_produce<HD, BK, H_STAGES>(base, &tq, &tk, &tv, b, n, q0,
+                                           n_tiles);
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;      // consumer warpgroup: rows 64 wg ..
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int c = lane % 4;
+  const int row0 = q0 + 64 * wg + 16 * (t / 32) + lane / 4;   // and row0 + 8
+  const float* ab = bias + b * a_sb + n * a_sn;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};   // this lane's part of each row's sum
+
+  sm90::mbar_wait(bars, 0);   // the unscaled q tile
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % H_STAGES;
+    const uint32_t parity = (kt / H_STAGES) & 1;
+    const int k0 = kt * BK;
+    float p[BK / 2];
+    float2 mask[KEY_MASK ? BK / 8 : 1];
+    if constexpr (KEY_MASK) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int col = k0 + 8 * j + 2 * c;
+        if (col + 1 < Tk) {
+          mask[j] = __ldg(reinterpret_cast<const float2*>(ab + col));
+        } else {
+          mask[j].x = col < Tk ? __ldg(ab + col) : 0.f;
+          mask[j].y = 0.f;
+        }
+      }
+    }
+    sm90::mbar_wait(k_full + s, parity);
+    sm90::attn_qk<T, HD, BK, H_STAGES>(p, base, base + L::K + s * L::TILE_K,
+                                       wg);
+
+    // bias (in the accumulator's layout), scale and causal mask; columns
+    // past Tk drop out (-inf, p = 0)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * c + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        float x = -INFINITY;
+        if (col < Tk) {
+          x = p[4 * j + e];
+          if (row < Tq) {
+            if constexpr (KEY_MASK)
+              x += (e & 1) ? mask[j].y : mask[j].x;
+            else
+              x += __ldg(ab + row * a_st + col * a_ss);
+          }
+          x *= scale;
+          if (causal && col > row) x += MASK_VALUE;
+        }
+        p[4 * j + e] = x;
+      }
+    // fold the tile into each row's running max and sum of the f32 p
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(p[4 * j + 2 * i], p[4 * j + 2 * i + 1]));
+      // column k0 < Tk is in every tile, so the max is finite
+      mx = sm90::quad_max(mx);
+      alpha[i] = sm90::exp2_approx((m[i] - mx) * LOG2E);
+      m[i] = mx;
+      // p = expf(s - m), as the plain version computes it: p is rounded
+      // to v's dtype, and an approximate exp rounds more p the other
+      // way (one f16 seed of six went past ELEM_TOL with exp2)
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          p[4 * j + e] = expf(p[4 * j + e] - mx);
+          rs += p[4 * j + e];
+        }
+      l[i] = l[i] * alpha[i] + rs;
+    }
+    if (one_step) {
+      // the reference's one-step kernel: round(p / l) @ v, with l the
+      // whole row's sum
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] = sm90::quad_sum(l[i]);
+        const float r = 1.f / l[i];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          p[4 * j + 2 * i] = div_by(p[4 * j + 2 * i], l[i], r);
+          p[4 * j + 2 * i + 1] = div_by(p[4 * j + 2 * i + 1], l[i], r);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+    }
+    // p rounded to v's dtype before the product, as the reference
+    sm90::mbar_wait(v_full + s, parity);
+    sm90::attn_pv<T, HD, BK, H_STAGES, false>(acc, p,
+                                              base + L::V + s * L::TILE_K);
+    sm90::mbar_arrive(empty + s);   // both products have read the stage
+  }
+
+  // the reference renormalises its accumulator on every key block; this
+  // accumulator is unnormalised and divided once (1/l as 1 where l is 0)
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!one_step) l[i] = sm90::quad_sum(l[i]);
+    inv[i] = (one_step || l[i] == 0.f) ? 1.f : 1.f / l[i];
+  }
+  sm90::attn_store<T, HD>(o, acc, inv, b, n, N, Tq, row0, c);
+  // l and m contiguous [B, N, Tq]; blockIdx.y = b * N + n
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row < Tq) {
+        const int64_t r = static_cast<int64_t>(blockIdx.y) * Tq + row;
+        l_out[r] = l[i];
+        m_out[r] = m[i];
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v,
+                        const float* bias, void* o, float* l, float* m, int B,
+                        int N, int Tq, int Tk, const Strides& st, float scale,
+                        int causal, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mk, mv;
+  if (!sm90::make_map_bthn(&mq, q, bf16, B, Tq, N, HD, st.q_sb, st.q_st,
+                           st.q_sn, sm90::ATT_BQ) ||
+      !sm90::make_map_bthn(&mk, k, bf16, B, Tk, N, HD, st.k_sb, st.k_st,
+                           st.k_sn, BK) ||
+      !sm90::make_map_bthn(&mv, v, bf16, B, Tk, N, HD, st.v_sb, st.v_st,
+                           st.v_sn, BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = sm90::AttnSmem<HD, BK, H_STAGES>::BYTES;
+  const bool key_mask = st.a_st == 0 && st.a_ss == 1 && st.a_sb % 2 == 0 &&
+                        st.a_sn % 2 == 0 &&
+                        reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+  auto kernel = key_mask ? flash_bias_fwd_sm90_kernel<T, HD, true>
+                         : flash_bias_fwd_sm90_kernel<T, HD, false>;
+  static cudaError_t err = [] {   // once a process, for both variants
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bias_fwd_sm90_kernel<T, HD, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        flash_bias_fwd_sm90_kernel<T, HD, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }();
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + sm90::ATT_BQ - 1) / sm90::ATT_BQ, B * N);
+  kernel<<<grid, sm90::ATT_THREADS, smem, stream>>>(
+      mq, mk, mv, bias, static_cast<T*>(o), l, m, N, Tq, Tk, st.a_sb,
+      st.a_sn, st.a_st, st.a_ss, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
@@ -310,10 +573,14 @@ extern "C" int paddle_flash_attention_bias_fwd(
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 64) err = PADDLE_FWD(float, 64);
   else if (dtype == 0 && head_dim == 128) err = PADDLE_FWD(float, 128);
-  else if (dtype == 1 && head_dim == 64) err = PADDLE_FWD(__nv_bfloat16, 64);
-  else if (dtype == 1 && head_dim == 128) err = PADDLE_FWD(__nv_bfloat16, 128);
-  else if (dtype == 2 && head_dim == 64) err = PADDLE_FWD(__half, 64);
-  else if (dtype == 2 && head_dim == 128) err = PADDLE_FWD(__half, 128);
 #undef PADDLE_FWD
+#define PADDLE_FWD_SM90(TYPE, HD) \
+  launch_sm90<TYPE, HD>(q, k, v, a, o, lp, mp, B, N, Tq, Tk, st, scale, \
+                        causal, s)
+  else if (dtype == 1 && head_dim == 64) err = PADDLE_FWD_SM90(__nv_bfloat16, 64);
+  else if (dtype == 1 && head_dim == 128) err = PADDLE_FWD_SM90(__nv_bfloat16, 128);
+  else if (dtype == 2 && head_dim == 64) err = PADDLE_FWD_SM90(__half, 64);
+  else if (dtype == 2 && head_dim == 128) err = PADDLE_FWD_SM90(__half, 128);
+#undef PADDLE_FWD_SM90
   return static_cast<int>(err);
 }

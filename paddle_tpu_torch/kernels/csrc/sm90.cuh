@@ -1,0 +1,613 @@
+// Hopper (sm_90a) building blocks shared by the attention kernels: TMA
+// tiled loads completing on an mbarrier, mbarrier phases, wgmma
+// shared-memory descriptors for the 128-byte swizzle, and wgmma
+// m64nNk16 with f32 accumulation for bf16 and f16 operands, with A from
+// shared memory or from registers. Plain wrappers over the PTX of
+// PTX ISA 8.x; no CUTLASS.
+//
+// Layout conventions. Every tile is loaded by TMA as boxes of 64
+// 16-bit elements (128 bytes) by R rows with CU_TENSOR_MAP_SWIZZLE_128B,
+// into a buffer aligned to 1024 bytes: row r of a box is the 128 bytes
+// at r * 128, its sixteen-byte chunks permuted by r % 8. A head dim of
+// 128 is two such boxes, one after the other. wgmma reads the same
+// swizzle through descriptors of layout type 1 (B128):
+//   - K-major (the reduced dimension contiguous: q and k rows for
+//     S = Q K^T): eight-row groups 1024 bytes apart (SBO); a step of 16
+//     along the reduced dimension moves the start address 32 bytes
+//     within the box, and the next box starts the next 64.
+//   - MN-major (v rows for O = P V: the output dimension contiguous,
+//     the reduced one across rows): eight-row groups along the reduced
+//     dimension 1024 bytes apart (SBO), the next 64 output columns in
+//     the next box (LBO = the box's bytes); a step of 16 along the
+//     reduced dimension moves the start address 16 rows, 2048 bytes.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "dtypes.cuh"
+
+namespace sm90 {
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one thread initialises; the barrier completes a phase after `count`
+// arrivals and every byte announced by arrive_expect_tx
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the block (and to the
+// async proxy) before any thread uses them; followed by __syncthreads
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// this thread's arrival, announcing `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// waits until the phase of parity `parity` has completed: a barrier
+// starts in phase 0, so the n-th completion (from 0) is awaited with
+// parity n & 1. A wait of more than 2^34 cycles (about 10 s) traps, so
+// a pipeline fault ends the launch with an error instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// one box of a 4-d tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at `dst`; completes `bytes` of the barrier's
+// transaction count. Rows outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before
+// later async-proxy reads (wgmma, TMA) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a barrier over `count` threads (a warpgroup: 128), id 1..15
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at `p` (see the
+// header): leading and stride byte offsets in bytes
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma's registers
+// across the instructions that issue and retire it
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x (ex2.approx: relative error about 2^-22; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 values rounded (to nearest even) into one register of the
+// A fragment, the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma.mma_async m64nNk16, f32 accumulators (N / 2 registers a thread:
+// register 4j + e holds row 16 w + lane / 4 + 8 (e / 2) of the 64, and
+// column 8 j + 2 (lane % 4) + e % 2, w the warp of the warpgroup).
+// scale_d 0 overwrites D, 1 accumulates into it. The forms the attention
+// kernels use: ss (A and B in shared memory) at N 128, the key tile of
+// S = Q K^T; rs (A from registers) at N 64 and 128, the head dims of
+// O += P V.
+template <typename T, int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<__nv_bfloat16, 64> {
+  // A from registers (four 32-bit registers a thread, the A fragment
+  // layout); B MN-major (transposed) when TRANS_B is 1
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<__nv_bfloat16, 128> {
+  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory,
+  // both K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // A from registers (four 32-bit registers a thread, the A fragment
+  // layout); B MN-major (transposed) when TRANS_B is 1
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<__half, 64> {
+  // A from registers (four 32-bit registers a thread, the A fragment
+  // layout); B MN-major (transposed) when TRANS_B is 1
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<__half, 128> {
+  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory,
+  // both K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // A from registers (four 32-bit registers a thread, the A fragment
+  // layout); B MN-major (transposed) when TRANS_B is 1
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime so
+// that the library needs no -lcuda; NULL when the driver has none
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a 16-bit [B, T, N, H] tensor with element strides
+// (sb, st, sn, 1), read in boxes of 64 head elements by `rows` rows of
+// T at one (b, n), 128-byte swizzled; rows past T read as zeros. The
+// strides of size-1 dimensions are never used and are replaced by
+// valid ones. Returns false when TMA refuses the tensor (a base not 16-
+// byte aligned, a stride not a multiple of 16 bytes).
+inline bool make_map_bthn(CUtensorMap* map, const void* base, bool bf16,
+                          int B, int T, int N, int H, int64_t sb, int64_t st,
+                          int64_t sn, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  if (N == 1) sn = H;
+  if (T == 1) st = sn * N;
+  if (B == 1) sb = st * T;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2,
+                                 static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace sm90
+
+// --------------------------------------------- the attention forwards' tiles
+//
+// Shared by the bf16/f16 forwards of K1 (flash_attention.cu) and K2
+// (flash_attention_bias.cu): one block owns BQ = 128 query rows of one
+// (batch, head), two consumer warpgroups of 64 rows each, and one
+// producer warp that loads the q tile once and then the k and v tiles
+// of BK rows through a ring of STAGES buffers.
+
+namespace sm90 {
+
+constexpr int ATT_BQ = 128;        // query rows per block
+constexpr int ATT_THREADS = 288;   // two consumer warpgroups + one warp
+constexpr int ATT_CONSUMERS = 256;
+
+// byte offsets in the block's shared memory (from a 1024-aligned base)
+template <int HD, int BK, int STAGES>
+struct AttnSmem {
+  static constexpr int NBOX = HD / 64;         // 64-column boxes a row
+  static constexpr int BOX_Q = ATT_BQ * 128;   // bytes of one q box
+  static constexpr int BOX_K = BK * 128;       // bytes of one k or v box
+  static constexpr int TILE_K = NBOX * BOX_K;  // one k or v tile
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NBOX * BOX_Q;
+  static constexpr int V = K + STAGES * TILE_K;
+  static constexpr int BAR = V + STAGES * TILE_K;
+  // q_full, then k_full, v_full and empty for each stage
+  static constexpr int NBAR = 1 + 3 * STAGES;
+  // with the slack for aligning the base to 1024 bytes
+  static constexpr int BYTES = BAR + 8 * NBAR + 1024;
+};
+
+// the 1024-aligned base of the dynamic shared memory at `raw`
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// The producer (one thread): the q tile [q0, q0 + 128) once onto
+// bars[0], then key tiles 0 .. n_tiles - 1 of k and v into stage
+// kt % STAGES, each waiting until both consumer warpgroups have
+// released the stage's previous tile (bars[1 + 2 STAGES + s]); k and v
+// complete on their own barriers (bars[1 + s], bars[1 + STAGES + s]),
+// so the product with k can start while v is on its way.
+template <int HD, int BK, int STAGES>
+__device__ __forceinline__ void attn_produce(unsigned char* base,
+                                             const CUtensorMap* tq,
+                                             const CUtensorMap* tk,
+                                             const CUtensorMap* tv,
+                                             int b, int n, int q0,
+                                             int n_tiles) {
+  using L = AttnSmem<HD, BK, STAGES>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  mbar_arrive_expect_tx(bars, ATT_BQ * HD * 2);
+#pragma unroll
+  for (int x = 0; x < L::NBOX; ++x)
+    tma_load_4d(base + L::Q + x * L::BOX_Q, tq, bars, 64 * x, n, q0, b);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % STAGES;
+    if (kt >= STAGES)
+      mbar_wait(bars + 1 + 2 * STAGES + s, (kt / STAGES - 1) & 1);
+    unsigned char* kb = base + L::K + s * L::TILE_K;
+    unsigned char* vb = base + L::V + s * L::TILE_K;
+    mbar_arrive_expect_tx(bars + 1 + s, BK * HD * 2);
+#pragma unroll
+    for (int x = 0; x < L::NBOX; ++x)
+      tma_load_4d(kb + x * L::BOX_K, tk, bars + 1 + s, 64 * x, n, kt * BK, b);
+    mbar_arrive_expect_tx(bars + 1 + STAGES + s, BK * HD * 2);
+#pragma unroll
+    for (int x = 0; x < L::NBOX; ++x)
+      tma_load_4d(vb + x * L::BOX_K, tv, bars + 1 + STAGES + s, 64 * x, n,
+                  kt * BK, b);
+  }
+}
+
+// S[64 x BK] = Q K^T for warpgroup `wg` (rows 64 wg .. of the q tile)
+// against the k tile at `kb`; issued, committed and retired
+template <typename T, int HD, int BK, int STAGES>
+__device__ __forceinline__ void attn_qk(float (&s)[BK / 2],
+                                        const unsigned char* base,
+                                        const unsigned char* kb, int wg) {
+  using L = AttnSmem<HD, BK, STAGES>;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = desc_sw128(
+        base + L::Q + (kk / 4) * L::BOX_Q + wg * 64 * 128 + (kk % 4) * 32, 16,
+        1024);
+    const uint64_t db =
+        desc_sw128(kb + (kk / 4) * L::BOX_K + (kk % 4) * 32, 16, 1024);
+    Wgmma<T, BK>::ss(s, da, db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// O[64 x HD] += P V for one warpgroup, with v from the tile at `vb` as
+// the MN-major B operand and P from registers: s's accumulator layout
+// is, register for register, the A fragments of the 16-key steps. With
+// SPLIT false, P is rounded to T (the legacy flash kernel's p.astype(
+// v.dtype)); with SPLIT true, P = hi + lo with hi = round(P) and lo =
+// round(P - hi), two products a step, so P keeps about twice T's
+// significant bits (splash's f32 P). Issued, committed and retired.
+template <typename T, int HD, int BK, int STAGES, bool SPLIT>
+__device__ __forceinline__ void attn_pv(float (&o)[HD / 2],
+                                        const float (&p)[BK / 2],
+                                        const unsigned char* vb) {
+  using L = AttnSmem<HD, BK, STAGES>;
+  uint32_t hi[BK / 16][4], lo[SPLIT ? BK / 16 : 1][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = p[8 * kk + 2 * r], x1 = p[8 * kk + 2 * r + 1];
+      hi[kk][r] = pack2<T>(x0, x1);
+      if constexpr (SPLIT) {
+        const float h0 = round_to<T>(x0), h1 = round_to<T>(x1);
+        lo[kk][r] = pack2<T>(x0 - h0, x1 - h1);   // x - h is exact in f32
+      }
+    }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = desc_sw128(vb + kk * 2048, L::BOX_K, 1024);
+    Wgmma<T, HD>::template rs<1>(o, hi[kk], db, 1);
+    if constexpr (SPLIT) Wgmma<T, HD>::template rs<1>(o, lo[kk], db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
+// the row reductions of the accumulator layout: the four lanes of a
+// quad hold one row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// o (f32, this thread's rows `row0` and `row0 + 8`) times inv[i], rounded
+// to T, into the contiguous [B, Tq, N, HD] output at (b, n)
+template <typename T, int HD>
+__device__ __forceinline__ void attn_store(T* out, const float (&o)[HD / 2],
+                                           const float (&inv)[2], int b,
+                                           int n, int N, int Tq, int row0,
+                                           int c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= Tq) continue;
+    T* orow = out + ((static_cast<int64_t>(b) * Tq + row) * N + n) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c) =
+          pack2<T>(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+  }
+}
+
+}  // namespace sm90

@@ -27,11 +27,25 @@ bfloat16 or float16.
 `FlashAttention` autograd Function, whose backward is K1-bwd on the
 card and `flash_attention_bwd_ref` on the CPU. Without grad (serving,
 `torch.inference_mode()`), it launches K1-fwd alone and saves nothing.
+
+K1-fwd has two kernels in `csrc/flash_attention.cu`. bf16 and f16 run
+the Hopper one (wgmma on the tensor cores, k and v tiles by TMA through
+a two-stage mbarrier ring, one producer warp and two consumer
+warpgroups); it removes the FMA kernel's limit, the products on the
+FP32 pipes. It reads q, k and v in place through TMA, whose rules
+`check_tma` holds before the launch (a 16-byte aligned base, strides of
+16-byte multiples): a view that breaks them raises, and nothing copies
+it. Its P goes into the product as two 16-bit parts (hi = round(P), lo
+= round(P - hi)), since splash multiplies its f32 p by v in f32 and
+wgmma takes 16-bit operands only; so the plain version keeps p in f32
+and needs no rounding of its own. f32 runs the FMA kernel: wgmma has no
+full-f32 form, and TF32 would not pass the f32 parity gates.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -44,7 +58,7 @@ __all__ = ["FlashAttention", "flash_attention", "flash_attention_ref",
            "attention_delta_ref", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_ref", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_ref", "splash_block_with_lse",
-           "splash_block_with_lse_ref", "HEAD_DIMS"]
+           "splash_block_with_lse_ref", "check_tma", "HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -171,6 +185,24 @@ def _check(q, k, v):
             raise ValueError(f"{name} needs a last-dim stride of 1")
 
 
+def check_tma(*ts: torch.Tensor) -> None:
+    """Raise unless TMA can read each [B, T, N, H] tensor in place, as
+    the bf16 and f16 forward kernels do: a base address aligned to 16
+    bytes and strides of 16-byte multiples (a dimension of size 1 has
+    no stride that matters). No copy is made for a view that fails."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"TMA needs a 16-byte aligned base address, got "
+                             f"a view at {t.data_ptr() % 16} bytes past one")
+        es, shape, strides = t.element_size(), t.shape, t.stride()
+        bad = [d for d in range(3) if shape[d] > 1 and
+               (strides[d] * es) % 16]
+        if bad:
+            raise ValueError(f"TMA needs strides of 16-byte multiples, got "
+                             f"{[strides[d] * es for d in bad]} bytes on "
+                             f"dims {bad} of a {tuple(shape)} view")
+
+
 def _fn(lib: str, name: str, argtypes):
     fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
@@ -184,6 +216,7 @@ def _strides(q, k, v):
             k.stride(2), v.stride(0), v.stride(1), v.stride(2))
 
 
+@functools.lru_cache(maxsize=64)
 def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
     """The scale as splash's caller holds it: rounded to q's dtype."""
     return float(torch.tensor(scale, dtype=dtype))
@@ -202,6 +235,8 @@ def _fwd_kernel(q, k, v, scale, causal, with_lse):
              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDED +
              [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p])
+    if q.dtype != torch.float32:
+        check_tma(q, k, v)
     B, T, N, H = q.shape
     out = torch.empty((B, T, N, H), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, N, T), dtype=torch.float32, device=q.device)

@@ -31,6 +31,16 @@ mask is read through stride-0 views, never materialised). H is 64 or
 `FlashAttentionBias` autograd Function, whose backward is K2-bwd on the
 card and the plain versions on the CPU; the bias gets a gradient only
 when it requires one.
+
+K2-fwd has two kernels in `csrc/flash_attention_bias.cu`. bf16 and f16
+run the Hopper one, on K1-fwd's pipeline (wgmma, TMA, `csrc/sm90.cuh`)
+with the bias read in the accumulator's layout and P rounded to v's
+dtype as the reference rounds it; q, k and v must pass `check_tma`
+(a view that does not raises). It keeps an unnormalised accumulator
+where the reference renormalises on every key block, which moves only
+f32 roundings (`tests/test_torch_hopper_numerics.py`), so the plain
+version is unchanged. f32 runs the FMA kernel: wgmma has no full-f32
+form, and TF32 would not pass the f32 parity gates.
 """
 
 from __future__ import annotations
@@ -41,7 +51,8 @@ from typing import Tuple
 import torch
 
 from .flash_attention import (_DTYPE_CODE, _check, _check_bwd, _fn,
-                              _needs_grad, _run, _strides, attention_delta)
+                              _needs_grad, _run, _strides, attention_delta,
+                              check_tma)
 
 __all__ = ["FlashAttentionBias", "flash_attention_bias",
            "flash_attention_bias_ref", "flash_attention_bias_fwd",
@@ -191,6 +202,8 @@ def flash_attention_bias_fwd(q: torch.Tensor, k: torch.Tensor,
     ab = _bias_view(bias, q, k)
     if q.device.type == "cpu":
         return flash_attention_bias_ref(q, k, v, ab, scale, causal)
+    if q.dtype != torch.float32:
+        check_tma(q, k, v)
     fn = _fn("flash_attention_bias", "paddle_flash_attention_bias_fwd",
              [ctypes.c_void_p] * 7 + _TAIL)
     B, T, N, H = q.shape

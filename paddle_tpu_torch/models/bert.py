@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import mha
+from ..parallel.mesh import refuse_process_ring
 from .common import (ParamAxes, Params, ParamStore, dense, dropout, gelu,
                      layer_norm)
 
@@ -165,6 +166,7 @@ def encode(params: Params, cfg: BertConfig, input_ids: torch.Tensor,
     cfg.dtype. `attention_mask` [B, T] (> 0 = attend) becomes an additive
     [B, 1, 1, T] mask of -1e9 at f32 and -3e4 otherwise; None is the
     padding-free case and builds no mask at all."""
+    refuse_process_ring("bert.encode")
     T = input_ids.shape[1]
     adt = cfg.torch_dtype
     if token_type_ids is None:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..ops.attention import mha
 from ..ops.beam import beam_search
 from ..ops.ring_attention import ring_attention
-from ..parallel.mesh import current_mesh
+from ..parallel.mesh import current_mesh, refuse_process_ring
 from ..serving import kv_cache as kvc
 from .common import (ParamAxes, Params, ParamStore, gelu,
                      layer_norm as _ln_named, raw_layer_norm)
@@ -165,6 +165,7 @@ def _block(lp, x, cfg: GPTConfig):
 def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor) -> torch.Tensor:
     """ids [B, T] -> logits [B, T, vocab], in cfg.dtype."""
     _refuse_moe(cfg)
+    refuse_process_ring("gpt.apply")
     T = ids.shape[1]
     x = (params["wte.w"][ids] + params["wpe.w"][:T][None]) \
         .to(cfg.torch_dtype)

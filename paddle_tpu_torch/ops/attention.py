@@ -12,7 +12,12 @@ Dispatch is by the device of the tensors, never by a fallback:
   through their autograd Function (K1-fwd with its LSE, K1-bwd in
   backward), so the output is never cut off from autograd; without
   grad (serving) K1-fwd runs alone and nothing is saved. A call the
-  kernels cannot take (another head dim or dtype) raises.
+  kernels cannot take (a head dim of 192 or 256, another dtype) raises.
+- CUDA with a head dim that is not a multiple of 64 (the tiny configs'
+  16): the plain path below, counted as "xla", with or without a mask.
+  This is the JAX package's own dispatch by shape (`_use_splash` sends
+  `hd % 64 != 0` to `_xla_mha`), decided before any launch
+  (`single_device_route`); it is not a fallback after a failure.
 - CUDA with an additive mask: the K2 flash-attention kernels
   (`kernels/flash_attention_bias.py`), the counterpart of the JAX
   package's `_pallas_mha`: the mask goes in as the kernel's f32 bias,
@@ -39,12 +44,15 @@ T is the whole sequence: the in-process ring's full tensor, or a
 process ring's shard times sp. There is no `T >= 1024` gate as in the
 JAX package's auto mode: on CUDA `mha` takes the K1 kernels at every T.
 A call whose T (or Tk) does not split over sp raises rather than
-gather the sequence. A masked call under sp takes the single-device
-route (K2 on CUDA), as the JAX package leaves it to GSPMD; the dp/tp
-route (`shardmap`) waits for ROADMAP item 20.
+gather the sequence. A masked call under an in-process ring takes the
+single-device route (K2 on CUDA), as the JAX package leaves it to
+GSPMD: the ring holds whole tensors. Under a process ring each rank
+holds only its shard, so the single-device route would attend within
+the shard; a masked call there raises until the models shard by hand
+(ROADMAP item 20b). The dp/tp route (`shardmap`) waits for item 20c.
 
 `GATE_COUNTS` counts calls per path ("flash_cuda", "flash_bias_cuda",
-"plain", and under sp the JAX package's keys "ring_splash" and
+"xla", "plain", and under sp the JAX package's keys "ring_splash" and
 "ring_xla") so a run can show which one served it.
 """
 
@@ -59,10 +67,11 @@ import torch
 from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.flash_attention_bias import flash_attention_bias
 from ..parallel.mesh import current_mesh
+from ..parallel.ring import ProcessRing
 from ..parallel.sharding import current_rules
 from . import ring_attention as ra
 
-__all__ = ["mha", "GATE_COUNTS"]
+__all__ = ["mha", "single_device_route", "GATE_COUNTS"]
 
 GATE_COUNTS: collections.Counter = collections.Counter()
 
@@ -97,9 +106,16 @@ def _sp_route(q, k, mask, causal):
     m = current_mesh()
     axis = current_rules().mesh_axis("seq")
     sp = m.shape.get(axis, 1) if (m is not None and axis) else 1
-    if sp == 1 or mask is not None or q.ndim != 4:
+    if sp == 1 or q.ndim != 4:
         return None, m, axis
     ring = m.rings[axis]
+    if mask is not None:
+        if isinstance(ring, ProcessRing):
+            raise NotImplementedError(
+                f"a masked mha under a process ring ({axis}={sp}) would "
+                f"attend within this rank's shard only; the sharded masked "
+                f"route waits for ROADMAP item 20b")
+        return None, m, axis
     shards = sp // len(ring.ranks)   # 1 in-process, sp on a process ring
     T, Tk = q.shape[1] * shards, k.shape[1] * shards
     if T % sp or Tk != T:
@@ -110,6 +126,23 @@ def _sp_route(q, k, mask, causal):
     if causal or (T // sp) % 128 or q.shape[-1] not in HEAD_DIMS:
         return "ring_xla", m, axis
     return "ring", m, axis
+
+
+def single_device_route(device_type: str, head_dim: int,
+                        masked: bool) -> str:
+    """The path of a call off the sp ring, by device and shape alone:
+    "plain" on the CPU; on CUDA "xla" for a head dim that is not a
+    multiple of 64 (the JAX package's `_use_splash` gate, whose other
+    side is `_xla_mha`), else "flash_bias_cuda" with a mask (K2) and
+    "flash_cuda" without (K1). A multiple of 64 that the kernels do not
+    take (192, 256) goes to the kernels' wrappers, which raise."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"mha runs on cuda or cpu, not {device_type}")
+    if head_dim % 64:
+        return "xla"
+    return "flash_bias_cuda" if masked else "flash_cuda"
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,18 +162,15 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 scale=scale)
         GATE_COUNTS["ring_xla"] += 1
         return out
-    if q.device.type == "cuda":
-        if mask is not None:
-            out = flash_attention_bias(q, k, v, mask, scale, causal)
-            GATE_COUNTS["flash_bias_cuda"] += 1
-            return out
+    route = single_device_route(q.device.type, q.shape[-1],
+                                mask is not None)
+    if route == "flash_bias_cuda":
+        out = flash_attention_bias(q, k, v, mask, scale, causal)
+    elif route == "flash_cuda":
         out = flash_attention(q, k, v, scale, causal)
-        GATE_COUNTS["flash_cuda"] += 1
-        return out
-    if q.device.type != "cpu":
-        raise ValueError(f"mha runs on cuda or cpu, not {q.device.type}")
-    if causal:
-        mask = _merge_causal(mask, q.shape[1], q.device)
-    out = _plain_mha(q, k, v, mask, scale)
-    GATE_COUNTS["plain"] += 1
-    return out.to(q.dtype)
+    else:
+        if causal:
+            mask = _merge_causal(mask, q.shape[1], q.device)
+        out = _plain_mha(q, k, v, mask, scale).to(q.dtype)
+    GATE_COUNTS[route] += 1
+    return out

@@ -36,7 +36,7 @@ import torch
 from .ring import InProcessRing, ProcessRing, Ring
 
 __all__ = ["AXIS_ORDER", "MeshConfig", "Mesh", "make_mesh", "current_mesh",
-           "mesh_guard"]
+           "mesh_guard", "refuse_process_ring"]
 
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")  # outer → inner, as the JAX package
 
@@ -148,3 +148,19 @@ def mesh_guard(mesh: Mesh):
         yield mesh
     finally:
         _mesh_stack.pop()
+
+
+def refuse_process_ring(what: str) -> None:
+    """Raise when the current mesh has a process ring. A model's forward
+    there gets this rank's shard of the sequence and would run it as a
+    whole one: positions restart at 0 on every rank, and masked
+    attention stays within the shard. The JAX package stays exact under
+    GSPMD; the port waits for ROADMAP item 20b (model-level sp over
+    processes). The in-process ring holds whole tensors and passes."""
+    m = current_mesh()
+    if m is not None and any(isinstance(r, ProcessRing)
+                             for r in m.rings.values()):
+        raise NotImplementedError(
+            f"{what} under a process ring would treat this rank's shard as "
+            f"the whole sequence (positions from 0 on every rank); model-"
+            f"level sp over processes is ROADMAP item 20b")

@@ -126,3 +126,64 @@ def test_strided_views_need_no_copy():
     want = fa.flash_attention_ref(q.contiguous(), k.contiguous(),
                                   v.contiguous(), 0.125)
     assert torch.equal(got, want)
+
+
+# (device, head dim, masked) -> mha's route off the sp ring. The tiny
+# configs' head dim 16 takes the plain path on CUDA, counted as "xla",
+# as the JAX package's `_use_splash` sends hd % 64 != 0 to `_xla_mha`;
+# a multiple of 64 goes to the kernels, whose wrappers take 64 and 128
+# and raise on the rest (192, 256).
+ROUTES = [("cpu", 64, False, "plain"), ("cpu", 16, True, "plain"),
+          ("cuda", 16, False, "xla"), ("cuda", 16, True, "xla"),
+          ("cuda", 32, False, "xla"), ("cuda", 96, True, "xla"),
+          ("cuda", 64, False, "flash_cuda"),
+          ("cuda", 128, False, "flash_cuda"),
+          ("cuda", 64, True, "flash_bias_cuda"),
+          ("cuda", 192, False, "flash_cuda"),
+          ("cuda", 256, True, "flash_bias_cuda")]
+
+
+@pytest.mark.parametrize("device,head_dim,masked,route", ROUTES)
+def test_single_device_route_by_device_and_head_dim(device, head_dim, masked,
+                                                    route):
+    assert ta.single_device_route(device, head_dim, masked) == route
+
+
+def test_single_device_route_refuses_other_devices():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ta.single_device_route("meta", 64, False)
+
+
+def test_cpu_mha_at_head_dim_16_matches_xla_path():
+    """The tiny configs' head dim on the CPU: the plain path, as the
+    xla route runs it on CUDA."""
+    (q, k, v), (tq, tk, tv) = _qkv(24, "float32", seed=9, B=2, H=16)
+    want = pa._xla_mha(q, k, v, pa._merge_causal(None, 24), 0.25)
+    before = ta.GATE_COUNTS["plain"]
+    got = ta.mha(tq, tk, tv, causal=True)
+    assert ta.GATE_COUNTS["plain"] == before + 1
+    assert _err(want, got) <= TOL["float32"]
+
+
+def test_tma_check_refuses_misaligned_views():
+    """The bf16/f16 forwards read q, k and v with TMA, which needs a
+    16-byte aligned base and strides of 16-byte multiples; a view that
+    fails raises (no copy). Fused-qkv views and contiguous tensors pass;
+    a dimension of size 1 has no stride that matters."""
+    x = torch.zeros(2, 8, 2, 72, dtype=torch.bfloat16)
+    fa.check_tma(x)
+    qkv = torch.zeros(2, 8, 3 * 2 * 64, dtype=torch.bfloat16)
+    fa.check_tma(*(t.view(2, 8, 2, 64) for t in qkv.split(128, dim=-1)))
+    fa.check_tma(torch.zeros(1, 1, 1, 64, dtype=torch.float16)
+                 .as_strided((1, 1, 1, 64), (3, 5, 7, 1)))
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        fa.check_tma(x[..., 1:65])
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        fa.check_tma(torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64])
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        fa.check_tma(torch.zeros(2 * 1028, dtype=torch.float16)
+                     .as_strided((2, 8, 2, 64), (1028, 128, 64, 1)))
+    # on CPU tensors the wrappers take the plain version, any view
+    q = x[..., 1:65]
+    assert torch.equal(fa.flash_attention(q, q, q, 0.1),
+                       fa.flash_attention_ref(q, q, q, 0.1))

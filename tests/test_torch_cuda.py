@@ -89,7 +89,9 @@ def test_kernel_matches_plain_version(T, dtype):
 @pytest.mark.cuda
 def test_mha_on_cuda_launches_or_raises():
     """A CUDA mha launches K1-fwd without a mask and K2-fwd with one
-    (never the plain version), and raises on what neither takes."""
+    (never the plain version); a head dim that is not a multiple of 64
+    takes the JAX package's XLA path, "xla", by shape before any
+    launch; a multiple of 64 that the kernels do not take raises."""
     _need_card()
     q = torch.randn(1, 16, 2, 64, device="cuda")
     before = ta.GATE_COUNTS["flash_cuda"]
@@ -101,8 +103,15 @@ def test_mha_on_cuda_launches_or_raises():
     assert ta.GATE_COUNTS["flash_bias_cuda"] == \
         gates.get("flash_bias_cuda", 0) + 1
     assert ta.GATE_COUNTS["plain"] == gates.get("plain", 0)
+    x = torch.randn(1, 16, 2, 32, device="cuda")
+    xla, k1 = ta.GATE_COUNTS["xla"], fa.flash_attention.launches
+    got = ta.mha(x, x, x, causal=True)
+    assert ta.GATE_COUNTS["xla"] == xla + 1
+    assert fa.flash_attention.launches == k1
+    want = ta.mha(x.cpu(), x.cpu(), x.cpu(), causal=True)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
     with pytest.raises(ValueError, match="head_dim"):
-        x = torch.randn(1, 16, 2, 32, device="cuda")
+        x = torch.randn(1, 16, 2, 192, device="cuda")
         ta.mha(x, x, x, causal=True)
 
 
@@ -454,3 +463,110 @@ def test_sp4_ring_on_the_card_matches_k1(causal):
             tol = (1e-5, 1e-4) if causal and name != "out" else None
             ratio, rms = _held(a, b, torch.float32, tol)
             assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
+
+
+
+# The bf16/f16 Hopper forwards (wgmma, TMA) beyond the shapes above:
+# (kernel, B, T, Tk, N, H, causal, dtype, layout). K1 at BERT-long's
+# no-mesh shape cut in batch, at H 128 (ragged, causal and not), on the
+# strided views of one fused [B, T, 3, N, H] projection, and at f16; K2
+# at H 128, with a Tk that is not a multiple of 128, and with a full
+# bias at f16.
+HOPPER_CASES = [("k1", 1, 4096, 4096, 12, 64, False, torch.bfloat16, "plain"),
+                ("k1", 2, 300, 300, 4, 128, True, torch.bfloat16, "plain"),
+                ("k1", 2, 256, 200, 4, 128, False, torch.float16, "plain"),
+                ("k1", 4, 384, 384, 12, 64, True, torch.bfloat16, "fused"),
+                ("k1", 2, 130, 130, 12, 64, False, torch.float16, "fused"),
+                ("k2", 2, 256, 256, 8, 128, False, torch.bfloat16, "mask"),
+                ("k2", 4, 200, 300, 12, 64, False, torch.bfloat16, "mask"),
+                ("k2", 2, 256, 300, 4, 64, True, torch.float16, "full")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,B,T,Tk,N,H,causal,dtype,layout",
+                         HOPPER_CASES)
+def test_hopper_forwards_match_plain_version(kernel, B, T, Tk, N, H, causal,
+                                             dtype, layout):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T + Tk + H)
+    if layout == "fused":
+        qkv = torch.randn(B, T, 3, N, H, generator=g, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = torch.randn(B, T, N, H, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Tk, N, H, generator=g, device="cuda")
+                .to(dtype) for _ in range(2))
+    if kernel == "k1":
+        before = fa.flash_attention_with_lse.launches
+        out, lse = fa.flash_attention_with_lse(q, k, v, 0.125, causal)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_with_lse.launches == before + 1
+        want, want_lse = fa.flash_attention_ref(q, k, v, 0.125, causal,
+                                                with_lse=True)
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+    else:
+        if layout == "full":
+            bias = torch.randn(B, N, T, Tk, generator=g, device="cuda")
+        else:
+            lens = torch.randint(Tk // 2, Tk + 1, (B,), generator=g,
+                                 device="cuda")
+            bias = torch.where(torch.arange(Tk, device="cuda")[None] <
+                               lens[:, None], 0.0, -1e9)[:, None, None, :]
+        out, l, m = fb.flash_attention_bias_fwd(q, k, v, bias, 0.125, causal)
+        torch.cuda.synchronize()
+        want, want_l, want_m = fb.flash_attention_bias_ref(q, k, v, bias,
+                                                           0.125, causal)
+        assert ((l - want_l).abs() / want_l).max().item() <= 1e-5
+        assert (m - want_m).abs().max().item() <= 1e-4
+    ratio, rms = _held(out, want, dtype)
+    assert ratio <= 1.0, f"out: error / limit {ratio}, RMS {rms}"
+
+
+@pytest.mark.cuda
+def test_forward_wrappers_raise_on_a_misaligned_view():
+    """TMA reads q, k and v in place: a bf16 view whose base is not 16-
+    byte aligned raises in both forwards, and launches nothing; f32 runs
+    the FMA kernels, which take it."""
+    _need_card()
+    x = torch.randn(1, 64, 2, 72, device="cuda")
+    q = x.to(torch.bfloat16)[..., 1:65]
+    mask = torch.zeros(1, 1, 1, 64, device="cuda")
+    counts = (fa.flash_attention.launches,
+              fb.flash_attention_bias_fwd.launches)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="TMA"):
+        fb.flash_attention_bias_fwd(q, q, q, mask, 0.125)
+    assert (fa.flash_attention.launches,
+            fb.flash_attention_bias_fwd.launches) == counts
+    f = x[..., 1:65]
+    ratio, _ = _held(fa.flash_attention(f, f, f, 0.125),
+                     fa.flash_attention_ref(f, f, f, 0.125), torch.float32)
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+def test_tiny_bert_step_runs_through_the_xla_gate():
+    """BertConfig.tiny() (head dim 16) trains a step on the card: every
+    attention call takes the "xla" route, and no K1 kernel launches."""
+    _need_card()
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    cfg = bert.BertConfig.tiny()
+    params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                          device="cuda")
+    batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, 4, seq_len=64)
+    k1 = (fa.flash_attention_with_lse, fa.flash_attention_bwd_dkv,
+          fa.flash_attention_bwd_dq)
+    before, xla = [f.launches for f in k1], ta.GATE_COUNTS["xla"]
+    init, step = make_train_step(
+        lambda p, b, g: bert.pretrain_loss(p, cfg, b, rng=g,
+                                           deterministic=True),
+        lambda ps: torch.optim.AdamW(ps, lr=1e-4), device="cuda",
+        precision="mixed_bf16")
+    state, loss = step(init(params), batch, 0)
+    assert torch.isfinite(loss).item()
+    assert ta.GATE_COUNTS["xla"] == xla + cfg.layers
+    assert [f.launches for f in k1] == before

@@ -1,0 +1,205 @@
+"""The arithmetic of the bf16/f16 Hopper forwards, emulated in plain torch
+on the CPU: K1-fwd (and K3, its LSE form) in `csrc/flash_attention.cu`
+and K2-fwd in `csrc/flash_attention_bias.cu`. The kernels run only on
+the card (tests/test_torch_cuda.py, `chip_smoke.py`); these tests hold
+the choices of their design against the plain versions and the JAX
+package, at the limits the card holds the kernels to.
+
+What the emulations repeat of the kernels:
+- K1: q scaled and rounded to its dtype; f32 scores; keys in tiles of
+  128 with a running max; p = exp(s - running max) in f32; the product
+  with v takes p as two 16-bit parts, hi = round(p) and lo = round(p -
+  hi), because wgmma multiplies 16-bit operands only and the JAX
+  package's splash multiplies its f32 p by v in f32
+  (`splash_attention_kernel.py`, `v.astype(float32)` before the
+  product); l sums the f32 p; out = acc / l.
+- K2: f32 scores of the unscaled q plus the bias, times the scale; the
+  reference's one-step softmax where the keys fit one 128-key block
+  (round(p / l) @ v); beyond, an unnormalised accumulator of round(p)
+  @ v rescaled by exp(m - m_next) and divided by l once, where the
+  reference renormalises on every block.
+
+Limits. Against the plain versions `chip_smoke.py`'s ELEM_TOL: every
+element within rtol |want| + atol rms(want), (2^-7, 2e-2) at bf16 and
+(2^-10, 1e-3) at f16; l within 1e-5 relative, m and the LSE within 1e-4.
+Against splash, `test_torch_flash_bwd.py`'s (2^-7, 1e-2) at bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import attention as pa
+
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import flash_attention_bias as fb
+
+torch.set_num_threads(1)
+
+BK = 128
+ELEM_TOL = {torch.bfloat16: (2 ** -7, 2e-2), torch.float16: (2 ** -10, 1e-3)}
+SPLASH_TOL = (2 ** -7, 1e-2)
+
+
+def _held(got, want, tol):
+    """The worst element's error over its limit (at most 1 passes)."""
+    rtol, atol = tol
+    want = want.float()
+    err = (got.float() - want).abs()
+    rms = want.square().mean().sqrt()
+    return (err / (rtol * want.abs() + atol * rms)).max().item()
+
+
+def _pv(p, v, split):
+    """p [B, N, T, K] times v [B, K, N, H] in f32, p rounded to v's dtype
+    once or as hi + lo."""
+    hi = p.to(v.dtype).float()
+    out = torch.einsum("bnts,bsnh->bnth", hi, v.float())
+    if split:
+        lo = (p - hi).to(v.dtype).float()
+        out = out + torch.einsum("bnts,bsnh->bnth", lo, v.float())
+    return out
+
+
+def k1_emulated(q, k, v, scale, causal, split=True):
+    """K1-fwd's arithmetic: (out, lse)."""
+    s = fa._logits(q, k, scale, causal)
+    B, N, T, Tk = s.shape
+    m = torch.full((B, N, T, 1), float("-inf"))
+    l = torch.zeros(B, N, T, 1)
+    acc = torch.zeros(B, N, T, q.shape[-1])
+    for k0 in range(0, Tk, BK):
+        st = s[..., k0:k0 + BK]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        ms = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp(m - ms)
+        p = torch.exp(st - ms)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _pv(p, v[:, k0:k0 + BK], split)
+        m = m_new
+    out = (acc / l).transpose(1, 2).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def k2_emulated(q, k, v, bias, scale, causal):
+    """K2-fwd's arithmetic: (out, l, m)."""
+    Tk = k.shape[1]
+    if Tk <= BK:   # the reference's one-step kernel, as the kernel runs it
+        return fb.flash_attention_bias_ref(q, k, v, bias, scale, causal)
+    s = fb._scores(q, k, bias, scale, causal)
+    B, N, T, _ = s.shape
+    m = torch.full((B, N, T, 1), float("-inf"))
+    l = torch.zeros(B, N, T, 1)
+    acc = torch.zeros(B, N, T, q.shape[-1])
+    rows = torch.arange(T)[None, None, :, None]
+    for k0 in range(0, Tk, BK):
+        # causal: a query block of 128 rows skips the key blocks above it
+        run = (k0 < (rows // BK + 1) * BK) if causal else \
+            torch.ones((), dtype=torch.bool)
+        st = s[..., k0:k0 + BK]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l_new = l * alpha + p.sum(-1, keepdim=True)
+        acc_new = acc * alpha + _pv(p, v[:, k0:k0 + BK], split=False)
+        m, l, acc = (torch.where(run, a, b) for a, b in
+                     ((m_new, m), (l_new, l), (acc_new, acc)))
+    out = (acc * torch.where(l == 0, 1.0, 1.0 / l)).transpose(1, 2)
+    return out.to(q.dtype), l[..., 0], m[..., 0]
+
+
+def _qkv(B, T, Tk, N, H, dtype, seed):
+    rs = np.random.RandomState(seed)
+    arrs = [rs.randn(B, t, N, H).astype(np.float32) for t in (T, Tk, Tk)]
+    return arrs, [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+# (B, T, Tk, N, H, causal, dtype): the serving and training shapes cut
+# in batch, a ragged causal T, K3's block (T = Tk = 1024, scale 1 on a
+# pre-scaled q), H 128, and f16
+K1_CASES = [(1, 512, 512, 2, 64, True, torch.bfloat16),
+            (4, 128, 128, 2, 64, False, torch.bfloat16),
+            (2, 100, 100, 2, 64, True, torch.bfloat16),
+            (1, 1024, 1024, 2, 64, False, torch.bfloat16),
+            (2, 300, 200, 2, 128, False, torch.bfloat16),
+            (1, 1024, 1024, 2, 64, False, torch.float16),
+            (2, 256, 256, 2, 64, True, torch.float16)]
+
+
+@pytest.mark.parametrize("B,T,Tk,N,H,causal,dtype", K1_CASES)
+def test_k1_arithmetic_matches_its_plain_version(B, T, Tk, N, H, causal,
+                                                 dtype):
+    _, (q, k, v) = _qkv(B, T, Tk, N, H, dtype, seed=T + H + causal)
+    scale = 1.0 if T == 1024 else 0.125
+    out, lse = k1_emulated(q, k, v, scale, causal)
+    want, want_lse = fa.flash_attention_ref(q, k, v, scale, causal,
+                                            with_lse=True)
+    assert _held(out, want, ELEM_TOL[dtype]) <= 1.0
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def _beyond_one_step(got, want):
+    """The largest error beyond one bf16 rounding step of the element,
+    in units of want's RMS."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    return ((err - 2 ** -7 * want.abs()).clamp(min=0).max()
+            / want.square().mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_p_keeps_the_gap_to_splash(causal):
+    """At bf16 against splash in interpret mode (f32 p times v): with p
+    split into hi + lo the output is within splash's limits, no element
+    is more than 1e-4 of the RMS beyond one rounding step (measured:
+    4e-6), and fewer than 1% of the elements differ at all (0.2%); a p
+    rounded once to bf16 moves 36-41% of them, up to 4e-3 to 1e-2 of the
+    RMS beyond one step (T 256 and 1024), ten times the split's gap and
+    more."""
+    T = 256
+    arrs, (q, k, v) = _qkv(1, T, T, 2, 64, torch.bfloat16, seed=30 + causal)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrs)
+    want = torch.from_numpy(np.asarray(
+        pa._splash_mha(jq, jk, jv, 0.125, causal, interpret=True),
+        np.float32))
+    split = k1_emulated(q, k, v, 0.125, causal)[0]
+    once = k1_emulated(q, k, v, 0.125, causal, split=False)[0]
+    assert _held(split, want, SPLASH_TOL) <= 1.0
+    gap = _beyond_one_step(split, want)
+    assert gap <= 1e-4
+    assert (split.float() != want).float().mean().item() < 0.01
+    assert _beyond_one_step(once, want) > max(10 * gap, 1e-3)
+
+
+# (B, T, Tk, N, H, causal, dtype, bias): Transformer-big's encoder shape
+# cut in batch (one key block), padded BERT's 512 keys, a ragged pair
+# past one block, causal with a full bias at f16 and over several query
+# blocks, H 128
+K2_CASES = [(4, 128, 128, 2, 64, False, torch.bfloat16, "mask"),
+            (2, 512, 512, 2, 64, False, torch.bfloat16, "mask"),
+            (2, 100, 300, 2, 64, False, torch.bfloat16, "mask"),
+            (2, 128, 128, 2, 64, True, torch.float16, "full"),
+            (1, 384, 384, 2, 64, True, torch.bfloat16, "full"),
+            (2, 256, 300, 2, 128, True, torch.bfloat16, "full")]
+
+
+@pytest.mark.parametrize("B,T,Tk,N,H,causal,dtype,bias", K2_CASES)
+def test_k2_arithmetic_matches_its_plain_version(B, T, Tk, N, H, causal,
+                                                 dtype, bias):
+    _, (q, k, v) = _qkv(B, T, Tk, N, H, dtype, seed=T + Tk + causal)
+    rs = np.random.RandomState(T)
+    if bias == "full":
+        ab = torch.from_numpy(rs.randn(B, N, T, Tk).astype(np.float32))
+    else:
+        lens = rs.randint(Tk // 2, Tk + 1, B)
+        ab = torch.from_numpy(np.where(
+            np.arange(Tk)[None] < lens[:, None], 0.0, -1e9)
+            .astype(np.float32)[:, None, None, :])
+    out, l, m = k2_emulated(q, k, v, ab, 0.125, causal)
+    want, want_l, want_m = fb.flash_attention_bias_ref(q, k, v, ab, 0.125,
+                                                       causal)
+    assert _held(out, want, ELEM_TOL[dtype]) <= 1.0
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-5
+    assert (m - want_m).abs().max().item() <= 1e-4

@@ -352,15 +352,72 @@ finally:
 """
 
 
-def _spawn_ring(tmp_path, world, timeout=120):
-    """Run `_WORKER` on `world` gloo processes; every child is killed if
+# One rank of a gloo ring under the process mesh: a masked mha and the
+# models' forward calls (BERT encode, GPT apply, Transformer encode and
+# decode) must raise on every rank rather than treat the shard as the
+# whole sequence (ROADMAP item 20b); the unmasked mha stays on the ring.
+_REFUSAL_WORKER = r"""
+import sys
+import torch
+import torch.distributed as dist
+
+rank, world, rdv, inputs, out_path = sys.argv[1:]
+rank, world = int(rank), int(world)
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="file://" + rdv,
+                        world_size=world, rank=rank)
+try:
+    from paddle_tpu_torch.models import bert, gpt, transformer
+    from paddle_tpu_torch.ops import attention as tattn
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(sp=world))
+    full = torch.load(inputs)
+    Tl = full["q"].shape[1] // world
+    q, k, v = (full[n][:, rank * Tl:(rank + 1) * Tl].contiguous()
+               for n in "qkv")
+    B = q.shape[0]
+    ids = torch.zeros(B, Tl, dtype=torch.long)
+    g = torch.Generator().manual_seed(0)
+    bcfg, gcfg = bert.BertConfig.tiny(), gpt.GPTConfig.tiny()
+    tcfg = transformer.TransformerConfig.tiny()
+    bp, _ = bert.init(g, bcfg, device="cpu")
+    gp, _ = gpt.init(g, gcfg, device="cpu")
+    tp, _ = transformer.init(g, tcfg, device="cpu")
+    memory = torch.zeros(B, Tl, tcfg.hidden)
+    calls = {
+        "masked_mha": lambda: tattn.mha(q, k, v,
+                                        mask=torch.zeros(B, 1, 1, Tl)),
+        "bert": lambda: bert.encode(bp, bcfg, ids),
+        "gpt": lambda: gpt.apply(gp, gcfg, ids),
+        "transformer_encode": lambda: transformer.encode(tp, tcfg, ids),
+        "transformer_decode": lambda: transformer.decode(tp, tcfg, ids,
+                                                         memory)}
+    res = {}
+    with tmesh.mesh_guard(mesh):
+        res["mha"] = tattn.mha(q, k, v)
+        for name, fn in calls.items():
+            try:
+                fn()
+                res[name] = "no error"
+            except NotImplementedError as e:
+                res[name] = str(e)
+    res["gates"] = dict(tattn.GATE_COUNTS)
+    torch.save(res, out_path)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _spawn_ring(tmp_path, world, timeout=120, worker=_WORKER):
+    """Run `worker` on `world` gloo processes; every child is killed if
     any is still running at the deadline (a hang fails the test)."""
     path = os.pathsep.join(p for p in (_REPO, os.environ.get("PYTHONPATH"))
                            if p)
     env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
     rdv = tmp_path / "rendezvous"
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(r), str(world), str(rdv),
+        [sys.executable, "-c", worker, str(r), str(world), str(rdv),
          str(tmp_path / "inputs.pt"), str(tmp_path / f"rank{r}.pt")],
         cwd=_REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
@@ -417,3 +474,30 @@ def test_process_ring_equals_the_in_process_ring(tmp_path, world):
             assert torch.equal(got[key], mine), (r, key)
             if key.startswith("splash"):
                 assert torch.equal(got["mha" + key[len("splash"):]], mine)
+
+
+def test_process_ring_refuses_masked_and_model_calls(tmp_path):
+    """Under a 2-rank gloo process ring each rank holds its shard: a
+    masked mha and the BERT, GPT and Transformer forwards raise on both
+    ranks, naming ROADMAP item 20b, and the unmasked mha (the ring)
+    still equals the in-process ring's shard bit for bit."""
+    world, B, T, N, H = 2, 2, 256, 2, 64
+    full = dict(zip("qkv", (torch.from_numpy(a) for a in
+                            _arrays((B, T, N, H), 3, seed=21))))
+    torch.save(full, tmp_path / "inputs.pt")
+    ranks = _spawn_ring(tmp_path, world, worker=_REFUSAL_WORKER)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with tmesh.mesh_guard(_tmesh(world)):
+            want = tattn.mha(full["q"], full["k"], full["v"])
+    finally:
+        torch.set_num_threads(threads)
+    Tl = T // world
+    for r, got in enumerate(ranks):
+        for name in ("masked_mha", "bert", "gpt", "transformer_encode",
+                     "transformer_decode"):
+            assert "process ring" in got[name] and "20b" in got[name], \
+                (r, name, got[name])
+        assert got["gates"] == {"ring_splash": 1}, got["gates"]
+        assert torch.equal(got["mha"], want[:, r * Tl:(r + 1) * Tl])
