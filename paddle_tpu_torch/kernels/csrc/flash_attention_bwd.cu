@@ -10,11 +10,11 @@
 //
 //   delta  delta = rowsum(f32(o) * f32(do)), from the stored output in
 //          the input dtype (splash's `di`);
-//   dkv    one block per (batch*head, 64-key tile), looping over the
+//   dkv    one block per (batch*head, key tile), looping over the
 //          query tiles: P = exp(S - lse), dP = dO V^T,
 //          dS = (dP - delta) * P, dV += round(P)^T dO,
 //          dK += round(dS)^T Q;
-//   dq     one block per (batch*head, 64-query tile), looping over the
+//   dq     one block per (batch*head, query tile), looping over the
 //          key tiles: the same P and dS, dQ += round(dS) K.
 //
 // round() is the rounding to the input dtype that splash applies before
@@ -29,35 +29,74 @@
 // Bound on the H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): the
 // backward reads q, k, v, o and dO and writes dq, dk and dv (8 tensors
 // of B*T*N*H) plus the LSE and delta rows, against 5 products of
-// 2*T*Tk*H per head (halved when causal). At BERT-base's shape
-// (B=32, T=128, N=12, H=64, bf16) that is 50 MB and 12.9 GFLOP: 15 us
-// at the memory rate, 13 us at the tensor-core rate.
+// 2*T*Tk*H per head (halved when causal). At BERT-base's training shape
+// (B=256, T=128, N=12, H=64, bf16) that is 406 MB and 32 GFLOP: 121 us
+// at the memory rate, 33 us at the tensor-core rate; at T 4096 (B=8,
+// the same bytes) the 5 products are 1.03 TFLOP a layer, 1.04 ms at the
+// tensor-core rate.
 //
-// What this simple design does about that bound: the T x Tk scores and
-// their gradients never leave the SM (registers and two 64 x 64
-// shared-memory tiles), so device traffic stays O(T*H); tiles above the
-// diagonal are skipped; the dkv and dq blocks each own their
-// accumulators, so no atomics. The products run on the f32 FMA pipes
-// from shared memory (no mma/wgmma, no TMA), and S and dP are computed
-// twice (once in dkv, once in dq), so the kernels are compute-limited
-// far above the bound; tensor cores are later work.
+// What the design does about that bound. Common to both: the T x Tk
+// scores and their gradients never leave the SM, so device traffic
+// stays O(T*H); tiles above the diagonal are skipped; the dkv and dq
+// blocks each own their accumulators, so no atomics and the same
+// result every run. S and dP are computed in both kernels (7 products
+// where 5 would do), the price of having no atomics.
 //
-// Layout of one 256-thread block (16 x 16 threads, (ty, tx)): in the
-// score phase a thread holds rows ty + 16*i and columns tx + 16*j
-// (i, j < 4) of the 64 x 64 tile, as the forward does; in the
-// accumulation phase it holds accumulator rows ty + 16*i and head
-// columns tx + 16*d.
+// bf16 and f16 (flash_bwd_dkv_sm90_kernel, flash_bwd_dq_sm90_kernel):
+// the products on the tensor cores. A block has two consumer
+// warpgroups and one producer warp (288 threads). dkv owns 128 keys
+// (64 a warpgroup), loaded once by TMA, and streams query tiles of 64
+// (q and dO by TMA over the tensors' own strides, so a fused qkv
+// projection's views need no copy; each tile's lse and delta rows
+// loaded by the producer warp into the same stage) through a
+// three-stage mbarrier ring. Per tile the consumers scale q in shared
+// memory in place (rounded to T, then fence.proxy.async, as the
+// forward), take S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16
+// from shared memory, form P^T and dS^T in f32 registers (lse and
+// delta lie along the columns), and, since the accumulator layout is
+// register for register the A fragment, take dV += round(P^T) dO and
+// dK += round(dS^T) Q_scaled with P^T and dS^T as the register A
+// operand and dO and q as the MN-major B operand. dq mirrors it: 128
+// queries a block (q scaled in place once, dO), key tiles of 64 (k, v)
+// through the ring, S = Q K^T and dP = dO V^T from shared memory,
+// lse and delta per row in registers, dQ += round(dS) K with k as the
+// MN-major B operand. splash rounds P and dS to the input dtype before
+// these products (p.astype, ds.astype in jax's splash kernel), so the
+// 16-bit A operand is its rounding exactly. Within a warpgroup the
+// elementwise work waits for its products; the other warpgroup's
+// products fill the tensor cores meanwhile.
+//
+// Reached (chip_smoke.py and kernels/probe_sm90.py on an NVIDIA H100
+// 80GB HBM3, 700 W): at BERT-base's 256 x 128 dkv 0.299 ms and dq 0.223
+// ms a call (the FMA kernels took 1.252 and 1.056), 0.333 ms of device
+// time for both against SDPA's whole backward at 0.357; at 8 x 4096 the
+// whole backward 4.82 ms against SDPA's 2.52 (dkv 2.81, dq 2.01: about
+// 300 TFLOP/s of the 7 products). 288 threads leave 168 registers a
+// thread: at H 64 dkv takes 165 and dq 137 with no spill; at H 128 dkv
+// spills 424 bytes and ptxas serialises its wgmma (dq 166, no spill).
+//
+// f32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): the products on the
+// f32 FMA pipes from shared memory, 64 x 64 tiles; wgmma has no full-
+// f32 form and TF32 would not pass the f32 parity gates. Layout of one
+// 256-thread block (16 x 16 threads, (ty, tx)): in the score phase a
+// thread holds rows ty + 16*i and columns tx + 16*j (i, j < 4) of the
+// 64 x 64 tile, as the FMA forward does; in the accumulation phase it
+// holds accumulator rows ty + 16*i and head columns tx + 16*d.
 //
 // C interface (loaded with ctypes): each paddle_flash_attention_bwd_*
-// function returns cudaGetLastError() after its launch; none
-// synchronises. o, dO, dq, dk and dv are contiguous [B, T, N, H]; lse
+// function returns cudaGetLastError() after its launch
+// (cudaErrorInvalidValue when TMA refuses a bf16 or f16 tensor: the
+// wrapper checks its rules first); none synchronises. o, dO, dq, dk and dv are contiguous [B, T, N, H]; lse
 // and delta contiguous f32 [B, N, Tq]; q, k and v take strides.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dtypes.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -376,6 +415,438 @@ constexpr size_t dq_smem() {
                           static_cast<size_t>(BQ) * LDP + 2 * BQ);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and f16: the Hopper kernels (wgmma, TMA, a producer warp)
+//
+// Both launch 288 threads: two consumer warpgroups of 64 rows and one
+// producer warp. dkv: a block owns 128 keys (warpgroup wg the keys
+// 64 wg ..), loaded once, and loops over query tiles of 64 rows (q and
+// dO by TMA, lse and delta by the producer warp's loads) through a ring
+// of S_STAGES. dq: a block owns 128 queries (q and dO loaded once) and
+// loops over key tiles of 64 rows (k and v) through the ring. Each
+// tile's two score products run from shared memory (ss, both operands
+// K-major); their accumulators become, register for register, the A
+// operand of the two (dkv) or one (dq) gradient products (rs, with the
+// B operand MN-major).
+
+constexpr int S_ROWS = 128;     // rows a block owns (keys or queries)
+constexpr int S_TILE = 64;      // rows of the tiles it loops over
+constexpr int S_STAGES = 3;     // tiles in flight
+constexpr int S_THREADS = 288;
+constexpr int S_CONSUMERS = 256;
+
+// byte offsets in the block's shared memory (from a 1024-aligned base):
+// the two tensors owned (k and v, or q and dO: 128 rows, NBOX boxes of
+// 64 columns each), then S_STAGES stages of the two streamed tensors
+// (64 rows each; dkv's stages also hold the tile's lse and delta), then
+// the barriers: the owned tensors' one, then full and empty a stage
+template <int HD, bool ROWS>
+struct BwdSmem {
+  static constexpr int NBOX = HD / 64;
+  static constexpr int BOX_OWN = S_ROWS * 128;
+  static constexpr int BOX_TILE = S_TILE * 128;
+  static constexpr int OWN_A = 0;
+  static constexpr int OWN_B = NBOX * BOX_OWN;
+  static constexpr int TILES = 2 * NBOX * BOX_OWN;
+  // within a stage: tile a, tile b, then (dkv) lse and delta rows
+  static constexpr int TILE_B = NBOX * BOX_TILE;
+  static constexpr int ROW_L = 2 * NBOX * BOX_TILE;
+  static constexpr int ROW_E = ROW_L + 4 * S_TILE;
+  static constexpr int STAGE =
+      (2 * NBOX * BOX_TILE + (ROWS ? 8 * S_TILE : 0) + 1023) / 1024 * 1024;
+  static constexpr int BAR = TILES + S_STAGES * STAGE;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * S_STAGES) + 1024;
+};
+
+// q * scale rounded to T, in place, for the rows [r0, r0 + rows) of a
+// 128-byte-swizzled tile of `box_bytes` a box (elementwise, so the
+// swizzle does not matter), by `count` threads from thread index `i0`;
+// followed by fence.proxy.async, so wgmma's async proxy sees the writes
+template <typename T, int HD>
+__device__ __forceinline__ void scale_rows(unsigned char* tile, int box_bytes,
+                                           int r0, int rows, float scale,
+                                           int i0, int count) {
+#pragma unroll
+  for (int x = 0; x < HD / 64; ++x) {
+    uint4* qv = reinterpret_cast<uint4*>(tile + x * box_bytes + r0 * 128);
+    for (int i = i0; i < rows * 8; i += count) {
+      uint4 w = qv[i];
+      T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = from_f32<T>(to_f32(e[j]) * scale);
+      qv[i] = w;
+    }
+  }
+  sm90::fence_proxy_async();
+}
+
+// D[64 x 64] = A B^T for one warpgroup: A the 64 rows at `a` (in a tile
+// of `a_box` bytes a box), B the 64-row tile at `b`, both K-major over
+// HD; the first step overwrites D. Issued, not committed.
+template <typename T, int HD>
+__device__ __forceinline__ void tile_product(float (&d)[32],
+                                             const unsigned char* a,
+                                             int a_box,
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da =
+        sm90::desc_sw128(a + (kk / 4) * a_box + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = sm90::desc_sw128(
+        b + (kk / 4) * S_TILE * 128 + (kk % 4) * 32, 16, 1024);
+    sm90::Wgmma<T, 64>::template ss<0>(d, da, db, kk > 0);
+  }
+}
+
+// acc[64 x HD] += round(P) B for one warpgroup: P [64 x 64] in the
+// accumulator layout (so the A fragments of its four 16-column steps),
+// rounded to T; B the 64-row tile at `b` as the MN-major operand.
+// Issued, not committed.
+template <typename T, int HD>
+__device__ __forceinline__ void grad_product(float (&acc)[HD / 2],
+                                             const uint32_t (&a)[4][4],
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sm90::desc_sw128(b + kk * 2048, S_TILE * 128, 1024);
+    sm90::Wgmma<T, HD>::template rs<1>(acc, a[kk], db, 1);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
+                                           const float (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = sm90::pack2<T>(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+}
+
+// rows row0 and row0 + 8 (< T_len) of a contiguous [B, T_len, N, HD]
+// output at (b, n): f(accumulator) rounded to T
+template <typename T, int HD, typename F>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[HD / 2],
+                                           int b, int n, int N, int T_len,
+                                           int row0, int c, F f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= T_len) continue;
+    T* orow = out + ((static_cast<int64_t>(b) * T_len + row) * N + n) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c) = sm90::pack2<T>(
+          f(acc[4 * j + 2 * i]), f(acc[4 * j + 2 * i + 1]));
+  }
+}
+
+// dK and dV for 128 keys of one (batch, head). Per query tile: S^T =
+// K Q^T and dP^T = V dO^T (keys as rows, queries as columns), P^T =
+// exp(S^T - lse) and dS^T = P^T (dP^T - delta) with lse and delta along
+// the columns, then dV += round(P^T) dO and dK += round(dS^T) Q.
+template <typename T, int HD>
+__global__ void __launch_bounds__(S_THREADS, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int N,
+                          int Tq, int Tk, float scale, int causal) {
+  using L = BwdSmem<HD, true>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + S_STAGES;
+
+  const int k0 = blockIdx.x * S_ROWS;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  // causal: query tiles wholly before this block's first key see none of
+  // its keys
+  const int qt0 = causal ? k0 / S_TILE : 0;
+  const int n_qt = (Tq + S_TILE - 1) / S_TILE;
+  const int n_iter = n_qt > qt0 ? n_qt - qt0 : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bars, 1);
+    for (int s = 0; s < S_STAGES; ++s) {
+      // the TMA's arrival and the producer warp's 32 after its rows
+      sm90::mbar_init(full + s, 33);
+      sm90::mbar_init(empty + s, S_CONSUMERS);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= S_CONSUMERS) {   // the producer warp
+    const int lane = threadIdx.x - S_CONSUMERS;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(bars, 2 * S_ROWS * HD * 2);
+#pragma unroll
+      for (int x = 0; x < L::NBOX; ++x) {
+        sm90::tma_load_4d(base + L::OWN_A + x * L::BOX_OWN, &tk, bars,
+                          64 * x, n, k0, b);
+        sm90::tma_load_4d(base + L::OWN_B + x * L::BOX_OWN, &tv, bars,
+                          64 * x, n, k0, b);
+      }
+    }
+    const float* lb = lse + static_cast<int64_t>(bn) * Tq;
+    const float* eb = delta + static_cast<int64_t>(bn) * Tq;
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % S_STAGES;
+      const int q0 = (qt0 + it) * S_TILE;
+      if (it >= S_STAGES)
+        sm90::mbar_wait(empty + s, (it / S_STAGES - 1) & 1);
+      unsigned char* st = base + L::TILES + s * L::STAGE;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(full + s, 2 * S_TILE * HD * 2);
+#pragma unroll
+        for (int x = 0; x < L::NBOX; ++x) {
+          sm90::tma_load_4d(st + x * L::BOX_TILE, &tq, full + s, 64 * x, n,
+                            q0, b);
+          sm90::tma_load_4d(st + L::TILE_B + x * L::BOX_TILE, &tdo, full + s,
+                            64 * x, n, q0, b);
+        }
+      }
+      float* ls = reinterpret_cast<float*>(st + L::ROW_L);
+      float* es = reinterpret_cast<float*>(st + L::ROW_E);
+      for (int r = lane; r < S_TILE; r += 32) {
+        const bool in = q0 + r < Tq;
+        ls[r] = in ? lb[q0 + r] : 0.f;
+        es[r] = in ? eb[q0 + r] : 0.f;
+      }
+      sm90::mbar_arrive(full + s);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32, c = lane % 4;
+  const int kw = k0 + 64 * wg;                      // the warpgroup's keys
+  const int row0 = kw + 16 * (t / 32) + lane / 4;   // and row0 + 8
+
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  sm90::mbar_wait(bars, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % S_STAGES;
+    const int q0 = (qt0 + it) * S_TILE;
+    unsigned char* st = base + L::TILES + s * L::STAGE;
+    sm90::mbar_wait(full + s, (it / S_STAGES) & 1);
+    // the 256 consumers scale the shared q tile, then all see it
+    scale_rows<T, HD>(st, L::BOX_TILE, 0, S_TILE, scale, threadIdx.x,
+                      S_CONSUMERS);
+    sm90::named_sync(1, S_CONSUMERS);
+    // causal: a warpgroup whose keys all follow the tile's queries sees
+    // none of it (kw and q0 are multiples of 64)
+    if (!causal || kw <= q0) {
+      float sp[32], dp[32];
+      sm90::wgmma_fence();
+      tile_product<T, HD>(sp, base + L::OWN_A + wg * 64 * 128, L::BOX_OWN,
+                          st);
+      tile_product<T, HD>(dp, base + L::OWN_B + wg * 64 * 128, L::BOX_OWN,
+                          st + L::TILE_B);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sp);
+      sm90::fence_regs(dp);
+      const float* ls = reinterpret_cast<const float*>(st + L::ROW_L);
+      const float* es = reinterpret_cast<const float*>(st + L::ROW_E);
+      // the ragged end of Tq and the causal diagonal tile (kw == q0)
+      const bool edge = q0 + S_TILE > Tq || (causal && kw == q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * c);
+        const float2 e2 = *reinterpret_cast<const float2*>(es + 8 * j + 2 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * j + 2 * c + (e & 1);
+          const int key = row0 + 8 * (e >> 1);
+          float p = expf(sp[4 * j + e] - ((e & 1) ? l2.y : l2.x));
+          if (edge && (q >= Tq || (causal && key > q))) p = 0.f;
+          dp[4 * j + e] = (dp[4 * j + e] - ((e & 1) ? e2.y : e2.x)) * p;
+          sp[4 * j + e] = p;
+        }
+      }
+      uint32_t pa[4][4], sa[4][4];
+      pack_frags<T>(pa, sp);
+      pack_frags<T>(sa, dp);
+      sm90::wgmma_fence();
+      grad_product<T, HD>(acc_v, pa, st + L::TILE_B);   // dO
+      grad_product<T, HD>(acc_k, sa, st);               // scaled q
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc_v);
+      sm90::fence_regs(acc_k);
+    }
+    sm90::mbar_arrive(empty + s);
+  }
+  const auto same = [](float x) { return x; };
+  store_rows<T, HD>(dk, acc_k, b, n, N, Tk, row0, c, same);
+  store_rows<T, HD>(dv, acc_v, b, n, N, Tk, row0, c, same);
+}
+
+// dQ for 128 queries of one (batch, head): per key tile S = Q K^T and
+// dP = dO V^T, P = exp(S - lse) and dS = P (dP - delta) with lse and
+// delta per row, dQ += round(dS) K; the output round(round(dQ) scale).
+template <typename T, int HD>
+__global__ void __launch_bounds__(S_THREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dq, int N, int Tq, int Tk,
+                         float scale, int causal) {
+  using L = BwdSmem<HD, false>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = sm90::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + S_STAGES;
+
+  // causal: the longest rows (the last query tiles) are launched first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * S_ROWS;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  // causal: keys past the block's last row are masked for every row
+  const int k_end = causal ? min(Tk, q0 + S_ROWS) : Tk;
+  const int n_kt = (k_end + S_TILE - 1) / S_TILE;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bars, 1);
+    for (int s = 0; s < S_STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, S_CONSUMERS);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= S_CONSUMERS) {   // the producer warp
+    if (threadIdx.x == S_CONSUMERS) {
+      sm90::mbar_arrive_expect_tx(bars, 2 * S_ROWS * HD * 2);
+#pragma unroll
+      for (int x = 0; x < L::NBOX; ++x) {
+        sm90::tma_load_4d(base + L::OWN_A + x * L::BOX_OWN, &tq, bars,
+                          64 * x, n, q0, b);
+        sm90::tma_load_4d(base + L::OWN_B + x * L::BOX_OWN, &tdo, bars,
+                          64 * x, n, q0, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S_STAGES;
+        if (kt >= S_STAGES)
+          sm90::mbar_wait(empty + s, (kt / S_STAGES - 1) & 1);
+        unsigned char* st = base + L::TILES + s * L::STAGE;
+        sm90::mbar_arrive_expect_tx(full + s, 2 * S_TILE * HD * 2);
+#pragma unroll
+        for (int x = 0; x < L::NBOX; ++x) {
+          sm90::tma_load_4d(st + x * L::BOX_TILE, &tk, full + s, 64 * x, n,
+                            kt * S_TILE, b);
+          sm90::tma_load_4d(st + L::TILE_B + x * L::BOX_TILE, &tv, full + s,
+                            64 * x, n, kt * S_TILE, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32, c = lane % 4;
+  const int wrow = q0 + 64 * wg;                     // the warpgroup's rows
+  const int row0 = wrow + 16 * (t / 32) + lane / 4;  // and row0 + 8
+
+  float lr[2], er[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const int64_t at = static_cast<int64_t>(bn) * Tq + row;
+    lr[i] = row < Tq ? lse[at] : 0.f;
+    er[i] = row < Tq ? delta[at] : 0.f;
+  }
+
+  // this warpgroup's q rows, scaled in place
+  sm90::mbar_wait(bars, 0);
+  scale_rows<T, HD>(base + L::OWN_A, L::BOX_OWN, 64 * wg, 64, scale, t, 128);
+  sm90::named_sync(1 + wg, 128);
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % S_STAGES;
+    const int k0 = kt * S_TILE;
+    unsigned char* st = base + L::TILES + s * L::STAGE;
+    sm90::mbar_wait(full + s, (kt / S_STAGES) & 1);
+    // causal: a key tile wholly after the warpgroup's rows is masked
+    if (!causal || k0 <= wrow) {
+      float sp[32], dp[32];
+      sm90::wgmma_fence();
+      tile_product<T, HD>(sp, base + L::OWN_A + wg * 64 * 128, L::BOX_OWN,
+                          st);
+      tile_product<T, HD>(dp, base + L::OWN_B + wg * 64 * 128, L::BOX_OWN,
+                          st + L::TILE_B);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sp);
+      sm90::fence_regs(dp);
+      // the ragged end of Tk and the causal diagonal tile (k0 == wrow)
+      const bool edge = k0 + S_TILE > Tk || (causal && k0 == wrow);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * c + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          float p = expf(sp[4 * j + e] - lr[e >> 1]);
+          if (edge && (key >= Tk || (causal && key > row))) p = 0.f;
+          dp[4 * j + e] = (dp[4 * j + e] - er[e >> 1]) * p;
+        }
+      uint32_t sa[4][4];
+      pack_frags<T>(sa, dp);
+      sm90::wgmma_fence();
+      grad_product<T, HD>(acc, sa, st);   // k
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+    }
+    sm90::mbar_arrive(empty + s);
+  }
+  // dq of the scaled q, rounded, then times the scale in T: the
+  // gradient through splash's caller's q * scale
+  store_rows<T, HD>(dq, acc, b, n, N, Tq, row0, c,
+                    [scale](float x) { return round_to<T>(x) * scale; });
+}
+
+// the four tensor maps of a backward launch: q, k and v with their own
+// strides, dO contiguous; `own` rows a box for the tensors a block owns
+// (k and v in dkv, q and dO in dq), 64 for the others
+template <typename T, int HD>
+bool bwd_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
+              const void* dout, int B, int N, int Tq, int Tk, Strides st,
+              bool dkv) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int rq = dkv ? S_TILE : S_ROWS, rk = dkv ? S_ROWS : S_TILE;
+  return sm90::make_map_bthn(m + 0, q, bf16, B, Tq, N, HD, st.q_sb, st.q_st,
+                             st.q_sn, rq) &&
+         sm90::make_map_bthn(m + 1, k, bf16, B, Tk, N, HD, st.k_sb, st.k_st,
+                             st.k_sn, rk) &&
+         sm90::make_map_bthn(m + 2, v, bf16, B, Tk, N, HD, st.v_sb, st.v_st,
+                             st.v_sn, rk) &&
+         sm90::make_map_bthn(m + 3, dout, bf16, B, Tq, N, HD,
+                             static_cast<int64_t>(Tq) * N * HD,
+                             static_cast<int64_t>(N) * HD, HD, rq);
+}
+
 template <typename T, int HD>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta,
                          int B, int N, int Tq, cudaStream_t stream) {
@@ -389,24 +860,43 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
+// bf16 and f16 launch the Hopper kernels, f32 the FMA ones; the Hopper
+// launches return cudaErrorInvalidValue when TMA refuses a tensor
 template <typename T, int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int N,
                        int Tq, int Tk, Strides st, float scale, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<HD>();
-  auto kernel = flash_bwd_dkv_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tk + BK - 1) / BK, B * N);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), N, Tq, Tk, st, scale, causal);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    CUtensorMap m[4];
+    if (!bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, true))
+      return cudaErrorInvalidValue;
+    constexpr int smem = BwdSmem<HD, true>::BYTES;
+    auto kernel = flash_bwd_dkv_sm90_kernel<T, HD>;
+    static cudaError_t err = cudaFuncSetAttribute(   // once a process
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tk + S_ROWS - 1) / S_ROWS, B * N);
+    kernel<<<grid, S_THREADS, smem, stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), N, Tq, Tk, scale, causal);
+    return cudaGetLastError();
+  } else {
+    constexpr size_t smem = dkv_smem<HD>();
+    auto kernel = flash_bwd_dkv_kernel<T, HD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tk + BK - 1) / BK, B * N);
+    kernel<<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), N, Tq, Tk, st, scale,
+        causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int HD>
@@ -414,18 +904,34 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int N, int Tq, int Tk, Strides st,
                       float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem<HD>();
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BQ - 1) / BQ, B * N);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), N, Tq, Tk, st, scale, causal);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    CUtensorMap m[4];
+    if (!bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, false))
+      return cudaErrorInvalidValue;
+    constexpr int smem = BwdSmem<HD, false>::BYTES;
+    auto kernel = flash_bwd_dq_sm90_kernel<T, HD>;
+    static cudaError_t err = cudaFuncSetAttribute(   // once a process
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tq + S_ROWS - 1) / S_ROWS, B * N);
+    kernel<<<grid, S_THREADS, smem, stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dq), N, Tq, Tk,
+        scale, causal);
+    return cudaGetLastError();
+  } else {
+    constexpr size_t smem = dq_smem<HD>();
+    auto kernel = flash_bwd_dq_kernel<T, HD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tq + BQ - 1) / BQ, B * N);
+    kernel<<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), N, Tq, Tk, st, scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace

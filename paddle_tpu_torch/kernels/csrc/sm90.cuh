@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: TMA
-// tiled loads completing on an mbarrier, mbarrier phases, wgmma
-// shared-memory descriptors for the 128-byte swizzle, and wgmma
-// m64nNk16 with f32 accumulation for bf16 and f16 operands, with A from
-// shared memory or from registers. Plain wrappers over the PTX of
-// PTX ISA 8.x; no CUTLASS.
+// Hopper (sm_90a) building blocks shared by the attention kernels and
+// the fused matmul+BN kernels: TMA tiled loads completing on an
+// mbarrier and TMA tiled stores, mbarrier phases, wgmma shared-memory
+// descriptors for the 128-byte swizzle, and wgmma m64nNk16 with f32
+// accumulation for bf16 and f16 operands, with A from shared memory or
+// from registers. Plain wrappers over the PTX of PTX ISA 8.x; no
+// CUTLASS.
 //
 // Layout conventions. Every tile is loaded by TMA as boxes of 64
 // 16-bit elements (128 bytes) by R rows with CU_TENSOR_MAP_SWIZZLE_128B,
@@ -102,6 +103,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-d tensor map at (c0 innermost, c1) into shared memory
+// at `dst`, completing on `bar` as tma_load_4d does
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// one box of shared memory at `src` out to a 2-d tensor map at (c0, c1);
+// the parts of the box outside the tensor are not written. The writes of
+// `src` must be fenced (fence_proxy_async) and synchronised first; the
+// box may be reused, or the block may end, only after bulk_wait_read.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// waits until this thread's committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // orders this thread's generic-proxy writes to shared memory before
 // later async-proxy reads (wgmma, TMA) of the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
@@ -111,6 +144,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // a barrier over `count` threads (a warpgroup: 128), id 1..15
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// byte offset of the 16-byte chunk `chunk` (0-7) of row `row` in a
+// 128-byte-swizzled box (see the header)
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 // wgmma descriptor of a 128-byte-swizzled operand at `p` (see the
@@ -169,220 +208,98 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 // wgmma.mma_async m64nNk16, f32 accumulators (N / 2 registers a thread:
 // register 4j + e holds row 16 w + lane / 4 + 8 (e / 2) of the 64, and
 // column 8 j + 2 (lane % 4) + e % 2, w the warp of the warpgroup).
-// scale_d 0 overwrites D, 1 accumulates into it. The forms the attention
-// kernels use: ss (A and B in shared memory) at N 128, the key tile of
-// S = Q K^T; rs (A from registers) at N 64 and 128, the head dims of
-// O += P V.
+// scale_d 0 overwrites D, 1 accumulates into it. TRANS_B 0 reads B
+// K-major (the reduced dimension contiguous: k rows for S = Q K^T), 1
+// MN-major (the output dimension contiguous: v rows for O = P V, w rows
+// of x @ w). Two forms at N 64 and 128:
+//   ss: D[64 x N] (+)= A[64 x 16] B[16 x N], A (K-major) and B in shared
+//       memory, by descriptors;
+//   rs: the same with A from registers (four 32-bit registers a thread,
+//       the A fragment layout: the accumulator layout of a 64 x 16 tile).
+// The users: S = Q K^T at N 128 (the forwards' key tiles) and at N 64
+// (the backward's 64-row tiles); O += P V, dV += P^T dO, dK += dS^T Q
+// and dQ += dS K at N = the head dim (rs); the fused matmul+BN template
+// at its N tile of 64 or 128 (ss for K4, rs for K5 and K6).
+#define SM90_D32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SM90_D64(d) \
+  SM90_D32(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_R32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define SM90_R64 \
+  SM90_R32 ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// one specialisation a (type, N): TY the PTX type, the operand numbers
+// after the N / 2 accumulators as strings
+#define SM90_WGMMA(TYPE, TY, N, NR, DLIST, RLIST, A0, A1, A2, A3, A4, A5, A6) \
+  template <>                                                                \
+  struct Wgmma<TYPE, N> {                                                    \
+    template <int TRANS_B>                                                   \
+    static __device__ __forceinline__ void ss(float (&d)[NR], uint64_t da,   \
+                                              uint64_t db, int scale_d) {    \
+      asm volatile(                                                          \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " A2 ", 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {"    \
+          RLIST "}, " A0 ", " A1 ", p, 1, 1, 0, " A3 ";\n}\n"                 \
+          : DLIST(d)                                                         \
+          : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));                   \
+    }                                                                        \
+    template <int TRANS_B>                                                   \
+    static __device__ __forceinline__ void rs(float (&d)[NR],                \
+                                              const uint32_t (&a)[4],        \
+                                              uint64_t db, int scale_d) {    \
+      asm volatile(                                                          \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " A5 ", 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {"    \
+          RLIST "}, {" A0 ", " A1 ", " A2 ", " A3 "}, " A4 ", p, 1, 1, " A6   \
+          ";\n}\n"                                                           \
+          : DLIST(d)                                                         \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),             \
+            "r"(scale_d), "n"(TRANS_B));                                     \
+    }                                                                        \
+  };
+
 template <typename T, int N>
 struct Wgmma;
 
-template <>
-struct Wgmma<__nv_bfloat16, 64> {
-  // A from registers (four 32-bit registers a thread, the A fragment
-  // layout); B MN-major (transposed) when TRANS_B is 1
-  template <int TRANS_B>
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d), "n"(TRANS_B));
-  }
-};
+// ss operands: da A0, db A1, scale_d A2, TRANS_B A3; rs operands: the A
+// registers A0-A3, db A4, scale_d A5, TRANS_B A6
+SM90_WGMMA(__nv_bfloat16, "bf16", 64, 32, SM90_D32, SM90_R32, "%32", "%33",
+           "%34", "%35", "%36", "%37", "%38")
+SM90_WGMMA(__nv_bfloat16, "bf16", 128, 64, SM90_D64, SM90_R64, "%64", "%65",
+           "%66", "%67", "%68", "%69", "%70")
+SM90_WGMMA(__half, "f16", 64, 32, SM90_D32, SM90_R32, "%32", "%33", "%34",
+           "%35", "%36", "%37", "%38")
+SM90_WGMMA(__half, "f16", 128, 64, SM90_D64, SM90_R64, "%64", "%65", "%66",
+           "%67", "%68", "%69", "%70")
 
-template <>
-struct Wgmma<__nv_bfloat16, 128> {
-  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory,
-  // both K-major
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // A from registers (four 32-bit registers a thread, the A fragment
-  // layout); B MN-major (transposed) when TRANS_B is 1
-  template <int TRANS_B>
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d), "n"(TRANS_B));
-  }
-};
-
-template <>
-struct Wgmma<__half, 64> {
-  // A from registers (four 32-bit registers a thread, the A fragment
-  // layout); B MN-major (transposed) when TRANS_B is 1
-  template <int TRANS_B>
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d), "n"(TRANS_B));
-  }
-};
-
-template <>
-struct Wgmma<__half, 128> {
-  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory,
-  // both K-major
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // A from registers (four 32-bit registers a thread, the A fragment
-  // layout); B MN-major (transposed) when TRANS_B is 1
-  template <int TRANS_B>
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d), "n"(TRANS_B));
-  }
-};
+#undef SM90_WGMMA
+#undef SM90_D32
+#undef SM90_D64
+#undef SM90_R32
+#undef SM90_R64
 
 // ------------------------------------------------------------------ host
 
@@ -440,6 +357,30 @@ inline bool make_map_bthn(CUtensorMap* map, const void* base, bool bf16,
                 bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
                 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a 16-bit row-major [rows, cols] matrix whose rows are
+// `ld` elements apart, read and written in boxes of 64 columns (128
+// bytes) by `box_rows` rows, 128-byte swizzled; elements outside the
+// matrix read as zeros and are not written. Returns false when TMA
+// refuses it (a base not 16-byte aligned, ld * 2 not a multiple of 16).
+inline bool make_map_2d(CUtensorMap* map, const void* base, bool bf16,
+                        int64_t rows, int64_t cols, int64_t ld,
+                        int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                2, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -537,7 +478,7 @@ __device__ __forceinline__ void attn_qk(float (&s)[BK / 2],
         1024);
     const uint64_t db =
         desc_sw128(kb + (kk / 4) * L::BOX_K + (kk % 4) * 32, 16, 1024);
-    Wgmma<T, BK>::ss(s, da, db, 1);
+    Wgmma<T, BK>::template ss<0>(s, da, db, 1);
   }
   wgmma_commit();
   wgmma_wait<0>();

@@ -28,14 +28,16 @@ bfloat16 or float16.
 card and `flash_attention_bwd_ref` on the CPU. Without grad (serving,
 `torch.inference_mode()`), it launches K1-fwd alone and saves nothing.
 
-K1-fwd has two kernels in `csrc/flash_attention.cu`. bf16 and f16 run
-the Hopper one (wgmma on the tensor cores, k and v tiles by TMA through
-a two-stage mbarrier ring, one producer warp and two consumer
-warpgroups); it removes the FMA kernel's limit, the products on the
-FP32 pipes. It reads q, k and v in place through TMA, whose rules
+K1-fwd has two kernels in `csrc/flash_attention.cu`, and K1-bwd's dkv
+and dq two each in `csrc/flash_attention_bwd.cu`. bf16 and f16 run the
+Hopper ones (wgmma on the tensor cores, tiles by TMA through an
+mbarrier ring, one producer warp and two consumer warpgroups); they
+remove the FMA kernels' limit, the products on the FP32 pipes. They
+read q, k, v (and the backward's dO) in place through TMA, whose rules
 `check_tma` holds before the launch (a 16-byte aligned base, strides of
 16-byte multiples): a view that breaks them raises, and nothing copies
-it. Its P goes into the product as two 16-bit parts (hi = round(P), lo
+it. The backward's P and dS enter their products rounded to q's dtype,
+splash's own rounding, so the 16-bit operand changes nothing there. Its P goes into the product as two 16-bit parts (hi = round(P), lo
 = round(P - hi)), since splash multiplies its f32 p by v in f32 and
 wgmma takes 16-bit operands only; so the plain version keeps p in f32
 and needs no rounding of its own. f32 runs the FMA kernel: wgmma has no
@@ -187,7 +189,7 @@ def _check(q, k, v):
 
 def check_tma(*ts: torch.Tensor) -> None:
     """Raise unless TMA can read each [B, T, N, H] tensor in place, as
-    the bf16 and f16 forward kernels do: a base address aligned to 16
+    the bf16 and f16 kernels do: a base address aligned to 16
     bytes and strides of 16-byte multiples (a dimension of size 1 has
     no stride that matters). No copy is made for a view that fails."""
     for t in ts:
@@ -311,6 +313,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float,
                                            causal)
     fn = _fn("flash_attention_bwd", "paddle_flash_attention_bwd_dkv",
              _BWD_ARGS)
+    if q.dtype != torch.float32:
+        check_tma(q, k, v, do)
     B, T, N, H = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -334,6 +338,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float,
                                           causal)
     fn = _fn("flash_attention_bwd", "paddle_flash_attention_bwd_dq",
              [ctypes.c_void_p] * 7 + _BWD_ARGS[8:])
+    if q.dtype != torch.float32:
+        check_tma(q, k, v, do)
     B, T, N, H = q.shape
     dq = torch.empty((B, T, N, H), dtype=q.dtype, device=q.device)
     _run("flash_attention_bwd_dq", q.device, lambda stream: fn(

@@ -14,10 +14,16 @@ conv over NHWC is a [B*H*W, Cin] @ [Cin, Cout] product):
 - `bn_act_matmul_stats` (K6, `_bn_act_matmul_stats`): both at once,
   ResNet's conv3 (bn2-apply + ReLU in, bn3's statistics out).
 
-All three are one templated kernel in `csrc/fused_dense_bn.cu`. The
-kernel writes per-row-block partial sums ([gm, N], in the accumulator's
-dtype); the wrappers finish them as the reference does outside its
-kernel: mean = s / M and var = max(ss / M - mean^2, 0). Each wrapper
+All three are one templated kernel in `csrc/fused_dense_bn.cu`: for
+bf16 and f16 a Hopper kernel (wgmma fed by TMA), for f32 and f64 an FMA
+loop. `kernel_route` picks the kernel by shape, dtype and alignment
+before the launch: TMA reads x and w in place when K and N are
+multiples of 8 and both bases are 16-byte aligned (every ResNet-50
+shape); any other bf16 or f16 call runs the same kernel on zero-padded
+copies. The kernel writes per-row-block partial sums ([gm, N], in the
+accumulator's dtype); the wrappers finish them as the reference does
+outside its kernel: mean = s / M and var = max(ss / M - mean^2, 0).
+Each wrapper
 (`matmul_stats_fwd`, `bn_act_matmul_fwd`, `bn_act_matmul_stats_fwd`)
 launches its kernel on a CUDA tensor or raises, computes the plain
 version on a CPU tensor, and counts its launches in `.launches`.
@@ -51,12 +57,13 @@ from .flash_attention import _fn, _run
 __all__ = ["mm_stats_ref", "bn_mm_ref", "bn_mm_stats_ref", "fold_bn",
            "matmul_stats_fwd", "bn_act_matmul_fwd", "bn_act_matmul_stats_fwd",
            "matmul_stats", "bn_act_matmul", "bn_act_matmul_stats",
-           "MatmulStats", "BnActMatmul", "BnActMatmulStats", "block_m"]
+           "MatmulStats", "BnActMatmul", "BnActMatmulStats", "block_m",
+           "kernel_route", "padded_operands"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float64: 3}
-# rows of one block of the kernel, and so of one partial sum: the
-# tensor-core kernel (bf16, f16) takes 128, the FMA kernel (f32, f64) 64
+# rows of one block of the kernel, and so of one partial sum: the Hopper
+# kernel (bf16, f16) takes 128, the FMA kernel (f32, f64) 64
 _BLOCK_M = {0: 64, 1: 128, 2: 128, 3: 64}
 
 
@@ -70,6 +77,37 @@ def _max0(x: torch.Tensor) -> torch.Tensor:
     """jnp.maximum(x, 0.0), whose gradient at a tie is split in half, as
     torch.maximum's is."""
     return torch.maximum(x, x.new_zeros(()))
+
+
+def kernel_route(K: int, N: int, dtype: torch.dtype, x_ptr: int,
+                 w_ptr: int) -> str:
+    """The kernel a CUDA call with x [M, K] and w [K, N] of `dtype` at
+    addresses x_ptr and w_ptr (of the contiguous operands) takes: "fma"
+    for f32 and f64; "tma" for bf16 and f16 that TMA reads in place (K
+    and N multiples of 8, so rows are multiples of 16 bytes, and both
+    bases 16-byte aligned); "padded" for any other bf16 or f16 call,
+    which runs the TMA kernel on zero-padded copies of x, w, scale and
+    shift. A function of its arguments alone, chosen before any
+    launch."""
+    if dtype in (torch.float32, torch.float64):
+        return "fma"
+    if K % 8 or N % 8 or x_ptr % 16 or w_ptr % 16:
+        return "padded"
+    return "tma"
+
+
+def padded_operands(x, w, scale=None, shift=None):
+    """The "padded" route's operands: zero-padded copies of x [M, K8],
+    w [K8, N8] and (when given) scale and shift [K8], K8 and N8 being K
+    and N rounded up to multiples of 8. The padded columns of x meet zero
+    rows of w, and scale = shift = 0 keeps them 0 after the prologue, so
+    the first N columns of y and of its sums are the unpadded call's."""
+    K, N = w.shape
+    K8, N8 = -(-K // 8) * 8, -(-N // 8) * 8
+    pad = torch.nn.functional.pad
+    return (pad(x, (0, K8 - K)), pad(w, (0, N8 - N, 0, K8 - K)),
+            None if scale is None else pad(scale, (0, K8 - K)),
+            None if shift is None else pad(shift, (0, K8 - K)))
 
 
 def block_m(dtype: torch.dtype) -> int:
@@ -169,6 +207,10 @@ def _launch(what: str, x, w, scale, shift, relu: bool, stats: bool):
     x, w = x.contiguous(), w.contiguous()
     if prologue:
         scale, shift = scale.contiguous(), shift.contiguous()
+    n_out = N
+    if kernel_route(K, N, x.dtype, x.data_ptr(), w.data_ptr()) == "padded":
+        x, w, scale, shift = padded_operands(x, w, scale, shift)
+        K, N = w.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     ps = pss = None
     if stats:
@@ -182,6 +224,10 @@ def _launch(what: str, x, w, scale, shift, relu: bool, stats: bool):
         ps.data_ptr() if stats else None, pss.data_ptr() if stats else None,
         M, K, N, _DTYPE_CODE[x.dtype], int(prologue), int(stats),
         int(bool(relu)), stream))
+    if N != n_out:
+        y = y[:, :n_out].contiguous()
+        if stats:
+            ps, pss = ps[:, :n_out], pss[:, :n_out]
     if not stats:
         return y
     mean = ps.sum(0) / M

@@ -1,24 +1,36 @@
-"""A short first call of the Hopper attention forwards on the card.
+"""A short call of the Hopper kernels on the card.
 
     python -m paddle_tpu_torch.kernels.probe_sm90
 
-Builds `csrc/flash_attention.cu` and `csrc/flash_attention_bias.cu`
-with `-Xptxas -v` (registers, shared memory and spills of every kernel
-into `chiprun_out/probe/`), then holds K1-fwd (with its LSE) and K2-fwd
-against their plain versions at a few shapes (bf16 and f16, causal and
-not, H 64 and 128, fused-qkv views, ragged T and Tk), per element under
-`chip_smoke.py`'s ELEM_TOL, and prints one JSON line a case. Timed
-cases carry `ms` (back-to-back calls between two CUDA events) and
-`dev_ms` (the kernels' device time a call, torch.profiler). Then K2's
-per-element ratio over six seeds at three shapes, and the host's cost
-of one forward call against its parts. It takes under a minute; the
-full check of every kernel is `chip_smoke.py`. Needs a CUDA device.
+Builds the four sources with Hopper kernels (`csrc/flash_attention.cu`,
+`flash_attention_bias.cu`, `flash_attention_bwd.cu` and
+`fused_dense_bn.cu`) with `-Xptxas -v` (registers, shared memory and
+spills of every kernel, printed and written into
+`chiprun_out/probe/`), then prints one JSON line a case, each held
+against its plain version under `chip_smoke.py`'s limits: K1-fwd (with
+its LSE) and K2-fwd (bf16 and f16, causal and not, H 64 and 128,
+fused-qkv views, ragged T and Tk); K1-bwd's dkv and dq and K4, K5 and
+K6 through chip_smoke.py's own case functions, at a first small case,
+the padded route of a shape TMA cannot read and the timed shapes of
+the main path. Timed cases carry `ms` (back-to-back calls between two
+CUDA events), `dev_ms` (the kernels' device time a call,
+torch.profiler) and the library call's `lib_ms` (SDPA's backward,
+cuBLAS's product). Then K2's per-element ratio over six seeds at three
+shapes; K1-bwd's f16 ratio over five seeds beside an f64 evaluation of
+the same arithmetic ("k1_bwd_f16_floor": f32 noise's own reading
+against the plain version) and that evaluation with P and dS rounded
+to bf16 under BWD_F16_TOL (a control: the limit must fail it); and the
+host's cost of one forward call against its parts. It takes about a
+minute; the full check of every kernel is `chip_smoke.py`, which this
+imports from the repo root. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -28,18 +40,30 @@ import torch
 from . import _build
 from . import flash_attention as fa
 from . import flash_attention_bias as fb
+from . import fused_dense_bn as fdb
 
-ELEM_TOL = {torch.bfloat16: (2 ** -7, 2e-2), torch.float16: (2 ** -10, 1e-3)}
 _OUT = os.path.join("chiprun_out", "probe")
+# the sources with Hopper kernels
+_SOURCES = ("flash_attention", "flash_attention_bias", "flash_attention_bwd",
+            "fused_dense_bn")
 
 
-def held(got, want, dtype):
-    """The worst element's error over its ELEM_TOL limit (<= 1 passes)."""
-    rtol, atol = ELEM_TOL[dtype]
-    want = want.float()
-    err = (got.float() - want).abs()
-    rms = want.square().mean().sqrt()
-    return (err / (rtol * want.abs() + atol * rms)).max().item()
+@functools.cache
+def _chip_smoke():
+    """The repo root's `chip_smoke.py`: its limits and case functions
+    hold the kernels here too."""
+    root = str(pathlib.Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def held(got, want, dtype, tol=None):
+    """The worst element's error over its limit, chip_smoke.py's
+    ELEM_TOL[dtype] or `tol` (at most 1 passes)."""
+    return _chip_smoke().held(got, want, str(dtype).removeprefix("torch."),
+                              tol)["ratio"]
 
 
 def time_ms(fn, reps=20):
@@ -55,8 +79,9 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def dev_ms(fn, reps=20):
-    """Device time a call of the attention forward kernels fn launches."""
+def dev_ms(fn, reps=20, names=("fwd",)):
+    """Device time a call of the kernels fn launches whose names hold
+    one of `names`."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -67,7 +92,7 @@ def dev_ms(fn, reps=20):
             fn()
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()
-               if "fwd" in e.key) / reps / 1e3
+               if any(n in e.key for n in names)) / reps / 1e3
 
 
 def host_us(fn, n=300):
@@ -84,8 +109,9 @@ def host_us(fn, n=300):
 
 
 def build_verbose():
-    """nvcc with -Xptxas -v for both sources, in parallel; the logs go
-    to chiprun_out/probe/, the libraries into the build directory."""
+    """nvcc with -Xptxas -v for the Hopper sources, in parallel; the
+    logs go to chiprun_out/probe/, the libraries into the build
+    directory."""
     os.makedirs(_OUT, exist_ok=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
@@ -94,18 +120,19 @@ def build_verbose():
          str(_build.BUILD_DIR / f"probe-{name}.so"),
          str(_build.CSRC / _build.SOURCES[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("flash_attention", "flash_attention_bias")}
+        for name in _SOURCES}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         with open(os.path.join(_OUT, f"{name}_ptxas.log"), "w") as f:
             f.write(log)
         used = [ln.strip() for ln in log.splitlines()
-                if "Used" in ln or "spill" in ln]
+                if "Used" in ln or "spill" in ln or "Compiling" in ln
+                or "erialized" in ln]
         print(json.dumps({"build": name, "rc": proc.returncode,
                           "ptxas": used}))
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
-    _build.build(["flash_attention", "flash_attention_bias"])
+    _build.build(list(_SOURCES))
 
 
 def k1_case(gen, B, T, N, H, causal, dtype, fused=False, Tk=None,
@@ -130,6 +157,84 @@ def k1_case(gen, B, T, N, H, causal, dtype, fused=False, Tk=None,
         def call():
             return fa.flash_attention_with_lse(q, k, v, scale, causal)
         r["ms"], r["dev_ms"] = time_ms(call), dev_ms(call)
+    return r
+
+
+def bwd_f64(q, k, v, do, lse, delta, scale, causal, rounding=None):
+    """The plain backward's arithmetic in f64, P and dS rounded to
+    `rounding` (q's dtype unless given) before their products: (dq, dk,
+    dv) in q's dtype."""
+    dt, rt = q.dtype, rounding or q.dtype
+    qs = fa._scaled(q, scale).double()
+    s = torch.einsum("btnh,bsnh->bnts", qs, k.double())
+    p = torch.exp(s - lse.double()[..., None])
+    if causal:
+        p = p.masked_fill(~fa._keep(q.shape[1], k.shape[1], q.device), 0.0)
+    dp = torch.einsum("btnh,bsnh->bnts", do.double(), v.double())
+    ds = ((dp - delta.double()[..., None]) * p).to(rt).double()
+    dv = torch.einsum("bnts,btnh->bsnh", p.to(rt).double(), do.double())
+    dk = torch.einsum("bnts,btnh->bsnh", ds, qs)
+    dq = torch.einsum("bnts,bsnh->btnh", ds, k.double())
+    return fa._scaled(dq.to(dt), scale), dk.to(dt), dv.to(dt)
+
+
+def k1_bwd_case(gen, B, T, N, H, causal, dtype, timed=False, f64=False):
+    """chip_smoke.py's K1 training case (q, k, v views of one fused
+    projection; the kernels' dq, dk and dv against their plain versions
+    under ELEM_TOL); timed: the whole backward's time and its dkv and dq
+    kernels' device time a call, beside SDPA's backward; f64: the f64
+    evaluation of the same arithmetic against the plain versions at
+    ELEM_TOL ("f64_dq" ...: the floor f32 noise sets) and its control,
+    P and dS rounded to bf16, under BWD_F16_TOL ("bf16_dq" ...)."""
+    cs = _chip_smoke()
+    dname = str(dtype).removeprefix("torch.")
+    case, errs, _ = cs._training_kernel_case(fa, B, T, causal, dname, gen,
+                                             N, H)
+    q, k, v, do, out, lse, delta, scale = case
+    r = {"kernel": "K1-bwd", "shape": [B, T, N, H], "causal": causal,
+         "dtype": dname, **{n: errs[n]["ratio"] for n in ("dq", "dk", "dv")}}
+    if f64:
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta, scale, causal)
+        want = (fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                              causal), want_dk, want_dv)
+        for tag, rounding, tol in (("f64", dtype, None),
+                                   ("bf16", torch.bfloat16, cs.BWD_F16_TOL)):
+            got = bwd_f64(q, k, v, do, lse, delta, scale, causal, rounding)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                r[f"{tag}_{name}"] = held(a, b, dtype, tol)
+    if timed:
+        def call():
+            return fa.flash_attention_bwd(q, k, v, out, lse, do, scale,
+                                          causal)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale)
+        r["ms"] = time_ms(call)
+        r["dev_ms"] = dev_ms(call, names=("dkv", "dq"))
+        r["lib_ms"] = time_ms(lambda: torch.autograd.grad(
+            so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    return r
+
+
+def fdb_case(gen, kernel, M, K, N, dtype, timed=False):
+    """chip_smoke.py's K4, K5 or K6 case (with the ReLU; y under
+    ELEM_TOL, mean and var under STATS_TOL); timed: beside cuBLAS's bare
+    product."""
+    cs = _chip_smoke()
+    dname = str(dtype).removeprefix("torch.")
+    (fn, _, args, kw), errs = cs._fdb_case(fdb, kernel, M, K, N, dname, True,
+                                           gen)
+    x, w = args[0], args[-1]
+    r = {"kernel": kernel, "shape": [M, K, N], "dtype": dname,
+         "route": fdb.kernel_route(K, N, dtype, x.data_ptr(), w.data_ptr()),
+         "y": errs["y"]["ratio"],
+         **{k: errs[k] for k in ("mean_ratio", "var_ratio") if k in errs}}
+    if timed:
+        r["ms"] = time_ms(lambda: fn(*args, **kw))
+        r["dev_ms"] = dev_ms(lambda: fn(*args, **kw), names=("fused_mm_bn",))
+        r["lib_ms"] = time_ms(lambda: torch.matmul(x, w))
     return r
 
 
@@ -175,6 +280,18 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f16 = torch.bfloat16, torch.float16
     cases = [
+        lambda: k1_bwd_case(gen, 1, 128, 1, 64, False, bf16),
+        lambda: k1_bwd_case(gen, 256, 128, 12, 64, False, bf16, timed=True),
+        lambda: k1_bwd_case(gen, 8, 1024, 12, 64, True, bf16, timed=True),
+        lambda: k1_bwd_case(gen, 1, 4096, 12, 64, False, bf16, timed=True),
+        lambda: fdb_case(gen, "k6", 1000, 70, 36, bf16),
+        lambda: fdb_case(gen, "k4", 802816, 256, 64, bf16, timed=True),
+        lambda: fdb_case(gen, "k6", 802816, 64, 256, bf16, timed=True),
+        lambda: fdb_case(gen, "k4", 50176, 1024, 256, bf16, timed=True),
+        lambda: fdb_case(gen, "k5", 50176, 256, 1024, bf16, timed=True),
+        lambda: fdb_case(gen, "k6", 50176, 256, 1024, bf16, timed=True),
+        lambda: fdb_case(gen, "k6", 12544, 512, 2048, bf16, timed=True),
+    ] + [
         lambda: k1_case(gen, 1, 128, 1, 64, False, bf16),
         lambda: k1_case(gen, 1, 8, 12, 64, True, bf16, fused=True),
         lambda: k1_case(gen, 1, 100, 12, 64, True, bf16, fused=True),
@@ -211,6 +328,21 @@ def main() -> int:
                           T, N, 64, causal, dtype, kind)["ratio"]
                   for s in range(6)]
         print(json.dumps({"k2_seeds": label, "ratios": ratios}))
+
+    # K1-bwd at f16: a rounding of P or dS to f16 that falls the other
+    # way after f32 sums in another order moves a gradient element by one
+    # f16 step of a large dS times a q or k element. Beside the kernel,
+    # an f64 evaluation of the same arithmetic (P and dS rounded to f16)
+    # against the f32 plain version, at f16's ELEM_TOL: the floor that
+    # f32 noise alone sets; and, under BWD_F16_TOL, the same evaluation
+    # with P and dS rounded to bf16: a kernel of lower precision, which
+    # that limit must fail
+    print(json.dumps({"k1_bwd_f16_floor": [
+        k1_bwd_case(torch.Generator(device="cuda").manual_seed(s), B, T, N,
+                    H, False, f16, f64=True)
+        for s, (B, T, N, H) in enumerate(((2, 256, 4, 128), (2, 256, 4, 128),
+                                          (4, 128, 12, 64), (2, 300, 12, 64),
+                                          (2, 300, 12, 64)))]}))
 
     # the host's cost of one K1-fwd call at the serving shape, by part
     qkv = torch.randn(1, 1024, 3 * 768, device="cuda").to(bf16)

@@ -11,7 +11,10 @@ masks and full biases; `chip_smoke.py` checks it at the main paths'
 own shapes. A masked `mha` and a padded BERT `encode` run K2. K4, K5
 and K6 (the fused matmul+BN kernels) against their plain versions at
 one ResNet-50 shape of each stage group (bs 256 at 224 x 224), at f32,
-f16 and f64 and at a ragged shape, with the ReLU on and off. K3 (the
+f16 and f64, at a ragged shape and at one whose K and N TMA cannot read
+in place (the padded route), with the ReLU on and off. K1-bwd's Hopper
+dkv and dq at head_dim 128, f16, ragged T, causal and full, on strided
+views of a fused projection and at T 4096. K3 (the
 ring's block, `splash_block_with_lse`) against its plain version at
 BERT-long's sp=4 block (8 x 1024, bf16) and at f32 and f16; and the
 sp=4 in-process ring on the card against single-device K1: ring_splash
@@ -45,6 +48,8 @@ from paddle_tpu_torch.kernels import fused_dense_bn as fdb
 from paddle_tpu_torch.ops import attention as ta
 from paddle_tpu_torch.ops import ring_attention as tra
 from paddle_tpu_torch.parallel import mesh as tmesh
+
+from chip_smoke import BWD_F16_TOL
 
 torch.set_num_threads(2)
 
@@ -312,7 +317,9 @@ FDB_CASES = ([("k4", 802816, 256, 64, torch.bfloat16, True),
              [(k, 1000, 72, 40, dt, True) for k in ("k4", "k5", "k6")
               for dt in (torch.bfloat16, torch.float32, torch.float16,
                          torch.float64)] +
-             [(k, 1000, 72, 40, torch.bfloat16, False) for k in ("k5", "k6")])
+             [(k, 1000, 72, 40, torch.bfloat16, False) for k in ("k5", "k6")] +
+             [(k, 1000, 70, 36, torch.bfloat16, True)
+              for k in ("k4", "k5", "k6")])
 FDB_FNS = {"k4": fdb.matmul_stats_fwd, "k5": fdb.bn_act_matmul_fwd,
            "k6": fdb.bn_act_matmul_stats_fwd}
 FDB_REFS = {"k4": fdb.mm_stats_ref, "k5": fdb.bn_mm_ref,
@@ -344,6 +351,10 @@ def test_fused_dense_bn_kernels_match_plain_version(kernel, M, K, N, dtype,
     args = _fdb_inputs(kernel, M, K, N, dtype, M + K + N)
     kw = {} if kernel == "k4" else {"relu": relu}
     fn = FDB_FNS[kernel]
+    x, w = args[0], args[-1]
+    route = fdb.kernel_route(K, N, dtype, x.data_ptr(), w.data_ptr())
+    assert route == ("fma" if dtype in (torch.float32, torch.float64) else
+                     "padded" if K % 8 or N % 8 else "tma")
     before = fn.launches
     got = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -520,6 +531,83 @@ def test_hopper_forwards_match_plain_version(kernel, B, T, Tk, N, H, causal,
         assert (m - want_m).abs().max().item() <= 1e-4
     ratio, rms = _held(out, want, dtype)
     assert ratio <= 1.0, f"out: error / limit {ratio}, RMS {rms}"
+
+
+# K1-bwd on the Hopper kernels beyond the training shapes: (B, T, N, H,
+# causal, dtype, layout): H 128 (ragged and causal; strided views of one
+# fused [B, T, 3, N, H] projection), f16 (ragged, fused views; causal),
+# causal over several tiles on fused views, and BERT-long's no-mesh T
+# 4096 cut to batch 1
+HOPPER_BWD_CASES = [(2, 300, 4, 128, True, torch.bfloat16, "plain"),
+                    (2, 256, 4, 128, False, torch.bfloat16, "fused"),
+                    (2, 256, 4, 128, False, torch.float16, "fused"),
+                    (2, 130, 12, 64, False, torch.float16, "fused"),
+                    (2, 300, 4, 64, True, torch.float16, "plain"),
+                    (4, 384, 12, 64, True, torch.bfloat16, "fused"),
+                    (1, 4096, 12, 64, False, torch.bfloat16, "plain")]
+
+
+# the Hopper backward's gradients at f16 under `chip_smoke.py`'s
+# BWD_F16_TOL: ELEM_TOL's f16 atol lies below the plain version's own
+# f32 noise at these shapes (see there)
+BWD_ELEM_TOL = {**ELEM_TOL, torch.float16: BWD_F16_TOL}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N,H,causal,dtype,layout", HOPPER_BWD_CASES)
+def test_hopper_backward_matches_plain_version(B, T, N, H, causal, dtype,
+                                               layout):
+    """dkv and dq (one launch each) against their plain versions, per
+    element under BWD_ELEM_TOL, from the plain forward's residuals."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T + H + causal)
+    if layout == "fused":
+        qkv = torch.randn(B, T, 3, N, H, generator=g, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(B, T, N, H, generator=g, device="cuda")
+                   .to(dtype) for _ in range(3))
+    do = torch.randn(B, T, N, H, generator=g, device="cuda").to(dtype)
+    scale = 1.0 / H ** 0.5
+    out, lse = fa.flash_attention_ref(q, k, v, scale, causal, with_lse=True)
+    delta = fa.attention_delta_ref(out, do)
+    counts = (fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                        causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == (counts[0] + 1,
+                                                    counts[1] + 1)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                      delta, scale, causal)
+    want_dq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                            causal)
+    for name, a, b in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                       ("dv", dv, want_dv)):
+        assert a.dtype == dtype and a.shape == (B, T, N, H)
+        ratio, rms = _held(a, b, dtype, BWD_ELEM_TOL[dtype])
+        assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_raise_on_a_misaligned_view():
+    """The bf16 backward kernels read q, k, v and dO through TMA: a view
+    whose base is not 16-byte aligned raises, and launches nothing."""
+    _need_card()
+    x = torch.randn(1, 64, 2, 72, device="cuda").to(torch.bfloat16)
+    q = x[..., 1:65]
+    do = torch.randn(1, 64, 2, 64, device="cuda").to(torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    counts = (fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_bwd_dkv(q, q, q, do, lse, lse, 0.125)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_bwd_dq(q, q, q, do, lse, lse, 0.125)
+    assert (fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == counts
 
 
 @pytest.mark.cuda

@@ -26,6 +26,12 @@ atol = rtol:
 - the fused bottleneck slice (matmul_stats -> fold_bn -> bn_act_matmul
   against the plain composition), that test's 2e-4 for values and 2e-3
   for gradients.
+
+The route a CUDA call takes (`kernel_route`: the TMA kernel, its padded
+copies, or the FMA kernel) is a function of shape, dtype and alignment
+and is tested as one; the padded copies (`padded_operands`) are held to
+compute the unpadded call's function through the plain versions: f32
+within 1e-6, y at bf16 within one rounding step.
 """
 
 import numpy as np
@@ -266,3 +272,67 @@ def test_none_cotangents_count_as_zero():
                              (xt, wt))
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
+
+
+# kernel_route: (K, N, dtype, x address, w address) -> route. f32 and f64
+# take the FMA kernel whatever their shape; bf16 and f16 take the TMA
+# kernel when K and N are multiples of 8 and both bases are 16-byte
+# aligned (every ResNet-50 1x1 shape), else the padded copies
+ROUTE_CASES = [(256, 64, torch.bfloat16, 0, 256, "tma"),
+               (1024, 256, torch.bfloat16, 4096, 8192, "tma"),
+               (64, 256, torch.float16, 16, 48, "tma"),
+               (72, 40, torch.bfloat16, 0, 0, "tma"),
+               (70, 36, torch.bfloat16, 0, 0, "padded"),
+               (70, 40, torch.float16, 0, 0, "padded"),
+               (72, 36, torch.bfloat16, 0, 0, "padded"),
+               (256, 64, torch.bfloat16, 8, 0, "padded"),
+               (256, 64, torch.float16, 0, 2, "padded"),
+               (70, 36, torch.float32, 4, 4, "fma"),
+               (256, 64, torch.float64, 0, 0, "fma")]
+
+
+@pytest.mark.parametrize("K,N,dtype,x_ptr,w_ptr,route", ROUTE_CASES)
+def test_kernel_route_is_a_function_of_shape_dtype_and_alignment(
+        K, N, dtype, x_ptr, w_ptr, route):
+    assert TF.kernel_route(K, N, dtype, x_ptr, w_ptr) == route
+
+
+def test_every_resnet50_shape_takes_the_tma_route():
+    """The channel counts of ResNet-50's fused 1x1 products (K4: conv1,
+    K5 and K6: conv3, every stage group) are all TMA-readable."""
+    for K, N in ((256, 64), (512, 128), (1024, 256), (2048, 512),
+                 (64, 256), (128, 512), (256, 1024), (512, 2048)):
+        assert TF.kernel_route(K, N, torch.bfloat16, 0, 0) == "tma"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", list(OPS))
+def test_padded_operands_compute_the_same_function(op, dtype):
+    """The padded route's copies (K 70 -> 72, N 36 -> 40) give, in their
+    first N columns, the unpadded call's y, mean and var: the padded
+    columns of x meet zero rows of w and come out of the prologue as 0
+    (relu or not), and the partial sums are taken over the same rows."""
+    global M, K, N
+    saved = M, K, N
+    M, K, N = 100, 70, 36
+    try:
+        x, w, scale, shift = _inputs(dtype, seed=7)
+    finally:
+        M, K, N = saved
+    x, w = _torch(x, dtype), _torch(w, dtype)
+    scale, shift = torch.from_numpy(scale), torch.from_numpy(shift)
+    px, pw, pscale, pshift = TF.padded_operands(x, w, scale, shift)
+    assert px.shape == (100, 72) and pw.shape == (72, 40)
+    assert pscale.shape == pshift.shape == (72,)
+    assert px.dtype == x.dtype and pw.dtype == w.dtype
+    for relu in (True, False):
+        want = _call(op, "torch", [x, scale, shift, w], relu)
+        got = _call(op, "torch", [px, pscale, pshift, pw], relu)
+        assert got[0].shape == (100, 40)
+        assert torch.equal(got[0][:, 36:], torch.zeros_like(got[0][:, 36:]))
+        # the same f32 sums with zero terms added: f32 to 1e-6, and y at
+        # bf16 within one rounding step of its dtype
+        for a, b in zip(got, want):
+            tol = 2 ** -7 if a.dtype == torch.bfloat16 else 1e-6
+            assert torch.allclose(a[..., :36].double(), b.double(),
+                                  rtol=tol, atol=tol), (op, relu)

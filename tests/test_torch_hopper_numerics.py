@@ -1,6 +1,7 @@
-"""The arithmetic of the bf16/f16 Hopper forwards, emulated in plain torch
-on the CPU: K1-fwd (and K3, its LSE form) in `csrc/flash_attention.cu`
-and K2-fwd in `csrc/flash_attention_bias.cu`. The kernels run only on
+"""The arithmetic of the bf16/f16 Hopper kernels, emulated in plain torch
+on the CPU: K1-fwd (and K3, its LSE form) in `csrc/flash_attention.cu`,
+K2-fwd in `csrc/flash_attention_bias.cu` and K1-bwd's dkv and dq in
+`csrc/flash_attention_bwd.cu`. The kernels run only on
 the card (tests/test_torch_cuda.py, `chip_smoke.py`); these tests hold
 the choices of their design against the plain versions and the JAX
 package, at the limits the card holds the kernels to.
@@ -18,23 +19,37 @@ What the emulations repeat of the kernels:
   (round(p / l) @ v); beyond, an unnormalised accumulator of round(p)
   @ v rescaled by exp(m - m_next) and divided by l once, where the
   reference renormalises on every block.
+- K1-bwd: P = exp(S - lse) and dS = P (dP - delta) in f32, each rounded
+  to the input dtype before its product (dV += round(P)^T dO, dK +=
+  round(dS)^T q_scaled, dQ += round(dS) k), as jax's splash backward
+  rounds them (`p.astype`, `ds.astype`): so the 16-bit A operand of
+  wgmma is its rounding exactly. The plain versions
+  (`flash_attention_bwd_dkv_ref`, `flash_attention_bwd_dq_ref`) round at
+  those points, and are that emulation.
 
 Limits. Against the plain versions `chip_smoke.py`'s ELEM_TOL: every
 element within rtol |want| + atol rms(want), (2^-7, 2e-2) at bf16 and
 (2^-10, 1e-3) at f16; l within 1e-5 relative, m and the LSE within 1e-4.
 Against splash, `test_torch_flash_bwd.py`'s (2^-7, 1e-2) at bf16.
+K1-bwd's f16 limit where ELEM_TOL's lies below the plain version's own
+f32 noise, `chip_smoke.py`'s BWD_F16_TOL (2^-10, 3e-3), is shown to
+fail a backward that rounds P and dS to bf16.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import attention as pa
 
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import flash_attention_bias as fb
+from paddle_tpu_torch.kernels.probe_sm90 import bwd_f64
+
+from chip_smoke import BWD_F16_TOL
 
 torch.set_num_threads(1)
 
@@ -171,6 +186,78 @@ def test_split_p_keeps_the_gap_to_splash(causal):
     assert gap <= 1e-4
     assert (split.float() != want).float().mean().item() < 0.01
     assert _beyond_one_step(once, want) > max(10 * gap, 1e-3)
+
+
+def _bwd_unrounded(q, k, v, do, lse, delta, scale, causal):
+    """K1-bwd with P and dS kept in f32 through their products: what a
+    kernel that did not round at splash's points would compute."""
+    p, ds = fa._p_ds(q, k, v, do, lse, delta, scale, causal)
+    dt = q.dtype
+    dv = torch.einsum("bnts,btnh->bsnh", p, do.float()).to(dt)
+    dk = torch.einsum("bnts,btnh->bsnh", ds,
+                      fa._scaled(q, scale).float()).to(dt)
+    dq = torch.einsum("bnts,bsnh->btnh", ds, k.float()).to(dt)
+    return fa._scaled(dq, scale), dk, dv
+
+
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_rounds_p_and_ds_where_splash_does(causal, T):
+    """At bf16 against splash's backward in interpret mode (the vjp of
+    `_splash_mha`): the plain dkv and dq, which round P and dS to bf16
+    before each product as the Hopper kernels feed them to wgmma, equal
+    splash's dq, dk and dv on at least 99% of the elements (measured:
+    99.8-100%) and stay within splash's limits; with P and dS kept in f32
+    only 57-60% are equal, ten times as many elements differ and more,
+    so the rounding points are splash's."""
+    arrs = [np.random.RandomState(40 + T + causal + i).randn(1, T, 2, 64)
+            .astype(np.float32) for i in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrs)
+    _, vjp = jax.vjp(lambda a, b, c: pa._splash_mha(a, b, c, 0.125, causal,
+                                                    interpret=True),
+                     jq, jk, jv)
+    want = [torch.from_numpy(np.asarray(g, np.float32)) for g in vjp(jdo)]
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    out, lse = fa.flash_attention_ref(q, k, v, 0.125, causal, with_lse=True)
+    delta = fa.attention_delta_ref(out, do)
+    dk, dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, 0.125,
+                                            causal)
+    dq = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, 0.125,
+                                       causal)
+    unrounded = _bwd_unrounded(q, k, v, do, lse, delta, 0.125, causal)
+    for name, w, got, f32 in zip(("dq", "dk", "dv"), want, (dq, dk, dv),
+                                 unrounded):
+        assert _held(got, w, SPLASH_TOL) <= 1.0, name
+        equal = (got.float() == w).float().mean().item()
+        equal_f32 = (f32.float() == w).float().mean().item()
+        assert equal >= 0.99, (name, equal)
+        assert equal_f32 <= 0.8, (name, equal_f32)
+        assert 1 - equal_f32 >= 10 * (1 - equal), (name, equal, equal_f32)
+
+
+@pytest.mark.parametrize("T,H,causal", [(300, 64, False), (256, 128, True)])
+def test_f16_backward_limit_fails_a_bf16_rounding(T, H, causal):
+    """BWD_F16_TOL keeps its power: the plain backward's arithmetic in
+    f64 with P and dS rounded to f16 (the kernels' roundings, summed in
+    another order than the f32 plain version) passes it against the
+    plain version, and the same arithmetic with P and dS rounded to
+    bf16, a kernel of lower precision, fails it on every gradient
+    (measured: 0.41-0.54 and 3.1-7.9 of the limit)."""
+    arrs = [np.random.RandomState(60 + T + i).randn(2, T, 2, H)
+            .astype(np.float32) for i in range(4)]
+    q, k, v, do = (torch.from_numpy(a).to(torch.float16) for a in arrs)
+    scale = 1.0 / H ** 0.5
+    out, lse = fa.flash_attention_ref(q, k, v, scale, causal, with_lse=True)
+    delta = fa.attention_delta_ref(out, do)
+    dk, dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
+                                            causal)
+    want = (fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                          causal), dk, dv)
+    f16, bf16 = (bwd_f64(q, k, v, do, lse, delta, scale, causal, rounding)
+                 for rounding in (torch.float16, torch.bfloat16))
+    for name, w, a, b in zip(("dq", "dk", "dv"), want, f16, bf16):
+        assert _held(a, w, BWD_F16_TOL) <= 1.0, name
+        assert _held(b, w, BWD_F16_TOL) > 2.0, name
 
 
 # (B, T, Tk, N, H, causal, dtype, bias): Transformer-big's encoder shape
