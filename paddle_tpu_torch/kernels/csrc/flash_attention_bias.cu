@@ -525,19 +525,13 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
                            st.v_sn, BK))
     return cudaErrorInvalidValue;
   constexpr int smem = sm90::AttnSmem<HD, BK, H_STAGES>::BYTES;
-  const bool key_mask = st.a_st == 0 && st.a_ss == 1 && st.a_sb % 2 == 0 &&
-                        st.a_sn % 2 == 0 &&
-                        reinterpret_cast<uintptr_t>(bias) % 8 == 0;
-  auto kernel = key_mask ? flash_bias_fwd_sm90_kernel<T, HD, true>
-                         : flash_bias_fwd_sm90_kernel<T, HD, false>;
-  static cudaError_t err = [] {   // once a process, for both variants
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bias_fwd_sm90_kernel<T, HD, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    return e != cudaSuccess ? e : cudaFuncSetAttribute(
-        flash_bias_fwd_sm90_kernel<T, HD, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  }();
+  auto kernel = sm90::bias_is_key_mask(bias, st.a_sb, st.a_sn, st.a_st,
+                                      st.a_ss)
+                    ? flash_bias_fwd_sm90_kernel<T, HD, true>
+                    : flash_bias_fwd_sm90_kernel<T, HD, false>;
+  static cudaError_t err = sm90::allow_smem(   // once a process
+      flash_bias_fwd_sm90_kernel<T, HD, true>,
+      flash_bias_fwd_sm90_kernel<T, HD, false>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + sm90::ATT_BQ - 1) / sm90::ATT_BQ, B * N);
   kernel<<<grid, sm90::ATT_THREADS, smem, stream>>>(

@@ -416,47 +416,12 @@ constexpr size_t dq_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f16: the Hopper kernels (wgmma, TMA, a producer warp)
-//
-// Both launch 288 threads: two consumer warpgroups of 64 rows and one
-// producer warp. dkv: a block owns 128 keys (warpgroup wg the keys
-// 64 wg ..), loaded once, and loops over query tiles of 64 rows (q and
-// dO by TMA, lse and delta by the producer warp's loads) through a ring
-// of S_STAGES. dq: a block owns 128 queries (q and dO loaded once) and
-// loops over key tiles of 64 rows (k and v) through the ring. Each
-// tile's two score products run from shared memory (ss, both operands
-// K-major); their accumulators become, register for register, the A
-// operand of the two (dkv) or one (dq) gradient products (rs, with the
-// B operand MN-major).
+// bf16 and f16: the Hopper kernels (wgmma, TMA, a producer warp), on the
+// backwards' tiles of sm90.cuh
 
-constexpr int S_ROWS = 128;     // rows a block owns (keys or queries)
-constexpr int S_TILE = 64;      // rows of the tiles it loops over
-constexpr int S_STAGES = 3;     // tiles in flight
-constexpr int S_THREADS = 288;
-constexpr int S_CONSUMERS = 256;
-
-// byte offsets in the block's shared memory (from a 1024-aligned base):
-// the two tensors owned (k and v, or q and dO: 128 rows, NBOX boxes of
-// 64 columns each), then S_STAGES stages of the two streamed tensors
-// (64 rows each; dkv's stages also hold the tile's lse and delta), then
-// the barriers: the owned tensors' one, then full and empty a stage
-template <int HD, bool ROWS>
-struct BwdSmem {
-  static constexpr int NBOX = HD / 64;
-  static constexpr int BOX_OWN = S_ROWS * 128;
-  static constexpr int BOX_TILE = S_TILE * 128;
-  static constexpr int OWN_A = 0;
-  static constexpr int OWN_B = NBOX * BOX_OWN;
-  static constexpr int TILES = 2 * NBOX * BOX_OWN;
-  // within a stage: tile a, tile b, then (dkv) lse and delta rows
-  static constexpr int TILE_B = NBOX * BOX_TILE;
-  static constexpr int ROW_L = 2 * NBOX * BOX_TILE;
-  static constexpr int ROW_E = ROW_L + 4 * S_TILE;
-  static constexpr int STAGE =
-      (2 * NBOX * BOX_TILE + (ROWS ? 8 * S_TILE : 0) + 1023) / 1024 * 1024;
-  static constexpr int BAR = TILES + S_STAGES * STAGE;
-  static constexpr int BYTES = BAR + 8 * (1 + 2 * S_STAGES) + 1024;
-};
+using sm90::BWD_ROWS;
+using sm90::BWD_STAGES;
+using sm90::BWD_TILE;
 
 // q * scale rounded to T, in place, for the rows [r0, r0 + rows) of a
 // 128-byte-swizzled tile of `box_bytes` a box (elementwise, so the
@@ -480,73 +445,12 @@ __device__ __forceinline__ void scale_rows(unsigned char* tile, int box_bytes,
   sm90::fence_proxy_async();
 }
 
-// D[64 x 64] = A B^T for one warpgroup: A the 64 rows at `a` (in a tile
-// of `a_box` bytes a box), B the 64-row tile at `b`, both K-major over
-// HD; the first step overwrites D. Issued, not committed.
-template <typename T, int HD>
-__device__ __forceinline__ void tile_product(float (&d)[32],
-                                             const unsigned char* a,
-                                             int a_box,
-                                             const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint64_t da =
-        sm90::desc_sw128(a + (kk / 4) * a_box + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = sm90::desc_sw128(
-        b + (kk / 4) * S_TILE * 128 + (kk % 4) * 32, 16, 1024);
-    sm90::Wgmma<T, 64>::template ss<0>(d, da, db, kk > 0);
-  }
-}
-
-// acc[64 x HD] += round(P) B for one warpgroup: P [64 x 64] in the
-// accumulator layout (so the A fragments of its four 16-column steps),
-// rounded to T; B the 64-row tile at `b` as the MN-major operand.
-// Issued, not committed.
-template <typename T, int HD>
-__device__ __forceinline__ void grad_product(float (&acc)[HD / 2],
-                                             const uint32_t (&a)[4][4],
-                                             const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = sm90::desc_sw128(b + kk * 2048, S_TILE * 128, 1024);
-    sm90::Wgmma<T, HD>::template rs<1>(acc, a[kk], db, 1);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
-                                           const float (&p)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = sm90::pack2<T>(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
-}
-
-// rows row0 and row0 + 8 (< T_len) of a contiguous [B, T_len, N, HD]
-// output at (b, n): f(accumulator) rounded to T
-template <typename T, int HD, typename F>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[HD / 2],
-                                           int b, int n, int N, int T_len,
-                                           int row0, int c, F f) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= T_len) continue;
-    T* orow = out + ((static_cast<int64_t>(b) * T_len + row) * N + n) * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c) = sm90::pack2<T>(
-          f(acc[4 * j + 2 * i]), f(acc[4 * j + 2 * i + 1]));
-  }
-}
-
 // dK and dV for 128 keys of one (batch, head). Per query tile: S^T =
 // K Q^T and dP^T = V dO^T (keys as rows, queries as columns), P^T =
 // exp(S^T - lse) and dS^T = P^T (dP^T - delta) with lse and delta along
 // the columns, then dV += round(P^T) dO and dK += round(dS^T) Q.
 template <typename T, int HD>
-__global__ void __launch_bounds__(S_THREADS, 1)
+__global__ void __launch_bounds__(sm90::ATT_THREADS, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -555,70 +459,40 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int N,
                           int Tq, int Tk, float scale, int causal) {
-  using L = BwdSmem<HD, true>;
+  using L = sm90::BwdSmem<HD, 2>;   // the tile's lse and delta rows
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + S_STAGES;
+  uint64_t* empty = full + BWD_STAGES;
 
-  const int k0 = blockIdx.x * S_ROWS;
+  const int k0 = blockIdx.x * BWD_ROWS;
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
   // causal: query tiles wholly before this block's first key see none of
   // its keys
-  const int qt0 = causal ? k0 / S_TILE : 0;
-  const int n_qt = (Tq + S_TILE - 1) / S_TILE;
+  const int qt0 = causal ? k0 / BWD_TILE : 0;
+  const int n_qt = (Tq + BWD_TILE - 1) / BWD_TILE;
   const int n_iter = n_qt > qt0 ? n_qt - qt0 : 0;
 
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(bars, 1);
-    for (int s = 0; s < S_STAGES; ++s) {
-      // the TMA's arrival and the producer warp's 32 after its rows
-      sm90::mbar_init(full + s, 33);
-      sm90::mbar_init(empty + s, S_CONSUMERS);
-    }
-    sm90::mbar_init_fence();
-  }
+  if (threadIdx.x == 0) sm90::bwd_init_bars(bars, 33);
   __syncthreads();
 
-  if (threadIdx.x >= S_CONSUMERS) {   // the producer warp
-    const int lane = threadIdx.x - S_CONSUMERS;
-    if (lane == 0) {
-      sm90::mbar_arrive_expect_tx(bars, 2 * S_ROWS * HD * 2);
-#pragma unroll
-      for (int x = 0; x < L::NBOX; ++x) {
-        sm90::tma_load_4d(base + L::OWN_A + x * L::BOX_OWN, &tk, bars,
-                          64 * x, n, k0, b);
-        sm90::tma_load_4d(base + L::OWN_B + x * L::BOX_OWN, &tv, bars,
-                          64 * x, n, k0, b);
-      }
-    }
+  if (threadIdx.x >= sm90::ATT_CONSUMERS) {   // the producer warp
+    const int lane = threadIdx.x - sm90::ATT_CONSUMERS;
+    if (lane == 0) sm90::bwd_load_owned<HD, 2>(base, &tk, &tv, b, n, k0);
     const float* lb = lse + static_cast<int64_t>(bn) * Tq;
     const float* eb = delta + static_cast<int64_t>(bn) * Tq;
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % S_STAGES;
-      const int q0 = (qt0 + it) * S_TILE;
-      if (it >= S_STAGES)
-        sm90::mbar_wait(empty + s, (it / S_STAGES - 1) & 1);
-      unsigned char* st = base + L::TILES + s * L::STAGE;
-      if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(full + s, 2 * S_TILE * HD * 2);
-#pragma unroll
-        for (int x = 0; x < L::NBOX; ++x) {
-          sm90::tma_load_4d(st + x * L::BOX_TILE, &tq, full + s, 64 * x, n,
-                            q0, b);
-          sm90::tma_load_4d(st + L::TILE_B + x * L::BOX_TILE, &tdo, full + s,
-                            64 * x, n, q0, b);
-        }
-      }
-      float* ls = reinterpret_cast<float*>(st + L::ROW_L);
-      float* es = reinterpret_cast<float*>(st + L::ROW_E);
-      for (int r = lane; r < S_TILE; r += 32) {
+      const int q0 = (qt0 + it) * BWD_TILE;
+      float* rows = reinterpret_cast<float*>(
+          sm90::bwd_load_tile<HD, 2>(base, &tq, &tdo, b, n, it, q0,
+                                     lane == 0) + L::ROWS);
+      for (int r = lane; r < BWD_TILE; r += 32) {
         const bool in = q0 + r < Tq;
-        ls[r] = in ? lb[q0 + r] : 0.f;
-        es[r] = in ? eb[q0 + r] : 0.f;
+        rows[r] = in ? lb[q0 + r] : 0.f;
+        rows[BWD_TILE + r] = in ? eb[q0 + r] : 0.f;
       }
-      sm90::mbar_arrive(full + s);
+      sm90::mbar_arrive(full + it % BWD_STAGES);
     }
     return;
   }
@@ -635,31 +509,31 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   sm90::mbar_wait(bars, 0);
   for (int it = 0; it < n_iter; ++it) {
-    const int s = it % S_STAGES;
-    const int q0 = (qt0 + it) * S_TILE;
+    const int s = it % BWD_STAGES;
+    const int q0 = (qt0 + it) * BWD_TILE;
     unsigned char* st = base + L::TILES + s * L::STAGE;
-    sm90::mbar_wait(full + s, (it / S_STAGES) & 1);
+    sm90::mbar_wait(full + s, (it / BWD_STAGES) & 1);
     // the 256 consumers scale the shared q tile, then all see it
-    scale_rows<T, HD>(st, L::BOX_TILE, 0, S_TILE, scale, threadIdx.x,
-                      S_CONSUMERS);
-    sm90::named_sync(1, S_CONSUMERS);
+    scale_rows<T, HD>(st, L::BOX_TILE, 0, BWD_TILE, scale, threadIdx.x,
+                      sm90::ATT_CONSUMERS);
+    sm90::named_sync(1, sm90::ATT_CONSUMERS);
     // causal: a warpgroup whose keys all follow the tile's queries sees
     // none of it (kw and q0 are multiples of 64)
     if (!causal || kw <= q0) {
       float sp[32], dp[32];
       sm90::wgmma_fence();
-      tile_product<T, HD>(sp, base + L::OWN_A + wg * 64 * 128, L::BOX_OWN,
-                          st);
-      tile_product<T, HD>(dp, base + L::OWN_B + wg * 64 * 128, L::BOX_OWN,
-                          st + L::TILE_B);
+      sm90::tile_product<T, HD>(sp, base + L::OWN_A + wg * 64 * 128,
+                                L::BOX_OWN, st);
+      sm90::tile_product<T, HD>(dp, base + L::OWN_B + wg * 64 * 128,
+                                L::BOX_OWN, st + L::TILE_B);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sp);
       sm90::fence_regs(dp);
-      const float* ls = reinterpret_cast<const float*>(st + L::ROW_L);
-      const float* es = reinterpret_cast<const float*>(st + L::ROW_E);
+      const float* ls = reinterpret_cast<const float*>(st + L::ROWS);
+      const float* es = ls + BWD_TILE;
       // the ragged end of Tq and the causal diagonal tile (kw == q0)
-      const bool edge = q0 + S_TILE > Tq || (causal && kw == q0);
+      const bool edge = q0 + BWD_TILE > Tq || (causal && kw == q0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * c);
@@ -675,11 +549,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
       uint32_t pa[4][4], sa[4][4];
-      pack_frags<T>(pa, sp);
-      pack_frags<T>(sa, dp);
+      sm90::pack_frags<T>(pa, sp);
+      sm90::pack_frags<T>(sa, dp);
       sm90::wgmma_fence();
-      grad_product<T, HD>(acc_v, pa, st + L::TILE_B);   // dO
-      grad_product<T, HD>(acc_k, sa, st);               // scaled q
+      sm90::grad_product<T, HD>(acc_v, pa, st + L::TILE_B);   // dO
+      sm90::grad_product<T, HD>(acc_k, sa, st);               // scaled q
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc_v);
@@ -688,15 +562,15 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::mbar_arrive(empty + s);
   }
   const auto same = [](float x) { return x; };
-  store_rows<T, HD>(dk, acc_k, b, n, N, Tk, row0, c, same);
-  store_rows<T, HD>(dv, acc_v, b, n, N, Tk, row0, c, same);
+  sm90::store_rows<T, HD>(dk, acc_k, b, n, N, Tk, row0, c, same);
+  sm90::store_rows<T, HD>(dv, acc_v, b, n, N, Tk, row0, c, same);
 }
 
 // dQ for 128 queries of one (batch, head): per key tile S = Q K^T and
 // dP = dO V^T, P = exp(S - lse) and dS = P (dP - delta) with lse and
 // delta per row, dQ += round(dS) K; the output round(round(dQ) scale).
 template <typename T, int HD>
-__global__ void __launch_bounds__(S_THREADS, 1)
+__global__ void __launch_bounds__(sm90::ATT_THREADS, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -705,55 +579,30 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ delta,
                          T* __restrict__ dq, int N, int Tq, int Tk,
                          float scale, int causal) {
-  using L = BwdSmem<HD, false>;
+  using L = sm90::BwdSmem<HD, 0>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + S_STAGES;
+  uint64_t* empty = full + BWD_STAGES;
 
   // causal: the longest rows (the last query tiles) are launched first
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * S_ROWS;
+  const int q0 = qt * BWD_ROWS;
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
   // causal: keys past the block's last row are masked for every row
-  const int k_end = causal ? min(Tk, q0 + S_ROWS) : Tk;
-  const int n_kt = (k_end + S_TILE - 1) / S_TILE;
+  const int k_end = causal ? min(Tk, q0 + BWD_ROWS) : Tk;
+  const int n_kt = (k_end + BWD_TILE - 1) / BWD_TILE;
 
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(bars, 1);
-    for (int s = 0; s < S_STAGES; ++s) {
-      sm90::mbar_init(full + s, 1);
-      sm90::mbar_init(empty + s, S_CONSUMERS);
-    }
-    sm90::mbar_init_fence();
-  }
+  if (threadIdx.x == 0) sm90::bwd_init_bars(bars, 1);
   __syncthreads();
 
-  if (threadIdx.x >= S_CONSUMERS) {   // the producer warp
-    if (threadIdx.x == S_CONSUMERS) {
-      sm90::mbar_arrive_expect_tx(bars, 2 * S_ROWS * HD * 2);
-#pragma unroll
-      for (int x = 0; x < L::NBOX; ++x) {
-        sm90::tma_load_4d(base + L::OWN_A + x * L::BOX_OWN, &tq, bars,
-                          64 * x, n, q0, b);
-        sm90::tma_load_4d(base + L::OWN_B + x * L::BOX_OWN, &tdo, bars,
-                          64 * x, n, q0, b);
-      }
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % S_STAGES;
-        if (kt >= S_STAGES)
-          sm90::mbar_wait(empty + s, (kt / S_STAGES - 1) & 1);
-        unsigned char* st = base + L::TILES + s * L::STAGE;
-        sm90::mbar_arrive_expect_tx(full + s, 2 * S_TILE * HD * 2);
-#pragma unroll
-        for (int x = 0; x < L::NBOX; ++x) {
-          sm90::tma_load_4d(st + x * L::BOX_TILE, &tk, full + s, 64 * x, n,
-                            kt * S_TILE, b);
-          sm90::tma_load_4d(st + L::TILE_B + x * L::BOX_TILE, &tv, full + s,
-                            64 * x, n, kt * S_TILE, b);
-        }
-      }
+  if (threadIdx.x >= sm90::ATT_CONSUMERS) {   // the producer warp
+    if (threadIdx.x == sm90::ATT_CONSUMERS) {
+      sm90::bwd_load_owned<HD, 0>(base, &tq, &tdo, b, n, q0);
+      for (int kt = 0; kt < n_kt; ++kt)
+        sm90::bwd_load_tile<HD, 0>(base, &tk, &tv, b, n, kt, kt * BWD_TILE,
+                                   true);
     }
     return;
   }
@@ -783,24 +632,24 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt % S_STAGES;
-    const int k0 = kt * S_TILE;
+    const int s = kt % BWD_STAGES;
+    const int k0 = kt * BWD_TILE;
     unsigned char* st = base + L::TILES + s * L::STAGE;
-    sm90::mbar_wait(full + s, (kt / S_STAGES) & 1);
+    sm90::mbar_wait(full + s, (kt / BWD_STAGES) & 1);
     // causal: a key tile wholly after the warpgroup's rows is masked
     if (!causal || k0 <= wrow) {
       float sp[32], dp[32];
       sm90::wgmma_fence();
-      tile_product<T, HD>(sp, base + L::OWN_A + wg * 64 * 128, L::BOX_OWN,
-                          st);
-      tile_product<T, HD>(dp, base + L::OWN_B + wg * 64 * 128, L::BOX_OWN,
-                          st + L::TILE_B);
+      sm90::tile_product<T, HD>(sp, base + L::OWN_A + wg * 64 * 128,
+                                L::BOX_OWN, st);
+      sm90::tile_product<T, HD>(dp, base + L::OWN_B + wg * 64 * 128,
+                                L::BOX_OWN, st + L::TILE_B);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sp);
       sm90::fence_regs(dp);
       // the ragged end of Tk and the causal diagonal tile (k0 == wrow)
-      const bool edge = k0 + S_TILE > Tk || (causal && k0 == wrow);
+      const bool edge = k0 + BWD_TILE > Tk || (causal && k0 == wrow);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -812,9 +661,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           dp[4 * j + e] = (dp[4 * j + e] - er[e >> 1]) * p;
         }
       uint32_t sa[4][4];
-      pack_frags<T>(sa, dp);
+      sm90::pack_frags<T>(sa, dp);
       sm90::wgmma_fence();
-      grad_product<T, HD>(acc, sa, st);   // k
+      sm90::grad_product<T, HD>(acc, sa, st);   // k
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -823,28 +672,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   // dq of the scaled q, rounded, then times the scale in T: the
   // gradient through splash's caller's q * scale
-  store_rows<T, HD>(dq, acc, b, n, N, Tq, row0, c,
-                    [scale](float x) { return round_to<T>(x) * scale; });
-}
-
-// the four tensor maps of a backward launch: q, k and v with their own
-// strides, dO contiguous; `own` rows a box for the tensors a block owns
-// (k and v in dkv, q and dO in dq), 64 for the others
-template <typename T, int HD>
-bool bwd_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
-              const void* dout, int B, int N, int Tq, int Tk, Strides st,
-              bool dkv) {
-  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  const int rq = dkv ? S_TILE : S_ROWS, rk = dkv ? S_ROWS : S_TILE;
-  return sm90::make_map_bthn(m + 0, q, bf16, B, Tq, N, HD, st.q_sb, st.q_st,
-                             st.q_sn, rq) &&
-         sm90::make_map_bthn(m + 1, k, bf16, B, Tk, N, HD, st.k_sb, st.k_st,
-                             st.k_sn, rk) &&
-         sm90::make_map_bthn(m + 2, v, bf16, B, Tk, N, HD, st.v_sb, st.v_st,
-                             st.v_sn, rk) &&
-         sm90::make_map_bthn(m + 3, dout, bf16, B, Tq, N, HD,
-                             static_cast<int64_t>(Tq) * N * HD,
-                             static_cast<int64_t>(N) * HD, HD, rq);
+  sm90::store_rows<T, HD>(dq, acc, b, n, N, Tq, row0, c,
+                          [scale](float x) { return round_to<T>(x) * scale; });
 }
 
 template <typename T, int HD>
@@ -870,15 +699,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap m[4];
-    if (!bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, true))
+    if (!sm90::bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, true))
       return cudaErrorInvalidValue;
-    constexpr int smem = BwdSmem<HD, true>::BYTES;
+    constexpr int smem = sm90::BwdSmem<HD, 2>::BYTES;
     auto kernel = flash_bwd_dkv_sm90_kernel<T, HD>;
     static cudaError_t err = cudaFuncSetAttribute(   // once a process
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((Tk + S_ROWS - 1) / S_ROWS, B * N);
-    kernel<<<grid, S_THREADS, smem, stream>>>(
+    dim3 grid((Tk + BWD_ROWS - 1) / BWD_ROWS, B * N);
+    kernel<<<grid, sm90::ATT_THREADS, smem, stream>>>(
         m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dk),
         static_cast<T*>(dv), N, Tq, Tk, scale, causal);
     return cudaGetLastError();
@@ -906,15 +735,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       float scale, int causal, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap m[4];
-    if (!bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, false))
+    if (!sm90::bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, false))
       return cudaErrorInvalidValue;
-    constexpr int smem = BwdSmem<HD, false>::BYTES;
+    constexpr int smem = sm90::BwdSmem<HD, 0>::BYTES;
     auto kernel = flash_bwd_dq_sm90_kernel<T, HD>;
     static cudaError_t err = cudaFuncSetAttribute(   // once a process
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((Tq + S_ROWS - 1) / S_ROWS, B * N);
-    kernel<<<grid, S_THREADS, smem, stream>>>(
+    dim3 grid((Tq + BWD_ROWS - 1) / BWD_ROWS, B * N);
+    kernel<<<grid, sm90::ATT_THREADS, smem, stream>>>(
         m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dq), N, Tq, Tk,
         scale, causal);
     return cudaGetLastError();

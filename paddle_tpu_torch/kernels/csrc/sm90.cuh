@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dtypes.cuh"
 
 namespace sm90 {
@@ -549,6 +551,212 @@ __device__ __forceinline__ void attn_store(T* out, const float (&o)[HD / 2],
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c) =
           pack2<T>(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
   }
+}
+
+// the dynamic shared memory of both variants of a kernel template (K2's
+// KEY_MASK true and false), raised to `smem` bytes
+template <typename K>
+cudaError_t allow_smem(K with_mask, K without, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      with_mask, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return e != cudaSuccess ? e : cudaFuncSetAttribute(
+      without, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// true for mha's [B, 1, 1, Tk] key-padding mask as the K2 kernels see it
+// (f32 element strides [B, N, Tq, Tk]): one row of Tk values for every
+// query row, read as pairs of columns (8-byte aligned rows)
+inline bool bias_is_key_mask(const float* bias, int64_t a_sb, int64_t a_sn,
+                             int64_t a_st, int64_t a_ss) {
+  return a_st == 0 && a_ss == 1 && a_sb % 2 == 0 && a_sn % 2 == 0 &&
+         reinterpret_cast<uintptr_t>(bias) % 8 == 0;
+}
+
+}  // namespace sm90
+
+// -------------------------------------------- the attention backwards' tiles
+//
+// Shared by the bf16/f16 backwards of K1 (flash_attention_bwd.cu) and K2
+// (flash_attention_bias_bwd.cu). Both launch ATT_THREADS (288): two
+// consumer warpgroups of 64 rows and one producer warp. dkv: a block owns
+// 128 keys (warpgroup wg the keys 64 wg ..), loaded once, and loops over
+// query tiles of 64 rows (q and dO by TMA, the tile's f32 rows by the
+// producer warp's loads) through a ring of BWD_STAGES. dq: a block owns
+// 128 queries (q and dO loaded once) and loops over key tiles of 64 rows
+// (k and v) through the ring. Each tile's two score products run from
+// shared memory (ss, both operands K-major); their accumulators become,
+// register for register, the A operand of the two (dkv) or one (dq)
+// gradient products (rs, with the B operand MN-major).
+
+namespace sm90 {
+
+constexpr int BWD_ROWS = 128;    // rows a block owns (keys or queries)
+constexpr int BWD_TILE = 64;     // rows of the tiles it loops over
+constexpr int BWD_STAGES = 3;    // tiles in flight
+
+// byte offsets in the block's shared memory (from a 1024-aligned base):
+// the two tensors owned (k and v, or q and dO: 128 rows, NBOX boxes of
+// 64 columns each), then BWD_STAGES stages of the two streamed tensors
+// (64 rows each, then NROWS f32 rows of the tile: dkv's lse and delta, or
+// 1/l, m and delta), then the barriers: the owned tensors' one, then full
+// and empty a stage
+template <int HD, int NROWS>
+struct BwdSmem {
+  static constexpr int NBOX = HD / 64;
+  static constexpr int BOX_OWN = BWD_ROWS * 128;
+  static constexpr int BOX_TILE = BWD_TILE * 128;
+  static constexpr int OWN_A = 0;
+  static constexpr int OWN_B = NBOX * BOX_OWN;
+  static constexpr int TILES = 2 * NBOX * BOX_OWN;
+  // within a stage: tile a, tile b, then the rows
+  static constexpr int TILE_B = NBOX * BOX_TILE;
+  static constexpr int ROWS = 2 * NBOX * BOX_TILE;
+  static constexpr int STAGE =
+      (ROWS + NROWS * 4 * BWD_TILE + 1023) / 1024 * 1024;
+  static constexpr int BAR = TILES + BWD_STAGES * STAGE;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * BWD_STAGES) + 1024;
+};
+
+// one thread initialises the barriers of a backward block: the owned
+// tensors' (one TMA arrival), then each stage's full (`full_count`
+// arrivals) and empty (every consumer thread's)
+__device__ __forceinline__ void bwd_init_bars(uint64_t* bars,
+                                              uint32_t full_count) {
+  mbar_init(bars, 1);
+  for (int s = 0; s < BWD_STAGES; ++s) {
+    mbar_init(bars + 1 + s, full_count);
+    mbar_init(bars + 1 + BWD_STAGES + s, ATT_CONSUMERS);
+  }
+  mbar_init_fence();
+}
+
+// The producer of a backward block (lane 0 of its warp in dkv, its one
+// thread in dq): the 128 owned rows at r0 of tensors a and b (k and v in
+// dkv, q and dO in dq) once onto bars[0]
+template <int HD, int NROWS>
+__device__ __forceinline__ void bwd_load_owned(unsigned char* base,
+                                               const CUtensorMap* ta,
+                                               const CUtensorMap* tb, int b,
+                                               int n, int r0) {
+  using L = BwdSmem<HD, NROWS>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  mbar_arrive_expect_tx(bars, 2 * BWD_ROWS * HD * 2);
+#pragma unroll
+  for (int x = 0; x < L::NBOX; ++x) {
+    tma_load_4d(base + L::OWN_A + x * L::BOX_OWN, ta, bars, 64 * x, n, r0, b);
+    tma_load_4d(base + L::OWN_B + x * L::BOX_OWN, tb, bars, 64 * x, n, r0, b);
+  }
+}
+
+// The producer's step `it` of the ring: waits until both warpgroups
+// released stage it % BWD_STAGES (from the ring's second lap on), then,
+// when `issue` (one thread), loads the 64 rows at r0 of the streamed
+// tensors a and b into it by TMA, completing on its full barrier.
+// Returns the stage. In dkv the producer warp then writes the stage's
+// f32 rows and every lane arrives on full (33 arrivals with the TMA's).
+template <int HD, int NROWS>
+__device__ __forceinline__ unsigned char* bwd_load_tile(
+    unsigned char* base, const CUtensorMap* ta, const CUtensorMap* tb, int b,
+    int n, int it, int r0, bool issue) {
+  using L = BwdSmem<HD, NROWS>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BAR) + 1;
+  uint64_t* empty = full + BWD_STAGES;
+  const int s = it % BWD_STAGES;
+  if (it >= BWD_STAGES) mbar_wait(empty + s, (it / BWD_STAGES - 1) & 1);
+  unsigned char* st = base + L::TILES + s * L::STAGE;
+  if (issue) {
+    mbar_arrive_expect_tx(full + s, 2 * BWD_TILE * HD * 2);
+#pragma unroll
+    for (int x = 0; x < L::NBOX; ++x) {
+      tma_load_4d(st + x * L::BOX_TILE, ta, full + s, 64 * x, n, r0, b);
+      tma_load_4d(st + L::TILE_B + x * L::BOX_TILE, tb, full + s, 64 * x, n,
+                  r0, b);
+    }
+  }
+  return st;
+}
+
+// D[64 x 64] = A B^T for one warpgroup: A the 64 rows at `a` (in a tile
+// of `a_box` bytes a box), B the 64-row tile at `b`, both K-major over
+// HD; the first step overwrites D. Issued, not committed.
+template <typename T, int HD>
+__device__ __forceinline__ void tile_product(float (&d)[32],
+                                             const unsigned char* a,
+                                             int a_box,
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da =
+        desc_sw128(a + (kk / 4) * a_box + (kk % 4) * 32, 16, 1024);
+    const uint64_t db =
+        desc_sw128(b + (kk / 4) * BWD_TILE * 128 + (kk % 4) * 32, 16, 1024);
+    Wgmma<T, 64>::template ss<0>(d, da, db, kk > 0);
+  }
+}
+
+// acc[64 x HD] += A B for one warpgroup: A [64 x 64] the packed fragments
+// of its four 16-column steps (pack_frags); B the 64-row tile at `b` as
+// the MN-major operand. Issued, not committed.
+template <typename T, int HD>
+__device__ __forceinline__ void grad_product(float (&acc)[HD / 2],
+                                             const uint32_t (&a)[4][4],
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 2048, BWD_TILE * 128, 1024);
+    Wgmma<T, HD>::template rs<1>(acc, a[kk], db, 1);
+  }
+}
+
+// a [64 x 64] tile in the accumulator layout, rounded to T, as the A
+// fragments of its four 16-column steps
+template <typename T>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
+                                           const float (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack2<T>(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+}
+
+// rows row0 and row0 + 8 (< T_len) of a contiguous [B, T_len, N, HD]
+// output at (b, n): f(accumulator) rounded to T
+template <typename T, int HD, typename F>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[HD / 2],
+                                           int b, int n, int N, int T_len,
+                                           int row0, int c, F f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= T_len) continue;
+    T* orow = out + ((static_cast<int64_t>(b) * T_len + row) * N + n) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c) =
+          pack2<T>(f(acc[4 * j + 2 * i]), f(acc[4 * j + 2 * i + 1]));
+  }
+}
+
+// the four tensor maps of a backward launch: q, k and v with their own
+// element strides (st.q_sb ..), dO contiguous; BWD_ROWS rows a box for the
+// tensors a block owns (k and v in dkv, q and dO in dq), BWD_TILE for the
+// others
+template <typename T, int HD, typename S>
+bool bwd_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
+              const void* dout, int B, int N, int Tq, int Tk, const S& st,
+              bool dkv) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int rq = dkv ? BWD_TILE : BWD_ROWS, rk = dkv ? BWD_ROWS : BWD_TILE;
+  return make_map_bthn(m + 0, q, bf16, B, Tq, N, HD, st.q_sb, st.q_st,
+                       st.q_sn, rq) &&
+         make_map_bthn(m + 1, k, bf16, B, Tk, N, HD, st.k_sb, st.k_st,
+                       st.k_sn, rk) &&
+         make_map_bthn(m + 2, v, bf16, B, Tk, N, HD, st.v_sb, st.v_st,
+                       st.v_sn, rk) &&
+         make_map_bthn(m + 3, dout, bf16, B, Tq, N, HD,
+                       static_cast<int64_t>(Tq) * N * HD,
+                       static_cast<int64_t>(N) * HD, HD, rq);
 }
 
 }  // namespace sm90

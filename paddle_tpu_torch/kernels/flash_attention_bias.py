@@ -32,15 +32,20 @@ mask is read through stride-0 views, never materialised). H is 64 or
 card and the plain versions on the CPU; the bias gets a gradient only
 when it requires one.
 
-K2-fwd has two kernels in `csrc/flash_attention_bias.cu`. bf16 and f16
-run the Hopper one, on K1-fwd's pipeline (wgmma, TMA, `csrc/sm90.cuh`)
-with the bias read in the accumulator's layout and P rounded to v's
-dtype as the reference rounds it; q, k and v must pass `check_tma`
-(a view that does not raises). It keeps an unnormalised accumulator
-where the reference renormalises on every key block, which moves only
-f32 roundings (`tests/test_torch_hopper_numerics.py`), so the plain
-version is unchanged. f32 runs the FMA kernel: wgmma has no full-f32
-form, and TF32 would not pass the f32 parity gates.
+K2-fwd has two kernels in `csrc/flash_attention_bias.cu`, and K2-bwd's
+dkv and dq two each in `csrc/flash_attention_bias_bwd.cu`. bf16 and f16
+run the Hopper ones, on K1's pipelines (wgmma, TMA, `csrc/sm90.cuh`)
+with the bias read in the accumulator's layout (mha's key mask once a
+key in dkv, by pairs of columns in dq); q, k and v (and the backward's
+dO) must pass `check_tma` (a view that does not raises). The forward
+rounds P to v's dtype as the reference rounds it and keeps an
+unnormalised accumulator where the reference renormalises on every key
+block, which moves only f32 roundings; the backward rounds p and ds to
+the input dtype before each product, the reference's own roundings,
+so its 16-bit wgmma operand is exact (`tests/test_torch_hopper_numerics.py`
+emulates both); the plain versions are unchanged. f32 runs the FMA
+kernels: wgmma has no full-f32 form, and TF32 would not pass the f32
+parity gates.
 """
 
 from __future__ import annotations
@@ -228,6 +233,8 @@ def flash_attention_bias_bwd_dkv(q, k, v, bias, do, l, m, delta,
     if q.device.type == "cpu":
         return flash_attention_bias_bwd_dkv_ref(q, k, v, ab, do, l, m, delta,
                                                 scale, causal)
+    if q.dtype != torch.float32:
+        check_tma(q, k, v, do)
     fn = _fn("flash_attention_bias_bwd", "paddle_flash_attention_bias_bwd_dkv",
              [ctypes.c_void_p] * 10 + _TAIL)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -252,6 +259,8 @@ def flash_attention_bias_bwd_dq(q, k, v, bias, do, l, m, delta,
     if q.device.type == "cpu":
         return flash_attention_bias_bwd_dq_ref(q, k, v, ab, do, l, m, delta,
                                                scale, causal, with_dbias)
+    if q.dtype != torch.float32:
+        check_tma(q, k, v, do)
     fn = _fn("flash_attention_bias_bwd", "paddle_flash_attention_bias_bwd_dq",
              [ctypes.c_void_p] * 10 + _TAIL)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)

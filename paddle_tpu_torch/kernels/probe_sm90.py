@@ -2,27 +2,28 @@
 
     python -m paddle_tpu_torch.kernels.probe_sm90
 
-Builds the four sources with Hopper kernels (`csrc/flash_attention.cu`,
-`flash_attention_bias.cu`, `flash_attention_bwd.cu` and
-`fused_dense_bn.cu`) with `-Xptxas -v` (registers, shared memory and
-spills of every kernel, printed and written into
-`chiprun_out/probe/`), then prints one JSON line a case, each held
-against its plain version under `chip_smoke.py`'s limits: K1-fwd (with
-its LSE) and K2-fwd (bf16 and f16, causal and not, H 64 and 128,
-fused-qkv views, ragged T and Tk); K1-bwd's dkv and dq and K4, K5 and
-K6 through chip_smoke.py's own case functions, at a first small case,
-the padded route of a shape TMA cannot read and the timed shapes of
-the main path. Timed cases carry `ms` (back-to-back calls between two
-CUDA events), `dev_ms` (the kernels' device time a call,
-torch.profiler) and the library call's `lib_ms` (SDPA's backward,
-cuBLAS's product). Then K2's per-element ratio over six seeds at three
-shapes; K1-bwd's f16 ratio over five seeds beside an f64 evaluation of
-the same arithmetic ("k1_bwd_f16_floor": f32 noise's own reading
-against the plain version) and that evaluation with P and dS rounded
-to bf16 under BWD_F16_TOL (a control: the limit must fail it); and the
-host's cost of one forward call against its parts. It takes about a
-minute; the full check of every kernel is `chip_smoke.py`, which this
-imports from the repo root. Needs a CUDA device.
+Builds the five sources with Hopper kernels (`csrc/flash_attention.cu`,
+`flash_attention_bias.cu`, `flash_attention_bwd.cu`,
+`flash_attention_bias_bwd.cu` and `fused_dense_bn.cu`) with `-Xptxas -v`
+(registers, shared memory and spills of every kernel, printed and
+written into `chiprun_out/probe/`), then prints one JSON line a case,
+each held against its plain version under `chip_smoke.py`'s limits:
+K1-fwd (with its LSE; bf16 and f16, causal and not, H 64 and 128,
+fused-qkv views, ragged T and Tk); K1-bwd, K2 (forward, dkv and dq) and
+K4, K5 and K6 through chip_smoke.py's own case functions and inputs, at
+a first small case, the padded route of a shape TMA cannot read and the
+timed shapes of the main path. Timed cases carry `ms` (back-to-back
+calls between two CUDA events), `dev_ms` (the kernels' device time a
+call, torch.profiler) and the library call's `lib_ms` (SDPA's forward
+or backward, cuBLAS's product). Then K2's per-element ratios over six
+seeds at three shapes, with, at the f16 ones, an f64 evaluation of the
+same arithmetic ("f64_*": the reading f32 noise alone gives against
+the plain version) and that evaluation with p and ds rounded to
+bf16 under ATTN_F16_TOL (a control: the limit must fail it); the same
+for K1-bwd at f16 ("k1_bwd_f16_floor"); and the host's cost of one
+forward call against its parts. It is a short call; the full check
+of every kernel is `chip_smoke.py`, which this imports from the repo
+root. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from . import fused_dense_bn as fdb
 _OUT = os.path.join("chiprun_out", "probe")
 # the sources with Hopper kernels
 _SOURCES = ("flash_attention", "flash_attention_bias", "flash_attention_bwd",
-            "fused_dense_bn")
+            "flash_attention_bias_bwd", "fused_dense_bn")
 
 
 @functools.cache
@@ -185,7 +186,7 @@ def k1_bwd_case(gen, B, T, N, H, causal, dtype, timed=False, f64=False):
     kernels' device time a call, beside SDPA's backward; f64: the f64
     evaluation of the same arithmetic against the plain versions at
     ELEM_TOL ("f64_dq" ...: the floor f32 noise sets) and its control,
-    P and dS rounded to bf16, under BWD_F16_TOL ("bf16_dq" ...)."""
+    P and dS rounded to bf16, under ATTN_F16_TOL ("bf16_dq" ...)."""
     cs = _chip_smoke()
     dname = str(dtype).removeprefix("torch.")
     case, errs, _ = cs._training_kernel_case(fa, B, T, causal, dname, gen,
@@ -199,7 +200,7 @@ def k1_bwd_case(gen, B, T, N, H, causal, dtype, timed=False, f64=False):
         want = (fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
                                               causal), want_dk, want_dv)
         for tag, rounding, tol in (("f64", dtype, None),
-                                   ("bf16", torch.bfloat16, cs.BWD_F16_TOL)):
+                                   ("bf16", torch.bfloat16, cs.ATTN_F16_TOL)):
             got = bwd_f64(q, k, v, do, lse, delta, scale, causal, rounding)
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 r[f"{tag}_{name}"] = held(a, b, dtype, tol)
@@ -238,34 +239,107 @@ def fdb_case(gen, kernel, M, K, N, dtype, timed=False):
     return r
 
 
-def k2_inputs(gen, B, Tq, Tk, N, H, dtype, kind):
-    q = torch.randn(B, Tq, N, H, generator=gen, device="cuda").to(dtype)
-    k, v = (torch.randn(B, Tk, N, H, generator=gen, device="cuda").to(dtype)
-            for _ in range(2))
-    if kind == "full":
-        bias = torch.randn(B, N, Tq, Tk, generator=gen, device="cuda")
-    else:
-        lens = torch.randint(Tk // 2, Tk + 1, (B,), generator=gen,
-                             device="cuda")
-        keep = torch.arange(Tk, device="cuda")[None] < lens[:, None]
-        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
-    return q, k, v, bias
+def _k2_scores_f64(q, k, bias, scale, causal):
+    """K2's scores in f64: (q k^T + bias) * scale, + MASK_VALUE above the
+    diagonal when causal."""
+    s = (torch.einsum("btnh,bsnh->bnts", q.double(), k.double())
+         + bias.double()) * scale
+    if causal:
+        keep = fa._keep(q.shape[1], k.shape[1], q.device)
+        s = s + torch.where(keep, 0.0, fb.MASK_VALUE)
+    return s
 
 
-def k2_case(gen, B, Tq, Tk, N, H, causal, dtype, kind, timed=False):
-    q, k, v, bias = k2_inputs(gen, B, Tq, Tk, N, H, dtype, kind)
-    out, l, m = fb.flash_attention_bias_fwd(q, k, v, bias, 0.125, causal)
-    torch.cuda.synchronize()
-    want, want_l, want_m = fb.flash_attention_bias_ref(q, k, v, bias, 0.125,
-                                                       causal)
+def k2_fwd_f64(q, k, v, bias, scale, causal, rounding=None):
+    """K2-fwd's arithmetic where the keys fit one block (the reference's
+    one-step softmax) in f64, p / l rounded to `rounding` (v's dtype
+    unless given) before the product with v: out in q's dtype."""
+    if k.shape[1] > fb.BLOCK_K:
+        raise ValueError("k2_fwd_f64 takes the one-step form, Tk <= 128")
+    s = _k2_scores_f64(q, k, bias, scale, causal)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(rounding or v.dtype).double()
+    return torch.einsum("bnts,bsnh->btnh", p, v.double()).to(q.dtype)
+
+
+def k2_bwd_f64(q, k, v, bias, do, l, m, delta, scale, causal,
+               rounding=None):
+    """K2-bwd's arithmetic in f64 from the forward's l and m and delta:
+    p = exp(s - m) / l and ds = (dp - delta) p scale, each rounded to
+    `rounding` (q's dtype unless given) before its products, the
+    products summed in f64 (in place of the tensor cores' order): (dq,
+    dk, dv) in q's dtype."""
+    dt, rt = q.dtype, rounding or q.dtype
+    s = _k2_scores_f64(q, k, bias, scale, causal)
+    p = torch.exp(s - m.double()[..., None]) / l.double()[..., None]
+    dp = torch.einsum("btnh,bsnh->bnts", do.double(), v.double())
+    ds = ((dp - delta.double()[..., None]) * p * scale).to(rt).double()
+    p = p.to(rt).double()
+    dv = torch.einsum("bnts,btnh->bsnh", p, do.double())
+    dk = torch.einsum("bnts,btnh->bsnh", ds, q.double())
+    dq = torch.einsum("bnts,bsnh->btnh", ds, k.double())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def k2_case(gen, B, Tq, Tk, N, H, causal, dtype, kind, tol=None,
+            timed=False, f64=False):
+    """chip_smoke.py's K2 case (`k2_case`, its inputs: kind "src_len",
+    "bert" or "full"): out, dq, dk and dv against their plain versions;
+    timed: the forward and the whole backward (delta, dkv, dq) with
+    their kernels' device time a call, beside SDPA's forward and
+    backward with the bias as a float mask; f64: the f64 evaluation of
+    the same arithmetic against the plain versions at ELEM_TOL ("f64_out"
+    where the keys fit one block, "f64_dq" ...: the floor f32 noise
+    sets) and its control, p and ds rounded to bf16, under ATTN_F16_TOL
+    ("bf16_out", "bf16_dq" ...)."""
+    cs = _chip_smoke()
+    dname = str(dtype).removeprefix("torch.")
+    case, errs, lm = cs.k2_case(B, Tq, Tk, N, H, causal, dname, kind, gen,
+                                tol)
+    q, k, v, do, bias, out, l, m, delta, scale = case
+    args = (q, k, v, bias, do, l, m, delta, scale, causal)
     r = {"kernel": "K2", "shape": [B, Tq, Tk, N, H], "causal": causal,
-         "dtype": str(dtype), "bias": kind, "ratio": held(out, want, dtype),
-         "l_rel": ((l - want_l).abs() / want_l).max().item(),
-         "m_err": (m - want_m).abs().max().item()}
+         "dtype": dname, "bias": kind, "tol": tol or cs.ELEM_TOL[dname],
+         **{n: errs[n]["ratio"] for n in ("out", "dq", "dk", "dv")}, **lm}
+    if f64:
+        want_dk, want_dv = fb.flash_attention_bias_bwd_dkv_ref(*args)
+        want = (fb.flash_attention_bias_bwd_dq_ref(*args), want_dk, want_dv)
+        want_out = fb.flash_attention_bias_ref(q, k, v, bias, scale,
+                                               causal)[0]
+        for tag, rounding, t in (("f64", dtype, None),
+                                 ("bf16", torch.bfloat16, cs.ATTN_F16_TOL)):
+            if Tk <= fb.BLOCK_K:
+                r[f"{tag}_out"] = held(k2_fwd_f64(q, k, v, bias, scale,
+                                                  causal, rounding),
+                                       want_out, dtype, t)
+            got = k2_bwd_f64(*args, rounding)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                r[f"{tag}_{name}"] = held(a, b, dtype, t)
     if timed:
-        def call():
-            return fb.flash_attention_bias_fwd(q, k, v, bias, 0.125, causal)
-        r["ms"], r["dev_ms"] = time_ms(call), dev_ms(call)
+        def fwd():
+            return fb.flash_attention_bias_fwd(q, k, v, bias, scale, causal)
+
+        def bwd():
+            d = fa.attention_delta(out, do)
+            a = (q, k, v, bias, do, l, m, d, scale, causal)
+            return (fb.flash_attention_bias_bwd_dkv(*a),
+                    fb.flash_attention_bias_bwd_dq(*a))
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        # SDPA adds its mask after the scale, K2 its bias before
+        amask = (bias * scale).to(q.dtype)
+        so = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask, scale=scale)
+        r.update({
+            "ms": time_ms(fwd), "dev_ms": dev_ms(fwd),
+            "lib_ms": time_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qt, kt, vt, attn_mask=amask, scale=scale)),
+            "bwd_ms": time_ms(bwd),
+            "bwd_dev_ms": {kern: dev_ms(bwd, names=(kern,))
+                           for kern in ("delta_kernel", "bwd_dkv", "bwd_dq")},
+            "bwd_lib_ms": time_ms(lambda: torch.autograd.grad(
+                so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))})
     return r
 
 
@@ -305,36 +379,48 @@ def main() -> int:
         lambda: k1_case(gen, 2, 300, 4, 128, True, bf16),
         lambda: k1_case(gen, 2, 300, 4, 128, False, bf16, Tk=200),
         lambda: k1_case(gen, 4, 128, 12, 64, False, f16),
-        lambda: k2_case(gen, 1, 128, 128, 1, 64, False, bf16, "mask"),
-        lambda: k2_case(gen, 128, 128, 128, 16, 64, False, bf16, "mask",
+        lambda: k2_case(gen, 1, 128, 128, 1, 64, False, bf16, "src_len"),
+        lambda: k2_case(gen, 128, 128, 128, 16, 64, False, bf16, "src_len",
                         timed=True),
-        lambda: k2_case(gen, 32, 512, 512, 12, 64, False, bf16, "mask",
+        lambda: k2_case(gen, 32, 512, 512, 12, 64, False, bf16, "bert",
                         timed=True),
-        lambda: k2_case(gen, 2, 100, 164, 12, 64, False, bf16, "mask"),
-        lambda: k2_case(gen, 4, 128, 128, 12, 64, True, f16, "full"),
+        lambda: k2_case(gen, 2, 100, 164, 12, 64, False, bf16, "src_len"),
+        lambda: k2_case(gen, 2, 128, 256, 4, 64, True, bf16, "src_len"),
         lambda: k2_case(gen, 2, 256, 300, 4, 128, True, bf16, "full"),
-        lambda: k2_case(gen, 2, 100, 300, 4, 128, False, bf16, "mask"),
+        lambda: k2_case(gen, 4, 256, 300, 8, 128, False, bf16, "src_len"),
+        # tests/test_torch_cuda.py's f16 case with a full bias
+        lambda: k2_case(gen, 2, 100, 164, 2, 64, False, f16, "full",
+                        f64=True),
     ]
     for case in cases:
         print(json.dumps(case()), flush=True)
 
-    # K2's per-element ratio over seeds: it rounds p to the dtype, so a
-    # score summed in another order can round a p the other way
+    # K2's per-element ratios over seeds: it rounds p (and ds) to the
+    # dtype, so a score summed in another order can round a p the other
+    # way. At f16, beside the kernel, the f64 evaluation of the same
+    # arithmetic against the f32 plain version at ELEM_TOL ("f64_*": the
+    # floor f32 noise alone sets) and, under ATTN_F16_TOL, with p and ds
+    # rounded to bf16 ("bf16_*": a kernel of lower precision, which that
+    # limit must fail): ROADMAP F4 at chip_smoke's causal_f16 shape
     for label, (B, T, N, dtype, kind, causal) in (
             ("causal_f16", (4, 128, 12, f16, "full", True)),
-            ("nmt_bf16", (128, 128, 16, bf16, "mask", False)),
+            ("nmt_bf16", (128, 128, 16, bf16, "src_len", False)),
             ("f16_512", (4, 512, 12, f16, "full", False))):
-        ratios = [k2_case(torch.Generator(device="cuda").manual_seed(s), B, T,
-                          T, N, 64, causal, dtype, kind)["ratio"]
-                  for s in range(6)]
-        print(json.dumps({"k2_seeds": label, "ratios": ratios}))
+        rows = [k2_case(torch.Generator(device="cuda").manual_seed(s), B, T,
+                        T, N, 64, causal, dtype, kind, f64=dtype == f16)
+                for s in range(6)]
+        print(json.dumps({"k2_seeds": label,
+                          "ratios": {key: [r[key] for r in rows]
+                                     for key in rows[0] if key in (
+                                         "out", "dq", "dk", "dv") or
+                                     key.startswith(("f64_", "bf16_"))}}))
 
     # K1-bwd at f16: a rounding of P or dS to f16 that falls the other
     # way after f32 sums in another order moves a gradient element by one
     # f16 step of a large dS times a q or k element. Beside the kernel,
     # an f64 evaluation of the same arithmetic (P and dS rounded to f16)
     # against the f32 plain version, at f16's ELEM_TOL: the floor that
-    # f32 noise alone sets; and, under BWD_F16_TOL, the same evaluation
+    # f32 noise alone sets; and, under ATTN_F16_TOL, the same evaluation
     # with P and dS rounded to bf16: a kernel of lower precision, which
     # that limit must fail
     print(json.dumps({"k1_bwd_f16_floor": [

@@ -18,7 +18,11 @@ views of a fused projection and at T 4096. K3 (the
 ring's block, `splash_block_with_lse`) against its plain version at
 BERT-long's sp=4 block (8 x 1024, bf16) and at f32 and f16; and the
 sp=4 in-process ring on the card against single-device K1: ring_splash
-(K3 blocks) and causal ring_attention, out and gradients at f32.
+(K3 blocks) and causal ring_attention, out and gradients at f32. K2-bwd's
+Hopper dkv and dq at bf16 (the key mask on fused kv views, causal with
+Tk = 2 T, a full bias with its gradient, H 128 ragged), checked in the
+profiler to run the Hopper kernels, and their refusal of a view TMA
+cannot read.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -49,7 +53,7 @@ from paddle_tpu_torch.ops import attention as ta
 from paddle_tpu_torch.ops import ring_attention as tra
 from paddle_tpu_torch.parallel import mesh as tmesh
 
-from chip_smoke import BWD_F16_TOL
+from chip_smoke import ATTN_F16_TOL
 
 torch.set_num_threads(2)
 
@@ -548,9 +552,9 @@ HOPPER_BWD_CASES = [(2, 300, 4, 128, True, torch.bfloat16, "plain"),
 
 
 # the Hopper backward's gradients at f16 under `chip_smoke.py`'s
-# BWD_F16_TOL: ELEM_TOL's f16 atol lies below the plain version's own
+# ATTN_F16_TOL: ELEM_TOL's f16 atol lies below the plain version's own
 # f32 noise at these shapes (see there)
-BWD_ELEM_TOL = {**ELEM_TOL, torch.float16: BWD_F16_TOL}
+BWD_ELEM_TOL = {**ELEM_TOL, torch.float16: ATTN_F16_TOL}
 
 
 @pytest.mark.cuda
@@ -658,3 +662,81 @@ def test_tiny_bert_step_runs_through_the_xla_gate():
     assert torch.isfinite(loss).item()
     assert ta.GATE_COUNTS["xla"] == xla + cfg.layers
     assert [f.launches for f in k1] == before
+
+
+# K2-bwd on the Hopper kernels at bf16, beyond K2_CASES: (B, T, Tk, N, H,
+# causal, full bias). Transformer-big's encoder call cut in batch (the
+# stride-0 key mask, k and v the views of one fused kv projection),
+# causal with Tk = 2 T, a full [B, N, T, Tk] bias with its gradient, and
+# H 128 with a ragged Tk
+HOPPER_K2_BWD_CASES = [(4, 128, 128, 16, 64, False, False),
+                       (2, 128, 256, 4, 64, True, False),
+                       (2, 128, 128, 4, 64, False, True),
+                       (4, 256, 300, 8, 128, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Tk,N,H,causal,full", HOPPER_K2_BWD_CASES)
+def test_hopper_k2_backward_matches_plain_version(B, T, Tk, N, H, causal,
+                                                  full):
+    """dkv and dq (one launch each; dq with the bias gradient for a full
+    bias) against their plain versions from the plain forward's
+    residuals, per element under ELEM_TOL (dbias under f32's); the
+    profiler shows the Hopper kernels and no FMA one."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dtype = torch.bfloat16
+    q, k, v, do, bias = _k2_inputs(B, T, Tk, N, H, dtype, full, T + Tk + H)
+    out, l, m = fb.flash_attention_bias_ref(q, k, v, bias, 0.125, causal)
+    delta = fa.attention_delta_ref(out, do)
+    args = (q, k, v, bias, do, l, m, delta, 0.125, causal)
+    counts = (fb.flash_attention_bias_bwd_dkv.launches,
+              fb.flash_attention_bias_bwd_dq.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dk, dv = fb.flash_attention_bias_bwd_dkv(*args)
+        dq = fb.flash_attention_bias_bwd_dq(*args, with_dbias=full)
+        torch.cuda.synchronize()
+    assert (fb.flash_attention_bias_bwd_dkv.launches,
+            fb.flash_attention_bias_bwd_dq.launches) == (counts[0] + 1,
+                                                         counts[1] + 1)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "flash_bias" in e.name]
+    assert len(kernels) == 2 and all("_sm90_kernel" in n for n in kernels), \
+        kernels
+    want_dk, want_dv = fb.flash_attention_bias_bwd_dkv_ref(*args)
+    want_dq = fb.flash_attention_bias_bwd_dq_ref(*args, with_dbias=full)
+    got = [("dk", dk, want_dk, dtype), ("dv", dv, want_dv, dtype)]
+    if full:
+        got += [("dq", dq[0], want_dq[0], dtype),
+                ("dbias", dq[1], want_dq[1], torch.float32)]
+    else:
+        got += [("dq", dq, want_dq, dtype)]
+    for name, a, b, dt in got:
+        assert a.dtype == dt and a.shape == b.shape, name
+        ratio, rms = _held(a, b, dt)
+        assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
+
+
+@pytest.mark.cuda
+def test_k2_backward_wrappers_raise_on_a_misaligned_view():
+    """K2-bwd's bf16 kernels read q, k, v and dO through TMA: a view whose
+    base is not 16-byte aligned raises rather than running the FMA
+    kernel, and launches nothing."""
+    _need_card()
+    x = torch.randn(1, 64, 2, 72, device="cuda").to(torch.bfloat16)
+    q = x[..., 1:65]
+    do = torch.randn(1, 64, 2, 64, device="cuda").to(torch.bfloat16)
+    rows = torch.ones(1, 2, 64, device="cuda")
+    mask = torch.zeros(1, 1, 1, 64, device="cuda")
+    counts = (fb.flash_attention_bias_bwd_dkv.launches,
+              fb.flash_attention_bias_bwd_dq.launches)
+    with pytest.raises(ValueError, match="TMA"):
+        fb.flash_attention_bias_bwd_dkv(q, q, q, mask, do, rows, rows, rows,
+                                        0.125)
+    with pytest.raises(ValueError, match="TMA"):
+        fb.flash_attention_bias_bwd_dq(q, q, q, mask, do, rows, rows, rows,
+                                       0.125, with_dbias=True)
+    assert (fb.flash_attention_bias_bwd_dkv.launches,
+            fb.flash_attention_bias_bwd_dq.launches) == counts
