@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. kernels: each kernel against its plain PyTorch version on the card,
    with its time beside the plain version's, one PyTorch library
    call's and the card's bound: K1-fwd at the serving path's shapes,
-   K1-fwd with its LSE output and K1-bwd (delta, dkv and dq launches)
+   K1-fwd with its LSE output and K1-bwd (at bf16 and f16 two launches,
+   dq computing delta in its prologue from the output, then dkv; the
+   external-delta dq launch and the standalone delta launch beside them)
    at the training phases' own shapes (BERT-base 256 x 128 and
    32 x 512, full; GPT-2-small 8 x 1024, causal) and at batch 32 and 1
    of the same models, all bf16, plus f32 and f16 at one shape each,
@@ -339,10 +341,14 @@ def _sdpa_bwd_ms(q, k, v, do, causal, scale, reps=30):
 
 def _training_kernel_case(fa, B, T, causal, dname, gen, N=12, H=64,
                           grad_tol=None):
-    """One case: K1-fwd with LSE and the three K1-bwd launches against
-    their plain versions, and the whole backward (from the plain
-    forward's residuals) against its plain version; the gradients under
-    `grad_tol` where given, else ELEM_TOL."""
+    """One case: K1-fwd with LSE and K1-bwd's launches against their
+    plain versions: dq given the output (at bf16 and f16 its kernel
+    computes delta in its prologue), dkv from that delta, the
+    external-delta dq launch given the same delta (bit for bit the
+    folded one's dq: "equal_to_folded") and the standalone delta launch;
+    and the whole backward (from the plain forward's residuals) against
+    its plain version; the gradients under `grad_tol` where given, else
+    ELEM_TOL, each delta under f32's."""
     import torch
 
     scale = 1.0 / H ** 0.5
@@ -352,20 +358,26 @@ def _training_kernel_case(fa, B, T, causal, dname, gen, N=12, H=64,
     q, k, v = (t.view(B, T, N, H) for t in qkv.split(N * H, dim=-1))
     do = torch.randn(B, T, N, H, generator=gen, device="cuda").to(dtype)
     out, lse = fa.flash_attention_with_lse(q, k, v, scale, causal)
-    delta = fa.attention_delta(out, do)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, scale,
+                                          causal, o=out)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dq_external = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                            causal)
+    standalone = fa.attention_delta(out, do)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale, causal,
                                               with_lse=True)
     # each launch's plain version from the kernels' own residuals
     ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(
         q, k, v, out, lse, do, scale, causal)))
+    ref_delta = fa.attention_delta_ref(out, do)
     errs = {"out": held(out, ref_out, dname),
-            "delta": held(delta, fa.attention_delta_ref(out, do),
-                          "float32"),
+            "delta": held(delta, ref_delta, "float32"),
+            "delta_standalone": held(standalone, ref_delta, "float32"),
             "dq": held(dq, ref["dq"], dname, grad_tol),
+            "dq_external": {**held(dq_external, ref["dq"], dname, grad_tol),
+                            "equal_to_folded": torch.equal(dq_external, dq)},
             "dk": held(dk, ref["dk"], dname, grad_tol),
             "dv": held(dv, ref["dv"], dname, grad_tol)}
     whole = fa.flash_attention_bwd(q, k, v, ref_out, ref_lse, do, scale,
@@ -378,9 +390,19 @@ def _training_kernel_case(fa, B, T, causal, dname, gen, N=12, H=64,
     return (q, k, v, do, out, lse, delta, scale), errs, lse_err
 
 
+def failed_checks(prefix, errs):
+    """The readings of `errs` ({name: held(...)}) that fail: a ratio over
+    1, or an external-delta result that is not the folded one's bit for
+    bit."""
+    return [f"{prefix} {name}: {e}" for name, e in errs.items()
+            if not e["ratio"] <= 1.0 or e.get("equal_to_folded") is False]
+
+
 def _training_kernel_timings(fa, case, causal):
     """ms, plain_ms, library_ms and the bound of K1-fwd-LSE, the whole
-    K1-bwd and each of its three launches, at one case's inputs."""
+    K1-bwd (two launches; the three-launch form with the standalone delta
+    beside it) and its dkv and dq launches and the delta pass folded into
+    dq, at one case's inputs."""
     import torch.nn.functional as F
 
     q, k, v, do, out, lse, delta, scale = case
@@ -394,21 +416,31 @@ def _training_kernel_timings(fa, case, causal):
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=scale)),
         "bound": attention_bound_ms(q, k, causal, 2, 4, 1)}}
-    # the whole backward (delta, dkv and dq launches) is no kernel row
-    # of its own: its launches are the three rows'
+    # the whole backward (dq with the delta pass, then dkv) is no kernel
+    # row of its own: its launches are the dq and dkv rows'
     t["bwd_whole"] = {
         "ms": time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, do, scale, causal)),
+        "three_launch_ms": time_ms(lambda: _k1_bwd_three_launches(
+            fa, q, k, v, out, lse, do, scale, causal)),
         "plain_ms": time_ms(lambda: fa.flash_attention_bwd_ref(
             q, k, v, out, lse, do, scale, causal)),
         "library_ms": _sdpa_bwd_ms(q, k, v, do, causal, scale),
         "bound": attention_bound_ms(q, k, causal, 5, 8, 2)}
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, None, scale, causal, o=out))
+    dq_external_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, scale, causal))
+    # the delta pass folded into dq: the folded launch's time less the
+    # external-delta launch's, against one read of o and the delta rows'
+    # write (dq reads dO anyway)
     t["delta"] = {
-        "ms": time_ms(lambda: fa.attention_delta(out, do)),
+        "ms": dq_ms - dq_external_ms,
+        "standalone_ms": time_ms(lambda: fa.attention_delta(out, do)),
         "plain_ms": time_ms(lambda: fa.attention_delta_ref(out, do)),
         "library_ms": None,
-        "bound": bound_ms(2 * out.numel() * out.element_size() +
-                          B * N * T * 4, 2 * out.numel(), F32_FLOPS_PER_S)}
+        "bound": bound_ms(out.numel() * out.element_size() + B * N * T * 4,
+                          2 * out.numel(), F32_FLOPS_PER_S)}
     t["dkv"] = {
         "ms": time_ms(lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, scale, causal)),
@@ -416,20 +448,31 @@ def _training_kernel_timings(fa, case, causal):
             q, k, v, do, lse, delta, scale, causal)),
         "library_ms": None,
         "bound": attention_bound_ms(q, k, causal, 4, 6, 2)}
+    # dq as the main path runs it, folding the delta pass in: q, k, v,
+    # dO and o read, dq written, lse read and delta written
     t["dq"] = {
-        "ms": time_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, scale, causal)),
+        "ms": dq_ms, "external_ms": dq_external_ms,
         "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_ref(
-            q, k, v, do, lse, delta, scale, causal)),
+            q, k, v, do, lse, None, scale, causal, o=out)),
         "library_ms": None,
-        "bound": attention_bound_ms(q, k, causal, 3, 5, 2)}
+        "bound": attention_bound_ms(q, k, causal, 3, 6, 2)}
     return t
 
 
+def _k1_bwd_three_launches(fa, q, k, v, out, lse, do, scale, causal):
+    """K1-bwd as it ran before the fold: the standalone delta launch, then
+    dkv and the external-delta dq."""
+    delta = fa.attention_delta(out, do)
+    return (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                      causal),
+            *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                        causal))
+
+
 def _training_kernel_rows():
-    """K1-fwd with LSE and K1-bwd's three launches against their plain
-    versions at every case, and their times at the bf16 cases. Returns
-    the kernel rows, every case's readings and the failed checks."""
+    """K1-fwd with LSE and K1-bwd's launches against their plain versions
+    at every case, and their times at the bf16 cases. Returns the kernel
+    rows, every case's readings and the failed checks."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -445,8 +488,7 @@ def _training_kernel_rows():
                        "tol": ELEM_TOL[dname],
                        "grad_tol": grad_tol or ELEM_TOL[dname],
                        "lse_max_abs_err": lse_err, "held": errs})
-        failed += [f"K1 {label} {name}: {e}" for name, e in errs.items()
-                   if not e["ratio"] <= 1.0]
+        failed += failed_checks(f"K1 {label}", errs)
         if not lse_err <= 1e-4:
             failed.append(f"K1 {label} lse: max abs error {lse_err} > 1e-4")
         if timed:
@@ -463,8 +505,9 @@ def _training_kernel_rows():
     for name, key, err, replaces in (
             ("flash_attention_fwd_lse", "fwd_lse", worst("out"),
              "K1 attention.py:_splash_mha fwd with LSE (under grad)"),
-            ("flash_attention_bwd_delta", "delta", worst("delta"),
-             "K1-bwd splash vjp di = rowsum(o*do)"),
+            (DELTA, "delta", worst("delta"),
+             "K1-bwd splash vjp di = rowsum(o*do), folded into the dq "
+             "kernels at bf16 and f16"),
             ("flash_attention_bwd_dkv", "dkv", worst("dk", "dv"),
              "K1-bwd splash dkv kernel"),
             ("flash_attention_bwd_dq", "dq", worst("dq"),
@@ -546,9 +589,11 @@ K1_BWD_LONG = (8, 4096, 12, 64)
 
 
 def _k1_bwd_long():
-    """K1-bwd's three launches at T 4096 against their plain versions at
-    B 1 (per element under ELEM_TOL), then the whole backward and its
-    dkv and dq launches timed at B 8 beside SDPA's backward."""
+    """K1-bwd's launches at T 4096 against their plain versions at B 1
+    (per element under ELEM_TOL), then the whole backward (two launches,
+    and the three-launch form) and its dkv and dq launches (dq folding
+    the delta pass in, and given delta) timed at B 8 beside SDPA's
+    backward."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -560,22 +605,26 @@ def _k1_bwd_long():
                                                 gen, N, H)
     del case
     torch.cuda.empty_cache()
-    failed += [f"K1 long {name}: {e}" for name, e in errs.items()
-               if not e["ratio"] <= 1.0]
+    failed += failed_checks("K1 long", errs)
     if not lse_err <= 1e-4:
         failed.append(f"K1 long lse: max abs error {lse_err} > 1e-4")
     scale = 1.0 / H ** 0.5
     q, k, v, do = (torch.randn(B, T, N, H, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     out, lse = fa.flash_attention_with_lse(q, k, v, scale, False)
-    delta = fa.attention_delta(out, do)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, scale,
+                                         False, o=out)
     timing = {
         "shape": [B, T, N, H], "dtype": "bfloat16",
         "ms": time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, do, scale, False), reps=10),
+        "three_launch_ms": time_ms(lambda: _k1_bwd_three_launches(
+            fa, q, k, v, out, lse, do, scale, False), reps=10),
         "dkv_ms": time_ms(lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, scale, False), reps=10),
         "dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, None, scale, False, o=out), reps=10),
+        "dq_external_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
             q, k, v, do, lse, delta, scale, False), reps=10),
         "library_ms": _sdpa_bwd_ms(q, k, v, do, False, scale, reps=10),
         "bound": attention_bound_ms(q, k, False, 5, 8, 2)}
@@ -674,7 +723,9 @@ def _k2_inputs(B, Tq, Tk, N, dname, kind, gen, H=64):
 
 def _k2_timings(fa, fb, case):
     """ms, plain_ms, library_ms and the bound of K2-fwd, its dkv and dq
-    launches and the whole backward (delta, dkv, dq) at one case."""
+    launches (dq folding the delta pass in; given delta beside it) and
+    the whole backward (two launches: dq, then dkv; the three-launch form
+    with the standalone delta beside it) at one case."""
     import torch
     import torch.nn.functional as F
 
@@ -684,17 +735,26 @@ def _k2_timings(fa, fb, case):
     # SDPA adds its mask after the scale, K2 its bias before
     amask = (bias * scale).to(q.dtype)
 
+    def folded_dq():
+        return fb.flash_attention_bias_bwd_dq(q, k, v, bias, do, l, m, None,
+                                              scale, False, o=out)
+
     def whole():
+        dq, d = folded_dq()
+        return dq, fb.flash_attention_bias_bwd_dkv(q, k, v, bias, do, l, m, d,
+                                                   scale, False)
+
+    def whole_three():
         d = fa.attention_delta(out, do)
         a = (q, k, v, bias, do, l, m, d, scale, False)
-        return fb.flash_attention_bias_bwd_dkv(*a), \
-            fb.flash_attention_bias_bwd_dq(*a)
+        return fb.flash_attention_bias_bwd_dq(*a), \
+            fb.flash_attention_bias_bwd_dkv(*a)
 
     def whole_ref():
-        d = fa.attention_delta_ref(out, do)
-        a = (q, k, v, bias, do, l, m, d, scale, False)
-        return fb.flash_attention_bias_bwd_dkv_ref(*a), \
-            fb.flash_attention_bias_bwd_dq_ref(*a)
+        dq, d = fb.flash_attention_bias_bwd_dq_ref(q, k, v, bias, do, l, m,
+                                                   None, scale, False, o=out)
+        return dq, fb.flash_attention_bias_bwd_dkv_ref(q, k, v, bias, do, l,
+                                                       m, d, scale, False)
 
     qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=amask,
@@ -713,13 +773,20 @@ def _k2_timings(fa, fb, case):
                     lambda: fb.flash_attention_bias_bwd_dkv_ref(*args)),
                 "library_ms": None,
                 "bound": k2_bound_ms(q, k, bias, False, 4, 2, 4, 3)},
-        "dq": {"ms": time_ms(lambda: fb.flash_attention_bias_bwd_dq(*args)),
+        # dq as the main path runs it, folding the delta pass in: q, dO
+        # and o read and dq written, k and v read, l and m read and
+        # delta written
+        "dq": {"ms": time_ms(folded_dq),
+               "external_ms": time_ms(
+                   lambda: fb.flash_attention_bias_bwd_dq(*args)),
                "plain_ms": time_ms(
-                   lambda: fb.flash_attention_bias_bwd_dq_ref(*args)),
+                   lambda: fb.flash_attention_bias_bwd_dq_ref(
+                       q, k, v, bias, do, l, m, None, scale, False, o=out)),
                "library_ms": None,
-               "bound": k2_bound_ms(q, k, bias, False, 3, 3, 2, 3)},
+               "bound": k2_bound_ms(q, k, bias, False, 3, 4, 2, 3)},
         "bwd_whole": {
-            "ms": time_ms(whole), "plain_ms": time_ms(whole_ref),
+            "ms": time_ms(whole), "three_launch_ms": time_ms(whole_three),
+            "plain_ms": time_ms(whole_ref),
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
             "bound": k2_bound_ms(q, k, bias, False, 5, 4, 4, 2)}}
@@ -727,10 +794,14 @@ def _k2_timings(fa, fb, case):
 
 def k2_case(B, Tq, Tk, N, H, causal, dname, kind, gen, tol=None,
             with_dbias=False, scale=0.125):
-    """One K2 case: K2-fwd and K2-bwd's dkv and dq launches (dq with the
-    bias gradient when asked) against their plain versions, per element
-    under ELEM_TOL (or `tol`; the bias gradient under f32's), delta
-    under f32's, l and m as the same f32 sums in another order. Returns
+    """One K2 case: K2-fwd and K2-bwd's launches (dq with the bias
+    gradient when asked) against their plain versions, per element under
+    ELEM_TOL (or `tol`; the bias gradient under f32's): dq given the
+    output (at bf16 and f16 its kernel computes delta in its prologue),
+    dkv from that delta, the external-delta dq launch given the same
+    delta (bit for bit the folded one's dq and dbias:
+    "equal_to_folded"), each delta (folded, and the standalone launch)
+    under f32's; l and m as the same f32 sums in another order. Returns
     the inputs and outputs (q, k, v, do, bias, out, l, m, delta, scale),
     the readings by output and {l_rel_err, m_max_abs_err}."""
     import torch
@@ -740,24 +811,33 @@ def k2_case(B, Tq, Tk, N, H, causal, dname, kind, gen, tol=None,
 
     q, k, v, do, bias = _k2_inputs(B, Tq, Tk, N, dname, kind, gen, H)
     out, l, m = fb.flash_attention_bias_fwd(q, k, v, bias, scale, causal)
-    delta = fa.attention_delta(out, do)
+    *dq, delta = fb.flash_attention_bias_bwd_dq(
+        q, k, v, bias, do, l, m, None, scale, causal, with_dbias=with_dbias,
+        o=out)
     args = (q, k, v, bias, do, l, m, delta, scale, causal)
     dk, dv = fb.flash_attention_bias_bwd_dkv(*args)
-    dq = fb.flash_attention_bias_bwd_dq(*args, with_dbias=with_dbias)
+    external = fb.flash_attention_bias_bwd_dq(*args, with_dbias=with_dbias)
+    external = external if with_dbias else (external,)
+    standalone = fa.attention_delta(out, do)
     torch.cuda.synchronize()
     ref_out, ref_l, ref_m = fb.flash_attention_bias_ref(
         q, k, v, bias, scale, causal)
     ref_dk, ref_dv = fb.flash_attention_bias_bwd_dkv_ref(*args)
     ref_dq = fb.flash_attention_bias_bwd_dq_ref(*args, with_dbias=with_dbias)
+    ref_dq = ref_dq if with_dbias else (ref_dq,)
+    ref_delta = fa.attention_delta_ref(out, do)
     errs = {"out": held(out, ref_out, dname, tol),
-            "delta": held(delta, fa.attention_delta_ref(out, do), "float32"),
+            "delta": held(delta, ref_delta, "float32"),
+            "delta_standalone": held(standalone, ref_delta, "float32"),
             "dk": held(dk, ref_dk, dname, tol),
-            "dv": held(dv, ref_dv, dname, tol)}
+            "dv": held(dv, ref_dv, dname, tol),
+            "dq": held(dq[0], ref_dq[0], dname, tol),
+            "dq_external": {**held(external[0], ref_dq[0], dname, tol),
+                            "equal_to_folded": all(
+                                torch.equal(a, b)
+                                for a, b in zip(external, dq))}}
     if with_dbias:
-        errs["dq"] = held(dq[0], ref_dq[0], dname, tol)
         errs["dbias"] = held(dq[1], ref_dq[1], "float32")
-    else:
-        errs["dq"] = held(dq, ref_dq, dname, tol)
     # l and m: the same f32 sums and maxima in another order
     lm = {"l_rel_err": ((l - ref_l).abs() / ref_l).max().item(),
           "m_max_abs_err": (m - ref_m).abs().max().item()}
@@ -782,8 +862,7 @@ def _k2_kernel_rows():
         checks.append({"case": label, "shape": [B, Tq, Tk, N, H],
                        "causal": causal, "dtype": dname, "bias": kind,
                        "tol": tol or ELEM_TOL[dname], **lm, "held": errs})
-        failed += [f"K2 {label} {name}: {e}" for name, e in errs.items()
-                   if not e["ratio"] <= 1.0]
+        failed += failed_checks(f"K2 {label}", errs)
         if not (lm["l_rel_err"] <= 1e-5 and lm["m_max_abs_err"] <= 1e-4):
             failed.append(f"K2 {label} l/m: {lm}")
         if label in K2_TIMED:
@@ -1200,6 +1279,7 @@ def _device_time(prof, wall_s):
         [kern for r in K2_ROUTES.values() for kern in r.values()]))
     k2_n = {kern: sum(t[0] for n, t in by_name.items() if kern in n)
             for kern in k2}
+    delta_n = sum(t[0] for n, t in by_name.items() if "delta_kernel" in n)
     fdb = {"k4": 0.0, "k5": 0.0, "k6": 0.0}
     for n, t in by_name.items():
         kern = _fdb_kernel(n)
@@ -1211,6 +1291,7 @@ def _device_time(prof, wall_s):
             "flash_attention_ms": k1["flash_fwd_kernel"] +
             k1["flash_fwd_sm90_kernel"],
             "k1_kernel_ms": k1, "k2_kernel_ms": k2, "k2_kernel_launches": k2_n,
+            "delta_kernel_records": delta_n,
             "k4_k6_kernel_ms": fdb,
             "top_kernels": [{"name": n[:90], "count": c, "ms": ms}
                             for n, (c, ms) in top]}
@@ -1311,14 +1392,27 @@ def _adamw(params):
     return torch.optim.AdamW(params, lr=LR, weight_decay=1e-4)
 
 
-K1_TRAIN = ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
-            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+K1_TRAIN = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
 K2_NAMES = ("flash_attention_bias_fwd", "flash_attention_bias_bwd_dkv",
             "flash_attention_bias_bwd_dq")
+# the standalone delta launch, and the dq launches of K1 and K2 that
+# folded the delta pass into their prologue (bf16 and f16)
+DELTA = "flash_attention_bwd_delta"
+K1_FOLD = "flash_attention_bwd_dq.delta_folds"
+K2_FOLD = "flash_attention_bias_bwd_dq.delta_folds"
+
+
+def k1_per_step(layers):
+    """K1's launches a bf16 training step of `layers` attention layers:
+    the forward with its LSE, and dq, folding the delta pass in, then
+    dkv."""
+    return {**dict.fromkeys(K1_TRAIN, layers), K1_FOLD: layers}
 
 
 def _kernel_counts(reset=False):
-    """Every kernel wrapper's launch count, set to 0 first with reset."""
+    """Every kernel wrapper's launch count and the dq wrappers' delta
+    folds, set to 0 first with reset."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import flash_attention_bias as fb
     from paddle_tpu_torch.kernels import fused_dense_bn as fdb
@@ -1327,16 +1421,21 @@ def _kernel_counts(reset=False):
     fns.update({"flash_attention_fwd": fa.flash_attention,
            "flash_attention_fwd_lse": fa.flash_attention_with_lse,
            "splash_block_with_lse": fa.splash_block_with_lse,
-           "flash_attention_bwd_delta": fa.attention_delta,
+           DELTA: fa.attention_delta,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
            "flash_attention_bias_fwd": fb.flash_attention_bias_fwd,
            "flash_attention_bias_bwd_dkv": fb.flash_attention_bias_bwd_dkv,
            "flash_attention_bias_bwd_dq": fb.flash_attention_bias_bwd_dq})
+    folds = {K1_FOLD: fa.flash_attention_bwd_dq,
+             K2_FOLD: fb.flash_attention_bias_bwd_dq}
     if reset:
         for fn in fns.values():
             fn.launches = 0
-    return {name: fn.launches for name, fn in fns.items()}
+        for fn in folds.values():
+            fn.delta_folds = 0
+    return {**{name: fn.launches for name, fn in fns.items()},
+            **{name: fn.delta_folds for name, fn in folds.items()}}
 
 
 def phase_train_parity():
@@ -1360,8 +1459,9 @@ def phase_train_parity():
     cuda = _one_train_step(loss_fn, params, batch, "cuda")
     cpu = _one_train_step(loss_fn, params, batch, "cpu")
     kc = cuda["counts"]
-    check(all(kc[name] == cfg.layers for name in K1_TRAIN) and
-          all(kc[name] == 0 for name in K2_NAMES),
+    # f32: K1's FMA dq takes delta from the standalone launch
+    want = {**dict.fromkeys(K1_TRAIN, cfg.layers), DELTA: cfg.layers}
+    check(all(n == want.get(name, 0) for name, n in kc.items()),
           f"train-parity: the CUDA step ran {kc} launches")
     print(json.dumps({"phase": "train-parity",
                       "model": "BertConfig(layers=2), f32, 4 x 128",
@@ -1443,7 +1543,10 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     wrong kernel and returns False on a short count), a trace it
     returns False on is taken again, up to TRACE_TRIES times: the
     profiler can drop a kernel's record (one K2-fwd record of 12 once
-    on an H100), while the counts above are the wrappers' own."""
+    on an H100), while the counts above are the wrappers' own. Where
+    `per_step` names no standalone delta launch (the bf16 paths, whose
+    dq kernels fold the delta pass in), a traced step that shows a
+    `delta_kernel` record fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1494,6 +1597,10 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     check(trace_ok is None or trace_ok(profiled),
           f"{label}: {len(traces)} traced steps each short of a kernel: "
           f"{[t['k2_kernel_launches'] for t in traces]}")
+    check(per_step.get(DELTA, 0) or
+          not any(t["delta_kernel_records"] for t in traces),
+          f"{label}: a traced step ran the standalone delta_kernel: "
+          f"{[t['delta_kernel_records'] for t in traces]}")
     ms = statistics.median(times)
     samples_s = n / (ms / 1e3)
     row = {"run": label, "batch": n, "warmup": warmup, "steps": steps,
@@ -1545,7 +1652,7 @@ def phase_train():
         P = batch["masked_positions"].shape[1]
         row = _train_run(f"bert-base {B}x{T}", loss_fn, params, batch,
                          cfg.train_flops_per_seq(T, P), 3, 20,
-                         dict.fromkeys(K1_TRAIN, cfg.layers))
+                         k1_per_step(cfg.layers))
         row["masked_per_seq"] = P
         rows.append(row)
         for k, v in row["launches"].items():
@@ -1585,7 +1692,7 @@ def phase_gpt_train():
 
     row = _train_run("gpt-2-small 8x1024", loss_fn, params, batch,
                      gpt_train_flops_per_seq(cfg, cfg.max_len), 2, 10,
-                     dict.fromkeys(K1_TRAIN, cfg.layers))
+                     k1_per_step(cfg.layers))
     print(json.dumps({"phase": "gpt-train", "model": "GPT-2-small "
                       "(GPTConfig()), mixed_bf16", "run": row}))
     return row["launches"]
@@ -1601,12 +1708,15 @@ def _adam(params):
 
 # per training step of Transformer-big: K2 in the 6 encoder self- and 6
 # cross-attention calls, K1 in the 6 causal decoder self-attention
-# calls, K1's delta launch in all 18 backwards
+# calls; the delta pass of all 18 backwards folded into their dq
+# kernels at bf16, K1's standalone delta launch at f32
 def nmt_per_step(cfg):
     k2 = cfg.enc_layers + cfg.dec_layers
-    return {**dict.fromkeys(K2_NAMES, k2),
-            **dict.fromkeys(K1_TRAIN, cfg.dec_layers),
-            "flash_attention_bwd_delta": k2 + cfg.dec_layers}
+    n = {**dict.fromkeys(K2_NAMES, k2),
+         **dict.fromkeys(K1_TRAIN, cfg.dec_layers)}
+    if cfg.dtype == "float32":
+        return {**n, DELTA: k2 + cfg.dec_layers}
+    return {**n, K1_FOLD: cfg.dec_layers, K2_FOLD: k2}
 
 
 def _k2_trace_ok(label, per_step):
@@ -1820,8 +1930,7 @@ def phase_bert_padded(unpadded):
     batch["attention_mask"] = (torch.arange(T, device="cuda")[None]
                                < lens[:, None]).long()
     P = batch["masked_positions"].shape[1]
-    per_step = {**dict.fromkeys(K2_NAMES, cfg.layers),
-                "flash_attention_bwd_delta": cfg.layers}
+    per_step = {**dict.fromkeys(K2_NAMES, cfg.layers), K2_FOLD: cfg.layers}
     row = _train_run(f"bert-base {B}x{T} padded", loss_fn, params, batch,
                      cfg.train_flops_per_seq(T, P), 3, 20, per_step,
                      trace_ok=_k2_trace_ok("bert-padded", per_step))
@@ -2303,8 +2412,7 @@ def phase_bert_long_sp():
     check(sp_row is not None, "bert-long-sp: no rung of [8, 4, 2, 1] fit")
     params, batch, flops = setup(B)
     k1_row = _train_run(f"bert-base {B}x{T} no mesh", loss_fn, params,
-                        batch, flops, 2, 10,
-                        dict.fromkeys(K1_TRAIN, cfg.layers))
+                        batch, flops, 2, 10, k1_per_step(cfg.layers))
     del params, batch
     print(json.dumps({
         "phase": "bert-long-sp",
@@ -2393,6 +2501,12 @@ def main() -> int:
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts):
         launches.update(counts)
+    # every main path runs attention at bf16, where the dq kernels fold
+    # the delta pass in: the delta row counts those folds, and the
+    # standalone delta launch must not have run
+    check(launches[DELTA] == 0,
+          f"the standalone delta launch ran on a main path: {launches}")
+    launches[DELTA] = launches[K1_FOLD] + launches[K2_FOLD]
     check(all(launches[row["name"]] > 0 for row in
               [serving_row] + training_rows + k2_rows + [k3_row] + fdb_rows),
           f"a kernel of the main paths was never launched: {launches}")
@@ -2410,16 +2524,24 @@ def main() -> int:
     for row in training_rows:
         # the row's times at phase 7's first run (BERT-base 256 x 128)
         t = row["timings"]["bert"]
+        fold = row["name"] == DELTA
         rows.append({
             "name": row["name"], "route": "cuda",
             "source": src + ("flash_attention.cu" if row["name"].endswith(
-                "fwd_lse") else "flash_attention_bwd.cu"),
+                "fwd_lse") else "sm90.cuh" if fold
+                else "flash_attention_bwd.cu"),
             "replaces": "paddle_tpu/ops/pallas/attention.py:" + (
                 "361" if row["name"].endswith("fwd_lse") else "356"),
             "launches": launches[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            # the delta pass runs as the prologue of K1's and K2's dq
+            # kernels: its launches are their folds, its ms the folded dq
+            # launch's time less the external-delta one's
+            **({"folded_into": ["flash_attention_bwd_dq",
+                                "flash_attention_bias_bwd_dq"]}
+               if fold else {})})
     jax_fa = "jax/experimental/pallas/ops/tpu/flash_attention.py:"
     for row in k2_rows:
         # the row's times at phase 10's calls (Transformer-big 128 x 128)

@@ -7,8 +7,11 @@
 // _flash_attention_bwd_dkv and _flash_attention_bwd_dq), the custom vjp
 // that jax.grad runs through the JAX package's
 // ops/pallas/attention.py::_pallas_mha. Two launches, each step for step
-// the reference's; the third step, di = rowsum(f32(o) * f32(do)), is
-// plain jnp there and K1's delta launch here (flash_attention_bwd.cu):
+// the reference's, dq first; the third step, di = rowsum(f32(o) *
+// f32(do)), is plain jnp there and at bf16 and f16 the prologue of the
+// Hopper dq kernel here (sm90.cuh's delta_load_o and delta_rows, as in
+// K1-bwd's dq), which writes it for dkv; at f32 it is K1's delta launch
+// (flash_attention_bwd.cu):
 //
 //   dkv  one block per (batch*head, key tile), looping over the query
 //        tiles: s recomputed with the bias, scale and causal mask,
@@ -70,13 +73,16 @@
 //
 // Reached (kernels/probe_sm90.py's device times on an NVIDIA H100 80GB
 // HBM3, 700 W): at Transformer-big's 128 x 128 x 16 heads with a key
-// mask dkv 0.164 ms and dq 0.112, at padded BERT-base's 32 x 512 x 12
-// heads 0.266 and 0.198; chip_smoke.py's `ms` a call at the first shape
-// 0.266 and 0.199, where the FMA kernels took 0.910 and 0.745. 288 threads
-// leave 168 registers a thread: at H 64 the key-mask dkv takes all 168
-// and dq 158, with no spill; the full-bias forms spill 12 (dq) and 80
-// (dkv) bytes, and at H 128 dkv spills 436-544 bytes and ptxas
-// serialises its wgmma (neither is on a main path).
+// mask dkv 0.166 ms and dq, with the delta pass folded in, 0.115 (0.107
+// given delta; the standalone pass took 0.048), at padded BERT-base's
+// 32 x 512 x 12 heads 0.268 and 0.204; chip_smoke.py's `ms` a call at
+// the first shape 0.221 and 0.175, where the FMA kernels took 0.910 and
+// 0.745, and the whole backward 0.345 (three launches 0.376, SDPA's
+// backward 0.367). 288 threads leave 168 registers a thread: at H 64
+// the key-mask dkv takes all 168 and dq 156, with no spill; the
+// full-bias forms spill 12 (dq) and 80 (dkv) bytes, and at H 128 dq
+// spills 32-140 bytes, dkv 436-544 bytes with its wgmma serialised
+// (none is on a main path).
 //
 // f32 (flash_bias_bwd_dkv_kernel, flash_bias_bwd_dq_kernel): the
 // products on the f32 FMA pipes from shared memory, 64 x 64 tiles; wgmma
@@ -561,7 +567,9 @@ flash_bias_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // dP = dO V^T, x = (S + bias) * scale, p = exp(x - m) * (1/l) and ds =
 // (dP - delta) p scale with 1/l, m and delta per row, dQ += round(ds) K;
 // with `dbias`, ds in f32 to dbias. KEY_MASK: the bias is mha's key mask,
-// read as pairs of columns before each tile's products.
+// read as pairs of columns before each tile's products. With `o` (the
+// forward's output), delta is computed in the prologue from o and the
+// owned dO tile and written to `delta` for dkv, once a row.
 template <typename T, int HD, bool KEY_MASK>
 __global__ void __launch_bounds__(sm90::ATT_THREADS, 1)
 flash_bias_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -571,7 +579,8 @@ flash_bias_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const float* __restrict__ bias,
                               const float* __restrict__ l,
                               const float* __restrict__ m,
-                              const float* __restrict__ delta,
+                              float* __restrict__ delta,
+                              const T* __restrict__ o,
                               T* __restrict__ dq, float* __restrict__ dbias,
                               int N, int Tq, int Tk, int64_t a_sb,
                               int64_t a_sn, int64_t a_st, int64_t a_ss,
@@ -610,22 +619,40 @@ flash_bias_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wrow = q0 + 64 * wg;                     // the warpgroup's rows
   const int row0 = wrow + 16 * (t / 32) + lane / 4;  // and row0 + 8
   const float* ab = bias + b * a_sb + n * a_sn;
+  const bool fold = o != nullptr;   // uniform across the block
 
-  float li[2], mr[2], er[2];
+  float li[2], mr[2], er[2];   // li holds l until every load is issued
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     const int64_t at = static_cast<int64_t>(bn) * Tq + row;
-    li[i] = row < Tq ? 1.f / l[at] : 0.f;
+    li[i] = row < Tq ? l[at] : 0.f;
     mr[i] = row < Tq ? m[at] : 0.f;
-    er[i] = row < Tq ? delta[at] : 0.f;
+    er[i] = row < Tq && !fold ? delta[at] : 0.f;
+  }
+  // the fold's share of o, read under the owned tiles' TMA; issued after
+  // the rows' loads, so those do not queue behind it, and before 1/l, so
+  // the thread does not wait on l before issuing it: either other order
+  // puts one load's latency after the other's in every block
+  uint4 ov[2][HD / 32];
+  if (fold) sm90::delta_load_o<T, HD>(ov, o, b, n, N, Tq, row0, row0 - q0, c);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) li[i] = row0 + 8 * i < Tq ? 1.f / li[i] : 0.f;
+
+  sm90::mbar_wait(bars, 0);
+  if (fold) {
+    sm90::delta_rows<T, HD>(er, ov, base + L::OWN_B, L::BOX_OWN, row0 - q0,
+                            c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (c == 0 && row0 + 8 * i < Tq)
+        delta[static_cast<int64_t>(bn) * Tq + row0 + 8 * i] = er[i];
   }
 
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
-  sm90::mbar_wait(bars, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % BWD_STAGES;
     const int k0 = kt * BWD_TILE;
@@ -695,7 +722,8 @@ flash_bias_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 struct Args {
   const void *q, *k, *v, *dout;
-  const float *bias, *l, *m, *delta;
+  const float *bias, *l, *m;
+  float* delta;   // written by the Hopper dq kernel when it is given o
   int B, N, Tq, Tk;
   Strides st;
   float scale;
@@ -744,8 +772,10 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   }
 }
 
+// o: NULL, or (bf16 and f16 only) the forward's output, from which the
+// Hopper dq kernel computes delta and writes it
 template <typename T, int HD>
-cudaError_t launch_dq(const Args& a, void* dq, float* dbias) {
+cudaError_t launch_dq(const Args& a, const void* o, void* dq, float* dbias) {
   if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap mp[4];
     if (!sm90::bwd_maps<T, HD>(mp, a.q, a.k, a.v, a.dout, a.B, a.N, a.Tq,
@@ -763,10 +793,11 @@ cudaError_t launch_dq(const Args& a, void* dq, float* dbias) {
     dim3 grid((a.Tq + BWD_ROWS - 1) / BWD_ROWS, a.B * a.N);
     kernel<<<grid, sm90::ATT_THREADS, smem, a.stream>>>(
         mp[0], mp[1], mp[2], mp[3], a.bias, a.l, a.m, a.delta,
-        static_cast<T*>(dq), dbias, a.N, a.Tq, a.Tk, a.st.a_sb, a.st.a_sn,
-        a.st.a_st, a.st.a_ss, a.scale, a.causal);
+        static_cast<const T*>(o), static_cast<T*>(dq), dbias, a.N, a.Tq,
+        a.Tk, a.st.a_sb, a.st.a_sn, a.st.a_st, a.st.a_ss, a.scale, a.causal);
     return cudaGetLastError();
   } else {
+    if (o != nullptr) return cudaErrorInvalidValue;   // no FMA fold
     constexpr size_t smem = dq_smem<HD>();
     auto kernel = flash_bias_bwd_dq_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -805,12 +836,14 @@ cudaError_t launch_dq(const Args& a, void* dq, float* dbias) {
   return static_cast<int>(cudaErrorInvalidValue)
 
 // Both entry points take, in order: q, k, v, bias, dO, l, m, delta, the
-// outputs (dk, dv or dq, dbias; dbias may be NULL), B, N, Tq, Tk,
+// outputs (dk, dv; or o, dq, dbias: dbias may be NULL, and with a
+// non-NULL o, the forward's output (contiguous [B, Tq, N, H], 16-byte
+// aligned; bf16 and f16), dq computes delta and writes it), B, N, Tq, Tk,
 // head_dim, dtype, the 9 q/k/v strides ([B, T, N, H]), the 4 bias
 // strides ([B, N, Tq, Tk]), scale, causal and the stream.
 #define PADDLE_BWD_ARGS                                                   \
   const void *q, const void *k, const void *v, const void *bias,          \
-      const void *dout, const void *l, const void *m, const void *delta
+      const void *dout, const void *l, const void *m, void *delta
 #define PADDLE_BWD_TAIL                                                   \
   int B, int N, int Tq, int Tk, int head_dim, int dtype, long long q_sb,  \
       long long q_st, long long q_sn, long long k_sb, long long k_st,     \
@@ -824,7 +857,7 @@ cudaError_t launch_dq(const Args& a, void* dq, float* dbias) {
                static_cast<const float*>(bias),                           \
                static_cast<const float*>(l),                              \
                static_cast<const float*>(m),                              \
-               static_cast<const float*>(delta), B, N, Tq, Tk,            \
+               static_cast<float*>(delta), B, N, Tq, Tk,                  \
                Strides{q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st,    \
                        v_sn, a_sb, a_sn, a_st, a_ss},                     \
                scale, causal, static_cast<cudaStream_t>(stream)}
@@ -837,11 +870,12 @@ extern "C" int paddle_flash_attention_bias_bwd_dkv(PADDLE_BWD_ARGS, void* dk,
                   return static_cast<int>(launch_dkv<T, HD>(a, dk, dv)));
 }
 
-extern "C" int paddle_flash_attention_bias_bwd_dq(PADDLE_BWD_ARGS, void* dq,
+extern "C" int paddle_flash_attention_bias_bwd_dq(PADDLE_BWD_ARGS,
+                                                  const void* o, void* dq,
                                                   void* dbias,
                                                   PADDLE_BWD_TAIL) {
   PADDLE_BWD_PACK;
   PADDLE_DISPATCH(dtype, head_dim,
                   return static_cast<int>(launch_dq<T, HD>(
-                      a, dq, static_cast<float*>(dbias))));
+                      a, o, dq, static_cast<float*>(dbias))));
 }

@@ -6,16 +6,22 @@
 // backward, i.e. the dq and dkv Pallas kernels of jax's splash attention
 // (the custom vjp that make_splash_mha builds, attention.py:356), which
 // jax.grad runs through models/bert.py::pretrain_loss and
-// models/gpt.py::lm_loss. Three launches, each step for step splash's:
+// models/gpt.py::lm_loss. Each step is splash's:
 //
 //   delta  delta = rowsum(f32(o) * f32(do)), from the stored output in
-//          the input dtype (splash's `di`);
+//          the input dtype (splash's `di`, plain jnp outside its
+//          kernels);
 //   dkv    one block per (batch*head, key tile), looping over the
 //          query tiles: P = exp(S - lse), dP = dO V^T,
 //          dS = (dP - delta) * P, dV += round(P)^T dO,
 //          dK += round(dS)^T Q;
 //   dq     one block per (batch*head, query tile), looping over the
 //          key tiles: the same P and dS, dQ += round(dS) K.
+//
+// At bf16 and f16 the backward is two launches, dq and then dkv: given
+// the forward's output, the Hopper dq kernel computes its rows' delta in
+// its prologue and writes it for dkv (stream order is the only
+// synchronisation). At f32 it is three: delta_kernel, dkv and dq.
 //
 // round() is the rounding to the input dtype that splash applies before
 // each product (a no-op at f32); scores, P, dS and every accumulator
@@ -60,20 +66,30 @@
 // queries a block (q scaled in place once, dO), key tiles of 64 (k, v)
 // through the ring, S = Q K^T and dP = dO V^T from shared memory,
 // lse and delta per row in registers, dQ += round(dS) K with k as the
-// MN-major B operand. splash rounds P and dS to the input dtype before
+// MN-major B operand. The folded delta pass (sm90.cuh's delta_load_o and
+// delta_rows): each thread reads its quad's share of its two rows of o
+// as 16-byte loads before the owned tiles' barrier, so the reads overlap
+// their TMA, and the same elements of dO from the owned tile in shared
+// memory, across the 128-byte swizzle, rather than from device memory
+// again; it costs one read of o and the delta rows' write, half the
+// bytes of the standalone pass, which read dO too in a launch of its
+// own. splash rounds P and dS to the input dtype before
 // these products (p.astype, ds.astype in jax's splash kernel), so the
 // 16-bit A operand is its rounding exactly. Within a warpgroup the
 // elementwise work waits for its products; the other warpgroup's
 // products fill the tensor cores meanwhile.
 //
 // Reached (chip_smoke.py and kernels/probe_sm90.py on an NVIDIA H100
-// 80GB HBM3, 700 W): at BERT-base's 256 x 128 dkv 0.299 ms and dq 0.223
-// ms a call (the FMA kernels took 1.252 and 1.056), 0.333 ms of device
-// time for both against SDPA's whole backward at 0.357; at 8 x 4096 the
-// whole backward 4.82 ms against SDPA's 2.52 (dkv 2.81, dq 2.01: about
-// 300 TFLOP/s of the 7 products). 288 threads leave 168 registers a
-// thread: at H 64 dkv takes 165 and dq 137 with no spill; at H 128 dkv
-// spills 424 bytes and ptxas serialises its wgmma (dq 166, no spill).
+// 80GB HBM3, 700 W): at BERT-base's 256 x 128 the whole backward, dq
+// with the delta pass folded in and then dkv, 0.410 ms a call (three
+// launches 0.426, SDPA's backward 0.458) and 0.342 ms of device time
+// (three launches 0.404: the fold adds 7 us to dq where the standalone
+// pass took 70); dkv 0.262 and dq 0.212 ms a call (the FMA kernels took
+// 1.252 and 1.056); at 8 x 4096 the whole backward 4.83 ms against
+// SDPA's 2.54 (dkv 2.80, dq 2.04: about 300 TFLOP/s of the 7 products).
+// 288 threads leave 168 registers a thread: at H 64 dkv takes 165 and
+// dq 137 with no spill; at H 128 dkv spills 424 bytes and ptxas
+// serialises its wgmma (dq 166, no spill).
 //
 // f32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): the products on the
 // f32 FMA pipes from shared memory, 64 x 64 tiles; wgmma has no full-
@@ -569,6 +585,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // dQ for 128 queries of one (batch, head): per key tile S = Q K^T and
 // dP = dO V^T, P = exp(S - lse) and dS = P (dP - delta) with lse and
 // delta per row, dQ += round(dS) K; the output round(round(dQ) scale).
+// With `o` (the forward's output), delta is not read but computed in the
+// prologue from o and the owned dO tile (sm90::delta_rows) and written to
+// `delta` for the dkv launch that follows: the block owns its rows, so
+// each row's delta is computed once, with no atomics.
 template <typename T, int HD>
 __global__ void __launch_bounds__(sm90::ATT_THREADS, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -576,9 +596,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         T* __restrict__ dq, int N, int Tq, int Tk,
-                         float scale, int causal) {
+                         float* __restrict__ delta,
+                         const T* __restrict__ o, T* __restrict__ dq, int N,
+                         int Tq, int Tk, float scale, int causal) {
   using L = sm90::BwdSmem<HD, 0>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = sm90::align1024(smem_raw);
@@ -612,6 +632,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = t % 32, c = lane % 4;
   const int wrow = q0 + 64 * wg;                     // the warpgroup's rows
   const int row0 = wrow + 16 * (t / 32) + lane / 4;  // and row0 + 8
+  const bool fold = o != nullptr;   // uniform across the block
 
   float lr[2], er[2];
 #pragma unroll
@@ -619,11 +640,24 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = row0 + 8 * i;
     const int64_t at = static_cast<int64_t>(bn) * Tq + row;
     lr[i] = row < Tq ? lse[at] : 0.f;
-    er[i] = row < Tq ? delta[at] : 0.f;
+    er[i] = row < Tq && !fold ? delta[at] : 0.f;
   }
+  // the fold's share of o, read under the owned tiles' TMA; issued after
+  // the rows' loads, so those do not queue behind it (the other order
+  // puts one load's latency after the other's in every block)
+  uint4 ov[2][HD / 32];
+  if (fold) sm90::delta_load_o<T, HD>(ov, o, b, n, N, Tq, row0, row0 - q0, c);
 
-  // this warpgroup's q rows, scaled in place
   sm90::mbar_wait(bars, 0);
+  if (fold) {
+    sm90::delta_rows<T, HD>(er, ov, base + L::OWN_B, L::BOX_OWN, row0 - q0,
+                            c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (c == 0 && row0 + 8 * i < Tq)
+        delta[static_cast<int64_t>(bn) * Tq + row0 + 8 * i] = er[i];
+  }
+  // this warpgroup's q rows, scaled in place
   scale_rows<T, HD>(base + L::OWN_A, L::BOX_OWN, 64 * wg, 64, scale, t, 128);
   sm90::named_sync(1 + wg, 128);
 
@@ -728,11 +762,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   }
 }
 
+// o: NULL, or (bf16 and f16 only) the forward's output, from which the
+// Hopper dq kernel computes delta and writes it
 template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int N, int Tq, int Tk, Strides st,
-                      float scale, int causal, cudaStream_t stream) {
+                      const void* dout, const float* lse, float* delta,
+                      const void* o, void* dq, int B, int N, int Tq, int Tk,
+                      Strides st, float scale, int causal,
+                      cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap m[4];
     if (!sm90::bwd_maps<T, HD>(m, q, k, v, dout, B, N, Tq, Tk, st, false))
@@ -744,10 +781,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     dim3 grid((Tq + BWD_ROWS - 1) / BWD_ROWS, B * N);
     kernel<<<grid, sm90::ATT_THREADS, smem, stream>>>(
-        m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dq), N, Tq, Tk,
-        scale, causal);
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<const T*>(o),
+        static_cast<T*>(dq), N, Tq, Tk, scale, causal);
     return cudaGetLastError();
   } else {
+    if (o != nullptr) return cudaErrorInvalidValue;   // no FMA fold
     constexpr size_t smem = dq_smem<HD>();
     auto kernel = flash_bwd_dq_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -816,10 +854,12 @@ extern "C" int paddle_flash_attention_bwd_dkv(
                       causal, s)));
 }
 
+// delta is read, or with a non-NULL o (the forward's output, contiguous
+// [B, Tq, N, H], 16-byte aligned; bf16 and f16) computed and written
 extern "C" int paddle_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int N, int Tq,
-    int Tk, int head_dim, int dtype, long long q_sb, long long q_st,
+    const void* lse, void* delta, const void* o, void* dq, int B, int N,
+    int Tq, int Tk, int head_dim, int dtype, long long q_sb, long long q_st,
     long long q_sn, long long k_sb, long long k_st, long long k_sn,
     long long v_sb, long long v_st, long long v_sn, float scale, int causal,
     void* stream) {
@@ -828,9 +868,9 @@ extern "C" int paddle_flash_attention_bwd_dq(
   const Strides st{q_sb, q_st, q_sn, k_sb, k_st, k_sn, v_sb, v_st, v_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* e = static_cast<const float*>(delta);
+  float* e = static_cast<float*>(delta);
   PADDLE_DISPATCH(dtype, head_dim,
                   return static_cast<int>(launch_dq<T, HD>(
-                      q, k, v, dout, l, e, dq, B, N, Tq, Tk, st, scale,
+                      q, k, v, dout, l, e, o, dq, B, N, Tq, Tk, st, scale,
                       causal, s)));
 }

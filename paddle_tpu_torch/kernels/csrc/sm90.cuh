@@ -738,6 +738,77 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[HD / 2],
   }
 }
 
+// The delta pass folded into a dq block's prologue: delta = rowsum(f32(o)
+// * f32(dO)) for the thread's rows row0 and row0 + 8 (local rows r0 and
+// r0 + 8 of the owned tiles), which the four threads of its quad share.
+// Each thread takes HD / 4 elements of a row: two 16-byte chunks of each
+// 64-column box, the chunks of the box's first half for rows of one
+// parity and of its second half for the other, so the two quads of a
+// quarter warp (neighbouring rows) read disjoint banks of the swizzled
+// dO tile. delta_load_o issues the o half (16-byte loads from the
+// contiguous [B, Tq, N, HD] output; rows past Tq read as zeros) after
+// the block's other row loads and before the owned tiles' barrier
+// wait, so it overlaps their TMA without delaying the rows; delta_rows
+// then reads the same elements of dO from the owned tile in shared
+// memory (rows past Tq are TMA's zeros), sums the products in f32 and
+// reduces across the quad.
+__device__ __forceinline__ int delta_chunk(int j, int r, int c) {
+  return c + 4 * ((j ^ r) & 1);   // the physical chunk in its box
+}
+
+// 16 bytes through the read-only path, issued where it stands: an asm
+// volatile is not moved past the barrier wait (another asm volatile)
+// that follows it, where an __ldg, an invariant load, may be sunk
+__device__ __forceinline__ uint4 ld_nc_v4(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ void delta_load_o(uint4 (&ov)[2][HD / 32],
+                                             const T* o, int b, int n, int N,
+                                             int Tq, int row0, int r0,
+                                             int c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i, r = r0 + 8 * i;
+    const T* orow = o + ((static_cast<int64_t>(b) * Tq + row) * N + n) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) {
+      // the logical chunk that the swizzle puts at the physical one
+      const int chunk = delta_chunk(j, r, c) ^ (r & 7);
+      ov[i][j] = row < Tq ? ld_nc_v4(orow + 64 * (j / 2) + 8 * chunk)
+                          : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ void delta_rows(float (&er)[2],
+                                           const uint4 (&ov)[2][HD / 32],
+                                           const unsigned char* tile,
+                                           int box_bytes, int r0, int c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) {
+      const uint4 d = *reinterpret_cast<const uint4*>(
+          tile + (j / 2) * box_bytes + r * 128 + 16 * delta_chunk(j, r, c));
+      const uint4 w = ov[i][j];
+      const T* oe = reinterpret_cast<const T*>(&w);
+      const T* de = reinterpret_cast<const T*>(&d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = fmaf(to_f32(oe[e]), to_f32(de[e]), s);
+    }
+    er[i] = quad_sum(s);
+  }
+}
+
 // the four tensor maps of a backward launch: q, k and v with their own
 // element strides (st.q_sb ..), dO contiguous; BWD_ROWS rows a box for the
 // tensors a block owns (k and v in dkv, q and dO in dq), BWD_TILE for the

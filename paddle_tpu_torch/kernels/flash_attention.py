@@ -29,7 +29,11 @@ card and `flash_attention_bwd_ref` on the CPU. Without grad (serving,
 `torch.inference_mode()`), it launches K1-fwd alone and saves nothing.
 
 K1-fwd has two kernels in `csrc/flash_attention.cu`, and K1-bwd's dkv
-and dq two each in `csrc/flash_attention_bwd.cu`. bf16 and f16 run the
+and dq two each in `csrc/flash_attention_bwd.cu`. At bf16 and f16 the
+backward is two launches, dq then dkv: given the forward's output, the
+dq kernel computes delta in its prologue and writes it for dkv
+(`flash_attention_bwd_dq(..., o=out)`, counted in `.delta_folds`); the
+standalone `attention_delta` launch serves f32. bf16 and f16 run the
 Hopper ones (wgmma on the tensor cores, tiles by TMA through an
 mbarrier ring, one producer warp and two consumer warpgroups); they
 remove the FMA kernels' limit, the products on the FP32 pipes. They
@@ -133,24 +137,31 @@ def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale: float,
 
 
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale: float,
-                               causal: bool):
+                               causal: bool, o=None):
     """Plain version of the dq kernel: round(dS) K, rounded to q's dtype,
-    times the scale in q's dtype (the gradient through q * scale)."""
+    times the scale in q's dtype (the gradient through q * scale). With
+    the forward's output `o` in place of `delta` (None), delta is
+    `attention_delta_ref(o, do)` and (dq, delta) is returned, as the
+    kernel folds the delta pass in."""
     dt = q.dtype
+    fold = delta is None
+    if fold:
+        delta = attention_delta_ref(o, do)
     _, ds = _p_ds(q, k, v, do, lse, delta, scale, causal)
-    dq = torch.einsum("bnts,bsnh->btnh", ds.to(dt).float(), k.float())
-    return _scaled(dq.to(dt), scale)
+    dq = _scaled(torch.einsum("bnts,bsnh->btnh", ds.to(dt).float(),
+                              k.float()).to(dt), scale)
+    return (dq, delta) if fold else dq
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float,
                             causal: bool = True):
-    """Plain version of K1-bwd, step for step what the kernels do: the
-    delta pass, then dk/dv and dq from the saved LSE and delta (not
-    autograd of the forward). Returns (dq, dk, dv) in q's dtype."""
-    delta = attention_delta_ref(o, do)
+    """Plain version of K1-bwd, step for step what the kernels do: dq
+    with the delta pass, then dk/dv from the saved LSE and that delta
+    (not autograd of the forward). Returns (dq, dk, dv) in q's dtype."""
+    dq, delta = flash_attention_bwd_dq_ref(q, k, v, do, lse, None, scale,
+                                           causal, o=o)
     dk, dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
                                          causal)
-    dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
     return dq, dk, dv
 
 
@@ -261,23 +272,42 @@ def _forward_with_lse(q, k, v, scale, causal):
 
 def _check_bwd(q, do, **rows):
     """do: contiguous, of q's shape, dtype and device; each of `rows`
-    (lse, delta, l, m): contiguous f32 [B, N, T] on q's device."""
+    (lse, delta, l, m) that is not None: contiguous f32 [B, N, T] on q's
+    device."""
     B, T, N, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or \
             not do.is_contiguous() or do.device != q.device:
         raise ValueError("do must be a contiguous tensor of q's shape, "
                          "dtype and device")
     for name, t in rows.items():
-        if (t.shape != (B, N, T) or t.dtype != torch.float32 or
+        if t is not None and (
+                t.shape != (B, N, T) or t.dtype != torch.float32 or
                 not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous f32 [B, N, T] on "
                              f"q's device")
 
 
+def _check_o(q, o, delta):
+    """Exactly one of `o` (the forward's output, of q's shape, dtype and
+    device; on CUDA contiguous and 16-byte aligned, for the dq kernel's
+    vector loads) and `delta`."""
+    if (o is None) == (delta is None):
+        raise ValueError("pass delta, or the forward's output o to compute "
+                         "it, not both")
+    if o is not None and (o.shape != q.shape or o.dtype != q.dtype or
+                          o.device != q.device or
+                          (o.device.type == "cuda" and
+                           (not o.is_contiguous() or o.data_ptr() % 16))):
+        raise ValueError("o must be a tensor of q's shape, dtype and device "
+                         "(on CUDA contiguous and 16-byte aligned)")
+
+
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(f32(o) * f32(do)), f32 [B, N, T]: K1-bwd's first
-    launch on CUDA tensors (contiguous [B, T, N, H] of one dtype), the
-    plain version on CPU tensors."""
+    """delta = rowsum(f32(o) * f32(do)), f32 [B, N, T]: the standalone
+    delta launch on CUDA tensors (contiguous [B, T, N, H] of one dtype;
+    the f32 backward's first launch, and for a caller that wants delta
+    alone), the plain version on CPU tensors. At bf16 and f16 the
+    backwards fold this pass into their dq kernels instead."""
     if o.device.type == "cpu":
         return attention_delta_ref(o, do)
     if (o.shape != do.shape or o.dtype != do.dtype or o.dtype not in
@@ -328,42 +358,60 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float,
-                           causal: bool = True):
+                           causal: bool = True, o=None):
     """dq (with respect to the unscaled q): K1-bwd's dq launch on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors. With the forward's output
+    `o` in place of `delta` (None), delta is computed too and (dq, delta)
+    returned: at bf16 and f16 by the dq kernel itself, in its prologue
+    (the launch also counted in `.delta_folds`); at f32, whose FMA kernel
+    takes delta as an input, by an `attention_delta` launch first."""
     _check(q, k, v)
+    _check_o(q, o, delta)
     _check_bwd(q, do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, scale,
-                                          causal)
+                                          causal, o=o)
+    fold = o is not None
+    if fold and q.dtype == torch.float32:
+        delta = attention_delta(o, do)
+        return flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                      causal), delta
     fn = _fn("flash_attention_bwd", "paddle_flash_attention_bwd_dq",
-             [ctypes.c_void_p] * 7 + _BWD_ARGS[8:])
+             [ctypes.c_void_p] * 8 + _BWD_ARGS[8:])
     if q.dtype != torch.float32:
         check_tma(q, k, v, do)
     B, T, N, H = q.shape
     dq = torch.empty((B, T, N, H), dtype=q.dtype, device=q.device)
+    if fold:
+        delta = torch.empty((B, N, T), dtype=torch.float32, device=q.device)
     _run("flash_attention_bwd_dq", q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, N, T, k.shape[1], H, _DTYPE_CODE[q.dtype], *_strides(q, k, v),
-        _dtype_scale(scale, q.dtype), int(bool(causal)), stream))
+        lse.data_ptr(), delta.data_ptr(), o.data_ptr() if fold else None,
+        dq.data_ptr(), B, N, T, k.shape[1], H, _DTYPE_CODE[q.dtype],
+        *_strides(q, k, v), _dtype_scale(scale, q.dtype), int(bool(causal)),
+        stream))
     flash_attention_bwd_dq.launches += 1
+    if fold:
+        flash_attention_bwd_dq.delta_folds += 1
+        return dq, delta
     return dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float,
                         causal: bool = True):
-    """K1-bwd: (dq, dk, dv) from the forward's output `o` and LSE. On
-    CUDA tensors, three launches (delta, dkv, dq), each counted by its
-    own wrapper; on CPU tensors, the plain versions of the same steps.
-    A caller that holds delta already (f32 [B, N, T]) calls
-    `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` itself."""
+    """K1-bwd: (dq, dk, dv) from the forward's output `o` and LSE. dq
+    first, computing delta from `o`, then dkv from that delta: on bf16
+    and f16 CUDA tensors two launches (the dq kernel folds the delta
+    pass in), on f32 three (delta, dq, dkv), each counted by its own
+    wrapper; on CPU tensors, the plain versions of the same steps. A
+    caller that holds delta already (f32 [B, N, T]) calls
+    `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` with it."""
     _check(q, k, v)
     do = do.to(q.dtype).contiguous()
     _check_bwd(q, do, lse=lse)
-    delta = attention_delta(o.contiguous(), do)
+    dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, None, scale, causal,
+                                       o=o.contiguous())
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     return dq, dk, dv
 
 
@@ -465,3 +513,4 @@ splash_block_with_lse.launches = 0
 attention_delta.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.delta_folds = 0

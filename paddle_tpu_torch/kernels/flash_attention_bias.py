@@ -7,7 +7,10 @@ The kernels replace the JAX package's `ops/pallas/attention.py`
 bias: `csrc/flash_attention_bias.cu` its forward,
 `csrc/flash_attention_bias_bwd.cu` its `_flash_attention_bwd_dkv` and
 `_flash_attention_bwd_dq`. The backward's third step, `di =
-rowsum(f32(o) * f32(do))`, is K1's `attention_delta` launch. Each
+rowsum(f32(o) * f32(do))`, is folded into the dq kernel at bf16 and f16
+(given the forward's output, it computes delta in its prologue and
+writes it for dkv, which runs after it; counted in `.delta_folds`) and
+is K1's `attention_delta` launch at f32. Each
 wrapper launches its kernel on a CUDA tensor or raises, and computes
 the plain version on a CPU tensor; there is no fallback from the card
 to the plain version. Each counts its kernel launches in `.launches`.
@@ -55,8 +58,9 @@ from typing import Tuple
 
 import torch
 
-from .flash_attention import (_DTYPE_CODE, _check, _check_bwd, _fn,
-                              _needs_grad, _run, _strides, attention_delta,
+from .flash_attention import (_DTYPE_CODE, _check, _check_bwd, _check_o,
+                              _fn, _needs_grad, _run, _strides,
+                              attention_delta, attention_delta_ref,
                               check_tma)
 
 __all__ = ["FlashAttentionBias", "flash_attention_bias",
@@ -156,15 +160,27 @@ def flash_attention_bias_bwd_dkv_ref(q, k, v, bias, do, l, m, delta,
 
 def flash_attention_bias_bwd_dq_ref(q, k, v, bias, do, l, m, delta,
                                     scale: float, causal: bool = False,
-                                    with_dbias: bool = False):
+                                    with_dbias: bool = False, o=None):
     """Plain version of the dq kernel: dq = round(ds) k in q's dtype, and
     with `with_dbias` (dq, ds) with ds the f32 [B, N, T, Tk] gradient of
-    the bias."""
+    the bias. With the forward's output `o` in place of `delta` (None),
+    delta is `attention_delta_ref(o, do)` and comes last: (dq, delta) or
+    (dq, ds, delta)."""
     dt = q.dtype
+    fold = delta is None
+    if fold:
+        delta = attention_delta_ref(o, do)
     _, ds = _p_ds(q, k, v, bias, do, l, m, delta, scale, causal)
     dq = torch.einsum("bnts,bsnh->btnh", ds.to(dt).float(),
                       k.float()).to(dt)
-    return (dq, ds) if with_dbias else dq
+    return _dq_result(dq, ds, delta, with_dbias, fold)
+
+
+def _dq_result(dq, ds, delta, with_dbias: bool, fold: bool):
+    """dq alone, or a tuple of dq, then ds with `with_dbias`, then delta
+    when it was computed (`fold`)."""
+    out = (dq,) + ((ds,) if with_dbias else ()) + ((delta,) if fold else ())
+    return out if len(out) > 1 else dq
 
 
 # ---------------------------------------------------------------------------
@@ -250,38 +266,57 @@ def flash_attention_bias_bwd_dkv(q, k, v, bias, do, l, m, delta,
 
 def flash_attention_bias_bwd_dq(q, k, v, bias, do, l, m, delta,
                                 scale: float, causal: bool = False,
-                                with_dbias: bool = False):
+                                with_dbias: bool = False, o=None):
     """dq, or (dq, dbias f32 [B, N, T, Tk]) with `with_dbias`: K2-bwd's
-    dq launch on CUDA tensors, the plain version on CPU tensors."""
+    dq launch on CUDA tensors, the plain version on CPU tensors. With the
+    forward's output `o` in place of `delta` (None), delta is computed
+    too and comes last, (dq, delta) or (dq, dbias, delta): at bf16 and
+    f16 by the dq kernel itself, in its prologue (the launch also counted
+    in `.delta_folds`); at f32, whose FMA kernel takes delta as an input,
+    by K1's `attention_delta` launch first."""
     _check(q, k, v)
+    _check_o(q, o, delta)
     _check_bwd(q, do, l=l, m=m, delta=delta)
     ab = _bias_view(bias, q, k)
     if q.device.type == "cpu":
         return flash_attention_bias_bwd_dq_ref(q, k, v, ab, do, l, m, delta,
-                                               scale, causal, with_dbias)
+                                               scale, causal, with_dbias, o)
+    fold = o is not None
+    if fold and q.dtype == torch.float32:
+        delta = attention_delta(o, do)
+        got = flash_attention_bias_bwd_dq(q, k, v, bias, do, l, m, delta,
+                                          scale, causal, with_dbias)
+        dq, ds = got if with_dbias else (got, None)
+        return _dq_result(dq, ds, delta, with_dbias, True)
     if q.dtype != torch.float32:
         check_tma(q, k, v, do)
     fn = _fn("flash_attention_bias_bwd", "paddle_flash_attention_bias_bwd_dq",
-             [ctypes.c_void_p] * 10 + _TAIL)
+             [ctypes.c_void_p] * 11 + _TAIL)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     # zeroed: the kernel skips causal tiles above the diagonal
     dbias = (torch.zeros(ab.shape, dtype=torch.float32, device=q.device)
              if with_dbias else None)
+    if fold:
+        delta = torch.empty(l.shape, dtype=torch.float32, device=q.device)
     _run("flash_attention_bias_bwd_dq", q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ab.data_ptr(),
         do.data_ptr(), l.data_ptr(), m.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dbias.data_ptr() if with_dbias else None,
+        o.data_ptr() if fold else None, dq.data_ptr(),
+        dbias.data_ptr() if with_dbias else None,
         *_args(q, k, v, ab, scale, causal), stream))
     flash_attention_bias_bwd_dq.launches += 1
-    return (dq, dbias) if with_dbias else dq
+    if fold:
+        flash_attention_bias_bwd_dq.delta_folds += 1
+    return _dq_result(dq, dbias, delta, with_dbias, fold)
 
 
 class FlashAttentionBias(torch.autograd.Function):
     """Attention with a K2 forward and a K2 backward: saves q, k, v, the
-    bias, the output and the rows l and m. Backward: K1's delta launch,
-    then K2's dkv and dq; the bias gets ds, summed to its own shape,
-    only when it requires grad. CUDA tensors run the kernels, CPU
-    tensors the plain versions."""
+    bias, the output and the rows l and m. Backward: K2's dq, computing
+    delta from the output (in the kernel at bf16 and f16; by K1's delta
+    launch first at f32), then K2's dkv from that delta; the bias gets
+    ds, summed to its own shape, only when it requires grad. CUDA
+    tensors run the kernels, CPU tensors the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale: float, causal: bool):
@@ -294,16 +329,15 @@ class FlashAttentionBias(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, out, l, m = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        delta = attention_delta(out, do)
-        args = (q, k, v, bias, do, l, m, delta, ctx.scale, ctx.causal)
-        dk, dv = flash_attention_bias_bwd_dkv(*args)
-        dbias = None
-        if ctx.needs_input_grad[3]:
-            dq, ds = flash_attention_bias_bwd_dq(*args, with_dbias=True)
-            dbias = ds.sum_to_size(bias.shape).to(bias.dtype)
-        else:
-            dq = flash_attention_bias_bwd_dq(*args)
-        return dq, dk, dv, dbias, None, None
+        with_dbias = ctx.needs_input_grad[3]
+        *dq_ds, delta = flash_attention_bias_bwd_dq(
+            q, k, v, bias, do, l, m, None, ctx.scale, ctx.causal,
+            with_dbias=with_dbias, o=out.contiguous())
+        dk, dv = flash_attention_bias_bwd_dkv(q, k, v, bias, do, l, m, delta,
+                                              ctx.scale, ctx.causal)
+        dbias = dq_ds[1].sum_to_size(bias.shape).to(bias.dtype) \
+            if with_dbias else None
+        return dq_ds[0], dk, dv, dbias, None, None
 
 
 def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -322,3 +356,4 @@ def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bias_fwd.launches = 0
 flash_attention_bias_bwd_dkv.launches = 0
 flash_attention_bias_bwd_dq.launches = 0
+flash_attention_bias_bwd_dq.delta_folds = 0

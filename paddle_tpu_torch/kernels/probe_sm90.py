@@ -15,7 +15,11 @@ a first small case, the padded route of a shape TMA cannot read and the
 timed shapes of the main path. Timed cases carry `ms` (back-to-back
 calls between two CUDA events), `dev_ms` (the kernels' device time a
 call, torch.profiler) and the library call's `lib_ms` (SDPA's forward
-or backward, cuBLAS's product). Then K2's per-element ratios over six
+or backward, cuBLAS's product); the timed backwards of K1 and K2 run
+both ways in the same process: two launches, dq computing delta in its
+prologue ("ms", "dev_ms"), and the three-launch form with the
+standalone delta launch ("three_ms", "three_dev_ms"). Then K2's
+per-element ratios over six
 seeds at three shapes, with, at the f16 ones, an f64 evaluation of the
 same arithmetic ("f64_*": the reading f32 noise alone gives against
 the plain version) and that evaluation with p and ds rounded to
@@ -182,8 +186,10 @@ def bwd_f64(q, k, v, do, lse, delta, scale, causal, rounding=None):
 def k1_bwd_case(gen, B, T, N, H, causal, dtype, timed=False, f64=False):
     """chip_smoke.py's K1 training case (q, k, v views of one fused
     projection; the kernels' dq, dk and dv against their plain versions
-    under ELEM_TOL); timed: the whole backward's time and its dkv and dq
-    kernels' device time a call, beside SDPA's backward; f64: the f64
+    under ELEM_TOL); timed: the whole backward's time and its kernels'
+    device time a call, two launches (dq folding the delta pass in, then
+    dkv) and three (the standalone delta launch first), beside SDPA's
+    backward; f64: the f64
     evaluation of the same arithmetic against the plain versions at
     ELEM_TOL ("f64_dq" ...: the floor f32 noise sets) and its control,
     P and dS rounded to bf16, under ATTN_F16_TOL ("bf16_dq" ...)."""
@@ -208,12 +214,20 @@ def k1_bwd_case(gen, B, T, N, H, causal, dtype, timed=False, f64=False):
         def call():
             return fa.flash_attention_bwd(q, k, v, out, lse, do, scale,
                                           causal)
+
+        def three():
+            return cs._k1_bwd_three_launches(fa, q, k, v, out, lse, do,
+                                             scale, causal)
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v))
         so = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=scale)
-        r["ms"] = time_ms(call)
-        r["dev_ms"] = dev_ms(call, names=("dkv", "dq"))
+        r["ms"], r["three_ms"] = time_ms(call), time_ms(three)
+        r["dev_ms"] = {kern: dev_ms(call, names=(kern,))
+                       for kern in ("delta_kernel", "bwd_dkv", "bwd_dq")}
+        r["three_dev_ms"] = {kern: dev_ms(three, names=(kern,))
+                             for kern in ("delta_kernel", "bwd_dkv",
+                                          "bwd_dq")}
         r["lib_ms"] = time_ms(lambda: torch.autograd.grad(
             so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     return r
@@ -291,7 +305,10 @@ def k2_case(gen, B, Tq, Tk, N, H, causal, dtype, kind, tol=None,
     the same arithmetic against the plain versions at ELEM_TOL ("f64_out"
     where the keys fit one block, "f64_dq" ...: the floor f32 noise
     sets) and its control, p and ds rounded to bf16, under ATTN_F16_TOL
-    ("bf16_out", "bf16_dq" ...)."""
+    ("bf16_out", "bf16_dq" ...). The timed backward runs both ways, two
+    launches (dq folding the delta pass in, then dkv: "bwd_ms",
+    "bwd_dev_ms") and three (K1's delta launch first: "bwd_three_ms",
+    "bwd_three_dev_ms")."""
     cs = _chip_smoke()
     dname = str(dtype).removeprefix("torch.")
     case, errs, lm = cs.k2_case(B, Tq, Tk, N, H, causal, dname, kind, gen,
@@ -320,10 +337,16 @@ def k2_case(gen, B, Tq, Tk, N, H, causal, dtype, kind, tol=None,
             return fb.flash_attention_bias_fwd(q, k, v, bias, scale, causal)
 
         def bwd():
+            dq, d = fb.flash_attention_bias_bwd_dq(
+                q, k, v, bias, do, l, m, None, scale, causal, o=out)
+            return dq, fb.flash_attention_bias_bwd_dkv(
+                q, k, v, bias, do, l, m, d, scale, causal)
+
+        def bwd_three():
             d = fa.attention_delta(out, do)
             a = (q, k, v, bias, do, l, m, d, scale, causal)
-            return (fb.flash_attention_bias_bwd_dkv(*a),
-                    fb.flash_attention_bias_bwd_dq(*a))
+            return (fb.flash_attention_bias_bwd_dq(*a),
+                    fb.flash_attention_bias_bwd_dkv(*a))
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v))
         # SDPA adds its mask after the scale, K2 its bias before
@@ -335,9 +358,12 @@ def k2_case(gen, B, Tq, Tk, N, H, causal, dtype, kind, tol=None,
             "lib_ms": time_ms(lambda: torch.nn.functional
                               .scaled_dot_product_attention(
                                   qt, kt, vt, attn_mask=amask, scale=scale)),
-            "bwd_ms": time_ms(bwd),
+            "bwd_ms": time_ms(bwd), "bwd_three_ms": time_ms(bwd_three),
             "bwd_dev_ms": {kern: dev_ms(bwd, names=(kern,))
                            for kern in ("delta_kernel", "bwd_dkv", "bwd_dq")},
+            "bwd_three_dev_ms": {kern: dev_ms(bwd_three, names=(kern,))
+                                 for kern in ("delta_kernel", "bwd_dkv",
+                                              "bwd_dq")},
             "bwd_lib_ms": time_ms(lambda: torch.autograd.grad(
                 so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))})
     return r

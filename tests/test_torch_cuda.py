@@ -22,7 +22,9 @@ sp=4 in-process ring on the card against single-device K1: ring_splash
 Hopper dkv and dq at bf16 (the key mask on fused kv views, causal with
 Tk = 2 T, a full bias with its gradient, H 128 ragged), checked in the
 profiler to run the Hopper kernels, and their refusal of a view TMA
-cannot read.
+cannot read. The bf16 and f16 backwards' two-launch form, whose dq
+kernels compute delta from the forward's output: the folded delta, the
+external-delta launch and the launch counts, for K1 and K2.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -154,23 +156,42 @@ def test_backward_kernels_match_plain_version(B, T, causal, dtype):
     assert _held(out, ref_out, dtype)[0] <= 1.0
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
-    counts = [f.launches for f in (fa.attention_delta,
-                                   fa.flash_attention_bwd_dkv,
-                                   fa.flash_attention_bwd_dq)]
+    counts = _k1_bwd_counts()
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, scale, causal)
     torch.cuda.synchronize()
-    assert [f.launches for f in (fa.attention_delta,
-                                 fa.flash_attention_bwd_dkv,
-                                 fa.flash_attention_bwd_dq)] == \
-        [c + 1 for c in counts]
+    # two launches at bf16 and f16 (dq folds the delta pass in), three
+    # at f32 (the standalone delta launch, then dq and dkv)
+    f32 = dtype == torch.float32
+    assert _k1_bwd_counts() == [c + d for c, d in
+                                zip(counts, (f32, 1, 1, not f32))]
     want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == (B, T, N, H)
         ratio, rms = _held(a, b, dtype)
         assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
-    delta = fa.attention_delta(out, do)
-    ratio, rms = _held(delta, fa.attention_delta_ref(out, do), torch.float32)
-    assert ratio <= 1.0, f"delta: error / limit {ratio}, RMS {rms}"
+    want_delta = fa.attention_delta_ref(out, do)
+    for delta in (fa.attention_delta(out, do),
+                  fa.flash_attention_bwd_dq(q, k, v, do, lse, None, scale,
+                                            causal, o=out)[1]):
+        ratio, rms = _held(delta, want_delta, torch.float32)
+        assert ratio <= 1.0, f"delta: error / limit {ratio}, RMS {rms}"
+
+
+def _k1_bwd_counts():
+    """K1-bwd's counts: the standalone delta, dkv and dq launches, and the
+    dq launches that folded the delta pass in."""
+    return [fa.attention_delta.launches, fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dq.delta_folds]
+
+
+def _k2_bwd_counts():
+    """K2-bwd's counts, as `_k1_bwd_counts` (the standalone delta launch
+    is K1's)."""
+    return [fa.attention_delta.launches,
+            fb.flash_attention_bias_bwd_dkv.launches,
+            fb.flash_attention_bias_bwd_dq.launches,
+            fb.flash_attention_bias_bwd_dq.delta_folds]
 
 
 @pytest.mark.cuda
@@ -178,15 +199,18 @@ def test_mha_under_grad_runs_the_backward_kernel():
     """A CUDA mha call under grad is never cut off from autograd: its
     output's grad_fn is the Function's, and backward launches K1-bwd."""
     _need_card()
-    x = torch.randn(2, 128, 2, 64, device="cuda", requires_grad=True)
-    out = ta.mha(x, x * 2, x * 3, causal=True)
-    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
-    launched = (fa.attention_delta, fa.flash_attention_bwd_dkv,
-                fa.flash_attention_bwd_dq)
-    before = [f.launches for f in launched]
-    out.sum().backward()
-    assert [f.launches for f in launched] == [c + 1 for c in before]
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2, 128, 2, 64, device="cuda", dtype=dtype,
+                        requires_grad=True)
+        out = ta.mha(x, x * 2, x * 3, causal=True)
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        before = _k1_bwd_counts()
+        out.sum().backward()
+        # bf16: dq folds the delta pass in; f32: the delta launch first
+        f32 = dtype == torch.float32
+        assert _k1_bwd_counts() == [c + d for c, d in
+                                    zip(before, (f32, 1, 1, not f32))]
+        assert x.grad is not None and torch.isfinite(x.grad).all()
     # no grad: K1-fwd alone, nothing saved
     with torch.inference_mode():
         assert ta.mha(x, x, x, causal=True).grad_fn is None
@@ -198,18 +222,20 @@ def test_mha_with_mask_under_grad_raises():
     K2's autograd Function: K2-fwd, then K1's delta launch and K2's dkv
     and dq in backward, with finite gradients for q, k and v."""
     _need_card()
-    x = torch.randn(1, 16, 2, 64, device="cuda", requires_grad=True)
     mask = torch.zeros(1, 1, 1, 16, device="cuda")
     mask[..., 12:] = -1e9
-    launched = (fb.flash_attention_bias_fwd, fa.attention_delta,
-                fb.flash_attention_bias_bwd_dkv,
-                fb.flash_attention_bias_bwd_dq)
-    before = [f.launches for f in launched]
-    out = ta.mha(x, x * 2, x * 3, mask=mask)
-    assert type(out.grad_fn).__name__ == "FlashAttentionBiasBackward"
-    out.sum().backward()
-    assert [f.launches for f in launched] == [c + 1 for c in before]
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1, 16, 2, 64, device="cuda", dtype=dtype,
+                        requires_grad=True)
+        before = [fb.flash_attention_bias_fwd.launches] + _k2_bwd_counts()
+        out = ta.mha(x, x * 2, x * 3, mask=mask)
+        assert type(out.grad_fn).__name__ == "FlashAttentionBiasBackward"
+        out.sum().backward()
+        # bf16: K2's dq folds the delta pass in; f32: K1's delta launch
+        f32 = dtype == torch.float32
+        assert [fb.flash_attention_bias_fwd.launches] + _k2_bwd_counts() == \
+            [c + d for c, d in zip(before, (1, f32, 1, 1, not f32))]
+        assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
 # K2 at small shapes: (B, T, Tk, N, H, causal, dtype, full bias). The
@@ -740,3 +766,119 @@ def test_k2_backward_wrappers_raise_on_a_misaligned_view():
                                        0.125, with_dbias=True)
     assert (fb.flash_attention_bias_bwd_dkv.launches,
             fb.flash_attention_bias_bwd_dq.launches) == counts
+
+
+# The backwards' two-launch form at bf16 and f16: the dq kernel computes
+# delta in its prologue from the forward's output and writes it for dkv.
+# K1: (B, T, N, H, causal, dtype): a ragged T of 200 causal and full, H
+# 128 full and causal, and BERT-base's 256 x 128. K2: (B, T, Tk, N, H,
+# causal, dtype, full bias, its gradient): the ragged 200 with a key mask,
+# and with a full bias and its gradient; causal with a full bias at Tk
+# 300 and at H 128; f16 with a full bias (non-causal with its gradient,
+# and causal under ATTN_F16_TOL, ROADMAP F4); and Transformer-big's
+# encoder call cut in batch. The bias gradient is asked for where it
+# holds f32's ELEM_TOL: at causal shapes with a full bias it reads more
+# (3.2 and 3.7 of it at bf16 and f16, on an H100), from S summed on the
+# tensor cores where p is near 1 (PERF.md).
+K1_FOLD_CASES = [(2, 200, 4, 64, True, torch.bfloat16),
+                 (2, 200, 4, 64, False, torch.float16),
+                 (2, 200, 4, 128, False, torch.bfloat16),
+                 (2, 256, 4, 128, True, torch.float16),
+                 (256, 128, 12, 64, False, torch.bfloat16)]
+K2_FOLD_CASES = [(2, 200, 200, 4, 64, False, torch.bfloat16, False, False),
+                 (2, 200, 164, 4, 64, False, torch.bfloat16, True, True),
+                 (2, 200, 300, 4, 64, True, torch.bfloat16, True, False),
+                 (2, 128, 128, 4, 128, True, torch.bfloat16, True, False),
+                 (2, 100, 164, 2, 64, False, torch.float16, True, True),
+                 (4, 128, 128, 12, 64, True, torch.float16, True, False),
+                 (4, 128, 128, 16, 64, False, torch.bfloat16, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N,H,causal,dtype", K1_FOLD_CASES)
+def test_k1_folded_delta_matches_plain_version(B, T, N, H, causal, dtype):
+    """The dq kernel given the forward's output: its delta per element
+    against `attention_delta_ref` under f32's ELEM_TOL, its dq bit for
+    bit the external-delta launch's given that delta; the whole backward
+    (dq, then dkv) against the plain version under BWD_ELEM_TOL, with no
+    standalone delta launch and one fold a backward."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T + H + causal + B)
+    q, k, v, do = (torch.randn(B, T, N, H, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    scale = 1.0 / H ** 0.5
+    out, lse = fa.flash_attention_ref(q, k, v, scale, causal, with_lse=True)
+    out = out.contiguous()
+    counts = _k1_bwd_counts()
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, scale,
+                                          causal, o=out)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert _k1_bwd_counts() == [c + d for c, d in zip(counts, (0, 1, 2, 2))]
+    ratio, rms = _held(delta, fa.attention_delta_ref(out, do), torch.float32)
+    assert ratio <= 1.0, f"delta: error / limit {ratio}, RMS {rms}"
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                     scale, causal))
+    assert torch.equal(dq, got[0])
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == (B, T, N, H)
+        ratio, rms = _held(a, b, dtype, BWD_ELEM_TOL[dtype])
+        assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Tk,N,H,causal,dtype,full,dbias",
+                         K2_FOLD_CASES)
+def test_k2_folded_delta_matches_plain_version(B, T, Tk, N, H, causal, dtype,
+                                               full, dbias):
+    """K2's dq kernel given the forward's output (with the bias gradient
+    where asked): its delta per element against `attention_delta_ref`
+    under f32's ELEM_TOL, its dq (and dbias) bit for bit the
+    external-delta launch's given that delta; dq, dk, dv from the two
+    launches against the plain versions under ELEM_TOL (ATTN_F16_TOL for
+    the f16 causal case), dbias under f32's; no standalone delta launch,
+    and the profiler shows the Hopper kernels alone."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do, bias = _k2_inputs(B, T, Tk, N, H, dtype, full,
+                                   T + Tk + H + causal)
+    scale = 0.125
+    out, l, m = fb.flash_attention_bias_ref(q, k, v, bias, scale, causal)
+    out = out.contiguous()
+    counts = _k2_bwd_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        *dq_ds, delta = fb.flash_attention_bias_bwd_dq(
+            q, k, v, bias, do, l, m, None, scale, causal, with_dbias=dbias,
+            o=out)
+        dk, dv = fb.flash_attention_bias_bwd_dkv(q, k, v, bias, do, l, m,
+                                                 delta, scale, causal)
+        torch.cuda.synchronize()
+    assert _k2_bwd_counts() == [c + d for c, d in zip(counts, (0, 1, 1, 1))]
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and
+               ("flash_" in e.name or "delta_kernel" in e.name)]
+    assert len(kernels) == 2 and all("flash_bias_bwd" in n and
+                                     "_sm90_kernel" in n for n in kernels), \
+        kernels
+    ratio, rms = _held(delta, fa.attention_delta_ref(out, do), torch.float32)
+    assert ratio <= 1.0, f"delta: error / limit {ratio}, RMS {rms}"
+    external = fb.flash_attention_bias_bwd_dq(q, k, v, bias, do, l, m, delta,
+                                              scale, causal, with_dbias=dbias)
+    for a, b in zip(dq_ds, external if dbias else (external,)):
+        assert torch.equal(a, b)
+    *want_dq_ds, want_delta = fb.flash_attention_bias_bwd_dq_ref(
+        q, k, v, bias, do, l, m, None, scale, causal, with_dbias=dbias, o=out)
+    want_dk, want_dv = fb.flash_attention_bias_bwd_dkv_ref(
+        q, k, v, bias, do, l, m, want_delta, scale, causal)
+    tol = ATTN_F16_TOL if dtype == torch.float16 and causal else None
+    got = [("dq", dq_ds[0], want_dq_ds[0], dtype),
+           ("dk", dk, want_dk, dtype), ("dv", dv, want_dv, dtype)]
+    if dbias:
+        got.append(("dbias", dq_ds[1], want_dq_ds[1], torch.float32))
+    for name, a, b, dt in got:
+        assert a.dtype == dt and a.shape == b.shape, name
+        ratio, rms = _held(a, b, dt, tol if dt == dtype else None)
+        assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"

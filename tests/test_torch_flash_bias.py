@@ -2,9 +2,11 @@
 
 `flash_attention_bias` under grad runs the `FlashAttentionBias`
 autograd Function; on CPU tensors its forward is
-`flash_attention_bias_ref` and its backward K1's `attention_delta` plus
-`flash_attention_bias_bwd_dkv_ref` and `flash_attention_bias_bwd_dq_ref`,
-the step-for-step plain versions of the kernels that the card holds
+`flash_attention_bias_ref` and its backward
+`flash_attention_bias_bwd_dq_ref` (computing delta from the output, as
+the bf16 and f16 kernel does in its prologue) and then
+`flash_attention_bias_bwd_dkv_ref` from that delta, the step-for-step
+plain versions of the kernels that the card holds
 the kernels against (tests/test_torch_cuda.py, chip_smoke.py). Here the
 output and the gradients of q, k, v and the mask are held against
 `jax.vjp` of the JAX package's `_pallas_mha` (jax's legacy Pallas
@@ -173,6 +175,64 @@ def test_bias_gets_a_gradient_only_when_it_requires_one():
     assert ds.shape == (2, 2, 64, 64) and ds.dtype == torch.float32
     # padded keys (the second row from 42 on) get no weight: ds is 0
     assert (ds[1, :, :, 42:] == 0).all()
+
+
+@pytest.mark.parametrize("with_dbias", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dq_with_o_equals_the_external_delta_form(dtype, with_dbias):
+    """dq given the forward's output in place of delta (the form whose
+    bf16 and f16 kernel folds the delta pass in) returns delta last:
+    `attention_delta_ref`'s, with dq (and the bias gradient) the
+    external-delta form's, bit for bit, in the wrapper and the plain
+    version; on CPU tensors nothing launches."""
+    _, (q, k, v, do, m) = _inputs(100, 164, dtype, seed=8)
+    o, l, mx = fb.flash_attention_bias_ref(q, k, v, m, SCALE)
+    counts = (fa.attention_delta.launches,
+              fb.flash_attention_bias_bwd_dq.launches,
+              fb.flash_attention_bias_bwd_dq.delta_folds)
+    got = fb.flash_attention_bias_bwd_dq(q, k, v, m, do, l, mx, None, SCALE,
+                                         with_dbias=with_dbias, o=o)
+    assert (fa.attention_delta.launches,
+            fb.flash_attention_bias_bwd_dq.launches,
+            fb.flash_attention_bias_bwd_dq.delta_folds) == counts
+    want_delta = fa.attention_delta_ref(o, do)
+    want = fb.flash_attention_bias_bwd_dq(q, k, v, m, do, l, mx, want_delta,
+                                          SCALE, with_dbias=with_dbias)
+    want = want if with_dbias else (want,)
+    assert len(got) == len(want) + 1
+    assert got[-1].dtype == torch.float32 and torch.equal(got[-1], want_delta)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ref = fb.flash_attention_bias_bwd_dq_ref(
+        q, k, v, m.expand(2, 2, 100, 164), do, l, mx, None, SCALE,
+        with_dbias=with_dbias, o=o)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_launch_backward_matches_pallas_flash_attention(dtype, causal):
+    """The backward as the kernels run it at bf16 and f16, dq first
+    (computing delta from the output, with the mask's gradient), then
+    dkv from that delta, against jax.vjp of `_pallas_mha` in TPU
+    interpret mode, per element at the limits above."""
+    (jq, jk, jv, jdo, jm), (q, k, v, do, m) = _inputs(128, 128, dtype,
+                                                      seed=40 + causal)
+    with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+        _, vjp = jax.vjp(
+            lambda a, b, c, d: pa._pallas_mha(a, b, c, d, SCALE, causal),
+            jq, jk, jv, jm)
+        want = vjp(jdo)
+    o, l, mx = fb.flash_attention_bias_ref(q, k, v, m, SCALE, causal)
+    dq, ds, delta = fb.flash_attention_bias_bwd_dq(
+        q, k, v, m, do, l, mx, None, SCALE, causal, with_dbias=True, o=o)
+    dk, dv = fb.flash_attention_bias_bwd_dkv(q, k, v, m, do, l, mx, delta,
+                                             SCALE, causal)
+    got = (dq, dk, dv, ds.sum_to_size(m.shape))
+    for name, w, g in zip(("dq", "dk", "dv", "dmask"), want, got):
+        assert g.shape == tuple(w.shape), name
+        assert _held(w, g, dtype) <= 1.0, name
 
 
 def test_masked_mha_on_cpu_takes_the_plain_path():

@@ -3,8 +3,9 @@
 `flash_attention` under grad runs the `FlashAttention` autograd
 Function; on CPU tensors its forward is `flash_attention_ref` (with the
 LSE) and its backward `flash_attention_bwd_ref`, the step-for-step
-plain version of the backward kernels (delta, dkv, dq) that the card
-holds the kernels against (tests/test_torch_cuda.py). Here those
+plain version of the backward kernels (dq with the delta pass, then
+dkv) that the card holds the kernels against (tests/test_torch_cuda.py).
+Here those
 gradients are held against `jax.vjp` of the JAX package's
 `_splash_mha(..., interpret=True)` (splash's Pallas dq/dkv kernels run
 in the interpreter), and against torch autograd of the forward; the
@@ -139,6 +140,65 @@ def test_external_delta_skips_nothing_else():
     whole = fa.flash_attention_bwd(q, k, v, out, lse, do, SCALE, True)
     for x, y in zip(whole, (dq, dk, dv)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dq_with_o_equals_the_external_delta_form(dtype, causal):
+    """dq given the forward's output in place of delta (the form whose
+    bf16 and f16 kernel folds the delta pass in) returns (dq, delta):
+    delta is `attention_delta_ref`'s and dq the external-delta form's,
+    bit for bit, in the wrapper and the plain version; on CPU tensors
+    nothing launches."""
+    _, (q, k, v, do) = _inputs(100, dtype, seed=21 + causal, B=2)
+    out, lse = fa.flash_attention_ref(q, k, v, SCALE, causal, with_lse=True)
+    counts = (fa.attention_delta.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dq.delta_folds)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, SCALE,
+                                          causal, o=out)
+    assert (fa.attention_delta.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dq.delta_folds) == counts
+    want_delta = fa.attention_delta_ref(out, do)
+    assert delta.dtype == torch.float32 and torch.equal(delta, want_delta)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                     want_delta, SCALE, causal))
+    ref_dq, ref_delta = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, None,
+                                                      SCALE, causal, o=out)
+    assert torch.equal(dq, ref_dq) and torch.equal(delta, ref_delta)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_launch_backward_matches_splash_vjp_interpret(dtype, causal):
+    """The backward as the kernels run it at bf16 and f16, dq first
+    (computing delta from the output), then dkv from that delta, against
+    jax.vjp of splash in interpret mode, at the limits above."""
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(128, dtype, seed=31 + causal)
+    _, vjp = jax.vjp(
+        lambda a, b, c: pa._splash_mha(a, b, c, SCALE, causal,
+                                       interpret=True), jq, jk, jv)
+    want = vjp(jdo)
+    out, lse = fa.flash_attention_ref(q, k, v, SCALE, causal, with_lse=True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, SCALE,
+                                          causal, o=out)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, SCALE,
+                                        causal)
+    for name, w, g in zip(("dq", "dk", "dv"), want, (dq, dk, dv)):
+        assert g.dtype == TORCH_DT[dtype]
+        assert _rel(w, g) <= TOL[dtype], name
+        assert _held(w, g, dtype) <= 1.0, name
+
+
+def test_dq_takes_delta_or_the_output():
+    """The dq wrapper takes exactly one of delta and o, and an o of q's
+    shape and dtype."""
+    _, (q, k, v, do) = _inputs(16, "float32", seed=2)
+    out, lse = fa.flash_attention_ref(q, k, v, SCALE, True, with_lse=True)
+    delta = fa.attention_delta_ref(out, do)
+    for d, o in ((delta, out), (None, None), (None, out[:, :8]),
+                 (None, out.to(torch.bfloat16))):
+        with pytest.raises(ValueError, match="delta|o must be"):
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, d, SCALE, o=o)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
