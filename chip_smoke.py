@@ -27,12 +27,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `ATTN_F16_TOL`). bf16 and f16 run
    the Hopper kernels (wgmma, TMA), f32 the FMA ones;
 3. slice: GPT-2-small (random weights from a seed) served at bf16 by
-   DecodeEngine behind the HTTP Server; 8 concurrent streamed
+   DecodeEngine behind the HTTP Server, which warms the engine's phase
+   grid before it binds (every prefill bucket run once, each decode
+   slot count's step captured as a CUDA graph); /v1/healthz 200
+   "serving", /v1/load and /v1/models checked; 8 concurrent streamed
    /v1/generate requests whose prompts fill every prefill bucket up to
-   1024, then the same 8 again (every shape warm); the kernels' launch
-   counts are read around the first round alone;
-4. profile: the slice's requests straight into a fresh engine, twice,
-   then under torch.profiler (device busy share, largest kernels);
+   1024, then the same 8 again; every decode step a graph replay; the
+   kernels' launch counts are read around the first round alone;
+4. profile: the slice's requests straight into a fresh engine never
+   warmed (every decode step eager), twice, then under torch.profiler
+   (device busy share, largest kernels); then the same into a warmed
+   engine (warmup seconds, the graphs' memory, the decode step's host
+   and device time at 4 and 8 slots, eager against replay), whose
+   tokens must equal the unwarmed engine's;
 5. greedy: a 2-layer, full-width f32 engine's greedy tokens against the
    step-by-step full forward on the card;
 6. train-parity: one `make_train_step` step of a 2-layer, full-width
@@ -121,6 +128,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1171,11 +1179,11 @@ def phase_slice():
     cfg, engine, prompts = _slice_setup()
     lengths, max_new = list(SLICE_LENGTHS), SLICE_NEW_TOKENS
     server = Server(ServingConfig(), decode=engine)
-    port = server.start(0)
+    t0 = time.perf_counter()
+    port = server.start(0)                      # warms, then binds
+    start_s = time.perf_counter() - t0
     try:
-        warm = {}
-        _generate(port, [1, 2, 3], 2, warm)     # first CUDA/cuBLAS use
-        check(len(warm.get("tokens", [])) == 2, f"warm-up request: {warm}")
+        ops = _serving_routes(port, engine)
 
         def http_round():
             results = [{} for _ in prompts]
@@ -1211,6 +1219,9 @@ def phase_slice():
     check(launches >= cfg.layers * len(lengths),
           f"{launches} kernel launches < {cfg.layers} x {len(lengths)}")
     check(gates.get("plain", 0) == 0, f"plain attention ran: {gates}")
+    steps = status["decode_steps"]
+    check(steps["eager"] == 0 and steps["replayed"] > 0,
+          f"slice: decode steps of the warmed engine {steps}")
 
     def summary(res, secs):
         ttft = sorted(out["ttft_s"] * 1e3 for out in res)
@@ -1226,9 +1237,50 @@ def phase_slice():
            "repeat": summary(repeat, repeat_wall),
            "launches": {"flash_attention_fwd": launches},
            "gate_counts": gates,
-           "preempted": status["requests"]["preempted"]}
+           "preempted": status["requests"]["preempted"],
+           "start_s": start_s, "decode_steps": steps, "routes": ops}
     print(json.dumps(row))
     return launches
+
+
+def _get_json(port, path):
+    """(status, JSON body, headers) of one GET on the serving port."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def _serving_routes(port, engine):
+    """The warmed server's operations surface: /v1/healthz 200
+    "serving", /v1/load and /v1/models with the JAX server's keys, each
+    reply with its request id and traceparent."""
+    code, health, hdrs = _get_json(port, "/v1/healthz")
+    check(code == 200 and health.get("state") == "serving",
+          f"/v1/healthz: {code} {health}")
+    check(len(hdrs.get("X-Request-Id", "")) == 32 and
+          hdrs.get("traceparent", "").startswith("00-"),
+          f"/v1/healthz headers: {dict(hdrs)}")
+    code, load, _ = _get_json(port, "/v1/load")
+    check(code == 200 and set(load) == {"load", "inflight", "queue_depth",
+                                        "state", "models"}
+          and load["state"] == "serving" and load["models"] == ["default"],
+          f"/v1/load: {code} {load}")
+    t0 = time.perf_counter()
+    code, models, _ = _get_json(port, "/v1/models")
+    models_s = time.perf_counter() - t0
+    rows = models.get("models") or [{}]
+    check(code == 200 and len(rows) == 1 and rows[0].get("id") == "default"
+          and rows[0].get("decode", {}).get("warmed") is True
+          and len(rows[0]["decode"].get("digest", "")) == 64,
+          f"/v1/models: {code} {models}")
+    status = engine.status()
+    check(status["warmed"] and status["analysis"]["errors"] == 0,
+          f"engine status: {status}")
+    return {"healthz": health, "load": load, "models": rows,
+            "models_s": models_s, "analysis": status["analysis"]}
 
 
 def _fdb_kernel(name):
@@ -1297,41 +1349,130 @@ def _device_time(prof, wall_s):
                             for n, (c, ms) in top]}
 
 
+def _decode_step_times(engine, reps=20):
+    """The decode step at each slot count of a warmed engine, eager
+    against its graph's replay, on all-zero inputs (every write lands in
+    the null block; the step gathers every slot's full table either
+    way): the host's time to issue one step, and the time between CUDA
+    events around it. A replay issues its kernels back to back, so its
+    event time is the step's device time; the eager step's span also
+    holds the host's gaps."""
+    import torch
+
+    out = {}
+    with torch.inference_mode():
+        for S in engine.decode_slots:
+            ids, positions, tables = engine._step_buffers(S)
+            row = {}
+            for kind, fn in (
+                    ("eager", lambda: engine._decode_step(ids, positions,
+                                                          tables)),
+                    ("replay", engine._graphs[S].graph.replay)):
+                for _ in range(3):
+                    fn()
+                host, device = [], []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    fn()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    end.record()
+                    end.synchronize()
+                    device.append(start.elapsed_time(end))
+                row[kind] = {"host_ms": statistics.median(host),
+                             "event_ms": statistics.median(device)}
+            out[f"S{S}"] = row
+    return out
+
+
+def _graph_pool_bytes(pool):
+    """Bytes of the caching allocator's segments in the graphs' private
+    pool (torch.cuda.memory_snapshot), or None when the snapshot does
+    not name segment pools."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 def phase_profile():
-    """The slice's requests again, straight into a fresh engine (no
-    HTTP, in a process whose kernels phase 3 already loaded): two rounds
-    timed on the host clock, then one under torch.profiler for the
-    device's busy time and its largest kernels."""
+    """The slice's requests straight into fresh engines (no HTTP, in a
+    process whose kernels phase 3 already loaded): first one never
+    warmed (every decode step eager), then one warmed (every decode
+    step a CUDA graph replay). Each takes two rounds timed on the host
+    clock, then one under torch.profiler for the device's busy time and
+    its largest kernels; the two engines' tokens must be equal
+    (ROADMAP item 2's gate). The warmed engine also reports its
+    warmup's seconds, the graphs' memory and the decode step's host
+    and device time at each slot count."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    _, engine, prompts = _slice_setup()
+    rows, tokens, extra = {}, {}, {}
+    for label in ("eager", "graphs"):
+        _, engine, prompts = _slice_setup()
+        got = []
 
-    def run_round():
-        t0 = time.perf_counter()
-        handles = [engine.submit(p, max_new_tokens=SLICE_NEW_TOKENS)
-                   for p in prompts]
-        toks = [h.result(timeout_s=600) for h in handles]
-        wall = time.perf_counter() - t0
-        check(all(len(t) == SLICE_NEW_TOKENS for t in toks),
-              "profile round: short generation")
-        ttft = sorted(h.info["ttft_s"] * 1e3 for h in handles)
-        n = sum(len(t) for t in toks)
-        return {"wall_s": wall, "tokens_per_s": n / wall,
-                "ttft_p50_ms": statistics.median(ttft),
-                "ttft_max_ms": ttft[-1]}
+        def run_round():
+            t0 = time.perf_counter()
+            handles = [engine.submit(p, max_new_tokens=SLICE_NEW_TOKENS)
+                       for p in prompts]
+            toks = [h.result(timeout_s=600) for h in handles]
+            wall = time.perf_counter() - t0
+            check(all(len(t) == SLICE_NEW_TOKENS for t in toks),
+                  "profile round: short generation")
+            got.append(toks)
+            ttft = sorted(h.info["ttft_s"] * 1e3 for h in handles)
+            n = sum(len(t) for t in toks)
+            return {"wall_s": wall, "tokens_per_s": n / wall,
+                    "ttft_p50_ms": statistics.median(ttft),
+                    "ttft_max_ms": ttft[-1]}
 
-    try:
-        first = run_round()
-        second = run_round()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            profiled = run_round()
-    finally:
-        engine.stop()
-    profiled.update(_device_time(prof, profiled["wall_s"]))
-    print(json.dumps({"phase": "profile", "requests": len(prompts),
-                      "first": first, "second": second,
-                      "profiled": profiled}))
+        try:
+            if label == "graphs":
+                torch.cuda.synchronize()
+                reserved = torch.cuda.memory_stats()[
+                    "reserved_bytes.all.current"]
+                t0 = time.perf_counter()
+                ready = engine.warmup()
+                extra["warmup_s"] = time.perf_counter() - t0
+                check(ready == len(engine.prefill_buckets) +
+                      len(engine.decode_slots), f"warmup: {ready} phases")
+                extra["warmup_reserved_bytes"] = torch.cuda.memory_stats()[
+                    "reserved_bytes.all.current"] - reserved
+                extra["graph_pool_bytes"] = _graph_pool_bytes(
+                    engine._graph_pool)
+                extra["decode_step"] = _decode_step_times(engine)
+            first = run_round()
+            second = run_round()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                profiled = run_round()
+            steps = engine.status()["decode_steps"]
+        finally:
+            engine.stop()
+        profiled.update(_device_time(prof, profiled["wall_s"]))
+        rows[label] = {"first": first, "second": second,
+                       "profiled": profiled, "decode_steps": steps}
+        tokens[label] = got
+        del engine, prof
+        torch.cuda.empty_cache()
+    check(rows["eager"]["decode_steps"]["replayed"] == 0 and
+          rows["graphs"]["decode_steps"]["eager"] == 0 and
+          rows["graphs"]["decode_steps"]["replayed"] > 0,
+          f"profile: decode steps {rows['eager']['decode_steps']} (eager), "
+          f"{rows['graphs']['decode_steps']} (graphs)")
+    check(tokens["graphs"] == tokens["eager"],
+          "profile: the warmed engine's tokens differ from the unwarmed "
+          "engine's")
+    print(json.dumps({"phase": "profile", "requests": len(SLICE_LENGTHS),
+                      "tokens_equal": True, **rows, **extra}))
 
 
 def phase_greedy():

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "source_hash"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -57,12 +57,18 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """Hash of kernel `name`'s source, the shared headers and the flags:
+    the part of its library's file name that changes with the code."""
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()[:12]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:

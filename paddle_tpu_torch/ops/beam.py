@@ -48,11 +48,11 @@ def beam_search(pre_ids: torch.Tensor, pre_scores: torch.Tensor,
             torch.log(torch.clamp(scores, min=1e-20))
 
     finished = pre_ids.long() == int(end_id)                 # [B, K]
-    keep_self = torch.zeros(w, dtype=torch.bool, device=scores.device)
-    keep_self[0] = True
+    # built on the device with no host-to-device copy, so a step that
+    # calls this can be captured as a CUDA graph
+    keep_self = torch.arange(w, device=scores.device) == 0
     own = torch.where(keep_self, pre_scores[:, :, None].to(scores.dtype),
-                      torch.tensor(_NEG_INF, dtype=scores.dtype,
-                                   device=scores.device))
+                      _NEG_INF)
     scores = torch.where(finished[:, :, None], own, scores)
     cand_ids = torch.where(finished[:, :, None], int(end_id), cand_ids)
 

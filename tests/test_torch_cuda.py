@@ -24,7 +24,10 @@ Tk = 2 T, a full bias with its gradient, H 128 ragged), checked in the
 profiler to run the Hopper kernels, and their refusal of a view TMA
 cannot read. The bf16 and f16 backwards' two-launch form, whose dq
 kernels compute delta from the forward's output: the folded delta, the
-external-delta launch and the launch counts, for K1 and K2.
+external-delta launch and the launch counts, for K1 and K2. The decode
+engine's CUDA graphs: a warmed engine's tokens equal an unwarmed one's
+bit for bit, every decode step a replay, and a capture that fails
+raises.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -882,3 +885,114 @@ def test_k2_folded_delta_matches_plain_version(B, T, Tk, N, H, causal, dtype,
         assert a.dtype == dt and a.shape == b.shape, name
         ratio, rms = _held(a, b, dt, tol if dt == dtype else None)
         assert ratio <= 1.0, f"{name}: error / limit {ratio}, RMS {rms}"
+
+
+# The decode engine's captured steps. Every request is queued before the
+# scheduler's first admission (the test holds the engine's lock while it
+# submits), so the run is deterministic: 4 prompts of 28 tokens that fill
+# a pool of 16 usable blocks (4 slots), then 8 of 3 tokens admitted as
+# those finish (8 slots), growing past the pool (preemptions) and
+# finishing at different lengths (back to 4 slots).
+DECODE_POOL = dict(block_size=8, num_blocks=17, decode_slots=(4, 8),
+                   prefill_buckets=(8, 16, 32, 64), max_len=64)
+
+
+def _decode_traffic(vocab):
+    g = torch.Generator().manual_seed(0)
+    return [(torch.randint(0, vocab, (28,), generator=g).tolist(), n)
+            for n in (2, 3, 4, 5)] + \
+        [(torch.randint(0, vocab, (3,), generator=g).tolist(), n)
+         for n in (30, 28, 26, 24, 22, 20, 18, 16)]
+
+
+def _serve_traffic(params, cfg, precision, warm):
+    """Tokens, status and the slot count of every decode step of one
+    engine serving `_decode_traffic`, warmed (`warmup()`) or not."""
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    eng = DecodeEngine(params, cfg, DecodeConfig(precision=precision,
+                                                 **DECODE_POOL),
+                       device="cuda")
+    slots = []
+    dispatch = eng._dispatch
+
+    def record(ids, C):
+        slots.append(C)
+        return dispatch(ids, C)
+
+    eng._dispatch = record
+    try:
+        if warm:
+            assert eng.warmup() == 6
+        with eng._cv:
+            handles = [eng.submit(p, max_new_tokens=n)
+                       for p, n in _decode_traffic(cfg.vocab_size)]
+        toks = [h.result(timeout_s=300) for h in handles]
+        return toks, eng.status(), slots
+    finally:
+        eng.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_warmed_engine_tokens_equal_unwarmed(precision):
+    """A warmed engine (every decode step a CUDA graph replay) emits the
+    unwarmed engine's tokens bit for bit, through admission mid-decode,
+    the slot-count switch 4 -> 8 -> 4 and preemptions; after warmup no
+    decode step runs eagerly."""
+    _need_card()
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.tiny()
+    cfg.dtype = "float32"
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    eager, eager_st, eager_slots = _serve_traffic(params, cfg, precision,
+                                                  False)
+    graph, graph_st, graph_slots = _serve_traffic(params, cfg, precision,
+                                                  True)
+    assert graph == eager
+    assert graph_slots == eager_slots
+    runs = [c for i, c in enumerate(graph_slots)
+            if i == 0 or graph_slots[i - 1] != c]
+    assert runs[:3] == [4, 8, 4], runs
+    assert graph_st["requests"]["preempted"] > 0
+    assert graph_st["requests"] == eager_st["requests"]
+    assert graph_st["decode_steps"] == {"replayed": len(graph_slots),
+                                        "eager": 0}
+    assert eager_st["decode_steps"] == {"replayed": 0,
+                                        "eager": len(eager_slots)}
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(monkeypatch):
+    """A decode step that syncs with the host cannot be captured: warmup
+    raises and the engine refuses to serve (it never falls back to the
+    eager step). Last in this file: the failed capture is the one CUDA
+    error here on purpose."""
+    _need_card()
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = gpt.GPTConfig.tiny()
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    real = gpt.apply_decode_step
+
+    def host_sync(params, cfg, ids, *a, **kw):
+        int(ids.sum())          # a device-to-host read: illegal in capture
+        return real(params, cfg, ids, *a, **kw)
+
+    monkeypatch.setattr(gpt, "apply_decode_step", host_sync)
+    eng = DecodeEngine(params, cfg, DecodeConfig(decode_slots=(4,),
+                                                 prefill_buckets=(8,),
+                                                 max_len=64), device="cuda")
+    try:
+        with pytest.raises(RuntimeError):
+            eng.warmup()
+        assert eng.analysis["errors"] == 1 and not eng.warmed
+        with pytest.raises(RuntimeError, match="warmup failed"):
+            eng.start()
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
