@@ -96,7 +96,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a step), then the same step with no mesh (K1 at T 4096);
 18. head-dim-gate: two mixed_bf16 train steps of `BertConfig.tiny()`
    (head dim 16) on the card, every attention call on mha's "xla"
-   route, no attention kernel launched.
+   route, no attention kernel launched;
+19. resilience: BERT-base at 256 x 128 (phase 7's params, dropout off,
+   mixed_bf16, AdamW) through `train_loop` with a CheckpointManager
+   (save_every 2, keep_last_n 2): 6 steps uninterrupted, twice (their
+   difference is the limit below: 0 when the card repeats a run bit for
+   bit); the same run stopped by PADDLE_TPU_FAULT_SPEC step=3:preempt
+   with a committed step-3 checkpoint, then restored into a fresh
+   template and finished; a child process of this script killed by
+   step=3:crash (CRASH_EXIT_CODE), resumed here from its step-2
+   checkpoint; both resumed runs' losses and final params against the
+   uninterrupted run's within that limit; then one step each with no
+   recompute and under recompute policy None, "nothing", "dots" and
+   "dots_no_batch" from the same state and batch: the loss and every
+   gradient against no recompute's within that step's own repeat
+   difference, K1-fwd (LSE) 12 launches without recompute and 24 under
+   every policy (dq, dkv and the delta folds 12), no `delta_kernel` in
+   a traced step, each step's ms and peak memory printed.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -113,7 +129,8 @@ bf16), at f32 and at f16.
 
 The kernels' launch counts are set to 0 just before each path's run and
 read just after (phase 3 for serving, phases 7, 8, 10, 12, 15 and 17
-for training, phase 11 for beam search, phase 13 for the bottleneck).
+for training, phase 11 for beam search, phase 13 for the bottleneck,
+phase 19's first uninterrupted `train_loop` run).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
@@ -189,17 +206,22 @@ def attention_bound_ms(q, k, causal=True, products=2, tensors=4,
     return bound_ms(nbytes, flops, peak)
 
 
-def phase_environment():
-    import torch
-
-    from paddle_tpu_torch.kernels import _build
-
+def card():
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_environment():
+    import torch
+
+    from paddle_tpu_torch.kernels import _build
+
+    print(card())
     t0 = time.perf_counter()
     took = _build.build()
     print(json.dumps({"phase": "environment",
@@ -1670,6 +1692,29 @@ def _hold_train_step(label, got, want, params):
             "param_elements_apart": n_far, "param_elements": n_all}
 
 
+def _profiled_step(run):
+    """`run()` (one step, in place) twice under torch.profiler (device
+    activity only, one cycle): the first absorbs the tracer's start-up,
+    the second is recorded. `_device_time` of the second, with its wall
+    ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            prof.step()
+    profiled = _device_time(prof, wall_s)
+    profiled["wall_ms"] = wall_s * 1e3
+    return profiled
+
+
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
                steps, per_step, optimizer=None, precision="mixed_bf16",
                has_aux=False, trace_ok=None):
@@ -1689,7 +1734,6 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     dq kernels fold the delta pass in), a traced step that shows a
     `delta_kernel` record fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from paddle_tpu_torch.parallel.train import make_train_step
 
@@ -1712,25 +1756,10 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
         losses.append(loss.item())      # also waits for the step
         times.append((time.perf_counter() - t0) * 1e3)
     counts = _kernel_counts()
-    # two more steps under the profiler (device activity only, one
-    # cycle): the first absorbs the tracer's start-up, the second is
-    # recorded
-    traces, i = [], warmup + steps
+    traces, seeds = [], iter(range(warmup + steps, 10 ** 9))
     while True:
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, loss = step(state, batch, i)
-                i += 1
-                loss.item()
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
-                prof.step()
-        profiled = _device_time(prof, wall_s)
-        profiled["wall_ms"] = wall_s * 1e3
+        profiled = _profiled_step(
+            lambda: step(state, batch, next(seeds))[1].item())
         traces.append(profiled)
         if (trace_ok is None or trace_ok(profiled)
                 or len(traces) == TRACE_TRIES):
@@ -2609,6 +2638,279 @@ def phase_head_dim_gate():
                       "xla_calls": routed, "launches": counts}))
 
 
+# phase 19: BERT-base at phase 7's first shape through train_loop
+RESILIENCE_STEPS = 6
+RESILIENCE_B, RESILIENCE_T = 256, 128
+# one step each: no recompute, then recompute under each policy
+RECOMPUTE_RUNS = ("none", None, "nothing", "dots", "dots_no_batch")
+# the crashing run of phase 19(c): this script's run in a child process
+CRASH_CHILD = ("import sys, chip_smoke; "
+               "sys.exit(chip_smoke.resilience_child(sys.argv[1]))")
+
+
+def _resilience_model():
+    """BERT-base (phase 7's params, seed 0) with dropout off: its
+    layers, params, batch_fn(step) (256 x 128 batches from numpy seed
+    1000 + step, None from RESILIENCE_STEPS on) and loss_fn."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0),
+                          cfg, device="cuda")
+
+    def batch_fn(step):
+        if step >= RESILIENCE_STEPS:
+            return None
+        return bert.make_batch(np.random.RandomState(1000 + step), cfg,
+                               RESILIENCE_B, seq_len=RESILIENCE_T,
+                               device="cuda")
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=True)
+
+    return cfg.layers, params, batch_fn, loss_fn
+
+
+def _resilience_loop(root, params, batch_fn, loss_fn, resume=False):
+    """`train_loop` under mixed_bf16 and AdamW with a CheckpointManager
+    at `root` (save_every 2, keep_last_n 2), from `params` or, with
+    `resume`, from the newest committed checkpoint restored into a fresh
+    `init_state` template."""
+    from paddle_tpu_torch.parallel.train import make_train_step, train_loop
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    init, step = make_train_step(loss_fn, _adamw, device="cuda",
+                                 precision="mixed_bf16")
+    mgr = CheckpointManager(root, keep_last_n=2)
+    state = init(params)
+    if resume:
+        state = mgr.restore_latest(state)
+        check(state is not None, f"no committed checkpoint under {root}")
+    state, losses, stop = train_loop(step, state, batch_fn, rng=0,
+                                     manager=mgr, save_every=2)
+    return state, losses, stop, mgr
+
+
+def resilience_child(root):
+    """Phase 19(c)'s crashing run, in a process of its own: the same
+    loop from the start under PADDLE_TPU_FAULT_SPEC (its parent sets
+    step=3:crash, which exits with CRASH_EXIT_CODE at step 3)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _resilience_loop(root, *_resilience_model()[1:])
+    return 0
+
+
+def _run_diff(a, b, steps):
+    """The largest |difference| of two runs' losses at `steps` and of
+    their final params; a run is (losses, params)."""
+    return (max(abs(a[0][s] - b[0][s]) for s in steps),
+            max((a[1][k].detach() - b[1][k].detach()).abs().max().item()
+                for k in a[1]))
+
+
+def _grad_recorder(params):
+    """An optimizer that keeps the step's gradients and moves nothing,
+    so every step of phase 19(d) starts from the same params."""
+    import torch
+
+    class GradRecorder(torch.optim.Optimizer):
+        def __init__(self, ps):
+            super().__init__(ps, {})
+            self.grads = None
+
+        @torch.no_grad()
+        def step(self, closure=None):
+            self.grads = [p.grad.clone() for g in self.param_groups
+                          for p in g["params"]]
+
+    return GradRecorder(params)
+
+
+def _recompute_runs(layers, params, batch, loss_fn):
+    """Phase 19(d): one step under each of RECOMPUTE_RUNS from the same
+    state and batch, after one warm-up step. Each step's loss and
+    gradients are held to the no-recompute step's within the difference
+    between that step and its own warm-up (0 when the card repeats a
+    step bit for bit); K1's launches a step are counted and a step is
+    traced for the standalone delta kernel."""
+    import torch
+
+    from paddle_tpu_torch.parallel.train import TrainStrategy, make_train_step
+
+    rows, ref, limit = [], None, None
+    for policy in RECOMPUTE_RUNS:
+        strategy = TrainStrategy() if policy == "none" else \
+            TrainStrategy(recompute=True, recompute_policy=policy)
+        init, step = make_train_step(loss_fn, _grad_recorder, device="cuda",
+                                     precision="mixed_bf16",
+                                     strategy=strategy)
+        state = init(params)
+        warm_loss = step(state, batch, 0)[1].item()
+        warm_grads = state.opt_state.grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        loss = step(state, batch, 0)[1].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        grads = state.opt_state.grads
+        if policy == "none":
+            ref = (loss, grads)
+            limit = (abs(loss - warm_loss),
+                     max((a - b).abs().max().item()
+                         for a, b in zip(grads, warm_grads)))
+        del warm_grads
+        err = (abs(loss - ref[0]),
+               max((a - b).abs().max().item() for a, b in zip(grads, ref[1])))
+        traced = _profiled_step(lambda: step(state, batch, 0)[1].item())
+        want = k1_per_step(layers)
+        if policy != "none":   # the recomputed forward runs K1-fwd again
+            want["flash_attention_fwd_lse"] = 2 * layers
+        rows.append({"recompute": policy, "loss": loss, "step_ms": ms,
+                     "max_memory_gb": peak_gb, "launches": counts,
+                     "loss_err": err[0], "grad_max_abs_err": err[1],
+                     "device_busy_ms": traced["device_busy_ms"],
+                     "delta_kernel_records": traced["delta_kernel_records"]})
+        check(all(n == want.get(name, 0) for name, n in counts.items()),
+              f"resilience (d) {policy}: launches {counts}, want {want}")
+        check(err[0] <= limit[0] and err[1] <= limit[1],
+              f"resilience (d) {policy}: loss and gradients {err} from no "
+              f"recompute's, beyond its own repeat {limit}")
+        check(traced["delta_kernel_records"] == 0,
+              f"resilience (d) {policy}: a traced step ran delta_kernel")
+        del state, grads
+        torch.cuda.empty_cache()
+    return rows, limit
+
+
+def phase_resilience():
+    """BERT-base at 256 x 128 (phase 7's params, dropout off,
+    mixed_bf16, AdamW) through `train_loop` with a CheckpointManager:
+    (a) 6 steps uninterrupted, twice (the second gives the limit the
+    resumed runs are held to: 0 when the card repeats the run bit for
+    bit); (b) from the same params under PADDLE_TPU_FAULT_SPEC
+    step=3:preempt, which stops with "preempted" and a committed step-3
+    checkpoint, then a fresh template restored by restore_latest
+    finishes the run; (c) a child process of this script under
+    step=3:crash dies with CRASH_EXIT_CODE, and this process resumes
+    from its step-2 checkpoint; (b) and (c) against (a): the losses of
+    the steps they ran and the final params; (d) the recompute policies
+    (`_recompute_runs`). Deletes its checkpoint directories."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.observability import events
+    from paddle_tpu_torch.resilience import CRASH_EXIT_CODE, faults, preemption
+
+    t0 = time.perf_counter()
+    layers, params, batch_fn, loss_fn = _resilience_model()
+    steps = range(RESILIENCE_STEPS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        runs, counts = [], None
+        for i in range(2):
+            if i == 0:
+                _kernel_counts(reset=True)
+            state, losses, stop, mgr = _resilience_loop(
+                os.path.join(root, f"a{i}"), params, batch_fn, loss_fn)
+            if i == 0:
+                counts = _kernel_counts()
+            check(stop == "completed" and state.step == RESILIENCE_STEPS
+                  and mgr.committed_steps() == [4, 6],
+                  f"resilience (a): stop {stop}, step {state.step}, "
+                  f"committed {mgr.committed_steps()}")
+            check(all(np.isfinite(list(losses.values()))),
+                  f"resilience (a): losses {losses}")
+            runs.append((losses, {k: v.detach().clone()
+                                  for k, v in state.params.items()}))
+            del state
+        want = k1_per_step(layers)
+        check(all(n == want.get(k, 0) * RESILIENCE_STEPS
+                  for k, n in counts.items()),
+              f"resilience (a): launches {counts} in {RESILIENCE_STEPS} "
+              f"steps")
+        repeat = _run_diff(runs[0], runs[1], steps)
+
+        os.environ[faults.SPEC_ENV] = "step=3:preempt"
+        try:
+            state, losses, stop, mgr = _resilience_loop(
+                os.path.join(root, "b"), params, batch_fn, loss_fn)
+        finally:
+            del os.environ[faults.SPEC_ENV]
+            faults.reset()
+            preemption.reset()
+        committed = mgr.committed_steps()
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(mgr.step_dir(3))
+                      for f in fs) / 1e9
+        check(stop == "preempted" and state.step == 3 and 3 in committed,
+              f"resilience (b): stop {stop} at step {state.step}, "
+              f"committed {committed}")
+        del state
+        state, losses, stop, _ = _resilience_loop(
+            os.path.join(root, "b"), params, batch_fn, loss_fn, resume=True)
+        check(stop == "completed" and sorted(losses) == [3, 4, 5],
+              f"resilience (b) resumed: stop {stop}, steps {sorted(losses)}")
+        preempt = _run_diff(runs[0], (losses, state.params), range(3, 6))
+        del state
+
+        child = subprocess.run(
+            [sys.executable, "-c", CRASH_CHILD, os.path.join(root, "c")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, **{faults.SPEC_ENV: "step=3:crash"}),
+            capture_output=True, text=True, timeout=600)
+        check(child.returncode == CRASH_EXIT_CODE,
+              f"resilience (c): the child exited {child.returncode}, not "
+              f"{CRASH_EXIT_CODE}: {child.stderr[-2000:]}")
+        state, losses, stop, _ = _resilience_loop(
+            os.path.join(root, "c"), params, batch_fn, loss_fn, resume=True)
+        check(stop == "completed" and sorted(losses) == [2, 3, 4, 5],
+              f"resilience (c) resumed: stop {stop}, steps {sorted(losses)}")
+        crash = _run_diff(runs[0], (losses, state.params), range(2, 6))
+        a_losses = [runs[0][0][s] for s in steps]
+        del state, runs
+        io_s = {"save_s": [e["seconds"] for e in events.recent(
+                    kind="checkpoint") if e.get("site") == "manager_save"],
+                "restore_s": [e["seconds"] for e in events.recent(
+                    kind="restore") if e.get("ok")]}
+        for label, got in (("(b)", preempt), ("(c)", crash)):
+            check(got[0] <= repeat[0] and got[1] <= repeat[1],
+                  f"resilience {label}: the resumed run differs from the "
+                  f"uninterrupted one by {got} (losses, params), beyond "
+                  f"the repeat's {repeat}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    recompute, recompute_limit = _recompute_runs(layers, params,
+                                                 batch_fn(0), loss_fn)
+    print(json.dumps({
+        "phase": "resilience", "card": card(),
+        "model": "BERT-base (BertConfig.base()), mixed_bf16, dropout off",
+        "optimizer": "AdamW lr 1e-4 wd 1e-4",
+        "batch": [RESILIENCE_B, RESILIENCE_T], "steps": RESILIENCE_STEPS,
+        "checkpoints": "save_every 2, keep_last_n 2",
+        "crash_child": f"the full model ({layers} layers), as the parent",
+        "repeat_loss_max_abs_diff": repeat[0],
+        "repeat_param_max_abs_diff": repeat[1],
+        "preempt_resume_diff": preempt, "crash_resume_diff": crash,
+        "checkpoint_gb": ckpt_gb, **io_s,
+        "losses": a_losses,
+        "launches": counts, "recompute_repeat_limit": recompute_limit,
+        "recompute": recompute,
+        "seconds": time.perf_counter() - t0}))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2638,9 +2940,10 @@ def main() -> int:
     phase_ring_parity()
     sp_counts = phase_bert_long_sp()
     phase_head_dim_gate()
+    resilience_counts = phase_resilience()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
-                   sp_counts):
+                   sp_counts, resilience_counts):
         launches.update(counts)
     # every main path runs attention at bf16, where the dq kernels fold
     # the delta pass in: the delta row counts those folds, and the

@@ -1,0 +1,96 @@
+"""Lazy loss fetches for the training loop: the subset of the JAX
+package's `core/async_exec.py` that `parallel.train.train_loop` uses.
+
+`FetchHandle` holds values a step left on the device and reads them on
+the host only at `result()`. On CUDA it records an event on the current
+stream when it is made (after the step's launches), and `result()`
+waits on it, then reads each value with `.item()`. A value on the CPU
+is ready at once. The handle drops its device references when it
+resolves, so a resolved handle holds no device memory.
+`inflight_stats()` counts the handles not yet resolved.
+
+`train_loop` keeps at most `fetch_window` (default `DEFAULT_IN_FLIGHT`)
+of them outstanding, so the host enqueues step N+1 while the device
+still runs step N. The mixed precision policies read `finite` on the
+host once a step (`parallel/train.py`, to skip the optimizer), which
+already waits for the step: under them the window overlaps nothing.
+
+Not ported: `InFlightWindow`, `Prefetcher` and the executor's fetch
+telemetry (ROADMAP item 16).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Iterable, List
+
+__all__ = ["FetchHandle", "inflight_stats", "reset_inflight_stats",
+           "DEFAULT_IN_FLIGHT"]
+
+# Two in flight: one step computing on the device while the host reads
+# the loss of the one before, the JAX package's double buffer.
+DEFAULT_IN_FLIGHT = 2
+
+_acct_lock = threading.Lock()
+_open_handles = 0
+_open_high_water = 0
+
+
+def inflight_stats() -> dict:
+    """{open, high_water}: handles not yet resolved, and the most open
+    at once since `reset_inflight_stats()`."""
+    with _acct_lock:
+        return {"open": _open_handles, "high_water": _open_high_water}
+
+
+def reset_inflight_stats():
+    global _open_high_water
+    with _acct_lock:
+        _open_high_water = _open_handles
+
+
+def _is_cuda(v) -> bool:
+    return getattr(getattr(v, "device", None), "type", None) == "cuda"
+
+
+class FetchHandle:
+    """A lazy fetch of `values` (tensors or host scalars); see the
+    module docstring."""
+
+    __slots__ = ("_values", "_result", "_event", "_lock")
+
+    def __init__(self, values: Iterable[Any]):
+        global _open_handles, _open_high_water
+        self._values: List[Any] = list(values)
+        self._result: List[Any] = []
+        self._lock = threading.Lock()
+        self._event = None
+        dev = next((v.device for v in self._values if _is_cuda(v)), None)
+        if dev is not None:
+            import torch
+
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+        with _acct_lock:
+            _open_handles += 1
+            _open_high_water = max(_open_high_water, _open_handles)
+
+    def result(self, stall: bool = True) -> List[Any]:
+        """Wait for the device, read every value to the host (`.item()`
+        for a tensor), drop the device references, and return the list
+        (cached). `stall` keeps the JAX package's signature: there it
+        tells the fetch telemetry (not ported) whether the wait was a
+        pipeline stall."""
+        global _open_handles
+        with self._lock:
+            if self._values is None:
+                return self._result
+            if self._event is not None:
+                self._event.synchronize()
+            self._result = [v.item() if hasattr(v, "item") else v
+                            for v in self._values]
+            self._values = None
+            self._event = None
+        with _acct_lock:
+            _open_handles = max(0, _open_handles - 1)
+        return self._result

@@ -1,0 +1,52 @@
+# Copied from the JAX package: the dynamic loss-scaling subset of
+# paddle_tpu/observability/telemetry.py (stdlib only). Each definition
+# below is that file's, unchanged; keep them in step with it. The rest
+# of that module (executor, trainer, compile and async telemetry) is not
+# ported (ROADMAP item 18).
+"""Dynamic loss-scaling telemetry: `paddle_tpu_amp_total{event}`, the
+`paddle_tpu_amp_loss_scale` gauge, and `record_amp`, which ticks them
+and logs each overflow as an `amp_overflow` event. The training loop
+feeds them through `parallel.train.sync_loss_scale_metrics`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from . import events as _events
+from . import metrics as _m
+
+__all__ = ["record_amp"]
+
+AMP_EVENTS = _m.counter(
+    "paddle_tpu_amp_total",
+    "Dynamic loss-scaling outcomes under a mixed-precision policy: "
+    "overflow (nonfinite grads detected), skip (the update those grads "
+    "would have applied was dropped), growth (scale grew after a clean "
+    "streak). A rising overflow rate at steady state means the scale "
+    "is thrashing — lower init_loss_scale or widen growth_interval",
+    labelnames=("event",))
+AMP_LOSS_SCALE = _m.gauge(
+    "paddle_tpu_amp_loss_scale",
+    "Current dynamic loss scale (last host-observed value)")
+
+
+def record_amp(event: str, n: int = 1, step: Optional[int] = None,
+               scale: Optional[float] = None):
+    """`n` dynamic loss-scaling outcomes of kind `event`
+    (overflow|growth|skip). Overflows additionally land in the JSONL
+    log as `amp_overflow` events — a scale-thrash timeline is how a
+    diverging mixed-precision run is diagnosed after the fact
+    (tools/obsdump.py events --kind amp_overflow)."""
+    if n <= 0:
+        return
+    AMP_EVENTS.inc(n, event=event)
+    if scale is not None:
+        AMP_LOSS_SCALE.set(float(scale))
+    if event == "overflow":
+        fields: Dict = {"count": int(n)}
+        if step is not None:
+            fields["step"] = int(step)
+        if scale is not None:
+            fields["scale"] = float(scale)
+        _events.emit("amp_overflow", **fields)

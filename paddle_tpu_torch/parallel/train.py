@@ -1,8 +1,10 @@
-"""Train-step builder on one device.
+"""Train step and fault-tolerant training loop on one device.
 
-Counterpart of the JAX package's `parallel/train.py::make_train_step`
-with the semantics of its one-device case: `init_state(params)` then
-`step(state, batch, rng) -> (state, loss)`. What differs, and why:
+Counterpart of the JAX package's `parallel/train.py`: `make_train_step`
+with the semantics of its one-device case (`init_state(params)` then
+`step(state, batch, rng) -> (state, loss)`), `train_loop` (checkpoints,
+preemption, fault injection, recovery policies) and
+`sync_loss_scale_metrics`. What differs, and why:
 
 - No mesh, shardings or ZeRO-1: one device, named by `device` (cuda
   unless "cpu"). Multi-device training is a later slice.
@@ -17,33 +19,68 @@ with the semantics of its one-device case: `init_state(params)` then
 - `rng` is an int seed or None (the counterpart of a jax key): each
   microbatch's loss_fn gets a `torch.Generator` on the device seeded
   from it, so a recomputed forward draws the same dropout bits.
+- Recompute (`TrainStrategy(recompute=True)`) checkpoints the whole
+  loss with `torch.utils.checkpoint` (non-reentrant), as the JAX step
+  wraps loss_fn in `jax.checkpoint`. Policy None and "nothing" save
+  nothing; "dots" and "dots_no_batch" are a selective checkpoint that
+  saves the outputs of dot ops and recomputes everything else, the
+  counterparts of `jax.checkpoint_policies.dots_saveable` and
+  `dots_with_no_batch_dims_saveable`: "dots" saves `aten.mm`, `addmm`,
+  `bmm` and `baddbmm`, "dots_no_batch" only the two with no batch
+  dimension (the denses, `[B*T, D] @ [D, F]`, not attention's
+  per-head products). The attention kernels are autograd Functions
+  that launch through ctypes, which the dispatcher never sees, so
+  under every policy their forward runs again in the recompute (in the
+  JAX package a `pallas_call` is no dot either).
 - Mixed policies read `finite` on the host once a step (one device
   sync) and skip the optimizer when it is False; the JAX step selects
   on the device. Params and optimizer state keep their pre-step values
   either way.
-- `train_loop` (checkpoints, elastic resizing, preemption) is not
-  ported yet, and the "dots" recompute policies raise.
+- `train_loop` draws step N's seed as a fixed function of (rng, N)
+  where the JAX loop folds N into its key (see `step_seed`), and its
+  loss fetches are `core.async_exec.FetchHandle`s on CUDA events.
+  Elastic resizing (`resize_check`) is kept as a hook; the elastic
+  loop that re-forms a mesh is not ported (ROADMAP item 20e).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..core import precision as _precision
 from ..models.common import Params, is_trainable
 
 __all__ = ["TrainStrategy", "TrainState", "make_train_step",
-           "RECOMPUTE_POLICIES"]
+           "RECOMPUTE_POLICIES", "sync_loss_scale_metrics", "train_loop",
+           "step_seed"]
 
 # None and "nothing" save nothing and recompute everything; the "dots"
-# policies of jax.checkpoint (keep matmul outputs) are not ported yet
+# policies save the dot ops' outputs below (the module docstring)
 RECOMPUTE_POLICIES = (None, "nothing", "dots", "dots_no_batch")
+
+_aten = torch.ops.aten
+SAVED_DOTS = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+def _save_dots(ops, ctx, op, *args, **kwargs):
+    """A selective-checkpoint policy: save the outputs of `ops`,
+    recompute everything else. Nothing else is ever MUST_SAVE: a cached
+    allocation (`aten.empty`) handed back during the recompute to a
+    kernel that writes it in place would be overwritten."""
+    return CheckpointPolicy.MUST_SAVE if op in ops \
+        else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 @dataclasses.dataclass
@@ -121,11 +158,12 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
         raise ValueError("recompute_policy is set but recompute=False — "
                          "enable recompute=True for the policy to take "
                          "effect")
-    if strategy.recompute and strategy.recompute_policy in (
-            "dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"recompute_policy {strategy.recompute_policy!r} (save matmul "
-            f"outputs) is not ported; use None or 'nothing'")
+    ckpt_kw = {}
+    if strategy.recompute_policy in SAVED_DOTS:
+        ckpt_kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_dots,
+                              SAVED_DOTS[strategy.recompute_policy]))
     n_acc = int(strategy.accum_steps)
     use_amp = policy.dynamic_loss_scale and policy.compute_dtype is not None
 
@@ -136,7 +174,8 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
             return fn(p, b, gen)
 
         if strategy.recompute:
-            return checkpoint(call, params, batch, seed, use_reentrant=False)
+            return checkpoint(call, params, batch, seed,
+                              use_reentrant=False, **ckpt_kw)
         return call(params, batch, seed)
 
     def microbatch_grads(fn, params: Params, names: List[str], batch, rng):
@@ -256,3 +295,210 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
         return state, loss
 
     return init_state, step
+
+
+def step_seed(rng: int, step: int) -> int:
+    """Step `step`'s seed under the run seed `rng`: the first 32-bit
+    word of numpy's `SeedSequence([rng, step])`, the counterpart of the
+    JAX loop's `jax.random.fold_in(rng, step)`. A fixed function of the
+    pair, so a resumed run draws the same dropout bits at each global
+    step as the run it resumes."""
+    return int(np.random.SeedSequence([int(rng), int(step)])
+               .generate_state(1)[0])
+
+
+def sync_loss_scale_metrics(state: TrainState,
+                            last: Optional[Dict[str, Any]] = None
+                            ) -> Optional[Dict[str, Any]]:
+    """Diff TrainState.loss_scale's cumulative counters against `last`
+    (the previous return value) and tick
+    paddle_tpu_amp_total{event=overflow|growth|skip} + the loss-scale
+    gauge; overflows also land as `amp_overflow` events. The port keeps
+    the loss-scale state on the host, so this reads no device value.
+    Returns the new cumulative snapshot (None loss_scale → `last`
+    unchanged). `last=None` BASELINES without recording — a restored
+    checkpoint's lifetime counters must not replay as fresh events."""
+    from ..observability import telemetry as _telemetry
+
+    ls = getattr(state, "loss_scale", None)
+    if ls is None:
+        return last
+    cur = {"overflows": int(ls["overflows"]),
+           "growths": int(ls["growths"]),
+           "scale": float(ls["scale"])}
+    _telemetry.AMP_LOSS_SCALE.set(cur["scale"])
+    if last is None:
+        return cur
+    prev = last
+    d_over = cur["overflows"] - int(prev.get("overflows", 0))
+    d_grow = cur["growths"] - int(prev.get("growths", 0))
+    _telemetry.record_amp("overflow", d_over, step=int(state.step),
+                          scale=cur["scale"])
+    _telemetry.record_amp("skip", d_over)
+    _telemetry.record_amp("growth", d_grow, scale=cur["scale"])
+    return cur
+
+
+def train_loop(step_fn, state: TrainState, batches, *, rng=None,
+               manager=None, save_every: Optional[int] = None,
+               controller=None, max_steps: Optional[int] = None,
+               fetch_window: Optional[int] = None,
+               resize_check: Optional[Callable[[], bool]] = None):
+    """Fault-tolerance-aware loop over a `make_train_step` step_fn, with
+    the JAX package's contract.
+
+    The step boundary is the only safe interruption point, so everything
+    the resilience layer does hangs off this loop:
+
+      - fault injection: `faults.check("step", step=N)` fires before
+        each step — `PADDLE_TPU_FAULT_SPEC="step=N:crash"` kills the
+        process exactly there (exit CRASH_EXIT_CODE);
+      - preemption: when a graceful stop was requested (SIGTERM with
+        PADDLE_TPU_PREEMPT_SIGNALS set, or programmatically), the loop
+        writes a final checkpoint via `manager` and returns
+        stop="preempted" — the caller exits with PREEMPT_EXIT_CODE;
+      - periodic checkpoints: every `save_every` completed steps,
+        `manager.save(state)` (commit marker + retention inside);
+      - recovery: a NumericsError from the post-step loss check (or a
+        blown warn-anomaly budget) or a PSUnavailableError is routed to
+        `controller.handle`, which skips the batch, rolls the state back
+        to the last committed checkpoint, or aborts per its
+        RecoveryPolicy.
+
+    `batches` is either an iterable of batches or a callable
+    `batch_fn(step) -> batch | None` (None stops the loop). The callable
+    form keys data on the GLOBAL step number, which is what makes a
+    resumed run replay the exact uninterrupted trajectory — and what a
+    rollback needs to re-feed the steps it rewound over. `rng` is an
+    int run seed (default 0); step N runs under `step_seed(rng, N)` for
+    the same reason. Returns (state, losses, stop) where `losses` maps
+    executed step number -> float loss and `stop` is
+    "completed" | "preempted" | "exhausted" | "resize".
+
+    `resize_check` is the elastic-membership hook: it is consulted
+    immediately AFTER each periodic checkpoint commits, and a True
+    return stops the loop with stop="resize". It requires `manager` +
+    `save_every`.
+
+    Loss fetching is ASYNC by default: losses are parked as
+    `FetchHandle`s and resolved only when `fetch_window` (default
+    `DEFAULT_IN_FLIGHT`, 2) of them are outstanding, so the host
+    enqueues the next step while the device computes. The losses are
+    the same as with synchronous fetching. A per-step loss CONSUMER
+    forces fetch_window=1: health numerics checks and recovery
+    controllers must see step N's loss before step N+1 runs.
+    """
+    import time as _time
+
+    from collections import deque as _deque
+
+    from ..core import async_exec as _async
+    from ..observability import events as _events
+    from ..observability import health as _health
+    from ..ps import errors as _ps_errors
+    from ..resilience import faults as _faults
+    from ..resilience import preemption as _preempt
+
+    _preempt.maybe_install_from_env()
+    if resize_check is not None and (manager is None or not save_every):
+        raise ValueError(
+            "resize_check requires manager + save_every — without "
+            "periodic checkpoints there is no boundary at which it is "
+            "ever consulted")
+    if controller is not None:
+        controller.attach()
+    rng = 0 if rng is None else int(rng)
+    get_batch = batches if callable(batches) else None
+    batch_iter = iter(batches) if get_batch is None else None
+    losses: Dict[int, float] = {}
+    steps_done = 0
+    stop = "completed"
+    window = max(1, int(fetch_window or _async.DEFAULT_IN_FLIGHT))
+    if controller is not None or _health.check_level():
+        window = 1  # per-step loss consumers need the value NOW
+    pending: "_deque[Tuple[int, Any]]" = _deque()
+
+    def _resolve_oldest():
+        step_i, h = pending.popleft()
+        # backpressure keeping run-ahead bounded, not a pipeline stall
+        losses[step_i] = float(h.result(stall=False)[0])
+
+    amp_seen = sync_loss_scale_metrics(state) \
+        if getattr(state, "loss_scale", None) is not None else None
+    t0 = _time.perf_counter()
+    try:
+        while True:
+            if max_steps is not None and steps_done >= max_steps:
+                stop = "exhausted"
+                break
+            step_no = int(state.step)
+            _faults.check("step", step=step_no)
+            if _preempt.stop_requested():
+                stop = "preempted"
+                if manager is not None and not manager.is_committed(
+                        manager.step_dir(step_no)):
+                    manager.save(state)
+                break
+            if controller is not None and controller.should_act():
+                action, state = controller.handle(None, state,
+                                                  step=step_no)
+                if action == "rollback":
+                    continue  # step_no re-derives from the rewound state
+            if get_batch is not None:
+                batch = get_batch(step_no)
+                if batch is None:
+                    break
+            else:
+                batch = next(batch_iter, None)
+                if batch is None:
+                    break
+            try:
+                state, loss = step_fn(state, batch, step_seed(rng, step_no))
+                if window > 1:
+                    # resolve-first: never more than `window` handles
+                    # (and their device buffers) outstanding at once
+                    while len(pending) >= window:
+                        _resolve_oldest()
+                    pending.append((step_no, _async.FetchHandle([loss])))
+                else:
+                    loss_val = float(loss)
+                    if _health.check_level():
+                        _health.check_numerics(
+                            "trainer_loss", [("loss", loss_val)],
+                            step=step_no)
+                    losses[step_no] = loss_val
+                    if amp_seen is not None:
+                        # overflow events carry exact step attribution
+                        amp_seen = sync_loss_scale_metrics(state,
+                                                           amp_seen)
+            except (_health.NumericsError, _ps_errors.PSUnavailableError) \
+                    as e:
+                # PSUnavailableError: a PS pull/push exhausted its retry
+                # budget mid-step; routed through the same
+                # RecoveryPolicy as a numerics anomaly
+                if controller is None:
+                    raise
+                action, state = controller.handle(e, state, step=step_no)
+                if action == "skip_batch":
+                    steps_done += 1
+                continue
+            steps_done += 1
+            if (manager is not None and save_every
+                    and int(state.step) % save_every == 0):
+                manager.save(state)
+                if resize_check is not None and resize_check():
+                    stop = "resize"
+                    break
+    finally:
+        while pending:  # drain: every executed step's loss lands
+            _resolve_oldest()
+        if amp_seen is not None:
+            # async mode: aggregate outcome counts land at drain time
+            amp_seen = sync_loss_scale_metrics(state, amp_seen)
+        if controller is not None:
+            controller.detach()
+    seconds = _time.perf_counter() - t0
+    _events.emit("step_summary", site="train_loop", steps=steps_done,
+                 stop=stop, final_step=int(state.step),
+                 seconds=round(seconds, 6))
+    return state, losses, stop

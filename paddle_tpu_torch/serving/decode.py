@@ -29,7 +29,8 @@ scheduler:
   tokens already streamed are not re-emitted;
 - boot validation: config findings in the analysis Finding shape
   (`paddle_tpu_torch/analysis.py`), PADDLE_TPU_VALIDATE=2 refuses to
-  serve a broken grid;
+  boot a broken grid; below level 2 an engine with an error finding
+  boots, reports it in `status()`, and refuses to warm or serve;
 - the JAX package's decode metrics (same names, same update points),
   its `decode` and `warmstart` events and its per-request trace spans.
 
@@ -284,12 +285,14 @@ class DecodeEngine:
     every phase call. `warmup()`, before the scheduler starts, warms
     the phase grid (see the module docstring).
 
-    Construction raises at once where the engine cannot run at all: a
-    mixture-of-experts config (the paged decode step has no
-    expert-dispatch path) and a max_len beyond the model's positional
-    table. Every other config fault is a boot-validation finding
-    (`analysis`), raised only at PADDLE_TPU_VALIDATE=2, as in the JAX
-    package."""
+    A config fault is a boot-validation finding (`analysis`), raised
+    as AnalysisError only at PADDLE_TPU_VALIDATE=2, as in the JAX
+    package. Below that level an engine with an error finding (a
+    mixture-of-experts config, a max_len beyond the model's positional
+    table, a pool that cannot hold one sequence, ...) constructs and
+    reports it in `status()`, allocates no KV pool, and refuses to warm
+    or serve: `warmup()`, `start()` and `submit()` raise naming the
+    findings."""
 
     def __init__(self, params, model_cfg, config: Optional[DecodeConfig]
                  = None, *, device=None):
@@ -299,10 +302,6 @@ class DecodeEngine:
         self.device = resolve_device(device)
         self.config = config or DecodeConfig()
         self.model_cfg = model_cfg
-        if getattr(model_cfg, "n_experts", 0):
-            raise ValueError("MoE decode is unsupported: the paged decode "
-                             "step has no expert-dispatch path; serve a "
-                             "dense config")
         if self.config.precision not in ("f32", "bf16"):
             raise ValueError(
                 f"unsupported decode precision "
@@ -312,9 +311,6 @@ class DecodeEngine:
             k: _precision.cast_floating(v, self._compute_dtype)
             .to(self.device) for k, v in params.items()}
         max_len = int(self.config.max_len or model_cfg.max_len)
-        if max_len > model_cfg.max_len:
-            raise ValueError(f"max_len {max_len} exceeds the model's "
-                             f"positional table ({model_cfg.max_len})")
         self.kv_cfg = KVCacheConfig(
             layers=model_cfg.layers, kv_heads=model_cfg.heads,
             head_dim=model_cfg.head_dim, max_len=max_len,
@@ -330,8 +326,12 @@ class DecodeEngine:
 
         self._findings: List[_an.Finding] = []
         self.analysis = self._validate_boot()
+        self._boot_errors = [f for f in self._findings
+                             if f.severity == _an.ERROR]
 
-        self._pools = init_pools(self.kv_cfg, self.device)
+        # an engine that will not serve allocates no pool
+        self._pools = None if self._boot_errors else \
+            init_pools(self.kv_cfg, self.device)
         self._alloc = BlockAllocator(self.kv_cfg)
         # re-entrant: _count takes it from paths that already hold it
         self._cv = threading.Condition(threading.RLock())
@@ -378,6 +378,10 @@ class DecodeEngine:
                 var=var))
 
         kv, mc = self.kv_cfg, self.model_cfg
+        if getattr(mc, "n_experts", 0):
+            add(_an.ERROR, "MoE decode is unsupported: the paged decode "
+                "step has no expert-dispatch path (ROADMAP item 4) — "
+                "serve a dense config")
         if kv.usable_blocks < kv.max_blocks_per_seq:
             add(_an.ERROR,
                 f"KV pool cannot hold ONE full sequence: "
@@ -391,6 +395,10 @@ class DecodeEngine:
                 f"blocks < {worst} worst-case ({max(self.decode_slots)} "
                 f"slots x {kv.max_blocks_per_seq} blocks) — expect "
                 "preemptions under full-length load", var="num_blocks")
+        if kv.max_len > mc.max_len:
+            add(_an.ERROR,
+                f"max_len {kv.max_len} exceeds the model's positional "
+                f"table ({mc.max_len})", var="max_len")
         if not (-1 <= self.eos_id < mc.vocab_size):
             add(_an.ERROR,
                 f"eos_id {self.eos_id} outside vocab [0, "
@@ -423,6 +431,16 @@ class DecodeEngine:
         if out["errors"] and _an.validate_level() >= 2:
             raise _an.AnalysisError(self._findings)
         return out
+
+    def _refuse_invalid(self) -> None:
+        """Raise when boot validation found an error (below
+        PADDLE_TPU_VALIDATE=2, where the engine constructs): it neither
+        warms nor serves, and there is no eager fallback."""
+        if self._boot_errors:
+            raise RuntimeError(
+                "this engine's boot validation found "
+                f"{len(self._boot_errors)} error(s); it does not serve: " +
+                "; ".join(str(f) for f in self._boot_errors))
 
     # -- phase grid / warmstart ----------------------------------------
 
@@ -461,6 +479,7 @@ class DecodeEngine:
         return len(self._warm)
 
     def _warm_keys(self, keys) -> None:
+        self._refuse_invalid()
         with self._cv:
             while self._warming:
                 self._cv.wait()
@@ -659,7 +678,9 @@ class DecodeEngine:
 
     def start(self):
         """Start the scheduler thread (idempotent; submit() calls it).
-        Waits for a warmup in progress; raises when a warmup failed."""
+        Waits for a warmup in progress; raises when a warmup failed or
+        boot validation found an error."""
+        self._refuse_invalid()
         with self._cv:
             while self._warming:
                 self._cv.wait()
@@ -682,7 +703,10 @@ class DecodeEngine:
     def submit(self, prompt_ids, max_new_tokens: int = 16) -> DecodeHandle:
         """Enqueue one generation; returns its token-stream handle.
         Reject-not-block: QueueFullError (HTTP 503) when max_queue
-        prompts already wait, ServerClosed after stop() or drain()."""
+        prompts already wait, ServerClosed after stop() or drain().
+        Raises RuntimeError on an engine whose boot validation found an
+        error."""
+        self._refuse_invalid()
         prompt = np.asarray(prompt_ids, np.int32).ravel()
         if prompt.size < 1:
             raise ValueError("prompt must carry at least one token id")

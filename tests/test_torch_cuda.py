@@ -27,7 +27,10 @@ kernels compute delta from the forward's output: the folded delta, the
 external-delta launch and the launch counts, for K1 and K2. The decode
 engine's CUDA graphs: a warmed engine's tokens equal an unwarmed one's
 bit for bit, every decode step a replay, and a capture that fails
-raises.
+raises. Training under each recompute policy equals no recompute bit
+for bit on a narrow BERT with K1 (K1-fwd run again in the recompute),
+and a TrainState checkpoint restores onto its template's device, cuda
+or cpu, whichever device wrote it.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -691,6 +694,98 @@ def test_tiny_bert_step_runs_through_the_xla_gate():
     assert torch.isfinite(loss).item()
     assert ta.GATE_COUNTS["xla"] == xla + cfg.layers
     assert [f.launches for f in k1] == before
+
+
+def _narrow_bert():
+    """A 2-layer BERT of head dim 64 (so K1 runs), its params and a
+    batch, all on the card."""
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=1024, hidden=128, layers=2, heads=2,
+                          mlp_dim=256, max_len=128, dropout=0.0)
+    params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0),
+                          cfg, device="cuda")
+    batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, 8, seq_len=128)
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "nothing", "dots",
+                                    "dots_no_batch"], ids=str)
+def test_recompute_policy_step_equals_no_recompute(policy):
+    """Two mixed_bf16 AdamW steps under `policy` and without recompute
+    from the same params: the same losses and params bit for bit, and
+    K1-fwd (LSE) runs twice a layer a step under recompute, dq and dkv
+    once."""
+    _need_card()
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.train import TrainStrategy, make_train_step
+
+    cfg, params, batch = _narrow_bert()
+    runs = []
+    for strategy in (TrainStrategy(), TrainStrategy(
+            recompute=True, recompute_policy=policy)):
+        init, step = make_train_step(
+            lambda p, b, g: bert.pretrain_loss(p, cfg, b, rng=g,
+                                               deterministic=True),
+            lambda ps: torch.optim.AdamW(ps, lr=1e-4, weight_decay=1e-4),
+            device="cuda", precision="mixed_bf16", strategy=strategy)
+        state = init(params)
+        before = [f.launches for f in (fa.flash_attention_with_lse,
+                                       fa.flash_attention_bwd_dq,
+                                       fa.flash_attention_bwd_dkv)]
+        losses = [step(state, batch, i)[1].item() for i in range(2)]
+        after = [f.launches for f in (fa.flash_attention_with_lse,
+                                      fa.flash_attention_bwd_dq,
+                                      fa.flash_attention_bwd_dkv)]
+        runs.append((losses, state.params,
+                     [a - b for a, b in zip(after, before)]))
+    (want, wparams, wn), (got, gparams, gn) = runs
+    assert got == want
+    for k, v in wparams.items():
+        assert torch.equal(gparams[k], v), k
+    L = cfg.layers
+    assert wn == [2 * L, 2 * L, 2 * L] and gn == [4 * L, 2 * L, 2 * L]
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_templates_device(tmp_path):
+    """A checkpoint written from the card restores into a CPU template
+    on the CPU, and one written on the CPU into a CUDA template on the
+    card: params and optimizer state equal, each on its template's
+    device."""
+    _need_card()
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.checkpoint import (restore_train_state,
+                                                      save_train_state)
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    cfg, params, batch = _narrow_bert()
+
+    def build(device):
+        return make_train_step(
+            lambda p, b, g: bert.pretrain_loss(p, cfg, b, rng=g,
+                                               deterministic=True),
+            lambda ps: torch.optim.AdamW(ps, lr=1e-4), device=device,
+            precision="f32")
+
+    init, step = build("cuda")
+    state, _ = step(init(params), batch, 0)
+    save_train_state(str(tmp_path / "cuda"), state)
+    cpu_init, _ = build("cpu")
+    got = restore_train_state(str(tmp_path / "cuda"), cpu_init(params))
+    assert got.step == 1
+    for k, v in got.params.items():
+        assert v.device.type == "cpu" and torch.equal(v, state.params[k].cpu())
+    for st in got.opt_state.state.values():
+        assert st["exp_avg"].device.type == "cpu"
+    save_train_state(str(tmp_path / "cpu"), got)
+    back = restore_train_state(str(tmp_path / "cpu"), init(params))
+    for k, v in back.params.items():
+        assert v.device.type == "cuda" and torch.equal(v, state.params[k])
+    for st in back.opt_state.state.values():
+        assert st["exp_avg"].device.type == "cuda"
 
 
 # K2-bwd on the Hopper kernels at bf16, beyond K2_CASES: (B, T, Tk, N, H,

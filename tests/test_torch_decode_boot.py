@@ -40,6 +40,8 @@ BOOT_CASES = [
      "prefill_buckets"),
     ("largest_bucket_below_max_len", dict(prefill_buckets=(8, 16)), None),
     ("slot_count_below_one", dict(decode_slots=(0, 4)), "decode_slots"),
+    # beyond GPTConfig.tiny()'s positional table of 128
+    ("max_len_above_positional_table", dict(max_len=256), "max_len"),
 ]
 
 
@@ -102,6 +104,28 @@ def test_validate_level_2_raises_as_jax(model, monkeypatch, case, change,
     params, cfg, jparams, jcfg = model
     with pytest.raises(JAnalysisError, match=word):
         JDecodeEngine(jparams, jcfg, JDecodeConfig(**dict(BASE, **change)))
+
+
+@pytest.mark.parametrize("case,change,word",
+                         [c for c in BOOT_CASES if c[2] is not None],
+                         ids=[c[0] for c in BOOT_CASES if c[2] is not None])
+def test_boot_error_below_level_2_refuses_to_serve(model, monkeypatch, case,
+                                                  change, word):
+    """Below PADDLE_TPU_VALIDATE=2 an engine with an error finding
+    constructs, as the JAX engine does, and `status()` shows the error;
+    it allocates no KV pool, and warmup(), start() and submit() raise
+    naming the finding's variable."""
+    monkeypatch.setenv("PADDLE_TPU_VALIDATE", "1")
+    eng = port_engine(model, **change)
+    try:
+        assert eng.status()["analysis"]["errors"] == 1
+        assert eng._pools is None
+        for call in (eng.warmup, eng.start, lambda: eng.submit([1, 2, 3])):
+            with pytest.raises(RuntimeError, match=word):
+                call()
+        assert eng._thread is None and not eng.warmed
+    finally:
+        eng.stop()
 
 
 @pytest.mark.parametrize("buckets,want", [((8, 16), 4), ((8,), 3)])

@@ -20,6 +20,7 @@ from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.serving import DecodeConfig as JDecodeConfig
 from paddle_tpu.serving import DecodeEngine as JDecodeEngine
 
+from paddle_tpu_torch.analysis import AnalysisError
 from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
@@ -234,11 +235,24 @@ def test_engine_runs_on_cuda_unless_told_cpu(model):
                                                max_len=64))
 
 
-def test_engine_refuses_moe_and_bad_precision(model):
+def test_engine_refuses_moe_and_bad_precision(model, monkeypatch):
+    """An MoE config is a boot-validation error, as in the JAX engine:
+    AnalysisError at PADDLE_TPU_VALIDATE=2; below it the engine
+    constructs, shows the error and refuses to serve."""
     params, cfg = model[:2]
-    with pytest.raises(ValueError, match="MoE"):
+    monkeypatch.setenv("PADDLE_TPU_VALIDATE", "2")
+    with pytest.raises(AnalysisError, match="MoE"):
         DecodeEngine(params, gpt.GPTConfig.tiny(n_experts=2),
                      DecodeConfig(max_len=64), device="cpu")
+    monkeypatch.delenv("PADDLE_TPU_VALIDATE")
+    eng = DecodeEngine(params, gpt.GPTConfig.tiny(n_experts=2),
+                       DecodeConfig(max_len=64), device="cpu")
+    try:
+        assert eng.analysis["errors"] == 1
+        with pytest.raises(RuntimeError, match="MoE"):
+            eng.submit([1, 2, 3])
+    finally:
+        eng.stop()
     with pytest.raises(ValueError, match="precision"):
         DecodeEngine(params, cfg, DecodeConfig(precision="fp8"),
                      device="cpu")

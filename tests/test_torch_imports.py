@@ -34,8 +34,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
-    # the training, NMT, ResNet and sequence-parallel slices' modules
-    # are among those imported
+    # the training, NMT, ResNet, sequence-parallel and resilience
+    # slices' modules are among those imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
@@ -47,7 +47,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.parallel.mesh",
                  "paddle_tpu_torch.parallel.sharding",
                  "paddle_tpu_torch.parallel.ring",
-                 "paddle_tpu_torch.ops.ring_attention"):
+                 "paddle_tpu_torch.ops.ring_attention",
+                 "paddle_tpu_torch.parallel.checkpoint",
+                 "paddle_tpu_torch.resilience.checkpoint_manager",
+                 "paddle_tpu_torch.resilience.policy",
+                 "paddle_tpu_torch.observability.health",
+                 "paddle_tpu_torch.core.async_exec"):
         assert name in r.stdout.split(), name
 
 

@@ -1,5 +1,6 @@
-"""The port's copies of the JAX package's stdlib observability and
-resilience modules have not drifted from their sources, and the decode
+"""The port's copies of the JAX package's stdlib observability,
+resilience and parameter-server-error modules have not drifted from
+their sources, and the decode
 engine's metrics, events and trace spans are those of the JAX package's
 engine: the same names, updated at the same points."""
 
@@ -30,7 +31,38 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (copy in the port, its source in the JAX package)
 COPIES = [("resilience/atomic.py", "resilience/atomic.py"),
           ("observability/events.py", "observability/events.py"),
-          ("observability/metrics.py", "observability/metrics.py")]
+          ("observability/metrics.py", "observability/metrics.py"),
+          ("ps/errors.py", "ps/errors.py"),
+          ("resilience/faults.py", "resilience/faults.py"),
+          ("resilience/preemption.py", "resilience/preemption.py"),
+          ("resilience/checkpoint_manager.py",
+           "resilience/checkpoint_manager.py")]
+
+# copies with declared changes: (copy, header lines, [(source text, its
+# replacement)]); each source text occurs once in the source. The
+# loggers' JAX-package names are refused by the port's import-hygiene
+# test; retry.py's CircuitBreaker takes the JAX package's
+# analysis.lockcheck.Lock, which the port does not have.
+CHANGED_COPIES = [
+    ("observability/health.py", 3,
+     [('logging.getLogger("paddle_tpu.health")',
+       'logging.getLogger("paddle_tpu_torch.health")')]),
+    ("resilience/retry.py", 3,
+     [('logging.getLogger("paddle_tpu.resilience")',
+       'logging.getLogger("paddle_tpu_torch.resilience")'),
+      ("""        # deferred import: the analysis package must not load during
+        # package bootstrap; constructors only run after it
+        from ..analysis import lockcheck as _lockcheck
+
+        self._lock = _lockcheck.Lock(
+            "resilience.retry.CircuitBreaker._lock")
+""", """        # a plain lock: the port has no lock-order checker (the JAX
+        # package's analysis.lockcheck, ROADMAP item 21)
+        self._lock = threading.Lock()
+""")]),
+]
+
+TELEMETRY_NAMES = ("AMP_EVENTS", "AMP_LOSS_SCALE", "record_amp")
 
 # tracing.py's one declared change: the logger's name, whose JAX-package
 # form the port's import-hygiene test refuses
@@ -68,6 +100,18 @@ def test_tracing_copy_differs_only_by_its_logger_name():
     assert body == src.replace(*TRACING_CHANGE)
 
 
+@pytest.mark.parametrize("copy,header,changes", CHANGED_COPIES,
+                         ids=[c[0] for c in CHANGED_COPIES])
+def test_copy_differs_only_by_its_declared_changes(copy, header, changes):
+    first, body = _copy_body(copy, header)
+    assert f"paddle_tpu/{copy}" in first
+    src = _read("paddle_tpu", copy)
+    for old, new in changes:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert body == src
+
+
 def _definitions(text):
     """{name: source segment} of the module-level definitions, a class
     or function with its decorators."""
@@ -90,6 +134,15 @@ def test_analysis_copy_matches_its_source_definitions():
     copy = _definitions(_read("paddle_tpu_torch", "analysis.py"))
     assert set(copy) == set(ANALYSIS_NAMES) | {"__all__"}
     for name in ANALYSIS_NAMES:
+        assert copy[name] == src[name], name
+
+
+def test_telemetry_copy_matches_its_source_definitions():
+    src = _definitions(_read("paddle_tpu", "observability", "telemetry.py"))
+    copy = _definitions(_read("paddle_tpu_torch", "observability",
+                              "telemetry.py"))
+    assert set(copy) == set(TELEMETRY_NAMES) | {"__all__"}
+    for name in TELEMETRY_NAMES:
         assert copy[name] == src[name], name
 
 

@@ -16,9 +16,15 @@ Tolerances:
 - accum_steps=2 against one full batch, and recompute=True against
   none: params after one SGD step at lr 1 (so, the gradients) within
   1e-5 (the same f32 sums over the batch's tokens, grouped in two
-  halves) and bit-identical, respectively.
+  halves) and bit-identical, respectively;
+- each recompute policy's 2-step f32 trajectory (losses and params)
+  against no recompute at the JAX package's own limits for that
+  comparison (rtol 1e-6, atol 1e-7, tests/test_models_parallel.py), and
+  its losses against the JAX package's same policy within 1e-5
+  relative, as the f32 trajectory above.
 """
 
+import collections
 import copy
 
 import numpy as np
@@ -220,10 +226,16 @@ def test_recompute_gives_the_same_grads_with_dropout_on():
 
 
 def test_strategy_and_precision_refusals():
-    with pytest.raises(NotImplementedError, match="dots"):
+    for policy in ("dots", "dots_no_batch"):   # ported: the step builds
+        init, step = ttrain.make_train_step(
+            lambda p, b, g: 0, _adamw(), device="cpu",
+            strategy=ttrain.TrainStrategy(recompute=True,
+                                          recompute_policy=policy))
+        assert callable(init) and callable(step)
+    with pytest.raises(ValueError, match="unknown recompute_policy"):
         ttrain.make_train_step(lambda p, b, g: 0, _adamw(), device="cpu",
                                strategy=ttrain.TrainStrategy(
-                                   recompute=True, recompute_policy="dots"))
+                                   recompute=True, recompute_policy="all"))
     with pytest.raises(ValueError, match="recompute=False"):
         ttrain.make_train_step(lambda p, b, g: 0, _adamw(), device="cpu",
                                strategy=ttrain.TrainStrategy(
@@ -242,6 +254,96 @@ def test_strategy_and_precision_refusals():
         got = None if t.compute_dtype is None else \
             str(t.compute_dtype).replace("torch.", "")
         assert want == got, name
+
+
+POLICIES = [None, "nothing", "dots", "dots_no_batch"]
+
+
+def _jax_policy_losses(jcfg, np_params, axes, batches, policy):
+    mesh = make_mesh(MeshConfig(dp=-1), devices=jax.devices()[:1])
+
+    def loss_fn(p, b, r):
+        return jbert.pretrain_loss(p, jcfg, b, rng=r, deterministic=False)
+
+    losses = []
+    with mesh_guard(mesh):
+        init, step = jtrain.make_train_step(
+            loss_fn, optax.adamw(1e-4), mesh, axes,
+            strategy=jtrain.TrainStrategy(clip_global_norm=1.0,
+                                          recompute=True,
+                                          recompute_policy=policy),
+            precision="f32")
+        state = init({k: jnp.asarray(v) for k, v in np_params.items()})
+        for i, tb in enumerate(batches):
+            jb = {k: jnp.asarray(v.numpy().astype(np.int32))
+                  for k, v in tb.items()}
+            state, loss = step(state, jb, jax.random.key(i))
+            losses.append(float(loss))
+    return losses
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=str)
+def test_recompute_policy_trajectory(policy):
+    """Two steps under each recompute policy against no recompute (the
+    JAX package's limits for remat against none) and against the JAX
+    package's step under the same policy."""
+    jcfg, tcfg, np_params, axes = _bert("float32")
+    batches = _batches(tcfg, 2, seed=6)
+    plain, want = _torch_bert_losses(tcfg, np_params, batches, "f32")
+    state, got = _torch_bert_losses(tcfg, np_params, batches, "f32",
+                                    recompute=True, recompute_policy=policy)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    for k, v in plain.params.items():
+        np.testing.assert_allclose(state.params[k].detach().numpy(),
+                                   v.detach().numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    jlosses = _jax_policy_losses(jcfg, np_params, axes, batches, policy)
+    for i, (w, g) in enumerate(zip(jlosses, got)):
+        assert abs(w - g) <= 1e-5 * abs(w), (i, w, g)
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _dot_calls(tcfg, np_params, batch, **strategy):
+    init, step = ttrain.make_train_step(
+        lambda p, b, g: tbert.pretrain_loss(p, tcfg, b, rng=g,
+                                            deterministic=True),
+        lambda ps: torch.optim.SGD(ps, lr=1.0), device="cpu",
+        strategy=ttrain.TrainStrategy(**strategy), precision="f32")
+    state = init(params_from_numpy(np_params, "cpu"))
+    with _OpCount() as count:
+        step(state, batch, 0)
+    aten = torch.ops.aten
+    return count.n[aten.mm.default], count.n[aten.bmm.default]
+
+
+def test_recompute_policies_save_their_dots():
+    """One step's dot launches (forward, recompute and backward): "dots"
+    saves every dot output, so it runs no more mm or bmm than no
+    recompute; "dots_no_batch" saves the denses' mm and recomputes the
+    attention's batched products (bmm, on the CPU's plain attention);
+    "nothing" recomputes both."""
+    _, tcfg, np_params, _ = _bert("float32")
+    batch = _batches(tcfg, 1, seed=8)[0]
+    mm0, bmm0 = _dot_calls(tcfg, np_params, batch)
+    assert mm0 > 0 and bmm0 > 0
+    nothing = _dot_calls(tcfg, np_params, batch, recompute=True,
+                         recompute_policy="nothing")
+    dots = _dot_calls(tcfg, np_params, batch, recompute=True,
+                      recompute_policy="dots")
+    no_batch = _dot_calls(tcfg, np_params, batch, recompute=True,
+                          recompute_policy="dots_no_batch")
+    assert dots == (mm0, bmm0)
+    assert no_batch[0] == mm0 and no_batch[1] > bmm0
+    assert nothing[0] > mm0 and nothing[1] == no_batch[1]
 
 
 def test_gpt_lm_loss_and_grads_match():
