@@ -112,7 +112,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradient against no recompute's within that step's own repeat
    difference, K1-fwd (LSE) 12 launches without recompute and 24 under
    every policy (dq, dkv and the delta folds 12), no `delta_kernel` in
-   a traced step, each step's ms and peak memory printed.
+   a traced step, each step's ms and peak memory printed;
+20. fluid: the fluid Program path (Program, op registry with its generic
+   gradient, Executor) on `CUDAPlace(0)`, no kernel of its own: (a)
+   bench.py's LeNet rung (`lenet_rung_program`, batch 256 at 1 x 28 x 28
+   from numpy seed 0, Adam 2e-3): startup, then 1 + 80 `exe.run` steps
+   (samples/s, ms a step, the loss halved), `cache_stats()` (main one
+   miss, then hits), `run_chained` for 40 steps with `unroll=False` and
+   by default (ms a step), its last loss equal bit for bit to 40
+   sequential steps from the same scope copy (cuDNN deterministic for
+   that check), and one step under torch.profiler (idle share, kernel
+   launches, the largest kernels); (b) the same program on the card and
+   on the CPU from the same numpy params (`scope_from_numpy`), f32 with
+   TF32 off, 3 Adam steps, each from the CPU's state: the loss, every
+   parameter gradient and the updated params (`FLUID_TOL`); (c) the
+   book LeNet (`models/lenet.build_program`) 30 steps of 64 on the JAX
+   package's synthetic mnist (the loss falls, the accuracy rises) and
+   fit_a_line (`fc` 13 -> 1, SGD 0.01) 4 epochs of 32 on its synthetic
+   uci_housing (the loss falls).
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -2911,6 +2928,243 @@ def phase_resilience():
     return counts
 
 
+FLUID_B = 256          # bench.py's LeNet rung: batch, steps, chained
+FLUID_STEPS = 80
+FLUID_CHAIN = 40
+# phase 20 (b), the card against the CPU at f32 with TF32 off: the loss
+# relative, a gradient against its tensor's largest value, a param
+# against max(1, its largest value) beyond `fluid_adam_slack`
+FLUID_TOL = {"loss": 1e-5, "grad": 1e-5, "param": 1e-5}
+
+
+def lenet_rung_program(pt):
+    """bench.py's `_build_lenet_program` (its LeNet rung), built with
+    the fluid package `pt`: (main, startup, loss)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[1, 28, 28], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="int64")
+        c = pt.layers.conv2d(x, num_filters=6, filter_size=5, act="relu")
+        c = pt.layers.pool2d(c, pool_size=2, pool_stride=2)
+        c = pt.layers.conv2d(c, num_filters=16, filter_size=5, act="relu")
+        c = pt.layers.pool2d(c, pool_size=2, pool_stride=2)
+        h = pt.layers.fc(c, size=120, act="relu")
+        h = pt.layers.fc(h, size=84, act="relu")
+        logits = pt.layers.fc(h, size=10)
+        loss = pt.layers.mean(
+            pt.layers.softmax_with_cross_entropy(logits, y))
+        pt.optimizer.Adam(learning_rate=2e-3).minimize(loss)
+    return main, startup, loss
+
+
+def fluid_adam_slack(lr, g_a, g_b):
+    """How far a gradient difference can move one Adam step (beta1 0.9,
+    beta2 0.999, eps 1e-8, steps 1-3): |d update / d g| <= 2 lr / (|g| +
+    eps / sqrt(1 - beta2)) (tests/test_torch_fluid_program.py)."""
+    return 2 * lr * np.abs(g_a - g_b) / (np.abs(g_b) + 1e-8 / np.sqrt(1e-3))
+
+
+def synthetic_mnist(n, seed=0):
+    """The JAX package's synthetic mnist (`dataset/mnist.py`): class k a
+    thresholded stripe pattern at angle k * 18 degrees plus noise, in
+    [-1, 1]: (images [n, 1, 28, 28] f32, labels [n, 1] int64)."""
+    rng = np.random.RandomState(seed)
+    ys = rng.randint(0, 10, size=n)
+    yy, xx = np.mgrid[0:28, 0:28]
+    xs = np.zeros((n, 784), np.float32)
+    for i, k in enumerate(ys):
+        angle = k * np.pi / 10.0
+        stripe = np.sin((xx * np.cos(angle) + yy * np.sin(angle)) * 0.7 + k)
+        img = (stripe > 0.3).astype(np.float32) + rng.normal(0, 0.15, (28, 28))
+        xs[i] = np.clip(img, 0, 1).reshape(-1) * 2.0 - 1.0
+    return xs.reshape(n, 1, 28, 28), ys.astype(np.int64).reshape(n, 1)
+
+
+def synthetic_housing(n=404, seed=0):
+    """The JAX package's synthetic uci_housing (`dataset/uci_housing.py`):
+    y = x W + 3 + noise over 13 normal features: (x [n, 13], y [n, 1])."""
+    w = np.random.RandomState(7).normal(0, 1, size=(13,)).astype(np.float32)
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, size=(n, 13)).astype(np.float32)
+    y = x @ w + 3.0 + rng.normal(0, 0.1, size=n).astype(np.float32)
+    return x, y.astype(np.float32).reshape(n, 1)
+
+
+def _scope_copy(pt, scope):
+    """A new scope holding a clone of each of `scope`'s variables."""
+    import torch
+
+    out = pt.Scope()
+    for n in scope.local_var_names():
+        v = scope.find_var(n)
+        out.set_var(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _fluid_rung(pt, feed):
+    """Phase 20 (a): bench.py's LeNet rung on the card."""
+    import torch
+
+    main, startup, loss = lenet_rung_program(pt)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+
+    def step(s=scope):
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=s)[0][0])
+
+    losses = [step()]
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(FLUID_STEPS)]
+    dt = time.perf_counter() - t0
+    cache = exe.cache_stats()
+    check(cache == {"hits": FLUID_STEPS, "misses": 2, "entries": 2},
+          f"fluid: main must miss once, then hit: {cache}")
+    check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+          f"fluid: the rung's loss did not halve: {losses[0]} -> "
+          f"{losses[-1]}")
+
+    # run_chained against sequential steps from the same scope copy,
+    # bit for bit: the same kernels in the same order (cuDNN
+    # deterministic, so its convolution backward picks no atomics)
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = _scope_copy(pt, scope), _scope_copy(pt, scope)
+        chained = exe.run_chained(main, feed=feed, fetch_list=[loss],
+                                  n_steps=FLUID_CHAIN, scope=a)[0]
+        seq = [step(b) for _ in range(FLUID_CHAIN)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(chained.shape == (FLUID_CHAIN, 1) and
+          float(chained[-1, 0]) == seq[-1],
+          f"fluid: run_chained's last loss {float(chained[-1, 0])} != "
+          f"sequential {seq[-1]}")
+
+    def chained_ms(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run_chained(main, feed=feed, fetch_list=[loss],
+                              n_steps=FLUID_CHAIN, scope=scope, **kw)[0]
+        return (time.perf_counter() - t0) * 1e3 / FLUID_CHAIN, \
+            float(out[-1, 0])
+
+    rolled_ms, _ = chained_ms(unroll=False)
+    auto_ms, last = chained_ms()
+    check(np.isfinite(last), "fluid: run_chained's loss is not finite")
+    traced = _profiled_step(lambda: exe.run(main, feed=feed,
+                                            fetch_list=[loss], scope=scope))
+    grad_ops = sum(op.type.endswith("_grad") for op in main.desc.block(0).ops)
+    return {"samples_per_s": FLUID_B * FLUID_STEPS / dt,
+            "step_ms": dt * 1e3 / FLUID_STEPS,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "cache": cache, "chained_ms_unroll_false": rolled_ms,
+            "chained_ms_default": auto_ms, "chained_last_loss": last,
+            "chained_equals_sequential": True,
+            "ops_a_step": len(main.desc.block(0).ops),
+            "grad_ops_replaying_their_forward": grad_ops,
+            "traced_step": {k: traced[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "device_events")},
+            "top_kernels": traced["top_kernels"][:6]}
+
+
+def _fluid_parity(pt, feed):
+    """Phase 20 (b): the rung on the card against the CPU, 3 Adam steps
+    from the same numpy params, each step from the CPU's state."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    main, startup, loss = lenet_rung_program(pt)
+    cuda, cpu = pt.CUDAPlace(0), pt.CPUPlace()
+    exe_c, exe_h = pt.Executor(cuda), pt.Executor(cpu)
+    s0 = pt.Scope()
+    exe_c.run(startup, scope=s0)
+    pers = [v.name for v in startup.list_vars() if v.persistable]
+    params = [p.name for p in main.all_parameters()]
+    grads = [n + "@GRAD" for n in params]
+    sc, sh = pt.Scope(), scope_from_numpy(
+        pt.Scope(), {n: s0.get(n) for n in pers}, cpu)
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for step in range(3):
+        scope_from_numpy(sc, {n: sh.get(n) for n in pers}, cuda)
+        got = exe_c.run(main, feed=feed, fetch_list=[loss] + grads, scope=sc)
+        want = exe_h.run(main, feed=feed, fetch_list=[loss] + grads,
+                         scope=sh)
+        worst["loss"] = max(worst["loss"], float(
+            abs(got[0][0] - want[0][0]) / abs(want[0][0])))
+        for n, a, b in zip(params, got[1:], want[1:]):
+            worst["grad"] = max(worst["grad"], float(
+                np.abs(a - b).max() / np.abs(b).max()))
+            w = sh.get(n)
+            err = np.abs(sc.get(n) - w) - fluid_adam_slack(2e-3, a, b)
+            worst["param"] = max(worst["param"], float(
+                err.max() / max(1.0, np.abs(w).max())))
+    for key, lim in FLUID_TOL.items():
+        check(worst[key] <= lim, f"fluid (b): the card's {key} differs "
+              f"from the CPU's by {worst[key]} (limit {lim})")
+    return worst
+
+
+def _fluid_book(pt):
+    """Phase 20 (c): the book LeNet and fit_a_line train on the card."""
+    from paddle_tpu_torch.models import lenet
+
+    exe = pt.Executor(pt.CUDAPlace(0))
+    with pt.framework.unique_name.guard():
+        main, startup, _, loss, acc = lenet.build_program(pt, lr=0.01)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    img, label = synthetic_mnist(30 * 64)
+    out = [exe.run(main, feed={"img": img[i:i + 64],
+                               "label": label[i:i + 64]},
+                   fetch_list=[loss, acc], scope=scope)
+           for i in range(0, 30 * 64, 64)]
+    losses = [float(l[0]) for l, _ in out]
+    accs = [float(a[0]) for _, a in out]
+    check(losses[-1] < losses[0] and np.mean(accs[-5:]) > np.mean(accs[:5]),
+          f"fluid (c): the book LeNet did not train: loss {losses[0]} -> "
+          f"{losses[-1]}, accuracy {accs[:5]} -> {accs[-5:]}")
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[13], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        pred = pt.layers.fc(input=x, size=1)
+        line_loss = pt.layers.mean(pt.layers.square_error_cost(
+            input=pred, label=y))
+        pt.optimizer.SGD(learning_rate=0.01).minimize(line_loss)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    xs, ys = synthetic_housing()
+    line = [float(exe.run(main, feed={"x": xs[i:i + 32], "y": ys[i:i + 32]},
+                          fetch_list=[line_loss], scope=scope)[0][0])
+            for _ in range(4) for i in range(0, 384, 32)]
+    check(line[-1] < line[0], f"fluid (c): fit_a_line did not converge: "
+          f"{line[0]} -> {line[-1]}")
+    return {"book_lenet_loss": [losses[0], losses[-1]],
+            "book_lenet_accuracy_first5_last5": [float(np.mean(accs[:5])),
+                                                 float(np.mean(accs[-5:]))],
+            "fit_a_line_loss": [line[0], line[-1]], "fit_a_line_steps":
+            len(line)}
+
+
+def phase_fluid():
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(FLUID_B, 1, 28, 28).astype("float32"),
+            "y": rng.randint(0, 10, (FLUID_B, 1)).astype("int64")}
+    rung = _fluid_rung(pt, feed)
+    parity = _fluid_parity(pt, feed)
+    book = _fluid_book(pt)
+    print(json.dumps({
+        "phase": "fluid", "card": card(),
+        "program": "bench.py _build_lenet_program, batch 256, Adam 2e-3",
+        **rung, "card_vs_cpu_worst": parity, "card_vs_cpu_limits": FLUID_TOL,
+        **book, "seconds": time.perf_counter() - t0}))
+
+
 def main() -> int:
     import torch
 
@@ -2941,6 +3195,7 @@ def main() -> int:
     sp_counts = phase_bert_long_sp()
     phase_head_dim_gate()
     resilience_counts = phase_resilience()
+    phase_fluid()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts):

@@ -13,6 +13,11 @@ attention over the sequence (`ops/ring_attention.py`), full-mask blocks
 on the K3 kernel. It imports torch and never jax, and nothing of the
 JAX package.
 
+It also carries the JAX package's fluid surface, for what is ported:
+Programs built with `layers` under `program_guard`, `append_backward`
+and `gradients`, the `optimizer` classes, and an `Executor` that runs a
+Program op by op on the op registry's torch kernels (`core/`, `ops/`).
+
 Devices are explicit: every entry point runs on `cuda` unless the
 caller passes `device="cpu"`, and raises when asked for `cuda` on a
 machine without a GPU. There is no silent fallback to the CPU.
@@ -24,7 +29,15 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "Program", "Block", "Operator", "Variable",
+           "Parameter", "program_guard", "default_main_program",
+           "default_startup_program", "unique_name", "in_dygraph_mode",
+           "Executor", "global_scope", "scope_guard", "Scope",
+           "append_backward", "gradients", "CPUPlace", "CUDAPlace",
+           "TPUPlace", "XPUPlace", "is_compiled_with_cuda", "layers",
+           "initializer", "regularizer", "clip", "optimizer",
+           "param_attr", "ParamAttr", "WeightNormParamAttr", "nets",
+           "get_flags", "set_flags", "set_global_seed"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -41,3 +54,41 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# The fluid namespace, as the JAX package's `__init__` exports it, for
+# what is ported. Imported after `resolve_device`, which its modules use.
+from . import ops  # noqa: E402  populate the op registry before any layer builds
+from .core import framework  # noqa: E402
+from .core.framework import (  # noqa: E402
+    Program,
+    Block,
+    Operator,
+    Variable,
+    Parameter,
+    program_guard,
+    default_main_program,
+    default_startup_program,
+    unique_name,
+    in_dygraph_mode,
+)
+from .core.executor import Executor, global_scope, scope_guard, Scope  # noqa: E402
+from .core.backward import append_backward, gradients  # noqa: E402
+from .core import places  # noqa: E402
+from .core.places import (CPUPlace, CUDAPlace, TPUPlace, XPUPlace,  # noqa: E402
+                          is_compiled_with_cuda)
+from . import layers  # noqa: E402
+from . import initializer  # noqa: E402
+from . import regularizer  # noqa: E402
+from . import clip  # noqa: E402
+from . import optimizer  # noqa: E402
+from . import param_attr  # noqa: E402
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: E402
+from . import nets  # noqa: E402
+from . import backward  # noqa: E402
+from .core.flags import get_flags, set_flags  # noqa: E402
+
+
+def set_global_seed(seed: int):
+    """Seed program-level RNG (reference: fluid.Program.random_seed)."""
+    framework.set_global_seed(seed)

@@ -3,7 +3,8 @@
 Both packages keep params as a flat dict with the same names and the
 same layouts, so a conversion is a copy per tensor: no renames and no
 transposes. Callers hand over numpy arrays (`np.asarray` of each JAX
-array), which keeps this module free of any JAX import.
+array), which keeps this module free of any JAX import. The fluid path
+carries a scope's persistables the same way (`scope_from_numpy`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "scope_from_numpy"]
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray], device,
@@ -49,3 +50,13 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device,
             t = t.to(dtype)
         out[name] = t.to(dev)
     return out
+
+
+def scope_from_numpy(scope, arrays: Mapping[str, np.ndarray], place):
+    """Load {name: array} (a JAX scope's persistables, fetched as numpy
+    with `Scope.get`) into the port's `scope` as tensors on `place`'s
+    device, same names, dtypes and values. Returns the scope."""
+    dev = place.torch_device()
+    for name, t in params_from_numpy(arrays, dev).items():
+        scope.set_var(name, t)
+    return scope

@@ -1,1 +1,2 @@
-"""Core runtime pieces of the port (precision policies)."""
+"""Core runtime of the port: precision policies, and the fluid path's IR,
+op registry, lowering, backward and executor."""

@@ -1,10 +1,12 @@
-"""Lazy loss fetches for the training loop: the subset of the JAX
-package's `core/async_exec.py` that `parallel.train.train_loop` uses.
+"""Lazy fetches: the subset of the JAX package's `core/async_exec.py`
+that `parallel.train.train_loop` and `Executor.run(sync=False)` use.
 
 `FetchHandle` holds values a step left on the device and reads them on
 the host only at `result()`. On CUDA it records an event on the current
 stream when it is made (after the step's launches), and `result()`
-waits on it, then reads each value with `.item()`. A value on the CPU
+waits on it, then reads each value with `.item()` (the loop's losses)
+or, made with `numpy=True` (the executor's fetches), as a numpy array.
+A value on the CPU
 is ready at once. The handle drops its device references when it
 resolves, so a resolved handle holds no device memory.
 `inflight_stats()` counts the handles not yet resolved.
@@ -49,6 +51,20 @@ def reset_inflight_stats():
         _open_high_water = _open_handles
 
 
+def to_numpy(v):
+    """A host numpy copy of `v` (a tensor, bfloat16 read as float32, or
+    anything numpy takes)."""
+    import numpy as np
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        t = v.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(v)
+
+
 def _is_cuda(v) -> bool:
     return getattr(getattr(v, "device", None), "type", None) == "cuda"
 
@@ -57,11 +73,12 @@ class FetchHandle:
     """A lazy fetch of `values` (tensors or host scalars); see the
     module docstring."""
 
-    __slots__ = ("_values", "_result", "_event", "_lock")
+    __slots__ = ("_values", "_result", "_event", "_lock", "_numpy")
 
-    def __init__(self, values: Iterable[Any]):
+    def __init__(self, values: Iterable[Any], numpy: bool = False):
         global _open_handles, _open_high_water
         self._values: List[Any] = list(values)
+        self._numpy = numpy
         self._result: List[Any] = []
         self._lock = threading.Lock()
         self._event = None
@@ -87,8 +104,11 @@ class FetchHandle:
                 return self._result
             if self._event is not None:
                 self._event.synchronize()
-            self._result = [v.item() if hasattr(v, "item") else v
-                            for v in self._values]
+            if self._numpy:
+                self._result = [to_numpy(v) for v in self._values]
+            else:
+                self._result = [v.item() if hasattr(v, "item") else v
+                                for v in self._values]
             self._values = None
             self._event = None
         with _acct_lock:

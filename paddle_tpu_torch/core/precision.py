@@ -12,25 +12,32 @@ policies and fields:
               `TrainState.loss_scale`.
   mixed_f16   the same with float16 compute.
 
-`resolve` picks the policy: explicit argument > env
-`PADDLE_TPU_PRECISION` > f32 (there is no Program IR in the port yet,
-so no program attribute). The lowering-time op autocast of the fluid
-path waits for that IR. `compute_dtype` and `cast_floating` are what
-the decode engine reads.
+`resolve` picks the policy: explicit argument > the program's
+attribute (`set_program_precision`) > env `PADDLE_TPU_PRECISION` > f32.
+Under a policy with `op_autocast`, the fluid path's lowering casts each
+op's inputs (`autocast`, `autocast_op_inputs`): white-list ops take the
+compute dtype, black-list ops f32, and a `_grad` op its forward op's
+class. `compute_dtype` and `cast_floating` are what the decode engine
+reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Any, Dict, Optional, Union
+import threading
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 __all__ = ["PrecisionPolicy", "POLICY_NAMES", "ENV_VAR", "get_policy",
            "resolve", "env_precision", "compute_dtype", "cast_floating",
-           "cast_tree", "init_loss_scale_state", "LOSS_SCALE_COUNTER_KEYS"]
+           "cast_tree", "init_loss_scale_state", "LOSS_SCALE_COUNTER_KEYS",
+           "set_program_precision", "program_precision", "autocast",
+           "active_autocast", "autocast_op_inputs"]
 
 ENV_VAR = "PADDLE_TPU_PRECISION"
+PROGRAM_ATTR = "precision"
 
 
 class PrecisionPolicy:
@@ -59,6 +66,14 @@ class PrecisionPolicy:
         self.decr_ratio = float(decr_ratio)
         self.min_loss_scale = float(min_loss_scale)
         self.max_loss_scale = float(max_loss_scale)
+
+    def feed_dtype(self, declared: torch.dtype) -> torch.dtype:
+        """Feed-normalization target for a var declared `declared`:
+        floating feeds follow the policy's compute width, everything
+        else keeps the declared dtype."""
+        if self.compute_dtype is not None and declared.is_floating_point:
+            return self.compute_dtype
+        return declared
 
     def __repr__(self):
         return f"PrecisionPolicy({self.name!r})"
@@ -101,12 +116,38 @@ def env_precision() -> Optional[str]:
     return os.environ.get(ENV_VAR) or None
 
 
-def resolve(explicit=None) -> PrecisionPolicy:
-    """The policy in effect: explicit argument > PADDLE_TPU_PRECISION >
-    f32."""
+def set_program_precision(program, name: Optional[str]):
+    """Pin `program` to a named policy (None clears it). Bumps the
+    program version so every executor program-cache key re-keys: the
+    old policy's prepared steps are never served for the new one."""
+    if name is not None:
+        get_policy(name)  # validate before mutating
+    new = str(name) if name is not None else None
+    if program._attrs.get(PROGRAM_ATTR) == new:
+        return  # re-pinning the same policy keeps the prepared steps
+    if new is None:
+        program._attrs.pop(PROGRAM_ATTR, None)
+    else:
+        program._attrs[PROGRAM_ATTR] = new
+    program._bump_version()
+
+
+def program_precision(program) -> Optional[str]:
+    attrs = getattr(program, "_attrs", None)
+    if not attrs:
+        return None
+    return attrs.get(PROGRAM_ATTR)
+
+
+def resolve(program=None, explicit=None) -> PrecisionPolicy:
+    """The policy in effect for a run: explicit argument > program
+    attribute > PADDLE_TPU_PRECISION > f32."""
     if explicit is not None:
         return get_policy(explicit)
-    return get_policy(env_precision())
+    name = program_precision(program) if program is not None else None
+    if name is None:
+        name = env_precision()
+    return get_policy(name)
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -133,6 +174,72 @@ def cast_tree(tree, dtype: Optional[torch.dtype]):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_tree(v, dtype) for v in tree)
     return cast_floating(tree, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Lowering-time op autocast: core/lowering.run_op consults the active
+# policy for every op it runs, casting white-list op inputs to the
+# compute dtype and black-list op inputs to f32; grad ops (`foo_grad`,
+# a replay of `foo`) inherit their forward op's class, so the backward
+# products run at the forward's width.
+# ---------------------------------------------------------------------------
+
+_tl = threading.local()
+_op_lists = None  # (white, black), loaded lazily from amp.fp16_lists
+
+
+def _lists():
+    global _op_lists
+    if _op_lists is None:
+        from ..amp import fp16_lists
+
+        _op_lists = (frozenset(fp16_lists.white_list),
+                     frozenset(fp16_lists.black_list))
+    return _op_lists
+
+
+@contextlib.contextmanager
+def autocast(policy: Optional[PrecisionPolicy]):
+    """Activate op autocast for the with-block (one step). No-op for
+    policies without op_autocast. Thread-local."""
+    if policy is None or not policy.op_autocast:
+        yield
+        return
+    prev = getattr(_tl, "policy", None)
+    _tl.policy = policy
+    try:
+        yield
+    finally:
+        _tl.policy = prev
+
+
+def active_autocast() -> Optional[PrecisionPolicy]:
+    return getattr(_tl, "policy", None)
+
+
+def _base_op_type(op_type: str) -> str:
+    # conv2d_grad / conv2d_grad_grad classify as conv2d
+    while op_type.endswith("_grad"):
+        op_type = op_type[:-len("_grad")]
+    return op_type
+
+
+def autocast_op_inputs(op_type: str, ins: Dict[str, List],
+                       policy: PrecisionPolicy) -> Dict[str, List]:
+    """Cast `ins` (slot -> value list) for `op_type` under `policy`:
+    white-list ops take compute-dtype floats, black-list ops take f32
+    floats, everything else passes through (dtype propagation decides).
+    """
+    white, black = _lists()
+    base = _base_op_type(op_type)
+    if base in white:
+        want = policy.compute_dtype
+    elif base in black:
+        want = torch.float32
+    else:
+        return ins
+    return {slot: [cast_floating(v, want) for v in vals]
+            for slot, vals in ins.items()}
 
 
 # cumulative outcome counters of the loss-scale state

@@ -1,1 +1,11 @@
-"""Operators of the port: attention dispatch and beam search."""
+"""Operators of the port: attention dispatch and beam search, and the
+fluid path's op kernels. Importing this package registers the latter
+(core/registry.py), as the JAX package's `ops/__init__.py` does."""
+
+from . import tensor
+from . import math
+from . import activation
+from . import reduce
+from . import nn
+from . import optimizer_ops
+from . import metrics_ops

@@ -148,7 +148,7 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
                   grow it, within the policy's bounds.
     """
     strategy = strategy or TrainStrategy()
-    policy = _precision.resolve(precision)
+    policy = _precision.resolve(explicit=precision)
     dev = resolve_device(device)
     if strategy.recompute_policy not in RECOMPUTE_POLICIES:
         raise ValueError(

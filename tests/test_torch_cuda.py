@@ -29,8 +29,9 @@ engine's CUDA graphs: a warmed engine's tokens equal an unwarmed one's
 bit for bit, every decode step a replay, and a capture that fails
 raises. Training under each recompute policy equals no recompute bit
 for bit on a narrow BERT with K1 (K1-fwd run again in the recompute),
-and a TrainState checkpoint restores onto its template's device, cuda
-or cpu, whichever device wrote it.
+a TrainState checkpoint restores onto its template's device, cuda
+or cpu, whichever device wrote it, and the fluid path's LeNet rung
+takes one Adam step on `CUDAPlace(0)` as on `CPUPlace()`.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -990,6 +991,50 @@ def test_k2_folded_delta_matches_plain_version(B, T, Tk, N, H, causal, dtype,
 # finishing at different lengths (back to 4 slots).
 DECODE_POOL = dict(block_size=8, num_blocks=17, decode_slots=(4, 8),
                    prefill_buckets=(8, 16, 32, 64), max_len=64)
+
+
+@pytest.mark.cuda
+def test_fluid_lenet_step_on_the_card_matches_the_cpu():
+    """bench.py's LeNet rung as a fluid Program (batch 32, f32, TF32
+    off for cuBLAS and cuDNN): one Adam step on `CUDAPlace(0)` against `CPUPlace()` from the
+    same numpy params: the loss, every parameter gradient and the
+    updated params, at chip_smoke.py's FLUID_TOL."""
+    _need_card()
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from chip_smoke import FLUID_TOL, fluid_adam_slack, lenet_rung_program
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    main, startup, loss = lenet_rung_program(pt)
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(32, 1, 28, 28).astype("float32"),
+            "y": rng.randint(0, 10, (32, 1)).astype("int64")}
+    s0 = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=s0)
+    init = {v.name: s0.get(v.name) for v in startup.list_vars()
+            if v.persistable}
+    params = [p.name for p in main.all_parameters()]
+    out = {}
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN's convs in f32
+    try:
+        for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+            scope = scope_from_numpy(pt.Scope(), init, place)
+            fetched = pt.Executor(place).run(
+                main, feed=feed,
+                fetch_list=[loss] + [n + "@GRAD" for n in params],
+                scope=scope)
+            out[repr(place)] = (fetched, {n: scope.get(n) for n in params})
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    (got, got_p), (want, want_p) = out["CUDAPlace(0)"], out["CPUPlace"]
+    assert abs(got[0][0] - want[0][0]) <= FLUID_TOL["loss"] * abs(want[0][0])
+    for n, a, b in zip(params, got[1:], want[1:]):
+        assert np.abs(a - b).max() <= FLUID_TOL["grad"] * np.abs(b).max(), n
+        err = np.abs(got_p[n] - want_p[n]) - fluid_adam_slack(2e-3, a, b)
+        assert err.max() <= FLUID_TOL["param"] * max(
+            1.0, np.abs(want_p[n]).max()), n
 
 
 def _decode_traffic(vocab):

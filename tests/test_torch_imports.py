@@ -1,12 +1,14 @@
 """Import hygiene of the PyTorch port: `paddle_tpu_torch` and
 `chip_smoke.py` load neither jax nor any module of the JAX package, and
-the stdlib module the port copied from the JAX package has not
-drifted from its source."""
+the stdlib modules the port copied from the JAX package have not
+drifted from their sources."""
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "paddle_tpu_torch")
@@ -52,7 +54,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.resilience.checkpoint_manager",
                  "paddle_tpu_torch.resilience.policy",
                  "paddle_tpu_torch.observability.health",
-                 "paddle_tpu_torch.core.async_exec"):
+                 "paddle_tpu_torch.core.async_exec",
+                 "paddle_tpu_torch.core.registry",
+                 "paddle_tpu_torch.core.lowering",
+                 "paddle_tpu_torch.core.executor",
+                 "paddle_tpu_torch.layers",
+                 "paddle_tpu_torch.optimizer",
+                 "paddle_tpu_torch.models.lenet"):
         assert name in r.stdout.split(), name
 
 
@@ -86,6 +94,31 @@ def test_copied_httpbase_matches_its_source():
     body = "".join(lines[2:])
     with open(src) as f:
         assert body == f.read()
+
+
+# The fluid path's stdlib modules, copied verbatim (a two-line header
+# naming the source, then the same body). Where a docstring names the
+# package (core/framework.py, backward.py), the copy says
+# paddle_tpu_torch. where the source says paddle_tpu.; nothing else
+# differs.
+FLUID_COPIES = (["core/ir.py", "core/flags.py", "core/framework.py",
+                 "core/backward.py", "backward.py", "layer_helper.py",
+                 "initializer.py", "param_attr.py", "regularizer.py",
+                 "clip.py", "nets.py", "amp/fp16_lists.py"]
+                + ["layers/" + f for f in sorted(os.listdir(
+                    os.path.join(_REPO, "paddle_tpu", "layers")))
+                   if f.endswith(".py")])
+
+
+@pytest.mark.parametrize("rel", FLUID_COPIES)
+def test_copied_fluid_module_matches_its_source(rel):
+    with open(os.path.join(_PKG, rel)) as f:
+        lines = f.read().splitlines(keepends=True)
+    assert f"paddle_tpu/{rel}" in lines[0]
+    with open(os.path.join(_REPO, "paddle_tpu", rel)) as f:
+        want = f.read()
+    assert "".join(lines[2:]) == want.replace("paddle_tpu.",
+                                              "paddle_tpu_torch.")
 
 
 def test_chip_smoke_prints_no_result_without_a_gpu(tmp_path):
