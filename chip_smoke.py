@@ -129,7 +129,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    book LeNet (`models/lenet.build_program`) 30 steps of 64 on the JAX
    package's synthetic mnist (the loss falls, the accuracy rises) and
    fit_a_line (`fc` 13 -> 1, SGD 0.01) 4 epochs of 32 on its synthetic
-   uci_housing (the loss falls).
+   uci_housing (the loss falls);
+21. kv_reuse: KV reuse on the serving path. (a) f32, TF32 off, a 2-layer
+   GPT at GPT-2-small's widths (seed 1; blocks of 16, 256 blocks, slots
+   (4,)): a shared 40-token prefix with suffixes of 5, 2 and 30 tokens,
+   prompts of 3, 300 and 1019 tokens (numpy seed 7), 16 new tokens
+   each, through `prefill_chunk=64`, the same with `prefix_cache=True`
+   cold then warm, a self-draft at `spec_k=2`, a 1-layer draft (seed 2)
+   at `spec_k=3` and spec-only (bucketed prefills) at `spec_k=2`: every
+   stream equal to a bucketed engine's, the self-draft accepting every
+   proposal (its last rounds near max_len demoted to plain decode), the
+   warm wave hitting the prefix cache, every refcount drained, and one
+   forced share copied on write (the stream unchanged, the original
+   block's rows bit for bit, the pools not rebound); (b) GPT-2-small at
+   bf16 (512 blocks of 16, slots (4, 8)) with a 2-layer draft of the
+   same widths (seed 2) behind the HTTP Server: `prefill_chunk=256`,
+   `prefix_cache=True`, `spec_k=3` ("reuse"), then `spec_k=3` with
+   bucketed prefills on K1-fwd ("spec_only"), each serving 8 requests
+   that share a 512-token prefix (suffixes of 8-200 tokens, 32 new
+   tokens) in a cold and a warm wave: tokens/s, TTFT, prefix hits,
+   the accept rate, every captured phase (chunk, draft_chunk, decode,
+   draft_decode, verify) a graph replay after `warmup()`, the spec
+   round's host and device ms at 4 and 8 slots, the idle share of a
+   profiled round, and the share of streams equal to a bucketed bf16
+   engine's with the first divergent position (measured, not held).
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -145,7 +168,7 @@ at scale 1 on a pre-scaled q) at phase 17's block (8 x 1024 x 12 heads,
 bf16), at f32 and at f16.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phase 3 for serving, phases 7, 8, 10, 12, 15 and 17
+read just after (phases 3 and 21 for serving, phases 7, 8, 10, 12, 15 and 17
 for training, phase 11 for beam search, phase 13 for the bottleneck,
 phase 19's first uninterrupted `train_loop` run).
 The last line is {"ok": true, "device": {...}}; the line before it
@@ -1188,6 +1211,29 @@ def _generate(port, ids, max_new, out):
     out["tokens"], out["done"] = toks, done
 
 
+def _http_round(port, prompts, max_new):
+    """Every prompt as one concurrent streamed /v1/generate: each
+    request's `_generate` record, and the round's wall seconds."""
+    results = [{} for _ in prompts]
+    threads = [threading.Thread(target=_generate, daemon=True,
+                                args=(port, p, max_new, out))
+               for p, out in zip(prompts, results)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results, time.perf_counter() - t0
+
+
+def _round_summary(results, secs):
+    """Tokens, tokens/s and client TTFT p50/max of one `_http_round`."""
+    ttft = sorted(out["ttft_s"] * 1e3 for out in results)
+    n_tok = sum(len(out["tokens"]) for out in results)
+    return {"tokens": n_tok, "wall_s": secs, "tokens_per_s": n_tok / secs,
+            "ttft_p50_ms": statistics.median(ttft), "ttft_max_ms": ttft[-1]}
+
+
 SLICE_LENGTHS = (5, 17, 60, 130, 300, 513, 900, 1000)
 SLICE_NEW_TOKENS = 24
 
@@ -1224,25 +1270,13 @@ def phase_slice():
     try:
         ops = _serving_routes(port, engine)
 
-        def http_round():
-            results = [{} for _ in prompts]
-            threads = [threading.Thread(target=_generate, daemon=True,
-                                        args=(port, p, max_new, out))
-                       for p, out in zip(prompts, results)]
-            t0 = time.perf_counter()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=900)
-            return results, time.perf_counter() - t0
-
         fa.flash_attention.launches = 0
         attn.GATE_COUNTS.clear()
-        results, wall = http_round()
+        results, wall = _http_round(port, prompts, max_new)
         launches = fa.flash_attention.launches
         gates = dict(attn.GATE_COUNTS)
         # the same requests again: every shape is now warm in-process
-        repeat, repeat_wall = http_round()
+        repeat, repeat_wall = _http_round(port, prompts, max_new)
         status = engine.status()
     finally:
         server.stop()
@@ -1262,18 +1296,10 @@ def phase_slice():
     check(steps["eager"] == 0 and steps["replayed"] > 0,
           f"slice: decode steps of the warmed engine {steps}")
 
-    def summary(res, secs):
-        ttft = sorted(out["ttft_s"] * 1e3 for out in res)
-        n_tok = sum(len(out["tokens"]) for out in res)
-        return {"tokens": n_tok, "wall_s": secs,
-                "tokens_per_s": n_tok / secs,
-                "ttft_p50_ms": statistics.median(ttft),
-                "ttft_max_ms": ttft[-1]}
-
     row = {"phase": "slice", "model": "GPT-2-small (GPTConfig())",
            "precision": "bf16", "requests": len(lengths),
-           "prompt_lengths": lengths, **summary(results, wall),
-           "repeat": summary(repeat, repeat_wall),
+           "prompt_lengths": lengths, **_round_summary(results, wall),
+           "repeat": _round_summary(repeat, repeat_wall),
            "launches": {"flash_attention_fwd": launches},
            "gate_counts": gates,
            "preempted": status["requests"]["preempted"],
@@ -1401,12 +1427,11 @@ def _decode_step_times(engine, reps=20):
     out = {}
     with torch.inference_mode():
         for S in engine.decode_slots:
-            ids, positions, tables = engine._step_buffers(S)
+            inputs = engine._phase_buffers(("decode", S))
             row = {}
             for kind, fn in (
-                    ("eager", lambda: engine._decode_step(ids, positions,
-                                                          tables)),
-                    ("replay", engine._graphs[S].graph.replay)):
+                    ("eager", lambda: engine._phase_call("decode", inputs)),
+                    ("replay", engine._graphs[("decode", S)].graph.replay)):
                 for _ in range(3):
                     fn()
                 host, device = [], []
@@ -3165,6 +3190,351 @@ def phase_fluid():
         **book, "seconds": time.perf_counter() - t0}))
 
 
+# Phase 21: KV reuse on the serving path. (a) holds every reuse engine's
+# f32 streams equal to a bucketed engine's (TF32 off); (b) serves
+# GPT-2-small at bf16 with a 2-layer draft through the HTTP Server.
+KV_EXACT_NEW = 16
+KV_WAVE_NEW = 32
+KV_SHARED = 512           # the waves' shared prefix: 32 full blocks of 16
+KV_SUFFIXES = (8, 35, 62, 90, 117, 145, 172, 200)
+
+
+def _kv_exact_prompts(vocab):
+    """A shared 40-token prefix with suffixes of 5, 2 and 30 tokens, then
+    3, 300 and 1019 tokens: the last leaves 5 tokens under max_len 1024,
+    so a spec round near max_len - 1 demotes to the plain path."""
+    rs = np.random.RandomState(7)
+    shared = rs.randint(0, vocab, size=40).tolist()
+    return ([shared + rs.randint(0, vocab, size=n).tolist()
+             for n in (5, 2, 30)] +
+            [rs.randint(0, vocab, size=n).tolist() for n in (3, 300, 1019)])
+
+
+def _kv_streams(engine, prompts, max_new):
+    handles = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    return [[int(t) for t in h.result(timeout_s=600)] for h in handles]
+
+
+def _first_divergence(got, want):
+    """Per stream: None when equal, else the first position that
+    differs."""
+    out = []
+    for g, w in zip(got, want):
+        if g == w:
+            out.append(None)
+        else:
+            out.append(next((i for i, (a, b) in enumerate(zip(g, w))
+                             if a != b), min(len(g), len(w))))
+    return out
+
+
+def _kv_eager_after_warmup(label, status):
+    runs = status["phase_runs"]
+    check(all(v["eager"] == 0 for v in runs.values()),
+          f"kv_reuse {label}: a phase ran eagerly after warmup(): {runs}")
+    return {k: v["replayed"] for k, v in runs.items()}
+
+
+def _kv_exact():
+    """(a) f32, TF32 off: GPT-2-small's widths at 2 layers, blocks of 16,
+    256 blocks, slots (4,). Each reuse engine's streams against the
+    bucketed engine's; the self-draft accepts every proposal; the warm
+    wave hits the prefix cache; every refcount drains; a forced share
+    copies on write."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = gpt.GPTConfig(layers=2, dtype="float32")
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(1), cfg,
+                         device="cuda")
+    dcfg = gpt.GPTConfig(layers=1, dtype="float32")
+    dparams, _ = gpt.init(torch.Generator(device="cuda").manual_seed(2),
+                          dcfg, device="cuda")
+    base = dict(block_size=16, num_blocks=256, decode_slots=(4,),
+                precision="f32")
+
+    def engine(draft=None, **kw):
+        eng = DecodeEngine(params, cfg, DecodeConfig(**base, **kw), draft,
+                           device="cuda")
+        eng.warmup()
+        return eng
+
+    prompts = _kv_exact_prompts(cfg.vocab_size)
+    eng = engine()
+    try:
+        want = _kv_streams(eng, prompts, KV_EXACT_NEW)
+    finally:
+        eng.stop()
+    rows = {}
+    for label, kw, draft in (
+            ("chunk", dict(prefill_chunk=64), None),
+            ("prefix", dict(prefill_chunk=64, prefix_cache=True), None),
+            ("self_draft", dict(prefill_chunk=64, prefix_cache=True,
+                                spec_k=2), (params, cfg)),
+            ("real_draft", dict(prefill_chunk=64, spec_k=3),
+             (dparams, dcfg)),
+            ("spec_only", dict(spec_k=2), (dparams, dcfg))):
+        eng = engine(draft, **kw)
+        try:
+            waves = [_kv_streams(eng, prompts, KV_EXACT_NEW)]
+            if label == "prefix":
+                hits_cold = eng.status()["kv"]["prefix_hits_total"]
+                waves.append(_kv_streams(eng, prompts, KV_EXACT_NEW))
+            st = eng.status()
+        finally:
+            eng.stop()
+        for i, got in enumerate(waves):
+            check(got == want, f"kv_reuse {label} wave {i}: streams differ "
+                  f"from the bucketed engine's at "
+                  f"{_first_divergence(got, want)}")
+        check(st["kv"]["blocks_used"] == 0,
+              f"kv_reuse {label}: blocks_used {st['kv']['blocks_used']}")
+        row = {"replayed": _kv_eager_after_warmup(label, st)}
+        if draft is not None:
+            row["accept_rate"] = st["kv_reuse"]["spec_accept_rate"]
+        if label == "self_draft":
+            check(row["accept_rate"] == 1.0,
+                  f"kv_reuse self-draft accept rate {row['accept_rate']}")
+            # the 1019-token prompt's last round ran the plain path
+            check(row["replayed"]["decode"] > 0,
+                  f"kv_reuse self-draft: no demoted round: {row}")
+        if label == "prefix":
+            row["hits_cold"] = hits_cold
+            row["hits_warm"] = st["kv"]["prefix_hits_total"] - hits_cold
+            check(row["hits_warm"] > 0, f"kv_reuse prefix: {row}")
+        rows[label] = row
+    rows["cow"] = _kv_forced_cow(engine(prefill_chunk=64, prefix_cache=True),
+                                 prompts[1], want[1])
+    return rows
+
+
+def _kv_forced_cow(eng, prompt, want):
+    """A forced share of the block the first decode write lands in: the
+    write copies the block first (in place, in the pools the graphs
+    hold), the stream is unchanged, and the original block's rows are
+    bit for bit what they were."""
+    state = {}
+    pump = eng._pump_chunk
+
+    def pump_then_share():
+        pump()
+        for r in eng._active:
+            if not state and r.pos == len(r.prompt):
+                blk = r.blocks[r.pos // eng.kv_cfg.block_size]
+                eng._alloc.incref(blk)
+                kp, vp = eng._pools
+                state.update(blk=blk, k=kp[:, blk].clone(),
+                             v=vp[:, blk].clone(), ptr=kp.data_ptr())
+
+    eng._pump_chunk = pump_then_share
+    try:
+        got = _kv_streams(eng, [prompt], KV_EXACT_NEW)[0]
+        kp, vp = eng._pools
+        blk = state["blk"]
+        intact = bool((kp[:, blk] == state["k"]).all() and
+                      (vp[:, blk] == state["v"]).all())
+        row = {"cow_total": eng._alloc.cow_total, "block_intact": intact,
+               "pools_in_place": kp.data_ptr() == state["ptr"],
+               "stream_equal": got == want}
+        eng._alloc.free([blk])
+        check(all(row.values()) and row["cow_total"] >= 1,
+              f"kv_reuse forced COW: {row}")
+        return row
+    finally:
+        eng.stop()
+
+
+def _kv_wave_prompts(vocab):
+    """8 prompts: one 512-token prefix with distinct suffixes."""
+    rs = np.random.RandomState(21)
+    shared = rs.randint(0, vocab, size=KV_SHARED)
+    return [np.concatenate([shared, rs.randint(0, vocab, size=n)])
+            for n in KV_SUFFIXES]
+
+
+def _spec_round_times(engine, reps=20):
+    """One speculation round's device work (k draft steps and the
+    verification, every one a graph replay) at each slot count of a
+    warmed, idle engine, on all-zero inputs: the host's time to issue
+    it, the time between CUDA events around it, and the wall time to
+    its tokens on the host."""
+    import torch
+
+    out = {}
+    mb = engine.kv_cfg.max_blocks_per_seq
+    with torch.inference_mode():
+        for S in engine.decode_slots:
+            zeros = (np.zeros((S,), np.int32), np.zeros((S,), np.int32),
+                     np.zeros((S, mb), np.int32))
+            for _ in range(3):
+                engine._spec_launch(S, *zeros).cpu()
+            host, event, wall = [], [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                both = engine._spec_launch(S, *zeros)
+                host.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                both.cpu()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                event.append(start.elapsed_time(end))
+            out[f"S{S}"] = {"host_ms": statistics.median(host),
+                            "event_ms": statistics.median(event),
+                            "wall_ms": statistics.median(wall)}
+    return out
+
+
+def _phase_replay_times(engine, reps=20):
+    """Each captured phase of a warmed, idle engine replayed alone on
+    all-zero inputs (every write lands in the null block): the host's
+    time to issue the replay and the time between CUDA events around
+    it, which is the phase's device time."""
+    import torch
+
+    out = {}
+    with torch.inference_mode():
+        for (kind, n), g in sorted(engine._graphs.items()):
+            for t in g.inputs:
+                t.zero_()
+            for _ in range(3):
+                g.graph.replay()
+            host, event = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                g.graph.replay()
+                host.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                end.synchronize()
+                event.append(start.elapsed_time(end))
+            out[f"{kind}@{n}"] = {"host_ms": statistics.median(host),
+                                  "event_ms": statistics.median(event)}
+    return out
+
+
+def _kv_full(label, engine, prompts, want):
+    """(b) one configuration behind the HTTP Server: a cold and a warm
+    wave of the 8 prompts, then one round under torch.profiler; each
+    request done with its tokens, the warm wave's prefix hits, the
+    refcounts drained, every captured phase a replay after warmup."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import Server, ServingConfig
+
+    server = Server(ServingConfig(), decode=engine)
+    t0 = time.perf_counter()
+    port = server.start(0)                      # warms, then binds
+    row = {"start_s": time.perf_counter() - t0, "waves": {}}
+    try:
+        check(engine.status()["warmed"], f"kv_reuse {label}: not warmed")
+        fa.flash_attention.launches = 0
+        for wave in ("cold", "warm"):
+            kv0 = engine.status()["kv"]
+            results, wall = _http_round(port, prompts, KV_WAVE_NEW)
+            st = engine.status()
+            for n, out in zip(KV_SUFFIXES, results):
+                check("error" not in out and
+                      len(out["tokens"]) == KV_WAVE_NEW and out["done"] and
+                      out["done"].get("finish_reason") == "length",
+                      f"kv_reuse {label} {wave} suffix {n}: {out}")
+            got = [out["tokens"] for out in results]
+            div = _first_divergence(got, want)
+            row["waves"][wave] = {
+                **_round_summary(results, wall),
+                **{k: st["kv"].get(k, 0) - kv0.get(k, 0)
+                   for k in ("prefix_hits_total", "blocks_reused_total")},
+                "accept_rate": st["kv_reuse"]["spec_accept_rate"],
+                "equal_to_bucketed": sum(d is None for d in div) / len(div),
+                "first_divergence": div}
+        row["flash_attention_fwd"] = fa.flash_attention.launches
+        row["replayed"] = _kv_eager_after_warmup(label, st)
+        row["spec_round"] = _spec_round_times(engine)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _kv_streams(engine, prompts, KV_WAVE_NEW)
+            wall = time.perf_counter() - t0
+        row["profiled"] = {"wall_s": wall, **{
+            k: v for k, v in _device_time(prof, wall).items()
+            if k in ("device_events", "device_busy_ms", "device_idle_share",
+                     "top_kernels")}}
+        st = engine.status()
+        row["phase_replay"] = _phase_replay_times(engine)
+    finally:
+        server.stop()
+    check(st["kv"]["blocks_used"] == 0,
+          f"kv_reuse {label}: blocks_used {st['kv']['blocks_used']}")
+    row["kv"] = {k: st["kv"].get(k) for k in (
+        "blocks_cached", "prefix_hits_total", "blocks_reused_total",
+        "evictions_total", "cow_total")}
+    row["spec"] = st["kv_reuse"]
+    return row
+
+
+def phase_kv_reuse():
+    """KV reuse on the serving path: (a) f32 exactness, (b) GPT-2-small
+    at bf16 through the HTTP Server with a prefix-sharing load, reuse
+    (chunk 256, prefix cache, spec_k 3) and spec-only (bucketed
+    prefills on K1-fwd, spec_k 3). Returns the spec-only engine's
+    K1-fwd launches, read around its two waves."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    t0 = time.perf_counter()
+    exact = _kv_exact()
+    cfg = gpt.GPTConfig()                       # GPT-2-small, bf16
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    dcfg = gpt.GPTConfig(layers=2)
+    dparams, _ = gpt.init(torch.Generator(device="cuda").manual_seed(2),
+                          dcfg, device="cuda")
+    base = dict(block_size=16, num_blocks=512, decode_slots=(4, 8))
+    prompts = _kv_wave_prompts(cfg.vocab_size)
+    eng = DecodeEngine(params, cfg, DecodeConfig(**base), device="cuda")
+    eng.warmup()
+    try:
+        want = _kv_streams(eng, prompts, KV_WAVE_NEW)
+    finally:
+        eng.stop()
+    full = {}
+    for label, kw in (("reuse", dict(prefill_chunk=256, prefix_cache=True,
+                                     spec_k=3)),
+                      ("spec_only", dict(spec_k=3))):
+        eng = DecodeEngine(params, cfg, DecodeConfig(**base, **kw),
+                           (dparams, dcfg), device="cuda")
+        full[label] = _kv_full(label, eng, prompts, want)
+        del eng
+        torch.cuda.empty_cache()
+    check(full["reuse"]["waves"]["warm"]["prefix_hits_total"] > 0,
+          f"kv_reuse: no prefix hit in the warm wave: {full['reuse']}")
+    launches = full["spec_only"]["flash_attention_fwd"]
+    check(launches >= cfg.layers * len(prompts) * 2,
+          f"kv_reuse spec-only: {launches} K1-fwd launches")
+    print(json.dumps({
+        "phase": "kv_reuse", "card": card(),
+        "exact": {"model": "GPTConfig(layers=2), f32, TF32 off",
+                  "draft": "GPTConfig(layers=1) seed 2", **exact},
+        "model": "GPT-2-small (GPTConfig()), bf16, 512 blocks of 16, "
+                 "slots (4, 8); draft GPTConfig(layers=2) seed 2",
+        "prompts": {"shared": KV_SHARED, "suffixes": list(KV_SUFFIXES),
+                    "new_tokens": KV_WAVE_NEW},
+        **full, "seconds": time.perf_counter() - t0}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3196,6 +3566,7 @@ def main() -> int:
     phase_head_dim_gate()
     resilience_counts = phase_resilience()
     phase_fluid()
+    launches["flash_attention_fwd"] += phase_kv_reuse()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts):

@@ -3,8 +3,10 @@
 Counterpart of the JAX package's `models/gpt.py` for serving and dense
 training: `GPTConfig`, `init`, the full forward `apply` (differentiable:
 under grad its attention runs the K1 forward and backward kernels on
-CUDA), `lm_loss` and `make_batch`, and the two decode phases
-`apply_prefill` / `apply_decode_step` over the paged KV cache.
+CUDA), `lm_loss` and `make_batch`, and the decode phases over the paged
+KV cache: `apply_prefill` / `apply_decode_step`, and KV reuse's
+`apply_prefill_chunk` (chunked prefill) / `apply_verify_step`
+(speculative verification).
 Params are the JAX package's flat dict, by name and in its layouts:
 per-layer params stacked on a leading [L] axis ("blk.wqkv" [L, H, 3H],
 ...), matrices applied as `x @ w`. The JAX package's `lax.scan` over the
@@ -36,7 +38,8 @@ from .common import (ParamAxes, Params, ParamStore, gelu,
                      layer_norm as _ln_named, raw_layer_norm)
 
 __all__ = ["GPTConfig", "init", "param_shapes", "apply", "lm_loss",
-           "make_batch", "apply_prefill", "apply_decode_step"]
+           "make_batch", "apply_prefill", "apply_decode_step",
+           "apply_prefill_chunk", "apply_verify_step"]
 
 
 @dataclasses.dataclass
@@ -198,9 +201,10 @@ def make_batch(generator: torch.Generator, cfg: GPTConfig, batch_size: int,
 
 
 # ---------------------------------------------------------------------------
-# Decode path (serving/decode.py): paged-KV prefill + single-token steps.
-# Both phases write K/V into the pools IN PLACE (the JAX versions donate
-# the pools and return new ones) and sample greedily through
+# Decode path (serving/decode.py): paged-KV prefill, single-token steps,
+# prompt chunks and speculative verification. Every phase writes K/V into
+# the pools IN PLACE (the JAX versions donate the pools and return new
+# ones) and samples greedily through
 # ops.beam.beam_search with beam_size=1, whose finished-freeze keeps a
 # slot whose previous token is eos emitting eos.
 # ---------------------------------------------------------------------------
@@ -295,3 +299,111 @@ def apply_decode_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     x = _ln_named(params, "ln_f", h)
     logits = x @ params["wte.w"].T.to(x.dtype)          # [S, vocab]
     return _beam_top1(ids, logits, eos_id)
+
+
+def apply_prefill_chunk(params: Params, cfg: GPTConfig, ids: torch.Tensor,
+                        start: torch.Tensor, length: torch.Tensor,
+                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        block_table: torch.Tensor, *, block_size: int,
+                        eos_id: int) -> torch.Tensor:
+    """One fixed-size SLICE of a prompt through the stack (chunked
+    prefill, serving/kv_reuse.py).
+
+    ids [1, C] = the tokens at positions start..start+C-1 (edge-padded
+    past `length`), start = the slice's first position, length = the
+    true prompt length, both int32 device scalars so that a captured
+    chunk step reads them from static buffers. Writes the slice's K/V
+    into the sequence's blocks in place and attends gather-style over
+    the block table with mask `key_pos <= start + i`, so earlier
+    slices' (and prefix-cache reused blocks') K/V take part exactly as
+    in a whole-prompt prefill: each row reads only pool state and its
+    own activations, so chunked equals whole prefill, and reused equals
+    recomputed prefixes, token for token. Returns tok [1], meaningful
+    only on the slice holding position length-1. Attention is plain
+    torch, as the JAX package's chunk step is plain XLA."""
+    _, C = ids.shape
+    nh, hd = cfg.heads, cfg.head_dim
+    adt = k_pool.dtype
+    pos = start.long() + torch.arange(C, device=ids.device)
+    # the final slice's padded tail can run past the positional table;
+    # clamp (those rows' outputs are never read, their K/V lands in the
+    # null block or in slots later writes overwrite)
+    x = (params["wte.w"][ids[0]] +
+         params["wpe.w"][pos.clamp(max=cfg.max_len - 1)]).to(adt)
+    scale = 1.0 / math.sqrt(hd)
+    h = x
+    for l in range(cfg.layers):
+        lp = _layer(params, l)
+        y = _ln(h, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
+        q, k, v = _qkv(lp, y, cfg, (C, nh, hd))
+        kvc.write_chunk_kv(k_pool[l], k, block_table, start, block_size)
+        kvc.write_chunk_kv(v_pool[l], v, block_table, start, block_size)
+        keys = kvc.gather_kv(k_pool[l], block_table[None])[0]  # [M, nh, hd]
+        vals = kvc.gather_kv(v_pool[l], block_table[None])[0]
+        scores = torch.einsum("cnd,mnd->cnm", q, keys) * scale
+        m = keys.shape[0]
+        mask = torch.arange(m, device=ids.device)[None, :] <= pos[:, None]
+        scores = torch.where(mask[:, None, :], scores, -1e9)
+        att = torch.softmax(scores.float(), dim=-1)
+        ctx = torch.einsum("cnm,mnd->cnd", att.to(adt), vals)
+        ctx = ctx.reshape(C, cfg.hidden)
+        h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
+        y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
+        h = h + _decode_mlp(lp, y)
+    x = _ln_named(params, "ln_f", h)
+    # a device index: no host sync, so the step can be captured
+    last = (length.long() - 1 - start.long()).clamp(0, C - 1).view(1)
+    logits = x.index_select(0, last) @ params["wte.w"].T.to(x.dtype)
+    return _beam_top1(ids[0].index_select(0, last), logits, eos_id)
+
+
+def apply_verify_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
+                      positions: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, block_tables: torch.Tensor, *,
+                      block_size: int, eos_id: int) -> torch.Tensor:
+    """Speculative verification: W = k+1 tokens per slot in ONE step
+    (serving/kv_reuse.py).
+
+    ids [S, W] = each slot's [last_token, d_1..d_k] (its previous real
+    token, then the draft model's k proposals), positions [S] = each
+    slot's next KV write position. Row j writes its K/V at position
+    positions+j and attends `key_pos <= positions + j`, so output j is
+    the token a plain apply_decode_step sequence gives after feeding
+    ids[:, :j+1] one at a time; kv_reuse.accept_length compares the
+    drafts with these outputs. A rejected position's K/V stays in the
+    pool until the next real write there, before any mask lets it be
+    read. Sampling goes through the same beam_search step as decode, so
+    an eos in the fed window freezes the rest of the row to eos.
+    Returns tokens [S, W]."""
+    S, W = ids.shape
+    nh, hd = cfg.heads, cfg.head_dim
+    adt = k_pool.dtype
+    pos = positions.long()[:, None] + \
+        torch.arange(W, device=ids.device)[None, :]
+    x = (params["wte.w"][ids] +
+         params["wpe.w"][pos.clamp(max=cfg.max_len - 1)]).to(adt)
+    scale = 1.0 / math.sqrt(hd)
+    h = x
+    for l in range(cfg.layers):
+        lp = _layer(params, l)
+        y = _ln(h, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
+        q, k, v = _qkv(lp, y, cfg, (S, W, nh, hd))
+        kvc.write_span_kv(k_pool[l], k, block_tables, positions, block_size)
+        kvc.write_span_kv(v_pool[l], v, block_tables, positions, block_size)
+        keys = kvc.gather_kv(k_pool[l], block_tables)  # [S, M, nh, hd]
+        vals = kvc.gather_kv(v_pool[l], block_tables)
+        scores = torch.einsum("swnd,smnd->swnm", q, keys) * scale
+        m = keys.shape[1]
+        mask = torch.arange(m, device=ids.device)[None, None, :] \
+            <= pos[:, :, None]
+        scores = torch.where(mask[:, :, None, :], scores, -1e9)
+        att = torch.softmax(scores.float(), dim=-1)
+        ctx = torch.einsum("swnm,smnd->swnd", att.to(adt), vals)
+        ctx = ctx.reshape(S, W, cfg.hidden)
+        h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
+        y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
+        h = h + _decode_mlp(lp, y)
+    x = _ln_named(params, "ln_f", h)
+    logits = x @ params["wte.w"].T.to(x.dtype)          # [S, W, vocab]
+    return _beam_top1(ids.reshape(S * W), logits.reshape(S * W, -1),
+                      eos_id).reshape(S, W)

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 __all__ = ["KVCacheConfig", "BlockAllocator", "NoBlocksError",
-           "init_pools", "write_token_kv", "write_prefill_kv", "gather_kv",
+           "init_pools", "write_token_kv", "write_prefill_kv",
+           "write_chunk_kv", "write_span_kv", "gather_kv",
            "build_block_table", "NULL_BLOCK"]
 
 NULL_BLOCK = 0
@@ -178,6 +179,44 @@ def write_prefill_kv(pool_l: torch.Tensor, kv: torch.Tensor,
     mask lets them be read."""
     t = torch.arange(kv.shape[0], device=pool_l.device)
     pool_l[block_table.long()[t // block_size], t % block_size] = kv
+
+
+def write_chunk_kv(pool_l: torch.Tensor, kv: torch.Tensor,
+                   block_table: torch.Tensor, start: torch.Tensor,
+                   block_size: int) -> None:
+    """Write one prompt SLICE's K (or V) into one layer's pool slice, in
+    place (chunked prefill). pool_l `[NB, BS, H, D]`, kv `[C, H, D]`
+    holding positions start..start+C-1, block_table `[MB]`, start an
+    int32 device scalar (so a captured chunk step takes it from a static
+    buffer). Positions past the table width go to the null block (the
+    final slice's padded tail can run past max_len); positions inside
+    allocated blocks but past the true prompt length write slots that
+    later writes overwrite before any mask lets them be read."""
+    t = torch.arange(kv.shape[0], device=pool_l.device) + start.long()
+    bi = t // block_size
+    mb = block_table.shape[0]
+    blk = torch.where(bi < mb, block_table.long()[bi.clamp(max=mb - 1)],
+                      NULL_BLOCK)
+    pool_l[blk, t % block_size] = kv
+
+
+def write_span_kv(pool_l: torch.Tensor, kv: torch.Tensor,
+                  block_tables: torch.Tensor, positions: torch.Tensor,
+                  block_size: int) -> None:
+    """Write a W-token span per slot into one layer's pool slice, in
+    place (speculative verification). pool_l `[NB, BS, H, D]`, kv
+    `[S, W, H, D]` holding each slot's positions p..p+W-1, block_tables
+    `[S, MB]`, positions `[S]` = each slot's span start. Slots with
+    all-zero tables write the null block; span positions past the table
+    width go there too."""
+    w = kv.shape[1]
+    t = positions.long()[:, None] + \
+        torch.arange(w, device=pool_l.device)[None, :]
+    bi = t // block_size
+    mb = block_tables.shape[1]
+    blk = torch.gather(block_tables.long(), 1, bi.clamp(max=mb - 1))
+    blk = torch.where(bi < mb, blk, NULL_BLOCK)
+    pool_l[blk, t % block_size] = kv
 
 
 def gather_kv(pool_l: torch.Tensor, block_tables: torch.Tensor

@@ -1,0 +1,312 @@
+# Copied from the JAX package: paddle_tpu/serving/kv_reuse.py
+# (numpy and stdlib). Keep it in step with that file; its declared
+# changes import threading and give ReuseBlockAllocator a plain lock.
+"""Block-level KV reuse: prefix caching, COW, and speculative accept.
+
+The paged KV cache (kv_cache.py) already stores every sequence's K/V in
+fixed-size pool blocks addressed through per-sequence block tables —
+the exact structure the vLLM/PagedAttention sharing model (Kwon et al.,
+SOSP'23) and SGLang's RadixAttention prefix reuse exploit: two prompts
+that agree on their first N·block_size tokens can point their first N
+table entries at the SAME pool blocks, and the later request skips
+recomputing that prefix entirely. This module owns the host-side state
+that makes sharing safe:
+
+- **`ReuseBlockAllocator`** — the `BlockAllocator` free-list made
+  ref-counted, plus a content-hash index over FULL blocks. The hash is
+  a chain (`h_j = H(h_{j-1} ‖ tokens[j·bs:(j+1)·bs])`), so a block's
+  hash commits to its entire prefix — a flat per-block hash would let
+  block j of one prompt match block j of a different prefix. A lookup
+  (`match_prefix`) resolves the longest run of cached blocks and takes
+  a reference on each; `free` is decref: the last reference moves a
+  *registered* block onto an LRU of retained-but-unreferenced blocks
+  (still serving future hits) instead of the free list, and `alloc`
+  evicts from that LRU oldest-first when the free list alone cannot
+  satisfy a request — so cached prefixes cost nothing until the pool
+  is actually short, and the existing recompute-preemption path
+  composes unchanged on top (preemption decrefs; eviction reclaims).
+
+- **Sharing rule** — only FULL blocks are ever shared, and only while
+  at least one prompt token remains to compute (block j of a prompt of
+  length L is reusable iff `(j+1)·bs ≤ L-1`), so the computed suffix
+  always starts on a block boundary and produces the first-token
+  logits. Full prompt blocks are never written again (decode/verify
+  writes land at positions ≥ L), so shared blocks are read-only by
+  construction.
+
+- **Copy-on-write** — the safety net behind that construction: before
+  the scheduler writes into a block, `is_shared`/`cow_alloc` give it a
+  private replacement (the engine device-copies the contents and swaps
+  the table entry). Unreachable in the normal admission flow, counted
+  (`event="cow"`) and tested via a forced share.
+
+- **Speculative accept rule** (`accept_length`) — the exact greedy
+  acceptance for speculative decoding: draft tokens d_1..d_k are
+  accepted up to the longest prefix where d_j equals the target's own
+  greedy output o_{j-1}; the emitted tokens o_0..o_a are then
+  bit-identical to plain one-token-per-step decode by induction.
+
+Locking: the decode scheduler thread is the only mutator, but
+`/v1/status` and the memwatch bytes provider read the cache accounting
+from other threads, so all state is guarded by one plain lock
+(leaf-level: nothing else is acquired while it is held).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..observability import metrics as _m
+from .kv_cache import BlockAllocator, KVCacheConfig, NoBlocksError, \
+    NULL_BLOCK
+
+__all__ = ["ReuseBlockAllocator", "hash_blocks", "accept_length",
+           "PREFIX_CACHE", "BLOCKS_REUSED", "SPEC_ACCEPT_RATE"]
+
+PREFIX_CACHE = _m.counter(
+    "paddle_tpu_prefix_cache_total",
+    "Prefix-cache block events: hit (admission resolved a prompt "
+    "block from the index), miss (a hashed full block had no cached "
+    "counterpart), evict (an unreferenced cached block reclaimed "
+    "under pool pressure), cow (a shared block copied before a write)",
+    labelnames=("event",))
+BLOCKS_REUSED = _m.gauge(
+    "paddle_tpu_decode_blocks_reused",
+    "Cumulative KV blocks resolved from the prefix cache instead of "
+    "being recomputed (each saves block_size prefill tokens)")
+SPEC_ACCEPT_RATE = _m.gauge(
+    "paddle_tpu_decode_spec_accept_rate",
+    "Running speculative-decoding accept rate: draft tokens accepted "
+    "by target verification / draft tokens proposed, since boot")
+
+_HASH_SEED = b"paddle_tpu-kv-prefix-v1:"
+
+
+def hash_blocks(tokens, block_size: int) -> List[bytes]:
+    """Chain hashes for every FULL block of a token sequence: one
+    digest per block, each committing to the whole prefix up to and
+    including that block (`h_j = H(h_{j-1} ‖ block_j_tokens)`). The
+    trailing partial block (if any) gets no hash — partial blocks are
+    never shared."""
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32).ravel())
+    bs = int(block_size)
+    h = hashlib.sha256(_HASH_SEED + str(bs).encode()).digest()
+    out: List[bytes] = []
+    for j in range(len(toks) // bs):
+        h = hashlib.sha256(h + toks[j * bs:(j + 1) * bs].tobytes()) \
+            .digest()
+        out.append(h)
+    return out
+
+
+def accept_length(draft: Sequence[int], out: Sequence[int]) -> int:
+    """Exact greedy acceptance: `draft` = the k proposed tokens,
+    `out` = the target's k+1 verification outputs (out[j] is what the
+    target emits after accepting draft[:j]). Returns a — the longest
+    prefix with draft[j] == out[j] — so emitting out[:a+1] reproduces
+    plain greedy decode exactly: out[a] is the target's own correction
+    (or, on full accept, its bonus token)."""
+    a = 0
+    for j in range(len(draft)):
+        if int(draft[j]) != int(out[j]):
+            break
+        a += 1
+    return a
+
+
+class ReuseBlockAllocator(BlockAllocator):
+    """Ref-counted `BlockAllocator` with a content-hash prefix index
+    and LRU retention of unreferenced cached blocks.
+
+    Block lifecycle: alloc → refcount 1 → (register with a chain hash)
+    → shared via match_prefix (refcount += 1 per reader) → free is
+    decref → at refcount 0 a registered block parks on the LRU (still
+    indexed, evictable), an unregistered one returns to the free list.
+    `can_alloc`/`alloc` treat LRU blocks as allocatable: eviction
+    (oldest first) is folded into allocation, so callers — admission,
+    mid-decode growth, preemption retries — need no new code paths."""
+
+    def __init__(self, cfg: KVCacheConfig):
+        super().__init__(cfg)
+        # a plain lock: the port has no lock-order checker (the JAX
+        # package's analysis.lockcheck, ROADMAP item 21)
+        self._lock = threading.Lock()
+        self._refs: Dict[int, int] = {}
+        self._hash_of: Dict[int, bytes] = {}     # block -> chain hash
+        self._index: Dict[bytes, int] = {}       # chain hash -> block
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.reused_total = 0
+        self.evicted_total = 0
+        self.cow_total = 0
+        self.hits_total = 0
+        self.misses_total = 0
+
+    # -- capacity ------------------------------------------------------
+
+    def cached_blocks(self) -> int:
+        with self._lock:
+            return len(self._lru)
+
+    def can_alloc(self, n: int) -> bool:
+        with self._lock:
+            return n <= len(self._free) + len(self._lru)
+
+    def _evict_for_locked(self, n: int):
+        """Reclaim LRU cached blocks until the free list holds n."""
+        evicted = 0
+        while len(self._free) < n:
+            blk, _ = self._lru.popitem(last=False)       # oldest first
+            del self._index[self._hash_of.pop(blk)]
+            self._free.append(int(blk))
+            evicted += 1
+        if evicted:
+            self.evicted_total += evicted
+            PREFIX_CACHE.inc(evicted, event="evict")
+
+    def alloc(self, n: int) -> List[int]:
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} blocks")
+        with self._lock:
+            if n > len(self._free) + len(self._lru):
+                raise NoBlocksError(
+                    f"need {n} blocks, only {len(self._free)} free + "
+                    f"{len(self._lru)} evictable of "
+                    f"{self.cfg.usable_blocks}")
+            self._evict_for_locked(n)
+            out = [self._free.pop() for _ in range(n)]
+            for b in out:
+                self._owned[b] = True
+                self._refs[b] = 1
+        return out
+
+    def free(self, blocks: Sequence[int]):
+        """Decref. The last reference parks a registered block on the
+        LRU (contents retained for future hits); an unregistered block
+        goes straight back to the free list. Double-free still raises."""
+        with self._lock:
+            for b in blocks:
+                if b == NULL_BLOCK:
+                    raise ValueError("block 0 (null block) is never "
+                                     "allocated and cannot be freed")
+                r = self._refs.get(b)
+                if r is None:
+                    raise ValueError(f"block {b} is not allocated "
+                                     "(double free?)")
+                if r > 1:
+                    self._refs[b] = r - 1
+                    continue
+                del self._refs[b]
+                del self._owned[b]
+                if b in self._hash_of:
+                    self._lru[b] = None
+                else:
+                    self._free.append(int(b))
+
+    # -- prefix index --------------------------------------------------
+
+    def register(self, block: int, h: bytes):
+        """Index a live FULL block under its chain hash (called once
+        its contents are final — full prompt blocks are never written
+        again). First registration wins: an identical block already in
+        the index keeps serving hits and `block` stays private."""
+        with self._lock:
+            if block not in self._refs:
+                raise ValueError(
+                    f"block {block} is not live; only referenced "
+                    "blocks can be registered")
+            other = self._index.get(h)
+            if other is not None and other != block:
+                return
+            self._index[h] = block
+            self._hash_of[block] = h
+
+    def match_prefix(self, hashes: Sequence[bytes]) -> List[int]:
+        """Resolve the longest run of cached blocks for a prompt's
+        chain hashes, taking one reference on each match (a hit on an
+        LRU-parked block revives it). Returns the matched block ids in
+        prefix order — the caller splices them into the new sequence's
+        block table and prefills only from `len(matches)·block_size`."""
+        out: List[int] = []
+        with self._lock:
+            for h in hashes:
+                b = self._index.get(h)
+                if b is None:
+                    break
+                if b in self._refs:
+                    self._refs[b] += 1
+                else:
+                    self._lru.pop(b, None)
+                    self._refs[b] = 1
+                    self._owned[b] = True
+                out.append(b)
+            hits, misses = len(out), len(hashes) - len(out)
+            self.hits_total += hits
+            self.misses_total += misses
+            self.reused_total += hits
+        if hits:
+            PREFIX_CACHE.inc(hits, event="hit")
+        if misses:
+            PREFIX_CACHE.inc(misses, event="miss")
+        BLOCKS_REUSED.set(self.reused_total)
+        return out
+
+    # -- sharing / COW -------------------------------------------------
+
+    def refcount(self, block: int) -> int:
+        with self._lock:
+            return self._refs.get(block, 0)
+
+    def incref(self, block: int):
+        with self._lock:
+            if block not in self._refs:
+                raise ValueError(f"block {block} is not allocated")
+            self._refs[block] += 1
+
+    def is_shared(self, block: int) -> bool:
+        with self._lock:
+            return self._refs.get(block, 0) > 1
+
+    def cow_alloc(self, block: int) -> int:
+        """Copy-on-write: allocate a private replacement for a shared
+        block and drop the caller's reference on the original. The
+        caller device-copies the pool contents old→new and swaps its
+        block-table entry. Raises NoBlocksError (nothing changed) when
+        the pool cannot supply the replacement."""
+        with self._lock:
+            if self._refs.get(block, 0) < 2:
+                raise ValueError(
+                    f"block {block} is not shared (refcount "
+                    f"{self._refs.get(block, 0)}); copy-on-write is "
+                    "only for shared blocks")
+            if 1 > len(self._free) + len(self._lru):
+                raise NoBlocksError(
+                    f"copy-on-write needs 1 block, 0 free of "
+                    f"{self.cfg.usable_blocks}")
+            self._evict_for_locked(1)
+            new = self._free.pop()
+            self._owned[new] = True
+            self._refs[new] = 1
+            self._refs[block] -= 1
+            self.cow_total += 1
+        PREFIX_CACHE.inc(event="cow")
+        return new
+
+    # -- accounting ----------------------------------------------------
+
+    def stats(self, live_tokens: int = 0) -> Dict[str, float]:
+        s = super().stats(live_tokens)
+        with self._lock:
+            s.update({
+                "blocks_cached": len(self._lru),
+                "blocks_reused_total": self.reused_total,
+                "prefix_hits_total": self.hits_total,
+                "prefix_misses_total": self.misses_total,
+                "evictions_total": self.evicted_total,
+                "cow_total": self.cow_total,
+            })
+        return s

@@ -26,8 +26,9 @@ cannot read. The bf16 and f16 backwards' two-launch form, whose dq
 kernels compute delta from the forward's output: the folded delta, the
 external-delta launch and the launch counts, for K1 and K2. The decode
 engine's CUDA graphs: a warmed engine's tokens equal an unwarmed one's
-bit for bit, every decode step a replay, and a capture that fails
-raises. Training under each recompute policy equals no recompute bit
+bit for bit, every decode step a replay, the same for a KV-reuse engine
+(chunked prefill, prefix cache, speculation with a draft), and a
+capture that fails raises. Training under each recompute policy equals no recompute bit
 for bit on a narrow BERT with K1 (K1-fwd run again in the recompute),
 a TrainState checkpoint restores onto its template's device, cuda
 or cpu, whichever device wrote it, and the fluid path's LeNet rung
@@ -1102,6 +1103,57 @@ def test_warmed_engine_tokens_equal_unwarmed(precision):
                                         "eager": 0}
     assert eager_st["decode_steps"] == {"replayed": 0,
                                         "eager": len(eager_slots)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_warmed_reuse_engine_tokens_equal_unwarmed(precision):
+    """A KV-reuse engine (chunk 8, prefix cache, spec_k 2 with a 1-layer
+    draft) warmed (chunk, draft_chunk, decode, draft_decode and verify
+    CUDA graph replays) emits the unwarmed engine's tokens bit for bit
+    through two waves of `_decode_traffic` on a pool of 31 usable blocks
+    (the second wave hits the prefix cache, the LRU evicts); after
+    warmup no phase runs eagerly."""
+    _need_card()
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg, dcfg = gpt.GPTConfig.tiny(), gpt.GPTConfig.tiny()
+    cfg.dtype = dcfg.dtype = "float32"
+    dcfg.layers = 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, _ = gpt.init(gen, cfg, device="cuda")
+    dparams, _ = gpt.init(gen, dcfg, device="cuda")
+    conf = dict(DECODE_POOL, num_blocks=32, precision=precision,
+                prefill_chunk=8, prefix_cache=True, spec_k=2)
+    out = {}
+    for warm in (False, True):
+        eng = DecodeEngine(params, cfg, DecodeConfig(**conf),
+                           (dparams, dcfg), device="cuda")
+        try:
+            if warm:
+                assert eng.warmup() == 8
+            toks = []
+            for _ in range(2):
+                with eng._cv:
+                    handles = [eng.submit(p, max_new_tokens=n)
+                               for p, n in _decode_traffic(cfg.vocab_size)]
+                toks.append([h.result(timeout_s=300) for h in handles])
+            out[warm] = (toks, eng.status())
+        finally:
+            eng.stop()
+    (eager, eager_st), (graph, graph_st) = out[False], out[True]
+    assert graph == eager
+    assert graph_st["requests"] == eager_st["requests"]
+    assert graph_st["kv"]["prefix_hits_total"] > 0
+    assert graph_st["kv"]["evictions_total"] > 0
+    assert graph_st["kv"]["blocks_used"] == 0
+    # no round nears max_len here, so the plain decode phase never runs
+    for kind, runs in graph_st["phase_runs"].items():
+        assert runs["eager"] == 0, kind
+        assert (runs["replayed"] > 0) == (kind != "decode"), kind
+        assert eager_st["phase_runs"][kind] == {
+            "replayed": 0, "eager": runs["replayed"]}, kind
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's decode engine at boot and in operation, on the CPU, held
 against the JAX package's DecodeEngine on the same tiny GPT: boot
-validation's findings, the warm phase grid's count and the greedy
-tokens after it, `load()` and `status()`, and warmstart artifacts."""
+validation's findings (the KV-reuse knobs' and the draft model's too),
+the warm phase grid's count (bucketed and re-keyed by KV reuse) and the
+greedy tokens after it, `load()` and `status()`, and warmstart
+artifacts."""
 
 import json
 
@@ -42,7 +44,42 @@ BOOT_CASES = [
     ("slot_count_below_one", dict(decode_slots=(0, 4)), "decode_slots"),
     # beyond GPTConfig.tiny()'s positional table of 128
     ("max_len_above_positional_table", dict(max_len=256), "max_len"),
+    # KV reuse: "draft" names the draft model `_drafts` builds
+    ("chunk_above_max_len", dict(prefill_chunk=128), "prefill_chunk"),
+    # the chunk phase retires both bucket findings (here the oversized
+    # bucket's error and the coverage warning); the pool's stays
+    ("chunked_retires_bucket_findings",
+     dict(prefill_chunk=8, prefill_buckets=(8, 128), num_blocks=20), None),
+    ("draft_vocab_mismatch", dict(prefill_chunk=8, spec_k=2, draft="vocab"),
+     "draft"),
+    ("draft_max_len_below_serving",
+     dict(prefill_chunk=8, spec_k=2, draft="short"), "draft"),
+    ("spec_k_at_max_len", dict(spec_k=64, draft="same"), "spec_k"),
 ]
+
+# the draft models of BOOT_CASES: (port params, port cfg, JAX params,
+# JAX cfg), by name
+_DRAFTS = {}
+
+
+def _drafts(model, name):
+    if name == "same":
+        return model
+    if name not in _DRAFTS:
+        jcfg = jgpt.GPTConfig.tiny()
+        jcfg.dtype = "float32"
+        cfg = gpt.GPTConfig.tiny()
+        cfg.dtype = "float32"
+        if name == "vocab":
+            jcfg.vocab_size = cfg.vocab_size = 513
+        else:
+            jcfg.max_len = cfg.max_len = 32
+        jparams, _ = jgpt.init(jax.random.key(2), jcfg)
+        params = params_from_numpy(
+            {k: np.asarray(v) for k, v in jparams.items()}, "cpu",
+            expected=gpt.param_shapes(cfg))
+        _DRAFTS[name] = (params, cfg, jparams, jcfg)
+    return _DRAFTS[name]
 
 
 @pytest.fixture(scope="module")
@@ -57,17 +94,35 @@ def model():
     return params, cfg, jparams, jcfg
 
 
+def _split(model, kw):
+    """BASE with a case's change, and the (port, JAX) draft it names."""
+    conf = dict(BASE, **kw)
+    name = conf.pop("draft", None)
+    if name is None:
+        return conf, None, None
+    d = _drafts(model, name)
+    return conf, d[:2], d[2:]
+
+
 def engines(model, **kw):
     """The port's and the JAX package's engine on one config."""
     params, cfg, jparams, jcfg = model
-    conf = dict(BASE, **kw)
-    return (DecodeEngine(params, cfg, DecodeConfig(**conf), device="cpu"),
-            JDecodeEngine(jparams, jcfg, JDecodeConfig(**conf)))
+    conf, draft, jdraft = _split(model, kw)
+    return (DecodeEngine(params, cfg, DecodeConfig(**conf), draft,
+                         device="cpu"),
+            jax_engine(model, **kw))
+
+
+def jax_engine(model, **kw):
+    jparams, jcfg = model[2:]
+    conf, _, jdraft = _split(model, kw)
+    return JDecodeEngine(jparams, jcfg, JDecodeConfig(**conf), draft=jdraft)
 
 
 def port_engine(model, **kw):
     params, cfg = model[:2]
-    return DecodeEngine(params, cfg, DecodeConfig(**dict(BASE, **kw)),
+    conf, draft, _ = _split(model, kw)
+    return DecodeEngine(params, cfg, DecodeConfig(**conf), draft,
                         device="cpu")
 
 
@@ -101,9 +156,8 @@ def test_validate_level_2_raises_as_jax(model, monkeypatch, case, change,
         return
     with pytest.raises(AnalysisError, match=word):
         port_engine(model, **change)
-    params, cfg, jparams, jcfg = model
     with pytest.raises(JAnalysisError, match=word):
-        JDecodeEngine(jparams, jcfg, JDecodeConfig(**dict(BASE, **change)))
+        jax_engine(model, **change)
 
 
 @pytest.mark.parametrize("case,change,word",
@@ -138,6 +192,54 @@ def test_warmup_count_matches_jax(model, buckets, want):
     finally:
         t.stop()
         j.stop()
+
+
+# the reuse grids: (config change, ready phases)
+REUSE_GRIDS = [
+    (dict(prefill_chunk=8), 3),
+    (dict(prefill_chunk=8, prefix_cache=True, spec_k=2, draft="same"), 8),
+    (dict(spec_k=2, draft="same"), 10),
+]
+
+
+@pytest.mark.parametrize("change,want", REUSE_GRIDS,
+                         ids=["chunked", "chunked_spec", "spec_only"])
+def test_reuse_warmup_count_matches_jax(model, change, want):
+    """chunk@C replaces the prefill buckets; speculation adds
+    draft_chunk or draft_prefill@T, draft_decode@S and verify@S."""
+    t, j = engines(model, decode_slots=(2, 4), prefill_buckets=(8, 16),
+                   **change)
+    try:
+        assert t._phase_keys() == j._phase_keys()
+        assert t.warmup() == j.warmup() == want
+        assert t.status()["phase_grid"] == j.status()["phase_grid"]
+    finally:
+        t.stop()
+        j.stop()
+
+
+@pytest.mark.parametrize("fn,kind", [("apply_prefill_chunk", "chunk"),
+                                     ("apply_verify_step", "verify")])
+def test_a_reuse_phase_that_fails_to_warm(model, monkeypatch, fn, kind):
+    """A reuse phase that raises while warming is an ERROR finding under
+    decode_trace naming the phase; warmup raises and the engine does
+    not serve (no eager fallback)."""
+    def broken(*a, **kw):
+        raise ValueError(f"broken {kind}")
+
+    monkeypatch.setattr(gpt, fn, broken)
+    monkeypatch.delenv("PADDLE_TPU_VALIDATE", raising=False)
+    eng = port_engine(model, prefill_chunk=8, spec_k=2, draft="same")
+    try:
+        with pytest.raises(ValueError, match=f"broken {kind}"):
+            eng.warmup()
+        assert eng.analysis["errors"] == 1 and not eng.warmed
+        assert eng._findings[-1].pass_name == "decode_trace"
+        assert eng._findings[-1].message.startswith(f"{kind}@")
+        with pytest.raises(RuntimeError, match="warmup failed"):
+            eng.start()
+    finally:
+        eng.stop()
 
 
 def test_warmup_is_idempotent_and_precedes_start(model, monkeypatch):

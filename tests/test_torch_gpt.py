@@ -202,6 +202,120 @@ def test_decode_steps_match(models):
         pos = pos + active
 
 
+# (prompt length, its blocks, chunk size, chunk starts): a 21-token
+# prompt in three chunks of 8 (the last ragged: 5 real, 3 padded), and
+# the last chunk of a 60-token prompt over a full table, whose padded
+# tail (positions 64..71) runs past the table width into the null block
+CHUNK_CASES = [(21, [4, 9, 2], 8, (0, 8, 16)),
+               (60, [4, 9, 2, 11, 12, 13, 14, 15], 16, (56,))]
+
+
+@pytest.mark.parametrize("plen,blocks,C,starts", CHUNK_CASES,
+                         ids=["three_chunks", "past_table"])
+def test_prefill_chunks_match(models, plen, blocks, C, starts):
+    """apply_prefill_chunk, slice after slice, against the JAX
+    package's: tokens equal, pools within 1e-5 after every slice."""
+    jcfg, jparams, tcfg, tparams = models
+    kp, vp = _pools(tcfg, "float32", seed=4)
+    jk, jv = jnp.asarray(kp), jnp.asarray(vp)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    prompt = np.random.RandomState(5).randint(0, 512, size=plen)
+    bt = tkv.build_block_table(blocks, MAXLEN // BS)
+    for start in starts:
+        seg = prompt[start:start + C]
+        ids = np.concatenate([seg, np.full(C - len(seg), prompt[-1])])
+        ids = ids[None].astype(np.int32)
+        jtok, jk, jv = jgpt.apply_prefill_chunk(
+            jparams, jcfg, jnp.asarray(ids), jnp.int32(start),
+            jnp.int32(plen), jk, jv, jnp.asarray(bt), block_size=BS,
+            eos_id=-1)
+        ttok = tgpt.apply_prefill_chunk(
+            tparams, tcfg, torch.from_numpy(ids),
+            torch.tensor(start, dtype=torch.int32),
+            torch.tensor(plen, dtype=torch.int32), tk, tv,
+            torch.from_numpy(bt), block_size=BS, eos_id=-1)
+        assert ttok.shape == (1,)
+        assert int(ttok[0]) == int(np.asarray(jtok)[0])
+        assert _close(jk, tk, 1e-5) and _close(jv, tv, 1e-5)
+
+
+def test_prefill_chunks_equal_whole_prefill(models):
+    """The chunked prompt's first token equals the whole-prompt
+    prefill's, and its blocks hold the same K/V (the port alone)."""
+    jcfg, jparams, tcfg, tparams = models
+    plen, C, blocks = 21, 8, [4, 9, 2]
+    prompt = np.random.RandomState(6).randint(0, 512, size=plen)
+    bt = torch.from_numpy(tkv.build_block_table(blocks, MAXLEN // BS))
+    pools = [torch.zeros(tcfg.layers, NB, BS, tcfg.heads, tcfg.head_dim)
+             for _ in range(4)]
+    ids = np.concatenate([prompt, np.full(32 - plen, prompt[-1])])[None]
+    whole = tgpt.apply_prefill(tparams, tcfg, torch.from_numpy(ids), plen,
+                               pools[0], pools[1], bt, block_size=BS,
+                               eos_id=-1)
+    for start in range(0, plen, C):
+        seg = prompt[start:start + C]
+        cid = np.concatenate([seg, np.full(C - len(seg), prompt[-1])])
+        tok = tgpt.apply_prefill_chunk(
+            tparams, tcfg, torch.from_numpy(cid[None]),
+            torch.tensor(start, dtype=torch.int32),
+            torch.tensor(plen, dtype=torch.int32), pools[2], pools[3], bt,
+            block_size=BS, eos_id=-1)
+    assert int(tok[0]) == int(whole[0])
+    t = torch.arange(plen)
+    blk = bt.long()[t // BS]
+    for a, b in ((pools[0], pools[2]), (pools[1], pools[3])):
+        assert torch.allclose(a[:, blk, t % BS], b[:, blk, t % BS],
+                              atol=1e-5, rtol=0)
+
+
+# (block tables, positions, ids): four slots of W = 3, two live (one
+# span crossing a block boundary) and two padded as the engine pads
+# them; then two slots, one whose span runs past the table width
+VERIFY_CASES = [
+    ([[1, 2, 3], [5, 6], [], []], [14, 7, 0, 0],
+     [[17, 4, 9], [301, 33, 2], [0, 0, 0], [0, 0, 0]]),
+    ([[4, 9, 2, 11, 12, 13, 14, 15], [5, 6]], [62, 3],
+     [[8, 100, 7], [44, 45, 46]]),
+]
+
+
+@pytest.mark.parametrize("tables,pos,ids", VERIFY_CASES,
+                         ids=["padded_slots", "past_table"])
+def test_verify_step_matches(models, tables, pos, ids):
+    """apply_verify_step against the JAX package's (tokens equal, pools
+    within 1e-5), and row j's token equal to the port's own decode step
+    fed ids[:, :j+1] one at a time: verify is decode."""
+    jcfg, jparams, tcfg, tparams = models
+    kp, vp = _pools(tcfg, "float32", seed=7)
+    mb = MAXLEN // BS
+    bts = np.stack([tkv.build_block_table(t, mb) for t in tables])
+    ids = np.asarray(ids, np.int32)
+    pos = np.asarray(pos, np.int32)
+    jtok, jk, jv = jgpt.apply_verify_step(
+        jparams, jcfg, jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(bts), block_size=BS, eos_id=-1)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    ttok = tgpt.apply_verify_step(
+        tparams, tcfg, torch.from_numpy(ids), torch.from_numpy(pos), tk, tv,
+        torch.from_numpy(bts), block_size=BS, eos_id=-1)
+    assert ttok.shape == ids.shape
+    np.testing.assert_array_equal(np.asarray(jtok, np.int64), ttok.numpy())
+    assert _close(jk, tk, 1e-5) and _close(jv, tv, 1e-5)
+    dk, dv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    # the past-table position has no decode counterpart: decode rows
+    # stop at the table's last position
+    for j in range(ids.shape[1]):
+        p = pos + j
+        keep = p < mb * BS
+        dtok = tgpt.apply_decode_step(
+            tparams, tcfg, torch.from_numpy(ids[:, j]),
+            torch.from_numpy(np.where(keep, p, 0).astype(np.int32)), dk, dv,
+            torch.from_numpy(np.where(keep[:, None], bts, 0)),
+            block_size=BS, eos_id=-1)
+        np.testing.assert_array_equal(dtok.numpy()[keep],
+                                      ttok.numpy()[keep, j])
+
+
 @pytest.mark.parametrize("eos", [-1, 5])
 def test_beam_top1_and_finished_freeze(eos):
     rs = np.random.RandomState(4)

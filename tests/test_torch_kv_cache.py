@@ -147,3 +147,59 @@ def test_bf16_pool_roundtrip_is_exact():
     bt = torch.from_numpy(tkv.build_block_table([1, 2], 4))
     tkv.write_prefill_kv(kp[0], kv, bt, 4)
     assert torch.equal(tkv.gather_kv(kp[0], bt[None])[0, :6], kv)
+
+
+@pytest.mark.parametrize("start", [0, 9, 13])
+def test_chunk_write_matches_jax(start):
+    """A C = 6 slice at `start` for a sequence owning blocks [5, 2, 6, 3]
+    of a table 4 wide (16 positions): start 13 runs three positions
+    past the table, which land in the null block."""
+    jcfg, tcfg = _cfgs(layers=1, max_len=16, block_size=4, num_blocks=7,
+                       dtype="float32")
+    rs = np.random.RandomState(start)
+    pool = rs.randn(7, 4, 2, 4).astype(np.float32)
+    kv = rs.randn(6, 2, 4).astype(np.float32)
+    bt = tkv.build_block_table([5, 2, 6, 3], tcfg.max_blocks_per_seq)
+    want = jkv.write_chunk_kv(jnp.asarray(pool), jnp.asarray(kv),
+                              jnp.asarray(bt), jnp.int32(start), 4)
+    got = torch.from_numpy(pool.copy())
+    tkv.write_chunk_kv(got, torch.from_numpy(kv), torch.from_numpy(bt),
+                       torch.tensor(start, dtype=torch.int32), 4)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    t = np.arange(6) + start
+    inside = t < 16
+    blk = np.where(inside, bt[np.minimum(t // 4, 3)], 0)
+    np.testing.assert_array_equal(got.numpy()[blk, t % 4], kv)
+    if not inside.all():
+        assert (blk[~inside] == 0).all()
+
+
+def test_span_write_matches_jax():
+    """Verification's W = 3 spans for 4 slots: one crossing a block
+    boundary, one running past the table width (null block), two
+    padded with all-zero tables. Several rows land on one null-block
+    slot, where which write wins is unspecified in both packages: the
+    other blocks must be equal, and left alone but where a span
+    lands."""
+    jcfg, tcfg = _cfgs(layers=1, max_len=16, block_size=4, num_blocks=9,
+                       dtype="float32")
+    rs = np.random.RandomState(2)
+    pool = rs.randn(9, 4, 2, 4).astype(np.float32)
+    kv = rs.randn(4, 3, 2, 4).astype(np.float32)
+    bts = np.stack([tkv.build_block_table([3, 7], 4),
+                    tkv.build_block_table([1, 4, 8, 5], 4),
+                    np.zeros(4, np.int32), np.zeros(4, np.int32)])
+    positions = np.array([2, 15, 0, 0], np.int32)
+    want = jkv.write_span_kv(jnp.asarray(pool), jnp.asarray(kv),
+                             jnp.asarray(bts), jnp.asarray(positions), 4)
+    got = torch.from_numpy(pool.copy())
+    tkv.write_span_kv(got, torch.from_numpy(kv), torch.from_numpy(bts),
+                      torch.from_numpy(positions), 4)
+    np.testing.assert_array_equal(np.asarray(want)[1:], got.numpy()[1:])
+    touched = np.zeros((9, 4), bool)
+    touched[3, 2:] = touched[7, 0] = touched[5, 3] = True
+    np.testing.assert_array_equal(got.numpy()[1:][~touched[1:]],
+                                  pool[1:][~touched[1:]])
+    np.testing.assert_array_equal(got.numpy()[3, 2:], kv[0, :2])
+    np.testing.assert_array_equal(got.numpy()[7, 0], kv[0, 2])
+    np.testing.assert_array_equal(got.numpy()[5, 3], kv[1, 0])
