@@ -152,7 +152,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    draft_decode, verify) a graph replay after `warmup()`, the spec
    round's host and device ms at 4 and 8 slots, the idle share of a
    profiled round, and the share of streams equal to a bucketed bf16
-   engine's with the first divergent position (measured, not held).
+   engine's with the first divergent position (measured, not held);
+22. gpt-moe: GPT mixture-of-experts (Switch top-1 routing with capacity)
+   through the GPipe pipeline under MeshConfig(pp=2, ep=2) on the
+   in-process rings (four virtual ranks on the card). (a) f32, TF32
+   off, a 2-layer GPT at GPT-2-small's widths with 8 experts, 4 x 128,
+   2 microbatches: the card (K1) against the CPU (plain versions), the
+   routing first (every token's expert), then the loss, every gradient
+   and one AdamW step; and the card's pp+ep step against its
+   microbatches run one by one with no mesh; (b) the full model
+   (`GPTConfig(n_experts=8)`, GPT-2-small's widths with Switch-Base-8's
+   experts, ~521M params), mixed_bf16, AdamW, 8 x 1024, 4 microbatches:
+   2 warm-up and 10 timed steps (K1 48 times a step), the dispatch and
+   combine einsums' device ms in a profiled step, the share of tokens
+   dropped at capacity by layer; then the same model with no mesh.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -168,9 +181,9 @@ at scale 1 on a pre-scaled q) at phase 17's block (8 x 1024 x 12 heads,
 bf16), at f32 and at f16.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phases 3 and 21 for serving, phases 7, 8, 10, 12, 15 and 17
-for training, phase 11 for beam search, phase 13 for the bottleneck,
-phase 19's first uninterrupted `train_loop` run).
+read just after (phases 3 and 21 for serving, phases 7, 8, 10, 12, 15, 17
+and 22 (b) for training, phase 11 for beam search, phase 13 for the
+bottleneck, phase 19's first uninterrupted `train_loop` run).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
@@ -360,8 +373,10 @@ ATTN_F16_TOL = (2 ** -10, 3e-3)
 # calls (phase 7's BERT-base at 256 x 128 and 32 x 512, phase 8's
 # GPT-2-small at 8 x 1024), then BERT-base and GPT-2-small at batch 32
 # and 1 (causal T 1024 at B 1), then f32 and f16 at one shape each, 16
-# heads of 128 (causal) and a ragged T at f16. The gradients are held
-# under ELEM_TOL, or under the limit the case names.
+# heads of 128 (causal) and a ragged T at f16, and last the main path's
+# GPT-MoE microbatch (phase 22: 2 x 1024, pp=2 with 4 microbatches),
+# drawn after the others so that they keep their inputs. The gradients
+# are held under ELEM_TOL, or under the limit the case names.
 TRAIN_KERNEL_CASES = (
     ("bert", 256, 128, 12, 64, False, "bfloat16", True, None),
     ("bert512", 32, 512, 12, 64, False, "bfloat16", True, None),
@@ -371,7 +386,8 @@ TRAIN_KERNEL_CASES = (
     ("f32", 2, 256, 12, 64, True, "float32", False, None),
     ("f16", 4, 128, 12, 64, False, "float16", False, None),
     ("h128", 2, 1024, 16, 128, True, "bfloat16", False, None),
-    ("ragged_f16", 2, 300, 12, 64, False, "float16", False, ATTN_F16_TOL))
+    ("ragged_f16", 2, 300, 12, 64, False, "float16", False, ATTN_F16_TOL),
+    ("gpt_moe_mb", 2, 1024, 12, 64, True, "bfloat16", True, None))
 
 
 def held(got, want, dname, tol=None):
@@ -1759,7 +1775,7 @@ def _profiled_step(run):
 
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
                steps, per_step, optimizer=None, precision="mixed_bf16",
-               has_aux=False, trace_ok=None):
+               has_aux=False, trace_ok=None, after=None):
     """`warmup` + `steps` steps on one fixed batch (AdamW and mixed_bf16
     unless given; `has_aux` for a loss_fn that also returns state
     updates); the kernels' counts are set to 0 just before the
@@ -1774,7 +1790,8 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     on an H100), while the counts above are the wrappers' own. Where
     `per_step` names no standalone delta launch (the bf16 paths, whose
     dq kernels fold the delta pass in), a traced step that shows a
-    `delta_kernel` record fails."""
+    `delta_kernel` record fails. `after(step, state, batch)`, run last,
+    returns more entries for the row."""
     import torch
 
     from paddle_tpu_torch.parallel.train import make_train_step
@@ -1836,6 +1853,8 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
         check(n == want * steps,
               f"{label}: {name} launched {n} times in {steps} steps, not "
               f"{want} a step")
+    if after is not None:
+        row.update(after(step, state, batch))
     del state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3535,6 +3554,274 @@ def phase_kv_reuse():
     return launches
 
 
+# phase 22: GPT-MoE under MeshConfig(pp=2, ep=2) on the in-process rings
+MOE_MESH = {"pp": 2, "ep": 2}
+MOE_EXPERTS = 8
+MOE_MICRO = 4
+
+
+def _moe_mesh(dev):
+    """MeshConfig(pp=2, ep=2): a pp ring and an ep ring of two virtual
+    ranks each, four in all, on `dev` (what one card can show of them)."""
+    import torch
+
+    from paddle_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    return make_mesh(MeshConfig(dp=1, **MOE_MESH),
+                     devices=[torch.device(dev)] * 4)
+
+
+class _RoutingTap:
+    """While active, wraps `models/gpt.py::_moe_mlp` to record each
+    call's layer (by the address of its slice of `router`, the stacked
+    "blk.router" the model runs on), each token's expert, the smallest
+    top-2 gap of the router probabilities and the tokens dropped at
+    capacity, from the router product as `_moe_mlp` computes it (the
+    same ops on the same inputs). Each call syncs the device: keep it
+    out of timed steps."""
+
+    def __init__(self, router):
+        self.layer = {router[l].data_ptr(): l
+                      for l in range(router.shape[0])}
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from paddle_tpu_torch.models import gpt
+
+        self._orig = orig = gpt._moe_mlp
+
+        def moe(lp, x, cfg):
+            with torch.no_grad():
+                G, E = x.shape[0] * x.shape[1], cfg.n_experts
+                probs = torch.softmax((x.reshape(G, -1) @ lp[
+                    "blk.router"].to(x.dtype)).float(), -1)
+                top2 = probs.topk(2, -1).values
+                idx = probs.argmax(-1)
+                C = max(1, int(cfg.capacity_factor * G / E))
+                dropped = (torch.bincount(idx, minlength=E) - C).clamp(
+                    min=0).sum()
+                self.calls.append({
+                    "layer": self.layer[lp["blk.router"].data_ptr()],
+                    "idx": idx.cpu(), "tokens": G, "capacity": C,
+                    "gap": (top2[:, 0] - top2[:, 1]).min().item(),
+                    "dropped": int(dropped)})
+            return orig(lp, x, cfg)
+
+        gpt._moe_mlp = moe
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.models import gpt
+
+        gpt._moe_mlp = self._orig
+
+
+def _dropped_share(calls, layers):
+    """The share of each layer's tokens dropped at capacity, from
+    `_RoutingTap.calls`."""
+    return [sum(c["dropped"] for c in calls if c["layer"] == l) /
+            sum(c["tokens"] for c in calls if c["layer"] == l)
+            for l in range(layers)]
+
+
+def _moe_routes(params, cfg, batch, dev, n_micro):
+    """The routing of one forward of `gpt.lm_loss` on `dev` under the
+    MoE mesh (`_RoutingTap.calls`, in call order)."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    p = {k: v.to(dev) for k, v in params.items()}
+    with torch.no_grad(), mesh_guard(_moe_mesh(dev)), \
+            _RoutingTap(p["blk.router"]) as tap:
+        gpt.lm_loss(p, cfg, {k: v.to(dev) for k, v in batch.items()},
+                    n_microbatches=n_micro)
+    return tap.calls
+
+
+def _moe_parity():
+    """Phase 22 (a): a 2-layer GPT at GPT-2-small's widths with 8
+    experts, f32 (TF32 off), 4 x 128 tokens, 2 microbatches under
+    MeshConfig(pp=2, ep=2): the card (K1's f32 kernels) against the CPU
+    (plain versions) from the same params and batch, the routing first
+    (every token's expert in every layer and microbatch equal), then
+    the loss, every gradient and one AdamW step at `_hold_train_step`'s
+    limits (phase 16's); then the card's pp+ep step against the mean of
+    the microbatches' losses run one by one with no mesh on the card."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    cfg = gpt.GPTConfig(layers=2, n_experts=MOE_EXPERTS, dtype="float32")
+    params, _ = gpt.init(torch.Generator().manual_seed(22), cfg,
+                         device="cpu")
+    B, T, n_micro = 4, 128, 2
+    batch = {"ids": torch.from_numpy(np.random.RandomState(22).randint(
+        0, cfg.vocab_size, (B, T + 1)))}
+    routes = {dev: _moe_routes(params, cfg, batch, dev, n_micro)
+              for dev in ("cuda", "cpu")}
+    flips = sum(int((a["idx"] != b["idx"]).sum())
+                for a, b in zip(routes["cuda"], routes["cpu"]))
+    gap = min(c["gap"] for c in routes["cpu"])
+    check(len(routes["cuda"]) == len(routes["cpu"]) == cfg.layers * n_micro
+          and [c["layer"] for c in routes["cuda"]] ==
+          [c["layer"] for c in routes["cpu"]] and flips == 0,
+          f"gpt-moe parity: {flips} tokens routed otherwise on the card "
+          f"(smallest top-2 gap {gap})")
+
+    def loss_fn(p, b, g):
+        return gpt.lm_loss(p, cfg, b, rng=g, n_microbatches=n_micro)
+
+    def loop_fn(p, b, g):
+        m = B // n_micro
+        return sum(gpt.lm_loss(p, cfg, {"ids": b["ids"][i * m:(i + 1) * m]})
+                   for i in range(n_micro)) / n_micro
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with mesh_guard(_moe_mesh(dev)):
+            runs[dev] = _one_train_step(loss_fn, params, batch, dev)
+    runs["loop"] = _one_train_step(loop_fn, params, batch, "cuda")
+    kc = runs["cuda"]["counts"]
+    # f32: K1's FMA dq takes delta from the standalone launch
+    want = {**dict.fromkeys(K1_TRAIN, cfg.layers * n_micro),
+            DELTA: cfg.layers * n_micro}
+    check(all(n == want.get(name, 0) for name, n in kc.items()),
+          f"gpt-moe parity: the CUDA step ran {kc} launches")
+    return {
+        "model": f"GPTConfig(layers=2, n_experts={MOE_EXPERTS}), f32, "
+                 f"{B} x {T}, n_microbatches={n_micro}",
+        "mesh": MOE_MESH, "routed_tokens": B * T * cfg.layers,
+        "routing_flips": flips, "smallest_top2_gap": gap,
+        "capacity": routes["cpu"][0]["capacity"],
+        "dropped_share_cpu": _dropped_share(routes["cpu"], cfg.layers),
+        "launches": kc,
+        "card_vs_cpu": _hold_train_step("gpt-moe card vs CPU", runs["cuda"],
+                                        runs["cpu"], params),
+        "pp_ep_vs_microbatch_loop": _hold_train_step(
+            "gpt-moe pp+ep vs loop", runs["cuda"], runs["loop"], params)}
+
+
+def _moe_einsum_ms(step, state, batch, ec):
+    """One step under torch.profiler (CPU and CUDA, input shapes): the
+    device ms and count of the matmuls with a dimension of E x C, which
+    only the dispatch and combine einsums have (forward and backward),
+    and the step's device ms in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(state, batch, 10 ** 6)[1].item()
+        torch.cuda.synchronize()
+    ms, n, total = 0.0, 0, 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::mm", "aten::bmm") and \
+                any(ec in (s or []) for s in e.input_shapes):
+            ms += e.device_time_total / 1e3
+            n += e.count
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += (e.time_range.end - e.time_range.start) / 1e3
+    return {"dispatch_combine_device_ms": ms if n else None,
+            "dispatch_combine_matmuls": n,
+            "profiled_kernels_device_ms": total}
+
+
+def _moe_train(cfg, params, batch, n_micro):
+    """Phase 22 (b): `_train_run` of `cfg` under the MoE mesh with
+    `n_micro` microbatches (with no mesh when 0); after the timed steps,
+    the dispatch and combine einsums' device ms in one profiled step
+    and the share of each layer's tokens dropped at capacity in one
+    forward of the trained params."""
+    import contextlib
+
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    B, T = batch["ids"].shape[0], batch["ids"].shape[1] - 1
+    G = B * T // max(n_micro, 1)
+    C = max(1, int(cfg.capacity_factor * G / cfg.n_experts))
+
+    def guard():
+        return mesh_guard(_moe_mesh("cuda")) if n_micro else \
+            contextlib.nullcontext()
+
+    def loss_fn(p, b, g):
+        return gpt.lm_loss(p, cfg, b, rng=g, n_microbatches=n_micro)
+
+    def after(step, state, batch):
+        out = _moe_einsum_ms(step, state, batch, cfg.n_experts * C)
+        with torch.no_grad(), _RoutingTap(state.params["blk.router"]) as tap:
+            gpt.lm_loss(state.params, cfg, batch, n_microbatches=n_micro)
+        out.update(capacity=C, tokens_per_call=G,
+                   dropped_share_by_layer=_dropped_share(tap.calls,
+                                                         cfg.layers))
+        return out
+
+    label = (f"gpt-moe {B}x{T} pp=2 ep=2 n_micro={n_micro}" if n_micro
+             else f"gpt-moe {B}x{T} no mesh")
+    with guard():
+        return _train_run(label, loss_fn, params, batch,
+                          cfg.train_flops_per_token(T) * T, 2, 10,
+                          k1_per_step(cfg.layers * max(n_micro, 1)),
+                          after=after)
+
+
+def phase_gpt_moe():
+    """Phase 22: GPT mixture-of-experts through the GPipe pipeline on
+    the pp and ep axes of the in-process mesh. (a) `_moe_parity`; (b)
+    the full configuration: GPT-2-small's widths (`GPTConfig()`) with 8
+    experts on every layer (Switch-Base-8's setting), capacity factor
+    1.25, mixed_bf16, AdamW(1e-4, wd 1e-4), 8 x 1024 tokens, 4
+    microbatches under MeshConfig(pp=2, ep=2): 2 warm-up and 10 timed
+    steps (step ms, samples/s, MFU from `train_flops_per_token`, which
+    leaves out the router and the dispatch and combine einsums; a
+    finite, falling loss; K1 48 times a step; peak memory; a traced
+    step's idle share and largest kernels; the dispatch and combine
+    einsums' device ms; the share of tokens dropped at capacity by
+    layer), then the same model with no mesh and n_microbatches=0."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+
+    t0 = time.perf_counter()
+    parity = _moe_parity()
+    cfg = gpt.GPTConfig(n_experts=MOE_EXPERTS)
+    rows, launches = [], collections.Counter()
+    for n_micro in (MOE_MICRO, 0):
+        params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(5),
+                             cfg, device="cuda")
+        batch = gpt.make_batch(torch.Generator(device="cuda").manual_seed(6),
+                               cfg, 8)
+        if not rows:
+            n_params = sum(v.numel() for v in params.values())
+        rows.append(_moe_train(cfg, params, batch, n_micro))
+        launches.update(rows[-1]["launches"])
+        del params, batch
+        torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "gpt-moe", "card": card(), "parity": parity,
+        "model": f"GPTConfig(n_experts={MOE_EXPERTS}) (GPT-2-small widths, "
+                 f"Switch-Base-8's experts), capacity_factor "
+                 f"{cfg.capacity_factor}, mixed_bf16",
+        "params": n_params, "optimizer": "AdamW lr 1e-4 wd 1e-4",
+        "mesh": "in-process MeshConfig(pp=2, ep=2) on one card",
+        "mfu_formula": "GPTConfig.train_flops_per_token: router, dispatch "
+                       "and combine einsums left out",
+        "pipeline_ms_over_no_mesh": rows[0]["step_ms_median"] /
+        rows[1]["step_ms_median"],
+        "runs": rows, "seconds": time.perf_counter() - t0}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3567,9 +3854,10 @@ def main() -> int:
     resilience_counts = phase_resilience()
     phase_fluid()
     launches["flash_attention_fwd"] += phase_kv_reuse()
+    moe_counts = phase_gpt_moe()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
-                   sp_counts, resilience_counts):
+                   sp_counts, resilience_counts, moe_counts):
         launches.update(counts)
     # every main path runs attention at bf16, where the dq kernels fold
     # the delta pass in: the delta row counts those folds, and the

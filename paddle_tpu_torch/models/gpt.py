@@ -1,10 +1,11 @@
-"""GPT (decoder-only transformer), dense configs, in PyTorch.
+"""GPT (decoder-only transformer), optionally Mixture-of-Experts, in
+PyTorch.
 
-Counterpart of the JAX package's `models/gpt.py` for serving and dense
-training: `GPTConfig`, `init`, the full forward `apply` (differentiable:
-under grad its attention runs the K1 forward and backward kernels on
-CUDA), `lm_loss` and `make_batch`, and the decode phases over the paged
-KV cache: `apply_prefill` / `apply_decode_step`, and KV reuse's
+Counterpart of the JAX package's `models/gpt.py`: `GPTConfig`, `init`,
+the full forward `apply` (differentiable: under grad its attention runs
+the K1 forward and backward kernels on CUDA), `lm_loss` and
+`make_batch`, and the decode phases over the paged KV cache:
+`apply_prefill` / `apply_decode_step`, and KV reuse's
 `apply_prefill_chunk` (chunked prefill) / `apply_verify_step`
 (speculative verification).
 Params are the JAX package's flat dict, by name and in its layouts:
@@ -12,12 +13,24 @@ per-layer params stacked on a leading [L] axis ("blk.wqkv" [L, H, 3H],
 ...), matrices applied as `x @ w`. The JAX package's `lax.scan` over the
 stacked layers is a Python loop over l here.
 
-Under a mesh with `sp` > 1 (`parallel/mesh.py::mesh_guard`), each
-block's causal attention is `ops/ring_attention.py::ring_attention`
-over the sp ring, as the JAX package's `_attention` does.
+With `n_experts` > 0 each block's MLP is Switch-style top-1 routing
+with capacity (`_moe_mlp`), the reference's dispatch and combine
+einsums in plain torch (the JAX package has no kernel for it). The
+decode phases refuse such configs, as the JAX engine does at boot.
 
-Mixture-of-experts configs are refused: their expert-dispatch MLP is
-not ported.
+Under a mesh (`parallel/mesh.py::mesh_guard`):
+- `sp` > 1: each block's causal attention is
+  `ops/ring_attention.py::ring_attention` over the sp ring, as the JAX
+  package's `_attention` does, except inside the pipeline's manual
+  region, where it is `mha`;
+- `pp` > 1 with `n_microbatches` > 0: `apply` runs the block stack
+  through the GPipe pipeline (`parallel/pipeline.py`), S = pp stages
+  of L / S layers;
+- `ep` > 1: `_moe_mlp` splits the expert FFN along the experts with the
+  ep ring's `split` and joins it with its `join`. On the in-process ring
+  this computes the same products, bit for bit; the exchange of tokens
+  between ranks that ep across cards needs waits for ROADMAP items 20a
+  and 20e.
 """
 
 from __future__ import annotations
@@ -33,6 +46,9 @@ from ..ops.attention import mha
 from ..ops.beam import beam_search
 from ..ops.ring_attention import ring_attention
 from ..parallel.mesh import current_mesh, refuse_process_ring
+from ..parallel.pipeline import pipeline_apply
+from ..parallel.ring import InProcessRing
+from ..parallel.sharding import in_manual_region
 from ..serving import kv_cache as kvc
 from .common import (ParamAxes, Params, ParamStore, gelu,
                      layer_norm as _ln_named, raw_layer_norm)
@@ -67,27 +83,40 @@ class GPTConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def train_flops_per_token(self, seq_len: int) -> float:
+        H, M, L = self.hidden, self.mlp_dim, self.layers
+        # top-1 MoE routes each token through exactly one expert, so its
+        # per-token matmul FLOPs equal the dense MLP (router cost omitted)
+        mlp = 2 * H * M
+        per_layer = 4 * H * H + mlp + 2 * seq_len * H  # qkvo + mlp + attn
+        return 3 * 2 * (L * per_layer + self.vocab_size * H)
+
 
 def _refuse_moe(cfg: GPTConfig):
     if cfg.n_experts:
-        raise ValueError("mixture-of-experts GPT configs are not ported: "
+        raise ValueError("mixture-of-experts GPT configs have no decode "
+                         "path (the JAX engine refuses them at boot): "
                          "serve a dense config (n_experts=0)")
 
 
 def param_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
-    """{name: shape} of a dense config's params, as `init` makes them."""
-    _refuse_moe(cfg)
-    L, H, M = cfg.layers, cfg.hidden, cfg.mlp_dim
-    return {
+    """{name: shape} of the config's params, as `init` makes them."""
+    L, H, M, E = cfg.layers, cfg.hidden, cfg.mlp_dim, cfg.n_experts
+    shapes = {
         "wte.w": (cfg.vocab_size, H), "wpe.w": (cfg.max_len, H),
         "blk.ln1.scale": (L, H), "blk.ln1.bias": (L, H),
         "blk.wqkv": (L, H, 3 * H), "blk.bqkv": (L, 3 * H),
         "blk.wo": (L, H, H), "blk.bo": (L, H),
         "blk.ln2.scale": (L, H), "blk.ln2.bias": (L, H),
-        "blk.w1": (L, H, M), "blk.b1": (L, M),
-        "blk.w2": (L, M, H), "blk.b2": (L, H),
-        "ln_f.scale": (H,), "ln_f.bias": (H,),
     }
+    if E:
+        shapes.update({"blk.router": (L, H, E), "blk.w1": (L, E, H, M),
+                       "blk.w2": (L, E, M, H)})
+    else:
+        shapes.update({"blk.w1": (L, H, M), "blk.b1": (L, M),
+                       "blk.w2": (L, M, H), "blk.b2": (L, H)})
+    shapes.update({"ln_f.scale": (H,), "ln_f.bias": (H,)})
+    return shapes
 
 
 def init(generator: torch.Generator, cfg: GPTConfig, device=None
@@ -98,7 +127,6 @@ def init(generator: torch.Generator, cfg: GPTConfig, device=None
     to cuda (see `resolve_device`)."""
     from .. import resolve_device
 
-    _refuse_moe(cfg)
     s = ParamStore(generator, resolve_device(device))
     s.embedding("wte", cfg.vocab_size, cfg.hidden, axes=("vocab", "embed"))
     s.embedding("wpe", cfg.max_len, cfg.hidden, axes=(None, "embed"))
@@ -119,10 +147,17 @@ def init(generator: torch.Generator, cfg: GPTConfig, device=None
     s.params["blk.ln2.scale"] += 1.0
     stacked("blk.ln2.bias", (H,), 0.0, (None,))
     am = math.sqrt(2.0 / (H + M))
-    stacked("blk.w1", (H, M), am, ("embed", "mlp"))
-    stacked("blk.b1", (M,), 0.0, ("mlp",))
-    stacked("blk.w2", (M, H), am / math.sqrt(2 * L), ("mlp", "embed"))
-    stacked("blk.b2", (H,), 0.0, (None,))
+    if cfg.n_experts:
+        E = cfg.n_experts
+        stacked("blk.router", (H, E), 0.02, ("embed", None))
+        stacked("blk.w1", (E, H, M), am, ("expert", "embed", "mlp"))
+        stacked("blk.w2", (E, M, H), am / math.sqrt(2 * L),
+                ("expert", "mlp", "embed"))
+    else:
+        stacked("blk.w1", (H, M), am, ("embed", "mlp"))
+        stacked("blk.b1", (M,), 0.0, ("mlp",))
+        stacked("blk.w2", (M, H), am / math.sqrt(2 * L), ("mlp", "embed"))
+        stacked("blk.b2", (H,), 0.0, (None,))
     s.layer_norm("ln_f", H)
     return s.params, s.axes
 
@@ -147,44 +182,122 @@ def _decode_mlp(lp, x):
     return h @ lp["blk.w2"].to(x.dtype) + lp["blk.b2"].to(x.dtype)
 
 
+def _experts(ein, w1, w2):
+    """The expert FFN on dispatched tokens: ein [E, C, H], w1 [E, H, M],
+    w2 [E, M, H] -> [E, C, H]. Each expert's product is its own."""
+    h = gelu(torch.einsum("ech,ehm->ecm", ein, w1.to(ein.dtype)))
+    return torch.einsum("ecm,emh->ech", h, w2.to(ein.dtype))
+
+
+_ONE_RANK = InProcessRing(1)   # the experts' ring with no ep axis
+
+
+def _moe_mlp(lp, x, cfg: GPTConfig):
+    """Switch-style top-1 routing with capacity (dispatch/combine
+    einsums), as the JAX package's `_moe_mlp`. Tokens are taken in
+    row-major (b, t) order: a token's slot in its expert is its rank
+    among the tokens routed there, and one at or past the capacity C is
+    dropped (its output is 0). The expert FFN runs on the ep ring's
+    shards of the experts (uneven when ep does not divide E; one shard
+    of all of them with no ep ring), the counterpart of the JAX
+    package's `shard(ein, ("expert", None, "embed"))`."""
+    B, T, H = x.shape
+    G = B * T
+    E = cfg.n_experts
+    C = max(1, int(cfg.capacity_factor * G / E))
+    xt = x.reshape(G, H)
+    logits = (xt @ lp["blk.router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, -1)
+    gate, idx = probs.max(-1)                                 # [G]
+    eo = F.one_hot(idx, E).float()                            # [G, E]
+    pos = (torch.cumsum(eo, 0) - 1.0) * eo                    # slot in expert
+    within = (pos < C) * eo                                   # under capacity
+    # jax.nn.one_hot gives a zero row for a slot >= C, F.one_hot raises:
+    # clamp, and `within` zeroes the dropped token's row
+    slot = pos.sum(-1).long().clamp(max=C - 1)
+    po = F.one_hot(slot, C).float() * within.sum(-1, keepdim=True)
+    dispatch = torch.einsum("ge,gc->gec", within, po)         # [G, E, C]
+    combine = dispatch * gate[:, None, None]
+    ein = torch.einsum("gec,gh->ech", dispatch.to(x.dtype), xt)
+    mesh = current_mesh()
+    ring = mesh.rings.get("ep", _ONE_RANK) if mesh is not None else _ONE_RANK
+    shards = zip(*(ring.split(t, 0, even=False)
+                   for t in (ein, lp["blk.w1"], lp["blk.w2"])))
+    out = ring.join([_experts(*sh) for sh in shards], 0)
+    y = torch.einsum("gec,ech->gh", combine.to(x.dtype), out)
+    return y.reshape(B, T, H)
+
+
 def _block(lp, x, cfg: GPTConfig):
     """One transformer block with this layer's (unstacked) params."""
     B, T, H = x.shape
     h = _ln(x, lp["blk.ln1.scale"], lp["blk.ln1.bias"])
     q, k, v = _qkv(lp, h, cfg, (B, T, cfg.heads, cfg.head_dim))
     mesh = current_mesh()
-    if mesh is not None and mesh.shape.get("sp", 1) > 1:
-        # the JAX package's explicit ring over 'sp' (its exception inside
-        # the 'pp' pipeline's manual region waits for the pipeline port)
+    if mesh is not None and mesh.shape.get("sp", 1) > 1 \
+            and not in_manual_region():
+        # the JAX package's explicit ring over 'sp', except inside the
+        # 'pp' pipeline's manual region
         ctx = ring_attention(q, k, v, mesh, axis="sp", causal=True)
     else:
         ctx = mha(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim))
     x = x + (ctx.reshape(B, T, H) @ lp["blk.wo"].to(x.dtype) +
              lp["blk.bo"].to(x.dtype))
     h = _ln(x, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
+    if cfg.n_experts:
+        return x + _moe_mlp(lp, h, cfg)
     return x + _decode_mlp(lp, h)
 
 
-def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor) -> torch.Tensor:
-    """ids [B, T] -> logits [B, T, vocab], in cfg.dtype."""
-    _refuse_moe(cfg)
+def _blocks(params: Params, x: torch.Tensor, cfg: GPTConfig, layers: int):
+    """The first `layers` blocks of the stacked "blk.*" params."""
+    for l in range(layers):
+        x = _block(_layer(params, l), x, cfg)
+    return x
+
+
+def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor,
+          n_microbatches: int = 0) -> torch.Tensor:
+    """ids [B, T] -> logits [B, T, vocab], in cfg.dtype.
+
+    n_microbatches > 0 under a mesh with pp > 1 runs the block stack
+    through the GPipe pipeline over 'pp' (`parallel/pipeline.py`), B
+    split into n_microbatches contiguous groups of rows; otherwise (and
+    with 0) a loop over the layers."""
     refuse_process_ring("gpt.apply")
-    T = ids.shape[1]
+    B, T = ids.shape
     x = (params["wte.w"][ids] + params["wpe.w"][:T][None]) \
         .to(cfg.torch_dtype)
-    for l in range(cfg.layers):
-        x = _block(_layer(params, l), x, cfg)
+    mesh = current_mesh()
+    if n_microbatches and mesh is not None and mesh.shape.get("pp", 1) > 1:
+        S, L = mesh.shape["pp"], cfg.layers
+        if L % S:
+            raise ValueError(f"layers {L} not divisible by pp {S}")
+        if B % n_microbatches:
+            raise ValueError(f"batch {B} not divisible by n_microbatches "
+                             f"{n_microbatches}")
+        # restack [L, ...] -> [S, L // S, ...]
+        staged = {k: v.reshape((S, L // S) + v.shape[1:])
+                  for k, v in params.items() if k.startswith("blk.")}
+        xm = x.reshape((n_microbatches, B // n_microbatches) + x.shape[1:])
+        x = pipeline_apply(
+            lambda sp, xmb: _blocks(sp, xmb, cfg, L // S),
+            staged, xm, mesh)
+        x = x.reshape((B,) + x.shape[2:])
+    else:
+        x = _blocks(params, x, cfg, cfg.layers)
     x = _ln_named(params, "ln_f", x)
     return x @ params["wte.w"].T.to(x.dtype)
 
 
 def lm_loss(params: Params, cfg: GPTConfig, batch: Dict[str, torch.Tensor],
-            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+            rng: Optional[torch.Generator] = None,
+            n_microbatches: int = 0) -> torch.Tensor:
     """Next-token cross entropy, a f32 scalar; batch = {"ids": [B, T+1]}.
-    `rng` is unused (the dense model has no dropout), as in the JAX
-    package; its pipeline microbatching is not ported."""
+    `rng` is unused (GPT has no dropout), as in the JAX package;
+    `n_microbatches` as `apply` takes it."""
     ids = batch["ids"]
-    logits = apply(params, cfg, ids[:, :-1]).float()
+    logits = apply(params, cfg, ids[:, :-1], n_microbatches).float()
     logp = F.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, ids[:, 1:, None].long())[..., 0]
     return -ll.mean()
@@ -236,6 +349,7 @@ def apply_prefill(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     real position, never reach the last real position's logits.
     Attention is mha(causal=True): the K1-fwd kernel on CUDA.
     """
+    _refuse_moe(cfg)
     B, T = ids.shape
     nh, hd = cfg.heads, cfg.head_dim
     x = (params["wte.w"][ids] + params["wpe.w"][:T][None]).to(k_pool.dtype)
@@ -271,6 +385,7 @@ def apply_decode_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     shares the batch. Attention gathers each slot's blocks and masks
     positions past its own (plain torch, as the JAX package's step is
     plain XLA)."""
+    _refuse_moe(cfg)
     S = ids.shape[0]
     nh, hd = cfg.heads, cfg.head_dim
     adt = k_pool.dtype
@@ -321,6 +436,7 @@ def apply_prefill_chunk(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     recomputed prefixes, token for token. Returns tok [1], meaningful
     only on the slice holding position length-1. Attention is plain
     torch, as the JAX package's chunk step is plain XLA."""
+    _refuse_moe(cfg)
     _, C = ids.shape
     nh, hd = cfg.heads, cfg.head_dim
     adt = k_pool.dtype
@@ -375,6 +491,7 @@ def apply_verify_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     read. Sampling goes through the same beam_search step as decode, so
     an eos in the fed window freezes the rest of the row to eos.
     Returns tokens [S, W]."""
+    _refuse_moe(cfg)
     S, W = ids.shape
     nh, hd = cfg.heads, cfg.head_dim
     adt = k_pool.dtype

@@ -1,12 +1,19 @@
-# Copied from the JAX package: the dynamic loss-scaling subset of
-# paddle_tpu/observability/telemetry.py (stdlib only). Each definition
-# below is that file's, unchanged; keep them in step with it. The rest
-# of that module (executor, trainer, compile and async telemetry) is not
-# ported (ROADMAP item 18).
+# Copied from the JAX package: the dynamic loss-scaling and pipeline
+# subsets of paddle_tpu/observability/telemetry.py (stdlib only). Each
+# definition below is that file's, unchanged; keep them in step with
+# it. The rest of that module (executor, trainer, compile and async
+# telemetry) is not ported (ROADMAP item 18).
 """Dynamic loss-scaling telemetry: `paddle_tpu_amp_total{event}`, the
 `paddle_tpu_amp_loss_scale` gauge, and `record_amp`, which ticks them
 and logs each overflow as an `amp_overflow` event. The training loop
 feeds them through `parallel.train.sync_loss_scale_metrics`.
+
+Pipeline telemetry: `paddle_tpu_pipeline_traces_total{axis}` and the
+stages, microbatches and bubble-fraction gauges of the last pipeline.
+The JAX package sets all four at trace time, through
+`record_pipeline_trace`. The port has no trace: `parallel/pipeline.py`
+sets the gauges on every call and ticks the trace counter on each new
+schedule signature, so it does not call `record_pipeline_trace`.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from typing import Dict, Optional
 from . import events as _events
 from . import metrics as _m
 
-__all__ = ["record_amp"]
+__all__ = ["record_amp", "record_pipeline_trace"]
 
 AMP_EVENTS = _m.counter(
     "paddle_tpu_amp_total",
@@ -50,3 +57,27 @@ def record_amp(event: str, n: int = 1, step: Optional[int] = None,
         if scale is not None:
             fields["scale"] = float(scale)
         _events.emit("amp_overflow", **fields)
+
+
+PIPELINE_TRACES = _m.counter(
+    "paddle_tpu_pipeline_traces_total",
+    "pipeline_apply traces (jit retrace = new schedule/shape)",
+    labelnames=("axis",))
+PIPELINE_STAGES = _m.gauge(
+    "paddle_tpu_pipeline_stages", "Stages in the last traced pipeline",
+    labelnames=("axis",))
+PIPELINE_MICROBATCHES = _m.gauge(
+    "paddle_tpu_pipeline_microbatches",
+    "Microbatches in the last traced pipeline", labelnames=("axis",))
+PIPELINE_BUBBLE_FRACTION = _m.gauge(
+    "paddle_tpu_pipeline_bubble_fraction",
+    "GPipe bubble (S-1)/(n_micro+S-1) of the last traced pipeline",
+    labelnames=("axis",))
+
+
+def record_pipeline_trace(axis: str, stages: int, n_micro: int):
+    PIPELINE_TRACES.inc(axis=axis)
+    PIPELINE_STAGES.set(stages, axis=axis)
+    PIPELINE_MICROBATCHES.set(n_micro, axis=axis)
+    PIPELINE_BUBBLE_FRACTION.set(
+        (stages - 1) / max(1, n_micro + stages - 1), axis=axis)

@@ -50,6 +50,9 @@ GSPMD: the ring holds whole tensors. Under a process ring each rank
 holds only its shard, so the single-device route would attend within
 the shard; a masked call there raises until the models shard by hand
 (ROADMAP item 20b). The dp/tp route (`shardmap`) waits for item 20c.
+Inside the `pp` pipeline's manual region
+(`parallel/sharding.py::in_manual_region`) no call takes the sp route,
+as the JAX package's `_multichip_splash_route` returns None there.
 
 `GATE_COUNTS` counts calls per path ("flash_cuda", "flash_bias_cuda",
 "xla", "plain", and under sp the JAX package's keys "ring_splash" and
@@ -68,7 +71,7 @@ from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.flash_attention_bias import flash_attention_bias
 from ..parallel.mesh import current_mesh
 from ..parallel.ring import ProcessRing
-from ..parallel.sharding import current_rules
+from ..parallel.sharding import current_rules, in_manual_region
 from . import ring_attention as ra
 
 __all__ = ["mha", "single_device_route", "GATE_COUNTS"]
@@ -102,11 +105,12 @@ def _merge_causal(mask: Optional[torch.Tensor], T: int,
 
 
 def _sp_route(q, k, mask, causal):
-    """(route, mesh, axis): "ring", "ring_xla" or None (no sp ring)."""
+    """(route, mesh, axis): "ring", "ring_xla" or None (no sp ring;
+    also inside the pipeline's manual region, as the JAX package)."""
     m = current_mesh()
     axis = current_rules().mesh_axis("seq")
     sp = m.shape.get(axis, 1) if (m is not None and axis) else 1
-    if sp == 1 or q.ndim != 4:
+    if sp == 1 or q.ndim != 4 or in_manual_region():
         return None, m, axis
     ring = m.rings[axis]
     if mask is not None:

@@ -12,16 +12,22 @@ Two kinds of ring, chosen by how the mesh is made:
 - **Process ring.** With `torch.distributed` initialised and no
   `devices`, the mesh spans the world, one rank per process; the `sp`
   ring is the group of ranks along `sp`. Its device is this process's
-  own: `cuda` (the current device) under NCCL, `cpu` under gloo.
-- **In-process ring.** `devices` given as one device repeated S times
-  (`[torch.device("cuda", 0)] * 4`): S virtual ranks in one process on
-  that device. It is made only when asked for like this. With
-  `devices=None` and no process group the mesh has one device, so
-  `make_mesh(MeshConfig(sp=4))` raises, as `resolve` does.
+  own: `cuda` (the current device) under NCCL, `cpu` under gloo. Only
+  `sp` may be larger than 1 there: `pp` and `ep` over processes raise
+  (ROADMAP items 20a and 20e), and so do `dp` and `tp` (item 20c).
+- **In-process rings.** `devices` given as one device repeated N times
+  (`[torch.device("cuda", 0)] * 4`): N virtual ranks in one process on
+  that device, with an `InProcessRing` for each of `pp`, `ep` and `sp`
+  that is larger than 1 (`MeshConfig(pp=2, ep=2)` on four: a pp ring
+  of 2 and an ep ring of 2). They are made only when asked for like
+  this. With `devices=None` and no process group the mesh has one
+  device, so `make_mesh(MeshConfig(sp=4))` raises, as `resolve` does.
+  `dp` and `tp` larger than 1 raise `NotImplementedError` (item 20c,
+  and with it `make_hybrid_mesh`, `resize_mesh`, `auto_mesh` and
+  `get_mesh`).
 
-In this slice only `sp` may be larger than 1; any other axis raises
-`NotImplementedError` (ROADMAP item 20: dp/tp/pp/ep, and with them
-`make_hybrid_mesh`, `resize_mesh`, `auto_mesh` and `get_mesh`).
+`pp` is carried by `parallel/pipeline.py::pipeline_apply` and `ep` by
+GPT's expert split (`models/gpt.py::_moe_mlp`).
 """
 
 from __future__ import annotations
@@ -81,12 +87,21 @@ class Mesh:
     rings: Dict[str, Ring]
 
 
-def _only_sp(sizes: Dict[str, int]) -> None:
-    wide = [a for a in AXIS_ORDER if a != "sp" and sizes[a] > 1]
+# the axes each kind of mesh may make larger than 1
+IN_PROCESS_AXES = ("pp", "ep", "sp")
+PROCESS_AXES = ("sp",)
+_ITEM = {"dp": "20c", "tp": "20c", "pp": "20a and 20e",
+         "ep": "20a and 20e"}
+
+
+def _refuse_axes(sizes: Dict[str, int], allowed: Sequence[str],
+                 where: str) -> None:
+    wide = [a for a in AXIS_ORDER if a not in allowed and sizes[a] > 1]
     if wide:
+        items = sorted({_ITEM[a] for a in wide})
         raise NotImplementedError(
-            f"mesh axes {wide} > 1 are not ported yet (ROADMAP item 20: "
-            f"dp/tp/pp/ep); this slice runs the sp axis only")
+            f"mesh axes {wide} > 1 are not ported {where} (ROADMAP item "
+            f"{', '.join(items)}); it runs the axes {list(allowed)}")
 
 
 def _process_device(backend: str) -> torch.device:
@@ -102,7 +117,8 @@ def make_mesh(config: Optional[MeshConfig] = None,
               **axis_sizes) -> Mesh:
     """A Mesh with the standard axis order. `make_mesh(MeshConfig(sp=4),
     devices=[torch.device("cuda", 0)] * 4)` is an in-process sp ring of
-    4 virtual ranks; with `devices=None` under an initialised
+    4 virtual ranks (`MeshConfig(pp=2, ep=2)` there: a pp ring and an ep
+    ring of 2 each); with `devices=None` under an initialised
     `torch.distributed` the mesh is the world's process ring."""
     if config is None:
         config = MeshConfig(**axis_sizes) if axis_sizes else MeshConfig()
@@ -111,18 +127,18 @@ def make_mesh(config: Optional[MeshConfig] = None,
     if devices is not None:
         devs = tuple(torch.device(d) for d in devices)
         sizes = config.resolve(len(devs))
-        _only_sp(sizes)
+        _refuse_axes(sizes, IN_PROCESS_AXES, "in-process")
         if len(set(devs)) > 1:
             raise ValueError(
                 f"an in-process ring runs its ranks on one device, got "
                 f"{sorted(map(str, set(devs)))}; one rank per device is "
                 f"the process ring (torch.distributed)")
-        rings = {"sp": InProcessRing(sizes["sp"])} if sizes["sp"] > 1 \
-            else {}
+        rings = {a: InProcessRing(sizes[a]) for a in IN_PROCESS_AXES
+                 if sizes[a] > 1}
         return Mesh(sizes, devs, rings)
     if dist.is_available() and dist.is_initialized():
         sizes = config.resolve(dist.get_world_size())
-        _only_sp(sizes)
+        _refuse_axes(sizes, PROCESS_AXES, "over processes")
         dev = _process_device(dist.get_backend())
         # with every other axis 1, the ranks along sp are the world
         rings = {"sp": ProcessRing(None, sizes["sp"], dist.get_rank())} \

@@ -35,8 +35,14 @@ class InProcessRing:
         self.size = int(size)
         self.ranks = list(range(self.size))
 
-    def split(self, x: torch.Tensor, dim: int) -> List[torch.Tensor]:
-        """Rank r's shard is the r-th of S equal, contiguous chunks."""
+    def split(self, x: torch.Tensor, dim: int,
+              even: bool = True) -> List[torch.Tensor]:
+        """Rank r's shard is the r-th of S equal, contiguous chunks. With
+        `even=False` a size n that S does not divide is cut as
+        `torch.tensor_split` cuts it: the first n % S ranks hold one
+        more (with n < S the last ranks hold none)."""
+        if not even:
+            return list(torch.tensor_split(x, self.size, dim))
         if x.shape[dim] % self.size:
             raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
                              f"split over a ring of {self.size}")
@@ -78,7 +84,8 @@ class ProcessRing:
             raise ValueError(f"process group of {len(self._peers)} ranks "
                              f"for a ring of {self.size}")
 
-    def split(self, x: torch.Tensor, dim: int) -> List[torch.Tensor]:
+    def split(self, x: torch.Tensor, dim: int,
+              even: bool = True) -> List[torch.Tensor]:
         return [x]
 
     def join(self, xs: Sequence[torch.Tensor], dim: int) -> torch.Tensor:

@@ -8,6 +8,11 @@ the mesh axis that carries the sequence (`sp` by default). The JAX
 package's `shard()`, `logical_to_mesh` and `LogicalRules.spec` build
 `PartitionSpec`s for GSPMD, which the port does not have; they have no
 counterpart here.
+
+`in_manual_region()` is not a copy: the JAX package asks the abstract
+mesh whether it is tracing inside a `shard_map`; the port's pipeline
+(`parallel/pipeline.py`) sets a flag around its stage calls with
+`manual_region()`.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-__all__ = ["LogicalRules", "DEFAULT_RULES", "current_rules", "with_rules"]
+__all__ = ["LogicalRules", "DEFAULT_RULES", "current_rules", "with_rules",
+           "in_manual_region", "manual_region"]
 
 
 class LogicalRules:
@@ -67,3 +73,23 @@ def with_rules(rules: LogicalRules):
         yield rules
     finally:
         _rules_stack.pop()
+
+
+_manual_depth = [0]
+
+
+def in_manual_region() -> bool:
+    """True inside a manual region (the `pp` pipeline's stage calls).
+    There GPT's blocks call `mha` instead of ring attention over `sp`
+    and `mha` takes no sp ring, as the JAX package, which cannot nest
+    manual subregions, leaves the sequence to GSPMD's constraints."""
+    return _manual_depth[0] > 0
+
+
+@contextlib.contextmanager
+def manual_region():
+    _manual_depth[0] += 1
+    try:
+        yield
+    finally:
+        _manual_depth[0] -= 1

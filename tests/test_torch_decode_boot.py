@@ -55,10 +55,14 @@ BOOT_CASES = [
     ("draft_max_len_below_serving",
      dict(prefill_chunk=8, spec_k=2, draft="short"), "draft"),
     ("spec_k_at_max_len", dict(spec_k=64, draft="same"), "spec_k"),
+    # mixture-of-experts: "target" names the served model `_drafts`
+    # builds; the MoE finding names no variable, its message says "MoE"
+    ("moe_model", dict(target="moe"), "MoE"),
+    ("moe_draft", dict(prefill_chunk=8, spec_k=2, draft="moe"), "draft"),
 ]
 
-# the draft models of BOOT_CASES: (port params, port cfg, JAX params,
-# JAX cfg), by name
+# the draft (and target) models of BOOT_CASES: (port params, port cfg,
+# JAX params, JAX cfg), by name
 _DRAFTS = {}
 
 
@@ -66,13 +70,14 @@ def _drafts(model, name):
     if name == "same":
         return model
     if name not in _DRAFTS:
-        jcfg = jgpt.GPTConfig.tiny()
+        moe = 2 if name == "moe" else 0
+        jcfg = jgpt.GPTConfig.tiny(n_experts=moe)
         jcfg.dtype = "float32"
-        cfg = gpt.GPTConfig.tiny()
+        cfg = gpt.GPTConfig.tiny(n_experts=moe)
         cfg.dtype = "float32"
         if name == "vocab":
             jcfg.vocab_size = cfg.vocab_size = 513
-        else:
+        elif name == "short":
             jcfg.max_len = cfg.max_len = 32
         jparams, _ = jgpt.init(jax.random.key(2), jcfg)
         params = params_from_numpy(
@@ -95,35 +100,30 @@ def model():
 
 
 def _split(model, kw):
-    """BASE with a case's change, and the (port, JAX) draft it names."""
+    """BASE with a case's change, and the (port params, port cfg, JAX
+    params, JAX cfg) of the target and of the draft it names (None
+    without one)."""
     conf = dict(BASE, **kw)
+    target = _drafts(model, conf.pop("target", "same"))
     name = conf.pop("draft", None)
-    if name is None:
-        return conf, None, None
-    d = _drafts(model, name)
-    return conf, d[:2], d[2:]
+    return conf, target, None if name is None else _drafts(model, name)
 
 
 def engines(model, **kw):
     """The port's and the JAX package's engine on one config."""
-    params, cfg, jparams, jcfg = model
-    conf, draft, jdraft = _split(model, kw)
-    return (DecodeEngine(params, cfg, DecodeConfig(**conf), draft,
-                         device="cpu"),
-            jax_engine(model, **kw))
+    return port_engine(model, **kw), jax_engine(model, **kw)
 
 
 def jax_engine(model, **kw):
-    jparams, jcfg = model[2:]
-    conf, _, jdraft = _split(model, kw)
-    return JDecodeEngine(jparams, jcfg, JDecodeConfig(**conf), draft=jdraft)
+    conf, target, draft = _split(model, kw)
+    return JDecodeEngine(target[2], target[3], JDecodeConfig(**conf),
+                         draft=draft and draft[2:])
 
 
 def port_engine(model, **kw):
-    params, cfg = model[:2]
-    conf, draft, _ = _split(model, kw)
-    return DecodeEngine(params, cfg, DecodeConfig(**conf), draft,
-                        device="cpu")
+    conf, target, draft = _split(model, kw)
+    return DecodeEngine(target[0], target[1], DecodeConfig(**conf),
+                        draft and draft[:2], device="cpu")
 
 
 @pytest.mark.parametrize("case,change,word", BOOT_CASES,

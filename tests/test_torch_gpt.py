@@ -107,9 +107,15 @@ def test_init_names_shapes_and_scales():
         assert v.dtype == torch.float32
     assert torch.equal(params["blk.ln1.scale"], torch.ones(4, 64))
     assert abs(float(params["wte.w"].std()) - 0.02) < 2e-3
-    with pytest.raises(ValueError, match="mixture-of-experts"):
-        tgpt.init(torch.Generator(), tgpt.GPTConfig.tiny(n_experts=2),
-                  device="cpu")
+    # an MoE config's names, shapes and axes are the JAX package's too
+    moe = tgpt.GPTConfig.tiny(n_experts=2)
+    params, axes = tgpt.init(torch.Generator().manual_seed(0), moe,
+                             device="cpu")
+    jparams, jaxes = jgpt.init(jax.random.key(0), jgpt.GPTConfig.tiny(
+        n_experts=2))
+    assert set(params) == set(jparams) and axes == jaxes
+    assert {k: tuple(v.shape) for k, v in params.items()} == \
+        {k: v.shape for k, v in jparams.items()} == tgpt.param_shapes(moe)
 
 
 def test_apply_logits_match(models):

@@ -36,8 +36,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
-    # the training, NMT, ResNet, sequence-parallel, resilience, fluid
-    # and KV-reuse slices' modules are among those imported
+    # the training, NMT, ResNet, sequence-parallel, resilience, fluid,
+    # KV-reuse and pipeline slices' modules are among those imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
@@ -61,7 +61,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.layers",
                  "paddle_tpu_torch.optimizer",
                  "paddle_tpu_torch.models.lenet",
-                 "paddle_tpu_torch.serving.kv_reuse"):
+                 "paddle_tpu_torch.serving.kv_reuse",
+                 "paddle_tpu_torch.parallel.pipeline",
+                 "paddle_tpu_torch.observability.telemetry"):
         assert name in r.stdout.split(), name
 
 

@@ -2,9 +2,9 @@
 `MeshConfig.resolve` on a table of cases (the same sizes, or both
 raising ValueError), `AXIS_ORDER` and `DEFAULT_RULES` equal to the JAX
 package's (the copied table has not drifted), and what `make_mesh`
-builds and refuses: an in-process ring only from a repeated device
-list, none without one or a process group, and NotImplementedError on
-any axis other than sp that is larger than 1."""
+builds and refuses: in-process rings (pp, ep, sp) only from a repeated
+device list, none without one or a process group, NotImplementedError
+on dp or tp larger than 1, and on any axis but sp over processes."""
 
 import pytest
 import torch
@@ -78,7 +78,7 @@ def test_make_mesh_emulates_no_ring_and_raises():
     with pytest.raises(ValueError, match="needs 4 devices"):
         tmesh.make_mesh(tmesh.MeshConfig(dp=1, sp=4), devices=[CPU] * 2)
     for cfg in (tmesh.MeshConfig(dp=2, sp=2), tmesh.MeshConfig(tp=2),
-                tmesh.MeshConfig(dp=1, pp=2, sp=2)):
+                tmesh.MeshConfig(dp=1, tp=2, sp=2)):
         with pytest.raises(NotImplementedError, match="item 20"):
             tmesh.make_mesh(cfg, devices=[CPU] * 4)
     with pytest.raises(NotImplementedError, match="item 20"):
@@ -86,6 +86,37 @@ def test_make_mesh_emulates_no_ring_and_raises():
     with pytest.raises(ValueError, match="one device"):
         tmesh.make_mesh(tmesh.MeshConfig(sp=2),
                         devices=[CPU, torch.device("meta")])
+
+
+@pytest.mark.parametrize("kw,rings", [
+    (dict(pp=2, ep=2), {"pp": 2, "ep": 2}),
+    (dict(pp=2, ep=2, sp=2), {"pp": 2, "ep": 2, "sp": 2}),
+    (dict(pp=4), {"pp": 4}), (dict(ep=4), {"ep": 4})])
+def test_in_process_rings_for_pp_and_ep(kw, rings):
+    n = 1
+    for v in kw.values():
+        n *= v
+    m = tmesh.make_mesh(tmesh.MeshConfig(dp=1, **kw), devices=[CPU] * n)
+    assert m.shape == {**{a: 1 for a in tmesh.AXIS_ORDER}, **kw}
+    assert {a: r.size for a, r in m.rings.items()} == rings
+    assert all(isinstance(r, InProcessRing) for r in m.rings.values())
+    with pytest.raises(NotImplementedError, match="item 20c"):
+        tmesh.make_mesh(tmesh.MeshConfig(dp=2, **kw), devices=[CPU] * 2 * n)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(pp=2, sp=2), "20a and 20e"), (dict(ep=2, sp=2), "20a and 20e"),
+    (dict(tp=2, sp=2), "20c"), (dict(pp=4), "20a and 20e")])
+def test_process_mesh_takes_sp_only(monkeypatch, kw, item):
+    """Under a process group of 4 ranks, pp and ep raise naming items
+    20a and 20e, dp and tp item 20c, before any ring is made."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tmesh.make_mesh(tmesh.MeshConfig(dp=1, **kw))
 
 
 def test_mesh_guard_nests_and_pops_on_error():
@@ -113,6 +144,19 @@ def test_in_process_ring_hop_is_ppermute_plus_one():
                                                           4, 5]]))
     with pytest.raises(ValueError, match="does not split"):
         ring.split(torch.zeros(1, 6), 1)
+
+
+@pytest.mark.parametrize("n,S,sizes", [(3, 2, [2, 1]), (1, 2, [1, 0]),
+                                        (5, 4, [2, 1, 1, 1]),
+                                        (4, 2, [2, 2])])
+def test_in_process_ring_splits_unevenly_on_request(n, S, sizes):
+    """`even=False` cuts as `torch.tensor_split` (the experts over ep);
+    `join` puts the shards back."""
+    ring = InProcessRing(S)
+    x = torch.arange(float(n))[:, None]
+    xs = ring.split(x, 0, even=False)
+    assert [len(t) for t in xs] == sizes
+    assert torch.equal(ring.join(xs, 0), x)
 
 
 def test_backend_that_cannot_carry_the_device_raises():

@@ -62,7 +62,10 @@ CHANGED_COPIES = [
 """)]),
 ]
 
-TELEMETRY_NAMES = ("AMP_EVENTS", "AMP_LOSS_SCALE", "record_amp")
+TELEMETRY_NAMES = ("AMP_EVENTS", "AMP_LOSS_SCALE", "record_amp",
+                   "PIPELINE_TRACES", "PIPELINE_STAGES",
+                   "PIPELINE_MICROBATCHES", "PIPELINE_BUBBLE_FRACTION",
+                   "record_pipeline_trace")
 
 # tracing.py's one declared change: the logger's name, whose JAX-package
 # form the port's import-hygiene test refuses
