@@ -165,7 +165,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    experts, ~521M params), mixed_bf16, AdamW, 8 x 1024, 4 microbatches:
    2 warm-up and 10 timed steps (K1 48 times a step), the dispatch and
    combine einsums' device ms in a profiled step, the share of tokens
-   dropped at capacity by layer; then the same model with no mesh.
+   dropped at capacity by layer; then the same model with no mesh;
+23. infer: VGG-16 and ResNet-50 inference through `vgg.apply` and
+   `resnet.apply(train=False)`. (a) `ops.int8.int8_matmul` (on
+   `torch._int_mm`) against the plain product, exactly, at every
+   distinct product shape of both models' int8 forwards at batch 1 (the
+   zero-padded K 27 and 147 among them) and at an M below 17, with the
+   weight operand row- and column-major (each layout's ms; a layout
+   `_int_mm` refuses is reported); (b) tools/infer_bench.py's six
+   configurations at 224^2 with random weights from a seed: VGG16 bf16
+   at batch 1 and 64, ResNet-50 bf16 at 1 and 128, and with int8 conv
+   weights VGG16 at 64 and ResNet-50 at 128: ms a call (CUDA events
+   around 30 calls after warm-up), one profiled call's device busy ms
+   and idle share; at int8 the int8 products' and im2col's share of the
+   call, the products' TOP/s against 1,979, and the logits against bf16
+   over 32 images (max abs and relative delta, top-1 agreement; the
+   relative delta under test_slim's 0.15);
+24. predict: bench.py's LeNet rung trained 80 steps on the card, saved
+   with `save_inference_model`, and served by one `Server` per
+   precision (f32, bf16, int8 calibrated on synthetic_mnist; buckets
+   1-64, all 7 warmed before the bind): /v1/healthz and /v1/models,
+   then 256 POST /v1/predict requests of 1-8 rows from 16 client
+   threads; each precision's replies against a CPU Predictor's at that
+   precision on the same rows and the same served dir within
+   `PREDICT_TOL`, bf16's and int8's against the f32 replies (top-1
+   agreement at least `PREDICT_TOP1_MIN`, the relative delta under
+   test_slim's 0.15) and `accuracy_delta`, batches per bucket, pad
+   rows, p50/p99 latency (nearest rank), requests/s and rows/s; each
+   Predictor's signature cache holds only the 7 bucket signatures
+   afterwards.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -193,6 +221,8 @@ from __future__ import annotations
 
 import collections
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3001,6 +3031,13 @@ def lenet_rung_program(pt):
     return main, startup, loss
 
 
+def lenet_rung_logits(main):
+    """The name of the rung's logits: the Logits input of its
+    softmax_with_cross_entropy op."""
+    return next(op.inputs["Logits"][0] for op in main.desc.block(0).ops
+                if op.type == "softmax_with_cross_entropy")
+
+
 def fluid_adam_slack(lr, g_a, g_b):
     """How far a gradient difference can move one Adam step (beta1 0.9,
     beta2 0.999, eps 1e-8, steps 1-3): |d update / d g| <= 2 lr / (|g| +
@@ -3822,6 +3859,452 @@ def phase_gpt_moe():
     return launches
 
 
+# Phase 23: inference at the reference's published configurations
+# (tools/infer_bench.py's six: VGG16 and ResNet-50 at 224^2, bf16 at two
+# batches each, int8 conv weights at the larger), through the models'
+# apply entry points. INT8_REL_DELTA is tests/test_slim.py's limit on
+# int8 against float logits, relative to the largest |logit|.
+INFER_CONFIGS = (("vgg16", 1, "bf16"), ("vgg16", 64, "bf16"),
+                 ("resnet50", 1, "bf16"), ("resnet50", 128, "bf16"),
+                 ("vgg16", 64, "int8"), ("resnet50", 128, "int8"))
+INFER_REPS = 30
+INT8_PROBE = 32
+INT8_REL_DELTA = 0.15
+INT8_TOPS = 1979e12          # H100 SXM dense int8 tensor cores
+
+
+def _infer_models(dev):
+    """{name: (apply(params, img), bf16 params, int8 params)}: random
+    weights from a seed, the floating ones cast to bf16 once (as a
+    server casts them at load), conv weights quantized per output
+    channel for int8 (their f32 scales kept)."""
+    import torch
+
+    from paddle_tpu_torch.models import resnet, vgg
+    from paddle_tpu_torch.models.common import quantize_conv_weights_int8
+
+    def bf16(params):
+        return {k: v.to(torch.bfloat16) if v.is_floating_point() and
+                not k.endswith("@scale") else v for k, v in params.items()}
+
+    out = {}
+    vcfg = vgg.VGGConfig.vgg16()
+    rcfg = resnet.ResNetConfig.resnet50()
+    for name, mod, cfg, seed in (("vgg16", vgg, vcfg, 0),
+                                 ("resnet50", resnet, rcfg, 1)):
+        params, _ = mod.init(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, device=dev)
+        q = quantize_conv_weights_int8(params)
+        fn = (lambda p, x, c=cfg: vgg.apply(p, c, x)) if name == "vgg16" \
+            else (lambda p, x, c=cfg: resnet.apply(p, c, x, train=False)[0])
+        out[name] = (fn, bf16(params), bf16(q))
+        del params, q
+    return out
+
+
+class _Int8Tap:
+    """Wraps ops.int8's product and im2col while active: records each
+    product's (M, K, N) and, with `timed`, CUDA events around each
+    product and each im2col."""
+
+    def __init__(self, timed=False):
+        self.timed = timed
+        self.shapes, self.events = [], {"product": [], "im2col": []}
+
+    def __enter__(self):
+        import torch
+
+        from paddle_tpu_torch.ops import int8
+
+        self.mod = int8
+        self.orig = (int8._product, int8.im2col_nhwc)
+        prod, im2col = self.orig
+
+        def timed(kind, fn):
+            def run(*a, **kw):
+                if not self.timed:
+                    return fn(*a, **kw)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.events[kind].append((e0, e1))
+                return out
+            return run
+
+        def product(a, bp, n):
+            self.shapes.append((int(a.shape[0]), int(a.shape[1]), int(n)))
+            return timed("product", prod)(a, bp, n)
+
+        int8._product = product
+        int8.im2col_nhwc = timed("im2col", im2col)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._product, self.mod.im2col_nhwc = self.orig
+
+    def ms(self, kind):
+        return sum(a.elapsed_time(b) for a, b in self.events[kind])
+
+
+def _int8_exact(shapes, dev):
+    """Phase 23 (a): int8_matmul against the plain product (f64 on the
+    card, exact at these sums) at each shape; the weight operand as the
+    port lays it out (column-major) and row-major, the ms of each, and
+    the first refusal of each layout."""
+    import torch
+
+    from paddle_tpu_torch.ops import int8
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, refused = [], {}
+    for M, K, N in shapes:
+        a = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        want = (a.double() @ b.double()).to(torch.int32)
+        got = int8.int8_matmul(a, b)
+        check(torch.equal(got, want),
+              f"infer (a): int8_matmul at {(M, K, N)} differs from the "
+              f"plain product")
+        row = {"M": M, "K": K, "N": N}
+        col = int8.gemm_operand(b)
+        for layout, bp in (("row", col.contiguous()), ("col", col)):
+            try:
+                ok = torch.equal(int8._product(a, bp, N), want)
+                row[layout + "_ms"] = time_ms(
+                    lambda: int8._product(a, bp, N), reps=10)
+            except RuntimeError as e:
+                refused.setdefault(layout, str(e).splitlines()[0][:160])
+                ok = None
+            row[layout + "_exact"] = ok
+            check(ok is not False, f"infer (a): {layout}-major weight "
+                  f"inexact at {(M, K, N)}")
+        row["tops"] = 2 * M * K * N / (row["col_ms"] * 1e-3) / 1e12
+        rows.append(row)
+        del a, b, want, got
+    check("col" not in refused,
+          f"infer (a): _int_mm refused the column-major weight: {refused}")
+    return rows, refused
+
+
+def _infer_config(name, bs, prec, models, dev):
+    """Phase 23 (b): one configuration's ms a call (CUDA events around
+    INFER_REPS back-to-back calls after warm-up), one profiled call's
+    device busy time and idle share, and, at int8, the int8 products'
+    and im2col's share of the call, the products' TOP/s and the logits
+    against bf16 over INT8_PROBE images."""
+    import torch
+
+    fn, p_bf16, p_int8 = models[name]
+    params = p_int8 if prec == "int8" else p_bf16
+    g = torch.Generator(device=dev).manual_seed(2)
+    img = torch.randn((bs, 3, 224, 224), generator=g, device=dev)
+    out = {"model": name, "batch": bs, "precision": prec}
+    with torch.inference_mode():
+        logits = fn(params, img)
+        check(logits.shape == (bs, 1000) and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"infer (b): {name} {prec} bs {bs} logits "
+              f"{tuple(logits.shape)} {logits.dtype} not finite f32")
+        del logits
+        for _ in range(3):
+            fn(params, img)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(INFER_REPS):
+            fn(params, img)
+        e1.record()
+        e1.synchronize()
+        out["ms"] = e0.elapsed_time(e1) / INFER_REPS
+        traced = _profiled_step(lambda: fn(params, img))
+        out.update({k: traced[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "device_events")})
+        out["top_kernels"] = traced["top_kernels"][:5]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if prec == "int8":
+            with _Int8Tap(timed=True) as tap:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(params, img)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            prod_ms, col_ms = tap.ms("product"), tap.ms("im2col")
+            ops = sum(2 * m * k * n for m, k, n in tap.shapes)
+            out.update({
+                "int8_products": len(tap.shapes),
+                "int8_product_ms": prod_ms, "im2col_ms": col_ms,
+                "int8_product_share": prod_ms / out["ms"],
+                "im2col_share": col_ms / out["ms"],
+                "int8_product_tops": ops / (prod_ms * 1e-3) / 1e12,
+                "int8_product_share_of_peak":
+                    ops / (prod_ms * 1e-3) / INT8_TOPS,
+                "tapped_call_wall_ms": wall})
+            probe = img[:INT8_PROBE]
+            fp = fn(p_bf16, probe).float()
+            qt = fn(params, probe).float()
+            d = (fp - qt).abs().max().item()
+            out.update({
+                "int8_vs_bf16_max_abs_logit_delta": d,
+                "int8_vs_bf16_rel_logit_delta": d / fp.abs().max().item(),
+                "int8_vs_bf16_top1_agreement":
+                    (fp.argmax(-1) == qt.argmax(-1)).float().mean().item()})
+            check(out["int8_vs_bf16_rel_logit_delta"] < INT8_REL_DELTA,
+                  f"infer (b): {name} int8 logits {d} from bf16, "
+                  f"{out['int8_vs_bf16_rel_logit_delta']} of the largest "
+                  f"(limit {INT8_REL_DELTA})")
+    return out
+
+
+def phase_infer():
+    import torch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    models = _infer_models(dev)
+    # (a) every distinct product shape of both models at batch 1, taken
+    # from int8 forwards, plus an M below _int_mm's 17
+    shapes = set()
+    with torch.inference_mode(), _Int8Tap() as tap:
+        for name in ("vgg16", "resnet50"):
+            models[name][0](models[name][2],
+                            torch.zeros((1, 3, 224, 224), device=dev))
+    shapes = sorted(set(tap.shapes) | {(5, 27, 64)})
+    check(any(k == 27 for _, k, _ in shapes) and
+          any(k == 147 for _, k, _ in shapes),
+          f"infer (a): the padded K 27 and 147 shapes are missing: {shapes}")
+    exact, refused = _int8_exact(shapes, dev)
+    configs = []
+    for name, bs, prec in INFER_CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        configs.append(_infer_config(name, bs, prec, models, dev))
+    print(json.dumps({
+        "phase": "infer", "card": card(),
+        "int8_matmul_exact_shapes": len(exact),
+        "int8_matmul": exact, "int_mm_refused": refused,
+        "configs": configs,
+        "reference_v100_fp16_ms (BASELINE.md, a V100's)": {
+            "vgg16 bs1": 3.32, "vgg16 bs64": 60.23,
+            "resnet50 bs1": 6.13, "resnet50 bs128": 64.52},
+        "seconds": time.perf_counter() - t0}))
+    del models
+    torch.cuda.empty_cache()
+
+
+# Phase 24: the LeNet rung behind POST /v1/predict. PREDICT_TOL holds each
+# precision's replies on the card against a CPU Predictor's at the same
+# precision, on the same rows and the same served dir (TF32 off),
+# relative to the largest |logit| of the reply: f32 and int8 as
+# tests/test_torch_predict.py holds the packages' f32 and int8 replies
+# (int8: an activation on a rounding boundary may move one int8 step).
+# bf16's worst reply within 4 bf16 steps (2**-8): cuDNN's bf16 convs at
+# the small buckets round some values otherwise than the CPU's (1.62
+# steps read on an H100), and every reply's mean gap, relative to its
+# largest |logit|, within PREDICT_BF16_MEAN, a tenth of a step: a
+# missed cast moves the mean by bf16's own move from f32 (printed as
+# `mean_vs_f32`). PREDICT_TOP1_MIN is the least top-1 agreement of
+# bf16's and int8's replies with f32's.
+PREDICT_REQUESTS = 256
+PREDICT_THREADS = 16
+PREDICT_TOL = {"f32": 1e-5, "bf16": 4 * 2.0 ** -8, "int8": 1e-3}
+PREDICT_BF16_MEAN = 0.1 * 2.0 ** -8
+PREDICT_TOP1_MIN = 0.99
+
+
+def _predict_round(port, requests):
+    """`requests` (a list of row arrays) over POST /v1/predict from
+    PREDICT_THREADS client threads: (replies in order, latencies s,
+    wall s)."""
+    replies, lat = [None] * len(requests), [None] * len(requests)
+    nxt = iter(range(len(requests)))
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            body = json.dumps({"feeds": {"x": requests[i].tolist()}})
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/predict", data=body.encode(),
+                headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                replies[i] = json.loads(r.read())
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=worker)
+               for _ in range(PREDICT_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies, lat, time.perf_counter() - t0
+
+
+def _lenet_saved(pt, root):
+    """Phase 24's model: the LeNet rung trained FLUID_STEPS Adam steps on
+    the card, saved as an inference model fetching the logits."""
+    main, startup, loss = lenet_rung_program(pt)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    x, y = synthetic_mnist(FLUID_B, seed=24)
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(exe.run(main, feed={"x": x, "y": y},
+                                fetch_list=[loss])[0][0])
+                  for _ in range(FLUID_STEPS)]
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"predict: the rung did not train: {losses[0]} -> "
+              f"{losses[-1]}")
+        model_dir = os.path.join(root, "lenet")
+        pt.io.save_inference_model(model_dir, ["x"],
+                                   [lenet_rung_logits(main)], exe,
+                                   main_program=main)
+    return model_dir, losses
+
+
+def _serve_precision(model_dir, precision, requests, calibration):
+    from paddle_tpu_torch.serving import Server, ServingConfig
+    from paddle_tpu_torch.serving import engine as eng_mod
+
+    kw = {} if precision == "f32" else {"calibration": calibration,
+                                        "accuracy_check_batches": 4}
+    srv = Server(ServingConfig(model_dir, precision=precision, **kw))
+    port = srv.start(0)
+    try:
+        pred = srv.engine._pred
+        check(srv.engine.warmed and len(pred.signatures()) == 7 and
+              all(pred._cache.values()),
+              f"predict {precision}: warmup readied "
+              f"{len(pred.signatures())} buckets, not 7")
+        code, health, _ = _get_json(port, "/v1/healthz")
+        check(code == 200 and health["state"] == "serving",
+              f"predict {precision}: healthz {code} {health}")
+        _, models, _ = _get_json(port, "/v1/models")
+        row = models["models"][0]
+        check(row["kind"] == "predict" and row["warmed"] and
+              row["buckets"] == [1, 2, 4, 8, 16, 32, 64],
+              f"predict {precision}: /v1/models {models}")
+        before = {b: eng_mod.BATCHES.value(bucket=str(b))
+                  for b in srv.engine.policy.buckets}
+        pad0 = eng_mod.PAD_ROWS.value()
+        replies, lat, wall = _predict_round(port, requests)
+        status = _get_json(port, "/v1/status")[1]
+        batches = {str(b): eng_mod.BATCHES.value(bucket=str(b)) - n
+                   for b, n in before.items()}
+        sigs = pred.signatures()
+        check(len(sigs) == 7 and {s[0][1][0] for s in sigs} ==
+              {1, 2, 4, 8, 16, 32, 64},
+              f"predict {precision}: off-bucket signatures {sigs}")
+        rows = sum(len(r) for r in requests)
+        lat_ms = sorted(x * 1e3 for x in lat)
+        # nearest rank over every request of the round
+        out = {"precision": precision, "requests": len(requests),
+               "rows": rows, "requests_per_s": len(requests) / wall,
+               "rows_per_s": rows / wall,
+               "p50_ms": lat_ms[math.ceil(0.50 * len(lat_ms)) - 1],
+               "p99_ms": lat_ms[math.ceil(0.99 * len(lat_ms)) - 1],
+               "batches_per_bucket": batches,
+               "pad_rows": eng_mod.PAD_ROWS.value() - pad0,
+               "accuracy_delta": status["accuracy_delta"],
+               "requests_outcomes": status["requests"],
+               "signatures": len(sigs)}
+        check(status["requests"]["ok"] == len(requests),
+              f"predict {precision}: outcomes {status['requests']}")
+        return out, [np.asarray(r["outputs"][next(iter(r["outputs"]))],
+                                np.float32) for r in replies], \
+            srv.engine._served_dir
+    finally:
+        srv.stop()
+
+
+def phase_predict():
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    model_dir, losses = _lenet_saved(pt, root)
+    rs = np.random.RandomState(24)
+    pool, _ = synthetic_mnist(2048, seed=25)
+    sizes = rs.randint(1, 9, PREDICT_REQUESTS)
+    starts = rs.randint(0, len(pool) - 8, PREDICT_REQUESTS)
+    requests = [pool[s:s + n] for s, n in zip(starts, sizes)]
+    cal_x = synthetic_mnist(64, seed=26)[0]
+    calibration = [{"x": cal_x[i:i + 16]} for i in range(0, 64, 16)]
+    results, outs = {}, {}
+
+    def gap(got, want):
+        """(max, mean) of |got - want| over the largest |want|."""
+        d = np.abs(got - want) / np.abs(want).max()
+        return float(d.max()), float(d.mean())
+
+    for precision in ("f32", "bf16", "int8"):
+        results[precision], outs[precision], served = _serve_precision(
+            model_dir, precision, requests, calibration)
+        # the replies against a CPU Predictor's at this precision on the
+        # same rows and the dir the server served (int8: its sibling)
+        cfg = AnalysisConfig(served)
+        cfg.disable_gpu()
+        if precision == "bf16":
+            cfg.set_precision("bf16")
+        cpu = create_paddle_predictor(cfg)
+        gaps = []
+        for rows, got in zip(requests, outs[precision]):
+            want = next(iter(cpu.predict(x=rows).values()))
+            check(got.shape == want.shape, f"predict {precision}: reply "
+                  f"{got.shape} for {want.shape}")
+            gaps.append(gap(got, want))
+        worst = max(g[0] for g in gaps)
+        mean = float(np.mean([g[1] for g in gaps]))
+        results[precision].update({"vs_cpu_worst": worst,
+                                   "vs_cpu_mean": mean})
+        check(worst <= PREDICT_TOL[precision], f"predict {precision}: the "
+              f"card's replies differ from the CPU's by {worst} (limit "
+              f"{PREDICT_TOL[precision]})")
+        check(precision != "bf16" or mean <= PREDICT_BF16_MEAN,
+              f"predict bf16: the mean gap to the CPU's replies {mean} "
+              f"(limit {PREDICT_BF16_MEAN})")
+    for precision in ("bf16", "int8"):
+        agree = float(np.mean(np.concatenate([
+            a.argmax(-1) == b.argmax(-1) for a, b in
+            zip(outs[precision], outs["f32"])])))
+        vs_f32 = [gap(a, b) for a, b in zip(outs[precision], outs["f32"])]
+        rel = max(g[0] for g in vs_f32)
+        results[precision].update({
+            "top1_agreement_with_f32": agree, "rel_delta_vs_f32": rel,
+            "mean_vs_f32": float(np.mean([g[1] for g in vs_f32]))})
+        delta = results[precision]["accuracy_delta"]
+        check(delta is not None and np.isfinite(delta["max_abs"]),
+              f"predict {precision}: no accuracy_delta")
+        check(agree >= PREDICT_TOP1_MIN and rel < INT8_REL_DELTA,
+              f"predict {precision}: top-1 agreement with f32 {agree} "
+              f"(least {PREDICT_TOP1_MIN}), relative delta {rel} (limit "
+              f"{INT8_REL_DELTA})")
+    print(json.dumps({
+        "phase": "predict", "card": card(),
+        "model": "bench.py's LeNet rung, trained on the card, saved",
+        "train_loss": [losses[0], losses[-1]],
+        "vs_cpu_limit": PREDICT_TOL, "bf16_mean_limit": PREDICT_BF16_MEAN,
+        "top1_min": PREDICT_TOP1_MIN,
+        "servers": results, "seconds": time.perf_counter() - t0}))
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3855,6 +4338,8 @@ def main() -> int:
     phase_fluid()
     launches["flash_attention_fwd"] += phase_kv_reuse()
     moe_counts = phase_gpt_moe()
+    phase_infer()
+    phase_predict()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts):

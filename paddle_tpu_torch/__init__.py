@@ -1,9 +1,15 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of the JAX package, for
 NVIDIA Hopper.
 
-It serves GPT token generation (`serving.DecodeEngine`,
-`serving.Server`), trains BERT, GPT, Transformer NMT and ResNet
-(`parallel.train.make_train_step`) and beam-searches the Transformer,
+It serves GPT token generation (`serving.DecodeEngine`) and bucketed
+batch inference of saved fluid models (`inference.Predictor` behind
+`serving.Engine` and its `Batcher`, at f32, bf16 and post-training int8
+from `slim.calibrate_and_quantize`), both over HTTP (`serving.Server`:
+POST /v1/generate and /v1/predict); runs VGG-16 and ResNet-50 inference
+at bf16 and with int8 conv weights (`models.vgg`, `models.resnet`, the
+int8 product in `ops/int8.py`); trains BERT, GPT, Transformer NMT and
+ResNet (`parallel.train.make_train_step`) and beam-searches the
+Transformer,
 through the same entry points as the JAX package, with attention on
 hand-written CUDA kernels (`kernels/flash_attention.py`,
 `kernels/flash_attention_bias.py`) and ResNet's fused 1x1 convs on the
@@ -15,8 +21,10 @@ JAX package.
 
 It also carries the JAX package's fluid surface, for what is ported:
 Programs built with `layers` under `program_guard`, `append_backward`
-and `gradients`, the `optimizer` classes, and an `Executor` that runs a
-Program op by op on the op registry's torch kernels (`core/`, `ops/`).
+and `gradients`, the `optimizer` classes, an `Executor` that runs a
+Program op by op on the op registry's torch kernels (`core/`, `ops/`),
+model dirs in the JAX package's format (`io`), and the program
+analysis passes (`analysis`).
 
 Devices are explicit: every entry point runs on `cuda` unless the
 caller passes `device="cpu"`, and raises when asked for `cuda` on a
@@ -37,7 +45,9 @@ __all__ = ["resolve_device", "Program", "Block", "Operator", "Variable",
            "TPUPlace", "XPUPlace", "is_compiled_with_cuda", "layers",
            "initializer", "regularizer", "clip", "optimizer",
            "param_attr", "ParamAttr", "WeightNormParamAttr", "nets",
-           "get_flags", "set_flags", "set_global_seed"]
+           "get_flags", "set_flags", "set_global_seed", "io", "save",
+           "load", "save_inference_model", "load_inference_model",
+           "inference", "AnalysisConfig", "create_paddle_predictor"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -87,6 +97,11 @@ from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: E402
 from . import nets  # noqa: E402
 from . import backward  # noqa: E402
 from .core.flags import get_flags, set_flags  # noqa: E402
+from . import io  # noqa: E402
+from .io import (save, load, save_inference_model,  # noqa: E402
+                 load_inference_model)
+from . import inference  # noqa: E402
+from .inference import AnalysisConfig, create_paddle_predictor  # noqa: E402
 
 
 def set_global_seed(seed: int):

@@ -25,7 +25,8 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device,
                       = None) -> Dict[str, torch.Tensor]:
     """{name: array} -> {name: tensor on `device`}, same names, shapes
     and values. `dtype`, when given, casts floating arrays (integer ones
-    keep theirs). `expected` ({name: shape}, from
+    keep theirs, and so do the f32 `<k>@scale` dequantization scales of
+    int8 weights, from `quantize_conv_weights_int8`). `expected` ({name: shape}, from
     a model's `param_shapes`, such as `models.resnet.param_shapes`) makes a
     missing or extra name, or another shape, an error."""
     dev = resolve_device(device)
@@ -46,7 +47,8 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device,
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(a)
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and \
+                not name.endswith("@scale"):
             t = t.to(dtype)
         out[name] = t.to(dev)
     return out

@@ -8,7 +8,9 @@ waits on it, then reads each value with `.item()` (the loop's losses)
 or, made with `numpy=True` (the executor's fetches), as a numpy array.
 A value on the CPU
 is ready at once. The handle drops its device references when it
-resolves, so a resolved handle holds no device memory.
+resolves, so a resolved handle holds no device memory. `map(fn)` is
+a handle whose result is `fn` of this one's (the Predictor's bucket
+slicing).
 `inflight_stats()` counts the handles not yet resolved.
 
 `train_loop` keeps at most `fetch_window` (default `DEFAULT_IN_FLIGHT`)
@@ -24,10 +26,10 @@ telemetry (ROADMAP item 16).
 from __future__ import annotations
 
 import threading
-from typing import Any, Iterable, List
+from typing import Any, Callable, Iterable, List
 
-__all__ = ["FetchHandle", "inflight_stats", "reset_inflight_stats",
-           "DEFAULT_IN_FLIGHT"]
+__all__ = ["FetchHandle", "MappedHandle", "inflight_stats",
+           "reset_inflight_stats", "DEFAULT_IN_FLIGHT"]
 
 # Two in flight: one step computing on the device while the host reads
 # the loss of the one before, the JAX package's double buffer.
@@ -114,3 +116,27 @@ class FetchHandle:
         with _acct_lock:
             _open_handles = max(0, _open_handles - 1)
         return self._result
+
+    def map(self, fn: Callable[[Any], Any]) -> "MappedHandle":
+        """A lazy handle resolving to fn(self.result())."""
+        return MappedHandle(self, fn)
+
+
+class MappedHandle:
+    """`FetchHandle.map`'s result: resolves its source, then applies
+    `fn` once (cached)."""
+
+    __slots__ = ("_src", "_fn", "_done", "_value")
+
+    def __init__(self, src, fn: Callable[[Any], Any]):
+        self._src, self._fn = src, fn
+        self._done, self._value = False, None
+
+    def result(self, stall: bool = True):
+        if not self._done:
+            self._value = self._fn(self._src.result(stall))
+            self._done = True
+        return self._value
+
+    def map(self, fn: Callable[[Any], Any]) -> "MappedHandle":
+        return MappedHandle(self, fn)

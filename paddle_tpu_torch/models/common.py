@@ -15,12 +15,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.int8 import conv2d_int8, conv_operands
+
 Params = Dict[str, torch.Tensor]
 ParamAxes = Dict[str, Tuple[Optional[str], ...]]
 
 __all__ = ["ParamStore", "Params", "raw_layer_norm", "layer_norm", "gelu",
            "dense", "dropout", "is_trainable", "same_pads", "conv2d_nhwc",
-           "conv2d_nhwc_auto"]
+           "conv2d_nhwc_auto", "maxpool2x2_nhwc",
+           "quantize_conv_weights_int8", "conv2d_nhwc_int8"]
 
 
 class ParamStore:
@@ -178,14 +181,63 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return y.permute(0, 2, 3, 1)
 
 
+def maxpool2x2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pool at stride 2, VALID (odd edges dropped), NHWC, as the
+    JAX package's reduce_window."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+# -- the int8 serving path: int8 convs with per-output-channel weight
+#    scales and a dynamic per-tensor activation scale, accumulated in
+#    int32 (ops/int8.py) ------------------------------------------------
+
+
+def quantize_conv_weights_int8(params: Params) -> Params:
+    """Per-output-channel symmetric int8 for every 4-D HWIO conv weight
+    '*.w': scale amax / 127 (1.0 where a channel is all zeros), values
+    round(w / scale) (half to even) clipped to +-127; adds '<k>@scale'
+    [O] f32 and leaves everything else untouched. The result feeds the
+    same model apply(): conv2d_nhwc_auto dispatches on the weight
+    dtype. On the card each int8 weight's product operand is laid out
+    here, once (`ops.int8.conv_operands`)."""
+    out = dict(params)
+    for k, v in params.items():
+        if k.endswith(".w") and v.ndim == 4:
+            w = v.float()
+            amax = w.abs().amax(dim=(0, 1, 2))
+            scale = torch.where(amax > 0, amax / 127.0,
+                                torch.ones_like(amax))
+            out[k] = torch.clamp(torch.round(w / scale), -127,
+                                 127).to(torch.int8)
+            conv_operands(out[k])
+            out[k + "@scale"] = scale
+    return out
+
+
+def conv2d_nhwc_int8(x: torch.Tensor, wq: torch.Tensor,
+                     w_scale: torch.Tensor, stride: int = 1,
+                     padding="SAME") -> torch.Tensor:
+    """int8 x int8 -> int32 conv (`ops.int8.conv2d_int8`); the
+    activation is quantized per tensor (scale max(|x|max, 1e-8) / 127),
+    the result dequantized per output channel by xs * w_scale, the
+    scales multiplied first as the JAX package does. Returns f32."""
+    xf = x.float()
+    xs = torch.clamp(xf.abs().max(), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    del xf
+    acc = conv2d_int8(xq, wq, stride, padding)
+    del xq
+    return acc.float() * (xs * w_scale.reshape(1, 1, 1, -1))
+
+
 def conv2d_nhwc_auto(params: Params, name: str, x: torch.Tensor,
                      stride: int = 1, padding="SAME") -> torch.Tensor:
-    """The conv the model zoo shares: `{name}.w` cast to x's dtype. int8
-    weights (the JAX package's int8 serving path) are not ported yet
-    and raise."""
+    """The conv the model zoo shares: int8 weights (from
+    quantize_conv_weights_int8) take the int8 path with their
+    '{name}.w@scale', anything else the plain conv with `{name}.w` cast
+    to x's dtype. Output in x's dtype either way."""
     w = params[f"{name}.w"]
     if w.dtype == torch.int8:
-        raise NotImplementedError(
-            f"{name}: int8 conv weights (quantize_conv_weights_int8) are "
-            f"not ported yet")
+        return conv2d_nhwc_int8(x, w, params[f"{name}.w@scale"], stride,
+                                padding).to(x.dtype)
     return conv2d_nhwc(x, w.to(x.dtype), stride, padding)

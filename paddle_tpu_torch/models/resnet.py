@@ -162,7 +162,8 @@ def _bn(params, upd, name, x, cfg, train: bool):
 
 def _fused_1x1_ok(params, p, cfg, train: bool) -> bool:
     """The fused 1x1 path: opt-in, training mode, and floating weights
-    (int8 weights keep conv2d_nhwc_auto's path, which refuses them)."""
+    (int8 weights keep conv2d_nhwc_auto's int8 path, whose per-channel
+    scales the fused kernels do not apply)."""
     if not (cfg.fused_1x1 and train):
         return False
     return params[f"{p}.conv1.w"].dtype != torch.int8 and \

@@ -1,5 +1,6 @@
-# Copied from the JAX package: the dynamic loss-scaling and pipeline
-# subsets of paddle_tpu/observability/telemetry.py (stdlib only). Each
+# Copied from the JAX package: the dynamic loss-scaling, pipeline and
+# analysis subsets of paddle_tpu/observability/telemetry.py (stdlib
+# only). Each
 # definition below is that file's, unchanged; keep them in step with
 # it. The rest of that module (executor, trainer, compile and async
 # telemetry) is not ported (ROADMAP item 18).
@@ -14,6 +15,11 @@ The JAX package sets all four at trace time, through
 `record_pipeline_trace`. The port has no trace: `parallel/pipeline.py`
 sets the gauges on every call and ticks the trace counter on each new
 schedule signature, so it does not call `record_pipeline_trace`.
+
+Analysis telemetry: `paddle_tpu_analysis_runs_total{where}`,
+`paddle_tpu_analysis_findings_total{pass,severity}` and the `analysis`
+event, recorded by `record_analysis` once per pass-suite walk
+(`analysis.run_passes`).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Dict, Optional
 from . import events as _events
 from . import metrics as _m
 
-__all__ = ["record_amp", "record_pipeline_trace"]
+__all__ = ["record_amp", "record_pipeline_trace", "record_analysis"]
 
 AMP_EVENTS = _m.counter(
     "paddle_tpu_amp_total",
@@ -81,3 +87,35 @@ def record_pipeline_trace(axis: str, stages: int, n_micro: int):
     PIPELINE_MICROBATCHES.set(n_micro, axis=axis)
     PIPELINE_BUBBLE_FRACTION.set(
         (stages - 1) / max(1, n_micro + stages - 1), axis=axis)
+
+
+ANALYSIS_RUNS = _m.counter(
+    "paddle_tpu_analysis_runs_total",
+    "Full static-analysis pass-suite walks (paddle_tpu/analysis). "
+    "Validation results are cached per program version — a rising rate "
+    "at steady state means the validation cache is not holding",
+    labelnames=("where",))
+ANALYSIS_FINDINGS = _m.counter(
+    "paddle_tpu_analysis_findings_total",
+    "Static-analysis findings by pass and severity "
+    "(error|warning|info); PADDLE_TPU_VALIDATE=2 refuses to run a "
+    "program with error-severity findings",
+    labelnames=("pass", "severity"))
+
+
+def record_analysis(findings, n_ops: int, where: str, seconds: float):
+    """One static-analysis pass-suite walk (paddle_tpu/analysis
+    run_passes): per-pass/severity finding counts plus one `analysis`
+    event summarizing the walk — a program failing validation on a
+    fleet must be reconstructable from the JSONL log alone."""
+    ANALYSIS_RUNS.inc(where=where)
+    by_sev: Dict[str, int] = {}
+    for f in findings:
+        ANALYSIS_FINDINGS.inc(**{"pass": f.pass_name,
+                                 "severity": f.severity})
+        by_sev[f.severity] = by_sev.get(f.severity, 0) + 1
+    _events.emit("analysis", where=where, ops=int(n_ops),
+                 seconds=round(seconds, 6),
+                 errors=by_sev.get("error", 0),
+                 warnings=by_sev.get("warning", 0),
+                 infos=by_sev.get("info", 0))

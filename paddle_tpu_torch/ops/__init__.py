@@ -1,5 +1,6 @@
-"""Operators of the port: attention dispatch and beam search, and the
-fluid path's op kernels. Importing this package registers the latter
+"""Operators of the port: attention dispatch and beam search, the int8
+product of the inference path (`int8.py`), and the fluid path's op
+kernels (the int8 runtime ops among them, `quant.py`). Importing this package registers the latter
 (core/registry.py), as the JAX package's `ops/__init__.py` does."""
 
 from . import tensor
@@ -9,3 +10,4 @@ from . import reduce
 from . import nn
 from . import optimizer_ops
 from . import metrics_ops
+from . import quant

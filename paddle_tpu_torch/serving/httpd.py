@@ -1,8 +1,19 @@
-"""JSON-over-HTTP token-serving front end.
+"""JSON-over-HTTP serving front end: the Server that ties the predict
+engine (Engine + Batcher), the decode engines and the HTTP listener
+together. Counterpart of the JAX package's `serving/httpd.py`. Routes:
 
-Counterpart of the JAX package's `serving/httpd.py` for a decode-only
-server. Routes:
-
+  POST /v1/predict   {"feeds": {name: nested-list}, "timeout_s": opt,
+                      "model": opt}
+                     → 200 {"outputs": {name: nested-list}, "batch": n}
+                       (feeds are cast to the model's declared dtypes by
+                       the Predictor; a non-finite output value goes out
+                       as the string "nan", "inf" or "-inf")
+                     → 400 malformed request / bad shapes
+                     → 404 unknown "model"
+                     → 503 queue full or draining (with Retry-After
+                       while draining), or no predict engine
+                     → 504 request missed its deadline
+                     → 500 engine error
   POST /v1/generate  {"ids": [tok,...], "max_new_tokens": N,
                       "stream": true|false, "timeout_s": opt,
                       "model": opt}
@@ -15,28 +26,36 @@ server. Routes:
                      malformed request, 404 for an unknown "model", 503
                      when the decode queue is full or the engine is
                      draining (with Retry-After) or stopped.
-  GET  /v1/status    the server's state and load, and each decode
-                     engine's queue, slot, KV block and warm view.
+  GET  /v1/status    the server's state and load, the predict engine's
+                     buckets, batches, precision and accuracy_delta, the
+                     request outcome counts, and each decode engine's
+                     queue, slot, KV block and warm view.
   GET  /v1/load      the router's cheap load probe: {"load": scalar,
                      "inflight": n, "queue_depth": q, "state": ...,
                      "models": [...]}, touching only counters.
   GET  /v1/healthz   readiness: 200 only while state == "serving"; 503
-                     with {"state": "warming"} before every engine's
+                     with {"state": "warming"} before every bucket and
                      phase grid is warm, "draining" after drain() began,
                      "stopped" before start, after stop, or when an
                      engine was stopped underneath the server.
-  GET  /v1/models    one row per model id: its decode engine's warm
+  GET  /v1/models    one row per model id: kind "predict" (the predict
+                     engine's program digest, warm state, buckets and
+                     request counts) and/or its decode engine's warm
                      state, adopted warmstart phases and model digest.
 
-`decode=` is one engine (model id "default") or {model_id: engine};
-a request's "model" picks the engine. Every /v1/* JSON reply and the
-generate stream carry X-Request-Id and traceparent (a caller's
-traceparent is adopted, its sampling decision with it). A client that
-hangs up mid-stream cancels its generation, so its slot and KV blocks
-free at once. Built on `observability.httpbase`.
+`Server(config, predictor=None, decode=None)`: the predict engine is
+built from `config.model_dir` (or wraps `predictor`) in the slot named
+`config.model_id`; `decode=` is one engine (that slot) or {model_id:
+engine}. A server needs one or the other. A request's "model" picks
+the slot. Every /v1/* JSON reply and the generate stream carry
+X-Request-Id and traceparent (a caller's traceparent is adopted, its
+sampling decision with it). A client that hangs up mid-stream cancels
+its generation, so its slot and KV blocks free at once. Built on
+`observability.httpbase`.
 
-Not ported yet (ROADMAP item 17): /v1/predict and its bucketed engine,
-/v1/profile, QoS (tenants, typed sheds), the registry and hot swap.
+Not ported (ROADMAP item 17): more predict slots (`models=`), hot swap
+and the registry watcher (`registry=`), which raise, /v1/profile (404),
+and QoS (tenants, typed sheds).
 """
 
 from __future__ import annotations
@@ -47,12 +66,16 @@ import time
 from typing import Dict, Optional
 from urllib.parse import urlparse
 
+import numpy as np
+
 from ..observability import events as _events
 from ..observability import httpbase as _base
 from ..observability import tracing as _tracing
-from .batcher import QueueFullError, ServerClosed
+from ..observability.metrics import _json_safe
+from .batcher import (Batcher, EngineError, QueueFullError, RequestTimeout,
+                      ServerClosed)
 from .decode import DecodeEngine
-from .engine import ServingConfig
+from .engine import Engine, ServingConfig
 
 __all__ = ["Server"]
 
@@ -69,11 +92,15 @@ class _ServingHandler(_base.QuietHandler):
     _tctx = None  # per-request TraceContext, set at the top of do_*
 
     def _json_reply(self, code: int, payload: Dict, headers=None):
+        # strict JSON: a non-finite float goes out as the string "nan",
+        # "inf" or "-inf", never as a bare NaN token RFC-8259 clients
+        # reject
         hdrs = dict(headers or {})
         # every /v1/* reply carries the request id + traceparent, so a
         # caller can join its logs against the trace sink and event log
         hdrs.update(_tracing.response_headers(self._tctx))
-        self._reply(code, "application/json", json.dumps(payload) + "\n",
+        self._reply(code, "application/json",
+                    json.dumps(_json_safe(payload)) + "\n",
                     extra_headers=hdrs)
 
     def do_GET(self):  # noqa: N802 - stdlib naming
@@ -94,9 +121,9 @@ class _ServingHandler(_base.QuietHandler):
                 self._json_reply(200, {"models": self.serving.models()})
             else:
                 self._reply(404, "text/plain",
-                            "not found; routes: POST /v1/generate, "
-                            "GET /v1/status /v1/load /v1/healthz "
-                            "/v1/models\n")
+                            "not found; routes: POST /v1/predict "
+                            "/v1/generate, GET /v1/status /v1/load "
+                            "/v1/healthz /v1/models\n")
         except _base.CLIENT_GONE:
             pass
 
@@ -200,9 +227,11 @@ class _ServingHandler(_base.QuietHandler):
         try:
             self._tctx = _tracing.begin_request(self.headers)
             path = urlparse(self.path).path
-            if path != "/v1/generate":
+            if path not in ("/v1/predict", "/v1/generate"):
                 self._reply(404, "text/plain",
-                            "not found; POST routes: /v1/generate\n")
+                            "not found; POST routes: /v1/predict, "
+                            "/v1/generate (/v1/profile is not ported, "
+                            "ROADMAP item 17)\n")
                 return
             try:
                 length = int(self.headers.get("Content-Length", "0"))
@@ -210,35 +239,112 @@ class _ServingHandler(_base.QuietHandler):
             except (ValueError, TypeError):
                 self._json_reply(400, {"error": "body must be JSON"})
                 return
-            if not isinstance(payload, dict):
-                self._json_reply(400, {"error": "body must be a JSON "
-                                                "object"})
+            if path == "/v1/generate":
+                if not isinstance(payload, dict):
+                    self._json_reply(400, {"error": "body must be a "
+                                                    "JSON object"})
+                    return
+                self._do_generate(payload)
                 return
-            self._do_generate(payload)
+            with _tracing.trace_span("http.predict", cat="serve",
+                                     ctx=self._tctx):
+                self._do_predict(payload)
         except _base.CLIENT_GONE:
             pass
 
+    def _do_predict(self, payload):
+        feeds = payload.get("feeds") if isinstance(payload, dict) else None
+        if not isinstance(feeds, dict) or not feeds:
+            self._json_reply(400, {"error": 'missing/empty "feeds" object'})
+            return
+        try:
+            arrays = {str(k): np.asarray(v) for k, v in feeds.items()}
+        except (ValueError, TypeError):
+            self._json_reply(400, {"error": "feeds must be rectangular "
+                                            "numeric arrays"})
+            return
+        if any(a.dtype == object or a.dtype.kind in "USV"
+               for a in arrays.values()):
+            self._json_reply(400, {"error": "feeds must be rectangular "
+                                            "numeric arrays"})
+            return
+        model = payload.get("model")
+        if model is not None and str(model) not in self.serving._model_ids():
+            self._json_reply(404, {"error": f"unknown model {str(model)!r}"})
+            return
+        try:
+            outs = self.serving.submit(arrays,
+                                       timeout_s=payload.get("timeout_s"),
+                                       model=model)
+        except (QueueFullError, ServerClosed) as e:
+            # draining servers add Retry-After so a router (and any
+            # well-behaved client) re-sends elsewhere now and re-polls
+            # this one after the drain
+            self._json_reply(503, {"error": str(e)},
+                             headers=self.serving._retry_after())
+            return
+        except RequestTimeout as e:
+            self._json_reply(504, {"error": str(e)})
+            return
+        except EngineError as e:
+            # a model failure is the server's fault: a 400 would make
+            # clients retry a request that cannot succeed
+            self._json_reply(500, {"error": str(e)})
+            return
+        except ValueError as e:
+            # pre-enqueue validation (empty/ragged/oversize feeds)
+            self._json_reply(400, {"error": str(e)})
+            return
+        except Exception as e:
+            self._json_reply(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        first = next(iter(arrays.values()))
+        self._json_reply(200, {
+            "outputs": {k: np.asarray(v).tolist() for k, v in outs.items()},
+            "batch": int(first.shape[0]) if first.ndim else 1})
+
 
 class Server:
-    """The token-serving HTTP server around decode engines: `start()`
-    warms each engine (with `config.warmup`), binds the listener and
-    starts the engines' schedulers; `drain()` stops admitting while the
-    listener stays up; `stop()` takes the listener down and stops the
-    engines. Start and stop are idempotent; stop is also registered
-    atexit so a crashing process never leaks the listener."""
+    """The serving HTTP server around a predict engine and decode
+    engines: `start()` warms each engine (with `config.warmup`), starts
+    the predict batcher, binds the listener and starts the decode
+    schedulers; `drain()` stops admitting while the listener stays up;
+    `stop()` takes the listener down, drains the batcher and stops the
+    decode engines. Start and stop are idempotent; stop is also
+    registered atexit so a crashing process never leaks the listener."""
 
-    def __init__(self, config: ServingConfig, decode):
-        """`decode` is a `DecodeEngine` (model id "default") or a dict
-        {model_id: DecodeEngine}."""
-        if decode is None or (isinstance(decode, dict) and not decode):
-            raise ValueError("Server needs a DecodeEngine (decode=...)")
+    def __init__(self, config: ServingConfig, predictor=None, decode=None,
+                 models=None, registry=None):
+        """The predict engine is built from `config.model_dir` (or wraps
+        `predictor`); `decode` is a `DecodeEngine` (the slot named
+        `config.model_id`) or a dict {model_id: DecodeEngine}. A server
+        needs a predict engine or a decode engine."""
+        if models:
+            raise NotImplementedError(
+                "Server(models=...): more predict slots are not ported "
+                "(ROADMAP item 17)")
+        if registry is not None:
+            raise NotImplementedError(
+                "Server(registry=...): the model registry and hot swap "
+                "are not ported (ROADMAP item 17)")
+        if isinstance(decode, dict) and not decode:
+            decode = None
+        if decode is None and predictor is None and \
+                getattr(config, "model_dir", None) is None:
+            raise ValueError("Server needs a model_dir, a predictor or a "
+                             "DecodeEngine (decode=...)")
         self.config = config
+        self._default_id = getattr(config, "model_id", DEFAULT_MODEL)
         decodes = decode if isinstance(decode, dict) \
-            else {DEFAULT_MODEL: decode}
+            else ({self._default_id: decode} if decode is not None else {})
         self._decodes: Dict[str, DecodeEngine] = \
             {str(k): v for k, v in decodes.items()}
         self.decode: Optional[DecodeEngine] = \
-            self._decodes.get(DEFAULT_MODEL)
+            self._decodes.get(self._default_id)
+        self._engine: Optional[Engine] = None \
+            if (config.model_dir is None and predictor is None) \
+            else Engine(config, predictor=predictor)
+        self._batcher: Optional[Batcher] = None
         handler = type("_BoundServingHandler", (_ServingHandler,),
                        {"serving": self})
         self._http = _base.HTTPServerHandle(
@@ -247,13 +353,19 @@ class Server:
         self._started_t: Optional[float] = None
         self._draining = False
 
+    @property
+    def engine(self) -> Optional[Engine]:
+        """The predict engine (None on a decode-only server)."""
+        return self._engine
+
     # -- lifecycle -----------------------------------------------------
 
     def start(self, port: Optional[int] = None) -> int:
         """Warm every engine (when `config.warmup`; before anything
-        binds or starts a thread, as the JAX Server does), bind the
-        listener, then start the decode schedulers. Returns the bound
-        port; a second call returns it unchanged."""
+        binds or starts a thread, as the JAX Server does), start the
+        predict batcher, bind the listener, then start the decode
+        schedulers. Returns the bound port; a second call returns it
+        unchanged."""
         with self._lock:
             if self._started_t is not None:
                 return self._http.port()
@@ -262,35 +374,64 @@ class Server:
                 for dec in self._decodes.values():
                     if not dec.warmed:
                         dec.warmup()
-            bound = self._http.start(
-                self.config.port if port is None else port,
-                host=self.config.host)
+            batcher = None
+            if self._engine is not None:
+                if self.config.warmup:
+                    self._engine.warmup()
+                batcher = self._make_batcher(self._engine, self.config)
+            try:
+                bound = self._http.start(
+                    self.config.port if port is None else port,
+                    host=self.config.host)
+            except BaseException:
+                if batcher is not None:
+                    batcher.stop()  # failed bind must not leak the thread
+                raise
             for dec in self._decodes.values():
                 dec.start()
+            self._batcher = batcher
             self._started_t = time.monotonic()
             import atexit
 
             atexit.register(self.stop)
-            _events.emit("serve_start", port=bound, decode=True,
-                         models=self._model_ids())
+            _events.emit("serve_start", port=bound,
+                         buckets=list(self._engine.policy.buckets)
+                         if self._engine is not None else [],
+                         decode=bool(self._decodes),
+                         models=self._model_ids(),
+                         max_queue=getattr(self.config, "max_queue", None),
+                         max_wait_ms=getattr(self.config, "max_wait_ms",
+                                             None))
             return bound
+
+    def _make_batcher(self, engine: Engine, cfg: ServingConfig) -> Batcher:
+        return Batcher(engine.run_batch, engine.policy,
+                       max_queue=cfg.max_queue, max_wait_ms=cfg.max_wait_ms,
+                       timeout_s=cfg.timeout_s,
+                       output_batched=engine.output_batched)
 
     def drain(self, timeout: float = 30.0):
         """Graceful drain, the fleet's scale-in half-step: the listener
         stays up (the health probe reads "draining", in-flight streams
-        finish) but new generations are rejected with 503 +
-        Retry-After; blocks until every engine emptied or `timeout`
-        passed (one deadline across the engines). Call stop()
-        afterwards. Idempotent."""
+        finish) but new work is rejected with 503 + Retry-After; blocks
+        until pending predict batches and decode generations completed
+        or `timeout` passed (one deadline across the engines). Call
+        stop() afterwards. Idempotent."""
         with self._lock:
             already = self._draining or self._started_t is None
             if not already:
                 self._draining = True
+            batcher = self._batcher
             decodes = list(self._decodes.values())
         if not already:
-            _events.emit("serve_drain", queue_depth=sum(
+            _events.emit("serve_drain", queue_depth=(
+                batcher.depth() if batcher is not None else 0) + sum(
                 d.load()[0] for d in decodes))
         deadline = time.monotonic() + float(timeout)
+        if batcher is not None:
+            # stop() is the drain: no new admissions, pending batches
+            # finish, the thread joins
+            batcher.stop(timeout=max(0.0, deadline - time.monotonic()))
         for dec in decodes:
             dec.drain(timeout_s=max(0.0, deadline - time.monotonic()))
 
@@ -305,7 +446,7 @@ class Server:
 
     def state(self) -> str:
         """One-word serving state for the health probe: "warming" until
-        every engine's phase grid is warm, "serving" while traffic
+        every bucket and phase grid is warm, "serving" while traffic
         flows, "draining" after drain() began, "stopped" before start,
         after stop, or when an engine was stopped underneath us."""
         with self._lock:
@@ -314,16 +455,23 @@ class Server:
             if self._draining:
                 return "draining"
             decodes = list(self._decodes.values())
+            batcher, engine = self._batcher, self._engine
         if any(d._closed for d in decodes):
             return "stopped"
-        if self.config.warmup and any(not d.warmed for d in decodes):
+        if batcher is not None and batcher.draining():
+            return "draining"
+        if self.config.warmup and (
+                (engine is not None and not engine.warmed)
+                or any(not d.warmed for d in decodes)):
             return "warming"
         return "serving"
 
     def load(self) -> Dict:
         """The cheap load probe behind GET /v1/load: queue depth +
-        in-flight generations as one scalar, touching only counters."""
-        depth = inflight = 0
+        in-flight work as one scalar, touching only counters."""
+        batcher = self._batcher
+        depth = batcher.depth() if batcher is not None else 0
+        inflight = batcher.inflight() if batcher is not None else 0
         for dec in self._decodes.values():
             d_wait, d_active = dec.load()
             depth += d_wait
@@ -333,8 +481,9 @@ class Server:
                 "models": self._model_ids()}
 
     def stop(self):
-        """Listener down first, then the decode engines (their waiting
-        and active generations end as cancelled). Idempotent."""
+        """Listener down first, then the batcher drains (its in-flight
+        requests finish) and the decode engines stop (their waiting and
+        active generations end as cancelled). Idempotent."""
         import atexit
 
         with self._lock:
@@ -342,14 +491,24 @@ class Server:
             self._started_t = None
             atexit.unregister(self.stop)
             self._http.stop()
+            if self._batcher is not None:
+                self._batcher.stop()
             for dec in self._decodes.values():
                 dec.stop()
         if started:
-            requests: Dict[str, int] = {}
+            requests: Dict[str, int] = self._counts()
             for dec in self._decodes.values():
                 for k, v in dec.status()["requests"].items():
                     requests[k] = requests.get(k, 0) + v
             _events.emit("serve_stop", requests=requests)
+
+    def _counts(self) -> Dict[str, int]:
+        """The predict batcher's outcome counts (ok, rejected, timeout,
+        error)."""
+        out = {o: 0 for o in ("ok", "rejected", "timeout", "error")}
+        if self._batcher is not None:
+            out.update(self._batcher.outcome_counts())
+        return out
 
     def port(self) -> Optional[int]:
         return self._http.port()
@@ -357,7 +516,10 @@ class Server:
     # -- model slots ---------------------------------------------------
 
     def _model_ids(self):
-        return sorted(self._decodes)
+        ids = set(self._decodes)
+        if self._engine is not None:
+            ids.add(self._default_id)
+        return sorted(ids)
 
     def _decode_for(self, model: Optional[str]) -> Optional[DecodeEngine]:
         if model is None:
@@ -365,25 +527,68 @@ class Server:
         return self._decodes.get(str(model))
 
     def models(self) -> list:
-        """The /v1/models rows: one per model id, with its decode
-        engine's warm state, adopted warmstart phases and model
+        """The /v1/models rows: one per model id, with the predict
+        engine's program digest, warm state and buckets and/or the
+        decode engine's warm state, adopted warmstart phases and model
         digest."""
-        return [{"id": mid, "version": None,
-                 "default": mid == DEFAULT_MODEL, "kind": "decode",
-                 "decode": {"warmed": dec.warmed,
-                            "warmstart_adopted": dec.warmstart_adopted,
-                            "digest": dec._model_digest()}}
-                for mid, dec in sorted(self._decodes.items())]
+        rows = []
+        for mid in self._model_ids():
+            row = {"id": mid, "version": None,
+                   "default": mid == self._default_id}
+            if mid == self._default_id and self._engine is not None:
+                eng = self._engine
+                row.update(kind="predict", digest=eng._model_digest(),
+                           warmed=eng.warmed,
+                           warmstart_adopted=eng.warmstart_adopted,
+                           buckets=[int(b) for b in eng.policy.buckets])
+                if self._batcher is not None:
+                    row["requests"] = self._batcher.outcome_counts()
+            dec = self._decodes.get(mid)
+            if dec is not None:
+                row["decode"] = {"warmed": dec.warmed,
+                                 "warmstart_adopted": dec.warmstart_adopted,
+                                 "digest": dec._model_digest()}
+                row.setdefault("kind", "decode")
+            rows.append(row)
+        return rows
+
+    # -- request path --------------------------------------------------
+
+    def submit(self, feeds: Dict[str, np.ndarray],
+               timeout_s: Optional[float] = None,
+               model: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """In-process entry to the batched predict path (the HTTP
+        handler and embedded deployments share it). `model` names the
+        slot (None = the default)."""
+        if model is not None and str(model) != self._default_id:
+            raise ValueError(f"unknown model {str(model)!r}; serving "
+                             f"{self._model_ids()}")
+        if self._batcher is None:
+            raise ServerClosed("server not started"
+                               if self._engine is not None else
+                               "no predict engine on this server "
+                               "(decode-only deployment)")
+        return self._batcher.submit(feeds, timeout_s=timeout_s)
 
     def status(self) -> Dict:
         up = None if self._started_t is None \
             else round(time.monotonic() - self._started_t, 3)
         probe = self.load()
+        batcher = self._batcher
+        cfg = self.config
         st = {"uptime_s": up, "port": self._http.port(),
               "state": probe["state"], "load": probe["load"],
               "inflight": probe["inflight"],
               "queue_depth": probe["queue_depth"],
+              "max_queue": getattr(cfg, "max_queue", None),
+              "max_wait_ms": getattr(cfg, "max_wait_ms", None),
+              "timeout_s": getattr(cfg, "timeout_s", None),
+              "requests": self._counts(),
               "models": probe["models"]}
+        if batcher is not None:
+            st["queue_depth"] = batcher.depth()
+        if self._engine is not None:
+            st.update(self._engine.status())
         if self.decode is not None:
             st["decode"] = self.decode.status()
         for mid, dec in self._decodes.items():

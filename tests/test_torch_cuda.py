@@ -31,8 +31,10 @@ bit for bit, every decode step a replay, the same for a KV-reuse engine
 capture that fails raises. Training under each recompute policy equals no recompute bit
 for bit on a narrow BERT with K1 (K1-fwd run again in the recompute),
 a TrainState checkpoint restores onto its template's device, cuda
-or cpu, whichever device wrote it, and the fluid path's LeNet rung
-takes one Adam step on `CUDAPlace(0)` as on `CPUPlace()`.
+or cpu, whichever device wrote it, the fluid path's LeNet rung
+takes one Adam step on `CUDAPlace(0)` as on `CPUPlace()`, the int8
+product (`ops/int8.py`, on `torch._int_mm`) is exact on the card, and
+int8 weights are laid out at load and run under inference mode.
 
 Tolerances of the training shapes hold every element:
 |got - want| <= rtol |want| + atol rms(want), with rtol one rounding
@@ -1154,6 +1156,108 @@ def test_warmed_reuse_engine_tokens_equal_unwarmed(precision):
         assert (runs["replayed"] > 0) == (kind != "decode"), kind
         assert eager_st["phase_runs"][kind] == {
             "replayed": 0, "eager": runs["replayed"]}, kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(5, 27, 64), (196, 4608, 512),
+                                   (12544, 147, 64), (50176, 27, 64)])
+def test_int8_matmul_on_the_card_is_exact(M, K, N):
+    """int8_matmul (torch._int_mm, zero-padded where its rules need it)
+    equals the plain product exactly, at an M below 17 and at VGG-16's
+    and ResNet-50's padded K 27 and 147; and an int8 conv with its
+    weight operand kept on the weight equals it again."""
+    _need_card()
+    from paddle_tpu_torch.ops import int8
+
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                      dtype=torch.int8)
+    want = (a.double() @ b.double()).to(torch.int32)
+    assert torch.equal(int8.int8_matmul(a, b), want)
+    x = torch.randint(-127, 128, (2, 9, 9, 3), generator=g, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, 3, 16), generator=g, device="cuda",
+                      dtype=torch.int8)
+    first = int8.conv2d_int8(x, w, 2, "SAME")
+    assert torch.equal(int8.conv2d_int8(x, w, 2, "SAME"), first)
+    assert getattr(w, "_int8_operands") is not None
+    cpu = int8.conv2d_int8(x.cpu(), w.cpu(), 2, "SAME")
+    assert torch.equal(first.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_int8_weights_are_laid_out_at_load_under_inference_mode(tmp_path):
+    """int8 weights made and run inside `torch.inference_mode()` (an
+    inference tensor keeps no version count). `quantize_conv_weights_int8`
+    lays out each weight's operand as it makes the weight, and the conv
+    equals the CPU's bit for bit (the activation's scale and rounding
+    are exact on both). The LeNet rung, trained and calibrated on the
+    CPU: a Predictor on the card loads its state inside inference mode,
+    lays out its int8 ops' weights there, keeps them through requests,
+    and replies as the CPU Predictor does within 1e-3 of the largest
+    logit (an activation on a rounding boundary may move one int8 step,
+    as between the packages in tests/test_torch_predict.py)."""
+    _need_card()
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from chip_smoke import (lenet_rung_logits, lenet_rung_program,
+                            synthetic_mnist)
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models.common import (conv2d_nhwc_auto,
+                                                quantize_conv_weights_int8)
+    from paddle_tpu_torch.slim.quantization import calibrate_and_quantize
+
+    kept = "_int8_operands"
+    g = torch.Generator(device="cuda").manual_seed(15)
+    with torch.inference_mode():
+        w = torch.randn((3, 3, 16, 32), generator=g, device="cuda")
+        x = torch.randn((2, 14, 14, 16), generator=g, device="cuda")
+        q = quantize_conv_weights_int8({"c.w": w})
+        assert q["c.w"].is_inference()
+        laid = getattr(q["c.w"], kept)
+        got = conv2d_nhwc_auto(q, "c", x, 2)
+        assert getattr(q["c.w"], kept) is laid
+    cpu = conv2d_nhwc_auto({k: v.cpu() for k, v in q.items()}, "c",
+                           x.cpu(), 2)
+    assert torch.equal(got.cpu(), cpu)
+
+    main, startup, loss = lenet_rung_program(pt)
+    exe = pt.Executor(pt.CPUPlace())
+    xs, ys = synthetic_mnist(64, seed=1)
+    src, dst = str(tmp_path / "f32"), str(tmp_path / "int8")
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        for _ in range(3):
+            exe.run(main, feed={"x": xs, "y": ys}, fetch_list=[loss])
+        pt.io.save_inference_model(src, ["x"], [lenet_rung_logits(main)],
+                                   exe, main_program=main)
+    calibrate_and_quantize(
+        src, lambda: iter([{"x": xs[i:i + 16]} for i in range(0, 64, 16)]),
+        save_model_path=dst, place=pt.CPUPlace())
+    cfg = AnalysisConfig(dst)
+    cfg.disable_gpu()
+    want = create_paddle_predictor(cfg).predict(x=xs[:8])
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pred = create_paddle_predictor(AnalysisConfig(dst))
+        with torch.inference_mode():
+            state = pred._program_state()
+            int8_w = {n: t for n, t in state.items()
+                      if t.dtype == torch.int8}
+            assert len(int8_w) >= 2
+            laid = {n: getattr(t, kept) for n, t in int8_w.items()}
+            got = pred.predict(x=xs[:8])
+            got = pred.predict(x=xs[:8])
+        assert all(getattr(t, kept) is laid[n] for n, t in int8_w.items())
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    for name, v in want.items():
+        assert np.abs(got[name] - v).max() <= 1e-3 * np.abs(v).max()
 
 
 @pytest.mark.cuda

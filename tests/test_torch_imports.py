@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
     # the training, NMT, ResNet, sequence-parallel, resilience, fluid,
-    # KV-reuse and pipeline slices' modules are among those imported
+    # KV-reuse, pipeline and inference slices' modules are among those
+    # imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
@@ -63,7 +64,17 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.models.lenet",
                  "paddle_tpu_torch.serving.kv_reuse",
                  "paddle_tpu_torch.parallel.pipeline",
-                 "paddle_tpu_torch.observability.telemetry"):
+                 "paddle_tpu_torch.observability.telemetry",
+                 "paddle_tpu_torch.ops.int8",
+                 "paddle_tpu_torch.ops.quant",
+                 "paddle_tpu_torch.models.vgg",
+                 "paddle_tpu_torch.io",
+                 "paddle_tpu_torch.inference",
+                 "paddle_tpu_torch.analysis.passes",
+                 "paddle_tpu_torch.slim.quantization",
+                 "paddle_tpu_torch.serving.bucketing",
+                 "paddle_tpu_torch.serving.batcher",
+                 "paddle_tpu_torch.serving.engine"):
         assert name in r.stdout.split(), name
 
 
@@ -190,3 +201,59 @@ def test_kv_reuse_copy_differs_only_by_its_declared_changes():
         assert src.count(old) == 1, old
         src = src.replace(old, new)
     assert "".join(lines[3:]) == src
+
+
+def _copy_and_source(rel, header_lines):
+    with open(os.path.join(_PKG, rel)) as f:
+        lines = f.read().splitlines(keepends=True)
+    assert f"paddle_tpu/{rel}" in lines[0]
+    with open(os.path.join(_REPO, "paddle_tpu", rel)) as f:
+        return "".join(lines[header_lines:]), f.read()
+
+
+def test_bucketing_copy_matches_its_source():
+    body, src = _copy_and_source("serving/bucketing.py", 2)
+    assert body == src
+
+
+def reword_lines(src, lines):
+    """`src` with each numbered line (1-based) replaced by its new text:
+    the copies reword a few lines of their sources, named by line so a
+    moved or edited source line fails the drift test."""
+    out = src.splitlines(keepends=True)
+    for n, new in lines.items():
+        assert out[n - 1] != new + "\n", n
+        out[n - 1] = new + "\n"
+    return "".join(out)
+
+
+# slim/quantization.py, copied with declared changes: calibration runs
+# on a `place` argument (the card by default) where the source
+# calibrates on the CPU, and two comment lines are reworded (the
+# source's lines 27 and 74).
+SLIM_REWORDED = {
+    27: "# Calibration/quantization visibility: the passes",
+    74: '    """reference: contrib/slim post-training quantizer. Weight-only:'}
+SLIM_CHANGES = [
+    ("    from ..core.places import CPUPlace\n",
+     "    from ..core.places import default_place\n"),
+    ("""                           quantizable_op_type: Optional[Sequence[str]] = None
+                           ) -> Dict[str, float]:""",
+     """                           quantizable_op_type: Optional[Sequence[str]] = None,
+                           place=None) -> Dict[str, float]:"""),
+    ("""    int8 gemm/conv kernels. Returns {activation_var: scale}.\"\"\"""",
+     """    int8 gemm/conv kernels. Returns {activation_var: scale}.
+
+    Calibration runs on `place`, CUDAPlace(0) when None.\"\"\""""),
+    ("    exe = Executor(CPUPlace())",
+     "    exe = Executor(place if place is not None else default_place())"),
+]
+
+
+def test_slim_quantization_copy_differs_only_by_its_declared_changes():
+    body, src = _copy_and_source("slim/quantization.py", 5)
+    src = reword_lines(src, SLIM_REWORDED)
+    for old, new in SLIM_CHANGES:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert body == src

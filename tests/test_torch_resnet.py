@@ -218,10 +218,14 @@ def test_conv_keeps_nhwc_contiguous_and_refuses_int8():
     assert y.shape == (2, 8, 8, 4) and y.is_contiguous()
     y1 = tcommon.conv2d_nhwc(x, torch.randn(1, 1, 8, 4), 1)
     assert y1.is_contiguous()
-    with pytest.raises(NotImplementedError, match="int8"):
-        tcommon.conv2d_nhwc_auto({"c.w": torch.zeros(1, 1, 8, 4,
-                                                     dtype=torch.int8)},
-                                 "c", x)
+    # int8 weights take the int8 path, which needs the weight's
+    # per-channel scales: without them the conv refuses the weight
+    wq = torch.zeros(1, 1, 8, 4, dtype=torch.int8)
+    with pytest.raises(KeyError, match="c.w@scale"):
+        tcommon.conv2d_nhwc_auto({"c.w": wq}, "c", x)
+    yq = tcommon.conv2d_nhwc_auto({"c.w": wq, "c.w@scale": torch.ones(4)},
+                                  "c", x, 2)
+    assert yq.shape == (2, 8, 8, 4) and yq.dtype == x.dtype
 
 
 def _grad_ratio(got, want, tol):
