@@ -97,7 +97,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 18. head-dim-gate: two mixed_bf16 train steps of `BertConfig.tiny()`
    (head dim 16) on the card, every attention call on mha's "xla"
    route, no attention kernel launched;
-19. resilience: BERT-base at 256 x 128 (phase 7's params, dropout off,
+19. resilience: BERT-base's widths at 4 layers (depth cut to keep the
+   checkpoints' writes short), 256 x 128 (dropout off,
    mixed_bf16, AdamW) through `train_loop` with a CheckpointManager
    (save_every 2, keep_last_n 2): 6 steps uninterrupted, twice (their
    difference is the limit below: 0 when the card repeats a run bit for
@@ -110,8 +111,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    recompute and under recompute policy None, "nothing", "dots" and
    "dots_no_batch" from the same state and batch: the loss and every
    gradient against no recompute's within that step's own repeat
-   difference, K1-fwd (LSE) 12 launches without recompute and 24 under
-   every policy (dq, dkv and the delta folds 12), no `delta_kernel` in
+   difference, K1-fwd (LSE) one launch a layer without recompute and two
+   under every policy (dq, dkv and the delta folds one), no `delta_kernel` in
    a traced step, each step's ms and peak memory printed;
 20. fluid: the fluid Program path (Program, op registry with its generic
    gradient, Executor) on `CUDAPlace(0)`, no kernel of its own: (a)
@@ -193,7 +194,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    test_slim's 0.15) and `accuracy_delta`, batches per bucket, pad
    rows, p50/p99 latency (nearest rank), requests/s and rows/s; each
    Predictor's signature cache holds only the 7 bucket signatures
-   afterwards.
+   afterwards;
+25. dp-tp: data and tensor parallelism on in-process rings (the JAX
+   package's graft paths 1-4; every mesh's virtual ranks on the one
+   card, so no byte moves between ranks). (a) BERT-base at f32 (TF32
+   off, dropout off): 256 x 128 under MeshConfig(dp=2) and (dp=2,
+   tp=2), 128 x 256 under (dp=2, tp=2, sp=2), each the loss and every
+   gradient against no mesh at phase 6's limits, `mha` on
+   "splash_shardmap" (K1 once per (dp, tp) rank) or "ring_splash" (K3
+   per block); then each mesh's timed steps under mixed_bf16; a padded
+   attention call under tp=2 (K2 once per tp rank) against no mesh;
+   (b) ResNet-50 at 256 x 224^2, f32, unfused, one SGD step at dp=4
+   (sync BN) against no mesh: the loss within 1e-3 relative, the BN
+   running stats it writes; then timed steps at bf16 activations;
+   (c) GPT-2-small at 8 x 1024 in 4 microbatches under pp=2 tp=2 dp=2:
+   the pipelined loss within 5e-2 + 1e-3 |ref| of no mesh, then timed
+   steps; (d) phase 22's configurations under pp=2 ep=2 dp=2: the
+   2-layer f32 gate card against CPU, then the full GPT-MoE timed.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -206,11 +223,14 @@ beside cuBLAS's bare product), at f32, f16 and f64, at a ragged (1000, 72, 40),
 with the ReLU off and at (1000, 70, 36), whose K and N TMA cannot read
 in place (the padded route); and K3 (the ring's block, K1-fwd with its LSE
 at scale 1 on a pre-scaled q) at phase 17's block (8 x 1024 x 12 heads,
-bf16), at f32 and at f16.
+bf16), at f32 and at f16, and at phase 25's per-rank block (64 x 128 x
+6 heads, bf16, timed). K1's training cases include phase 25's per-rank
+blocks of BERT-base 256 x 128 at dp=2 (128 x 128 x 12) and at dp=2
+tp=2 (128 x 128 x 6), timed.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phases 3 and 21 for serving, phases 7, 8, 10, 12, 15, 17
-and 22 (b) for training, phase 11 for beam search, phase 13 for the
+read just after (phases 3 and 21 for serving, phases 7, 8, 10, 12, 15, 17,
+22 (b) and 25's timed runs for training, phase 11 for beam search, phase 13 for the
 bottleneck, phase 19's first uninterrupted `train_loop` run).
 The last line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its numbers. Exits non-zero without a CUDA
@@ -405,8 +425,11 @@ ATTN_F16_TOL = (2 ** -10, 3e-3)
 # and 1 (causal T 1024 at B 1), then f32 and f16 at one shape each, 16
 # heads of 128 (causal) and a ragged T at f16, and last the main path's
 # GPT-MoE microbatch (phase 22: 2 x 1024, pp=2 with 4 microbatches),
-# drawn after the others so that they keep their inputs. The gradients
-# are held under ELEM_TOL, or under the limit the case names.
+# drawn after the others so that they keep their inputs, then phase
+# 25's per-rank blocks of BERT-base 256 x 128 under dp=2 and under
+# dp=2 tp=2 (GPT's per-rank block under dp=2 in the pipeline is
+# "gpt1"). The gradients are held under ELEM_TOL, or under the limit
+# the case names.
 TRAIN_KERNEL_CASES = (
     ("bert", 256, 128, 12, 64, False, "bfloat16", True, None),
     ("bert512", 32, 512, 12, 64, False, "bfloat16", True, None),
@@ -417,7 +440,9 @@ TRAIN_KERNEL_CASES = (
     ("f16", 4, 128, 12, 64, False, "float16", False, None),
     ("h128", 2, 1024, 16, 128, True, "bfloat16", False, None),
     ("ragged_f16", 2, 300, 12, 64, False, "float16", False, ATTN_F16_TOL),
-    ("gpt_moe_mb", 2, 1024, 12, 64, True, "bfloat16", True, None))
+    ("gpt_moe_mb", 2, 1024, 12, 64, True, "bfloat16", True, None),
+    ("bert_dp2", 128, 128, 12, 64, False, "bfloat16", True, None),
+    ("bert_dp2tp2", 128, 128, 6, 64, False, "bfloat16", True, None))
 
 
 def held(got, want, dname, tol=None):
@@ -1009,8 +1034,13 @@ def _k2_kernel_rows():
 # "ring" is phase 17's block, BERT-base at T 4096 over an sp=4 ring
 # (1024 queries against 1024 keys, bf16, q pre-scaled); then one f32
 # and one f16 shape. The first is timed.
-K3_KERNEL_CASES = (("ring", 8, 1024, "bfloat16"), ("f32", 2, 512, "float32"),
-                   ("f16", 4, 1024, "float16"))
+# K3: (label, B, T, N, dtype); "ring" is phase 17's block (timed),
+# "dp2tp2sp2" phase 25's per-rank block (BERT-base 128 x 256 under
+# dp=2 tp=2 sp=2: [128 / 2, 256 / 2, 12 / 2, 64]).
+K3_KERNEL_CASES = (("ring", 8, 1024, 12, "bfloat16"),
+                   ("f32", 2, 512, 12, "float32"),
+                   ("f16", 4, 1024, 12, "float16"),
+                   ("dp2tp2sp2", 64, 128, 6, "bfloat16"))
 
 
 def _k3_kernel_row():
@@ -1023,9 +1053,9 @@ def _k3_kernel_row():
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     checks, failed, timing = [], [], None
-    for label, B, T, dname in K3_KERNEL_CASES:
+    for label, B, T, N, dname in K3_KERNEL_CASES:
         dtype = getattr(torch, dname)
-        q, k, v = (torch.randn(B, T, 12, 64, generator=gen, device="cuda")
+        q, k, v = (torch.randn(B, T, N, 64, generator=gen, device="cuda")
                    .to(dtype) for _ in range(3))
         q = q * torch.tensor(0.125, dtype=dtype)   # pre-scaled, as the ring
         out, lse = fa.splash_block_with_lse(q, k, v)
@@ -1033,18 +1063,18 @@ def _k3_kernel_row():
         ref_out, ref_lse = fa.splash_block_with_lse_ref(q, k, v)
         err = held(out, ref_out, dname)
         lse_err = (lse - ref_lse).abs().max().item()
-        checks.append({"case": label, "shape": [B, T, 12, 64],
+        checks.append({"case": label, "shape": [B, T, N, 64],
                        "dtype": dname, "tol": ELEM_TOL[dname],
                        "lse_max_abs_err": lse_err, "held": {"out": err}})
         if not err["ratio"] <= 1.0:
             failed.append(f"K3 {label} out: {err}")
         if not lse_err <= 1e-4:
             failed.append(f"K3 {label} lse: max abs error {lse_err} > 1e-4")
-        if label == "ring":
+        if label in ("ring", "dp2tp2sp2"):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             bound, bound_by = attention_bound_ms(q, k, False, 2, 4, 1)
-            timing = {
-                "shape": [B, T, 12, 64], "dtype": dname,
+            timed = {
+                "shape": [B, T, N, 64], "dtype": dname,
                 "ms": time_ms(lambda: fa.splash_block_with_lse(q, k, v)),
                 "plain_ms": time_ms(
                     lambda: fa.splash_block_with_lse_ref(q, k, v)),
@@ -1052,6 +1082,10 @@ def _k3_kernel_row():
                     qt, kt, vt, scale=1.0)),
                 "bound_ms": bound, "bound_by": bound_by,
                 "max_abs_err": err["max_abs_err"]}
+            if label == "ring":
+                timing = timed
+            else:
+                checks[-1]["timed"] = timed
     return {"name": "splash_block_with_lse",
             "replaces": "K3 attention.py:_splash_block_with_lse (ring block)",
             "checks": checks, **timing}, failed
@@ -1754,17 +1788,10 @@ def _hold_train_step(label, got, want, params):
     first step moves each element by about lr times the sign of its
     gradient, so a gradient near zero may move the other way), and at
     most 0.1% of the elements more than 1e-6 apart."""
-    lc, lp = got["loss"], want["loss"]
     slc, slp = got["step_loss"], want["step_loss"]
-    check(abs(lc - lp) <= 1e-5 * abs(lp) and abs(slc - slp) <= 1e-5 * abs(slp),
-          f"{label} loss {lc} vs {lp}")
-    gc, gp = got["grads"], want["grads"]
-    grad_err = sorted((((gc[k] - gp[k]).abs().max() /
-                        (2e-4 * gp[k].abs().max() + 1e-7)).item(), k,
-                       gp[k].abs().max().item()) for k in gp)[::-1]
-    check(grad_err[0][0] <= 1.0,
-          f"{label} grads: worst (error / tolerance, name, largest "
-          f"reference value) {grad_err[:3]}")
+    check(abs(slc - slp) <= 1e-5 * abs(slp),
+          f"{label} step loss {slc} vs {slp}")
+    held_grads = _hold_loss_grads(label, got, want)
     upd_err, n_far, n_all = 0.0, 0, 0
     for k, p0 in params.items():
         d = ((got["params"][k] - p0) - (want["params"][k] - p0)).abs()
@@ -1774,10 +1801,27 @@ def _hold_train_step(label, got, want, params):
     check(upd_err <= 2 * LR and n_far <= 1e-3 * n_all,
           f"{label} params: max update difference {upd_err}, "
           f"{n_far} of {n_all} elements more than 1e-6 apart")
-    return {"loss_got": lc, "loss_want": lp,
-            "grad_err_over_tol_worst3": grad_err[:3],
+    return {**held_grads,
             "param_update_max_abs_err": upd_err,
             "param_elements_apart": n_far, "param_elements": n_all}
+
+
+def _hold_loss_grads(label, got, want):
+    """`got`'s loss and gradients against `want`'s at
+    `_hold_train_step`'s f32 limits: loss within 1e-5 relative, each
+    gradient within 2e-4 of its tensor's largest `want` value plus
+    1e-7."""
+    lc, lp = got["loss"], want["loss"]
+    check(abs(lc - lp) <= 1e-5 * abs(lp), f"{label} loss {lc} vs {lp}")
+    gc, gp = got["grads"], want["grads"]
+    grad_err = sorted((((gc[k] - gp[k]).abs().max() /
+                        (2e-4 * gp[k].abs().max() + 1e-7)).item(), k,
+                       gp[k].abs().max().item()) for k in gp)[::-1]
+    check(grad_err[0][0] <= 1.0,
+          f"{label} grads: worst (error / tolerance, name, largest "
+          f"reference value) {grad_err[:3]}")
+    return {"loss_got": lc, "loss_want": lp,
+            "grad_err_over_tol_worst3": grad_err[:3]}
 
 
 def _profiled_step(run):
@@ -1805,7 +1849,8 @@ def _profiled_step(run):
 
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
                steps, per_step, optimizer=None, precision="mixed_bf16",
-               has_aux=False, trace_ok=None, after=None):
+               has_aux=False, trace_ok=None, after=None, mesh=None,
+               param_axes=None):
     """`warmup` + `steps` steps on one fixed batch (AdamW and mixed_bf16
     unless given; `has_aux` for a loss_fn that also returns state
     updates); the kernels' counts are set to 0 just before the
@@ -1821,14 +1866,16 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     `per_step` names no standalone delta launch (the bf16 paths, whose
     dq kernels fold the delta pass in), a traced step that shows a
     `delta_kernel` record fails. `after(step, state, batch)`, run last,
-    returns more entries for the row."""
+    returns more entries for the row. `mesh` and `param_axes` go to
+    make_train_step (in-process rings on the card)."""
     import torch
 
     from paddle_tpu_torch.parallel.train import make_train_step
 
     init, step = make_train_step(loss_fn, optimizer or _adamw,
                                  device="cuda", precision=precision,
-                                 has_aux=has_aux)
+                                 has_aux=has_aux, mesh=mesh,
+                                 param_axes=param_axes)
     state = init(params)
     del params
     n = next(iter(batch.values())).shape[0]
@@ -2729,8 +2776,11 @@ def phase_head_dim_gate():
                       "xla_calls": routed, "launches": counts}))
 
 
-# phase 19: BERT-base at phase 7's first shape through train_loop
+# phase 19: BERT-base's widths at phase 7's first shape through
+# train_loop, at RESILIENCE_LAYERS layers: the checkpoints' writes are
+# most of the phase, and their size goes with the depth
 RESILIENCE_STEPS = 6
+RESILIENCE_LAYERS = 4
 RESILIENCE_B, RESILIENCE_T = 256, 128
 # one step each: no recompute, then recompute under each policy
 RECOMPUTE_RUNS = ("none", None, "nothing", "dots", "dots_no_batch")
@@ -2740,14 +2790,15 @@ CRASH_CHILD = ("import sys, chip_smoke; "
 
 
 def _resilience_model():
-    """BERT-base (phase 7's params, seed 0) with dropout off: its
-    layers, params, batch_fn(step) (256 x 128 batches from numpy seed
-    1000 + step, None from RESILIENCE_STEPS on) and loss_fn."""
+    """BERT-base's widths at RESILIENCE_LAYERS layers (params from seed
+    0) with dropout off: its layers, params, batch_fn(step) (256 x 128
+    batches from numpy seed 1000 + step, None from RESILIENCE_STEPS on)
+    and loss_fn."""
     import torch
 
     from paddle_tpu_torch.models import bert
 
-    cfg = bert.BertConfig.base()
+    cfg = bert.BertConfig(layers=RESILIENCE_LAYERS)
     params, _ = bert.init(torch.Generator(device="cuda").manual_seed(0),
                           cfg, device="cuda")
 
@@ -2883,8 +2934,9 @@ def _recompute_runs(layers, params, batch, loss_fn):
 
 
 def phase_resilience():
-    """BERT-base at 256 x 128 (phase 7's params, dropout off,
-    mixed_bf16, AdamW) through `train_loop` with a CheckpointManager:
+    """BERT-base's widths at RESILIENCE_LAYERS layers, 256 x 128
+    (dropout off, mixed_bf16, AdamW) through `train_loop` with a
+    CheckpointManager:
     (a) 6 steps uninterrupted, twice (the second gives the limit the
     resumed runs are held to: 0 when the card repeats the run bit for
     bit); (b) from the same params under PADDLE_TPU_FAULT_SPEC
@@ -2986,7 +3038,7 @@ def phase_resilience():
                                                  batch_fn(0), loss_fn)
     print(json.dumps({
         "phase": "resilience", "card": card(),
-        "model": "BERT-base (BertConfig.base()), mixed_bf16, dropout off",
+        "model": f"BertConfig(layers={layers}), mixed_bf16, dropout off",
         "optimizer": "AdamW lr 1e-4 wd 1e-4",
         "batch": [RESILIENCE_B, RESILIENCE_T], "steps": RESILIENCE_STEPS,
         "checkpoints": "save_every 2, keep_last_n 2",
@@ -3597,15 +3649,16 @@ MOE_EXPERTS = 8
 MOE_MICRO = 4
 
 
-def _moe_mesh(dev):
-    """MeshConfig(pp=2, ep=2): a pp ring and an ep ring of two virtual
-    ranks each, four in all, on `dev` (what one card can show of them)."""
+def _moe_mesh(dev, dp=1):
+    """MeshConfig(pp=2, ep=2, dp=dp): a pp ring and an ep ring of two
+    virtual ranks each (and a dp ring), 4 * dp in all, on `dev` (what
+    one card can show of them)."""
     import torch
 
     from paddle_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
-    return make_mesh(MeshConfig(dp=1, **MOE_MESH),
-                     devices=[torch.device(dev)] * 4)
+    return make_mesh(MeshConfig(dp=dp, **MOE_MESH),
+                     devices=[torch.device(dev)] * (4 * dp))
 
 
 class _RoutingTap:
@@ -3663,7 +3716,7 @@ def _dropped_share(calls, layers):
             for l in range(layers)]
 
 
-def _moe_routes(params, cfg, batch, dev, n_micro):
+def _moe_routes(params, cfg, batch, dev, n_micro, dp=1):
     """The routing of one forward of `gpt.lm_loss` on `dev` under the
     MoE mesh (`_RoutingTap.calls`, in call order)."""
     import torch
@@ -3672,22 +3725,24 @@ def _moe_routes(params, cfg, batch, dev, n_micro):
     from paddle_tpu_torch.parallel.mesh import mesh_guard
 
     p = {k: v.to(dev) for k, v in params.items()}
-    with torch.no_grad(), mesh_guard(_moe_mesh(dev)), \
+    with torch.no_grad(), mesh_guard(_moe_mesh(dev, dp)), \
             _RoutingTap(p["blk.router"]) as tap:
         gpt.lm_loss(p, cfg, {k: v.to(dev) for k, v in batch.items()},
                     n_microbatches=n_micro)
     return tap.calls
 
 
-def _moe_parity():
+def _moe_parity(dp=1):
     """Phase 22 (a): a 2-layer GPT at GPT-2-small's widths with 8
     experts, f32 (TF32 off), 4 x 128 tokens, 2 microbatches under
-    MeshConfig(pp=2, ep=2): the card (K1's f32 kernels) against the CPU
-    (plain versions) from the same params and batch, the routing first
-    (every token's expert in every layer and microbatch equal), then
-    the loss, every gradient and one AdamW step at `_hold_train_step`'s
-    limits (phase 16's); then the card's pp+ep step against the mean of
-    the microbatches' losses run one by one with no mesh on the card."""
+    MeshConfig(pp=2, ep=2, dp=dp): the card (K1's f32 kernels) against
+    the CPU (plain versions) from the same params and batch, the routing
+    first (every token's expert in every layer and microbatch equal),
+    then the loss, every gradient and one AdamW step at
+    `_hold_train_step`'s limits (phase 16's); then, with dp 1, the
+    card's pp+ep step against the mean of the microbatches' losses run
+    one by one with no mesh on the card (under dp a stage's capacity is
+    a dp shard's, which the loop does not split)."""
     import torch
 
     from paddle_tpu_torch.models import gpt
@@ -3699,13 +3754,13 @@ def _moe_parity():
     B, T, n_micro = 4, 128, 2
     batch = {"ids": torch.from_numpy(np.random.RandomState(22).randint(
         0, cfg.vocab_size, (B, T + 1)))}
-    routes = {dev: _moe_routes(params, cfg, batch, dev, n_micro)
+    routes = {dev: _moe_routes(params, cfg, batch, dev, n_micro, dp)
               for dev in ("cuda", "cpu")}
     flips = sum(int((a["idx"] != b["idx"]).sum())
                 for a, b in zip(routes["cuda"], routes["cpu"]))
     gap = min(c["gap"] for c in routes["cpu"])
-    check(len(routes["cuda"]) == len(routes["cpu"]) == cfg.layers * n_micro
-          and [c["layer"] for c in routes["cuda"]] ==
+    check(len(routes["cuda"]) == len(routes["cpu"]) ==
+          cfg.layers * n_micro * dp and [c["layer"] for c in routes["cuda"]] ==
           [c["layer"] for c in routes["cpu"]] and flips == 0,
           f"gpt-moe parity: {flips} tokens routed otherwise on the card "
           f"(smallest top-2 gap {gap})")
@@ -3720,27 +3775,29 @@ def _moe_parity():
 
     runs = {}
     for dev in ("cuda", "cpu"):
-        with mesh_guard(_moe_mesh(dev)):
+        with mesh_guard(_moe_mesh(dev, dp)):
             runs[dev] = _one_train_step(loss_fn, params, batch, dev)
-    runs["loop"] = _one_train_step(loop_fn, params, batch, "cuda")
     kc = runs["cuda"]["counts"]
     # f32: K1's FMA dq takes delta from the standalone launch
-    want = {**dict.fromkeys(K1_TRAIN, cfg.layers * n_micro),
-            DELTA: cfg.layers * n_micro}
+    calls = cfg.layers * n_micro * dp
+    want = {**dict.fromkeys(K1_TRAIN, calls), DELTA: calls}
     check(all(n == want.get(name, 0) for name, n in kc.items()),
           f"gpt-moe parity: the CUDA step ran {kc} launches")
-    return {
+    out = {
         "model": f"GPTConfig(layers=2, n_experts={MOE_EXPERTS}), f32, "
                  f"{B} x {T}, n_microbatches={n_micro}",
-        "mesh": MOE_MESH, "routed_tokens": B * T * cfg.layers,
+        "mesh": {**MOE_MESH, "dp": dp}, "routed_tokens": B * T * cfg.layers,
         "routing_flips": flips, "smallest_top2_gap": gap,
         "capacity": routes["cpu"][0]["capacity"],
         "dropped_share_cpu": _dropped_share(routes["cpu"], cfg.layers),
         "launches": kc,
         "card_vs_cpu": _hold_train_step("gpt-moe card vs CPU", runs["cuda"],
-                                        runs["cpu"], params),
-        "pp_ep_vs_microbatch_loop": _hold_train_step(
-            "gpt-moe pp+ep vs loop", runs["cuda"], runs["loop"], params)}
+                                        runs["cpu"], params)}
+    if dp == 1:
+        runs["loop"] = _one_train_step(loop_fn, params, batch, "cuda")
+        out["pp_ep_vs_microbatch_loop"] = _hold_train_step(
+            "gpt-moe pp+ep vs loop", runs["cuda"], runs["loop"], params)
+    return out
 
 
 def _moe_einsum_ms(step, state, batch, ec):
@@ -3770,12 +3827,13 @@ def _moe_einsum_ms(step, state, batch, ec):
             "profiled_kernels_device_ms": total}
 
 
-def _moe_train(cfg, params, batch, n_micro):
-    """Phase 22 (b): `_train_run` of `cfg` under the MoE mesh with
-    `n_micro` microbatches (with no mesh when 0); after the timed steps,
-    the dispatch and combine einsums' device ms in one profiled step
-    and the share of each layer's tokens dropped at capacity in one
-    forward of the trained params."""
+def _moe_train(cfg, params, batch, n_micro, dp=1, warmup=2, steps=10,
+               details=True):
+    """Phase 22 (b): `_train_run` of `cfg` under the MoE mesh (with
+    `dp`) with `n_micro` microbatches (with no mesh when 0); after the
+    timed steps, with `details`, the dispatch and combine einsums'
+    device ms in one profiled step and the share of each layer's tokens
+    dropped at capacity in one forward of the trained params."""
     import contextlib
 
     import torch
@@ -3784,11 +3842,11 @@ def _moe_train(cfg, params, batch, n_micro):
     from paddle_tpu_torch.parallel.mesh import mesh_guard
 
     B, T = batch["ids"].shape[0], batch["ids"].shape[1] - 1
-    G = B * T // max(n_micro, 1)
+    G = B * T // max(n_micro, 1) // dp
     C = max(1, int(cfg.capacity_factor * G / cfg.n_experts))
 
     def guard():
-        return mesh_guard(_moe_mesh("cuda")) if n_micro else \
+        return mesh_guard(_moe_mesh("cuda", dp)) if n_micro else \
             contextlib.nullcontext()
 
     def loss_fn(p, b, g):
@@ -3803,13 +3861,13 @@ def _moe_train(cfg, params, batch, n_micro):
                                                          cfg.layers))
         return out
 
-    label = (f"gpt-moe {B}x{T} pp=2 ep=2 n_micro={n_micro}" if n_micro
-             else f"gpt-moe {B}x{T} no mesh")
+    label = (f"gpt-moe {B}x{T} pp=2 ep=2" + (f" dp={dp}" if dp > 1 else "")
+             + f" n_micro={n_micro}" if n_micro else f"gpt-moe {B}x{T} no mesh")
     with guard():
         return _train_run(label, loss_fn, params, batch,
-                          cfg.train_flops_per_token(T) * T, 2, 10,
-                          k1_per_step(cfg.layers * max(n_micro, 1)),
-                          after=after)
+                          cfg.train_flops_per_token(T) * T, warmup, steps,
+                          k1_per_step(cfg.layers * max(n_micro, 1) * dp),
+                          after=after if details else None)
 
 
 def phase_gpt_moe():
@@ -3857,6 +3915,313 @@ def phase_gpt_moe():
         rows[1]["step_ms_median"],
         "runs": rows, "seconds": time.perf_counter() - t0}))
     return launches
+
+
+# Phase 25: data and tensor parallelism on in-process rings (the JAX
+# package's graft paths 1-4). Each mesh runs its virtual ranks on the
+# one card, so no byte moves between ranks: the phase proves the split
+# computations against no mesh and times them, and claims nothing about
+# communication or scaling.
+DPTP_BERT = ((dict(dp=2), 256, 128), (dict(dp=2, tp=2), 256, 128),
+             (dict(dp=2, tp=2, sp=2), 128, 256))
+# ResNet-50 at f32: the dp=4 step-0 loss against no mesh within
+# `__graft_entry__.py`'s 1e-3 relative; each BN running statistic the
+# step writes within rtol |want| + atol max|want| of its tensor. f32
+# sums over a channel's 0.8-3.2M elements, grouped by rank, move every
+# later layer's input by f32 noise: 1.18e-5 relative plus 1.2e-6 of the
+# tensor's largest value at the worst element (g3.b2.bn2.mean) in the
+# first run on an H100; the limit is ten times that. The phase also
+# reads unsynced statistics (rank 0's, from its quarter of the batch)
+# at this limit, and fails unless they miss it.
+DPTP_RESNET_TOL = {"loss": 1e-3, "bn": (1e-4, 1e-5)}
+
+
+def _mesh(dev="cuda", **axes):
+    import torch
+
+    from paddle_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    n = math.prod(axes.values())
+    return make_mesh(MeshConfig(**{"dp": 1, **axes}),
+                     devices=[torch.device(dev)] * n)
+
+
+def _loss_grads(loss_fn, params, batch, mesh=None):
+    """The loss and every gradient at `params` on the card, under
+    `mesh` when given."""
+    import contextlib
+
+    import torch
+
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with mesh_guard(mesh) if mesh is not None else contextlib.nullcontext():
+        loss = loss_fn(p, batch, None)
+        if isinstance(loss, tuple):
+            loss = loss[0]
+        grads = torch.autograd.grad(loss, list(p.values()),
+                                    allow_unused=True)
+    return {"loss": loss.item(),
+            "grads": {k: torch.zeros_like(v) if g is None else g
+                      for (k, v), g in zip(p.items(), grads)}}
+
+
+def _dptp_bert():
+    """(a) BERT-base, graft path 1. f32 (TF32 off), dropout off: at
+    256 x 128 under dp=2 and dp=2 tp=2, and at 128 x 256 under dp=2 tp=2
+    sp=2 (T / sp a multiple of 128, so the ring takes K3 blocks; eight
+    virtual ranks), the loss and every gradient against the same params
+    and batch with no mesh, at phase 6's f32 limits; `mha` counted on
+    "splash_shardmap" (dp/tp) or "ring_splash" (sp). Then each mesh's
+    timed steps under mixed_bf16 (AdamW), K1 once per (dp, tp) rank and
+    layer, K3 once per block. A padded call under tp=2 runs K2 once per
+    tp rank on its heads: held against the no-mesh K2 call."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    out = {"parity": [], "runs": []}
+    refs = {}
+    cfg32 = bert.BertConfig(dtype="float32", dropout=0.0)
+    params, axes = bert.init(torch.Generator(device="cuda").manual_seed(25),
+                             cfg32, device="cuda")
+
+    def loss32(p, b, g):
+        return bert.pretrain_loss(p, cfg32, b, rng=g, deterministic=True)
+
+    for mesh_axes, B, T in DPTP_BERT:
+        batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(
+            T), cfg32, B, seq_len=T)
+        if (B, T) not in refs:
+            refs[(B, T)] = _loss_grads(loss32, params, batch)
+        attn.GATE_COUNTS.clear()
+        got = _loss_grads(loss32, params, batch, _mesh(**mesh_axes))
+        gates = dict(attn.GATE_COUNTS)
+        route = "ring_splash" if "sp" in mesh_axes else "splash_shardmap"
+        check(gates == {route: cfg32.layers},
+              f"dp-tp bert {mesh_axes}: mha routes {gates}")
+        out["parity"].append({
+            "mesh": mesh_axes, "batch": [B, T], "gates": gates,
+            **_hold_loss_grads(f"dp-tp bert {mesh_axes}", got,
+                               refs[(B, T)])})
+        del got
+    del refs, params
+    torch.cuda.empty_cache()
+    cfg = bert.BertConfig.base()
+    cfg.dropout = 0.0
+
+    def loss_fn(p, b, g):
+        return bert.pretrain_loss(p, cfg, b, rng=g, deterministic=True)
+
+    for mesh_axes, B, T in DPTP_BERT:
+        params, axes = bert.init(torch.Generator(device="cuda").manual_seed(
+            0), cfg, device="cuda")
+        batch = bert.make_batch(torch.Generator(device="cuda").manual_seed(
+            1), cfg, B, seq_len=T)
+        ranks = mesh_axes.get("dp", 1) * mesh_axes.get("tp", 1)
+        sp = mesh_axes.get("sp", 1)
+        per_step = {"splash_block_with_lse": cfg.layers * ranks * sp * sp} \
+            if sp > 1 else k1_per_step(cfg.layers * ranks)
+        attn.GATE_COUNTS.clear()
+        row = _train_run(f"bert-base {B}x{T} {mesh_axes}", loss_fn, params,
+                         batch, cfg.train_flops_per_seq(
+                             T, batch["masked_positions"].shape[1]),
+                         2, 6, per_step, mesh=_mesh(**mesh_axes),
+                         param_axes=axes)
+        row["gates"] = dict(attn.GATE_COUNTS)
+        check(row["gates"].get("ring_splash" if sp > 1
+                               else "splash_shardmap", 0) > 0,
+              f"dp-tp bert {mesh_axes}: mha routes {row['gates']}")
+        out["runs"].append(row)
+        del params, batch
+        torch.cuda.empty_cache()
+    # K2 per tp rank: a padded BERT-base attention call under tp=2
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q, k, v = (torch.randn(32, 512, 12, 64, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    lens = torch.randint(256, 513, (32,), generator=gen, device="cuda")
+    mask = torch.where(torch.arange(512, device="cuda")[None] < lens[:, None],
+                       0.0, -3e4)[:, None, None, :]
+    want = attn.mha(q, k, v, mask=mask)
+    with mesh_guard(_mesh(tp=2)):
+        got = attn.mha(q, k, v, mask=mask)
+    out["k2_per_tp_rank"] = held(got, want, "bfloat16")
+    check(out["k2_per_tp_rank"]["ratio"] <= 1.0,
+          f"dp-tp K2 per tp rank: {out['k2_per_tp_rank']}")
+    return out
+
+
+def _dptp_resnet():
+    """(b) ResNet-50, graft path 4 (BASELINE's config 5): 256 x 224^2,
+    NHWC, f32 activations (TF32 off), unfused on both sides, one
+    SGD(0.1, momentum 0.9) step at dp=4 (sync BN: each rank's sums
+    all-reduced) against no mesh: the step-0 loss within 1e-3 relative
+    (`__graft_entry__.py`'s bound), the BN running means and variances
+    it writes within `DPTP_RESNET_TOL`'s 1e-4 relative plus 1e-5 of
+    each tensor's largest value (f32 sums over 3.2M elements a channel,
+    taken in another order and grouped by rank). Unsynced BN (rank 0's
+    statistics: the no-mesh forward on the batch's first quarter) must
+    miss that limit, so the gate tells the two apart. Then timed steps
+    at dp=4 under bench.py's rung (bf16 activations, f32 params)."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    B, hw = 256, 224
+    cfg32 = dataclasses.replace(resnet.ResNetConfig.resnet50(),
+                                dtype="float32")
+    stepped = {}
+    for label, mesh in (("no mesh", None), ("dp=4", _mesh(dp=4))):
+        params, axes = resnet.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg32,
+            device="cuda")
+        batch = resnet.make_batch(torch.Generator(device="cuda").manual_seed(
+            1), cfg32, B, hw=hw, data_format="NHWC")
+        init, step = make_train_step(
+            lambda p, b, g: resnet.loss_fn(p, cfg32, b, g,
+                                           data_format="NHWC"),
+            _sgd, device="cuda", has_aux=True, mesh=mesh, param_axes=axes)
+        state, loss = step(init(params), batch, 0)
+        stepped[label] = (loss.item(), {
+            k: v.detach().clone() for k, v in state.params.items()
+            if k.endswith((".mean", ".var"))})
+        if mesh is None:
+            with torch.no_grad():
+                _, aux = resnet.loss_fn(
+                    params, cfg32, {k: v[:B // 4] for k, v in batch.items()},
+                    None, data_format="NHWC")
+            unsynced = {k: v.clone() for k, v in aux.items()
+                        if k.endswith((".mean", ".var"))}
+            del aux
+        del params, batch, state, init, step
+        torch.cuda.empty_cache()
+    (l0, bn0), (l1, bn1) = stepped["no mesh"], stepped["dp=4"]
+    rtol, atol = DPTP_RESNET_TOL["bn"]
+
+    def worst(got):
+        return max((((got[k] - bn0[k]).abs() /
+                     (rtol * bn0[k].abs() + atol * bn0[k].abs().max()))
+                    .max().item(), k) for k in bn0)
+
+    parity = {"loss_no_mesh": l0, "loss_dp4": l1,
+              "loss_rel": abs(l1 - l0) / abs(l0),
+              "bn_err_over_tol_worst": worst(bn1),
+              "bn_unsynced_over_tol_worst": worst(unsynced)}
+    check(parity["loss_rel"] <= DPTP_RESNET_TOL["loss"]
+          and parity["bn_err_over_tol_worst"][0] <= 1.0
+          and parity["bn_unsynced_over_tol_worst"][0] > 1.0,
+          f"dp-tp resnet sync BN: {parity}")
+    print(json.dumps({"phase": "dp-tp", "part": "resnet-parity", **parity}))
+    del stepped, bn0, bn1, unsynced
+    torch.cuda.empty_cache()
+    cfg = resnet.ResNetConfig.resnet50()
+    params, axes = resnet.init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda")
+    batch = resnet.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                              cfg, B, hw=hw, data_format="NHWC")
+    row = _train_run(f"resnet-50 {B}x{hw}^2 dp=4", lambda p, b, g:
+                     resnet.loss_fn(p, cfg, b, g, data_format="NHWC"),
+                     params, batch, cfg.flops_per_image(hw), 2, 6, {},
+                     optimizer=_sgd, precision="f32", has_aux=True,
+                     mesh=_mesh(dp=4), param_axes=axes)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"parity": parity, "run": row}
+
+
+def _dptp_gpt():
+    """(c) GPT-2-small dense, graft path 3: 8 x 1024 in 4 microbatches
+    under pp=2 tp=2 dp=2 (each microbatch's 2 rows split over dp, each
+    stage's denses split over tp): the pipelined loss (bf16 activations,
+    f32 params) against `lm_loss` with no mesh, within the graft path's
+    5e-2 + 1e-3 |ref|; then timed steps under mixed_bf16, K1 once per
+    (pp, dp) stage call and layer (96 a step)."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    cfg = gpt.GPTConfig()
+    n_micro, mesh_axes = 4, dict(pp=2, tp=2, dp=2)
+    params, axes = gpt.init(torch.Generator(device="cuda").manual_seed(3),
+                            cfg, device="cuda")
+    batch = gpt.make_batch(torch.Generator(device="cuda").manual_seed(4),
+                           cfg, 8)
+    with torch.no_grad():
+        ref = gpt.lm_loss(params, cfg, batch).item()
+        with mesh_guard(_mesh(**mesh_axes)):
+            got = gpt.lm_loss(params, cfg, batch,
+                              n_microbatches=n_micro).item()
+    check(abs(ref - got) < 5e-2 + 1e-3 * abs(ref),
+          f"dp-tp gpt pp-tp-dp loss {got} vs no mesh {ref}")
+
+    def loss_fn(p, b, g):
+        return gpt.lm_loss(p, cfg, b, rng=g, n_microbatches=n_micro)
+
+    row = _train_run(f"gpt-2-small 8x1024 {mesh_axes} n_micro={n_micro}",
+                     loss_fn, params, batch,
+                     gpt_train_flops_per_seq(cfg, 1024), 2, 6,
+                     k1_per_step(cfg.layers * n_micro * mesh_axes["dp"]),
+                     mesh=_mesh(**mesh_axes), param_axes=axes)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"loss_pipelined": got, "loss_no_mesh": ref,
+            "abs_diff": abs(ref - got), "run": row}
+
+
+def _dptp_moe():
+    """(d) GPT-MoE, graft path 2: phase 22's configurations at pp=2 ep=2
+    dp=2: (a)'s 2-layer f32 gate, the card against the CPU (routing,
+    loss, every gradient, one AdamW step); then the full model at
+    8 x 1024 in 4 microbatches (a stage's capacity from a microbatch's
+    dp shard: 1024 tokens), 1 warm-up and 4 timed steps (phase 22 (b)
+    reports the einsums and the dropped tokens)."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+
+    parity = _moe_parity(dp=2)
+    cfg = gpt.GPTConfig(n_experts=MOE_EXPERTS)
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(5),
+                         cfg, device="cuda")
+    batch = gpt.make_batch(torch.Generator(device="cuda").manual_seed(6),
+                           cfg, 8)
+    row = _moe_train(cfg, params, batch, MOE_MICRO, dp=2, warmup=1, steps=4,
+                     details=False)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"parity": parity, "run": row}
+
+
+def phase_dp_tp():
+    """Phase 25: graft paths 1-4 on in-process dp/tp rings (see
+    `_dptp_bert`, `_dptp_resnet`, `_dptp_gpt`, `_dptp_moe`)."""
+    t0 = time.perf_counter()
+    out, counts = {}, collections.Counter()
+    for name, part in (("bert", _dptp_bert), ("resnet", _dptp_resnet),
+                       ("gpt", _dptp_gpt), ("gpt_moe", _dptp_moe)):
+        t1 = time.perf_counter()
+        out[name] = part()
+        out[name]["seconds"] = time.perf_counter() - t1
+        runs = out[name].get("runs") or [out[name]["run"]]
+        for row in runs:
+            counts.update(row["launches"])
+        print(json.dumps({"phase": "dp-tp", "part": name, **out[name]}))
+    print(json.dumps({
+        "phase": "dp-tp", "card": card(),
+        "note": "every mesh's ranks run on this one card: no byte moves "
+                "between ranks",
+        "step_ms": {row["run"]: row["step_ms_median"]
+                    for part in out.values()
+                    for row in (part.get("runs") or [part["run"]])},
+        "seconds": time.perf_counter() - t0}))
+    return counts
 
 
 # Phase 23: inference at the reference's published configurations
@@ -4340,9 +4705,10 @@ def main() -> int:
     moe_counts = phase_gpt_moe()
     phase_infer()
     phase_predict()
+    dptp_counts = phase_dp_tp()
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
-                   sp_counts, resilience_counts, moe_counts):
+                   sp_counts, resilience_counts, moe_counts, dptp_counts):
         launches.update(counts)
     # every main path runs attention at bf16, where the dq kernels fold
     # the delta pass in: the delta row counts those folds, and the

@@ -34,6 +34,7 @@ import torch
 
 from ..observability import health as _health
 from ..observability import tracing as _tracing
+from ..parallel.mesh import refuse_dp_tp
 from . import framework, lowering
 from . import precision as _precision
 from .async_exec import FetchHandle, to_numpy
@@ -328,7 +329,10 @@ class Executor:
         """One program step. sync=False returns a FetchHandle: the
         tensors stay on the device and the host moves on; .result()
         resolves to numpy on demand. With sync=True, return_numpy=False
-        returns the tensors untouched."""
+        returns the tensors untouched. Under a mesh with dp or tp larger
+        than 1 it raises: the fluid path's data parallelism is
+        `CompiledProgram.with_data_parallel` (ROADMAP item 20c-iii)."""
+        refuse_dp_tp("the fluid Executor", "20c-iii")
         program = program if program is not None else framework.default_main_program()
         scope = scope if scope is not None else global_scope()
         feed = dict(feed or {})
@@ -381,6 +385,7 @@ class Executor:
         `unroll` keeps the JAX package's signature (where it unrolls the
         jitted scan) and has no effect here: the steps run eagerly."""
         del unroll
+        refuse_dp_tp("the fluid Executor", "20c-iii")
         if int(n_steps) < 1:
             raise ValueError(f"run_chained needs n_steps >= 1, got "
                              f"{n_steps}")

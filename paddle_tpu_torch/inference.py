@@ -45,10 +45,10 @@ __all__ = ["AnalysisConfig", "PaddleTensor", "Predictor",
 
 
 class AnalysisConfig:
-    """reference: inference/api/analysis_config.cc — the knobs that mean
-    something on the port. The JAX package's `switch_ir_optim`,
-    `enable_memory_optim` and `enable_profile` record a flag that
-    nothing reads; the port leaves them out."""
+    """reference: inference/api/analysis_config.cc, with the JAX
+    package's methods. `switch_ir_optim` and `enable_memory_optim` are
+    accepted and read by nothing, as there; `enable_profile` raises
+    until the profiler is ported (ROADMAP item 18)."""
 
     def __init__(self, model_dir: Optional[str] = None):
         self.model_dir = model_dir
@@ -65,6 +65,23 @@ class AnalysisConfig:
     def disable_gpu(self):
         """Run on the CPU."""
         self._use_tpu = False
+
+    def switch_ir_optim(self, x=True):
+        """Accepted for scripts written against the reference: the port
+        runs the program as loaded and reads no IR-optimisation flag."""
+        self._ir_optim = x
+
+    def enable_memory_optim(self):
+        """Accepted for scripts written against the reference: the port
+        reads no memory-optimisation flag (the CUDA caching allocator
+        reuses buffers on its own)."""
+        self._memory_optim = True
+
+    def enable_profile(self):
+        raise NotImplementedError(
+            "Predictor profiling is not ported (ROADMAP item 18, "
+            "profiler.py on torch.profiler); profile the Predictor's "
+            "Run() calls with torch.profiler directly")
 
     def enable_aot(self):
         """Warm every signature when it is first prepared (the JAX

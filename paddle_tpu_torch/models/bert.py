@@ -5,7 +5,8 @@ Counterpart of the JAX package's `models/bert.py`: `BertConfig`, `init`
 (the same param names and layouts), `encode`, `mlm_logits`,
 `pretrain_loss` (gathered and dense MLM formats, plus NSP) and
 `make_batch`. The JAX package's `shard()` annotations have no
-counterpart on one device and are dropped.
+counterpart: its layout is what GSPMD makes of them, and the port
+splits where the ops run.
 
 Attention goes through `ops.attention.mha`: on CUDA with no
 `attention_mask` it runs the K1 flash-attention kernels, forward and
@@ -13,7 +14,14 @@ backward; with one, the padding mask goes to the K2 kernels (additive
 bias), forward and backward. Under a mesh with `sp` > 1
 (`parallel/mesh.py::mesh_guard`), `mha` takes the ring instead: with
 no mask, every layer's attention is `ring_splash`, K3 blocks merged by
-logsumexp (see `ops/attention.py`). Dropout draws from a
+logsumexp (see `ops/attention.py`). Under dp and tp (by
+`models/common.py`'s helpers and `SPLIT_AXES`, which `init` records):
+q, k, v and `mlp.up` are column-parallel, `attn.o` and `mlp.down` row-parallel,
+the word embedding and the MLM head (with `mlm.bias`) vocab-parallel,
+attention runs once per (dp, tp) rank, and the losses are the global
+batch's: the MLM loss divides the sum over the dp ranks by the global
+count of valid labels (the count differs between shards), NSP's mean
+is the global one. Dropout draws from a
 `torch.Generator`: its bits are not jax.random's, so parity checks run
 with `deterministic=True`.
 """
@@ -30,8 +38,9 @@ import torch.nn.functional as F
 
 from ..ops.attention import mha
 from ..parallel.mesh import refuse_process_ring
-from .common import (ParamAxes, Params, ParamStore, dense, dropout, gelu,
-                     layer_norm)
+from .common import (ParamAxes, Params, ParamStore, dp_mean, dp_sum,
+                     dropout, gelu, layer_norm, tp_dense, vocab_embed,
+                     vocab_log_softmax, vocab_logits)
 
 __all__ = ["BertConfig", "init", "param_shapes", "encode", "mlm_logits",
            "pretrain_loss", "make_batch", "MASK_ID"]
@@ -80,6 +89,22 @@ class BertConfig:
         return 3 * fwd
 
 
+# The logical axes of the weights that `models/common.py`'s helpers
+# split, by name within a layer ("layer{i}." dropped): `init` records
+# them and the ops hand them to the helpers, one source for both.
+SPLIT_AXES = {"embeddings.word": ("vocab", "embed"),
+              "attn.q": ("embed", "heads"), "attn.k": ("embed", "heads"),
+              "attn.v": ("embed", "heads"), "attn.o": ("heads", "embed"),
+              "mlp.up": ("embed", "mlp"), "mlp.down": ("mlp", "embed"),
+              "pooler": ("embed", "embed"),
+              "mlm.transform": ("embed", "embed"), "nsp": ("embed", None)}
+
+
+def _axes(name: str):
+    return SPLIT_AXES[name.split(".", 1)[1] if name.startswith("layer")
+                      else name]
+
+
 def param_shapes(cfg: BertConfig) -> Dict[str, Tuple[int, ...]]:
     """{name: shape} of the params, as `init` makes them."""
     H, M = cfg.hidden, cfg.mlp_dim
@@ -120,27 +145,33 @@ def init(generator: torch.Generator, cfg: BertConfig, device=None
 
     s = ParamStore(generator, resolve_device(device))
     H = cfg.hidden
-    s.embedding("embeddings.word", cfg.vocab_size, H, axes=("vocab", "embed"))
+    s.embedding("embeddings.word", cfg.vocab_size, H,
+                axes=SPLIT_AXES["embeddings.word"])
     s.embedding("embeddings.position", cfg.max_len, H, axes=(None, "embed"))
     s.embedding("embeddings.type", cfg.type_vocab, H, axes=(None, "embed"))
     s.layer_norm("embeddings.ln", H)
     for i in range(cfg.layers):
         p = f"layer{i}"
-        for proj in "qkv":
-            s.dense(f"{p}.attn.{proj}", H, H, axes=("embed", "heads"))
-        s.dense(f"{p}.attn.o", H, H, axes=("heads", "embed"))
+        for proj in "qkvo":
+            s.dense(f"{p}.attn.{proj}", H, H, axes=_axes(f"{p}.attn.{proj}"))
         s.layer_norm(f"{p}.attn.ln", H)
-        s.dense(f"{p}.mlp.up", H, cfg.mlp_dim, axes=("embed", "mlp"))
-        s.dense(f"{p}.mlp.down", cfg.mlp_dim, H, axes=("mlp", "embed"))
+        s.dense(f"{p}.mlp.up", H, cfg.mlp_dim, axes=_axes(f"{p}.mlp.up"))
+        s.dense(f"{p}.mlp.down", cfg.mlp_dim, H,
+                axes=_axes(f"{p}.mlp.down"))
         s.layer_norm(f"{p}.mlp.ln", H)
-    s.dense("pooler", H, H, axes=("embed", "embed"))
+    s.dense("pooler", H, H, axes=SPLIT_AXES["pooler"])
     # MLM head: transform + tied-embedding output bias
-    s.dense("mlm.transform", H, H, axes=("embed", "embed"))
+    s.dense("mlm.transform", H, H, axes=SPLIT_AXES["mlm.transform"])
     s.layer_norm("mlm.ln", H)
     s.add("mlm.bias", torch.zeros(cfg.vocab_size, device=s.device),
           ("vocab",))
-    s.dense("nsp", H, 2, axes=("embed", None))
+    s.dense("nsp", H, 2, axes=SPLIT_AXES["nsp"])
     return s.params, s.axes
+
+
+def _dense(params: Params, name: str, x: torch.Tensor, act=None):
+    """`tp_dense` of the dense `name`, split by its `SPLIT_AXES`."""
+    return tp_dense(params, name, x, _axes(name), act)
 
 
 def _attention(params: Params, prefix: str, x: torch.Tensor,
@@ -149,11 +180,10 @@ def _attention(params: Params, prefix: str, x: torch.Tensor,
                deterministic: bool) -> torch.Tensor:
     B, T, H = x.shape
     shape = (B, T, cfg.heads, cfg.head_dim)
-    q = dense(params, f"{prefix}.q", x).reshape(shape)
-    k = dense(params, f"{prefix}.k", x).reshape(shape)
-    v = dense(params, f"{prefix}.v", x).reshape(shape)
+    q, k, v = (_dense(params, f"{prefix}.{p}", x).reshape(shape)
+               for p in "qkv")
     ctx = mha(q, k, v, mask=mask, scale=1.0 / math.sqrt(cfg.head_dim))
-    out = dense(params, f"{prefix}.o", ctx.reshape(B, T, H))
+    out = _dense(params, f"{prefix}.o", ctx.reshape(B, T, H))
     return dropout(rng, out, cfg.dropout, deterministic)
 
 
@@ -171,7 +201,8 @@ def encode(params: Params, cfg: BertConfig, input_ids: torch.Tensor,
     adt = cfg.torch_dtype
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    emb = (params["embeddings.word.w"][input_ids]
+    emb = (vocab_embed(params["embeddings.word.w"], input_ids,
+                       "embeddings.word.w", SPLIT_AXES["embeddings.word"])
            + params["embeddings.position.w"][:T][None]
            + params["embeddings.type.w"][token_type_ids])
     x = layer_norm(params, "embeddings.ln", emb).to(adt)
@@ -187,8 +218,8 @@ def encode(params: Params, cfg: BertConfig, input_ids: torch.Tensor,
         a = _attention(params, f"{p}.attn", x, amask, cfg, rng,
                        deterministic)
         x = layer_norm(params, f"{p}.attn.ln", x + a)
-        h = dense(params, f"{p}.mlp.up", x, act=gelu)
-        h = dense(params, f"{p}.mlp.down", h)
+        h = _dense(params, f"{p}.mlp.up", x, act=gelu)
+        h = _dense(params, f"{p}.mlp.down", h)
         h = dropout(rng, h, cfg.dropout, deterministic)
         x = layer_norm(params, f"{p}.mlp.ln", x + h)
     return x
@@ -198,10 +229,10 @@ def mlm_logits(params: Params, cfg: BertConfig,
                seq_out: torch.Tensor) -> torch.Tensor:
     """Masked-LM logits over the vocab: transform, layer norm, then the
     tied word embeddings plus `mlm.bias`."""
-    h = dense(params, "mlm.transform", seq_out, act=gelu)
+    h = _dense(params, "mlm.transform", seq_out, act=gelu)
     h = layer_norm(params, "mlm.ln", h)
-    logits = h @ params["embeddings.word.w"].T.to(h.dtype)
-    return logits + params["mlm.bias"].to(h.dtype)
+    return vocab_logits(h, params["embeddings.word.w"], params["mlm.bias"],
+                        "embeddings.word.w", SPLIT_AXES["embeddings.word"])
 
 
 def pretrain_loss(params: Params, cfg: BertConfig,
@@ -231,16 +262,15 @@ def pretrain_loss(params: Params, cfg: BertConfig,
         logits = mlm_logits(params, cfg, seq).float()
     valid = labels >= 0
     lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = F.log_softmax(logits, dim=-1)
+    logp = vocab_log_softmax(logits)
     tok_ll = torch.gather(logp, -1, lab[..., None])[..., 0]
-    mlm = -(tok_ll * valid).sum() / valid.sum().clamp(min=1)
+    mlm = -dp_sum(tok_ll * valid) / dp_sum(valid).clamp(min=1)
     if "nsp_labels" in batch:
-        cls = torch.tanh(dense(params, "pooler", seq[:, 0]).float())
-        nsp_logits = dense(params, "nsp", cls.to(seq.dtype)).float()
+        cls = torch.tanh(_dense(params, "pooler", seq[:, 0]).float())
+        nsp_logits = _dense(params, "nsp", cls.to(seq.dtype)).float()
         nsp_lp = F.log_softmax(nsp_logits, dim=-1)
-        nsp = -torch.gather(nsp_lp, 1,
-                            batch["nsp_labels"].long()[:, None]).mean()
-        return mlm + nsp
+        nsp_ll = torch.gather(nsp_lp, 1, batch["nsp_labels"].long()[:, None])
+        return mlm - dp_mean(nsp_ll)
     return mlm
 
 

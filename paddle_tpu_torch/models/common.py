@@ -4,6 +4,22 @@ Counterpart of the JAX package's `models/common.py`. Params are flat
 dicts {name: tensor} keyed by the same names and held in the same
 layouts (`x @ w` with w `[in, out]`), so parameters carry across by
 name (see `convert.params_from_numpy`).
+
+The Megatron helpers (`tp_dense`, `vocab_embed`, `vocab_logits`,
+`vocab_log_softmax`) and `dp_sum` carry tp and dp on the current mesh's
+in-process rings (`parallel/mesh.py`), where the JAX package has GSPMD
+split by its `shard()` constraints. Each reads the split from
+`current_rules()` and the param's logical axes: a weight whose output
+axis ("heads", "mlp", "vocab") maps to a ring is column-parallel (each
+rank's product on its slice of the columns, the slices joined), one
+whose input axis does is row-parallel (each rank's partial product,
+summed by `ring.all_reduce`), and the vocab axis of an embedding is
+split by rows (ids outside a rank's rows masked, the lookups summed).
+A rule of None for the axis keeps the param whole. A param axis other
+than those three that the rules map to a mesh axis larger than 1 (for
+example "embed" -> "tp") raises: no helper splits it. Each helper holds
+whole tensors on the ring and returns the whole result, so a model's
+math is the same with or without a mesh, up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -16,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.int8 import conv2d_int8, conv_operands
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import axis_ring, current_rules, in_manual_region
 
 Params = Dict[str, torch.Tensor]
 ParamAxes = Dict[str, Tuple[Optional[str], ...]]
@@ -23,7 +41,9 @@ ParamAxes = Dict[str, Tuple[Optional[str], ...]]
 __all__ = ["ParamStore", "Params", "raw_layer_norm", "layer_norm", "gelu",
            "dense", "dropout", "is_trainable", "same_pads", "conv2d_nhwc",
            "conv2d_nhwc_auto", "maxpool2x2_nhwc",
-           "quantize_conv_weights_int8", "conv2d_nhwc_int8"]
+           "quantize_conv_weights_int8", "conv2d_nhwc_int8", "TP_AXES",
+           "axis_ring", "batch_ring", "dp_sum", "dp_mean", "tp_linear",
+           "tp_dense", "vocab_embed", "vocab_logits", "vocab_log_softmax"]
 
 
 class ParamStore:
@@ -108,6 +128,148 @@ def dense(params: Params, name: str, x: torch.Tensor,
     if b is not None:
         y = y + b.to(y.dtype)
     return act(y) if act is not None else y
+
+
+# -- tp and dp on the mesh's in-process rings --------------------------
+
+# the logical axes of a param that the Megatron helpers split
+TP_AXES = ("heads", "mlp", "vocab")
+
+
+def batch_ring():
+    """The ring that carries "batch" (dp), None inside a manual region:
+    the pipeline hands each stage call its dp shard already."""
+    return None if in_manual_region() else axis_ring("batch")
+
+
+def dp_sum(x: torch.Tensor, dims=None) -> torch.Tensor:
+    """`x` summed over `dims` (all of them by default), dim 0 being the
+    batch: over a dp ring that divides it, each rank sums its shard of
+    the batch and `ring.all_reduce` adds the ranks' sums, as
+    `jax.lax.psum` over 'dp' adds the shards' under GSPMD. The global
+    batch's sum, so a mean taken from it is the global mean."""
+    ring = batch_ring()
+    if ring is None or x.shape[0] % ring.size:
+        return x.sum() if dims is None else x.sum(tuple(dims))
+    dims = tuple(range(x.ndim)) if dims is None else tuple(dims)
+    return ring.all_reduce([p.sum(dims) for p in ring.split(x, 0)])[0]
+
+
+def dp_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of all of `x`, from `dp_sum` over a dp ring."""
+    return x.mean() if batch_ring() is None else dp_sum(x) / x.numel()
+
+
+def _param_split(name: str, axes) -> Tuple[Optional[int], object]:
+    """(dim, ring) of the one dim of param `name` (logical `axes`) that
+    the rules split over a ring larger than 1, or (None, None)."""
+    m = current_mesh()
+    if m is None:
+        return None, None
+    rules = current_rules()
+    found = (None, None)
+    for d, a in enumerate(axes):
+        ax = rules.mesh_axis(a)
+        if ax is None or m.shape.get(ax, 1) == 1:
+            continue
+        if a not in TP_AXES:
+            raise NotImplementedError(
+                f"the rule {a!r} -> {ax!r} splits {name} along {a!r}, "
+                f"which no helper of the port splits (they split "
+                f"{list(TP_AXES)}); map {a!r} to None")
+        found = (d, m.rings[ax])
+    return found
+
+
+def tp_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+              name: str, axes, act=None) -> torch.Tensor:
+    """`act(x @ w + b)` with `w` ([in, out], logical `axes`, called
+    `name`) split by the rules: column-parallel on a split out axis
+    (the bias split with it, `act` on each rank's slice), row-parallel
+    on a split in axis (x's last dim split with it, the partial
+    products all-reduced, the bias added once), whole with neither."""
+    d, ring = _param_split(name, axes)
+    w = w.to(x.dtype)
+    if ring is None:
+        y = x @ w
+    elif d == 1:
+        bs = ring.split(b, 0) if b is not None else [None] * ring.size
+        ys = []
+        for w_r, b_r in zip(ring.split(w, 1), bs):
+            y = x @ w_r
+            y = y if b_r is None else y + b_r.to(y.dtype)
+            ys.append(act(y) if act is not None else y)
+        return ring.join(ys, -1)
+    else:
+        y = ring.all_reduce([x_r @ w_r for x_r, w_r in zip(
+            ring.split(x, x.ndim - 1), ring.split(w, 0))])[0]
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return act(y) if act is not None else y
+
+
+def tp_dense(params: Params, name: str, x: torch.Tensor, axes,
+             act=None) -> torch.Tensor:
+    """`dense` by `tp_linear`, `{name}.w` having logical `axes`."""
+    return tp_linear(x, params[f"{name}.w"], params.get(f"{name}.b"),
+                     f"{name}.w", axes, act)
+
+
+def vocab_embed(w: torch.Tensor, ids: torch.Tensor, name: str,
+                axes) -> torch.Tensor:
+    """`w[ids]`, with the vocab rows of `w` split over their ring: rank
+    r looks up the ids inside its rows (zeros elsewhere) and
+    `ring.all_reduce` adds the ranks' lookups, each id's row coming
+    from the one rank that holds it."""
+    _, ring = _param_split(name, axes)
+    if ring is None:
+        return w[ids]
+    parts = ring.split(w, 0)
+    n = parts[0].shape[0]
+    outs = []
+    for r, w_r in enumerate(parts):
+        local = ids - r * n
+        inside = (local >= 0) & (local < n)
+        outs.append(torch.where(inside[..., None],
+                                w_r[local.clamp(0, n - 1)],
+                                torch.zeros((), dtype=w.dtype,
+                                            device=w.device)))
+    return ring.all_reduce(outs)[0]
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], name: str,
+                 axes) -> torch.Tensor:
+    """`x @ w.T (+ bias)` for a tied embedding `w` [vocab, embed]: on a
+    split vocab, each rank's logits over its rows, joined."""
+    _, ring = _param_split(name, axes)
+    wt = w.to(x.dtype)
+    if ring is None:
+        y = x @ wt.T
+        return y if bias is None else y + bias.to(y.dtype)
+    bs = ring.split(bias, 0) if bias is not None else [None] * ring.size
+    ys = []
+    for w_r, b_r in zip(ring.split(wt, 0), bs):
+        y = x @ w_r.T
+        ys.append(y if b_r is None else y + b_r.to(y.dtype))
+    return ring.join(ys, -1)
+
+
+def vocab_log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """log_softmax over the last (vocab) axis; on a split vocab from the
+    ranks' slices: the global max by an all-reduce of max, the global
+    sum of exp by an all-reduce of sum, as Megatron's vocab-parallel
+    cross entropy."""
+    ring = axis_ring("vocab")
+    if ring is None:
+        return F.log_softmax(logits, dim=-1)
+    parts = ring.split(logits, logits.ndim - 1)
+    m = ring.all_reduce([p.detach().amax(-1, keepdim=True) for p in parts],
+                        "max")[0]
+    s = ring.all_reduce([torch.exp(p - m).sum(-1, keepdim=True)
+                         for p in parts])[0]
+    lse = m + torch.log(s)
+    return ring.join([p - lse for p in parts], -1)
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor,

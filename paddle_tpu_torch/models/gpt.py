@@ -30,7 +30,19 @@ Under a mesh (`parallel/mesh.py::mesh_guard`):
   ep ring's `split` and joins it with its `join`. On the in-process ring
   this computes the same products, bit for bit; the exchange of tokens
   between ranks that ep across cards needs waits for ROADMAP items 20a
-  and 20e.
+  and 20e;
+- `tp` > 1 (`models/common.py`'s helpers, by `SPLIT_AXES`, which
+  `init` records): `wqkv` and `w1` column-parallel, `wo` and `w2`
+  row-parallel, in every block, inside the pipeline's stages too (the
+  JAX package leaves tp to GSPMD there); the experts' FFN split along
+  "mlp" the same way; the token embedding and the tied LM head
+  vocab-parallel, `lm_loss`'s log-softmax over the vocab ranks;
+- `dp` > 1: attention once per (dp, tp) rank (`mha`), the pipeline's
+  microbatches split over dp (so a pipelined MoE's capacity is a dp
+  shard's), and `lm_loss` the global batch's mean.
+The decode phases share the blocks' qkv and MLP (`_qkv`, `_mlp`) and
+raise under dp or tp larger than 1 (ROADMAP item 20c-iv): their
+attention over the KV cache has no split.
 """
 
 from __future__ import annotations
@@ -45,13 +57,14 @@ import torch.nn.functional as F
 from ..ops.attention import mha
 from ..ops.beam import beam_search
 from ..ops.ring_attention import ring_attention
-from ..parallel.mesh import current_mesh, refuse_process_ring
+from ..parallel.mesh import current_mesh, refuse_dp_tp, refuse_process_ring
 from ..parallel.pipeline import pipeline_apply
 from ..parallel.ring import InProcessRing
 from ..parallel.sharding import in_manual_region
 from ..serving import kv_cache as kvc
-from .common import (ParamAxes, Params, ParamStore, gelu,
-                     layer_norm as _ln_named, raw_layer_norm)
+from .common import (ParamAxes, Params, ParamStore, axis_ring, dp_mean, gelu,
+                     layer_norm as _ln_named, raw_layer_norm, tp_linear,
+                     vocab_embed, vocab_log_softmax, vocab_logits)
 
 __all__ = ["GPTConfig", "init", "param_shapes", "apply", "lm_loss",
            "make_batch", "apply_prefill", "apply_decode_step",
@@ -92,11 +105,21 @@ class GPTConfig:
         return 3 * 2 * (L * per_layer + self.vocab_size * H)
 
 
-def _refuse_moe(cfg: GPTConfig):
+def _refuse_for_decode(cfg: GPTConfig):
+    """The decode paths serve a dense config on no dp or tp split."""
     if cfg.n_experts:
         raise ValueError("mixture-of-experts GPT configs have no decode "
                          "path (the JAX engine refuses them at boot): "
                          "serve a dense config (n_experts=0)")
+    refuse_dp_tp("GPT's decode paths", "20c-iv")
+
+
+# The logical axes of the weights that `models/common.py`'s helpers
+# split (a block's without its stacked "layer" axis): `init` records
+# them and the blocks hand them to the helpers, one source for both.
+SPLIT_AXES = {"wte.w": ("vocab", "embed"), "blk.wqkv": ("embed", "heads"),
+              "blk.wo": ("heads", "embed"), "blk.w1": ("embed", "mlp"),
+              "blk.w2": ("mlp", "embed")}
 
 
 def param_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
@@ -128,7 +151,7 @@ def init(generator: torch.Generator, cfg: GPTConfig, device=None
     from .. import resolve_device
 
     s = ParamStore(generator, resolve_device(device))
-    s.embedding("wte", cfg.vocab_size, cfg.hidden, axes=("vocab", "embed"))
+    s.embedding("wte", cfg.vocab_size, cfg.hidden, axes=SPLIT_AXES["wte.w"])
     s.embedding("wpe", cfg.max_len, cfg.hidden, axes=(None, "embed"))
     L, H, M = cfg.layers, cfg.hidden, cfg.mlp_dim
 
@@ -139,9 +162,9 @@ def init(generator: torch.Generator, cfg: GPTConfig, device=None
     stacked("blk.ln1.scale", (H,), 0.0, (None,))
     s.params["blk.ln1.scale"] += 1.0
     stacked("blk.ln1.bias", (H,), 0.0, (None,))
-    stacked("blk.wqkv", (H, 3 * H), a, ("embed", "heads"))
+    stacked("blk.wqkv", (H, 3 * H), a, SPLIT_AXES["blk.wqkv"])
     stacked("blk.bqkv", (3 * H,), 0.0, ("heads",))
-    stacked("blk.wo", (H, H), a / math.sqrt(2 * L), ("heads", "embed"))
+    stacked("blk.wo", (H, H), a / math.sqrt(2 * L), SPLIT_AXES["blk.wo"])
     stacked("blk.bo", (H,), 0.0, (None,))
     stacked("blk.ln2.scale", (H,), 0.0, (None,))
     s.params["blk.ln2.scale"] += 1.0
@@ -154,9 +177,9 @@ def init(generator: torch.Generator, cfg: GPTConfig, device=None
         stacked("blk.w2", (E, M, H), am / math.sqrt(2 * L),
                 ("expert", "mlp", "embed"))
     else:
-        stacked("blk.w1", (H, M), am, ("embed", "mlp"))
+        stacked("blk.w1", (H, M), am, SPLIT_AXES["blk.w1"])
         stacked("blk.b1", (M,), 0.0, ("mlp",))
-        stacked("blk.w2", (M, H), am / math.sqrt(2 * L), ("mlp", "embed"))
+        stacked("blk.w2", (M, H), am / math.sqrt(2 * L), SPLIT_AXES["blk.w2"])
         stacked("blk.b2", (H,), 0.0, (None,))
     s.layer_norm("ln_f", H)
     return s.params, s.axes
@@ -171,22 +194,38 @@ def _layer(params: Params, l: int) -> Params:
     return {k: v[l] for k, v in params.items() if k.startswith("blk.")}
 
 
+def _linear(lp, x, w: str, b: str, act=None):
+    """`act(x @ lp[w] + lp[b])`, split as `SPLIT_AXES[w]` says."""
+    return tp_linear(x, lp[w], lp[b], w, SPLIT_AXES[w], act)
+
+
 def _qkv(lp, y, cfg: GPTConfig, shape):
-    qkv = y @ lp["blk.wqkv"].to(y.dtype) + lp["blk.bqkv"].to(y.dtype)
+    qkv = _linear(lp, y, "blk.wqkv", "blk.bqkv")
     q, k, v = qkv.split(cfg.hidden, dim=-1)
     return q.view(shape), k.view(shape), v.view(shape)
 
 
-def _decode_mlp(lp, x):
-    h = gelu(x @ lp["blk.w1"].to(x.dtype) + lp["blk.b1"].to(x.dtype))
-    return h @ lp["blk.w2"].to(x.dtype) + lp["blk.b2"].to(x.dtype)
+def _mlp(lp, x):
+    """The dense MLP of a block, prefill and decode steps included."""
+    h = _linear(lp, x, "blk.w1", "blk.b1", act=gelu)
+    return _linear(lp, h, "blk.w2", "blk.b2")
 
 
 def _experts(ein, w1, w2):
     """The expert FFN on dispatched tokens: ein [E, C, H], w1 [E, H, M],
-    w2 [E, M, H] -> [E, C, H]. Each expert's product is its own."""
-    h = gelu(torch.einsum("ech,ehm->ecm", ein, w1.to(ein.dtype)))
-    return torch.einsum("ecm,emh->ech", h, w2.to(ein.dtype))
+    w2 [E, M, H] -> [E, C, H]. Each expert's product is its own; over a
+    ring that carries "mlp", each rank's slice of M, the partial
+    products all-reduced."""
+    ring = axis_ring("mlp")
+
+    def ffn(w1, w2):
+        h = gelu(torch.einsum("ech,ehm->ecm", ein, w1.to(ein.dtype)))
+        return torch.einsum("ecm,emh->ech", h, w2.to(ein.dtype))
+
+    if ring is None:
+        return ffn(w1, w2)
+    return ring.all_reduce([ffn(a, b) for a, b in zip(ring.split(w1, 2),
+                                                      ring.split(w2, 1))])[0]
 
 
 _ONE_RANK = InProcessRing(1)   # the experts' ring with no ep axis
@@ -241,12 +280,13 @@ def _block(lp, x, cfg: GPTConfig):
         ctx = ring_attention(q, k, v, mesh, axis="sp", causal=True)
     else:
         ctx = mha(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim))
-    x = x + (ctx.reshape(B, T, H) @ lp["blk.wo"].to(x.dtype) +
-             lp["blk.bo"].to(x.dtype))
+    # (ctx @ wo + bo) added to x, where the decode paths add ctx @ wo
+    # to h first, each as the JAX package's
+    x = x + _linear(lp, ctx.reshape(B, T, H), "blk.wo", "blk.bo")
     h = _ln(x, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
     if cfg.n_experts:
         return x + _moe_mlp(lp, h, cfg)
-    return x + _decode_mlp(lp, h)
+    return x + _mlp(lp, h)
 
 
 def _blocks(params: Params, x: torch.Tensor, cfg: GPTConfig, layers: int):
@@ -266,8 +306,8 @@ def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     with 0) a loop over the layers."""
     refuse_process_ring("gpt.apply")
     B, T = ids.shape
-    x = (params["wte.w"][ids] + params["wpe.w"][:T][None]) \
-        .to(cfg.torch_dtype)
+    x = (vocab_embed(params["wte.w"], ids, "wte.w", SPLIT_AXES["wte.w"]) +
+         params["wpe.w"][:T][None]).to(cfg.torch_dtype)
     mesh = current_mesh()
     if n_microbatches and mesh is not None and mesh.shape.get("pp", 1) > 1:
         S, L = mesh.shape["pp"], cfg.layers
@@ -287,7 +327,8 @@ def apply(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     else:
         x = _blocks(params, x, cfg, cfg.layers)
     x = _ln_named(params, "ln_f", x)
-    return x @ params["wte.w"].T.to(x.dtype)
+    return vocab_logits(x, params["wte.w"], None, "wte.w",
+                        SPLIT_AXES["wte.w"])
 
 
 def lm_loss(params: Params, cfg: GPTConfig, batch: Dict[str, torch.Tensor],
@@ -298,9 +339,9 @@ def lm_loss(params: Params, cfg: GPTConfig, batch: Dict[str, torch.Tensor],
     `n_microbatches` as `apply` takes it."""
     ids = batch["ids"]
     logits = apply(params, cfg, ids[:, :-1], n_microbatches).float()
-    logp = F.log_softmax(logits, dim=-1)
+    logp = vocab_log_softmax(logits)
     ll = torch.gather(logp, -1, ids[:, 1:, None].long())[..., 0]
-    return -ll.mean()
+    return -dp_mean(ll)
 
 
 def make_batch(generator: torch.Generator, cfg: GPTConfig, batch_size: int,
@@ -349,7 +390,7 @@ def apply_prefill(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     real position, never reach the last real position's logits.
     Attention is mha(causal=True): the K1-fwd kernel on CUDA.
     """
-    _refuse_moe(cfg)
+    _refuse_for_decode(cfg)
     B, T = ids.shape
     nh, hd = cfg.heads, cfg.head_dim
     x = (params["wte.w"][ids] + params["wpe.w"][:T][None]).to(k_pool.dtype)
@@ -364,7 +405,7 @@ def apply_prefill(params: Params, cfg: GPTConfig, ids: torch.Tensor,
         ctx = ctx.reshape(B, T, cfg.hidden)
         h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
         y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
-        h = h + _decode_mlp(lp, y)
+        h = h + _mlp(lp, y)
     x = _ln_named(params, "ln_f", h)
     last = max(int(length), 1) - 1
     logits = (x[0, last] @ params["wte.w"].T.to(x.dtype))[None]
@@ -385,7 +426,7 @@ def apply_decode_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     shares the batch. Attention gathers each slot's blocks and masks
     positions past its own (plain torch, as the JAX package's step is
     plain XLA)."""
-    _refuse_moe(cfg)
+    _refuse_for_decode(cfg)
     S = ids.shape[0]
     nh, hd = cfg.heads, cfg.head_dim
     adt = k_pool.dtype
@@ -410,7 +451,7 @@ def apply_decode_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
         ctx = ctx.reshape(S, cfg.hidden)
         h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
         y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
-        h = h + _decode_mlp(lp, y)
+        h = h + _mlp(lp, y)
     x = _ln_named(params, "ln_f", h)
     logits = x @ params["wte.w"].T.to(x.dtype)          # [S, vocab]
     return _beam_top1(ids, logits, eos_id)
@@ -436,7 +477,7 @@ def apply_prefill_chunk(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     recomputed prefixes, token for token. Returns tok [1], meaningful
     only on the slice holding position length-1. Attention is plain
     torch, as the JAX package's chunk step is plain XLA."""
-    _refuse_moe(cfg)
+    _refuse_for_decode(cfg)
     _, C = ids.shape
     nh, hd = cfg.heads, cfg.head_dim
     adt = k_pool.dtype
@@ -465,7 +506,7 @@ def apply_prefill_chunk(params: Params, cfg: GPTConfig, ids: torch.Tensor,
         ctx = ctx.reshape(C, cfg.hidden)
         h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
         y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
-        h = h + _decode_mlp(lp, y)
+        h = h + _mlp(lp, y)
     x = _ln_named(params, "ln_f", h)
     # a device index: no host sync, so the step can be captured
     last = (length.long() - 1 - start.long()).clamp(0, C - 1).view(1)
@@ -491,7 +532,7 @@ def apply_verify_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
     read. Sampling goes through the same beam_search step as decode, so
     an eos in the fed window freezes the rest of the row to eos.
     Returns tokens [S, W]."""
-    _refuse_moe(cfg)
+    _refuse_for_decode(cfg)
     S, W = ids.shape
     nh, hd = cfg.heads, cfg.head_dim
     adt = k_pool.dtype
@@ -519,7 +560,7 @@ def apply_verify_step(params: Params, cfg: GPTConfig, ids: torch.Tensor,
         ctx = ctx.reshape(S, W, cfg.hidden)
         h = h + ctx @ lp["blk.wo"].to(h.dtype) + lp["blk.bo"].to(h.dtype)
         y = _ln(h, lp["blk.ln2.scale"], lp["blk.ln2.bias"])
-        h = h + _decode_mlp(lp, y)
+        h = h + _mlp(lp, y)
     x = _ln_named(params, "ln_f", h)
     logits = x @ params["wte.w"].T.to(x.dtype)          # [S, W, vocab]
     return _beam_top1(ids.reshape(S * W), logits.reshape(S * W, -1),

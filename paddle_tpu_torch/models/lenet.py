@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import refuse_dp_tp
 from .common import ParamAxes, Params, ParamStore, conv2d_nhwc, dense
 
 
@@ -52,6 +53,7 @@ def init(generator: torch.Generator, n_classes: int = 10, device=None
 
 def apply(params: Params, img: torch.Tensor) -> torch.Tensor:
     """img: [B, 1, 28, 28] -> logits [B, 10]."""
+    refuse_dp_tp("lenet.apply", "20c-iv")
     x = img.permute(0, 2, 3, 1)  # NHWC, as the JAX package
     for name in ("conv1", "conv2"):
         x = torch.relu(conv2d_nhwc(x, params[f"{name}.w"], padding="VALID"))

@@ -15,13 +15,24 @@ in the promoted dtype (f32, or f64 for f64 activations). With
 matmul+BN kernels (`kernels/fused_dense_bn.py`): conv1 as
 `matmul_stats` (K4, bn1's statistics in the product's epilogue), conv3
 as `bn_act_matmul_stats` (K6: bn2's apply + ReLU in its prologue, bn3's
-statistics in its epilogue). On one device the reference's gate (a
-single device or a manual region) always holds.
+statistics in its epilogue), on a single device only: under a mesh of
+more than one rank `fused_1x1` is off, as the JAX package's gate turns
+it off there (its kernels have no GSPMD rule).
+
+Under dp (12c, sync BN), the batch statistics are the global batch's:
+each dp rank sums its shard of the batch and its squares, the ranks'
+sums are all-reduced (`models/common.py::dp_sum`), and the mean and
+variance come from the totals, as `BuildStrategy.sync_batch_norm`
+reduces them and GSPMD gives the JAX package. The EMA and the loss are
+then the global batch's too. tp has no split here yet: a mesh whose
+"vocab" (the head's classes) ring is larger than 1 raises (ROADMAP
+item 20c-iv).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple, Union
 
 import numpy as np
@@ -29,7 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import fused_dense_bn as FB
-from .common import ParamAxes, Params, ParamStore, conv2d_nhwc_auto, dense
+from ..parallel.mesh import current_mesh
+from .common import (ParamAxes, Params, ParamStore, axis_ring, batch_ring,
+                     conv2d_nhwc_auto, dense, dp_mean, dp_sum)
 
 __all__ = ["DEPTHS", "ResNetConfig", "init", "param_shapes", "apply",
            "loss_fn", "make_batch"]
@@ -141,10 +154,16 @@ def _bn_ema(params, upd, name, mean, var, cfg):
 
 def _bn_stats(x: torch.Tensor):
     """One-pass batch stats over N, H and W in the promoted dtype:
-    (E[x], max(E[x^2] - E[x]^2, 0))."""
+    (E[x], max(E[x^2] - E[x]^2, 0)); under dp from the ranks' all-reduced
+    sums of x and x^2 over their shards of the batch."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean((0, 1, 2))
-    return mean, FB._max0((xf * xf).mean((0, 1, 2)) - mean * mean)
+    ring = batch_ring()
+    if ring is None or x.shape[0] % ring.size:
+        mean = xf.mean((0, 1, 2))
+        return mean, FB._max0((xf * xf).mean((0, 1, 2)) - mean * mean)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    mean = dp_sum(xf, (0, 1, 2)) / n
+    return mean, FB._max0(dp_sum(xf * xf, (0, 1, 2)) / n - mean * mean)
 
 
 def _bn(params, upd, name, x, cfg, train: bool):
@@ -161,13 +180,17 @@ def _bn(params, upd, name, x, cfg, train: bool):
 
 
 def _fused_1x1_ok(params, p, cfg, train: bool) -> bool:
-    """The fused 1x1 path: opt-in, training mode, and floating weights
+    """The fused 1x1 path: opt-in, training mode, floating weights
     (int8 weights keep conv2d_nhwc_auto's int8 path, whose per-channel
-    scales the fused kernels do not apply)."""
+    scales the fused kernels do not apply), and no mesh of more than one
+    rank, as the JAX package's gate."""
     if not (cfg.fused_1x1 and train):
         return False
-    return params[f"{p}.conv1.w"].dtype != torch.int8 and \
-        params[f"{p}.conv3.w"].dtype != torch.int8
+    if params[f"{p}.conv1.w"].dtype == torch.int8 or \
+            params[f"{p}.conv3.w"].dtype == torch.int8:
+        return False
+    m = current_mesh()
+    return m is None or math.prod(m.shape.values()) == 1
 
 
 def _fused_block_tail(params, upd, p, x, cfg):
@@ -216,6 +239,9 @@ def apply(params: Params, cfg: ResNetConfig, img: torch.Tensor,
     else:
         raise ValueError(f"data_format must be NCHW or NHWC, got "
                          f"{data_format!r}")
+    if axis_ring("vocab") is not None:
+        raise NotImplementedError(
+            "resnet.apply has no tp split of its head (ROADMAP item 20c-iv)")
     upd: Dict[str, torch.Tensor] = {}
     x = conv2d_nhwc_auto(params, "stem", x, stride=2)
     x = F.relu(_bn(params, upd, "stem.bn", x, cfg, train))
@@ -255,7 +281,7 @@ def loss_fn(params: Params, cfg: ResNetConfig, batch, rng=None,
                         data_format=data_format)
     labels = batch["label"].reshape(-1).long()
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(1, labels[:, None]).mean(), upd
+    return -dp_mean(logp.gather(1, labels[:, None])), upd
 
 
 def make_batch(rng: Union[torch.Generator, np.random.RandomState],

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import mha
-from ..parallel.mesh import refuse_process_ring
+from ..parallel.mesh import refuse_dp_tp, refuse_process_ring
 from .common import ParamAxes, Params, ParamStore, dense, gelu, layer_norm
 
 __all__ = ["TransformerConfig", "init", "encode", "decode", "nmt_loss",
@@ -150,8 +150,9 @@ def _pad_mask(lengths: torch.Tensor, T: int,
 
 def _embed(params: Params, cfg: TransformerConfig, table: str,
            ids: torch.Tensor) -> torch.Tensor:
-    refuse_process_ring("transformer " + ("encode" if table == "src_emb"
-                                          else "decode"))
+    what = "transformer " + ("encode" if table == "src_emb" else "decode")
+    refuse_process_ring(what)
+    refuse_dp_tp(what, "20c-iv")
     T = ids.shape[1]
     x = params[f"{table}.w"][ids] * math.sqrt(cfg.hidden) \
         + params["pos.w"][:T][None]

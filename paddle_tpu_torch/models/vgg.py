@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import refuse_dp_tp
 from .common import (ParamAxes, Params, ParamStore, conv2d_nhwc_auto, dense,
                      maxpool2x2_nhwc)
 
@@ -81,6 +82,7 @@ def apply(params: Params, cfg: VGGConfig, img: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"VGG built for {cfg.image_hw}x{cfg.image_hw} inputs, got "
             f"{img.shape[2]}x{img.shape[3]} (fc1 fan-in is size-bound)")
+    refuse_dp_tp("vgg.apply", "20c-iv")
     adt = cfg.torch_dtype
     x = img.permute(0, 2, 3, 1).to(adt).contiguous()     # NHWC
     for bi, (n_convs, _) in enumerate(BLOCKS):

@@ -40,6 +40,11 @@ package's `_multichip_splash_route`:
 - "ring_xla": `ring_attention` (plain-torch blocks, as the JAX
   package's XLA ones) for the other shapes, causal ones included.
 
+Under dp or tp (the rules' "batch" and "heads" axes) the ring routes
+run once per (dp, tp) rank on its block of the batch and heads, as the
+JAX package's `ring_splash(b_axis=, h_axis=)` manualizes them; a call
+whose B or N those axes do not divide takes "ring_xla", as there.
+
 T is the whole sequence: the in-process ring's full tensor, or a
 process ring's shard times sp. There is no `T >= 1024` gate as in the
 JAX package's auto mode: on CUDA `mha` takes the K1 kernels at every T.
@@ -49,14 +54,26 @@ single-device route (K2 on CUDA), as the JAX package leaves it to
 GSPMD: the ring holds whole tensors. Under a process ring each rank
 holds only its shard, so the single-device route would attend within
 the shard; a masked call there raises until the models shard by hand
-(ROADMAP item 20b). The dp/tp route (`shardmap`) waits for item 20c.
+(ROADMAP item 20b).
+
+With no sp ring, a mesh whose dp or tp is larger than 1 takes the
+counterpart of the JAX package's `_shardmap_splash_mha` ("shardmap",
+counted as "splash_shardmap") under its gate: no mask, B divisible by
+dp, N by tp, T and Tk multiples of 128, the head dim a multiple of 64.
+It runs the single-device route once per (dp, tp) rank on its
+[B/dp, T, N/tp, H] block and joins the blocks, with no collective
+(attention is independent across batch and heads). A masked call under
+tp runs the single-device route (K2 on CUDA) once per tp rank on its
+heads, as GSPMD splits the JAX package's `_xla_mha` by heads.
+
 Inside the `pp` pipeline's manual region
-(`parallel/sharding.py::in_manual_region`) no call takes the sp route,
-as the JAX package's `_multichip_splash_route` returns None there.
+(`parallel/sharding.py::in_manual_region`) no call takes the sp or the
+shardmap route, as the JAX package's `_multichip_splash_route` returns
+None there.
 
 `GATE_COUNTS` counts calls per path ("flash_cuda", "flash_bias_cuda",
-"xla", "plain", and under sp the JAX package's keys "ring_splash" and
-"ring_xla") so a run can show which one served it.
+"xla", "plain", and the JAX package's keys "ring_splash", "ring_xla"
+and "splash_shardmap") so a run can show which one served it.
 """
 
 from __future__ import annotations
@@ -71,7 +88,7 @@ from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.flash_attention_bias import flash_attention_bias
 from ..parallel.mesh import current_mesh
 from ..parallel.ring import ProcessRing
-from ..parallel.sharding import current_rules, in_manual_region
+from ..parallel.sharding import axis_ring, current_rules, in_manual_region
 from . import ring_attention as ra
 
 __all__ = ["mha", "single_device_route", "GATE_COUNTS"]
@@ -104,12 +121,17 @@ def _merge_causal(mask: Optional[torch.Tensor], T: int,
     return cm if mask is None else mask + cm
 
 
+def _size(logical):
+    ring = axis_ring(logical)
+    return ring.size if ring is not None else 1
+
+
 def _sp_route(q, k, mask, causal):
     """(route, mesh, axis): "ring", "ring_xla" or None (no sp ring;
     also inside the pipeline's manual region, as the JAX package)."""
     m = current_mesh()
     axis = current_rules().mesh_axis("seq")
-    sp = m.shape.get(axis, 1) if (m is not None and axis) else 1
+    sp = _size("seq")
     if sp == 1 or q.ndim != 4 or in_manual_region():
         return None, m, axis
     ring = m.rings[axis]
@@ -127,9 +149,44 @@ def _sp_route(q, k, mask, causal):
             f"mha under a mesh with {axis}={sp} needs q and k of one "
             f"length T divisible by {sp}, got T={T}, Tk={Tk}; the port does "
             f"not gather the sequence")
-    if causal or (T // sp) % 128 or q.shape[-1] not in HEAD_DIMS:
+    if causal or (T // sp) % 128 or q.shape[-1] not in HEAD_DIMS \
+            or q.shape[0] % _size("batch") \
+            or q.shape[2] % _size("heads"):
         return "ring_xla", m, axis
     return "ring", m, axis
+
+
+def _shardmap_route(q, k, mask) -> bool:
+    """The gate of the JAX package's "shardmap" route, off the sp ring:
+    a mesh with dp or tp larger than 1 outside a manual region, no
+    mask, B divisible by dp, N by tp, T and Tk by 128, H by 64."""
+    m = current_mesh()
+    if m is None or q.ndim != 4 or mask is not None or in_manual_region():
+        return False
+    dp, tp = _size("batch"), _size("heads")
+    B, T, N, H = q.shape
+    return dp * tp > 1 and not (B % dp or N % tp or T % 128
+                                or k.shape[1] % 128 or H % 64)
+
+
+def _per_rank(fn, q, k, v, mask=None, batch=True):
+    """`fn(q, k, v, mask)` once per (dp, tp) rank on its block of the
+    batch (when `batch`) and the heads, the blocks joined. A mask splits
+    with them, or goes whole to every rank along a dim of 1."""
+    def cut(t, dim, r):
+        if r is None:
+            return [t]
+        if t is None or t.shape[dim] == 1:
+            return [t] * r.size
+        return r.split(t, dim)
+
+    b_ring, h_ring = axis_ring("batch") if batch else None, axis_ring("heads")
+    rows = []
+    for qb, kb, vb, mb in zip(*(cut(t, 0, b_ring) for t in (q, k, v, mask))):
+        rows.append(torch.cat([fn(*blk) for blk in zip(
+            *(cut(t, 2, h_ring) for t in (qb, kb, vb)),
+            cut(mb, 1, h_ring))], 2))
+    return torch.cat(rows, 0)
 
 
 def single_device_route(device_type: str, head_dim: int,
@@ -158,7 +215,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(q.shape[-1])
     route, mesh, axis = _sp_route(q, k, mask, causal)
     if route == "ring":
-        out = ra.ring_splash(q, k, v, mesh, s_axis=axis, scale=scale)
+        out = _per_rank(lambda a, b, c, _: ra.ring_splash(
+            a, b, c, mesh, s_axis=axis, scale=scale), q, k, v)
         GATE_COUNTS["ring_splash"] += 1
         return out
     if route == "ring_xla":
@@ -168,13 +226,24 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     route = single_device_route(q.device.type, q.shape[-1],
                                 mask is not None)
-    if route == "flash_bias_cuda":
-        out = flash_attention_bias(q, k, v, mask, scale, causal)
-    elif route == "flash_cuda":
-        out = flash_attention(q, k, v, scale, causal)
-    else:
+
+    def one(q, k, v, mask):
+        if route == "flash_bias_cuda":
+            return flash_attention_bias(q, k, v, mask, scale, causal)
+        if route == "flash_cuda":
+            return flash_attention(q, k, v, scale, causal)
         if causal:
             mask = _merge_causal(mask, q.shape[1], q.device)
-        out = _plain_mha(q, k, v, mask, scale).to(q.dtype)
+        return _plain_mha(q, k, v, mask, scale).to(q.dtype)
+
+    if _shardmap_route(q, k, mask):
+        out = _per_rank(one, q, k, v)
+        GATE_COUNTS["splash_shardmap"] += 1
+        return out
+    if mask is not None and not in_manual_region() and q.ndim == 4 \
+            and _size("heads") > 1 and q.shape[2] % _size("heads") == 0:
+        out = _per_rank(one, q, k, v, mask, batch=False)
+    else:
+        out = one(q, k, v, mask)
     GATE_COUNTS[route] += 1
     return out

@@ -18,6 +18,14 @@ package's run inside its manual `shard_map` region. Gradients come from
 autograd through the ticks: a hop of the in-process ring is the
 identity to autograd.
 
+Under `dp` > 1 each microbatch's batch dim is split over the dp ring
+when dp divides it, as the JAX package manualizes `data_axis`: every
+(pp, dp) rank calls its stage on its own shard and the shards travel
+the pp ring side by side. A stage's math that depends on how many rows
+it holds sees the shard's: GPT-MoE's capacity C comes from a
+microbatch's dp shard of tokens, in both packages. When dp does not
+divide it the microbatch stays whole, as there.
+
 The schedule's bubble is (S - 1) / (n_micro + S - 1), as GPipe's; on
 one device it costs nothing (its ticks are skipped). The loop runs
 every rank's stage in this one process, so it runs on the in-process
@@ -73,36 +81,44 @@ def _stage(stage_params, s: int):
 
 
 def pipeline_apply(stage_fn: Callable, stage_params: Dict[str, torch.Tensor],
-                   x: torch.Tensor, mesh, axis: str = "pp") -> torch.Tensor:
+                   x: torch.Tensor, mesh, axis: str = "pp",
+                   data_axis: str = "dp") -> torch.Tensor:
     """Run the GPipe pipeline; returns [n_micro, mb, ...] outputs.
 
     `stage_fn(stage_params_s, xmb) -> ymb` runs one stage on one
     microbatch; `stage_params` is a flat dict whose tensors are stacked
-    [S, ...] along the stages; `x` is [n_micro, mb, ...]. The JAX
-    package also splits the microbatches over dp, which the port's
-    meshes keep at 1 (ROADMAP item 20c), as they keep pp in-process
-    (items 20a and 20e)."""
+    [S, ...] along the stages; `x` is [n_micro, mb, ...], whose mb
+    splits over `data_axis` when pp > 1 and dp divides it. pp stays in-process
+    (ROADMAP items 20a and 20e)."""
     S = mesh.shape[axis]
     n_micro = x.shape[0]
     _record(axis, S, x)
     if S == 1:
+        # no manual region, as the JAX package's one-stage scan
         lp = _stage(stage_params, 0)
         return torch.stack([stage_fn(lp, x[m]) for m in range(n_micro)])
+    D = mesh.shape.get(data_axis, 1)
+    xs = mesh.rings[data_axis].split(x, 1) \
+        if D > 1 and x.shape[1] % D == 0 else [x]
     ring = mesh.rings[axis]
     local = [_stage(stage_params, s) for s in range(S)]
-    state = [None] * S          # what each rank received on the last hop
-    outputs = [None] * n_micro
+    # what each (dp, pp) rank received on the last hop
+    state = [[None] * S for _ in xs]
+    outputs = [[None] * n_micro for _ in xs]
     with manual_region():
         for t in range(n_micro + S - 1):
-            ys = []
+            ys = [[None] * S for _ in xs]
             for s in range(S):
                 # rank s holds microbatch t - s on tick t
                 m = t - s
                 if not 0 <= m < n_micro:
-                    ys.append(None)
                     continue
-                ys.append(stage_fn(local[s], x[m] if s == 0 else state[s]))
-            if ys[S - 1] is not None:
-                outputs[t - (S - 1)] = ys[S - 1]
-            (state,) = ring.hop(ys)
-    return torch.stack(outputs).to(x.dtype)
+                for d, xd in enumerate(xs):
+                    ys[d][s] = stage_fn(local[s],
+                                        xd[m] if s == 0 else state[d][s])
+            for d in range(len(xs)):
+                if ys[d][S - 1] is not None:
+                    outputs[d][t - (S - 1)] = ys[d][S - 1]
+            state = list(ring.hop(*ys))
+    return torch.stack([torch.cat([outputs[d][m] for d in range(len(xs))])
+                        for m in range(n_micro)]).to(x.dtype)

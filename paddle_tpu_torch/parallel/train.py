@@ -1,13 +1,41 @@
-"""Train step and fault-tolerant training loop on one device.
+"""Train step and fault-tolerant training loop.
 
 Counterpart of the JAX package's `parallel/train.py`: `make_train_step`
-with the semantics of its one-device case (`init_state(params)` then
-`step(state, batch, rng) -> (state, loss)`), `train_loop` (checkpoints,
-preemption, fault injection, recovery policies) and
-`sync_loss_scale_metrics`. What differs, and why:
+(`init_state(params)` then `step(state, batch, rng) -> (state, loss)`),
+`train_loop` (checkpoints, preemption, fault injection, recovery
+policies) and `sync_loss_scale_metrics`. What differs, and why:
 
-- No mesh, shardings or ZeRO-1: one device, named by `device` (cuda
-  unless "cpu"). Multi-device training is a later slice.
+- One device, named by `device` (cuda unless "cpu"), or by `mesh`: a
+  mesh of in-process rings (`parallel/mesh.py`), whose virtual ranks
+  all run on that one device. The step runs the loss under
+  `mesh_guard(mesh)` and `with_rules(rules)`. `param_axes`, `rules`
+  and `batch_spec` mean what they mean in the JAX package:
+  `shard_params_spec(param_axes, rules)` is checked against every
+  param at `init_state` (each split dim divides its mesh axis) and
+  chooses the ZeRO-1 slices. `batch_spec` (default
+  `rules.spec(("batch", "seq"))`) is the layout of the step's inputs
+  in the JAX package; here every rank holds the whole batch and the
+  rules decide each op's split (the batch ring of `dp_sum`, `mha`'s
+  per-rank blocks, `pipeline_apply`), a dim its ring does not divide
+  staying whole, as the JAX step's `leaf_sharding` leaves it
+  replicated. So `batch_spec` is checked once (each axis it names is
+  the mesh's) and decides nothing else.
+- On an in-process ring the model holds whole tensors, as it does
+  under sp and ep. The ops that carry dp or tp split and join inside
+  themselves: attention's per-rank launches, BatchNorm's partial sums,
+  the row-parallel sums and the losses' global means
+  (`models/common.py`), the pipeline's stage calls. So the gradient of
+  a replicated param is autograd's sum over the ranks' shards, and no
+  separate gradient all-reduce runs on one card: ROADMAP item 20a adds
+  that all-reduce when the ring spans processes. The loss is the
+  global batch's, as GSPMD gives the JAX package.
+- `TrainStrategy(shard_optimizer_states=True)` (ZeRO-1, the JAX
+  default) holds each trainable param's optimizer state as dp slices
+  along the first dim its spec leaves unsharded that dp divides, as
+  the JAX package's `opt_state_sharding_like` chooses it
+  (`Zero1Optimizer`); a param with no such dim keeps whole state. The
+  optimizer is elementwise, so a ZeRO-1 update equals the replicated
+  one bit for bit.
 - `optimizer` is a factory `params -> torch.optim.Optimizer` over the
   trainable params (`models.common.is_trainable`). The counterpart of
   `optax.adamw(lr)` (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on
@@ -47,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -56,11 +85,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import resolve_device
 from ..core import precision as _precision
-from ..models.common import Params, is_trainable
+from ..models.common import Params, ParamAxes, is_trainable
+from .mesh import mesh_guard
+from .sharding import (LogicalRules, PartitionSpec, current_rules, shard,
+                       shard_params_spec, with_rules)
 
 __all__ = ["TrainStrategy", "TrainState", "make_train_step",
            "RECOMPUTE_POLICIES", "sync_loss_scale_metrics", "train_loop",
-           "step_seed"]
+           "step_seed", "Zero1Optimizer", "zero1_dim"]
 
 # None and "nothing" save nothing and recompute everything; the "dots"
 # policies save the dot ops' outputs below (the module docstring)
@@ -85,9 +117,9 @@ def _save_dots(ops, ctx, op, *args, **kwargs):
 
 @dataclasses.dataclass
 class TrainStrategy:
-    """The knobs of the JAX package's TrainStrategy that mean something
-    on one device."""
+    """The JAX package's TrainStrategy."""
 
+    shard_optimizer_states: bool = True   # ZeRO-1 over dp vs replicated
     accum_steps: int = 1                  # gradient merge over microbatches
     recompute: bool = False               # activation checkpointing
     recompute_policy: Optional[str] = None
@@ -104,6 +136,93 @@ class TrainState:
         self.opt_state = opt_state
         self.step = step
         self.loss_scale = loss_scale
+
+
+def zero1_dim(shape, spec: PartitionSpec, dp: int) -> Optional[int]:
+    """The dim a ZeRO-1 moment of a param of `shape` and `spec` is
+    sliced along over dp: the first one the spec leaves unsharded whose
+    size dp divides (and is at least dp), as the JAX package's
+    `opt_state_sharding_like` chooses it; None for a scalar or a param
+    with no such dim (its state stays whole)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    for i, (n, ax) in enumerate(zip(shape, spec)):
+        if ax is None and n % dp == 0 and n >= dp:
+            return i
+    return None
+
+
+class Zero1Optimizer:
+    """ZeRO-1 on an in-process dp ring: the optimizer state of each
+    param with a `zero1_dim` is held as dp slices, rank r's optimizer
+    (`factory` over rank r's slices) stepping slice r of the param and
+    holding slice r of its moments. Params with none share one
+    optimizer over their whole tensors. The slices are views of the
+    params, so a step writes the params in place and a restore into
+    the params is seen at once; each step hands each slice its slice of
+    the param's gradient. `state_dict` keys rank r's state
+    "r/<index>" ("whole/<index>" for the whole ones). `param_groups`
+    lists every optimizer's groups, so setting a group's "lr" (the
+    recovery policy's backoff) reaches every slice. It is no
+    `torch.optim.Optimizer`: an LR scheduler takes each of
+    `optimizers` on its own."""
+
+    def __init__(self, factory: Callable, params: List[torch.Tensor],
+                 dims: List[Optional[int]], dp: int):
+        self.params, self.dims, self.dp = params, dims, int(dp)
+        self.slices = [[p.detach().narrow(d, r * (p.shape[d] // dp),
+                                          p.shape[d] // dp)
+                        for p, d in zip(params, dims) if d is not None]
+                       for r in range(self.dp)]
+        self.whole = [p for p, d in zip(params, dims) if d is None]
+        self.ranks = [factory(sl) for sl in self.slices if sl]
+        self.rest = factory(self.whole) if self.whole else None
+
+    def _groups(self):
+        return [(str(r), o) for r, o in enumerate(self.ranks)] + \
+            ([("whole", self.rest)] if self.rest is not None else [])
+
+    @property
+    def optimizers(self) -> List[torch.optim.Optimizer]:
+        """Each rank's optimizer, then the whole params' (if any)."""
+        return [o for _, o in self._groups()]
+
+    @property
+    def param_groups(self) -> List[Dict[str, Any]]:
+        """The param groups of every optimizer (the same dicts: read
+        anew after a `load_state_dict`, which replaces them)."""
+        return [g for o in self.optimizers for g in o.param_groups]
+
+    def step(self):
+        sliced = [(p, d) for p, d in zip(self.params, self.dims)
+                  if d is not None]
+        for r, views in enumerate(self.slices):
+            for view, (p, d) in zip(views, sliced):
+                view.grad = None if p.grad is None else \
+                    p.grad.narrow(d, r * view.shape[d], view.shape[d])
+        for o in self.optimizers:
+            o.step()
+
+    def zero_grad(self, set_to_none: bool = True):
+        """Drops every gradient (the params' and the slices')."""
+        for t in self.params + [v for views in self.slices for v in views]:
+            t.grad = None
+
+    def state_dict(self):
+        state, groups = {}, {}
+        for tag, o in self._groups():
+            sd = o.state_dict()
+            groups[tag] = sd["param_groups"]
+            for i, st in sd["state"].items():
+                state[f"{tag}/{i}"] = st
+        return {"state": state, "param_groups": groups}
+
+    def load_state_dict(self, sd):
+        for tag, o in self._groups():
+            o.load_state_dict({
+                "state": {int(k.split("/")[1]): v
+                          for k, v in sd["state"].items()
+                          if k.split("/")[0] == tag},
+                "param_groups": sd["param_groups"][tag]})
 
 
 def _clip_by_global_norm(grads: List[torch.Tensor],
@@ -127,8 +246,18 @@ def _microbatch_seeds(rng: Optional[int], n: int) -> List[Optional[int]]:
 
 def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
                     strategy: Optional[TrainStrategy] = None,
-                    has_aux: bool = False, precision=None):
+                    has_aux: bool = False, precision=None, *,
+                    mesh=None, param_axes: Optional[ParamAxes] = None,
+                    rules: Optional[LogicalRules] = None,
+                    batch_spec: Optional[PartitionSpec] = None):
     """Returns (init_state, step).
+
+    With `mesh` (in-process rings; its device is the step's, and
+    `device`, when given, must be it) the loss runs under the mesh and
+    `rules` (default: the current rules), `param_axes` ({name: logical
+    axes}, from the model's `init`) gives each param's spec, and
+    `batch_spec` the batch's (checked, not read: the rules split the
+    batch on in-process rings); see the module docstring.
 
     loss_fn(params, batch, generator) -> scalar loss (or (loss, aux)
     with `has_aux`, aux = {name: new value} of non-trainable state such
@@ -149,7 +278,25 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
     """
     strategy = strategy or TrainStrategy()
     policy = _precision.resolve(explicit=precision)
-    dev = resolve_device(device)
+    if mesh is not None:
+        dev = mesh.devices[0]
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's {dev}")
+        if len(mesh.devices) != math.prod(mesh.shape.values()):
+            raise NotImplementedError(
+                "make_train_step runs on a mesh of in-process rings; over "
+                "processes it waits for ROADMAP item 20a")
+    dev = resolve_device(dev if mesh is not None else device)
+    rules = rules or current_rules()
+    p_specs = shard_params_spec(param_axes or {}, rules)
+    if mesh is not None and batch_spec is not None:
+        for ax in batch_spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                if a is not None and a not in mesh.shape:
+                    raise ValueError(f"batch_spec {batch_spec} names "
+                                     f"{a!r}, no axis of the mesh "
+                                     f"{tuple(mesh.shape)}")
+    dp = mesh.shape["dp"] if mesh is not None else 1
     if strategy.recompute_policy not in RECOMPUTE_POLICIES:
         raise ValueError(
             f"unknown recompute_policy {strategy.recompute_policy!r}; "
@@ -171,7 +318,10 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
         def call(p, b, s):
             gen = None if s is None else \
                 torch.Generator(device=dev).manual_seed(s)
-            return fn(p, b, gen)
+            if mesh is None:
+                return fn(p, b, gen)
+            with mesh_guard(mesh), with_rules(rules):
+                return fn(p, b, gen)
 
         if strategy.recompute:
             return checkpoint(call, params, batch, seed,
@@ -216,7 +366,18 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
             if policy.cast_state:
                 t = _precision.cast_floating(t, policy.compute_dtype)
             out[k] = t.clone().requires_grad_(t.is_floating_point())
-        opt = optimizer([v for k, v in out.items() if is_trainable(k)])
+        trainable = [(k, v) for k, v in out.items() if is_trainable(k)]
+        if mesh is not None:
+            with mesh_guard(mesh), with_rules(rules):
+                for k, v in out.items():
+                    shard(v, (param_axes or {}).get(k, ()), rules)
+        if dp > 1 and strategy.shard_optimizer_states:
+            opt = Zero1Optimizer(
+                optimizer, [v for _, v in trainable],
+                [zero1_dim(v.shape, p_specs.get(k, PartitionSpec()), dp)
+                 for k, v in trainable], dp)
+        else:
+            opt = optimizer([v for _, v in trainable])
         return TrainState(out, opt, 0,
                           _precision.init_loss_scale_state(policy))
 

@@ -257,3 +257,33 @@ def test_slim_quantization_copy_differs_only_by_its_declared_changes():
         assert src.count(old) == 1, old
         src = src.replace(old, new)
     assert body == src
+
+
+def _public_methods(path, cls):
+    import ast
+
+    tree = ast.parse(open(path).read())
+    node = next(n for n in tree.body
+                if isinstance(n, ast.ClassDef) and n.name == cls)
+    return {n.name for n in node.body
+            if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+
+
+def test_analysis_config_has_every_method_of_the_jax_package():
+    """An AST name diff: every public method of the JAX package's
+    `AnalysisConfig` is defined on the port's. `switch_ir_optim` and
+    `enable_memory_optim` are accepted (the port reads neither flag);
+    `enable_profile` raises naming the profiler's ROADMAP item."""
+    from paddle_tpu_torch.inference import AnalysisConfig
+
+    want = _public_methods(os.path.join(_REPO, "paddle_tpu", "inference.py"),
+                           "AnalysisConfig")
+    got = _public_methods(os.path.join(_REPO, "paddle_tpu_torch",
+                                       "inference.py"), "AnalysisConfig")
+    assert want and not want - got, sorted(want - got)
+    cfg = AnalysisConfig("some/dir")
+    cfg.switch_ir_optim(False)
+    cfg.switch_ir_optim()
+    cfg.enable_memory_optim()
+    with pytest.raises(NotImplementedError, match="item 18"):
+        cfg.enable_profile()
