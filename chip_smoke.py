@@ -210,7 +210,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (c) GPT-2-small at 8 x 1024 in 4 microbatches under pp=2 tp=2 dp=2:
    the pipelined loss within 5e-2 + 1e-3 |ref| of no mesh, then timed
    steps; (d) phase 22's configurations under pp=2 ep=2 dp=2: the
-   2-layer f32 gate card against CPU, then the full GPT-MoE timed.
+   2-layer f32 gate card against CPU, then the full GPT-MoE timed;
+26. fleet: the multi-tenant serving front and the fleet tier at
+   GPT-2-small's full width (prefill buckets 32-128, slots 4 and 8,
+   `FLEET_POLICY`: tiers high, normal and low, tenants a and b weighted
+   3:1, a low tenant with a quota, a queue of `FLEET_QUEUE`). (a) A
+   burst of 38 concurrent streams from five tenants over HTTP, on the
+   async loop and on the sync loop (prefill_chunk 64), at f32: every
+   503 is the typed shed of the low tier with Retry-After (a queued
+   victim's open stream ends with its shed in-band), no gold, a or b
+   request is shed (they never outnumber the queue), a "capped"
+   tenant's request is a quota shed, and every served stream equals a
+   no-policy engine's tokens; then the burst at bf16: the same gates of
+   sheds and service, its TTFT by tier and tokens/s printed with the
+   count of each tier (one burst: a gate, not a measure of the tiers'
+   latency). No burst's attention takes another route than K1-fwd, and
+   the async loop's bursts launch it (the sync loop's chunked prefill
+   is plain torch, as the JAX package's chunk step is plain XLA). (b)
+   The bf16 engine's Server holds two LeNet slots (f32 and bf16, phase
+   24's rung saved after 20, 40 and 80 steps): routing
+   by "model" and /v1/models; `hot_swap` of each slot, then a
+   `ModelRegistry` publish adopted by the watcher, each under predict
+   traffic from 8 threads with a stream beside it: no failed request,
+   replies before a swap equal the old dir's CPU Predictor's and after
+   it the new dir's (`PREDICT_TOL`), the adopted version in /v1/models,
+   a digest mismatch and a tampered blob refused; each swap's swap_s.
+   (c) A RouterServer over that server and a second one (its engine
+   warmed before any request is routed: no CUDA graph is captured
+   while a scheduler serves): 12 streams, then predict traffic,
+   through the router, p2c picks on both, a typed shed passed through unchanged with no
+   retry, one replica stopped in a predict burst with no failed
+   request, and a stream that had delivered no token resubmitted on the
+   survivor (a second router that still ranks the stopped replica
+   first). (d) A ReplicaSupervisor of two `python -m
+   paddle_tpu_torch.serving.replica --decode-tiny 0` processes on the
+   card, found through a FileRendezvous by `Router(rdzv_dir=...)`:
+   SIGKILL respawns the slot, an Autoscaler on the router's load
+   scales out once under a backlog of 48 streams and in after its
+   cooldown, SIGTERM drains a replica to rc 0 unreplaced;
+   spawn-to-ready and respawn seconds. On one card every replica
+   shares the chip: no fleet scaling is measured.
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -229,11 +268,12 @@ blocks of BERT-base 256 x 128 at dp=2 (128 x 128 x 12) and at dp=2
 tp=2 (128 x 128 x 6), timed.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phases 3 and 21 for serving, phases 7, 8, 10, 12, 15, 17,
+read just after (phases 3, 21 and 26 for serving, phases 7, 8, 10, 12, 15, 17,
 22 (b) and 25's timed runs for training, phase 11 for beam search, phase 13 for the
 bottleneck, phase 19's first uninterrupted `train_loop` run).
 The last line is {"ok": true, "device": {...}}; the line before it
-lists every kernel with its numbers. Exits non-zero without a CUDA
+lists every kernel with its numbers, and the one before that each
+phase's wall seconds. Exits non-zero without a CUDA
 device, and when the package is not beside this script.
 """
 
@@ -1264,13 +1304,19 @@ def phase_kernels():
     return serving, training, k2_rows, k3_row, fdb_rows
 
 
-def _generate(port, ids, max_new, out):
-    """One streamed /v1/generate; fills `out` with the token lines, the
-    done record and the client-side time to the first token."""
+def _generate(port, ids, max_new, out, tenant=None, model=None):
+    """One streamed /v1/generate, for `tenant` and `model` where given;
+    fills `out` with the token lines, the done record and the
+    client-side time to the first token, or with a refusal's status,
+    body and Retry-After."""
+    payload = {"ids": [int(i) for i in ids], "max_new_tokens": max_new}
+    if tenant is not None:
+        payload["tenant"] = tenant
+    if model is not None:
+        payload["model"] = model
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/generate",
-        data=json.dumps({"ids": [int(i) for i in ids],
-                         "max_new_tokens": max_new}).encode(),
+        data=json.dumps(payload).encode(),
         headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
     toks, done = [], None
@@ -1286,18 +1332,23 @@ def _generate(port, ids, max_new, out):
                     toks.append(rec["token"])
                 else:
                     done = rec
+    except urllib.error.HTTPError as e:
+        out.update(code=e.code, body=json.loads(e.read()),
+                   retry_after=e.headers.get("Retry-After"))
     except Exception as e:  # reported and checked by the caller
         out["error"] = f"{type(e).__name__}: {e}"
     out["tokens"], out["done"] = toks, done
 
 
-def _http_round(port, prompts, max_new):
-    """Every prompt as one concurrent streamed /v1/generate: each
-    request's `_generate` record, and the round's wall seconds."""
+def _http_round(port, prompts, max_new, tenants=None, model=None):
+    """Every prompt as one concurrent streamed /v1/generate (prompt i
+    for `tenants[i]` where given): each request's `_generate` record,
+    and the round's wall seconds."""
+    tenants = tenants or [None] * len(prompts)
     results = [{} for _ in prompts]
     threads = [threading.Thread(target=_generate, daemon=True,
-                                args=(port, p, max_new, out))
-               for p, out in zip(prompts, results)]
+                                args=(port, p, max_new, out, t, model))
+               for p, t, out in zip(prompts, tenants, results)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -4515,26 +4566,29 @@ def _predict_round(port, requests):
     return replies, lat, time.perf_counter() - t0
 
 
-def _lenet_saved(pt, root):
-    """Phase 24's model: the LeNet rung trained FLUID_STEPS Adam steps on
-    the card, saved as an inference model fetching the logits."""
+def _lenet_saved(pt, root, saves=(FLUID_STEPS,), place=None):
+    """Phase 24's model: the LeNet rung trained with Adam on `place`
+    (the card unless given), saved as an inference model fetching the
+    logits after each step count of `saves` (dirs whose replies
+    differ): the dirs and the losses."""
     main, startup, loss = lenet_rung_program(pt)
-    exe = pt.Executor(pt.CUDAPlace(0))
+    exe = pt.Executor(pt.CUDAPlace(0) if place is None else place)
     scope = pt.Scope()
     x, y = synthetic_mnist(FLUID_B, seed=24)
+    dirs, losses = [], []
     with pt.scope_guard(scope):
         exe.run(startup)
-        losses = [float(exe.run(main, feed={"x": x, "y": y},
-                                fetch_list=[loss])[0][0])
-                  for _ in range(FLUID_STEPS)]
-        check(np.isfinite(losses).all() and losses[-1] < losses[0],
-              f"predict: the rung did not train: {losses[0]} -> "
-              f"{losses[-1]}")
-        model_dir = os.path.join(root, "lenet")
-        pt.io.save_inference_model(model_dir, ["x"],
-                                   [lenet_rung_logits(main)], exe,
-                                   main_program=main)
-    return model_dir, losses
+        for step in range(1, max(saves) + 1):
+            losses.append(float(exe.run(main, feed={"x": x, "y": y},
+                                        fetch_list=[loss])[0][0]))
+            if step in saves:
+                dirs.append(os.path.join(root, f"lenet{step}"))
+                pt.io.save_inference_model(dirs[-1], ["x"],
+                                           [lenet_rung_logits(main)], exe,
+                                           main_program=main)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"lenet: the rung did not train: {losses[0]} -> {losses[-1]}")
+    return dirs, losses
 
 
 def _serve_precision(model_dir, precision, requests, calibration):
@@ -4601,7 +4655,7 @@ def phase_predict():
 
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_predict_")
-    model_dir, losses = _lenet_saved(pt, root)
+    (model_dir,), losses = _lenet_saved(pt, root)
     rs = np.random.RandomState(24)
     pool, _ = synthetic_mnist(2048, seed=25)
     sizes = rs.randint(1, 9, PREDICT_REQUESTS)
@@ -4670,6 +4724,702 @@ def phase_predict():
     shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 26: the multi-tenant serving front and the fleet tier
+# three tiers; two normal tenants sharing their tier 3:1, a high one, a
+# low one with a quota of 2; an unknown tenant lands on "low"; "capped"
+# may hold nothing (its every request is a quota shed)
+FLEET_POLICY = {"tiers": ["high", "normal", "low"], "default_tier": "low",
+                "tenants": {"gold": {"tier": "high"},
+                            "a": {"tier": "normal", "weight": 3},
+                            "b": {"tier": "normal", "weight": 1},
+                            "bulk": {"tier": "low", "max_inflight": 2},
+                            "capped": {"tier": "low", "max_inflight": 0}}}
+# the burst: 6 gold, a and b requests, no more than the queue holds, so
+# every queue shed must land on the low tier (7 entries, at most 6 of
+# them not low); 6 bulk against its quota of 2; 26 anon
+FLEET_QUEUE = 6
+FLEET_BURST = (("gold", 2), ("a", 2), ("b", 2), ("bulk", 6), ("anon", 26))
+FLEET_LOW = ("bulk", "anon")
+FLEET_NEW = 24
+FLEET_BUCKETS = (32, 64, 128)
+FLEET_CHUNK = 64
+FLEET_SLOTS = (4, 8)
+FLEET_PREDICT_THREADS = 8
+
+
+def _fleet_burst(vocab):
+    """(tenant, prompt) of every burst request, shuffled from a seed."""
+    rs = np.random.RandomState(26)
+    tenants = [t for t, n in FLEET_BURST for _ in range(n)]
+    lengths = rs.randint(5, 120, len(tenants))
+    prompts = [rs.randint(0, vocab, size=n).tolist() for n in lengths]
+    return [(tenants[i], prompts[i]) for i in rs.permutation(len(tenants))]
+
+
+def _post_json(port, path, payload, timeout=600):
+    """(status, JSON body, headers) of one POST on a serving port."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def _shed_ok(label, tenant, out, kinds=("queue", "quota")):
+    """A typed shed 503: the body's keys, its tier, kind and tenant, and
+    Retry-After."""
+    body = out.get("body") or {}
+    tier = "low" if tenant in FLEET_LOW or tenant not in \
+        FLEET_POLICY["tenants"] else FLEET_POLICY["tenants"][tenant]["tier"]
+    check(out.get("code") == 503 and set(body) == {
+        "error", "shed", "kind", "tenant", "retry_after_s"}
+        and body["shed"] == tier and body["kind"] in kinds
+        and out.get("retry_after") == "1",
+        f"{label}: a 503 that is not the typed shed: {out}")
+    return body
+
+
+def _burst_gates(label, reqs, results, max_new, want=None,
+                 need_shed=True):
+    """Phase 26 (a)'s gates over one burst; returns its summary."""
+    sheds = collections.Counter()
+    served = collections.Counter()
+    for (tenant, _), out in zip(reqs, results):
+        check("error" not in out, f"{label} {tenant}: {out.get('error')}")
+        if "code" in out:
+            # every shed lands on the low tier: gold, a and b never
+            # exceed the queue, so a low request is always present
+            check(tenant in FLEET_LOW,
+                  f"{label}: a {tenant} request was shed: {out}")
+            body = _shed_ok(label, tenant, out)
+            check(body["tenant"] == tenant and (
+                body["kind"] == "queue" or tenant == "bulk"),
+                f"{label}: shed body {body} for {tenant}")
+            sheds[(body["shed"], body["kind"])] += 1
+            continue
+        err = (out["done"] or {}).get("error")
+        if err is not None:
+            # a queued request displaced by a later arrival: its stream
+            # was open already, so its shed travels in-band
+            check(tenant in FLEET_LOW and not out["tokens"] and
+                  err.startswith("ShedError") and
+                  "shed tier 'low'" in err,
+                  f"{label}: {tenant} ended with {out['done']}")
+            sheds[("low", "queued")] += 1
+            continue
+        check(len(out["tokens"]) == max_new and out["done"] and
+              out["done"].get("finish_reason") == "length",
+              f"{label} {tenant}: {len(out['tokens'])} tokens, done "
+              f"{out['done']}")
+        served[tenant] += 1
+    # bulk's quota sheds depend on how many of its requests overlap; the
+    # quota shed is held by each server's "capped" request
+    check(not need_shed or sheds[("low", "queue")] > 0,
+          f"{label}: the burst shed {dict(sheds)}: want a queue shed")
+    for tenant, _ in FLEET_BURST:
+        if tenant not in FLEET_LOW:
+            check(served[tenant] == dict(FLEET_BURST)[tenant],
+                  f"{label}: {tenant} served {served[tenant]}")
+    exact = None
+    if want is not None:
+        # f32 streams are exact: a served request's tokens are the
+        # no-policy engine's for its prompt
+        ok = [i for i, out in enumerate(results) if "code" not in out
+              and not (out["done"] or {}).get("error")]
+        bad = [i for i in ok if results[i]["tokens"] != want[i]]
+        check(not bad, f"{label}: tokens differ from the no-policy "
+              f"engine's at requests {bad}")
+        exact = len(ok)
+    return {"served": dict(served),
+            "sheds": {f"{t}/{k}": n for (t, k), n in sorted(sheds.items())},
+            "exact_streams": exact}
+
+
+def _fleet_round(label, port, reqs, model=None, chunked=False):
+    """The burst `reqs` ((tenant, prompt) each) over HTTP with the K1-fwd
+    count and the gate counts set to 0 just before it and read just
+    after: the results, the wall seconds, the launches and the gate
+    counts. Fails if an attention call took another route than K1-fwd
+    ("flash_cuda"), and unless K1-fwd ran. With `chunked` (the sync
+    loop's prefill_chunk) every prompt runs `apply_prefill_chunk`,
+    plain torch as the JAX package's chunk step is plain XLA: no kernel
+    is launched there."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops import attention as attn
+
+    fa.flash_attention.launches = 0
+    attn.GATE_COUNTS.clear()
+    results, wall = _http_round(port, [p for _, p in reqs], FLEET_NEW,
+                                tenants=[t for t, _ in reqs], model=model)
+    launches = fa.flash_attention.launches
+    gates = dict(attn.GATE_COUNTS)
+    check(set(gates) <= {"flash_cuda"},
+          f"{label}: attention off K1-fwd: {gates}")
+    check(chunked or launches > 0, f"{label}: {launches} K1-fwd launches")
+    return results, wall, launches, gates
+
+
+def _gpt2_params():
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig()                       # GPT-2-small
+    params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(0),
+                         cfg)
+    return params, cfg
+
+
+def _fleet_engine(params, cfg, precision, qos=True, **kw):
+    """A GPT-2-small engine of phase 26: with FLEET_POLICY and the
+    burst's small queue, or (qos=False) with neither."""
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    return DecodeEngine(params, cfg, DecodeConfig(
+        block_size=16, num_blocks=512, decode_slots=FLEET_SLOTS,
+        prefill_buckets=FLEET_BUCKETS, precision=precision,
+        max_queue=FLEET_QUEUE if qos else 64,
+        qos=FLEET_POLICY if qos else None, **kw))
+
+
+def _fleet_decode_qos(params, cfg):
+    """Phase 26 (a) at f32: the burst over HTTP on the async loop and on
+    the sync loop (prefill_chunk), each stream against the no-policy
+    engine's. Returns the results and the bursts' K1-fwd launches."""
+    import torch
+
+    from paddle_tpu_torch.serving import Server, ServingConfig
+
+    reqs = _fleet_burst(cfg.vocab_size)
+    ref = _fleet_engine(params, cfg, "f32", qos=False)
+    ref.warmup()
+    try:
+        want = _kv_streams(ref, [p for _, p in reqs], FLEET_NEW)
+    finally:
+        ref.stop()
+    out, counted = {}, 0
+    for label, kw in (("async", {}),
+                      ("sync", {"prefill_chunk": FLEET_CHUNK})):
+        eng = _fleet_engine(params, cfg, "f32", **kw)
+        srv = Server(ServingConfig(), decode=eng)
+        port = srv.start(0)
+        try:
+            results, wall, launches, gates = _fleet_round(
+                f"fleet {label}", port, reqs, chunked=label == "sync")
+            code, quota, hdrs = _post_json(port, "/v1/generate", {
+                "ids": reqs[0][1], "tenant": "capped", "stream": False})
+            status = eng.status()
+        finally:
+            srv.stop()
+        check(eng._sync == (label == "sync"), f"fleet {label}: the loop")
+        body = _shed_ok(f"fleet {label} quota", "capped", {
+            "code": code, "body": quota,
+            "retry_after": hdrs.get("Retry-After")}, kinds=("quota",))
+        out[label] = {**_burst_gates(f"fleet {label}", reqs, results,
+                                     FLEET_NEW, want),
+                      "wall_s": wall, "quota_shed": body,
+                      "served_shares": status["qos"]["served_shares"],
+                      "requests": status["requests"],
+                      "launches": {"flash_attention_fwd": launches},
+                      "gate_counts": gates}
+        check(set(out[label]["served_shares"]) >= {"gold", "a", "b"},
+              f"fleet {label}: served shares {out[label]['served_shares']}")
+        counted += launches
+        del eng, srv
+        torch.cuda.empty_cache()
+    return out, counted
+
+
+def _tier_ttft(reqs, results):
+    """Client TTFT p50 and p99 (nearest rank, ms) by tier over the
+    served requests."""
+    by = collections.defaultdict(list)
+    for (tenant, _), out in zip(reqs, results):
+        if "ttft_s" in out:
+            tier = "low" if tenant in FLEET_LOW else \
+                FLEET_POLICY["tenants"][tenant]["tier"]
+            by[tier].append(out["ttft_s"] * 1e3)
+    return {tier: {"n": len(v),
+                   "p50_ms": sorted(v)[math.ceil(0.50 * len(v)) - 1],
+                   "p99_ms": sorted(v)[math.ceil(0.99 * len(v)) - 1]}
+            for tier, v in sorted(by.items())}
+
+
+def _cpu_predictor(d, precision="f32"):
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    cfg = AnalysisConfig(d)
+    cfg.disable_gpu()
+    if precision != "f32":
+        cfg.set_precision(precision)
+    return create_paddle_predictor(cfg)
+
+
+def _predict_traffic(port, model, tenant, stop, log, seed):
+    """Predict requests for one slot until `stop` is set: (t_start,
+    t_end, rows, status, reply) each."""
+    rs = np.random.RandomState(seed)
+    pool = synthetic_mnist(256, seed=seed)[0]
+    while not stop.is_set():
+        n = int(rs.randint(1, 9))
+        i = int(rs.randint(0, len(pool) - 8))
+        rows = pool[i:i + n]
+        t0 = time.monotonic()
+        code, reply, _ = _post_json(port, "/v1/predict", {
+            "feeds": {"x": rows.tolist()}, "model": model,
+            "tenant": tenant}, timeout=120)
+        log.append((t0, time.monotonic(), rows, code, reply))
+
+
+def _replies_held(label, entries, wants, tol):
+    """Every reply is a 200 and equals (at `tol`, relative to the
+    largest |reply|) the reply of one of the `wants` CPU predictors;
+    returns the worst gap."""
+    worst = 0.0
+    for _, _, rows, code, reply in entries:
+        check(code == 200, f"{label}: predict {code} {reply}")
+        got = np.asarray(next(iter(reply["outputs"].values())), np.float32)
+        gaps = []
+        for w in wants:
+            want = next(iter(w.predict(x=rows).values()))
+            gaps.append(float(np.abs(got - want).max() / np.abs(want).max()))
+        check(min(gaps) <= tol, f"{label}: replies differ by {gaps} "
+              f"(limit {tol})")
+        worst = max(worst, min(gaps))
+    return worst
+
+
+def _swap_under_traffic(port, label, swap, old_dir, new_dir, tol,
+                        precision):
+    """`swap()` while predict traffic for slot `label` runs: replies
+    before it against the old dir's CPU Predictor, after it against the
+    new dir's, in between against either."""
+    stop, log = threading.Event(), []
+    workers = [threading.Thread(target=_predict_traffic, daemon=True,
+                                args=(port, label, "a", stop, log, s))
+               for s in range(FLEET_PREDICT_THREADS)]
+    for w in workers:
+        w.start()
+    deadline = time.monotonic() + 60
+    while len(log) < 40 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    t0 = time.monotonic()
+    record = swap()
+    t1 = time.monotonic()
+    n = len(log)
+    while len(log) < n + 40 and time.monotonic() < deadline + 60:
+        time.sleep(0.01)
+    stop.set()
+    for w in workers:
+        w.join(timeout=120)
+    old = _cpu_predictor(old_dir, precision)
+    new = _cpu_predictor(new_dir, precision)
+    before = [e for e in log if e[1] < t0]
+    after = [e for e in log if e[0] > t1]
+    during = [e for e in log if e[1] >= t0 and e[0] <= t1]
+    check(before and after, f"swap {label}: {len(before)} replies before, "
+          f"{len(after)} after")
+    failed = sum(1 for e in log if e[3] != 200)
+    check(failed == 0, f"swap {label}: {failed} failed requests")
+    return {"requests": len(log), "before": len(before),
+            "during": len(during), "after": len(after), "failed": failed,
+            "worst_before": _replies_held(f"swap {label} before", before,
+                                          [old], tol),
+            "worst_after": _replies_held(f"swap {label} after", after,
+                                         [new], tol),
+            "worst_during": _replies_held(f"swap {label} during", during,
+                                          [old, new], tol),
+            "record": record}
+
+
+def _fleet_slots_and_swap(params, cfg, root):
+    """Phase 26 (a)'s bf16 burst and (b): one Server with two
+    LeNet slots (f32, bf16) and the GPT-2-small bf16 engine; hot_swap
+    and a registry publish under predict traffic. Returns the server,
+    still running, the registry's LeNet dir, the results and the bf16
+    burst's K1-fwd launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving import (Engine, ModelRegistry,
+                                          RegistryError, Server,
+                                          ServingConfig)
+    from paddle_tpu_torch.observability import events
+
+    (d_old, d_new, d_reg), _ = _lenet_saved(pt, root, (20, 40, 80))
+    eng = _fleet_engine(params, cfg, "bf16")
+    srv = Server(ServingConfig(d_old, model_id="lenet", qos=FLEET_POLICY),
+                 models={"lenet_bf16": ServingConfig(d_old,
+                                                     precision="bf16")},
+                 decode={"gpt2": eng})
+    port = srv.start(0)
+    out = {}
+    # (a)'s bf16 burst on the async loop, all its streams started
+    # together: a gate of sheds and service by tier; its TTFT and
+    # tokens/s are one burst's (2 high-tier requests), not a measure of
+    # the tiers' latency
+    reqs = _fleet_burst(cfg.vocab_size)
+    results, wall, launches, gates = _fleet_round("fleet bf16", port, reqs,
+                                                  model="gpt2")
+    timed = _burst_gates("fleet bf16", reqs, results, FLEET_NEW,
+                         need_shed=False)
+    n_tok = sum(len(o["tokens"]) for o in results if "code" not in o)
+    out["bf16"] = {**timed, "wall_s": wall, "tokens": n_tok,
+                   "tokens_per_s": n_tok / wall,
+                   "ttft_by_tier": _tier_ttft(reqs, results),
+                   "launches": {"flash_attention_fwd": launches},
+                   "gate_counts": gates,
+                   "served_shares": eng.status()["qos"]["served_shares"]}
+    # (b) predict slots: routing by "model", the rows of /v1/models
+    _, models, _ = _get_json(port, "/v1/models")
+    rows = {r["id"]: r for r in models["models"]}
+    check(set(rows) == {"lenet", "lenet_bf16", "gpt2"} and
+          rows["lenet"]["kind"] == "predict" and
+          rows["lenet_bf16"]["kind"] == "predict" and
+          rows["gpt2"]["kind"] == "decode",
+          f"fleet: /v1/models {models}")
+    code, body, _ = _post_json(port, "/v1/predict", {
+        "feeds": {"x": synthetic_mnist(2, seed=3)[0].tolist()},
+        "model": "nope"})
+    check(code == 404, f"fleet: unknown model {code} {body}")
+    events.clear()
+    # hot swap of each slot under traffic, the decode engine beside them
+    gen = {}
+    gthread = threading.Thread(target=_generate, daemon=True,
+                               args=(port, reqs[0][1], 64, gen, "gold",
+                                     "gpt2"))
+    gthread.start()
+    out["swap_f32"] = _swap_under_traffic(
+        port, "lenet", lambda: srv.hot_swap("lenet", model_dir=d_new),
+        d_old, d_new, PREDICT_TOL["f32"], "f32")
+    out["swap_bf16"] = _swap_under_traffic(
+        port, "lenet_bf16",
+        lambda: srv.hot_swap("lenet_bf16", model_dir=d_new),
+        d_old, d_new, PREDICT_TOL["bf16"], "bf16")
+    gthread.join(timeout=300)
+    check(len(gen.get("tokens", [])) == 64, f"fleet: the generation beside "
+          f"the swaps: {gen}")
+    # the registry: a published artifact of the third dir, adopted by
+    # the watcher under traffic
+    reg = ModelRegistry(os.path.join(root, "registry"))
+    art = os.path.join(root, "lenet_reg.warm.json")
+    warm = Engine(ServingConfig(d_reg))
+    warm.warmup()
+    check(warm.export_warmstart(art) == 7, "fleet: warmstart entries")
+    del warm
+    # an artifact baked from another program is refused
+    with open(art) as f:
+        other = json.load(f)
+    other["model_digest"] = "0" * 64
+    bad = os.path.join(root, "other.warm.json")
+    with open(bad, "w") as f:
+        json.dump(other, f)
+    try:
+        reg.publish("lenet", bad, model_dir=d_reg)
+        check(False, "fleet: a digest mismatch was published")
+    except RegistryError:
+        pass
+    srv.attach_registry(reg, model_ids=["lenet"], poll_s=0.05)
+
+    def publish():
+        entry = reg.publish("lenet", art, model_dir=d_reg)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            row = {r["id"]: r for r in srv.models()}["lenet"]
+            if row["version"] == entry["version"]:
+                return entry
+            time.sleep(0.01)
+        check(False, "fleet: the watcher did not adopt the publish")
+
+    out["swap_registry"] = _swap_under_traffic(
+        port, "lenet", publish, d_new, d_reg, PREDICT_TOL["f32"],
+        "f32")
+    _, models, _ = _get_json(port, "/v1/models")
+    row = {r["id"]: r for r in models["models"]}["lenet"]
+    check(row["version"] == 1 and row["warmstart_adopted"] == 7 and
+          row["digest"] == Engine._digest_model_file(d_reg),
+          f"fleet: /v1/models after the registry swap: {row}")
+    # a tampered blob is refused: the version stays, the watcher lives
+    e2 = reg.publish("lenet", art, model_dir=d_reg)
+    with open(e2["path"], "ab") as f:
+        f.write(b" ")
+    deadline = time.monotonic() + 60
+    while not events.recent(50, kind="model_swap_failed") and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+    failed = events.recent(50, kind="model_swap_failed")
+    check(failed and "digest check" in failed[-1]["error"] and
+          {r["id"]: r for r in srv.models()}["lenet"]["version"] == 1,
+          f"fleet: a tampered blob: {failed}")
+    out["swaps"] = [{k: e[k] for k in ("model", "version", "swap_s",
+                                       "warmstart_adopted")}
+                    for e in events.recent(50, kind="model_swap")]
+    check(len(out["swaps"]) == 3, f"fleet: swaps {out['swaps']}")
+    return srv, d_reg, out, launches
+
+
+def _fleet_router(params, cfg, srv_a, d_reg):
+    """Phase 26 (c): a RouterServer over the (b) server and a second one,
+    each with its GPT-2-small bf16 engine; both are warm before any
+    request is routed (no capture runs beside a serving engine).
+    Returns the results and the routed streams' K1-fwd launches."""
+    from paddle_tpu_torch.serving import (Router, RouterServer, Server,
+                                          ServingConfig)
+    from paddle_tpu_torch.serving import router as router_mod
+
+    srv_b = Server(ServingConfig(d_reg, model_id="lenet", qos=FLEET_POLICY),
+                   decode={"gpt2": _fleet_engine(params, cfg, "bf16")})
+    eps = [f"127.0.0.1:{srv_a.port()}", f"127.0.0.1:{srv_b.start(0)}"]
+    router = Router(eps, poll_interval_s=0.25, retries=2,
+                    breaker_reset_s=1.0, request_timeout_s=300)
+    probe = Router(eps, retries=2, request_timeout_s=300)
+    front = RouterServer(router)
+    fport = front.start(0)
+    out = {}
+    try:
+        router.poll_once()
+        probe.poll_once()
+        check(router.healthy_endpoints() == sorted(eps),
+              f"fleet router: healthy {router.healthy_endpoints()}")
+        # 12 streams of gold, a and b (the burst's low tier as gold): no
+        # more than one replica's slots and queue hold, so none is shed
+        # wherever p2c sends it
+        reqs = [("gold" if t in FLEET_LOW else t, p)
+                for t, p in _fleet_burst(cfg.vocab_size)[:12]]
+        gens, gwall, launches, _ = _fleet_round("fleet router", fport, reqs,
+                                                model="gpt2")
+        for (t, _), o in zip(reqs, gens):
+            check("error" not in o and "code" not in o and
+                  len(o["tokens"]) == FLEET_NEW,
+                  f"fleet router: generate {t}: {o}")
+        # then predict traffic, from FLEET_PREDICT_THREADS clients
+        pool = synthetic_mnist(256, seed=27)[0]
+        stop, log = threading.Event(), []
+        workers = [threading.Thread(target=_predict_traffic, daemon=True,
+                                    args=(fport, "lenet", "a", stop, log,
+                                          s))
+                   for s in range(FLEET_PREDICT_THREADS)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        # a typed shed reaches the client unchanged, with no failover
+        sheds0 = router_mod.FLEET_SHEDS.value(tier="low")
+        retries0 = dict(router.status()["retries"])
+        for path, payload in (
+                ("/v1/predict", {"feeds": {"x": pool[:2].tolist()},
+                                 "model": "lenet", "tenant": "capped"}),
+                ("/v1/generate", {"ids": reqs[0][1], "tenant": "capped",
+                                  "model": "gpt2", "stream": False})):
+            code, body, hdrs = _post_json(fport, path, payload)
+            _shed_ok(f"fleet router {path}", "capped", {
+                "code": code, "body": body,
+                "retry_after": hdrs.get("Retry-After")}, kinds=("quota",))
+        check(router_mod.FLEET_SHEDS.value(tier="low") - sheds0 == 2 and
+              router.status()["retries"] == retries0,
+              f"fleet router: sheds {router.status()}")
+        # stop one replica in the middle of the predict burst
+        n = len(log)
+        while len(log) < n + 40:
+            time.sleep(0.01)
+        picks = {r["endpoint"]: r["picks"]
+                 for r in router.status()["replicas"]}
+        check(all(n > 0 for n in picks.values()),
+              f"fleet router: p2c picked {picks}")
+        srv_a.stop()
+        t_stop = time.monotonic()
+        while not [e for e in log if e[0] > t_stop + 0.5] and \
+                time.monotonic() < t_stop + 60:
+            time.sleep(0.01)
+        # the probe router still ranks the stopped replica first (equal
+        # cached loads): its stream, with no token delivered, is
+        # resubmitted on the survivor
+        toks = [r["token"] for r in probe.generate(
+            reqs[1][1], max_new_tokens=FLEET_NEW, model="gpt2")
+            if "token" in r]
+        check(len(toks) == FLEET_NEW and
+              probe.status()["retries"].get("stream_restart") == 1,
+              f"fleet router: the probe stream {probe.status()}")
+        stop.set()
+        for w in workers:
+            w.join(timeout=120)
+        wall = time.perf_counter() - t0
+        failed = [e for e in log if e[3] != 200]
+        check(not failed, f"fleet router: {len(failed)} predict failures: "
+              f"{failed[:2]}")
+        worst = _replies_held("fleet router", log,
+                              [_cpu_predictor(d_reg)], PREDICT_TOL["f32"])
+        st = router.status()
+        out = {"predict_requests": len(log),
+               "predict_requests_per_s": len(log) / wall,
+               "predict_worst_vs_cpu": worst,
+               "generate": len(gens), "generate_wall_s": gwall,
+               "picks": picks, "retries": st["retries"],
+               "requests": st["requests"],
+               "probe_retries": probe.status()["retries"],
+               "healthy_after_stop": router.healthy_endpoints()}
+    finally:
+        front.stop()
+        probe.stop()
+        srv_a.stop()
+        srv_b.stop()
+    return out, launches
+
+
+def _fleet_supervisor(root):
+    """Phase 26 (d): a ReplicaSupervisor of `--decode-tiny 0` replica
+    processes, discovered through the rendezvous; SIGKILL, SIGTERM and
+    the autoscaler on the router's load signal."""
+    from paddle_tpu_torch.distributed.launch_serve import (ReplicaSpec,
+                                                           ReplicaSupervisor)
+    from paddle_tpu_torch.serving import Autoscaler, Router
+
+    rdzv = os.path.join(root, "rdzv")
+    spec = ReplicaSpec("", drain_timeout_s=10.0,
+                       extra_args=["--decode-tiny", "0",
+                                   "--heartbeat-s", "0.2"])
+    sup = ReplicaSupervisor(spec, rdzv, replicas=2, max_respawns=2,
+                            backoff_s=0.1, log_dir=os.path.join(root, "logs"))
+    router = Router(rdzv_dir=rdzv, poll_interval_s=0.1,
+                    request_timeout_s=300)
+
+    def wait_healthy(n, what, timeout=180):
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            router.poll_once()
+            if len(router.healthy_endpoints()) == n:
+                return time.monotonic() - t0
+            time.sleep(0.05)
+        check(False, f"fleet supervisor: {what}: healthy "
+              f"{router.healthy_endpoints()}, slots {sup.slot_info()}")
+
+    out = {}
+    try:
+        sup.start()
+        out["spawn_to_ready_s"] = wait_healthy(2, "spawn")
+        toks = [r["token"] for r in router.generate([1, 2, 3],
+                                                    max_new_tokens=8)
+                if "token" in r]
+        check(len(toks) == 8, f"fleet supervisor: generate {toks}")
+        killed = sup.kill_slot(0)
+        t0 = time.monotonic()
+        log0 = os.path.join(root, "logs", "replica.0.log")
+
+        def readies():
+            with open(log0) as f:
+                return sum(1 for line in f if '"ready": true' in line)
+
+        while readies() < 2 and time.monotonic() - t0 < 180:
+            time.sleep(0.02)
+        # kill to the respawned replica's ready line
+        out["respawn_s"] = time.monotonic() - t0
+        wait_healthy(2, "respawn")
+        check(killed in router.endpoints() and
+              sup.slot_info()[0]["respawns"] == 1,
+              f"fleet supervisor: respawn {sup.slot_info()}")
+        # the autoscaler: a sustained backlog scales out once; the
+        # cooldown over and the load gone, it scales in
+        scaler = Autoscaler(router, sup, min_replicas=2, max_replicas=3,
+                            high_load=4.0, low_load=0.5, breach_polls=3,
+                            clear_polls=3, out_cooldown_s=1.0,
+                            in_cooldown_s=2.0)
+        backlog = [{} for _ in range(48)]
+        threads = [threading.Thread(
+            target=lambda o: o.update(toks=[
+                r["token"] for r in router.generate(
+                    [5, 6, 7, 8], max_new_tokens=48) if "token" in r]),
+            args=(o,), daemon=True) for o in backlog]
+        for t in threads:
+            t.start()
+        actions = []
+        t0 = time.monotonic()
+        while "out" not in actions and time.monotonic() - t0 < 60:
+            router.poll_once()
+            actions.append(scaler.tick())
+            time.sleep(0.05)
+        check("out" in actions, f"fleet autoscaler: no scale-out: "
+              f"{actions}")
+        for t in threads:
+            t.join(timeout=300)
+        check(all(len(o.get("toks", [])) == 48 for o in backlog),
+              "fleet autoscaler: the backlog's generations")
+        out["scale_out_to_ready_s"] = wait_healthy(3, "scale-out")
+        t0 = time.monotonic()
+        while "in" not in actions and time.monotonic() - t0 < 60:
+            router.poll_once()
+            actions.append(scaler.tick())
+            time.sleep(0.1)
+        check("in" in actions and actions.count("out") == 1 and
+              sup.replica_count() == 2,
+              f"fleet autoscaler: {actions}, {sup.slot_info()}")
+        out["autoscale_actions"] = [a for a in actions if a]
+        # SIGTERM: the replica leaves, drains and exits 0, unreplaced
+        slot = sup.slot_info()[1]
+        sup.scale_in(endpoint=slot["endpoint"])
+        t0 = time.monotonic()
+        while sup.slot_info()[1]["alive"] and time.monotonic() - t0 < 60:
+            time.sleep(0.05)
+        info = sup.slot_info()[1]
+        check(not info["alive"] and info["retired"] and
+              info["launches"] == 1 and
+              sup._slots[1].proc.returncode == 0,
+              f"fleet supervisor: SIGTERM {info}")
+        time.sleep(0.5)
+        check(sup.slot_info()[1]["launches"] == 1,
+              "fleet supervisor: a drained replica was respawned")
+        out["slots"] = sup.slot_info()
+    finally:
+        router.stop()
+        sup.stop(grace_s=30.0)
+    check(all(not s["alive"] for s in sup.slot_info()),
+          "fleet supervisor: a replica outlived stop()")
+    return out
+
+
+def phase_fleet():
+    """Phase 26: the multi-tenant serving front and the fleet tier at
+    GPT-2-small's full width. Returns the K1-fwd launches of its bf16
+    servers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    params, cfg = _gpt2_params()
+    parts = {}
+    out = {}
+    out["decode_qos_f32"], launches = _fleet_decode_qos(params, cfg)
+    torch.cuda.empty_cache()
+    parts["a_f32"] = time.perf_counter() - t0
+    srv, d_reg, out["slots"], bf16 = _fleet_slots_and_swap(params, cfg,
+                                                          root)
+    parts["a_bf16_b"] = time.perf_counter() - t0 - sum(parts.values())
+    out["router"], routed = _fleet_router(params, cfg, srv, d_reg)
+    launches += bf16 + routed
+    del srv
+    torch.cuda.empty_cache()
+    parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+    out["supervisor"] = _fleet_supervisor(root)
+    parts["d"] = time.perf_counter() - t0 - sum(parts.values())
+    print(json.dumps({
+        "phase": "fleet", "card": card(),
+        "model": "GPT-2-small (GPTConfig()), seed 0; LeNet rung saved "
+                 "after 20, 40 and 80 Adam steps on the card",
+        "policy": FLEET_POLICY, "max_queue": FLEET_QUEUE,
+        "burst": dict(FLEET_BURST), "new_tokens": FLEET_NEW,
+        "prefill_buckets": list(FLEET_BUCKETS), "prefill_chunk": FLEET_CHUNK,
+        "decode_slots": list(FLEET_SLOTS),
+        "captures": "every engine is warmed before any request reaches "
+                    "its process's servers",
+        **out, "launches": {"flash_attention_fwd": launches},
+        "part_seconds": parts, "seconds": time.perf_counter() - t0}))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4681,31 +5431,42 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_environment()
-    serving_row, training_rows, k2_rows, k3_row, fdb_rows = phase_kernels()
-    launches = collections.Counter({"flash_attention_fwd": phase_slice()})
-    phase_profile()
-    phase_greedy()
-    phase_train_parity()
-    bert_counts, bert512 = phase_train()
-    gpt_counts = phase_gpt_train()
-    phase_nmt_parity()
-    nmt_counts = phase_nmt_train()
-    beam_counts = phase_nmt_beam()
-    padded_counts = phase_bert_padded(bert512)
-    bottleneck_counts = phase_bottleneck()
-    phase_resnet_parity()
-    resnet_counts = phase_resnet_train()
-    phase_ring_parity()
-    sp_counts = phase_bert_long_sp()
-    phase_head_dim_gate()
-    resilience_counts = phase_resilience()
-    phase_fluid()
-    launches["flash_attention_fwd"] += phase_kv_reuse()
-    moe_counts = phase_gpt_moe()
-    phase_infer()
-    phase_predict()
-    dptp_counts = phase_dp_tp()
+    seconds = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        result = phase(*args)
+        seconds[phase.__name__] = time.perf_counter() - t
+        return result
+
+    timed(phase_environment)
+    serving_row, training_rows, k2_rows, k3_row, fdb_rows = \
+        timed(phase_kernels)
+    launches = collections.Counter(
+        {"flash_attention_fwd": timed(phase_slice)})
+    timed(phase_profile)
+    timed(phase_greedy)
+    timed(phase_train_parity)
+    bert_counts, bert512 = timed(phase_train)
+    gpt_counts = timed(phase_gpt_train)
+    timed(phase_nmt_parity)
+    nmt_counts = timed(phase_nmt_train)
+    beam_counts = timed(phase_nmt_beam)
+    padded_counts = timed(phase_bert_padded, bert512)
+    bottleneck_counts = timed(phase_bottleneck)
+    timed(phase_resnet_parity)
+    resnet_counts = timed(phase_resnet_train)
+    timed(phase_ring_parity)
+    sp_counts = timed(phase_bert_long_sp)
+    timed(phase_head_dim_gate)
+    resilience_counts = timed(phase_resilience)
+    timed(phase_fluid)
+    launches["flash_attention_fwd"] += timed(phase_kv_reuse)
+    moe_counts = timed(phase_gpt_moe)
+    timed(phase_infer)
+    timed(phase_predict)
+    dptp_counts = timed(phase_dp_tp)
+    launches["flash_attention_fwd"] += timed(phase_fleet)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):
@@ -4788,6 +5549,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    # each phase's wall seconds (phase_environment's include the build)
+    print(json.dumps({"phase": "timing", "seconds": seconds,
+                      "total_s": sum(seconds.values())}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

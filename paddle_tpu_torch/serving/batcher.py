@@ -1,6 +1,6 @@
 """Bounded-queue micro-batcher: coalesce concurrent requests into
 bucket-shaped batches under a latency deadline. Counterpart of the JAX
-package's `serving/batcher.py`, without its QoS policy.
+package's `serving/batcher.py`.
 
 The core serving trade (Clipper NSDI'17, ORCA OSDI'22): a request
 arriving alone pays the full host round-trip for a bs=1 dispatch, but
@@ -17,28 +17,40 @@ callers get `RequestTimeout` (504). `stop()` drains: no new admissions,
 pending work completes, the thread exits. An exception of the engine
 reaches every caller of its batch as `EngineError` (500).
 
+With a QoS policy (`Batcher(qos=...)`, a `qos.QoSPolicy` or its
+`from_spec` dict) the overload answer is tiered instead of global: a
+full queue sheds the lowest-tier request, newest first within the tier
+(which may be a queued victim rather than the arrival), through
+`qos.ShedError`; per-tenant quotas cap one tenant's queued plus
+in-flight requests; and the batch head is picked by (tier,
+weighted-fair virtual time) instead of strict FIFO, so tenants within a
+tier share dispatched rows in proportion to their weights. Without a
+policy a full queue raises a plain `QueueFullError`.
+
 Requests coalesce only when their non-batch signature (feed names,
 trailing dims, dtypes) matches — mixed-signature traffic simply forms
 separate batches. The metrics (`paddle_tpu_serving_queue_depth`,
 `..._queue_wait_seconds`, `..._request_seconds`,
 `..._requests_total{outcome}`, `..._batch_rows`) and the
-`serve.queue_wait` and `serve.batch` trace spans are the JAX package's.
-
-Not ported (ROADMAP item 17): the QoS policy (tiers, weighted-fair
-head pick, per-tenant quotas, typed sheds); `qos=` raises.
+`serve.queue_wait` and `serve.batch` trace spans are the JAX package's,
+and so are the per-tenant ones of `qos.py`.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..observability import events as _events
 from ..observability import metrics as _m
 from ..observability import tracing as _tracing
 from .bucketing import BucketPolicy, common_batch
+
+if TYPE_CHECKING:  # qos.py imports batcher; runtime import is deferred
+    from .qos import WeightedFairScheduler
 
 __all__ = ["Batcher", "EngineError", "QueueFullError", "RequestTimeout",
            "ServerClosed"]
@@ -83,9 +95,9 @@ BATCH_ROWS = _m.histogram(
 
 class _Request:
     __slots__ = ("feeds", "n", "sig", "enqueue_t", "deadline",
-                 "event", "result", "error", "tctx")
+                 "event", "result", "error", "tctx", "tenant", "seq")
 
-    def __init__(self, feeds, n, sig, deadline):
+    def __init__(self, feeds, n, sig, deadline, tenant, seq):
         self.feeds = feeds
         self.n = n
         self.sig = sig
@@ -97,6 +109,8 @@ class _Request:
         # captured at submit() on the CALLER's thread: the batcher
         # thread records queue-wait/batch spans against it later
         self.tctx = _tracing.current_trace()
+        self.tenant = tenant
+        self.seq = seq          # arrival order (shed newest-first key)
 
 
 def _feed_sig(feeds: Dict[str, np.ndarray]):
@@ -119,11 +133,6 @@ class Batcher:
                  qos=None):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        if qos is not None:
-            raise NotImplementedError(
-                "Batcher(qos=...): the QoS policy (tiers, weighted-fair "
-                "scheduling, quotas, sheds) is not ported (ROADMAP item "
-                "17's QoS); pass qos=None")
         self._run = run_batch
         self._policy = policy
         # name -> does this output carry the batch dim? (False = share
@@ -135,6 +144,17 @@ class Batcher:
         self._max_queue = int(max_queue)
         self._max_wait = float(max_wait_ms) / 1000.0
         self._timeout_s = float(timeout_s)
+        # per-tenant QoS (None = single-tenant FIFO). Deferred import:
+        # qos.py imports THIS module for the QueueFullError base class.
+        from . import qos as _qos_mod
+
+        self._qosm = _qos_mod
+        self._qos = _qos_mod.QoSPolicy.from_spec(qos)
+        self._wfq: Optional["WeightedFairScheduler"] = \
+            _qos_mod.WeightedFairScheduler(self._qos) \
+            if self._qos is not None else None
+        self._seq = 0               # arrival stamp for shed ordering
+        self._inflight_by: Dict[str, int] = {}  # tenant -> dispatched
         self._cv = threading.Condition()
         self._pending: List[_Request] = []
         self._inflight = 0  # requests inside a dispatched batch right now
@@ -168,17 +188,50 @@ class Batcher:
         with self._cv:
             return dict(self._counts)
 
-    def _finish(self, outcome: str):
+    def _finish(self, outcome: str, tenant: Optional[str] = None):
         REQUESTS.inc(outcome=outcome)
+        if self._qos is not None and tenant is not None:
+            self._qosm.TENANT_REQUESTS.inc(
+                tenant=tenant, tier=self._qos.tier_of(tenant),
+                outcome=outcome)
         with self._cv:
             self._counts[outcome] += 1
 
+    def _shed_locked(self, tenant: str, seq: int) -> None:
+        """Queue-full admission under QoS (caller holds _cv): pick the
+        shed victim across queued requests AND the arrival, lowest tier
+        first, newest first within the tier. A queued victim's waiting
+        thread is woken with ShedError (its caller gets the typed 503)
+        and the arrival is admitted in its place; when the arrival IS
+        the victim, ShedError raises here."""
+        qos = self._qos
+        entries = [(r.tenant, r.seq) for r in self._pending] \
+            + [(tenant, seq)]
+        vi = self._qosm.shed_victim(entries, qos)
+        v_tenant = entries[vi][0]
+        v_tier = qos.tier_of(v_tenant)
+        self._qosm.SHEDS.inc(tier=v_tier, kind="queue")
+        _events.emit("shed", where="batcher", tenant=v_tenant,
+                     tier=v_tier, shed="queue")
+        err = self._qosm.ShedError(
+            f"queue full ({self._max_queue} pending); shed tier "
+            f"{v_tier!r} (tenant {v_tenant!r})",
+            tenant=v_tenant, tier=v_tier, kind="queue")
+        if vi == len(entries) - 1:
+            raise err                       # the arrival is the victim
+        victim = self._pending.pop(vi)
+        QUEUE_DEPTH.set(len(self._pending))
+        victim.error = err
+        victim.event.set()
+
     def submit(self, feeds: Dict[str, np.ndarray],
-               timeout_s: Optional[float] = None) -> Dict[str, np.ndarray]:
+               timeout_s: Optional[float] = None,
+               tenant: Optional[str] = None) -> Dict[str, np.ndarray]:
         """Block until the request's rows come back from a dispatched
         batch. Raises QueueFullError / ServerClosed (don't queue),
         RequestTimeout (queued or dispatched but missed the deadline),
-        or EngineError (the engine raised on its batch)."""
+        qos.ShedError (tier-shed or over-quota under a QoS policy), or
+        EngineError (the engine raised on its batch)."""
         t0 = time.monotonic()
         feeds = {k: np.asarray(v) for k, v in feeds.items()}
         if not feeds:
@@ -191,16 +244,42 @@ class Batcher:
                 f"request batch {n} exceeds the largest bucket "
                 f"{self._policy.max_batch}; split it client-side")
         timeout = self._timeout_s if timeout_s is None else float(timeout_s)
+        tenant = str(tenant) if tenant else self._qosm.DEFAULT_TENANT
         with self._cv:
             if self._closed:
-                self._finish("rejected")
+                self._finish("rejected", tenant)
                 raise ServerClosed("server is draining; request rejected")
+            qos = self._qos
+            if qos is not None:
+                quota = qos.quota_of(tenant)
+                if quota is not None:
+                    have = self._inflight_by.get(tenant, 0) + sum(
+                        1 for r in self._pending if r.tenant == tenant)
+                    if have >= quota:
+                        tier = qos.tier_of(tenant)
+                        self._qosm.SHEDS.inc(tier=tier, kind="quota")
+                        _events.emit("shed", where="batcher",
+                                     tenant=tenant, tier=tier,
+                                     shed="quota")
+                        self._finish("rejected", tenant)
+                        raise self._qosm.ShedError(
+                            f"tenant {tenant!r} over quota ({quota} "
+                            "concurrent); request rejected",
+                            tenant=tenant, tier=tier, kind="quota")
+            self._seq += 1
+            req = _Request(feeds, n, _feed_sig(feeds), t0 + timeout,
+                           tenant, self._seq)
             if len(self._pending) >= self._max_queue:
-                self._finish("rejected")
-                raise QueueFullError(
-                    f"queue full ({self._max_queue} pending); "
-                    "request rejected")
-            req = _Request(feeds, n, _feed_sig(feeds), t0 + timeout)
+                if qos is None:
+                    self._finish("rejected", tenant)
+                    raise QueueFullError(
+                        f"queue full ({self._max_queue} pending); "
+                        "request rejected")
+                try:
+                    self._shed_locked(tenant, req.seq)
+                except QueueFullError:
+                    self._finish("rejected", tenant)
+                    raise
             self._pending.append(req)
             QUEUE_DEPTH.set(len(self._pending))
             self._cv.notify_all()
@@ -212,16 +291,21 @@ class Batcher:
                 if req in self._pending:
                     self._pending.remove(req)
                     QUEUE_DEPTH.set(len(self._pending))
-            self._finish("timeout")
+            self._finish("timeout", tenant)
             raise RequestTimeout(f"request timed out after {timeout:g}s")
         if req.error is not None:
             if isinstance(req.error, RequestTimeout):
-                self._finish("timeout")
+                self._finish("timeout", tenant)
+            elif isinstance(req.error, QueueFullError):
+                self._finish("rejected", tenant)  # shed while queued
             else:
-                self._finish("error")
+                self._finish("error", tenant)
             raise req.error
-        self._finish("ok")
+        self._finish("ok", tenant)
         REQUEST_SECONDS.observe(time.monotonic() - t0)
+        if self._qos is not None:
+            self._qosm.TENANT_REQUEST_SECONDS.observe(
+                time.monotonic() - t0, tenant=tenant)
         return req.result
 
     # -- batcher thread ------------------------------------------------
@@ -235,7 +319,13 @@ class Batcher:
                 if self._closed:
                     return []
                 self._cv.wait()
-            head = self._pending[0]
+            if self._wfq is not None:
+                # tiered weighted-fair head pick: strict tier priority,
+                # minimum virtual time within the tier (FIFO tie-break)
+                head = self._pending[self._wfq.pick(
+                    [r.tenant for r in self._pending])]
+            else:
+                head = self._pending[0]
             # coalescing window: dispatch early when a full bucket of
             # compatible rows is waiting (or on drain), else wait out
             # max_wait from the head's enqueue for companions to arrive
@@ -265,6 +355,10 @@ class Batcher:
             # leave the queue until their batch resolves — the load
             # probe must not report an idle server mid-dispatch
             self._inflight = len(batch)
+            self._inflight_by = {}
+            for r in batch:
+                self._inflight_by[r.tenant] = \
+                    self._inflight_by.get(r.tenant, 0) + 1
             QUEUE_DEPTH.set(len(self._pending))
         return batch
 
@@ -279,7 +373,11 @@ class Batcher:
             # coalescing wait?" answered per trace
             _tracing.record_trace_span(
                 "serve.queue_wait", r.tctx, now - r.enqueue_t,
-                cat="serve", rows=r.n, batch=bid)
+                cat="serve", rows=r.n, batch=bid, tenant=r.tenant)
+            if self._wfq is not None:
+                # service charge: dispatched rows advance the tenant's
+                # virtual time by rows/weight
+                self._wfq.charge(r.tenant, r.n)
         BATCH_ROWS.observe(total)
         feeds = {k: np.concatenate([r.feeds[k] for r in batch], axis=0)
                  for k in batch[0].feeds}
@@ -341,9 +439,11 @@ class Batcher:
                 finally:
                     with self._cv:
                         self._inflight = 0
+                        self._inflight_by = {}
                 continue
             with self._cv:
                 self._inflight = 0
+                self._inflight_by = {}
                 if self._closed and not self._pending:
                     return
 

@@ -47,15 +47,25 @@ scheduler:
   (`paddle_tpu_torch/analysis.py`), PADDLE_TPU_VALIDATE=2 refuses to
   boot a broken grid; below level 2 an engine with an error finding
   boots, reports it in `status()`, and refuses to warm or serve;
-- the JAX package's decode and KV-reuse metrics (same names, same
-  update points), its `decode` and `warmstart` events and its
-  per-request trace spans.
+- per-tenant QoS (`DecodeConfig(qos=...)`, a `qos.QoSPolicy` or its
+  `from_spec` dict; `submit(..., tenant=...)`), on both loops: the
+  next waiting request is picked by (tier, weighted-fair virtual time),
+  charged its prompt at admission and one unit per emitted token; a
+  full queue sheds the lowest tier, newest first, through
+  `qos.ShedError`; a quota caps one tenant's waiting, prefilling and
+  active requests; the preemption victim under KV pressure is the
+  lowest tier, youngest admission first. Without a policy admission is
+  FIFO and the victim the youngest, as before;
+- the JAX package's decode, KV-reuse and tenant metrics (same names,
+  same update points), its `decode`, `shed` and `warmstart` events and
+  its per-request trace spans.
 
 Sampling is greedy through ops.beam.beam_search with beam_size=1,
 whose finished-freeze keeps an ended slot emitting eos.
 
-Not ported yet: QoS and tenants (ROADMAP item 17); memwatch (with the
-prefix cache's owner row), perfwatch and telemetry (item 18).
+Not ported yet: memwatch (with the prefix cache's owner row and
+`DecodeConfig(model_tag=...)`), perfwatch and telemetry (ROADMAP item
+18).
 """
 
 from __future__ import annotations
@@ -67,7 +77,7 @@ import json
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +96,9 @@ from .kv_cache import (BlockAllocator, KVCacheConfig, NoBlocksError,
                        build_block_table, init_pools)
 from . import kv_reuse as _kvr
 from .kv_reuse import ReuseBlockAllocator
+
+if TYPE_CHECKING:  # qos.py imports batcher; runtime import is deferred
+    from .qos import WeightedFairScheduler
 
 __all__ = ["DecodeConfig", "DecodeEngine", "DecodeHandle",
            "DECODE_WARMSTART_FORMAT"]
@@ -171,7 +184,8 @@ class DecodeConfig:
                  warmstart: Optional[str] = None,
                  prefix_cache: bool = False,
                  prefill_chunk: int = 0,
-                 spec_k: int = 0):
+                 spec_k: int = 0,
+                 qos=None):
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
         self.decode_slots = tuple(sorted({int(s) for s in decode_slots}))
@@ -187,6 +201,9 @@ class DecodeConfig:
         self.prefix_cache = bool(prefix_cache)
         self.prefill_chunk = int(prefill_chunk)
         self.spec_k = int(spec_k)
+        # per-tenant QoS policy (a qos.QoSPolicy or its from_spec dict;
+        # None = single-tenant FIFO)
+        self.qos = qos
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{self.prefill_chunk}")
@@ -246,9 +263,12 @@ class _Request:
                  "events", "t_submit", "t_first", "finish_reason",
                  "error", "cancelled", "last_token", "pos", "blocks",
                  "admitted_at", "tctx", "enqueued_at",
-                 "prefill_pos", "draft_pos", "n_reused", "hashes")
+                 "prefill_pos", "draft_pos", "n_reused", "hashes",
+                 "tenant")
 
-    def __init__(self, rid: int, prompt: np.ndarray, max_new: int):
+    def __init__(self, rid: int, prompt: np.ndarray, max_new: int,
+                 tenant: str = "default"):
+        self.tenant = tenant
         self.rid = rid
         # captured on the submitter's thread; the scheduler thread
         # records queue-wait/prefill/TTFT spans against it later
@@ -410,6 +430,16 @@ class DecodeEngine:
             if self.config.prefix_cache else BlockAllocator(self.kv_cfg)
         # re-entrant: _count takes it from paths that already hold it
         self._cv = threading.Condition(threading.RLock())
+        # per-tenant QoS (None = single-tenant FIFO). Deferred import:
+        # qos.py pulls QueueFullError from batcher.
+        from . import qos as _qos_mod
+
+        self._qosm = _qos_mod
+        self._qos = _qos_mod.QoSPolicy.from_spec(
+            getattr(self.config, "qos", None))
+        self._wfq: Optional["WeightedFairScheduler"] = \
+            _qos_mod.WeightedFairScheduler(self._qos) \
+            if self._qos is not None else None
         self._waiting: "collections.deque[_Request]" = collections.deque()
         self._active: List[_Request] = []
         # chunked-prefill stage: admitted (blocks reserved) but not yet
@@ -926,11 +956,17 @@ class DecodeEngine:
                          prefill_buckets=list(self.prefill_buckets),
                          blocks=self.kv_cfg.usable_blocks)
 
-    def submit(self, prompt_ids, max_new_tokens: int = 16) -> DecodeHandle:
+    def submit(self, prompt_ids, max_new_tokens: int = 16,
+               tenant: Optional[str] = None) -> DecodeHandle:
         """Enqueue one generation; returns its token-stream handle.
         Reject-not-block: QueueFullError (HTTP 503) when max_queue
         prompts already wait, ServerClosed after stop() or drain().
-        Raises RuntimeError on an engine whose boot validation found an
+        Under a QoS policy (DecodeConfig(qos=...)) a full queue sheds
+        the lowest-tier waiter (newest first within the tier) through
+        qos.ShedError, possibly a queued victim, in which case this
+        arrival is admitted in its place; per-tenant quotas bound one
+        tenant's waiting, prefilling and active requests. Raises
+        RuntimeError on an engine whose boot validation found an
         error."""
         self._refuse_invalid()
         prompt = np.asarray(prompt_ids, np.int32).ravel()
@@ -960,24 +996,77 @@ class DecodeEngine:
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
         max_new = min(int(max_new_tokens), room)
+        tenant = str(tenant) if tenant else self._qosm.DEFAULT_TENANT
+        shed_victim: Optional[_Request] = None
+        shed_err: Optional[BaseException] = None
         with self._cv:
             if self._closed:
-                self._count("rejected")
+                self._count("rejected", tenant)
                 raise ServerClosed("decode engine is stopped")
             if self._draining:
-                self._count("rejected")
+                self._count("rejected", tenant)
                 raise ServerClosed(
                     "decode engine is draining; request rejected")
+            qos = self._qos
+            if qos is not None:
+                quota = qos.quota_of(tenant)
+                if quota is not None:
+                    have = sum(1 for r in self._waiting
+                               if r.tenant == tenant) \
+                        + sum(1 for r in self._active
+                              if r.tenant == tenant) \
+                        + sum(1 for r in self._prefilling
+                              if r.tenant == tenant)
+                    if have >= quota:
+                        tier = qos.tier_of(tenant)
+                        self._qosm.SHEDS.inc(tier=tier, kind="quota")
+                        _events.emit("shed", where="decode",
+                                     tenant=tenant, tier=tier,
+                                     shed="quota")
+                        self._count("rejected", tenant)
+                        raise self._qosm.ShedError(
+                            f"tenant {tenant!r} over quota ({quota} "
+                            "concurrent generations); request rejected",
+                            tenant=tenant, tier=tier, kind="quota")
             if len(self._waiting) >= self.config.max_queue:
-                self._count("rejected")
-                raise QueueFullError(
+                if qos is None:
+                    self._count("rejected", tenant)
+                    raise QueueFullError(
+                        f"decode queue full ({self.config.max_queue} "
+                        "waiting); request rejected")
+                # tier-ordered shed: lowest tier first, newest first
+                # within the tier, the arrival included as a candidate
+                entries = [(r.tenant, r.rid) for r in self._waiting] \
+                    + [(tenant, self._rid + 1)]
+                vi = self._qosm.shed_victim(entries, qos)
+                v_tenant = entries[vi][0]
+                v_tier = qos.tier_of(v_tenant)
+                self._qosm.SHEDS.inc(tier=v_tier, kind="queue")
+                _events.emit("shed", where="decode", tenant=v_tenant,
+                             tier=v_tier, shed="queue")
+                err = self._qosm.ShedError(
                     f"decode queue full ({self.config.max_queue} "
-                    "waiting); request rejected")
+                    f"waiting); shed tier {v_tier!r} (tenant "
+                    f"{v_tenant!r})",
+                    tenant=v_tenant, tier=v_tier, kind="queue")
+                if vi == len(entries) - 1:   # the arrival is the victim
+                    self._count("rejected", tenant)
+                    raise err
+                shed_victim = self._waiting[vi]
+                del self._waiting[vi]
+                shed_err = err
             self._rid += 1
-            req = _Request(self._rid, prompt, max_new)
+            req = _Request(self._rid, prompt, max_new, tenant)
             self._waiting.append(req)
             QUEUE_DEPTH.set(len(self._waiting))
             self._cv.notify_all()
+        if shed_victim is not None:
+            # outside the lock: end the victim's stream with the typed
+            # error
+            shed_victim.error = shed_err
+            self._count("rejected", shed_victim.tenant)
+            shed_victim.finish_reason = "rejected"
+            shed_victim.events.put(None)
         self.start()
         return DecodeHandle(req)
 
@@ -1073,6 +1162,13 @@ class DecodeEngine:
             "kv": self._alloc.stats(live_tokens=live_tokens),
             "requests": counts,
         }
+        if self._qos is not None:
+            out["qos"] = {
+                "policy": self._qos.spec_dict(),
+                "served_shares": {
+                    t: round(s, 4) for t, s in
+                    self._wfq.served_shares().items()},
+            }
         if self._sync:
             out["prefilling"] = prefilling
             out["kv_reuse"] = {
@@ -1089,8 +1185,12 @@ class DecodeEngine:
 
     # -- scheduler internals (single thread owns everything below) -----
 
-    def _count(self, outcome: str):
+    def _count(self, outcome: str, tenant: Optional[str] = None):
         REQUESTS.inc(outcome=outcome)
+        if self._qos is not None and tenant is not None:
+            self._qosm.TENANT_REQUESTS.inc(
+                tenant=tenant, tier=self._qos.tier_of(tenant),
+                outcome=outcome)
         with self._cv:
             self._counts[outcome] = self._counts.get(outcome, 0) + 1
 
@@ -1098,13 +1198,24 @@ class DecodeEngine:
         req.last_token = int(tok)
         req.generated.append(int(tok))
         TOKENS.inc(phase=phase)
+        if self._wfq is not None:
+            # token-granular service charge: the admission pick reads
+            # these virtual times, so sustained token flow to one
+            # tenant defers its next admission in favor of underserved
+            # same-tier tenants
+            self._wfq.charge(req.tenant, 1)
+            self._qosm.TENANT_TOKENS.inc(tenant=req.tenant)
         if req.t_first is None:
             req.t_first = time.monotonic()
             TTFT_SECONDS.observe(req.t_first - req.t_submit)
+            if self._qos is not None:
+                self._qosm.TENANT_TTFT_SECONDS.observe(
+                    req.t_first - req.t_submit, tenant=req.tenant)
             # per-request TTFT span: submit -> first sampled token
             _tracing.record_trace_span(
                 "decode.ttft", req.tctx, req.t_first - req.t_submit,
-                cat="decode", rid=req.rid, prompt_len=req.prompt_len0)
+                cat="decode", rid=req.rid, prompt_len=req.prompt_len0,
+                tenant=req.tenant)
         req.events.put(int(tok))
 
     def _finished_reason(self, req: _Request) -> Optional[str]:
@@ -1127,7 +1238,7 @@ class DecodeEngine:
         _tracing.record_trace_span(
             "decode.generate", req.tctx, now - req.t_submit,
             cat="decode", rid=req.rid, tokens=len(req.generated),
-            reason=reason)
+            reason=reason, tenant=req.tenant)
         if req.blocks:
             self._alloc.free(req.blocks)   # reuse allocator: decref;
             req.blocks = []                # cached blocks go to the LRU
@@ -1135,7 +1246,7 @@ class DecodeEngine:
             self._active.remove(req)
         if req in self._prefilling:
             self._prefilling.remove(req)
-        self._count(reason)
+        self._count(reason, req.tenant)
         req.events.put(None)
         self._kv_gauges()
 
@@ -1177,6 +1288,22 @@ class DecodeEngine:
         for r in [r for r in self._prefilling if r.cancelled]:
             self._finish(r, "cancelled")
 
+    def _pick_waiting_locked(self) -> int:
+        """Index of the next waiting request to admit (caller holds
+        _cv, _waiting non-empty): FIFO without a QoS policy; (tier
+        priority, weighted-fair virtual time) with one."""
+        if self._wfq is None:
+            return 0
+        return self._wfq.pick([r.tenant for r in self._waiting])
+
+    def _victim_key(self, r: _Request):
+        """Preemption ordering under KV pressure: lowest tier first
+        (max tier rank), youngest admission within the tier; the
+        youngest-first rule alone when no QoS policy is attached (rank
+        is constant 0)."""
+        rank = 0 if self._qos is None else self._qos.rank_of(r.tenant)
+        return (rank, r.admitted_at)
+
     def _admit(self) -> bool:
         """Move waiting requests into free slots while blocks last;
         each admission runs its prefill (the admission boundary is the
@@ -1192,11 +1319,12 @@ class DecodeEngine:
                     break  # drain-between-batches baseline
                 if len(self._active) >= max_slots:
                     break
-                req = self._waiting[0]
+                idx = self._pick_waiting_locked()
+                req = self._waiting[idx]
                 need = -(-len(req.prompt) // self.kv_cfg.block_size)
                 if not self._alloc.can_alloc(need):
                     break  # blocks scale with live tokens: defer
-                self._waiting.popleft()
+                del self._waiting[idx]
                 QUEUE_DEPTH.set(len(self._waiting))
             self._prefill_one(req)
             changed = True
@@ -1219,7 +1347,11 @@ class DecodeEngine:
         _tracing.record_trace_span(
             "decode.queue_wait", req.tctx,
             time.monotonic() - req.enqueued_at, cat="decode",
-            rid=req.rid)
+            rid=req.rid, tenant=req.tenant)
+        if self._wfq is not None:
+            # prefill service charge: a long prompt is real work even
+            # before its first decode token
+            self._wfq.charge(req.tenant, len(req.prompt))
         plen = len(req.prompt)
         bucket = self._bucket_for_len(plen)
         if bucket is None:  # replay grew past the largest bucket
@@ -1264,7 +1396,8 @@ class DecodeEngine:
         """Ensure every active slot owns the block its next write
         lands in. On pool exhaustion: resolve the in-flight step (its
         finishes may free blocks), retry, then preempt the youngest
-        active sequence until the step fits."""
+        active sequence (lowest tier first under QoS) until the step
+        fits."""
         while True:
             short = None
             for req in self._active:
@@ -1282,7 +1415,7 @@ class DecodeEngine:
             if pending is not None:
                 pending = self._resolve(pending)
                 continue  # finishes may have freed enough
-            victim = max(self._active, key=lambda r: r.admitted_at)
+            victim = max(self._active, key=self._victim_key)
             self._preempt(victim)
 
     def _preempt(self, req: _Request):
@@ -1311,7 +1444,8 @@ class DecodeEngine:
         extra = {"trace_id": req.tctx.trace_id} \
             if req.tctx is not None and req.tctx.sampled else {}
         _events.emit("decode", action="preempt", rid=req.rid,
-                     generated=len(req.generated), **extra)
+                     generated=len(req.generated), tenant=req.tenant,
+                     **extra)
         _tracing.record_trace_span(
             "decode.preempt", req.tctx, 0.0, cat="decode", rid=req.rid,
             generated=len(req.generated))
@@ -1495,7 +1629,8 @@ class DecodeEngine:
                 if len(self._active) + len(self._prefilling) \
                         >= max_slots:
                     return
-                req = self._waiting[0]
+                idx = self._pick_waiting_locked()
+                req = self._waiting[idx]
                 if self.prefill_chunk:
                     if not self._reserve_chunked(req):
                         return
@@ -1504,13 +1639,15 @@ class DecodeEngine:
                     need = -(-len(req.prompt) // self.kv_cfg.block_size)
                     if not self._alloc.can_alloc(need):
                         return
-                self._waiting.popleft()
+                del self._waiting[idx]
                 QUEUE_DEPTH.set(len(self._waiting))
             if chunked:
                 _tracing.record_trace_span(
                     "decode.queue_wait", req.tctx,
                     time.monotonic() - req.enqueued_at, cat="decode",
-                    rid=req.rid)
+                    rid=req.rid, tenant=req.tenant)
+                if self._wfq is not None:
+                    self._wfq.charge(req.tenant, len(req.prompt))
                 req.admitted_at = time.monotonic()
                 self._prefilling.append(req)
                 self._kv_gauges()
@@ -1589,8 +1726,8 @@ class DecodeEngine:
     def _grow_blocks_sync(self, span: int):
         """Every active slot owns (privately) the blocks its next
         `span` KV writes land in. On pool exhaustion the youngest
-        admitted sequence (active or still prefilling) is preempted
-        until the round fits."""
+        admitted sequence (active or still prefilling; lowest tier
+        first under QoS) is preempted until the round fits."""
         bs = self.kv_cfg.block_size
         while True:
             short = None
@@ -1606,7 +1743,7 @@ class DecodeEngine:
             if short is None:
                 return
             candidates = list(self._active) + list(self._prefilling)
-            victim = max(candidates, key=lambda r: r.admitted_at)
+            victim = max(candidates, key=self._victim_key)
             self._preempt(victim)
             if not self._active:
                 return

@@ -15,9 +15,10 @@ at bf16 and int8 it measures the replies' deviation from f32 on the
 calibration batches at boot (`accuracy_delta`).
 
 `ServingConfig` keeps the JAX package's signature. A decode-only server
-reads only `host`, `port` and `warmup`. Not ported: `slo_spec` (the SLO
-evaluator, ROADMAP item 18) and `qos` (ROADMAP item 17's QoS) raise when
-set.
+reads only `host`, `port`, `warmup` and `qos` (the server's QoS policy,
+a `qos.QoSPolicy` or its `from_spec` dict, which every predict slot's
+Batcher applies). Not ported: `slo_spec` (the SLO evaluator, ROADMAP
+item 18) raises when set.
 """
 
 from __future__ import annotations
@@ -136,12 +137,10 @@ class ServingConfig:
             raise NotImplementedError(
                 "ServingConfig(slo_spec=...): the SLO evaluator is not "
                 "ported (ROADMAP item 18)")
-        if qos is not None:
-            raise NotImplementedError(
-                "ServingConfig(qos=...): the QoS policy is not ported "
-                "(ROADMAP item 17's QoS)")
         self.slo_spec = None
-        self.qos = None
+        # per-tenant QoS policy (a qos.QoSPolicy or its from_spec dict;
+        # None = single-tenant FIFO)
+        self.qos = qos
         self.model_id = str(model_id)
 
 

@@ -3,7 +3,7 @@ engine (Engine + Batcher), the decode engines and the HTTP listener
 together. Counterpart of the JAX package's `serving/httpd.py`. Routes:
 
   POST /v1/predict   {"feeds": {name: nested-list}, "timeout_s": opt,
-                      "model": opt}
+                      "model": opt, "tenant": opt}
                      → 200 {"outputs": {name: nested-list}, "batch": n}
                        (feeds are cast to the model's declared dtypes by
                        the Predictor; a non-finite output value goes out
@@ -11,12 +11,15 @@ together. Counterpart of the JAX package's `serving/httpd.py`. Routes:
                      → 400 malformed request / bad shapes
                      → 404 unknown "model"
                      → 503 queue full or draining (with Retry-After
-                       while draining), or no predict engine
+                       while draining), or no predict engine; a QoS
+                       shed or quota rejection is the typed 503
+                       {"error", "shed": tier, "kind": "queue"|"quota",
+                       "tenant", "retry_after_s"} with Retry-After
                      → 504 request missed its deadline
                      → 500 engine error
   POST /v1/generate  {"ids": [tok,...], "max_new_tokens": N,
                       "stream": true|false, "timeout_s": opt,
-                      "model": opt}
+                      "model": opt, "tenant": opt}
                      With stream=true (default): a chunked
                      application/x-ndjson body, one {"token": t} line
                      per generated token as the scheduler emits it,
@@ -25,7 +28,8 @@ together. Counterpart of the JAX package's `serving/httpd.py`. Routes:
                      JSON reply carrying the full token list. 400 on a
                      malformed request, 404 for an unknown "model", 503
                      when the decode queue is full or the engine is
-                     draining (with Retry-After) or stopped.
+                     draining (with Retry-After) or stopped, and the
+                     typed shed 503 under QoS.
   GET  /v1/status    the server's state and load, the predict engine's
                      buckets, batches, precision and accuracy_delta, the
                      request outcome counts, and each decode engine's
@@ -39,28 +43,47 @@ together. Counterpart of the JAX package's `serving/httpd.py`. Routes:
                      "stopped" before start, after stop, or when an
                      engine was stopped underneath the server.
   GET  /v1/models    one row per model id: kind "predict" (the predict
-                     engine's program digest, warm state, buckets and
-                     request counts) and/or its decode engine's warm
-                     state, adopted warmstart phases and model digest.
+                     engine's program digest, adopted registry version,
+                     warm state, buckets and request counts) and/or its
+                     decode engine's warm state, adopted warmstart
+                     phases and model digest.
 
-`Server(config, predictor=None, decode=None)`: the predict engine is
-built from `config.model_dir` (or wraps `predictor`) in the slot named
-`config.model_id`; `decode=` is one engine (that slot) or {model_id:
-engine}. A server needs one or the other. A request's "model" picks
-the slot. Every /v1/* JSON reply and the generate stream carry
-X-Request-Id and traceparent (a caller's traceparent is adopted, its
-sampling decision with it). A client that hangs up mid-stream cancels
-its generation, so its slot and KV blocks free at once. Built on
+`Server(config, predictor=None, decode=None, models=None,
+registry=None)`: the default predict slot is built from
+`config.model_dir` (or wraps `predictor`) and named `config.model_id`;
+`models=` is {model_id: ServingConfig} for more predict slots in the
+same process; `decode=` is one engine (the default slot) or {model_id:
+engine}. A server needs a predict or a decode engine. A request's
+"model" picks the slot, its "tenant" flows to QoS admission
+(`config.qos`, applied by every predict slot's Batcher; a decode
+engine takes its own `DecodeConfig(qos=...)`). A typed shed answers
+503 with a Retry-After header, which the fleet router passes on as an
+answer rather than retrying it elsewhere. `hot_swap()` (and the
+registry watcher behind `attach_registry()` or `registry=`) replaces a
+predict slot's engine with one built and warmed from a new model dir or
+published artifact off the serving path; the slot pointer moves under
+the lock and the old batcher then drains, so no request fails. A
+request that looked its slot up just before the swap and reaches the
+stopped batcher is submitted once more on the slot's new one, where
+the JAX package's server answers it 503 (ROADMAP F9). Every
+/v1/* JSON reply and the generate stream carry X-Request-Id and
+traceparent (a caller's traceparent is adopted, its sampling decision
+with it). A client that hangs up mid-stream cancels its generation, so
+its slot and KV blocks free at once. When PADDLE_TPU_SLOW_SHIM_FILE
+names an existing file, every predict first sleeps the seconds it
+holds (a slow replica injected and lifted by creating and removing the
+file, which the fleet router's failover tests use). Built on
 `observability.httpbase`.
 
-Not ported (ROADMAP item 17): more predict slots (`models=`), hot swap
-and the registry watcher (`registry=`), which raise, /v1/profile (404),
-and QoS (tenants, typed sheds).
+Not ported: POST /v1/profile (404; its handler is the observability
+HTTP server's on the profiler, ROADMAP item 18).
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import os
 import threading
 import time
 from typing import Dict, Optional
@@ -70,16 +93,23 @@ import numpy as np
 
 from ..observability import events as _events
 from ..observability import httpbase as _base
+from ..observability import metrics as _m
 from ..observability import tracing as _tracing
 from ..observability.metrics import _json_safe
 from .batcher import (Batcher, EngineError, QueueFullError, RequestTimeout,
                       ServerClosed)
 from .decode import DecodeEngine
 from .engine import Engine, ServingConfig
+from .qos import QoSPolicy, ShedError
 
 __all__ = ["Server"]
 
 DEFAULT_MODEL = "default"
+
+MODEL_SWAPS = _m.counter(
+    "paddle_tpu_model_swaps_total",
+    "Completed zero-downtime model hot-swaps, by model id",
+    labelnames=("model",))
 
 
 class _ServingHandler(_base.QuietHandler):
@@ -134,6 +164,17 @@ class _ServingHandler(_base.QuietHandler):
         self.wfile.write(b"\r\n")
         self.wfile.flush()
 
+    def _shed_reply(self, e: ShedError):
+        """The typed shed/quota 503: Retry-After and a {"shed": tier}
+        body that the fleet router treats as an answer (no failover
+        retry): re-sending a deliberately shed request to a surviving
+        replica amplifies the overload the shed relieves."""
+        self._json_reply(
+            503, {"error": str(e), "shed": e.tier, "kind": e.kind,
+                  "tenant": e.tenant, "retry_after_s": e.retry_after_s},
+            headers={"Retry-After":
+                     str(max(1, int(round(e.retry_after_s))))})
+
     def _do_generate(self, payload: Dict):
         model = payload.get("model")
         decode = self.serving._decode_for(model)
@@ -159,7 +200,11 @@ class _ServingHandler(_base.QuietHandler):
         stream = bool(payload.get("stream", True))
         timeout = payload.get("timeout_s")
         try:
-            handle = decode.submit(ids, max_new_tokens=int(max_new))
+            handle = decode.submit(ids, max_new_tokens=int(max_new),
+                                   tenant=payload.get("tenant"))
+        except ShedError as e:
+            self._shed_reply(e)
+            return
         except (QueueFullError, ServerClosed) as e:
             self._json_reply(503, {"error": str(e)},
                              headers=self.serving._retry_after())
@@ -231,7 +276,7 @@ class _ServingHandler(_base.QuietHandler):
                 self._reply(404, "text/plain",
                             "not found; POST routes: /v1/predict, "
                             "/v1/generate (/v1/profile is not ported, "
-                            "ROADMAP item 17)\n")
+                            "ROADMAP item 18)\n")
                 return
             try:
                 length = int(self.headers.get("Content-Length", "0"))
@@ -253,6 +298,18 @@ class _ServingHandler(_base.QuietHandler):
             pass
 
     def _do_predict(self, payload):
+        # chaos hook: when PADDLE_TPU_SLOW_SHIM_FILE names an existing
+        # file, every predict sleeps the float it holds, a slow replica
+        # injected and lifted mid-life without a restart
+        shim = os.environ.get("PADDLE_TPU_SLOW_SHIM_FILE")
+        if shim:
+            try:
+                with open(shim) as f:
+                    delay = float(f.read().strip() or 0.0)
+            except (OSError, ValueError):
+                delay = 0.0
+            if delay > 0:
+                time.sleep(delay)
         feeds = payload.get("feeds") if isinstance(payload, dict) else None
         if not isinstance(feeds, dict) or not feeds:
             self._json_reply(400, {"error": 'missing/empty "feeds" object'})
@@ -275,7 +332,11 @@ class _ServingHandler(_base.QuietHandler):
         try:
             outs = self.serving.submit(arrays,
                                        timeout_s=payload.get("timeout_s"),
-                                       model=model)
+                                       model=model,
+                                       tenant=payload.get("tenant"))
+        except ShedError as e:
+            self._shed_reply(e)
+            return
         except (QueueFullError, ServerClosed) as e:
             # draining servers add Retry-After so a router (and any
             # well-behaved client) re-sends elsewhere now and re-polls
@@ -304,29 +365,28 @@ class _ServingHandler(_base.QuietHandler):
             "batch": int(first.shape[0]) if first.ndim else 1})
 
 
+
+
 class Server:
-    """The serving HTTP server around a predict engine and decode
-    engines: `start()` warms each engine (with `config.warmup`), starts
-    the predict batcher, binds the listener and starts the decode
-    schedulers; `drain()` stops admitting while the listener stays up;
-    `stop()` takes the listener down, drains the batcher and stops the
-    decode engines. Start and stop are idempotent; stop is also
-    registered atexit so a crashing process never leaks the listener."""
+    """The serving HTTP server around predict slots and decode engines:
+    `start()` warms each engine (with `config.warmup`), starts the
+    predict batchers, binds the listener, starts the decode schedulers
+    and the registry watcher; `drain()` stops admitting while the
+    listener stays up; `stop()` takes the listener down, drains the
+    batchers and stops the decode engines. Start and stop are
+    idempotent; stop is also registered atexit so a crashing process
+    never leaks the listener."""
 
     def __init__(self, config: ServingConfig, predictor=None, decode=None,
                  models=None, registry=None):
-        """The predict engine is built from `config.model_dir` (or wraps
-        `predictor`); `decode` is a `DecodeEngine` (the slot named
-        `config.model_id`) or a dict {model_id: DecodeEngine}. A server
-        needs a predict engine or a decode engine."""
-        if models:
-            raise NotImplementedError(
-                "Server(models=...): more predict slots are not ported "
-                "(ROADMAP item 17)")
-        if registry is not None:
-            raise NotImplementedError(
-                "Server(registry=...): the model registry and hot swap "
-                "are not ported (ROADMAP item 17)")
+        """The default predict slot is built from `config.model_dir` (or
+        wraps `predictor`); `models` is {model_id: ServingConfig} for
+        more predict slots beside it (each engine builds now, so a bad
+        config fails here); `decode` is a `DecodeEngine` (the slot named
+        `config.model_id`) or a dict {model_id: DecodeEngine};
+        `registry` is a `registry.ModelRegistry` to watch for hot swaps
+        (see attach_registry). A server needs a predict engine or a
+        decode engine."""
         if isinstance(decode, dict) and not decode:
             decode = None
         if decode is None and predictor is None and \
@@ -345,6 +405,17 @@ class Server:
             if (config.model_dir is None and predictor is None) \
             else Engine(config, predictor=predictor)
         self._batcher: Optional[Batcher] = None
+        # more predict slots: model_id -> {config, engine, batcher};
+        # engines build now, batchers at start()
+        self._extra: Dict[str, Dict] = {}
+        for mid, mcfg in (models or {}).items():
+            mid = str(mid)
+            if mid == self._default_id:
+                raise ValueError(
+                    f"models= duplicates the default slot {mid!r}")
+            self._extra[mid] = {"config": mcfg, "engine": Engine(mcfg),
+                                "batcher": None}
+        self._qos = QoSPolicy.from_spec(getattr(config, "qos", None))
         handler = type("_BoundServingHandler", (_ServingHandler,),
                        {"serving": self})
         self._http = _base.HTTPServerHandle(
@@ -352,20 +423,31 @@ class Server:
         self._lock = threading.Lock()
         self._started_t: Optional[float] = None
         self._draining = False
+        # registry hot swap: adopted version per slot, the watcher
+        # thread and its stop flag
+        self._versions: Dict[str, int] = {}
+        self._registry = None
+        self._watch_ids = None
+        self._watch_poll_s = 1.0
+        self._watch_stop = threading.Event()
+        self._watch_thread: Optional[threading.Thread] = None
+        if registry is not None:
+            self.attach_registry(registry)
 
     @property
     def engine(self) -> Optional[Engine]:
-        """The predict engine (None on a decode-only server)."""
+        """The default slot's predict engine (None on a decode-only
+        server)."""
         return self._engine
 
     # -- lifecycle -----------------------------------------------------
 
     def start(self, port: Optional[int] = None) -> int:
-        """Warm every engine (when `config.warmup`; before anything
+        """Warm every engine (when its config says so; before anything
         binds or starts a thread, as the JAX Server does), start the
-        predict batcher, bind the listener, then start the decode
-        schedulers. Returns the bound port; a second call returns it
-        unchanged."""
+        predict batchers, bind the listener, then start the decode
+        schedulers and the registry watcher. Returns the bound port; a
+        second call returns it unchanged."""
         with self._lock:
             if self._started_t is not None:
                 return self._http.port()
@@ -379,17 +461,28 @@ class Server:
                 if self.config.warmup:
                     self._engine.warmup()
                 batcher = self._make_batcher(self._engine, self.config)
+            extra_batchers = []
             try:
+                for mid, slot in self._extra.items():
+                    if slot["config"].warmup:
+                        slot["engine"].warmup()
+                    extra_batchers.append(
+                        (mid, self._make_batcher(slot["engine"],
+                                                 slot["config"])))
                 bound = self._http.start(
                     self.config.port if port is None else port,
                     host=self.config.host)
             except BaseException:
-                if batcher is not None:
-                    batcher.stop()  # failed bind must not leak the thread
+                # a failed warmup or bind must not leak batcher threads
+                for b in [batcher] + [b for _, b in extra_batchers]:
+                    if b is not None:
+                        b.stop()
                 raise
             for dec in self._decodes.values():
                 dec.start()
             self._batcher = batcher
+            for mid, b in extra_batchers:
+                self._extra[mid]["batcher"] = b
             self._started_t = time.monotonic()
             import atexit
 
@@ -399,16 +492,19 @@ class Server:
                          if self._engine is not None else [],
                          decode=bool(self._decodes),
                          models=self._model_ids(),
+                         qos=self._qos is not None,
                          max_queue=getattr(self.config, "max_queue", None),
                          max_wait_ms=getattr(self.config, "max_wait_ms",
                                              None))
+            self._maybe_start_watcher()
             return bound
 
     def _make_batcher(self, engine: Engine, cfg: ServingConfig) -> Batcher:
         return Batcher(engine.run_batch, engine.policy,
                        max_queue=cfg.max_queue, max_wait_ms=cfg.max_wait_ms,
                        timeout_s=cfg.timeout_s,
-                       output_batched=engine.output_batched)
+                       output_batched=engine.output_batched,
+                       qos=self._qos)
 
     def drain(self, timeout: float = 30.0):
         """Graceful drain, the fleet's scale-in half-step: the listener
@@ -421,14 +517,14 @@ class Server:
             already = self._draining or self._started_t is None
             if not already:
                 self._draining = True
-            batcher = self._batcher
+            batchers = self._all_batchers()
             decodes = list(self._decodes.values())
         if not already:
-            _events.emit("serve_drain", queue_depth=(
-                batcher.depth() if batcher is not None else 0) + sum(
+            _events.emit("serve_drain", queue_depth=sum(
+                b.depth() for b in batchers) + sum(
                 d.load()[0] for d in decodes))
         deadline = time.monotonic() + float(timeout)
-        if batcher is not None:
+        for batcher in batchers:
             # stop() is the drain: no new admissions, pending batches
             # finish, the thread joins
             batcher.stop(timeout=max(0.0, deadline - time.monotonic()))
@@ -455,13 +551,14 @@ class Server:
             if self._draining:
                 return "draining"
             decodes = list(self._decodes.values())
-            batcher, engine = self._batcher, self._engine
+            batchers = self._all_batchers()
+            engines = self._all_engines()
         if any(d._closed for d in decodes):
             return "stopped"
-        if batcher is not None and batcher.draining():
+        if any(b.draining() for b in batchers):
             return "draining"
         if self.config.warmup and (
-                (engine is not None and not engine.warmed)
+                any(not e.warmed for e in engines)
                 or any(not d.warmed for d in decodes)):
             return "warming"
         return "serving"
@@ -469,9 +566,9 @@ class Server:
     def load(self) -> Dict:
         """The cheap load probe behind GET /v1/load: queue depth +
         in-flight work as one scalar, touching only counters."""
-        batcher = self._batcher
-        depth = batcher.depth() if batcher is not None else 0
-        inflight = batcher.inflight() if batcher is not None else 0
+        batchers = self._all_batchers()
+        depth = sum(b.depth() for b in batchers)
+        inflight = sum(b.inflight() for b in batchers)
         for dec in self._decodes.values():
             d_wait, d_active = dec.load()
             depth += d_wait
@@ -481,18 +578,25 @@ class Server:
                 "models": self._model_ids()}
 
     def stop(self):
-        """Listener down first, then the batcher drains (its in-flight
+        """Listener down first, then the batchers drain (their in-flight
         requests finish) and the decode engines stop (their waiting and
         active generations end as cancelled). Idempotent."""
         import atexit
 
+        # the registry watcher joins outside the lock: its poll loop
+        # takes the lock for hot swaps
+        self._watch_stop.set()
+        watcher = self._watch_thread
+        if watcher is not None and watcher.is_alive():
+            watcher.join(timeout=10.0)
+        self._watch_thread = None
         with self._lock:
             started = self._started_t is not None
             self._started_t = None
             atexit.unregister(self.stop)
             self._http.stop()
-            if self._batcher is not None:
-                self._batcher.stop()
+            for batcher in self._all_batchers():
+                batcher.stop()
             for dec in self._decodes.values():
                 dec.stop()
         if started:
@@ -503,11 +607,12 @@ class Server:
             _events.emit("serve_stop", requests=requests)
 
     def _counts(self) -> Dict[str, int]:
-        """The predict batcher's outcome counts (ok, rejected, timeout,
-        error)."""
+        """The predict batchers' outcome counts (ok, rejected, timeout,
+        error), summed over the slots."""
         out = {o: 0 for o in ("ok", "rejected", "timeout", "error")}
-        if self._batcher is not None:
-            out.update(self._batcher.outcome_counts())
+        for b in self._all_batchers():
+            for k, v in b.outcome_counts().items():
+                out[k] = out.get(k, 0) + v
         return out
 
     def port(self) -> Optional[int]:
@@ -515,11 +620,31 @@ class Server:
 
     # -- model slots ---------------------------------------------------
 
+    def _all_batchers(self):
+        out = [] if self._batcher is None else [self._batcher]
+        out.extend(s["batcher"] for s in self._extra.values()
+                   if s["batcher"] is not None)
+        return out
+
+    def _all_engines(self):
+        out = [] if self._engine is None else [self._engine]
+        out.extend(s["engine"] for s in self._extra.values())
+        return out
+
     def _model_ids(self):
-        ids = set(self._decodes)
+        ids = set(self._extra) | set(self._decodes)
         if self._engine is not None:
             ids.add(self._default_id)
         return sorted(ids)
+
+    def _slot(self, model: Optional[str]):
+        """(engine, batcher) of a predict slot; None = the default slot
+        (empty on a decode-only server). KeyError for an unknown id."""
+        mid = self._default_id if model is None else str(model)
+        if mid == self._default_id and mid not in self._extra:
+            return self._engine, self._batcher
+        slot = self._extra[mid]
+        return slot["engine"], slot["batcher"]
 
     def _decode_for(self, model: Optional[str]) -> Optional[DecodeEngine]:
         if model is None:
@@ -528,22 +653,30 @@ class Server:
 
     def models(self) -> list:
         """The /v1/models rows: one per model id, with the predict
-        engine's program digest, warm state and buckets and/or the
-        decode engine's warm state, adopted warmstart phases and model
-        digest."""
+        engine's program digest, adopted registry version, warm state
+        and buckets and/or the decode engine's warm state, adopted
+        warmstart phases and model digest. The slot pointers are read
+        under the server lock, the rows built after it."""
+        slots = []
+        with self._lock:
+            for mid in self._model_ids():
+                try:
+                    eng, batcher = self._slot(mid)
+                except KeyError:
+                    eng, batcher = None, None
+                slots.append((mid, self._versions.get(mid), eng, batcher,
+                              self._decodes.get(mid)))
         rows = []
-        for mid in self._model_ids():
-            row = {"id": mid, "version": None,
+        for mid, version, eng, batcher, dec in slots:
+            row = {"id": mid, "version": version,
                    "default": mid == self._default_id}
-            if mid == self._default_id and self._engine is not None:
-                eng = self._engine
+            if eng is not None:
                 row.update(kind="predict", digest=eng._model_digest(),
                            warmed=eng.warmed,
                            warmstart_adopted=eng.warmstart_adopted,
                            buckets=[int(b) for b in eng.policy.buckets])
-                if self._batcher is not None:
-                    row["requests"] = self._batcher.outcome_counts()
-            dec = self._decodes.get(mid)
+                if batcher is not None:
+                    row["requests"] = batcher.outcome_counts()
             if dec is not None:
                 row["decode"] = {"warmed": dec.warmed,
                                  "warmstart_adopted": dec.warmstart_adopted,
@@ -552,23 +685,164 @@ class Server:
             rows.append(row)
         return rows
 
+    # -- zero-downtime hot swap ----------------------------------------
+
+    def hot_swap(self, model_id: Optional[str] = None, *,
+                 model_dir: Optional[str] = None,
+                 warmstart: Optional[str] = None,
+                 version: Optional[int] = None) -> Dict:
+        """Replace one predict slot's engine with one built from a new
+        model dir or artifact, without dropping traffic: the new engine
+        builds and warms before the slot pointer moves (an adopted
+        warmstart marks its buckets warm), new requests go to it from
+        the swap on, and the old slot's batcher then drains, so every
+        request in flight completes against the old engine. Returns the
+        swap record (also the `model_swap` event)."""
+        mid = self._default_id if model_id is None else str(model_id)
+        if mid == self._default_id and self._engine is not None:
+            old_cfg = self.config
+        elif mid in self._extra:
+            old_cfg = self._extra[mid]["config"]
+        else:
+            raise KeyError(f"unknown model slot {mid!r}; serving "
+                           f"{self._model_ids()}")
+        new_cfg = copy.copy(old_cfg)
+        if model_dir is not None:
+            new_cfg.model_dir = model_dir
+        new_cfg.warmstart = warmstart
+        t0 = time.monotonic()
+        # the expensive part runs off the serving path: the old engine
+        # keeps answering while this one builds and warms
+        new_engine = Engine(new_cfg)
+        if new_cfg.warmup:
+            new_engine.warmup()
+        new_batcher = None
+        with self._lock:
+            if self._started_t is not None:
+                new_batcher = self._make_batcher(new_engine, new_cfg)
+            if mid == self._default_id and self._engine is not None:
+                old_batcher = self._batcher
+                self.config = new_cfg
+                self._engine = new_engine
+                self._batcher = new_batcher
+            else:
+                old_batcher = self._extra[mid]["batcher"]
+                self._extra[mid] = {"config": new_cfg,
+                                    "engine": new_engine,
+                                    "batcher": new_batcher}
+            if version is not None:
+                self._versions[mid] = int(version)
+        # drain the displaced batcher after the pointer moved: its
+        # queued and in-flight requests complete against the old engine
+        # (their feeds were validated against its signatures) while new
+        # arrivals already land on the new one
+        if old_batcher is not None:
+            old_batcher.stop()
+        record = {"model": mid, "version": version,
+                  "digest": new_engine._model_digest(),
+                  "warmstart_adopted": new_engine.warmstart_adopted,
+                  "swap_s": round(time.monotonic() - t0, 3)}
+        MODEL_SWAPS.inc(model=mid)
+        if version is not None:
+            from .registry import MODEL_VERSION
+
+            MODEL_VERSION.set(int(version), model=mid)
+        _events.emit("model_swap", **record)
+        return record
+
+    def attach_registry(self, registry, model_ids=None,
+                        poll_s: float = 1.0):
+        """Watch a `registry.ModelRegistry` and hot-swap slots as new
+        versions publish. `model_ids` bounds the watch (default: this
+        server's predict slots). The watcher starts with the server (or
+        at once if it is already started) and stops with it. A slot
+        already serving the published program digest from an adopted
+        artifact only records the version."""
+        self._registry = registry
+        self._watch_ids = None if model_ids is None \
+            else [str(m) for m in model_ids]
+        self._watch_poll_s = float(poll_s)
+        self._maybe_start_watcher()
+
+    def _maybe_start_watcher(self):
+        if self._registry is None or self._watch_thread is not None \
+                or self._started_t is None:
+            return
+        self._watch_stop.clear()
+        self._watch_thread = threading.Thread(
+            target=self._watch_loop,
+            name="paddle-tpu-torch-registry-watch", daemon=True)
+        self._watch_thread.start()
+
+    def _watch_ids_now(self):
+        if self._watch_ids is not None:
+            return self._watch_ids
+        ids = [] if self._engine is None else [self._default_id]
+        ids.extend(self._extra)
+        return ids
+
+    def _watch_loop(self):
+        while not self._watch_stop.wait(self._watch_poll_s):
+            for mid in self._watch_ids_now():
+                try:
+                    self._adopt_if_new(mid)
+                except Exception as e:
+                    # a bad publish must not kill the watcher (the
+                    # current engine keeps serving); surface it
+                    _events.emit("model_swap_failed", model=mid,
+                                 error=f"{type(e).__name__}: "
+                                       f"{str(e)[:200]}")
+
+    def _adopt_if_new(self, mid: str):
+        reg = self._registry
+        ver = reg.version(mid)
+        if ver is None or ver <= self._versions.get(mid, 0):
+            return
+        entry = reg.resolve(mid)   # digest-verified blob
+        try:
+            eng, _ = self._slot(mid)
+        except KeyError:
+            eng = None
+        if eng is not None and entry.get("model_digest") is not None \
+                and entry["model_digest"] == eng._model_digest() \
+                and eng.warmstart_adopted:
+            # same program, already warm from an adopted artifact:
+            # record the version, skip the rebuild
+            with self._lock:
+                self._versions[mid] = ver
+            return
+        self.hot_swap(mid, model_dir=entry.get("model_dir"),
+                      warmstart=entry["path"], version=ver)
+
     # -- request path --------------------------------------------------
 
     def submit(self, feeds: Dict[str, np.ndarray],
                timeout_s: Optional[float] = None,
-               model: Optional[str] = None) -> Dict[str, np.ndarray]:
+               model: Optional[str] = None,
+               tenant: Optional[str] = None) -> Dict[str, np.ndarray]:
         """In-process entry to the batched predict path (the HTTP
         handler and embedded deployments share it). `model` names the
-        slot (None = the default)."""
-        if model is not None and str(model) != self._default_id:
+        slot (None = the default); `tenant` flows to QoS admission."""
+        try:
+            engine, batcher = self._slot(model)
+        except KeyError:
             raise ValueError(f"unknown model {str(model)!r}; serving "
                              f"{self._model_ids()}")
-        if self._batcher is None:
+        if batcher is None:
             raise ServerClosed("server not started"
-                               if self._engine is not None else
+                               if engine is not None else
                                "no predict engine on this server "
                                "(decode-only deployment)")
-        return self._batcher.submit(feeds, timeout_s=timeout_s)
+        try:
+            return batcher.submit(feeds, timeout_s=timeout_s, tenant=tenant)
+        except ServerClosed:
+            # a hot swap moved the slot between the lookup and the
+            # submit, and the displaced batcher is draining: the
+            # request goes to the slot's new batcher (ROADMAP F9)
+            _, now = self._slot(model)
+            if now is None or now is batcher or self.draining():
+                raise
+            return now.submit(feeds, timeout_s=timeout_s, tenant=tenant)
 
     def status(self) -> Dict:
         up = None if self._started_t is None \
@@ -587,6 +861,8 @@ class Server:
               "models": probe["models"]}
         if batcher is not None:
             st["queue_depth"] = batcher.depth()
+        if self._qos is not None:
+            st["qos"] = self._qos.spec_dict()
         if self._engine is not None:
             st.update(self._engine.status())
         if self.decode is not None:

@@ -549,7 +549,8 @@ def test_batcher_queue_full_deadline_drain_and_engine_error():
     with pytest.raises(EngineError, match="model exploded"):
         bad.submit({"x": np.ones((1, 2), np.float32)})
     bad.stop()
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # a QoS policy is checked when the Batcher is built
+    with pytest.raises(ValueError, match="at least one tier"):
         Batcher(gate, BucketPolicy(), qos={"tiers": []})
 
 
@@ -631,8 +632,9 @@ def test_serving_config_refuses_what_is_not_ported():
         ServingConfig(precision="fp8")
     with pytest.raises(NotImplementedError, match="item 18"):
         ServingConfig(slo_spec={"objectives": []})
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ServingConfig(qos={"tiers": []})
+    # the QoS policy is the Server's to check (QoSPolicy.from_spec)
+    spec = {"tiers": ["high", "low"]}
+    assert ServingConfig(qos=spec).qos == spec
     assert ServingConfig(host="0.0.0.0", port=5, warmup=False).port == 5
 
 
@@ -773,5 +775,8 @@ def test_http_models_has_a_predict_and_a_decode_row(port_dir):
         srv.stop()
     with pytest.raises(ValueError, match="needs a model_dir"):
         Server(ServingConfig())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Server(_engine_cfg(port_dir), models={"b": _engine_cfg(port_dir)})
+    # more predict slots are served (tests/test_torch_multitenant.py);
+    # a slot that names the default one is refused
+    with pytest.raises(ValueError, match="duplicates the default slot"):
+        Server(_engine_cfg(port_dir), models={"default":
+                                              _engine_cfg(port_dir)})
