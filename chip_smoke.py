@@ -294,8 +294,18 @@ import urllib.request
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+
+
+def bf16_flops_per_s():
+    """The card's dense bf16 peak from the port's device-peak table,
+    the denominator of the live paddle_tpu_mfu gauge too (989e12 on an
+    H100 SXM)."""
+    import torch
+
+    from paddle_tpu_torch.observability import device_peaks
+
+    return device_peaks.lookup(torch.cuda.get_device_name(0)).flops
 
 
 def check(cond, msg):
@@ -345,7 +355,8 @@ def attention_bound_ms(q, k, causal=True, products=2, tensors=4,
     pairs = sum(min(t + 1, Tk) for t in range(T)) if causal else T * Tk
     nbytes = tensors * q.numel() * q.element_size() + row_floats * B * N * T * 4
     flops = products * 2 * B * N * H * pairs
-    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 \
+        else bf16_flops_per_s()
     return bound_ms(nbytes, flops, peak)
 
 
@@ -869,7 +880,8 @@ def k2_bound_ms(q, k, bias, causal, products, q_tensors, k_tensors, rows,
               q.element_size() + bias.numel() * 4 + rows * B * N * Tq * 4 +
               extra_bytes)
     flops = products * 2 * B * N * H * pairs
-    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 \
+        else bf16_flops_per_s()
     return bound_ms(nbytes, flops, peak)
 
 
@@ -1188,7 +1200,7 @@ def fdb_bound_ms(M, K, N, dtype, prologue, stats):
         nbytes += 2 * K * acc
     if stats:
         nbytes += 2 * -(-M // fdb.block_m(dtype)) * N * acc
-    peak = BF16_FLOPS_PER_S if dtype in (torch.bfloat16, torch.float16) \
+    peak = bf16_flops_per_s() if dtype in (torch.bfloat16, torch.float16) \
         else F32_FLOPS_PER_S
     return bound_ms(nbytes, 2 * M * K * N, peak)
 
@@ -1964,7 +1976,7 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
            "step_ms_median": ms, "step_ms_min": min(times),
            "step_ms_max": max(times), "samples_per_s": samples_s,
            "flops_per_sample": flops_per_sample,
-           "mfu": flops_per_sample * samples_s / BF16_FLOPS_PER_S,
+           "mfu": flops_per_sample * samples_s / bf16_flops_per_s(),
            "loss_first": losses[0], "loss_last": losses[-1],
            "losses": losses, "launches": counts,
            "launches_per_step": {k: v / steps for k, v in counts.items()},
@@ -5420,6 +5432,310 @@ def phase_fleet():
     return launches
 
 
+
+# phase 27: observability on the serving path
+OBS_LENGTHS = SLICE_LENGTHS + (9, 42, 200, 640)   # 12 streams, 5-1000
+OBS_NEW = 24
+OBS_PREDICTS = 150
+OBS_CAPTURE_S = 2.0
+OBS_TRIES = 3                  # CUPTI may drop records: retry the window
+OBS_SLO = {"slos": [
+    {"name": "predict-availability", "type": "availability",
+     "target": 0.999,
+     "errors": {"metric": "paddle_tpu_serving_requests_total",
+                "labels": {"outcome": "error"}},
+     "total": {"metric": "paddle_tpu_serving_requests_total"}},
+    # 5.0 s is a bucket edge of the latency histogram, so a request
+    # under it counts wholly good
+    {"name": "predict-latency", "type": "latency", "target": 0.99,
+     "metric": "paddle_tpu_serving_request_seconds", "threshold_s": 5.0}]}
+K1_FWD_SM90 = "flash_fwd_sm90_kernel"
+SAMPLED = "00-{:032x}-{:016x}-01"
+
+
+def _obs_trace_id(rnd, i):
+    return 0x27000 + 100 * rnd + i
+
+
+def _obs_generate(port, ids, out, rnd, i):
+    """One streamed /v1/generate for model "gpt" under a sampled trace
+    (round `rnd`, stream `i`; its decode.* spans enter the span store):
+    `out` gets the tokens."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps({"ids": [int(t) for t in ids], "model": "gpt",
+                         "max_new_tokens": OBS_NEW}).encode(),
+        headers={"Content-Type": "application/json",
+                 "traceparent": SAMPLED.format(_obs_trace_id(rnd, i),
+                                               0x27 + i)})
+    toks = []
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for line in r:
+                if line.strip():
+                    rec = json.loads(line)
+                    if "token" in rec:
+                        toks.append(rec["token"])
+    except Exception as e:  # reported and checked by the caller
+        out["error"] = f"{type(e).__name__}: {e}"
+    out["tokens"] = toks
+
+
+def _obs_round(port, prompts, predicts, rnd, during=None):
+    """Round `rnd`: the 12 streams and the predict requests at once;
+    `during()` runs on this thread while they do. Returns (wall s of
+    the streams, `during`'s result)."""
+    gens = [{} for _ in prompts]
+    threads = [threading.Thread(target=_obs_generate, daemon=True,
+                                args=(port, p, out, rnd, i))
+               for i, (p, out) in enumerate(zip(prompts, gens))]
+    box = {}
+    pred = threading.Thread(target=lambda: box.update(
+        zip(("replies", "lat", "wall"), _predict_round(port, predicts))),
+        daemon=True)
+    t0 = time.perf_counter()
+    for t in threads + [pred]:
+        t.start()
+    got = during() if during is not None else None
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    pred.join(timeout=600)
+    check(all("error" not in g and len(g["tokens"]) == OBS_NEW
+              for g in gens), f"observability: short streams {gens}")
+    check(len(box.get("replies") or ()) == len(predicts) and
+          all(r is not None for r in box["replies"]),
+          "observability: predict requests failed")
+    return wall, got
+
+
+def _obs_trace(path, rnd, n):
+    """(K1-fwd Hopper kernel records, kernel records, decode.* spans of
+    round `rnd`'s `n` streams) of a merged capture trace."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"]
+    ids = {f"{_obs_trace_id(rnd, i):032x}" for i in range(n)}
+    return (sum(1 for e in kernels if K1_FWD_SM90 in e.get("name", "")),
+            len(kernels),
+            sum(1 for e in evs if e.get("cat") == "decode" and
+                str(e.get("name", "")).startswith("decode.") and
+                (e.get("args") or {}).get("trace_id") in ids))
+
+
+def _obs_capture(port, prompts, predicts, rnd):
+    """Traffic round `rnd` started inside a POST /v1/profile window of
+    OBS_CAPTURE_S, a second POST in the window answering 409. Returns
+    the capture's reply, the streams' wall s and the K1-fwd launches
+    between the window's start and its close."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    box = {}
+    cap = threading.Thread(target=lambda: box.update(zip(
+        ("code", "body", "hdrs"), _post_json(
+            port, "/v1/profile", {"seconds": OBS_CAPTURE_S}))),
+        daemon=True)
+    cap.start()
+    deadline = time.monotonic() + 30
+    while profiler._prof is None and time.monotonic() < deadline:
+        time.sleep(0.005)
+    check(profiler._prof is not None, "observability: no capture started")
+    k0 = fa.flash_attention.launches
+
+    def in_window():
+        """The second POST, then the K1-fwd launches until the window
+        closes (the capture drops its trace handle there)."""
+        busy = _post_json(port, "/v1/profile", {"seconds": 0.1})[0]
+        while profiler._prof is not None and time.monotonic() < closes_by:
+            time.sleep(0.002)
+        return busy, fa.flash_attention.launches - k0
+
+    closes_by = time.monotonic() + OBS_CAPTURE_S + 30
+    wall, (busy, launches) = _obs_round(port, prompts, predicts, rnd,
+                                        in_window)
+    cap.join(timeout=300)
+    check(busy == 409, f"observability: a second capture answered {busy}")
+    check(box.get("code") == 200, f"observability: /v1/profile {box}")
+    return box["body"], wall, launches
+
+
+def _obs_memory(port, eng):
+    """Gate (b): the /v1/status memory block against the engine's
+    tensors, its graph pool and the allocator."""
+    import torch
+
+    from paddle_tpu_torch.observability import memwatch
+
+    torch.cuda.synchronize()
+    memwatch.sweep(force=True)      # status_block() reads it (1 s limit)
+    mem = _get_json(port, "/v1/status")[1]["memory"]
+    allocated = torch.cuda.memory_allocated()
+
+    def nbytes(ts):
+        return sum(t.untyped_storage().nbytes() for t in
+                   {t.untyped_storage().data_ptr(): t for t in ts}.values())
+
+    kv, params = nbytes(eng._pools), nbytes(eng.params.values())
+    pool = _graph_pool_bytes(eng._graph_pool)
+    owners = mem["owners"]
+    held = sum(v for k, v in owners.items()
+               if k != "other" and not k.startswith("prefix_cache"))
+    check(owners.get("kv_pool[gpt]") == kv and
+          owners.get("params[gpt]") == params,
+          f"observability: owner rows {owners}, engine kv {kv} params "
+          f"{params}")
+    check(mem["executable_bytes"] == pool and pool > 0,
+          f"observability: executable bytes {mem['executable_bytes']}, "
+          f"graph pool {pool}")
+    check(held <= mem["total_bytes"] <= allocated,
+          f"observability: total {mem['total_bytes']} against owners "
+          f"{held} and allocated {allocated}")
+    return {"owners": owners, "total_bytes": mem["total_bytes"],
+            "executable_bytes": mem["executable_bytes"],
+            "allocated_bytes": allocated, "watermark_bytes":
+            mem["watermark_bytes"]}
+
+
+def phase_observability():
+    """Phase 27: GPT-2-small bf16 (model "gpt", model_tag "gpt") beside
+    the LeNet predict slot behind one Server, with SLOs and the TS
+    recorder on: a traffic round without a capture, then one inside a
+    POST /v1/profile window (retried up to OBS_TRIES times when the
+    trace lacks K1-fwd's kernel records); gates (a) the profile, (b) the
+    memory block, (c) /v1/slo and the TS dir, (d) /metrics. Returns the
+    K1-fwd launches of its rounds."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.observability import (aggregate, httpd,
+                                                perfwatch, telemetry,
+                                                tracing)
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
+                                          Server, ServingConfig)
+    from paddle_tpu_torch.serving import engine as eng_mod
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    ts_dir = os.path.join(root, "ts")
+    env = {"PADDLE_TPU_TS_DIR": ts_dir, "PADDLE_TPU_TS_INTERVAL_S": "0.5",
+           "PADDLE_TPU_SLO_INTERVAL_S": "0.5",
+           "PADDLE_TPU_PROFILE_DIR": os.path.join(root, "profiles")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    (model_dir,), _ = _lenet_saved(pt, root, saves=(20,))
+    params, cfg = _gpt2_params()
+    eng = DecodeEngine(params, cfg, DecodeConfig(
+        block_size=16, num_blocks=512, decode_slots=(4, 8),
+        model_tag="gpt"), device="cuda")
+    rs = np.random.RandomState(27)
+    prompts = [rs.randint(0, cfg.vocab_size, size=n) for n in OBS_LENGTHS]
+    pool, _ = synthetic_mnist(1024, seed=27)
+    sizes = rs.randint(1, 9, OBS_PREDICTS)
+    starts = rs.randint(0, len(pool) - 8, OBS_PREDICTS)
+    predicts = [pool[a:a + n] for a, n in zip(starts, sizes)]
+    perfwatch.reset()
+    tracing.clear_spans()            # the capture exports this phase's
+    srv = Server(ServingConfig(model_dir, model_id="lenet",
+                               slo_spec=OBS_SLO), decode={"gpt": eng})
+    port = srv.start(0)
+    mport = httpd.start_http_server(0)
+    out = {}
+    try:
+        steps0 = telemetry.EXEC_STEPS.value(mode="infer")
+        batches0 = sum(eng_mod.BATCHES.value(bucket=str(b))
+                       for b in srv.engine.policy.buckets)
+        k0 = fa.flash_attention.launches
+        wall, _ = _obs_round(port, prompts, predicts, 0)
+        plain = [OBS_NEW * len(prompts) / wall]
+        tries = []
+        for rnd in range(1, OBS_TRIES + 1):
+            reply, wall, n = _obs_capture(port, prompts, predicts, rnd)
+            k1, kernels, spans = _obs_trace(reply["trace"], rnd,
+                                            len(prompts))
+            tries.append({"k1_fwd_records": k1, "kernel_records": kernels,
+                          "decode_spans": spans,
+                          "k1_fwd_launches_in_window": n,
+                          "tokens_per_s": OBS_NEW * len(prompts) / wall})
+            if k1 > 0 and spans > 0 and n > 0:
+                break
+        out["captures"] = tries
+        check(k1 > 0 and spans > 0 and n > 0,
+              f"observability (a): no try of {OBS_TRIES} traced K1-fwd's "
+              f"kernel and the decode spans in its window: {tries}")
+        # the same round once more without a capture: the profiler's
+        # cost is the captured round's tokens/s against both plain ones
+        wall, _ = _obs_round(port, prompts, predicts, OBS_TRIES + 1)
+        plain.append(OBS_NEW * len(prompts) / wall)
+        launches = fa.flash_attention.launches - k0
+        out["plain_tokens_per_s"] = plain
+        with open(reply["perf"]) as f:
+            perf = json.load(f)
+        kind = torch.cuda.get_device_name(0)
+        for phase in ("prefill", "decode"):
+            st = perf["perfwatch"].get(phase, {})
+            check(st.get("device_kind") == kind and 0 < st["mfu"] < 1 and
+                  st["tokens_per_sec_per_chip"] > 0,
+                  f"observability (a): perf.json {phase} {st}")
+        check(set(perf["memory"]["owners"]) >= {"kv_pool[gpt]",
+                                                "params[gpt]"},
+              f"observability (a): perf.json memory {perf['memory']}")
+        out["perfwatch"] = perf["perfwatch"]
+        out["captured_tokens_per_s"] = tries[-1]["tokens_per_s"]
+        out["memory"] = _obs_memory(port, eng)
+        code, slo_rows, _ = _get_json(mport, "/v1/slo")
+        rows = slo_rows.get("slos", [])
+        check(code == 200 and sorted(r["name"] for r in rows) ==
+              ["predict-availability", "predict-latency"] and
+              all(w["burn_short"] == 0 and w["burn_long"] == 0
+                  for r in rows for w in r["windows"]),
+              f"observability (c): /v1/slo {code} {slo_rows}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=60) as r:
+            prom = r.read().decode()
+        check('paddle_tpu_mfu{kind="decode"}' in prom and
+              'paddle_tpu_hbm_bytes{owner="kv_pool[gpt]"}' in prom,
+              "observability (d): /metrics lacks the MFU or the KV row")
+        steps = telemetry.EXEC_STEPS.value(mode="infer") - steps0
+        batches = sum(eng_mod.BATCHES.value(bucket=str(b))
+                      for b in srv.engine.policy.buckets) - batches0
+        check(steps >= batches > 0, f"observability (d): {steps} executor "
+              f"steps for {batches} predict batches")
+        out.update(executor_steps=steps, predict_batches=batches)
+    finally:
+        httpd.stop_http_server()
+        srv.stop()                       # the recorder's final sample
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    served = (len(tries) + 2) * OBS_PREDICTS
+    increase = aggregate.TSStore(aggregate.read_ts_dir(ts_dir)).increase(
+        "paddle_tpu_serving_requests_total", 1e9)
+    check(increase == served, f"observability (c): the TS dir's increase "
+          f"{increase} for {served} predict requests")
+    out["ts_increase"] = increase
+    print(json.dumps({
+        "phase": "observability", "card": card(),
+        "model": "GPT-2-small (GPTConfig()), seed 0, bf16, model_tag gpt; "
+                 "LeNet rung saved after 20 Adam steps on the card",
+        "streams": len(prompts), "new_tokens": OBS_NEW,
+        "predicts_per_round": OBS_PREDICTS, "capture_s": OBS_CAPTURE_S,
+        "slo": OBS_SLO, **out,
+        "profiler_cost": 1 - out["captured_tokens_per_s"] /
+        statistics.mean(out["plain_tokens_per_s"]),
+        "launches": {"flash_attention_fwd": launches},
+        "seconds": time.perf_counter() - t0}))
+    del eng, srv
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
 def main() -> int:
     import torch
 
@@ -5467,6 +5783,7 @@ def main() -> int:
     timed(phase_predict)
     dptp_counts = timed(phase_dp_tp)
     launches["flash_attention_fwd"] += timed(phase_fleet)
+    launches["flash_attention_fwd"] += timed(phase_observability)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

@@ -13,20 +13,28 @@ a handle whose result is `fn` of this one's (the Predictor's bucket
 slicing).
 `inflight_stats()` counts the handles not yet resolved.
 
+The fetch telemetry is the JAX package's: `paddle_tpu_async_inflight_
+fetches` follows the open handles, and a resolve records its
+dispatch-to-ready latency (`paddle_tpu_dispatch_ready_seconds{site=
+"fetch:<site>"}`) and, when the event was not yet done, the host's
+wait (`paddle_tpu_host_blocked_seconds_total`).
+
 `train_loop` keeps at most `fetch_window` (default `DEFAULT_IN_FLIGHT`)
 of them outstanding, so the host enqueues step N+1 while the device
 still runs step N. The mixed precision policies read `finite` on the
 host once a step (`parallel/train.py`, to skip the optimizer), which
 already waits for the step: under them the window overlaps nothing.
 
-Not ported: `InFlightWindow`, `Prefetcher` and the executor's fetch
-telemetry (ROADMAP item 16).
+Not ported: `InFlightWindow` and `Prefetcher` (ROADMAP item 16).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Iterable, List
+
+from ..observability import telemetry as _telemetry
 
 __all__ = ["FetchHandle", "MappedHandle", "inflight_stats",
            "reset_inflight_stats", "DEFAULT_IN_FLIGHT"]
@@ -75,12 +83,16 @@ class FetchHandle:
     """A lazy fetch of `values` (tensors or host scalars); see the
     module docstring."""
 
-    __slots__ = ("_values", "_result", "_event", "_lock", "_numpy")
+    __slots__ = ("_values", "_result", "_event", "_lock", "_numpy",
+                 "_site", "_dispatch_t")
 
-    def __init__(self, values: Iterable[Any], numpy: bool = False):
+    def __init__(self, values: Iterable[Any], numpy: bool = False,
+                 site: str = "executor"):
         global _open_handles, _open_high_water
         self._values: List[Any] = list(values)
         self._numpy = numpy
+        self._site = site
+        self._dispatch_t = time.perf_counter()
         self._result: List[Any] = []
         self._lock = threading.Lock()
         self._event = None
@@ -93,17 +105,20 @@ class FetchHandle:
         with _acct_lock:
             _open_handles += 1
             _open_high_water = max(_open_high_water, _open_handles)
+            n = _open_handles
+        _telemetry.record_async_inflight(n)
 
     def result(self, stall: bool = True) -> List[Any]:
         """Wait for the device, read every value to the host (`.item()`
         for a tensor), drop the device references, and return the list
-        (cached). `stall` keeps the JAX package's signature: there it
-        tells the fetch telemetry (not ported) whether the wait was a
-        pipeline stall."""
+        (cached). stall=False classifies the wait as the caller's
+        normal rhythm: host-blocked time, but no pipeline stall."""
         global _open_handles
         with self._lock:
             if self._values is None:
                 return self._result
+            t0 = time.perf_counter()
+            was_ready = self._event is None or self._event.query()
             if self._event is not None:
                 self._event.synchronize()
             if self._numpy:
@@ -113,8 +128,15 @@ class FetchHandle:
                                 for v in self._values]
             self._values = None
             self._event = None
+            now = time.perf_counter()
+            site = "fetch:" + self._site
+            _telemetry.record_dispatch_ready(site, now - self._dispatch_t)
+            if not was_ready:
+                _telemetry.record_host_blocked(site, now - t0, stall=stall)
         with _acct_lock:
             _open_handles = max(0, _open_handles - 1)
+            n = _open_handles
+        _telemetry.record_async_inflight(n)
         return self._result
 
     def map(self, fn: Callable[[Any], Any]) -> "MappedHandle":

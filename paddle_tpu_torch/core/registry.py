@@ -183,6 +183,10 @@ def normalize_outs(outs) -> Dict[str, List]:
 
 
 _REGISTRY: Dict[str, OpDef] = {}
+# the `*_grad` defs `get_op_def` synthesizes at their first lookup (not
+# registered at import, so the live registry grows as programs are
+# differentiated)
+_MADE_AT_LOOKUP: set = set()
 
 
 def register_op(
@@ -231,10 +235,12 @@ def get_op_def(type: str) -> OpDef:
             # differentiable, enabling gradients(gradients(...)).
             gd = OpDef(type, make_generic_grad_kernel(fwd), grad="generic")
             _REGISTRY[type] = gd
+            _MADE_AT_LOOKUP.add(type)
             return gd
         if fwd is not None and callable(fwd.grad):
             gd = OpDef(type, fwd.grad, grad="generic")
             _REGISTRY[type] = gd
+            _MADE_AT_LOOKUP.add(type)
             return gd
     raise KeyError(
         f"operator '{type}' is not registered in paddle_tpu_torch: its "
@@ -249,8 +255,12 @@ def has_op(type: str) -> bool:
         return False
 
 
-def registered_ops() -> List[str]:
-    return sorted(_REGISTRY)
+def registered_ops(made_at_lookup: bool = True) -> List[str]:
+    """The registered op types; with made_at_lookup=False only those
+    registered at import, without the `*_grad` defs lookups made."""
+    if made_at_lookup:
+        return sorted(_REGISTRY)
+    return sorted(t for t in _REGISTRY if t not in _MADE_AT_LOOKUP)
 
 
 # ---------------------------------------------------------------------------

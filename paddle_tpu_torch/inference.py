@@ -38,6 +38,7 @@ from .core.executor import Executor, Scope, scope_guard
 from .core.ir import normalize_dtype
 from .core.places import CPUPlace, CUDAPlace
 from .core.registry import dtype_name, torch_dtype
+from .observability import telemetry as _telemetry
 from .ops import quant as _quant
 
 __all__ = ["AnalysisConfig", "PaddleTensor", "Predictor",
@@ -46,14 +47,14 @@ __all__ = ["AnalysisConfig", "PaddleTensor", "Predictor",
 
 class AnalysisConfig:
     """reference: inference/api/analysis_config.cc, with the JAX
-    package's methods. `switch_ir_optim` and `enable_memory_optim` are
-    accepted and read by nothing, as there; `enable_profile` raises
-    until the profiler is ported (ROADMAP item 18)."""
+    package's methods. `switch_ir_optim`, `enable_memory_optim` and
+    `enable_profile` set their flags, which nothing reads, as there."""
 
     def __init__(self, model_dir: Optional[str] = None):
         self.model_dir = model_dir
         self._use_tpu = True            # the accelerator: the card
         self._device_id = 0
+        self._enable_profile = False
         self._aot = False               # warm each signature at first use
         self._bucketing = None          # serving.bucketing.BucketPolicy
         self._precision = None          # core.precision policy name
@@ -78,10 +79,9 @@ class AnalysisConfig:
         self._memory_optim = True
 
     def enable_profile(self):
-        raise NotImplementedError(
-            "Predictor profiling is not ported (ROADMAP item 18, "
-            "profiler.py on torch.profiler); profile the Predictor's "
-            "Run() calls with torch.profiler directly")
+        """Sets the flag, which nothing reads, as in the JAX package:
+        profile a Predictor with `paddle_tpu_torch.profiler`."""
+        self._enable_profile = True
 
     def enable_aot(self):
         """Warm every signature when it is first prepared (the JAX
@@ -379,8 +379,13 @@ class Predictor:
             tensors[name] = t
         sig = tuple(sorted((n, tuple(v.shape), dtype_name(v.dtype))
                            for n, v in tensors.items()))
-        self._prepare(sig)
-        outs = self._forward(tensors, self._program_state())
+        # the dispatch is an executor step (mode "infer"): the port runs
+        # the program here, where the JAX package dispatches its jitted
+        # signature
+        with _telemetry.executor_step("infer") as rec:
+            rec.set_feed(tensors)
+            self._prepare(sig)
+            outs = self._forward(tensors, self._program_state())
 
         def postprocess(arrs):
             results = []
@@ -392,7 +397,7 @@ class Predictor:
                 results.append(PaddleTensor(a, name=name))
             return results
 
-        return FetchHandle(outs, numpy=True).map(postprocess)
+        return FetchHandle(outs, site="infer", numpy=True).map(postprocess)
 
     # numpy-dict convenience API
     def predict(self, **feeds) -> Dict[str, np.ndarray]:

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple
 
 import torch
@@ -235,9 +236,24 @@ def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(scale, dtype=dtype))
 
 
+# the devices whose primary context each thread has made current
+_bound = threading.local()
+
+
 def _run(what: str, device: torch.device, launch) -> None:
     with torch.cuda.device(device):
-        rc = launch(torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device)
+        bound = getattr(_bound, "devices", None)
+        if bound is None:
+            bound = _bound.devices = set()
+        if stream.device_index not in bound:
+            # the launchers build their TMA maps through the driver API,
+            # which needs the device's context current on this thread; a
+            # thread whose first CUDA work is this launch has none until
+            # a runtime call (this stream query) makes it current
+            stream.query()
+            bound.add(stream.device_index)
+        rc = launch(stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 

@@ -104,6 +104,19 @@ class GPTConfig:
         per_layer = 4 * H * H + mlp + 2 * seq_len * H  # qkvo + mlp + attn
         return 3 * 2 * (L * per_layer + self.vocab_size * H)
 
+    def forward_flops(self, tokens: int, context: int,
+                      logit_rows: int) -> float:
+        """Matmul FLOPs of one dense forward over `tokens` tokens that
+        each attend to `context` keys (padding included: a prefill
+        bucket's T, a decode row's gathered table), with the LM head on
+        `logit_rows` rows: the serving phases' live-MFU numerator,
+        which a captured CUDA graph cannot report. Per token and layer,
+        qkvo 8 H^2, the MLP 4 H M and attention 4 context H."""
+        H, M, L = self.hidden, self.mlp_dim, self.layers
+        per_token = L * (8 * H * H + 4 * H * M + 4 * context * H)
+        return float(tokens * per_token + 2 * logit_rows * H *
+                     self.vocab_size)
+
 
 def _refuse_for_decode(cfg: GPTConfig):
     """The decode paths serve a dense config on no dp or tp split."""

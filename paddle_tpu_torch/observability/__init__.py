@@ -1,11 +1,101 @@
-"""Stdlib observability plumbing copied from the JAX package: the
-metrics registry, the JSONL event log, tracing (spans and W3C trace
-contexts) and the HTTP server base.
+# Copied from the JAX package: paddle_tpu/observability/__init__.py
+# (stdlib only). Keep it in step with that file.
+"""Unified observability layer: metrics, telemetry, traces, health, HTTP.
 
-As in the JAX package, an event emitted under a sampled trace carries
-its trace id: the event log joins against the trace sink.
+Six pieces (see PROFILE.md §Observability and §Health for the
+user-facing guide):
+
+- metrics.py   — process-wide registry (counters/gauges/histograms with
+                 labels), JSON + Prometheus exposition, env-gated periodic
+                 dump (PADDLE_TPU_METRICS_DIR).
+- tracing.py   — one span store for profiler.RecordEvent host spans and
+                 step telemetry, merged with jax.profiler device traces
+                 into a single chrome-trace export; also the distributed
+                 trace-context layer (W3C traceparent + contextvars +
+                 per-process JSONL sink, PADDLE_TPU_TRACE_DIR /
+                 PADDLE_TPU_TRACE_SAMPLE — PROFILE.md §Distributed
+                 tracing).
+- telemetry.py — the metric vocabulary + record helpers the executor,
+                 trainer, and SPMD/pipeline stacks call on their hot
+                 paths (step timing, cache events, compiles, device
+                 memory).
+- health.py    — env-gated NaN/Inf/out-of-range scanning at the
+                 framework's observation points
+                 (PADDLE_TPU_CHECK_NUMERICS=0|1|2) + /healthz state.
+- events.py    — append-only JSONL event log (compile / step_summary /
+                 anomaly / checkpoint) with a bounded in-memory ring
+                 (PADDLE_TPU_EVENT_LOG).
+- httpd.py     — stdlib daemon thread serving /metrics, /healthz,
+                 /events?n=K and /v1/slo live (PADDLE_TPU_METRICS_PORT).
+- timeseries.py — env-gated background recorder appending delta-encoded
+                 registry samples to per-process segmented JSONL sinks
+                 (PADDLE_TPU_TS_DIR / PADDLE_TPU_TS_INTERVAL_S —
+                 PROFILE.md §Time series & SLOs).
+- aggregate.py — stdlib cross-process TS reader: merge by
+                 (metric, labels), windowed rate()/increase()/quantile,
+                 fleet roll-ups.
+- slo.py       — declarative SLOs (availability / latency) evaluated by
+                 a multi-window burn-rate alert state machine; slo_alert
+                 events, burn-rate metrics, GET /v1/slo.
+- httpbase.py  — shared stdlib-HTTP lifecycle (quiet handler, locked
+                 idempotent start/stop, failed-bind caching, atexit);
+                 also the base of the serving frontend
+                 (paddle_tpu/serving/httpd.py, see SERVING.md).
+
+`tools/obsdump.py` pretty-prints dumps, tails event logs, and rebuilds
+traces offline.
 """
 
-from . import events, tracing
+from . import metrics
+from . import tracing
+from . import telemetry
+from . import events
+from . import health
+from . import httpd
+from . import timeseries
+from . import aggregate
+from . import slo
+from .metrics import (  # noqa: F401
+    Counter, Gauge, Histogram, MetricsRegistry, bucket_quantile, counter,
+    default_registry, dump, gauge, histogram, maybe_start_dump_thread,
+    render_prometheus, reset, snapshot, stop_dump_thread,
+)
+from .timeseries import (  # noqa: F401
+    Recorder, maybe_start_recorder, stop_recorder,
+)
+from .aggregate import TSStore, read_ts_dir  # noqa: F401
+from .slo import (  # noqa: F401
+    SLOEngine, maybe_start_evaluator, stop_evaluator,
+)
+from .tracing import (  # noqa: F401
+    Span, TraceContext, begin_request, clear_spans, current_trace,
+    export_trace, flush_trace_sink, get_spans, parse_traceparent,
+    record_span, save_spans, span, start_trace, step_span, trace_headers,
+    trace_span,
+)
+from .health import NumericsError, check_numerics  # noqa: F401
 
+# the event log's trace join key: emit() asks this for the active
+# sampled trace id (injected so events.py stays file-path importable)
 events.set_trace_provider(tracing.current_trace_id)
+from .httpd import (  # noqa: F401
+    maybe_start_http_server, start_http_server, stop_http_server,
+)
+
+__all__ = [
+    "metrics", "tracing", "telemetry", "events", "health", "httpd",
+    "timeseries", "aggregate", "slo",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "counter",
+    "bucket_quantile", "default_registry", "dump", "gauge", "histogram",
+    "maybe_start_dump_thread", "render_prometheus", "reset", "snapshot",
+    "stop_dump_thread",
+    "Recorder", "maybe_start_recorder", "stop_recorder",
+    "TSStore", "read_ts_dir",
+    "SLOEngine", "maybe_start_evaluator", "stop_evaluator",
+    "Span", "TraceContext", "begin_request", "clear_spans",
+    "current_trace", "export_trace", "flush_trace_sink", "get_spans",
+    "parse_traceparent", "record_span", "save_spans", "span",
+    "start_trace", "step_span", "trace_headers", "trace_span",
+    "NumericsError", "check_numerics",
+    "maybe_start_http_server", "start_http_server", "stop_http_server",
+]

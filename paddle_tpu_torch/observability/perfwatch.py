@@ -1,0 +1,222 @@
+# Copied from the JAX package: paddle_tpu/observability/perfwatch.py
+# (stdlib only). Keep it in step with that file.
+"""Live utilization attribution: windowed MFU + step-time breakdown.
+
+bench.py computes MFU offline (flops-per-sample x samples/s / peak) and
+prints it once; nothing answered "how fast is the hardware running RIGHT
+NOW" for a live trainer or serving replica. This module is the live
+counterpart: every hot dispatch path (Executor.run, SPMDRunner.run, the
+decode engine's prefill/decode steps) records one `record_step` per
+step, carrying the FLOPs its executable's cost_analysis() reported at
+compile time (retained per signature by core/executor._JitDispatch).
+A 60-second sliding window turns those into continuous gauges at
+scrape/snapshot time:
+
+  paddle_tpu_mfu{kind}            windowed FLOP/s / (n_devices x peak),
+                                  peak from device_peaks.lookup() — the
+                                  SAME denominator bench.py divides by
+  paddle_tpu_flops_per_sec{kind}  the numerator, for dashboards that
+                                  want absolute throughput
+  paddle_tpu_steps_per_sec{kind}  windowed step rate
+  paddle_tpu_tokens_per_sec_per_chip{kind}
+                                  decode-path token throughput,
+                                  chip-normalized (0 for token-free
+                                  kinds)
+  paddle_tpu_step_time_seconds_total{kind,component}
+                                  cumulative step-time attribution:
+                                  device | host_blocked | collective —
+                                  device is wall minus the measured
+                                  host-blocked wait minus the collective
+                                  ESTIMATE (ring-allreduce payload over
+                                  the device kind's ICI figure), so the
+                                  three components sum to recorded wall
+                                  time by construction
+
+MFU decays toward zero when steps stop arriving (the window's elapsed
+time keeps growing while its FLOPs stay fixed) — an idle replica reads
+0, not its last busy number.
+
+Stdlib-only by contract: core/executor.py imports this at module load,
+and tools/obsdump.py loads observability modules standalone by file
+path.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, Optional
+
+from . import device_peaks as _peaks
+from . import metrics as _m
+
+__all__ = ["record_step", "snapshot", "mfu", "tokens_per_sec_per_chip",
+           "estimate_collective_seconds", "reset", "WINDOW_S"]
+
+WINDOW_S = 60.0
+
+MFU = _m.gauge(
+    "paddle_tpu_mfu",
+    "Windowed model-FLOPs utilization by dispatch kind "
+    "(step|chained|spmd|prefill|decode): cost_analysis() FLOPs summed "
+    "over the last 60 s divided by elapsed time and the per-device-kind "
+    "peak (observability/device_peaks.py — the same denominator "
+    "bench.py uses). Decays to 0 when steps stop arriving",
+    labelnames=("kind",))
+FLOPS_PER_SEC = _m.gauge(
+    "paddle_tpu_flops_per_sec",
+    "Windowed achieved FLOP/s by dispatch kind (the paddle_tpu_mfu "
+    "numerator before peak normalization)", labelnames=("kind",))
+STEPS_PER_SEC = _m.gauge(
+    "paddle_tpu_steps_per_sec",
+    "Windowed step rate by dispatch kind", labelnames=("kind",))
+TOKENS_PER_SEC = _m.gauge(
+    "paddle_tpu_tokens_per_sec_per_chip",
+    "Windowed decode-engine token throughput per chip by phase kind "
+    "(prefill|decode); 0 for token-free kinds", labelnames=("kind",))
+STEP_TIME = _m.counter(
+    "paddle_tpu_step_time_seconds_total",
+    "Cumulative per-step wall-time attribution by dispatch kind and "
+    "component: device (compute, the residual), host_blocked (measured "
+    "host wait on device results), collective (ring-allreduce ESTIMATE "
+    "from payload bytes over the device kind's ICI bandwidth)",
+    labelnames=("kind", "component"))
+
+
+class _Window:
+    """Per-kind sliding window of step records. Mutated only under the
+    module lock; entries are (t, seconds, flops, tokens)."""
+
+    __slots__ = ("entries", "device_kind", "n_devices")
+
+    def __init__(self):
+        self.entries: "deque" = deque()
+        self.device_kind: Optional[str] = None
+        self.n_devices = 1
+
+    def prune(self, now: float):
+        horizon = now - WINDOW_S
+        while self.entries and self.entries[0][0] < horizon:
+            self.entries.popleft()
+
+
+_lock = threading.Lock()
+_windows: Dict[str, _Window] = {}
+
+
+def estimate_collective_seconds(device_kind: Optional[str],
+                                n_devices: int, payload_bytes: int,
+                                n_collectives: int) -> float:
+    """Ring-allreduce lower-bound ESTIMATE of a step's collective time:
+    2(n-1)/n x payload over the device kind's one-direction ICI figure.
+    Zero when there is nothing to estimate (single device, no
+    collective ops, unknown payload) — an estimate that cannot be
+    grounded must not eat into the device-compute residual."""
+    if n_devices <= 1 or n_collectives <= 0 or payload_bytes <= 0:
+        return 0.0
+    bw = _peaks.lookup(device_kind).ici_bytes_per_s
+    if bw <= 0:
+        return 0.0
+    return 2.0 * (n_devices - 1) / n_devices * payload_bytes / bw
+
+
+def record_step(kind: str, seconds: float, *,
+                flops: Optional[float] = None, tokens: int = 0,
+                host_blocked: float = 0.0,
+                collective_seconds: float = 0.0,
+                device_kind: Optional[str] = None, n_devices: int = 1,
+                now: Optional[float] = None):
+    """One completed hot-path step. `seconds` is the step's wall time;
+    `host_blocked` the measured portion spent waiting on device
+    results; `collective_seconds` the caller's collective estimate
+    (see estimate_collective_seconds). `now` is injectable for tests;
+    production callers leave it None (time.monotonic())."""
+    if seconds < 0:
+        return
+    t = time.monotonic() if now is None else float(now)
+    host = min(max(0.0, host_blocked), seconds)
+    coll = min(max(0.0, collective_seconds), seconds - host)
+    device = seconds - host - coll
+    if device > 0:
+        STEP_TIME.inc(device, kind=kind, component="device")
+    if host > 0:
+        STEP_TIME.inc(host, kind=kind, component="host_blocked")
+    if coll > 0:
+        STEP_TIME.inc(coll, kind=kind, component="collective")
+    with _lock:
+        w = _windows.get(kind)
+        if w is None:
+            w = _windows[kind] = _Window()
+        if device_kind:
+            w.device_kind = device_kind
+        w.n_devices = max(1, int(n_devices))
+        w.entries.append((t, float(seconds),
+                          float(flops) if flops else 0.0, int(tokens)))
+        w.prune(t)
+
+
+def snapshot(now: Optional[float] = None) -> Dict[str, Dict]:
+    """Windowed utilization per kind. Elapsed time is max(window span
+    to `now`, busy seconds) so a single step still yields a finite
+    rate and an idle tail decays the gauges."""
+    t = time.monotonic() if now is None else float(now)
+    out: Dict[str, Dict] = {}
+    with _lock:
+        for kind, w in _windows.items():
+            w.prune(t)
+            if not w.entries:
+                out[kind] = {"mfu": 0.0, "flops_per_sec": 0.0,
+                             "steps_per_sec": 0.0,
+                             "tokens_per_sec_per_chip": 0.0,
+                             "steps": 0, "n_devices": w.n_devices,
+                             "device_kind": w.device_kind,
+                             "peak_flops": _peaks.peak_flops(
+                                 w.device_kind)}
+                continue
+            busy = sum(e[1] for e in w.entries)
+            flops = sum(e[2] for e in w.entries)
+            tokens = sum(e[3] for e in w.entries)
+            elapsed = max(t - w.entries[0][0], busy, 1e-9)
+            peak = _peaks.peak_flops(w.device_kind)
+            fps = flops / elapsed
+            out[kind] = {
+                "mfu": fps / (w.n_devices * peak) if peak > 0 else 0.0,
+                "flops_per_sec": fps,
+                "steps_per_sec": len(w.entries) / elapsed,
+                "tokens_per_sec_per_chip":
+                    tokens / elapsed / w.n_devices,
+                "steps": len(w.entries),
+                "n_devices": w.n_devices,
+                "device_kind": w.device_kind,
+                "peak_flops": peak,
+            }
+    return out
+
+
+def mfu(kind: str) -> float:
+    return snapshot().get(kind, {}).get("mfu", 0.0)
+
+
+def tokens_per_sec_per_chip(kind: str = "decode") -> float:
+    return snapshot().get(kind, {}).get("tokens_per_sec_per_chip", 0.0)
+
+
+def reset():
+    """Drop all windows (tests)."""
+    with _lock:
+        _windows.clear()
+
+
+def _publish():
+    """Collect hook: refresh the gauges from the windows before every
+    snapshot/exposition — the hot paths only append records, so an
+    idle process still decays its MFU at scrape time."""
+    for kind, st in snapshot().items():
+        MFU.set(st["mfu"], kind=kind)
+        FLOPS_PER_SEC.set(st["flops_per_sec"], kind=kind)
+        STEPS_PER_SEC.set(st["steps_per_sec"], kind=kind)
+        TOKENS_PER_SEC.set(st["tokens_per_sec_per_chip"], kind=kind)
+
+
+_m.add_collect_hook(_publish)

@@ -1,36 +1,124 @@
-# Copied from the JAX package: the dynamic loss-scaling, pipeline and
-# analysis subsets of paddle_tpu/observability/telemetry.py (stdlib
-# only). Each
-# definition below is that file's, unchanged; keep them in step with
-# it. The rest of that module (executor, trainer, compile and async
-# telemetry) is not ported (ROADMAP item 18).
-"""Dynamic loss-scaling telemetry: `paddle_tpu_amp_total{event}`, the
-`paddle_tpu_amp_loss_scale` gauge, and `record_amp`, which ticks them
-and logs each overflow as an `amp_overflow` event. The training loop
-feeds them through `parallel.train.sync_loss_scale_metrics`.
+# Copied from the JAX package: paddle_tpu/observability/telemetry.py
+# (stdlib only). Keep it in step with that file.
+"""Step-telemetry metric definitions + record helpers for the hot paths.
 
-Pipeline telemetry: `paddle_tpu_pipeline_traces_total{axis}` and the
-stages, microbatches and bubble-fraction gauges of the last pipeline.
-The JAX package sets all four at trace time, through
-`record_pipeline_trace`. The port has no trace: `parallel/pipeline.py`
-sets the gauges on every call and ticks the trace counter on each new
-schedule signature, so it does not call `record_pipeline_trace`.
+Every framework subsystem funnels through these helpers instead of
+touching the registry ad hoc, so the metric names/labels stay one
+vocabulary (documented in PROFILE.md §Observability):
 
-Analysis telemetry: `paddle_tpu_analysis_runs_total{where}`,
-`paddle_tpu_analysis_findings_total{pass,severity}` and the `analysis`
-event, recorded by `record_analysis` once per pass-suite walk
-(`analysis.run_passes`).
+  executor  — step wall time, feed bytes, program-cache hits/misses
+  trainer   — step/example throughput
+  spmd      — per-mesh-axis step time + collective-op counts
+  pipeline  — schedule shape (stages, microbatches, bubble fraction)
+
+This module must stay import-light (stdlib only): core/executor.py
+imports it at module load, before the rest of the package finishes
+initializing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Dict, Optional
 
 from . import events as _events
+from . import httpd as _httpd
 from . import metrics as _m
+from . import perfwatch as _perfwatch
+from . import timeseries as _timeseries
 
-__all__ = ["record_amp", "record_pipeline_trace", "record_analysis"]
+__all__ = [
+    "executor_step", "feed_nbytes",
+    "record_executor_step", "record_cache_event", "record_trainer_step",
+    "record_trainer_run", "record_spmd_step", "record_pipeline_trace",
+    "record_compile", "record_compile_cache", "record_device_memory",
+    "record_amp", "record_analysis",
+    "record_host_blocked", "record_dispatch_ready",
+    "record_prefetch_depth", "record_prefetch_item",
+    "record_async_inflight", "record_chained_eviction",
+    "host_blocked_total",
+]
 
+EXEC_STEPS = _m.counter(
+    "paddle_tpu_executor_steps_total",
+    "Executor.run / run_chained invocations", labelnames=("mode",))
+EXEC_STEP_SECONDS = _m.histogram(
+    "paddle_tpu_executor_step_seconds",
+    "End-to-end Executor step wall time (lookup+dispatch+fetch)",
+    labelnames=("mode",))
+EXEC_FEED_BYTES = _m.counter(
+    "paddle_tpu_executor_feed_bytes_total",
+    "Bytes of feed tensors handed to the executor")
+EXEC_CACHE = _m.counter(
+    "paddle_tpu_executor_cache_total",
+    "Program-cache lookups from _lookup_step (event=hit|miss; a miss is "
+    "a jit trace+compile)", labelnames=("event",))
+EXEC_CACHE_ENTRIES = _m.gauge(
+    "paddle_tpu_executor_cache_entries",
+    "Live compiled-step entries across executors")
+
+TRAINER_STEPS = _m.counter(
+    "paddle_tpu_trainer_steps_total", "Trainer-loop steps")
+TRAINER_EXAMPLES = _m.counter(
+    "paddle_tpu_trainer_examples_total",
+    "Examples consumed by trainer loops (leading feed dim)")
+TRAINER_STEP_SECONDS = _m.histogram(
+    "paddle_tpu_trainer_step_seconds", "Trainer-loop per-step wall time")
+TRAINER_EXAMPLES_PER_SEC = _m.gauge(
+    "paddle_tpu_trainer_examples_per_sec",
+    "Throughput of the last trainer run (examples / wall seconds)")
+TRAINER_RUNS = _m.counter(
+    "paddle_tpu_trainer_runs_total",
+    "train_from_dataset / worker epochs completed")
+
+SPMD_STEPS = _m.counter(
+    "paddle_tpu_spmd_steps_total", "SPMDRunner steps",
+    labelnames=("axis",))
+SPMD_STEP_SECONDS = _m.histogram(
+    "paddle_tpu_spmd_step_seconds", "SPMDRunner per-step wall time",
+    labelnames=("axis",))
+SPMD_COLLECTIVES = _m.counter(
+    "paddle_tpu_spmd_collectives_total",
+    "Collective ops executed (static per-program count x steps)",
+    labelnames=("axis", "op"))
+
+PIPELINE_TRACES = _m.counter(
+    "paddle_tpu_pipeline_traces_total",
+    "pipeline_apply traces (jit retrace = new schedule/shape)",
+    labelnames=("axis",))
+PIPELINE_STAGES = _m.gauge(
+    "paddle_tpu_pipeline_stages", "Stages in the last traced pipeline",
+    labelnames=("axis",))
+PIPELINE_MICROBATCHES = _m.gauge(
+    "paddle_tpu_pipeline_microbatches",
+    "Microbatches in the last traced pipeline", labelnames=("axis",))
+PIPELINE_BUBBLE_FRACTION = _m.gauge(
+    "paddle_tpu_pipeline_bubble_fraction",
+    "GPipe bubble (S-1)/(n_micro+S-1) of the last traced pipeline",
+    labelnames=("axis",))
+
+COMPILES = _m.counter(
+    "paddle_tpu_compiles_total",
+    "XLA compiles by program kind (step|chained|sharded|spmd); a rising "
+    "rate at steady state is a recompile storm", labelnames=("kind",))
+COMPILE_SECONDS = _m.histogram(
+    "paddle_tpu_compile_seconds",
+    "Wall seconds per XLA trace+compile", labelnames=("kind",))
+COMPILE_FLOPS = _m.gauge(
+    "paddle_tpu_compile_flops",
+    "cost_analysis() FLOPs estimate of the most recent compile",
+    labelnames=("kind",))
+COMPILE_CACHE = _m.counter(
+    "paddle_tpu_compile_cache_total",
+    "Persistent compile-cache (PADDLE_TPU_COMPILE_CACHE) outcomes by "
+    "program kind: hit (deserialized, compile skipped), miss, store, "
+    "corrupt (bad/mismatched entry dropped), store_error, evict",
+    labelnames=("kind", "event"))
+COMPILE_CACHE_BYTES = _m.counter(
+    "paddle_tpu_compile_cache_bytes_total",
+    "Bytes read on compile-cache hits / written on stores / dropped on "
+    "evictions", labelnames=("kind", "event"))
 AMP_EVENTS = _m.counter(
     "paddle_tpu_amp_total",
     "Dynamic loss-scaling outcomes under a mixed-precision policy: "
@@ -42,6 +130,197 @@ AMP_EVENTS = _m.counter(
 AMP_LOSS_SCALE = _m.gauge(
     "paddle_tpu_amp_loss_scale",
     "Current dynamic loss scale (last host-observed value)")
+ANALYSIS_RUNS = _m.counter(
+    "paddle_tpu_analysis_runs_total",
+    "Full static-analysis pass-suite walks (paddle_tpu/analysis). "
+    "Validation results are cached per program version — a rising rate "
+    "at steady state means the validation cache is not holding",
+    labelnames=("where",))
+ANALYSIS_FINDINGS = _m.counter(
+    "paddle_tpu_analysis_findings_total",
+    "Static-analysis findings by pass and severity "
+    "(error|warning|info); PADDLE_TPU_VALIDATE=2 refuses to run a "
+    "program with error-severity findings",
+    labelnames=("pass", "severity"))
+DEVICE_LIVE_BYTES = _m.gauge(
+    "paddle_tpu_device_live_bytes",
+    "Bytes held by live device buffers (jax.live_arrays sum); monotonic "
+    "growth at steady state is a leak")
+DEVICE_LIVE_BUFFERS = _m.gauge(
+    "paddle_tpu_device_live_buffers",
+    "Count of live device arrays")
+
+# -- host-overlap pipeline (core/async_exec.py) -----------------------------
+# The host-overlap story in three numbers: how long the host sat blocked
+# on the device (should be ~0 when the pipeline hides transfers), how
+# long a dispatched fetch took to become ready (device-side latency the
+# host never has to see), and how full the prefetch buffer ran (0 depth
+# at steady state = the consumer is input-bound).
+HOST_BLOCKED_SECONDS = _m.counter(
+    "paddle_tpu_host_blocked_seconds_total",
+    "Wall seconds the host spent blocked waiting on device results or "
+    "an empty prefetch queue, by site (executor_sync|fetch:*|"
+    "prefetch:*)", labelnames=("site",))
+DISPATCH_READY_SECONDS = _m.histogram(
+    "paddle_tpu_dispatch_ready_seconds",
+    "Latency from dispatch to the fetched values being ready on host",
+    labelnames=("site",))
+PREFETCH_DEPTH = _m.gauge(
+    "paddle_tpu_prefetch_queue_depth",
+    "Items buffered in a prefetch stage right after the last put/get",
+    labelnames=("stage",))
+PREFETCH_ITEMS = _m.counter(
+    "paddle_tpu_prefetch_items_total",
+    "Items that passed through a prefetch stage", labelnames=("stage",))
+PIPELINE_STALLS = _m.counter(
+    "paddle_tpu_pipeline_stalls_total",
+    "Host blocks longer than PADDLE_TPU_STALL_EVENT_S (default 0.1s) — "
+    "each also appends a pipeline_stall event", labelnames=("site",))
+ASYNC_INFLIGHT = _m.gauge(
+    "paddle_tpu_async_inflight_fetches",
+    "Unresolved FetchHandles currently holding device buffers")
+CHAINED_EVICTIONS = _m.counter(
+    "paddle_tpu_chained_cache_evictions_total",
+    "Chained-executable cache entries evicted by the per-program LRU "
+    "bound (PADDLE_TPU_CHAINED_CACHE)")
+
+
+def record_executor_step(mode: str, seconds: float, feed_bytes: int):
+    EXEC_STEPS.inc(mode=mode)
+    EXEC_STEP_SECONDS.observe(seconds, mode=mode)
+    if feed_bytes:
+        EXEC_FEED_BYTES.inc(feed_bytes)
+    _m.maybe_start_dump_thread()
+    _httpd.maybe_start_http_server()
+    _timeseries.maybe_start_recorder()
+
+
+def feed_nbytes(feed: Dict) -> int:
+    return sum(int(getattr(v, "nbytes", 0)) for v in feed.values())
+
+
+class _StepRecord:
+    __slots__ = ("feed_bytes", "perf_kind", "flops", "device_kind",
+                 "n_devices", "_host0")
+
+    def __init__(self):
+        self.feed_bytes = 0
+        self.perf_kind: Optional[str] = None
+        self.flops: Optional[float] = None
+        self.device_kind: Optional[str] = None
+        self.n_devices = 1
+        self._host0 = HOST_BLOCKED_SECONDS.total()
+
+    def set_feed(self, feed: Dict):
+        self.feed_bytes = feed_nbytes(feed)
+
+    def set_perf(self, kind: str, cost: Optional[Dict] = None,
+                 device_kind: Optional[str] = None, n_devices: int = 1):
+        """Arm the live-utilization record for this step: `kind` labels
+        the paddle_tpu_mfu gauge; `cost` is the dispatch wrapper's
+        retained cost_analysis dict (current_cost()). Without this call
+        the step records wall time only, no MFU sample."""
+        self.perf_kind = kind
+        self.flops = (cost or {}).get("flops")
+        self.device_kind = device_kind
+        self.n_devices = max(1, int(n_devices))
+
+
+@contextlib.contextmanager
+def executor_step(mode: str):
+    """One executor-step telemetry window (shared by Executor.run,
+    run_chained, and CompiledProgram._run so the timing boundary and byte
+    accounting cannot drift apart). Records only on clean exit — a step
+    that raises is not a completed step. Call `set_feed(norm_feed)` once
+    feeds are normalized; `set_perf(...)` once the compiled step is
+    resolved to also land a live-MFU sample (perfwatch)."""
+    rec = _StepRecord()
+    t0 = time.perf_counter()
+    yield rec
+    seconds = time.perf_counter() - t0
+    record_executor_step(mode, seconds, rec.feed_bytes)
+    if rec.perf_kind is not None:
+        # host-blocked attribution: the process-wide counter's delta
+        # across this step — exact for the common single-executor
+        # process, an upper-bound estimate under concurrent executors
+        host = max(0.0, HOST_BLOCKED_SECONDS.total() - rec._host0)
+        _perfwatch.record_step(
+            rec.perf_kind, seconds, flops=rec.flops,
+            host_blocked=min(host, seconds),
+            device_kind=rec.device_kind, n_devices=rec.n_devices)
+
+
+def record_cache_event(hit: bool, entries: int):
+    EXEC_CACHE.inc(event="hit" if hit else "miss")
+    EXEC_CACHE_ENTRIES.set(entries)
+
+
+def record_trainer_step(seconds: float, examples: int):
+    TRAINER_STEPS.inc()
+    TRAINER_STEP_SECONDS.observe(seconds)
+    if examples:
+        TRAINER_EXAMPLES.inc(examples)
+
+
+def record_trainer_run(total_seconds: float, examples: int):
+    TRAINER_RUNS.inc()
+    if total_seconds > 0 and examples:
+        TRAINER_EXAMPLES_PER_SEC.set(examples / total_seconds)
+
+
+def record_spmd_step(axis: str, seconds: float,
+                     collectives: Optional[Dict[str, int]] = None):
+    SPMD_STEPS.inc(axis=axis)
+    SPMD_STEP_SECONDS.observe(seconds, axis=axis)
+    for op, n in (collectives or {}).items():
+        SPMD_COLLECTIVES.inc(n, axis=axis, op=op)
+    _m.maybe_start_dump_thread()
+    _httpd.maybe_start_http_server()
+    _timeseries.maybe_start_recorder()
+
+
+def record_compile(kind: str, seconds: float,
+                   flops: Optional[float] = None,
+                   out_bytes: Optional[int] = None,
+                   meta: Optional[Dict] = None):
+    """One XLA trace+compile: metrics + a `compile` event so a recompile
+    storm is visible both as a rate and as a timeline."""
+    COMPILES.inc(kind=kind)
+    COMPILE_SECONDS.observe(seconds, kind=kind)
+    fields: Dict = {"compile_kind": kind, "seconds": round(seconds, 6)}
+    if flops is not None:
+        COMPILE_FLOPS.set(flops, kind=kind)
+        fields["flops"] = flops
+    if out_bytes is not None:
+        fields["out_bytes"] = int(out_bytes)
+    if meta:
+        fields.update(meta)
+    _events.emit("compile", **fields)
+
+
+def record_compile_cache(kind: str, event: str, nbytes: int = 0,
+                         key: Optional[str] = None,
+                         seconds: Optional[float] = None,
+                         error: Optional[str] = None):
+    """One persistent-compile-cache outcome: a hit is a compile that
+    did NOT happen (its wall cost is deserialization I/O), so hits and
+    misses land in their own counter family rather than polluting
+    paddle_tpu_compiles_total — the recompile-storm signal stays
+    honest. Every outcome also appends a `compile_cache` event so a
+    restart's cache story is reconstructable from the JSONL log."""
+    COMPILE_CACHE.inc(kind=kind, event=event)
+    if nbytes:
+        COMPILE_CACHE_BYTES.inc(nbytes, kind=kind, event=event)
+    fields: Dict = {"compile_kind": kind, "event": event}
+    if nbytes:
+        fields["nbytes"] = int(nbytes)
+    if key:
+        fields["key"] = key[:16]  # enough to join with the cache file
+    if seconds is not None:
+        fields["seconds"] = round(seconds, 6)
+    if error:
+        fields["error"] = error
+    _events.emit("compile_cache", **fields)
 
 
 def record_amp(event: str, n: int = 1, step: Optional[int] = None,
@@ -65,44 +344,6 @@ def record_amp(event: str, n: int = 1, step: Optional[int] = None,
         _events.emit("amp_overflow", **fields)
 
 
-PIPELINE_TRACES = _m.counter(
-    "paddle_tpu_pipeline_traces_total",
-    "pipeline_apply traces (jit retrace = new schedule/shape)",
-    labelnames=("axis",))
-PIPELINE_STAGES = _m.gauge(
-    "paddle_tpu_pipeline_stages", "Stages in the last traced pipeline",
-    labelnames=("axis",))
-PIPELINE_MICROBATCHES = _m.gauge(
-    "paddle_tpu_pipeline_microbatches",
-    "Microbatches in the last traced pipeline", labelnames=("axis",))
-PIPELINE_BUBBLE_FRACTION = _m.gauge(
-    "paddle_tpu_pipeline_bubble_fraction",
-    "GPipe bubble (S-1)/(n_micro+S-1) of the last traced pipeline",
-    labelnames=("axis",))
-
-
-def record_pipeline_trace(axis: str, stages: int, n_micro: int):
-    PIPELINE_TRACES.inc(axis=axis)
-    PIPELINE_STAGES.set(stages, axis=axis)
-    PIPELINE_MICROBATCHES.set(n_micro, axis=axis)
-    PIPELINE_BUBBLE_FRACTION.set(
-        (stages - 1) / max(1, n_micro + stages - 1), axis=axis)
-
-
-ANALYSIS_RUNS = _m.counter(
-    "paddle_tpu_analysis_runs_total",
-    "Full static-analysis pass-suite walks (paddle_tpu/analysis). "
-    "Validation results are cached per program version — a rising rate "
-    "at steady state means the validation cache is not holding",
-    labelnames=("where",))
-ANALYSIS_FINDINGS = _m.counter(
-    "paddle_tpu_analysis_findings_total",
-    "Static-analysis findings by pass and severity "
-    "(error|warning|info); PADDLE_TPU_VALIDATE=2 refuses to run a "
-    "program with error-severity findings",
-    labelnames=("pass", "severity"))
-
-
 def record_analysis(findings, n_ops: int, where: str, seconds: float):
     """One static-analysis pass-suite walk (paddle_tpu/analysis
     run_passes): per-pass/severity finding counts plus one `analysis`
@@ -119,3 +360,103 @@ def record_analysis(findings, n_ops: int, where: str, seconds: float):
                  errors=by_sev.get("error", 0),
                  warnings=by_sev.get("warning", 0),
                  infos=by_sev.get("info", 0))
+
+
+def record_device_memory(nbytes: int, nbuffers: int):
+    DEVICE_LIVE_BYTES.set(nbytes)
+    DEVICE_LIVE_BUFFERS.set(nbuffers)
+
+
+def _stall_event_threshold_s() -> float:
+    import os
+
+    raw = os.environ.get("PADDLE_TPU_STALL_EVENT_S")
+    if not raw:
+        return 0.1
+    try:
+        v = float(raw)
+    except ValueError:
+        return 0.1
+    return v if v > 0 else 0.1
+
+
+def record_host_blocked(site: str, seconds: float, stall: bool = True):
+    """Wall time the host spent waiting on the device (or on an empty
+    prefetch queue). Blocks past the stall threshold also count as
+    pipeline stalls and land in the event log — a stall timeline is how
+    an input-bound run is diagnosed after the fact. Pass stall=False
+    for sites where blocking is the caller's NORMAL rhythm (the
+    deliberately-synchronous fetch epilogue): its seconds still feed
+    the host-overlap fraction, but a 150 ms sync step is not a stall
+    and must not emit one event per step."""
+    if seconds <= 0:
+        return
+    HOST_BLOCKED_SECONDS.inc(seconds, site=site)
+    if stall and seconds >= _stall_event_threshold_s():
+        PIPELINE_STALLS.inc(site=site)
+        _events.emit("pipeline_stall", site=site,
+                     seconds=round(seconds, 6))
+
+
+def record_dispatch_ready(site: str, seconds: float):
+    DISPATCH_READY_SECONDS.observe(seconds, site=site)
+
+
+def record_prefetch_depth(stage: str, depth: int):
+    PREFETCH_DEPTH.set(depth, stage=stage)
+
+
+def record_prefetch_item(stage: str):
+    PREFETCH_ITEMS.inc(stage=stage)
+
+
+def record_async_inflight(n: int):
+    ASYNC_INFLIGHT.set(n)
+
+
+def record_chained_eviction():
+    CHAINED_EVICTIONS.inc()
+
+
+def host_blocked_total() -> float:
+    """Process-wide host-blocked seconds across every site — what
+    bench.py divides by wall time for the host-overlap fraction."""
+    return HOST_BLOCKED_SECONDS.total()
+
+
+def record_pipeline_trace(axis: str, stages: int, n_micro: int):
+    PIPELINE_TRACES.inc(axis=axis)
+    PIPELINE_STAGES.set(stages, axis=axis)
+    PIPELINE_MICROBATCHES.set(n_micro, axis=axis)
+    PIPELINE_BUBBLE_FRACTION.set(
+        (stages - 1) / max(1, n_micro + stages - 1), axis=axis)
+
+
+# -- span-ring drop visibility (ISSUE 15 satellite) -------------------------
+
+SPANS_DROPPED = _m.counter(
+    "paddle_tpu_spans_dropped_total",
+    "Spans evicted oldest-first from the in-memory span ring "
+    "(tracing.MAX_SPANS overflow) — a nonzero rate means exported "
+    "traces are missing their oldest window")
+
+_spans_dropped_synced = [0]
+
+
+def sync_spans_dropped():
+    """Publish tracing.dropped_spans() into the registry counter.
+    Registered as a collect hook (runs before every /metrics render and
+    snapshot), because tracing.py is stdlib-only by contract and cannot
+    push into the registry itself."""
+    from . import tracing as _tracing
+
+    d = _tracing.dropped_spans()
+    prev = _spans_dropped_synced[0]
+    if d > prev:
+        SPANS_DROPPED.inc(d - prev)
+        _spans_dropped_synced[0] = d
+    elif d < prev:
+        _spans_dropped_synced[0] = d  # clear_spans() reset the source
+
+
+_m.add_collect_hook(sync_spans_dropped)

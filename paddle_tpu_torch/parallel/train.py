@@ -76,6 +76,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -86,6 +87,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import resolve_device
 from ..core import precision as _precision
 from ..models.common import Params, ParamAxes, is_trainable
+from ..observability import memwatch as _memwatch
 from .mesh import mesh_guard
 from .sharding import (LogicalRules, PartitionSpec, current_rules, shard,
                        shard_params_spec, with_rules)
@@ -136,6 +138,33 @@ class TrainState:
         self.opt_state = opt_state
         self.step = step
         self.loss_scale = loss_scale
+        _live_states.add(self)
+
+
+# Device-memory owner attribution (memwatch), as the JAX package's:
+# every live TrainState volunteers its params and its optimizer's state
+# tensors, through providers registered once at import that read the
+# CURRENT tensors at each sweep.
+_live_states: "weakref.WeakSet[TrainState]" = weakref.WeakSet()
+
+
+def _live_param_tensors():
+    for st in list(_live_states):
+        yield from st.params.values()
+
+
+def _live_opt_tensors():
+    for st in list(_live_states):
+        opt = st.opt_state
+        for o in getattr(opt, "optimizers", None) or [opt]:
+            for per_param in getattr(o, "state", {}).values():
+                for v in per_param.values():
+                    if isinstance(v, torch.Tensor):
+                        yield v
+
+
+_memwatch.register_provider("params", _live_param_tensors)
+_memwatch.register_provider("optimizer", _live_opt_tensors)
 
 
 def zero1_dim(shape, spec: PartitionSpec, dp: int) -> Optional[int]:

@@ -58,14 +58,18 @@ scheduler:
   FIFO and the victim the youngest, as before;
 - the JAX package's decode, KV-reuse and tenant metrics (same names,
   same update points), its `decode`, `shed` and `warmstart` events and
-  its per-request trace spans.
+  its per-request trace spans;
+- the JAX package's observability hooks: the boot validation's
+  `record_analysis`, a perfwatch sample per prefill, chunk and decode
+  round (live MFU; the FLOPs come from `GPTConfig.forward_flops`, since
+  a captured CUDA graph has no cost analysis), the prefill's and the
+  token fetch's dispatch-to-ready latency, and memwatch owner rows
+  `kv_pool`, `params` and (with the prefix cache) `prefix_cache`,
+  suffixed `[tag]` under `DecodeConfig(model_tag=tag)`; the engines'
+  CUDA-graph pools are memwatch's executable bytes.
 
 Sampling is greedy through ops.beam.beam_search with beam_size=1,
 whose finished-freeze keeps an ended slot emitting eos.
-
-Not ported yet: memwatch (with the prefix cache's owner row and
-`DecodeConfig(model_tag=...)`), perfwatch and telemetry (ROADMAP item
-18).
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ import json
 import queue
 import threading
 import time
+import weakref
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,7 +93,10 @@ from ..core import compile_cache as _cc
 from ..core import precision as _precision
 from ..kernels import _build
 from ..observability import events as _events
+from ..observability import memwatch as _memwatch
 from ..observability import metrics as _m
+from ..observability import perfwatch as _perfwatch
+from ..observability import telemetry as _telemetry
 from ..observability import tracing as _tracing
 from ..resilience.atomic import write_bytes
 from .batcher import QueueFullError, ServerClosed
@@ -140,6 +148,33 @@ OCCUPANCY = _m.histogram(
     buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
 
 
+# the engines whose CUDA-graph pools memwatch reports as its executable
+# bytes: added at construction, dropped at stop()
+_graph_engines: "weakref.WeakSet[DecodeEngine]" = weakref.WeakSet()
+
+
+def _graph_pool_bytes(pool) -> int:
+    """Bytes of the caching allocator's segments in a CUDA-graph pool
+    (`torch.cuda.graph_pool_handle()`), from torch.cuda.memory_snapshot;
+    0 when the snapshot does not name segment pools."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _graph_pools() -> Tuple[int, int]:
+    """memwatch's executables provider: (bytes, captured graphs) over
+    the live engines' graph pools."""
+    nbytes = graphs = 0
+    for eng in list(_graph_engines):
+        if eng._graph_pool is not None:
+            nbytes += _graph_pool_bytes(eng._graph_pool)
+            graphs += len(eng._graphs)
+    return nbytes, graphs
+
+
+_memwatch.set_executables_provider(_graph_pools)
+
+
 def _pow2_lengths(lo: int, hi: int) -> Tuple[int, ...]:
     out, b = [], int(lo)
     while b < hi:
@@ -171,7 +206,11 @@ class DecodeConfig:
     passed to DecodeEngine) proposes k tokens a round through the draft
     and verifies them in one batched target step with the exact greedy
     accept rule. Any of them switches the engine onto the synchronous
-    reuse scheduler."""
+    reuse scheduler.
+
+    model_tag: the memwatch owner suffix for multi-model processes:
+    with model_tag="m" the engine's owner rows are "kv_pool[m]",
+    "params[m]" and "prefix_cache[m]"."""
 
     def __init__(self, *, block_size: int = 16, num_blocks: int = 64,
                  decode_slots: Sequence[int] = (4, 8),
@@ -185,7 +224,8 @@ class DecodeConfig:
                  prefix_cache: bool = False,
                  prefill_chunk: int = 0,
                  spec_k: int = 0,
-                 qos=None):
+                 qos=None,
+                 model_tag: Optional[str] = None):
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
         self.decode_slots = tuple(sorted({int(s) for s in decode_slots}))
@@ -204,6 +244,7 @@ class DecodeConfig:
         # per-tenant QoS policy (a qos.QoSPolicy or its from_spec dict;
         # None = single-tenant FIFO)
         self.qos = qos
+        self.model_tag = model_tag
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{self.prefill_chunk}")
@@ -314,6 +355,9 @@ class _TokenFetch:
             self._event.record()
         else:
             self._host = tok
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
 
     def result(self) -> np.ndarray:
         if self._event is not None:
@@ -428,6 +472,12 @@ class DecodeEngine:
                                                self.device)
         self._alloc = ReuseBlockAllocator(self.kv_cfg) \
             if self.config.prefix_cache else BlockAllocator(self.kv_cfg)
+        self._device_kind = torch.cuda.get_device_name(self.device) \
+            if self.device.type == "cuda" else "cpu"
+        # each phase's FLOPs at each size, for the perfwatch samples
+        self._flops = {key: self._phase_flops(key)
+                       for key in self._phase_keys()}
+        self._mem_handles = self._register_memory()
         # re-entrant: _count takes it from paths that already hold it
         self._cv = threading.Condition(threading.RLock())
         # per-tenant QoS (None = single-tenant FIFO). Deferred import:
@@ -475,6 +525,79 @@ class DecodeEngine:
         if self.config.warmstart:
             self.load_warmstart(self.config.warmstart)
 
+    def _register_memory(self) -> List[int]:
+        """memwatch providers of this engine's KV pools and params (and
+        of the prefix cache's retained blocks), as the JAX engine
+        registers them: callables over the CURRENT tensors, weakref'd so
+        a dropped engine never pins its pools."""
+        ref = weakref.ref(self)
+
+        def kv_tensors():
+            eng = ref()
+            if eng is None:
+                return ()
+            return list(eng._pools or ()) + list(eng._draft_pools or ())
+
+        def param_tensors():
+            eng = ref()
+            if eng is None:
+                return ()
+            out = list(eng.params.values())
+            if eng._draft_params is not None:
+                out.extend(eng._draft_params.values())
+            return out
+
+        tag = self.config.model_tag
+        own = (lambda base: f"{base}[{tag}]") if tag else (lambda b: b)
+        handles = [_memwatch.register_provider(own("kv_pool"), kv_tensors),
+                   _memwatch.register_provider(own("params"),
+                                               param_tensors)]
+        if self.config.prefix_cache:
+            # the cached blocks' bytes live INSIDE the kv_pool tensors:
+            # reported beside them, never added to the total
+            per_block = self._prefix_block_bytes()
+
+            def prefix_bytes():
+                eng = ref()
+                if eng is None:
+                    return (0, 0)
+                n = eng._alloc.cached_blocks()
+                return (n * per_block, n)
+
+            handles.append(_memwatch.register_bytes_provider(
+                own("prefix_cache"), prefix_bytes))
+        _graph_engines.add(self)
+        return handles
+
+    def _prefix_block_bytes(self) -> int:
+        """Device bytes ONE cached block retains across both models'
+        pools (K and V, all layers): the unit of the prefix_cache row."""
+        def per(kv: KVCacheConfig) -> int:
+            return (2 * kv.layers * kv.block_size * kv.kv_heads *
+                    kv.head_dim * getattr(torch, kv.dtype).itemsize)
+        n = per(self.kv_cfg)
+        if self._draft_kv_cfg is not None:
+            n += per(self._draft_kv_cfg)
+        return n
+
+    def _phase_flops(self, key: Tuple[str, int]) -> float:
+        """One run's forward FLOPs of a (phase, size) key, by
+        `GPTConfig.forward_flops`: a prefill bucket T attends over T,
+        the gather phases over the whole block table."""
+        kind, n = key
+        draft = kind.startswith("draft_")
+        cfg = self._draft_cfg if draft else self.model_cfg
+        base = kind[6:] if draft else kind
+        table = self.kv_cfg.max_blocks_per_seq * self.kv_cfg.block_size
+        if base == "prefill":
+            return cfg.forward_flops(n, n, 1)
+        if base == "chunk":
+            return cfg.forward_flops(n, table, 1)
+        if base == "verify":
+            w = n * (self.spec_k + 1)
+            return cfg.forward_flops(w, table, w)
+        return cfg.forward_flops(n, table, n)
+
     def _cast(self, params) -> Dict[str, torch.Tensor]:
         return {k: _precision.cast_floating(v, self._compute_dtype)
                 .to(self.device) for k, v in params.items()}
@@ -497,6 +620,8 @@ class DecodeEngine:
         mha refuses the meta device, so a phase has no cheap shape-only
         run in torch, and that pass runs inside `warmup()`, where each
         phase runs once."""
+        t0 = time.perf_counter()
+
         def add(sev, msg, var=None):
             self._findings.append(_an.Finding(
                 severity=sev, pass_name="decode_config", message=msg,
@@ -573,6 +698,9 @@ class DecodeEngine:
             if s < 1:
                 add(_an.ERROR, f"decode slot count {s} < 1",
                     var="decode_slots")
+        _telemetry.record_analysis(
+            self._findings, n_ops=len(self._phase_keys()),
+            where="decode", seconds=time.perf_counter() - t0)
         return self._tally()
 
     def _tally(self) -> Dict[str, int]:
@@ -1118,6 +1246,10 @@ class DecodeEngine:
             self._finish(req, "cancelled")
         if t is not None:
             t.join(timeout=30.0)
+        for h in self._mem_handles:
+            _memwatch.unregister_provider(h)
+        self._mem_handles = []
+        _graph_engines.discard(self)
         _events.emit("decode", action="stop")
 
     def load(self) -> Tuple[int, int]:
@@ -1382,6 +1514,14 @@ class DecodeEngine:
             "decode.prefill", req.tctx, time.perf_counter() - t0,
             cat="decode", t0_perf=t0, rid=req.rid, bucket=int(bucket),
             prompt_len=plen)
+        _telemetry.record_dispatch_ready(
+            "decode:prefill", time.perf_counter() - t0)
+        # live-MFU sample: the bucket's FLOPs over this prefill's wall
+        # window (one token emitted — the TTFT token)
+        _perfwatch.record_step(
+            "prefill", time.perf_counter() - t0,
+            flops=self._flops[("prefill", bucket)], tokens=1,
+            device_kind=self._device_kind)
         req.pos = plen
         req.admitted_at = time.monotonic()
         self._active.append(req)
@@ -1486,8 +1626,26 @@ class DecodeEngine:
         """Consume one in-flight step's tokens: stream them, detect
         finishes, retire (freeing blocks). Tokens for slots that were
         already retired/preempted after dispatch are discarded."""
+        t_wait = time.perf_counter()
+        ready = pending.fetch.ready()
         toks = pending.fetch.result()
-        STEP_SECONDS.observe(time.perf_counter() - pending.t_dispatch)
+        now = time.perf_counter()
+        wall = now - pending.t_dispatch
+        STEP_SECONDS.observe(wall)
+        # the token fetch's telemetry, as the JAX engine's FetchHandle
+        # (site "decode") records it
+        _telemetry.record_dispatch_ready("fetch:decode", wall)
+        if not ready:
+            _telemetry.record_host_blocked("fetch:decode", now - t_wait)
+        # live-MFU sample: the slot count's FLOPs over the dispatch to
+        # resolve window; the fetch wait is the host-blocked share,
+        # occupied slots are the tokens produced
+        C = len(pending.slots)
+        _perfwatch.record_step(
+            "decode", wall, flops=self._flops[("decode", C)],
+            tokens=sum(1 for r in pending.slots if r is not None),
+            host_blocked=min(now - t_wait, wall),
+            device_kind=self._device_kind)
         for i, req in enumerate(pending.slots):
             if req is None or req not in self._active:
                 continue
@@ -1672,13 +1830,19 @@ class DecodeEngine:
         cid[0, len(seg):] = req.prompt[-1]     # edge-pad (in-distribution)
         bt = build_block_table(req.blocks, self.kv_cfg.max_blocks_per_seq)
         scalars = (np.asarray(start, np.int32), np.asarray(plen, np.int32))
+        t0 = time.perf_counter()
         tok = self._run_phase(("chunk", Ck), cid, *scalars, bt)
         STEPS.inc(phase="prefill")
         if self._draft is not None:
             self._run_phase(("draft_chunk", Ck), cid, *scalars, bt)
             STEPS.inc(phase="draft")
         req.prefill_pos = start + Ck
-        if req.prefill_pos < plen:
+        done = req.prefill_pos >= plen
+        _perfwatch.record_step(
+            "prefill", time.perf_counter() - t0,
+            flops=self._flops[("chunk", Ck)], tokens=1 if done else 0,
+            device_kind=self._device_kind)
+        if not done:
             return
         tok0 = int(tok[0])                     # end-of-prefill sync
         if self.config.prefix_cache and req.hashes:
@@ -1782,10 +1946,15 @@ class DecodeEngine:
             self._run_phase(("draft_decode", C), ids, positions, bts)
             STEPS.inc(phase="draft")
         toks = tok.cpu().numpy()               # synchronous resolve
-        STEP_SECONDS.observe(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        STEP_SECONDS.observe(wall)
         STEPS.inc(phase="decode")
-        OCCUPANCY.observe(sum(1 for r in slots if r is not None) / C)
+        occupied = sum(1 for r in slots if r is not None)
+        OCCUPANCY.observe(occupied / C)
         self._last_slot_config = C
+        _perfwatch.record_step(
+            "decode", wall, flops=self._flops[("decode", C)],
+            tokens=occupied, device_kind=self._device_kind)
         for i, req in enumerate(slots):
             if req is None or req not in self._active:
                 continue
@@ -1851,9 +2020,11 @@ class DecodeEngine:
         STEPS.inc(k, phase="draft")
         STEPS.inc(phase="verify")
         props, outs = both[:, :k], both[:, k:]
-        STEP_SECONDS.observe(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        STEP_SECONDS.observe(wall)
         OCCUPANCY.observe(sum(1 for r in slots if r is not None) / C)
         self._last_slot_config = C
+        emitted = 0
         for i, req in enumerate(slots):
             if req is None or req not in self._active:
                 continue
@@ -1875,12 +2046,16 @@ class DecodeEngine:
             req.draft_pos = min(pos0 + k, req.pos)
             for t in emit:
                 self._emit_token(req, int(t), phase="decode")
+            emitted += len(emit)
             reason = self._finished_reason(req)
             if reason:
                 self._finish(req, reason)
         if self._spec_proposed:
             _kvr.SPEC_ACCEPT_RATE.set(
                 self._spec_accepted / self._spec_proposed)
+        _perfwatch.record_step(
+            "decode", wall, flops=self._flops[("verify", C)],
+            tokens=emitted, device_kind=self._device_kind)
 
     def _spec_launch(self, C: int, ids: np.ndarray, positions: np.ndarray,
                      bts: np.ndarray) -> torch.Tensor:

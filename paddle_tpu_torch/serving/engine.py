@@ -17,8 +17,10 @@ calibration batches at boot (`accuracy_delta`).
 `ServingConfig` keeps the JAX package's signature. A decode-only server
 reads only `host`, `port`, `warmup` and `qos` (the server's QoS policy,
 a `qos.QoSPolicy` or its `from_spec` dict, which every predict slot's
-Batcher applies). Not ported: `slo_spec` (the SLO evaluator, ROADMAP
-item 18) raises when set.
+Batcher applies). `slo_spec` (a JSON objectives file or a spec dict) is
+handed by `Server.start()` to `observability.slo`'s evaluator, as in
+the JAX package; each bucket's run is wrapped in
+`memwatch.oom_guard("serving")`.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..core import precision as _precision
 from ..core.places import CPUPlace, CUDAPlace
 from ..inference import AnalysisConfig, Predictor, create_paddle_predictor
 from ..observability import events as _events
+from ..observability import memwatch as _memwatch
 from ..observability import metrics as _m
 from ..observability import tracing as _tracing
 from ..resilience.atomic import json_dump, write_bytes
@@ -133,11 +136,11 @@ class ServingConfig:
         self.precision = str(precision)
         self.calibration = calibration
         self.accuracy_check_batches = int(accuracy_check_batches)
-        if slo_spec is not None:
-            raise NotImplementedError(
-                "ServingConfig(slo_spec=...): the SLO evaluator is not "
-                "ported (ROADMAP item 18)")
-        self.slo_spec = None
+        # slo_spec: path to a JSON objectives file (or a spec dict) —
+        # Server.start() hands it to observability.slo's background
+        # evaluator; recording (PADDLE_TPU_TS_DIR) must be on for the
+        # burn rates to have data
+        self.slo_spec = slo_spec
         # per-tenant QoS policy (a qos.QoSPolicy or its from_spec dict;
         # None = single-tenant FIFO)
         self.qos = qos
@@ -479,7 +482,8 @@ class Engine:
         # no-op without a sampled ambient context (the batcher activates
         # its lead request's trace around this call)
         with _tracing.trace_span("serve.dispatch", cat="serve",
-                                 bucket=int(bucket), rows=int(n)):
+                                 bucket=int(bucket), rows=int(n)), \
+                _memwatch.oom_guard("serving"):
             out = self._pred.predict_handle(**feeds).result()
         BUCKET_SECONDS.observe(time.perf_counter() - t0,
                                bucket=str(bucket))

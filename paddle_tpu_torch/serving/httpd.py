@@ -30,10 +30,16 @@ together. Counterpart of the JAX package's `serving/httpd.py`. Routes:
                      when the decode queue is full or the engine is
                      draining (with Retry-After) or stopped, and the
                      typed shed 503 under QoS.
+  POST /v1/profile   {"seconds": N}: one bounded torch.profiler capture
+                     of the live server (observability/httpd.py's
+                     handler, on the profiler) → 200 {"dir", "trace",
+                     "perf", "seconds"}; 409 while another capture or
+                     trace runs; 400 on a malformed body
   GET  /v1/status    the server's state and load, the predict engine's
                      buckets, batches, precision and accuracy_delta, the
-                     request outcome counts, and each decode engine's
-                     queue, slot, KV block and warm view.
+                     request outcome counts, the memwatch owner table
+                     ("memory"), and each decode engine's queue, slot,
+                     KV block and warm view.
   GET  /v1/load      the router's cheap load probe: {"load": scalar,
                      "inflight": n, "queue_depth": q, "state": ...,
                      "models": [...]}, touching only counters.
@@ -72,11 +78,10 @@ with it). A client that hangs up mid-stream cancels its generation, so
 its slot and KV blocks free at once. When PADDLE_TPU_SLOW_SHIM_FILE
 names an existing file, every predict first sleeps the seconds it
 holds (a slow replica injected and lifted by creating and removing the
-file, which the fleet router's failover tests use). Built on
-`observability.httpbase`.
-
-Not ported: POST /v1/profile (404; its handler is the observability
-HTTP server's on the profiler, ROADMAP item 18).
+file, which the fleet router's failover tests use). `start()` also
+starts the env-gated time-series recorder (PADDLE_TPU_TS_DIR) and,
+when `config.slo_spec` declares objectives, the SLO evaluator; `stop()`
+stops those it started. Built on `observability.httpbase`.
 """
 
 from __future__ import annotations
@@ -93,7 +98,10 @@ import numpy as np
 
 from ..observability import events as _events
 from ..observability import httpbase as _base
+from ..observability import memwatch as _memwatch
 from ..observability import metrics as _m
+from ..observability import slo as _slo
+from ..observability import timeseries as _timeseries
 from ..observability import tracing as _tracing
 from ..observability.metrics import _json_safe
 from .batcher import (Batcher, EngineError, QueueFullError, RequestTimeout,
@@ -272,11 +280,19 @@ class _ServingHandler(_base.QuietHandler):
         try:
             self._tctx = _tracing.begin_request(self.headers)
             path = urlparse(self.path).path
+            if path == "/v1/profile":
+                # on-demand capture on the SERVING port: this handler
+                # thread blocks for the window while the threaded server
+                # keeps every other route flowing
+                from ..observability.httpd import handle_profile_request
+
+                code, body = handle_profile_request(self)
+                self._reply(code, "application/json", body)
+                return
             if path not in ("/v1/predict", "/v1/generate"):
                 self._reply(404, "text/plain",
                             "not found; POST routes: /v1/predict, "
-                            "/v1/generate (/v1/profile is not ported, "
-                            "ROADMAP item 18)\n")
+                            "/v1/generate, /v1/profile\n")
                 return
             try:
                 length = int(self.headers.get("Content-Length", "0"))
@@ -422,6 +438,8 @@ class Server:
             handler, thread_name="paddle-tpu-torch-serving-http")
         self._lock = threading.Lock()
         self._started_t: Optional[float] = None
+        # the TS recorder and SLO evaluator this server started
+        self._ts_started = self._slo_started = False
         self._draining = False
         # registry hot swap: adopted version per slot, the watcher
         # thread and its stop flag
@@ -487,6 +505,16 @@ class Server:
             import atexit
 
             atexit.register(self.stop)
+            # the env-gated TS recorder, and the SLO evaluator when the
+            # config declares objectives (no-ops without
+            # PADDLE_TPU_TS_DIR); stop() stops those started here
+            recording = _timeseries.current_recorder() is not None
+            evaluating = _slo.current_engine() is not None
+            self._ts_started = _timeseries.maybe_start_recorder() \
+                and not recording
+            self._slo_started = _slo.maybe_start_evaluator(
+                spec_path=getattr(self.config, "slo_spec", None)) \
+                and not evaluating
             _events.emit("serve_start", port=bound,
                          buckets=list(self._engine.policy.buckets)
                          if self._engine is not None else [],
@@ -599,6 +627,12 @@ class Server:
                 batcher.stop()
             for dec in self._decodes.values():
                 dec.stop()
+            stop_slo, self._slo_started = self._slo_started, False
+            stop_ts, self._ts_started = self._ts_started, False
+        if stop_slo:
+            _slo.stop_evaluator()
+        if stop_ts:
+            _timeseries.stop_recorder()   # its final sample, flushed
         if started:
             requests: Dict[str, int] = self._counts()
             for dec in self._decodes.values():
@@ -858,6 +892,7 @@ class Server:
               "max_wait_ms": getattr(cfg, "max_wait_ms", None),
               "timeout_s": getattr(cfg, "timeout_s", None),
               "requests": self._counts(),
+              "memory": _memwatch.status_block(),
               "models": probe["models"]}
         if batcher is not None:
             st["queue_depth"] = batcher.depth()

@@ -30,8 +30,9 @@ Stdout speaks one JSON "ready" line once serving (the supervisor and
 callers wait on it): {"ready": true, "endpoint": ..., "pid": ...,
 "warmstart_adopted": n, "slot": k}.
 
-Not ported: the time-series recorder the JAX replica starts and stops
-(`observability.timeseries`, ROADMAP item 18).
+With PADDLE_TPU_TS_DIR set the replica records its metrics' time
+series (`observability.timeseries`) and takes the recorder's final
+sample at exit, as the JAX replica does.
 """
 
 from __future__ import annotations
@@ -151,6 +152,12 @@ def main(argv=None) -> int:
                                poll_s=args.registry_poll_s)
     port = server.start(args.port)
     endpoint = f"{args.host}:{port}"
+    # env-gated time-series recording (PADDLE_TPU_TS_DIR): Server.start
+    # already tried; call again explicitly so a replica records even
+    # when the supervisor flips the env on between respawns
+    from ..observability import timeseries as _timeseries
+
+    _timeseries.maybe_start_recorder()
 
     rdzv = None
     rdzv_dir = args.rdzv_dir or os.environ.get("PADDLE_TPU_RDZV_DIR", "")
@@ -188,10 +195,13 @@ def main(argv=None) -> int:
     server.drain(timeout=args.drain_timeout_s)
     server.stop()
     # publish any buffered sampled spans before exit, so a trace-dir
-    # reassembly sees this replica's half of the tree
+    # reassembly sees this replica's half of the tree, and take the
+    # recorder's final time-series sample for the same reason (a
+    # replica shorter than the interval must still record)
     from ..observability import tracing as _tracing
 
     _tracing.flush_trace_sink()
+    _timeseries.stop_recorder()
     return 0
 
 

@@ -1261,6 +1261,50 @@ def test_int8_weights_are_laid_out_at_load_under_inference_mode(tmp_path):
 
 
 @pytest.mark.cuda
+def test_profile_capture_records_kernels_of_another_thread(tmp_path):
+    """capture_profile on this thread while another, whose first CUDA
+    work is K1-fwd's launch (the launcher makes the device's context
+    current there: ROADMAP F11), launches it: the merged trace holds
+    the Hopper kernel's records, and perf.json's memory block counts a
+    CUDA owner's tensors by storage (a view counted with its base)
+    inside the allocator's total."""
+    _need_card()
+    import json
+    import threading
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import memwatch
+
+    q = torch.randn(1, 256, 12, 64, device="cuda", dtype=torch.bfloat16)
+    owned = [q, q[:, :128]]
+    handle = memwatch.register_provider("cuda_test", lambda: owned)
+    memwatch.sweep(force=True)      # status_block() sweeps once a second
+    stop = threading.Event()
+
+    def launch():
+        while not stop.is_set():
+            fa.flash_attention(q, q, q, 0.125, causal=True)
+            torch.cuda.synchronize()
+
+    t = threading.Thread(target=launch, daemon=True)
+    try:
+        t.start()
+        out = profiler.capture_profile(0.5, out_dir=str(tmp_path))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        memwatch.unregister_provider(handle)
+    with open(out["trace"]) as f:
+        evs = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and
+               "flash_fwd_sm90_kernel" in e.get("name", "") for e in evs)
+    with open(out["perf"]) as f:
+        mem = json.load(f)["memory"]
+    assert mem["owners"]["cuda_test"] == q.untyped_storage().nbytes()
+    assert mem["owners"]["cuda_test"] <= mem["total_bytes"]
+
+
+@pytest.mark.cuda
 def test_a_capture_that_fails_raises(monkeypatch):
     """A decode step that syncs with the host cannot be captured: warmup
     raises and the engine refuses to serve (it never falls back to the

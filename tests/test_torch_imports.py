@@ -65,6 +65,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.serving.kv_reuse",
                  "paddle_tpu_torch.parallel.pipeline",
                  "paddle_tpu_torch.observability.telemetry",
+                 "paddle_tpu_torch.observability.perfwatch",
+                 "paddle_tpu_torch.observability.memwatch",
+                 "paddle_tpu_torch.observability.device_peaks",
+                 "paddle_tpu_torch.observability.timeseries",
+                 "paddle_tpu_torch.observability.aggregate",
+                 "paddle_tpu_torch.observability.slo",
+                 "paddle_tpu_torch.observability.httpd",
+                 "paddle_tpu_torch.profiler",
                  "paddle_tpu_torch.ops.int8",
                  "paddle_tpu_torch.ops.quant",
                  "paddle_tpu_torch.models.vgg",
@@ -279,9 +287,10 @@ def _public_methods(path, cls):
 
 def test_analysis_config_has_every_method_of_the_jax_package():
     """An AST name diff: every public method of the JAX package's
-    `AnalysisConfig` is defined on the port's. `switch_ir_optim` and
-    `enable_memory_optim` are accepted (the port reads neither flag);
-    `enable_profile` raises naming the profiler's ROADMAP item."""
+    `AnalysisConfig` is defined on the port's. `switch_ir_optim`,
+    `enable_memory_optim` and `enable_profile` set their flags, as the
+    JAX package's do, and nothing reads them."""
+    from paddle_tpu.inference import AnalysisConfig as JAnalysisConfig
     from paddle_tpu_torch.inference import AnalysisConfig
 
     want = _public_methods(os.path.join(_REPO, "paddle_tpu", "inference.py"),
@@ -293,8 +302,11 @@ def test_analysis_config_has_every_method_of_the_jax_package():
     cfg.switch_ir_optim(False)
     cfg.switch_ir_optim()
     cfg.enable_memory_optim()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        cfg.enable_profile()
+    jcfg = JAnalysisConfig("some/dir")
+    assert cfg._enable_profile is jcfg._enable_profile is False
+    cfg.enable_profile()
+    jcfg.enable_profile()
+    assert cfg._enable_profile is jcfg._enable_profile is True
 
 
 # The fleet tier's stdlib modules. rendezvous.py is a verbatim copy (a

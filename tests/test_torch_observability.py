@@ -38,7 +38,13 @@ COPIES = [("resilience/atomic.py", "resilience/atomic.py"),
           ("resilience/faults.py", "resilience/faults.py"),
           ("resilience/preemption.py", "resilience/preemption.py"),
           ("resilience/checkpoint_manager.py",
-           "resilience/checkpoint_manager.py")]
+           "resilience/checkpoint_manager.py"),
+          ("observability/perfwatch.py", "observability/perfwatch.py"),
+          ("observability/timeseries.py", "observability/timeseries.py"),
+          ("observability/aggregate.py", "observability/aggregate.py"),
+          ("observability/slo.py", "observability/slo.py"),
+          ("observability/telemetry.py", "observability/telemetry.py"),
+          ("observability/__init__.py", "observability/__init__.py")]
 
 # copies with declared changes: (copy, header lines, [(source text, its
 # replacement)]); each source text occurs once in the source. The
@@ -46,6 +52,24 @@ COPIES = [("resilience/atomic.py", "resilience/atomic.py"),
 # test; retry.py's CircuitBreaker takes the JAX package's
 # analysis.lockcheck.Lock, which the port does not have.
 CHANGED_COPIES = [
+    # the deferred profiler import's comment names torch (the import
+    # itself, `from .. import profiler`, resolves to this package's)
+    ("observability/httpd.py", 3,
+     [("    # deferred: profiler pulls in jax; this module stays "
+       "import-light\n",
+       "    # deferred: profiler pulls in torch; this module stays "
+       "import-light\n")]),
+    # PEAKS gains the H100 rows at its head
+    ("observability/device_peaks.py", 3,
+     [("PEAKS = (\n", """PEAKS = (
+    # NVIDIA cards, keyed by substrings of torch.cuda.get_device_name()
+    # ("NVIDIA H100 PCIe", "NVIDIA H100 80GB HBM3"): public per-card
+    # dense bf16, HBM bandwidth, HBM capacity and one-direction NVLink
+    # (half the bidirectional figure). PCIe before SXM: more specific.
+    ("h100 pcie", DevicePeak(756e12, 2.0e12, 80e9, 300e9)),
+    ("h100 sxm", DevicePeak(989e12, 3.35e12, 80e9, 450e9)),
+    ("h100 80gb hbm3", DevicePeak(989e12, 3.35e12, 80e9, 450e9)),
+""")]),
     ("observability/health.py", 3,
      [('logging.getLogger("paddle_tpu.health")',
        'logging.getLogger("paddle_tpu_torch.health")')]),
@@ -64,11 +88,15 @@ CHANGED_COPIES = [
 """)]),
 ]
 
-TELEMETRY_NAMES = ("AMP_EVENTS", "AMP_LOSS_SCALE", "record_amp",
-                   "PIPELINE_TRACES", "PIPELINE_STAGES",
-                   "PIPELINE_MICROBATCHES", "PIPELINE_BUBBLE_FRACTION",
-                   "record_pipeline_trace", "ANALYSIS_RUNS",
-                   "ANALYSIS_FINDINGS", "record_analysis")
+# memwatch.py is a port: every module-level definition is its source's
+# but these, which read torch's allocator and tensors where the source
+# walks jax.live_arrays() (`_owned_ids` becomes `_owned_storages` and
+# `_device_total`), name this package's logger, or reword a gauge's
+# help text; the docstring says what differs
+MEMWATCH_PORTED = {"log", "HBM_BYTES", "EXECUTABLE_BYTES", "sweep",
+                   "is_oom"}
+MEMWATCH_SOURCE_ONLY = {"_owned_ids"}
+MEMWATCH_PORT_ONLY = {"_owned_storages", "_device_total"}
 
 # tracing.py's one declared change: the logger's name, whose JAX-package
 # form the port's import-hygiene test refuses
@@ -165,12 +193,28 @@ def test_analysis_copy_matches_its_source_definitions():
 
 
 def test_telemetry_copy_matches_its_source_definitions():
-    src = _definitions(_read("paddle_tpu", "observability", "telemetry.py"))
-    copy = _definitions(_read("paddle_tpu_torch", "observability",
-                              "telemetry.py"))
-    assert set(copy) == set(TELEMETRY_NAMES) | {"__all__"}
-    for name in TELEMETRY_NAMES:
-        assert copy[name] == src[name], name
+    """telemetry.py is a whole-file copy: every definition, and every
+    line, is its source's."""
+    first, body = _copy_body("observability/telemetry.py", 2)
+    assert "paddle_tpu/observability/telemetry.py" in first
+    src = _read("paddle_tpu", "observability", "telemetry.py")
+    assert body == src
+    assert _definitions(body) == _definitions(src)
+
+
+def test_memwatch_port_keeps_every_other_definition_of_its_source():
+    src = _definitions(_read("paddle_tpu", "observability", "memwatch.py"))
+    port_text = _read("paddle_tpu_torch", "observability", "memwatch.py")
+    assert "paddle_tpu/observability/memwatch.py" in \
+        port_text.splitlines()[0]
+    port = _definitions(port_text)
+    assert set(src) - set(port) == MEMWATCH_SOURCE_ONLY
+    assert set(port) - set(src) == MEMWATCH_PORT_ONLY
+    for name in set(src) & set(port):
+        if name in MEMWATCH_PORTED:
+            assert port[name] != src[name], name
+        else:
+            assert port[name] == src[name], name
 
 
 @pytest.fixture(scope="module")
