@@ -250,6 +250,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cooldown, SIGTERM drains a replica to rc 0 unreplaced;
    spawn-to-ready and respawn seconds. On one card every replica
    shares the chip: no fleet scaling is measured.
+27. observability: GPT-2-small bf16 beside the LeNet predict slot
+   behind one Server, with SLOs and the time-series recorder; a round
+   inside a POST /v1/profile window (`phase_observability`);
+28. fluid-dp: the fluid path's data parallelism, f32 with TF32 off, on
+   bench.py's LeNet rung at batch 256 split over 4 in-process ranks of
+   the card (`FLUID_DP_RANKS`; the ranks share the card, so this is the
+   split's own cost, not a scaling): (a)
+   `CompiledProgram.with_data_parallel(places=[CUDAPlace(0)] * 4)`, 3
+   Adam steps against the one-rank `Executor.run` from a copy of the
+   same scope (`FLUID_TOL`, `fluid_adam_slack`), each rank's feed 64
+   rows; (b) the `GradAllReduce(nranks=4)`-transpiled program under
+   `SPMDRunner`, the same gates, one `c_allreduce_sum` a trainable param
+   a step; (c) the fleet facade with `DistributedStrategy(
+   data_parallel_degree=4, use_graph_collectives=True)` and LocalSGD at
+   k_steps 2, 20 steps: the loss falls; (d) step ms at 1 rank and at 4
+   (CompiledProgram and SPMDRunner), one traced step of each (idle
+   share), the `spmd` and `sharded` telemetry rows and perfwatch's
+   "spmd" sample;
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -280,6 +298,7 @@ device, and when the package is not beside this script.
 from __future__ import annotations
 
 import collections
+import faulthandler
 import json
 import math
 import os
@@ -288,12 +307,14 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+WATCHDOG_S = 1080              # under the run's 1200 s limit
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 
 
@@ -1621,6 +1642,8 @@ def phase_profile():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch import profiler
+
     rows, tokens, extra = {}, {}, {}
     for label in ("eager", "graphs"):
         _, engine, prompts = _slice_setup()
@@ -1658,9 +1681,17 @@ def phase_profile():
                 extra["decode_step"] = _decode_step_times(engine)
             first = run_round()
             second = run_round()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            # the engine's thread may still be in a step: start and stop
+            # the trace between steps (ROADMAP F12)
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            with profiler.between_steps():
+                prof.start()
+            try:
                 profiled = run_round()
+            finally:
+                with profiler.between_steps():
+                    prof.stop()
             steps = engine.status()["decode_steps"]
         finally:
             engine.stop()
@@ -5614,7 +5645,7 @@ def phase_observability():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.observability import (aggregate, httpd,
                                                 perfwatch, telemetry,
-                                                tracing)
+                                                timeseries, tracing)
     from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
                                           Server, ServingConfig)
     from paddle_tpu_torch.serving import engine as eng_mod
@@ -5708,12 +5739,16 @@ def phase_observability():
         out.update(executor_steps=steps, predict_batches=batches)
     finally:
         httpd.stop_http_server()
-        srv.stop()                       # the recorder's final sample
+        srv.stop()
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        # the recorder's final sample. The LeNet's training steps started
+        # it (the executor's telemetry starts it once the env names a
+        # dir), so the Server found it running and left it to its starter
+        timeseries.stop_recorder()
     served = (len(tries) + 2) * OBS_PREDICTS
     increase = aggregate.TSStore(aggregate.read_ts_dir(ts_dir)).increase(
         "paddle_tpu_serving_requests_total", 1e9)
@@ -5736,6 +5771,225 @@ def phase_observability():
     shutil.rmtree(root, ignore_errors=True)
     return launches
 
+
+# Phase 28: the fluid path's data parallelism on the card, f32 with TF32
+# off: bench.py's LeNet rung at FLUID_B split over FLUID_DP_RANKS
+# in-process ranks (the ranks share the card, so this measures the
+# split's own cost, not a scaling).
+FLUID_DP_RANKS = 4
+FLUID_DP_TIMED = 10
+FLUID_DP_FLEET_STEPS = 20
+
+
+def _fluid_dp_parity(pt, label, run_split, feed, main, startup, loss):
+    """3 Adam steps of `run_split(scope, fetch_list)` against the one-rank
+    `Executor.run` from a copy of the same scope, each step from the
+    one-rank state: the loss, every parameter gradient and the updated
+    params within FLUID_TOL (beyond `fluid_adam_slack` for a param)."""
+    exe = pt.Executor(pt.CUDAPlace(0))
+    one = pt.Scope()
+    exe.run(startup, scope=one)
+    params = [p.name for p in main.all_parameters()]
+    grads = [n + "@GRAD" for n in params]
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for _ in range(3):
+        split = _scope_copy(pt, one)
+        got = run_split(split, [loss] + grads)
+        want = exe.run(main, feed=feed, fetch_list=[loss] + grads, scope=one)
+        worst["loss"] = max(worst["loss"], float(
+            abs(got[0][0] - want[0][0]) / abs(want[0][0])))
+        for n, a, b in zip(params, got[1:], want[1:]):
+            # an SPMD fetch joins the ranks' copies of a replicated grad
+            a = a[:b.shape[0]]
+            worst["grad"] = max(worst["grad"], float(
+                np.abs(a - b).max() / np.abs(b).max()))
+            w = one.get(n)
+            err = np.abs(split.get(n) - w) - fluid_adam_slack(2e-3, a, b)
+            worst["param"] = max(worst["param"], float(
+                err.max() / max(1.0, np.abs(w).max())))
+    for key, lim in FLUID_TOL.items():
+        check(worst[key] <= lim, f"fluid dp ({label}): the split step's "
+              f"{key} differs from one rank's by {worst[key]} (limit {lim})")
+    return worst
+
+
+def _fluid_dp_ms(run, steps=FLUID_DP_TIMED):
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = run()
+    float(out[0][0])                    # the last loss read back
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def phase_fluid_dp():
+    """Phase 28: (a) CompiledProgram.with_data_parallel on 4 in-process
+    ranks of the card, (b) the GradAllReduce-transpiled program under
+    SPMDRunner, each against one rank; (c) the fleet facade with
+    LocalSGD(k_steps=2); (d) step ms at 1 and 4 ranks, one traced step's
+    idle share, the spmd telemetry and perfwatch rows."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.observability import perfwatch, telemetry
+    from paddle_tpu_torch.parallel.collective import GradAllReduce
+    from paddle_tpu_torch.parallel.fleet import Fleet
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(FLUID_B, 1, 28, 28).astype("float32"),
+            "y": rng.randint(0, 10, (FLUID_B, 1)).astype("int64")}
+    cuda = pt.CUDAPlace(0)
+    exe = pt.Executor(cuda)
+    mesh = par.make_mesh(par.MeshConfig(dp=FLUID_DP_RANKS),
+                         devices=[cuda.torch_device()] * FLUID_DP_RANKS)
+    sharded0 = telemetry.EXEC_STEPS.value(mode="sharded")
+    spmd0 = telemetry.SPMD_STEPS.value(axis="dp")
+    out = {}
+
+    # (a) CompiledProgram on 4 ranks
+    main, startup, loss = lenet_rung_program(pt)
+    prog = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=[cuda] * FLUID_DP_RANKS)
+    out["compiled_vs_one_rank_worst"] = _fluid_dp_parity(
+        pt, "a", lambda s, f: exe.run(prog, feed=feed, fetch_list=f,
+                                      scope=s), feed, main, startup, loss)
+    step = next(iter(prog._cache.values()))
+    check(step.ring.size == FLUID_DP_RANKS and
+          step.rank_feed_shapes["x"] == (FLUID_B // FLUID_DP_RANKS, 1, 28,
+                                         28),
+          f"fluid dp (a): ranks {step.ring.size}, per-rank feed "
+          f"{step.rank_feed_shapes}")
+    out["rank_feed_shapes"] = step.rank_feed_shapes
+
+    # (b) GradAllReduce under SPMDRunner
+    gmain, gstart, gloss = lenet_rung_program(pt)
+    n_params = len(gmain.all_parameters())
+    with pt.framework.unique_name.guard(), pt.program_guard(gmain, gstart):
+        GradAllReduce(nranks=FLUID_DP_RANKS).transpile(gmain, gstart)
+    runner = par.SPMDRunner(gmain, mesh)
+    # against the untranspiled program: a plain Executor has no ranks
+    # for the c_allreduce_sums
+    out["spmd_vs_one_rank_worst"] = _fluid_dp_parity(
+        pt, "b", lambda s, f: runner.run(exe, feed=feed, fetch_list=f,
+                                         scope=s), feed, main, startup, loss)
+    rstep = next(iter(runner._cache.values()))
+    launches = rstep.launches["c_allreduce_sum"] / 3
+    check(launches == n_params, f"fluid dp (b): {launches} c_allreduce_sum "
+          f"a step for {n_params} trainable params")
+    out["c_allreduce_sum_a_step"] = launches
+
+    # (c) the fleet facade, LocalSGD every 2 steps
+    fl = Fleet()
+    fl.init(par.UserDefinedRoleMaker(current_id=0, worker_num=1))
+    strategy = par.DistributedStrategy(
+        data_parallel_degree=FLUID_DP_RANKS, use_graph_collectives=True,
+        use_local_sgd=True, local_sgd_steps=2)
+    # the rung's builder, unchanged, on `pt` with its Adam minimizing
+    # through the fleet's distributed optimizer
+    fpt = types.SimpleNamespace(**vars(pt))
+    fpt.optimizer = types.SimpleNamespace(
+        Adam=lambda **kw: fl.distributed_optimizer(pt.optimizer.Adam(**kw),
+                                                   strategy))
+    fmain, fstart, floss = lenet_rung_program(fpt)
+    check(sum(op.type == "cond" for op in fmain.desc.block(0).ops) == 1,
+          "fluid dp (c): LocalSGD(k_steps=2) emitted no cond gate")
+    fparams = [p.name for p in fmain.all_parameters()]
+    frunner = par.SPMDRunner(fmain, fl.mesh())        # its ranks on cuda
+    fscope = pt.Scope()
+    exe.run(fstart, scope=fscope)
+    flosses, diverged = [], []
+    for i in range(FLUID_DP_FLEET_STEPS):
+        flosses.append(float(frunner.run(exe, feed=feed, fetch_list=[floss],
+                                         scope=fscope)[0][0]))
+        # the params the ranks hold apart after this step: all of them
+        # after a local step (odd), none after an averaging one (even)
+        ranked = frunner._ranked.get(fscope, {})
+        diverged.append(sum(n in ranked for n in fparams))
+    check(diverged == [len(fparams), 0] * (FLUID_DP_FLEET_STEPS // 2),
+          f"fluid dp (c): params held apart by the ranks after each step "
+          f"{diverged}, not all after odd steps and none after even ones")
+    check(all(np.isfinite(flosses)) and
+          np.mean(flosses[-3:]) < flosses[0],
+          f"fluid dp (c): the fleet's LocalSGD loss did not fall: "
+          f"{flosses[0]} -> {flosses[-3:]}")
+    fstep = next(iter(frunner._cache.values()))
+    want = len(fparams) * (FLUID_DP_FLEET_STEPS // 2)
+    check(fstep.launches["c_allreduce_sum"] == want,
+          f"fluid dp (c): {fstep.launches['c_allreduce_sum']} "
+          f"c_allreduce_sum in {FLUID_DP_FLEET_STEPS} steps, not {want} "
+          f"(every param on every second step)")
+    out["fleet_local_sgd"] = {
+        "loss_first": flosses[0], "loss_last": flosses[-1],
+        "steps": FLUID_DP_FLEET_STEPS, "params_apart": diverged,
+        "c_allreduce_sum": fstep.launches["c_allreduce_sum"]}
+
+    # (d) step ms: one rank, CompiledProgram and SPMDRunner at 4 ranks
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    s1, s4, sg = (_scope_copy(pt, scope) for _ in range(3))
+    one = lambda: exe.run(main, feed=feed, fetch_list=[loss],  # noqa: E731
+                          scope=s1)
+    split = lambda: exe.run(prog, feed=feed, fetch_list=[loss],  # noqa: E731
+                            scope=s4)
+    spmd = lambda: runner.run(exe, feed=feed,  # noqa: E731
+                              fetch_list=[gloss], scope=sg)
+    out["step_ms"] = {"one_rank": _fluid_dp_ms(one),
+                      "compiled_4_ranks": _fluid_dp_ms(split),
+                      "spmd_4_ranks": _fluid_dp_ms(spmd)}
+    out["traced_step"] = {}
+    for name, run in (("one_rank", one), ("compiled_4_ranks", split),
+                      ("spmd_4_ranks", spmd)):
+        traced = _profiled_step(run)
+        out["traced_step"][name] = {k: traced[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "device_events")}
+    sharded = telemetry.EXEC_STEPS.value(mode="sharded") - sharded0
+    spmd_steps = telemetry.SPMD_STEPS.value(axis="dp") - spmd0
+    coll = telemetry.SPMD_COLLECTIVES.value(axis="dp", op="c_allreduce_sum")
+    watch = perfwatch.snapshot().get("spmd", {})
+    check(sharded > 0 and spmd_steps > 0 and coll > 0 and
+          watch.get("device_kind") == torch.cuda.get_device_name(0) and
+          watch.get("steps", 0) > 0,
+          f"fluid dp (d): telemetry rows sharded {sharded}, spmd "
+          f"{spmd_steps}, collectives {coll}, perfwatch {watch}")
+    out["telemetry"] = {"executor_steps_sharded": sharded,
+                        "spmd_steps": spmd_steps,
+                        "spmd_collectives_c_allreduce_sum": coll,
+                        "perfwatch_spmd": watch}
+    print(json.dumps({
+        "phase": "fluid_dp", "card": card(),
+        "program": "bench.py _build_lenet_program, batch 256, Adam 2e-3, "
+                   f"{FLUID_DP_RANKS} in-process ranks on one card",
+        **out, "limits": FLUID_TOL, "seconds": time.perf_counter() - t0}))
+
+
+def _leftovers():
+    """The threads other than this one still alive, and the processes
+    whose parent is this one, each as a short description."""
+    me = threading.current_thread()
+    threads = sorted(f"{t.name}{'' if t.daemon else ' (not daemon)'}"
+                     for t in threading.enumerate() if t is not me)
+    children = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # the fields after the parenthesised name: state, then the parent
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if state != "Z" and int(ppid) == os.getpid():
+            children.append(f"{pid} {cmd.strip()[:160]}")
+    return {"threads": threads, "children": children}
+
+
 def main() -> int:
     import torch
 
@@ -5747,10 +6001,16 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a run that hangs prints every thread's stack on stderr and exits
+    # non-zero before the time limit stops it without a word
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    start = time.perf_counter()
     seconds = {}
 
     def timed(phase, *args):
         t = time.perf_counter()
+        print(f"chip_smoke: {phase.__name__} starts at {t - start:.1f} s",
+              file=sys.stderr, flush=True)
         result = phase(*args)
         seconds[phase.__name__] = time.perf_counter() - t
         return result
@@ -5784,6 +6044,7 @@ def main() -> int:
     dptp_counts = timed(phase_dp_tp)
     launches["flash_attention_fwd"] += timed(phase_fleet)
     launches["flash_attention_fwd"] += timed(phase_observability)
+    timed(phase_fluid_dp)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):
@@ -5866,15 +6127,28 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    # every phase stops the threads and processes it starts (a stopped
+    # thread may take a moment to end)
+    deadline = time.monotonic() + 10
+    while any(_leftovers().values()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = _leftovers()
+    check(not any(left.values()), f"outlived their phases: {left}")
     # each phase's wall seconds (phase_environment's include the build)
     print(json.dumps({"phase": "timing", "seconds": seconds,
                       "total_s": sum(seconds.values())}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # nothing of the run is left (main checks that no thread or process
+    # outlived its phase): skip the interpreter's teardown of CUDA and
+    # the profiler, which has nothing to do for the result
+    os._exit(rc)

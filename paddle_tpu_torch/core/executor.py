@@ -28,9 +28,13 @@ eagerly), so the port records no "chained" compile and no chained
 cache eviction. No live-MFU sample: an op-by-op step has no cost
 analysis.
 
-Not ported (ROADMAP item 16): `CompiledProgram`, `run_stream`, the
-dataset entry points, the `listen_and_serv` branch and
-`PADDLE_TPU_VALIDATE`.
+`run` hands a `CompiledProgram` to its `_run` (`core/compiler.py`, the
+data-parallel step under `executor_step("sharded")`), as the JAX
+package's does. A plain `run` or `run_chained` runs one rank, so under
+a mesh with dp or tp larger than 1 it raises.
+
+Not ported (ROADMAP item 16): `run_stream`, the dataset entry points,
+the `listen_and_serv` branch and `PADDLE_TPU_VALIDATE`.
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ from ..observability import health as _health
 from ..observability import memwatch as _memwatch
 from ..observability import telemetry as _telemetry
 from ..observability import tracing as _tracing
-from ..parallel.mesh import refuse_dp_tp
 from . import framework, lowering
 from . import precision as _precision
 from .async_exec import FetchHandle, to_numpy
@@ -62,6 +65,18 @@ RNG_STATE_VAR = "__rng_state__"
 # count across executors)
 _live_executors: "weakref.WeakSet[Executor]" = weakref.WeakSet()
 _live_executors_lock = threading.Lock()
+
+
+def _refuse_mesh():
+    """A plain Executor step runs one rank: under a mesh with dp or tp
+    larger than 1 it raises rather than pass for a split run."""
+    # imported here: parallel's package imports core.compiler, which
+    # imports this module
+    from ..parallel.mesh import refuse_dp_tp
+
+    refuse_dp_tp("the fluid Executor (one rank; a data-parallel run is "
+                 "CompiledProgram.with_data_parallel or parallel.SPMDRunner)",
+                 "20c-iii")
 
 
 def _health_scan(site: str, named_values, level: int):
@@ -356,10 +371,16 @@ class Executor:
         """One program step. sync=False returns a FetchHandle: the
         tensors stay on the device and the host moves on; .result()
         resolves to numpy on demand. With sync=True, return_numpy=False
-        returns the tensors untouched. Under a mesh with dp or tp larger
-        than 1 it raises: the fluid path's data parallelism is
-        `CompiledProgram.with_data_parallel` (ROADMAP item 20c-iii)."""
-        refuse_dp_tp("the fluid Executor", "20c-iii")
+        returns the tensors untouched. A `CompiledProgram` runs its
+        data-parallel step. Otherwise, under a mesh with dp or tp larger
+        than 1, it raises (`_refuse_mesh`)."""
+        # CompiledProgram carries its own data-parallel run (core/compiler.py)
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope,
+                                return_numpy, sync=sync)
+        _refuse_mesh()
         program = program if program is not None else framework.default_main_program()
         scope = scope if scope is not None else global_scope()
         feed = dict(feed or {})
@@ -425,7 +446,7 @@ class Executor:
         `unroll` keeps the JAX package's signature (where it unrolls the
         jitted scan) and has no effect here: the steps run eagerly."""
         del unroll
-        refuse_dp_tp("the fluid Executor", "20c-iii")
+        _refuse_mesh()
         if int(n_steps) < 1:
             raise ValueError(f"run_chained needs n_steps >= 1, got "
                              f"{n_steps}")

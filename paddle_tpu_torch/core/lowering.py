@@ -65,8 +65,12 @@ def run_op(
     rng_key: Optional[int],
     is_test: bool,
     device: Optional[torch.device] = None,
+    opdef: Optional[registry.OpDef] = None,
 ):
-    opdef = registry.get_op_def(op.type)
+    """Run one op against `env` and bind its outputs there; `opdef`, when
+    given, stands in for the registry's (a data-parallel run's
+    per-rank form of a gradient, `core/lockstep.py`)."""
+    opdef = opdef if opdef is not None else registry.get_op_def(op.type)
     ins: Dict[str, List] = {}
     for slot, names in op.inputs.items():
         vals = []

@@ -59,7 +59,7 @@ from ..ops.beam import beam_search
 from ..ops.ring_attention import ring_attention
 from ..parallel.mesh import current_mesh, refuse_dp_tp, refuse_process_ring
 from ..parallel.pipeline import pipeline_apply
-from ..parallel.ring import InProcessRing
+from ..core.ring import InProcessRing
 from ..parallel.sharding import in_manual_region
 from ..serving import kv_cache as kvc
 from .common import (ParamAxes, Params, ParamStore, axis_ring, dp_mean, gelu,

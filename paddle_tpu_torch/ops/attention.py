@@ -87,7 +87,7 @@ import torch
 from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.flash_attention_bias import flash_attention_bias
 from ..parallel.mesh import current_mesh
-from ..parallel.ring import ProcessRing
+from ..core.ring import ProcessRing
 from ..parallel.sharding import axis_ring, current_rules, in_manual_region
 from . import ring_attention as ra
 

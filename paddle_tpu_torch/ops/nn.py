@@ -130,14 +130,29 @@ def dropout(ins, attrs, ctx):
     """reference: operators/dropout_op.cc (upscale_in_train vs
     downgrade_in_infer implementations). The mask comes from
     `ctx.rng()`, so `dropout_grad`'s replay draws the same one."""
-    x = ins["X"][0]
+    return _dropout(ins["X"][0], attrs, ctx)
+
+
+def dropout_rows(n: int, lo: int):
+    """dropout's kernel for an input that is rows `lo`.. of an `n`-row
+    batch: the draw is the whole batch's and the mask its rows of it,
+    so the ranks of a data-parallel step (`core/lockstep.py`) drop what
+    one step over the whole batch drops."""
+    return lambda ins, attrs, ctx: _dropout(ins["X"][0], attrs, ctx, (n, lo))
+
+
+def _dropout(x, attrs, ctx, rows=None):
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
     is_test = bool(attrs.get("is_test", False)) or ctx.is_test
     if is_test or p == 0.0:
         out = x if impl == "upscale_in_train" else x * (1.0 - p)
         return {"Out": out, "Mask": torch.ones_like(x, dtype=torch.uint8)}
-    keep = torch.rand(x.shape, generator=ctx.rng(), device=x.device) < (1.0 - p)
+    shape = x.shape if rows is None else (rows[0],) + tuple(x.shape[1:])
+    draw = torch.rand(shape, generator=ctx.rng(), device=x.device)
+    if rows is not None:
+        draw = draw[rows[1]:rows[1] + x.shape[0]]
+    keep = draw < (1.0 - p)
     zero = torch.zeros_like(x)
     if impl == "upscale_in_train":
         out = torch.where(keep, x / (1.0 - p), zero)

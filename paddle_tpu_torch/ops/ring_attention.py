@@ -3,7 +3,7 @@ ring of a mesh.
 
 Counterpart of the JAX package's `ops/pallas/ring_attention.py`. Each
 rank holds a `[B, T/S, N, H]` shard of q, k and v; the k/v blocks go
-round the ring (`parallel/ring.py`, the counterpart of `ppermute`)
+round the ring (`core/ring.py`, the counterpart of `ppermute`)
 while each rank merges its partial results, so no rank holds the whole
 sequence's scores.
 

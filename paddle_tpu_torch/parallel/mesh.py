@@ -6,7 +6,7 @@ Counterpart of the JAX package's `parallel/mesh.py` (`AXIS_ORDER`,
 `auto_mesh`, `current_mesh`, `get_mesh`, `mesh_guard`). The JAX package
 hands a `jax.sharding.Mesh` to GSPMD and `shard_map`; the port has
 neither, so a mesh here is the axis sizes plus the rings
-(`parallel/ring.py`) over which the port's collectives run by hand.
+(`core/ring.py`) over which the port's collectives run by hand.
 
 Two kinds of ring, chosen by how the mesh is made:
 
@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .ring import InProcessRing, ProcessRing, Ring
+from ..core.ring import InProcessRing, ProcessRing, Ring
 
 __all__ = ["AXIS_ORDER", "MeshConfig", "Mesh", "make_mesh",
            "make_hybrid_mesh", "resize_mesh", "auto_mesh", "current_mesh",

@@ -6,7 +6,7 @@ runs a `lax.scan` of n_micro + S - 1 ticks: on each tick every stage
 runs its layers on the activation it holds (stage 0 injects microbatch
 t), the results move one stage on by `ppermute`, and the last stage's
 outputs are kept. Here the same ticks run over the mesh's `pp` ring
-(`parallel/ring.py`): each tick calls every rank's stage, then one
+(`core/ring.py`): each tick calls every rank's stage, then one
 `hop` moves the results on.
 
 On an in-process ring the S virtual ranks run in turn on one device.

@@ -18,6 +18,11 @@ a profile without its device timeline is never taken quietly.
 
 torch.profiler holds one trace per process: a second `start_profiler`
 or `capture_profile` while one is active raises ProfilerBusyError.
+
+A trace starts and stops only between device steps (`device_step`):
+on the H100 a stop that overlapped a CUDA-graph replay on another
+thread hung the whole process (ROADMAP F12), so the serving loops run
+each step of device work inside `device_step()`.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from .observability import tracing as _tracing
 __all__ = ["profiler", "start_profiler", "stop_profiler", "reset_profiler",
            "trace_dir", "RecordEvent", "cuda_profiler", "npu_profiler",
            "export_chrome_tracing", "capture_profile", "ProfilerBusyError",
-           "PROFILE_DIR_ENV", "MAX_CAPTURE_SECONDS"]
+           "PROFILE_DIR_ENV", "MAX_CAPTURE_SECONDS", "device_step",
+           "between_steps"]
 
 _trace_dir: Optional[str] = None
 _host_events = defaultdict(list)
@@ -46,6 +52,60 @@ _prof: Optional["torch.profiler.profile"] = None
 # guards _prof: start and stop may run on different threads (an HTTP
 # handler captures while the engines' threads launch)
 _state_lock = threading.Lock()
+
+# The steps of device work running now, the starts and stops waiting for
+# them to end, and whether one is under way: a step waits while a start
+# or stop waits or runs, and a start or stop waits for the running
+# steps. Steps are short (a decode iteration, a predict batch).
+_gate = threading.Condition()
+_steps = 0
+_waiting = 0
+_switching = False
+_thread_steps = threading.local()
+
+
+@contextlib.contextmanager
+def device_step():
+    """A step of device work (a decode iteration, a predict batch) that
+    no trace start or stop overlaps. Nests on one thread."""
+    global _steps
+    depth = getattr(_thread_steps, "depth", 0)
+    if not depth:
+        with _gate:
+            while _waiting or _switching:
+                _gate.wait()
+            _steps += 1
+    _thread_steps.depth = depth + 1
+    try:
+        yield
+    finally:
+        _thread_steps.depth = depth
+        if not depth:
+            with _gate:
+                _steps -= 1
+                _gate.notify_all()
+
+
+@contextlib.contextmanager
+def between_steps():
+    """Wait for the device steps of other threads to end and hold new
+    ones back while a trace starts or stops: `start_profiler` and the
+    stop run inside it, and so should a caller's own torch.profiler
+    start or stop in a process that serves."""
+    global _waiting, _switching
+    own = 1 if getattr(_thread_steps, "depth", 0) else 0
+    with _gate:
+        _waiting += 1
+        while _switching or _steps > own:
+            _gate.wait()
+        _waiting -= 1
+        _switching = True
+    try:
+        yield
+    finally:
+        with _gate:
+            _switching = False
+            _gate.notify_all()
 
 
 class ProfilerBusyError(RuntimeError):
@@ -96,8 +156,9 @@ def start_profiler(state="All", profile_path="/tmp/profile",
             else os.path.dirname(profile_path)
         os.makedirs(d or ".", exist_ok=True)
         prof = torch.profiler.profile(activities=_activities())
-        prof.start()
-        _trace_dir, _prof = d, prof
+        with between_steps():
+            prof.start()
+            _trace_dir, _prof = d, prof
 
 
 def _stop_trace() -> Optional[str]:
@@ -109,7 +170,8 @@ def _stop_trace() -> Optional[str]:
         d = _trace_dir
     if prof is None:
         return None
-    prof.stop()
+    with between_steps():
+        prof.stop()
     path = os.path.join(d or ".", f"{socket.gethostname()}.trace.json")
     prof.export_chrome_trace(path)
     return path

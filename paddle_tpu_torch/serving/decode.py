@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 from .. import analysis as _an
+from .. import profiler as _profiler
 from .. import resolve_device
 from ..core import compile_cache as _cc
 from ..core import precision as _precision
@@ -1673,43 +1674,44 @@ class DecodeEngine:
                         self._cv.wait(timeout=0.5)
                     if self._closed:
                         break
-                self._sweep_cancelled()
-                self._admit()
-                if not self._active:
+                with _profiler.device_step():
+                    self._sweep_cancelled()
+                    self._admit()
+                    if not self._active:
+                        if pending is not None:
+                            pending = self._resolve(pending)
+                        continue
+                    pending = self._grow_blocks(pending)
+                    if not self._active:  # growth preempted everything
+                        continue
+                    C = self._slot_config()
+                    sig, slots = self._snapshot(C)
+                    if pending is not None and pending.snapshot == sig:
+                        # steady state: feed the previous step's tokens
+                        # back on the DEVICE; the host never touched them
+                        ids_arg = pending.tok_dev
+                    else:
+                        if pending is not None:
+                            pending = self._resolve(pending)
+                            self._admit()  # retirements freed slots
+                            # a request admitted HERE whose prompt length
+                            # is an exact block multiple needs its next
+                            # block before this dispatch, or its first
+                            # decode write lands in the null block
+                            self._grow_blocks(None)
+                            if not self._active:
+                                continue
+                            C = self._slot_config()
+                            sig, slots = self._snapshot(C)
+                        ids_arg = np.zeros((C,), np.int32)
+                        for i, req in enumerate(slots):
+                            if req is not None:
+                                ids_arg[i] = req.last_token
+                    new_pending = self._dispatch(ids_arg, C)
                     if pending is not None:
+                        # overlap: resolve step N-1 while step N runs
                         pending = self._resolve(pending)
-                    continue
-                pending = self._grow_blocks(pending)
-                if not self._active:  # growth preempted everything
-                    continue
-                C = self._slot_config()
-                sig, slots = self._snapshot(C)
-                if pending is not None and pending.snapshot == sig:
-                    # steady state: feed the previous step's tokens
-                    # back on the DEVICE; the host never touched them
-                    ids_arg = pending.tok_dev
-                else:
-                    if pending is not None:
-                        pending = self._resolve(pending)
-                        self._admit()  # retirements freed slots
-                        # a request admitted HERE whose prompt length
-                        # is an exact block multiple needs its next
-                        # block before this dispatch, or its first
-                        # decode write lands in the null block
-                        self._grow_blocks(None)
-                        if not self._active:
-                            continue
-                        C = self._slot_config()
-                        sig, slots = self._snapshot(C)
-                    ids_arg = np.zeros((C,), np.int32)
-                    for i, req in enumerate(slots):
-                        if req is not None:
-                            ids_arg[i] = req.last_token
-                new_pending = self._dispatch(ids_arg, C)
-                if pending is not None:
-                    # overlap: resolve step N-1 while step N runs
-                    pending = self._resolve(pending)
-                pending = new_pending
+                    pending = new_pending
         except BaseException as e:  # scheduler death must not hang clients
             with self._cv:
                 reqs = list(self._active) + list(self._waiting)
@@ -1723,7 +1725,8 @@ class DecodeEngine:
         finally:
             if pending is not None:
                 try:
-                    self._resolve(pending)
+                    with _profiler.device_step():
+                        self._resolve(pending)
                 except Exception:  # lint-exempt:swallow: shutdown path; clients are cancelled below
                     pass
             with self._cv:
@@ -2088,15 +2091,16 @@ class DecodeEngine:
                         self._cv.wait(timeout=0.5)
                     if self._closed:
                         break
-                self._sweep_cancelled()
-                self._admit_sync()
-                self._pump_chunk()             # one slice per iteration
-                if not self._active:
-                    continue
-                if self.spec_k:
-                    self._step_spec()
-                else:
-                    self._step_plain_sync()
+                with _profiler.device_step():
+                    self._sweep_cancelled()
+                    self._admit_sync()
+                    self._pump_chunk()             # one slice per iteration
+                    if not self._active:
+                        continue
+                    if self.spec_k:
+                        self._step_spec()
+                    else:
+                        self._step_plain_sync()
         except BaseException as e:  # scheduler death must not hang clients
             with self._cv:
                 reqs = (list(self._active) + list(self._prefilling) +

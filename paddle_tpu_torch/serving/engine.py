@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from .. import profiler as _profiler
 from ..core import compile_cache as _cc
 from ..core import precision as _precision
 from ..core.places import CPUPlace, CUDAPlace
@@ -483,7 +484,7 @@ class Engine:
         # its lead request's trace around this call)
         with _tracing.trace_span("serve.dispatch", cat="serve",
                                  bucket=int(bucket), rows=int(n)), \
-                _memwatch.oom_guard("serving"):
+                _memwatch.oom_guard("serving"), _profiler.device_step():
             out = self._pred.predict_handle(**feeds).result()
         BUCKET_SECONDS.observe(time.perf_counter() - t0,
                                bucket=str(bucket))

@@ -1304,6 +1304,72 @@ def test_profile_capture_records_kernels_of_another_thread(tmp_path):
     assert mem["owners"]["cuda_test"] <= mem["total_bytes"]
 
 
+# GPT-2-small bf16 decoding on CUDA graphs in 6 streams while this
+# thread takes short profile captures: argv out dir, capture count
+_CAPTURES_DURING_REPLAYS = r"""
+import sys
+import threading
+
+import torch
+
+from paddle_tpu_torch import profiler
+from paddle_tpu_torch.models import gpt
+from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+out, n = sys.argv[1], int(sys.argv[2])
+cfg = gpt.GPTConfig()
+params, _ = gpt.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     device="cuda")
+eng = DecodeEngine(params, cfg, DecodeConfig(
+    block_size=16, num_blocks=512, decode_slots=(4, 8)), device="cuda")
+eng.warmup()
+eng.start()
+stop = threading.Event()
+
+
+def stream(i):
+    while not stop.is_set():
+        eng.submit([1 + i, 2, 3], max_new_tokens=64).result(timeout_s=120)
+
+
+threads = [threading.Thread(target=stream, args=(i,), daemon=True)
+           for i in range(6)]
+for t in threads:
+    t.start()
+try:
+    for i in range(n):
+        profiler.capture_profile(0.05, out_dir=f"{out}/{i}")
+finally:
+    stop.set()
+    for t in threads:
+        t.join(120)
+    eng.stop()
+print("replayed", eng.status()["decode_steps"]["replayed"])
+"""
+
+
+@pytest.mark.cuda
+def test_profile_captures_during_graph_replays_end(tmp_path):
+    """ROADMAP F12: a capture's start or stop that overlapped a CUDA-graph
+    replay on the decode thread hung the process. 30 captures while 6
+    streams decode on graphs end, in a child process the limit kills."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        r = subprocess.run([sys.executable, "-c", _CAPTURES_DURING_REPLAYS,
+                            str(tmp_path), "30"], cwd=root, timeout=300,
+                           capture_output=True, text=True)
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"the captures hung: {e.stderr}")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.split()[-1]) > 0
+    assert len(os.listdir(tmp_path)) == 30
+
+
 @pytest.mark.cuda
 def test_a_capture_that_fails_raises(monkeypatch):
     """A decode step that syncs with the host cannot be captured: warmup

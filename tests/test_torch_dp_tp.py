@@ -463,7 +463,7 @@ def test_resnet_bn_statistics_reduce_over_the_dp_ring(monkeypatch):
     """Under dp the BN statistics come from the ranks' sums, all-reduced
     over the dp ring (one all-reduce of sums and one of squares per BN
     layer), not from one whole-batch mean."""
-    from paddle_tpu_torch.parallel import ring as tring
+    from paddle_tpu_torch.core import ring as tring
 
     cfg = tres.ResNetConfig(depth=50, n_classes=10, width=8,
                             dtype="float64")

@@ -37,8 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
     # the training, NMT, ResNet, sequence-parallel, resilience, fluid,
-    # KV-reuse, pipeline, inference and fleet slices' modules are among
-    # those imported
+    # KV-reuse, pipeline, inference and fleet slices' modules, and the
+    # fluid path's data parallelism, are among those imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.models.resnet",
                  "paddle_tpu_torch.parallel.mesh",
                  "paddle_tpu_torch.parallel.sharding",
-                 "paddle_tpu_torch.parallel.ring",
+                 "paddle_tpu_torch.core.ring",
                  "paddle_tpu_torch.ops.ring_attention",
                  "paddle_tpu_torch.parallel.checkpoint",
                  "paddle_tpu_torch.resilience.checkpoint_manager",
@@ -90,7 +90,18 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.serving.replica",
                  "paddle_tpu_torch.distributed",
                  "paddle_tpu_torch.distributed.rendezvous",
-                 "paddle_tpu_torch.distributed.launch_serve"):
+                 "paddle_tpu_torch.distributed.launch_serve",
+                 "paddle_tpu_torch.core.compiler",
+                 "paddle_tpu_torch.ops.collective",
+                 "paddle_tpu_torch.ops.control_flow",
+                 "paddle_tpu_torch.core.lockstep",
+                 "paddle_tpu_torch.parallel.spmd_executor",
+                 "paddle_tpu_torch.parallel.collective",
+                 "paddle_tpu_torch.parallel.strategy",
+                 "paddle_tpu_torch.parallel.role_maker",
+                 "paddle_tpu_torch.parallel.fleet",
+                 "paddle_tpu_torch.incubate.fleet.collective",
+                 "paddle_tpu_torch.incubate.fleet.base.role_maker"):
         assert name in r.stdout.split(), name
 
 
@@ -149,6 +160,23 @@ def test_copied_fluid_module_matches_its_source(rel):
         want = f.read()
     assert "".join(lines[2:]) == want.replace("paddle_tpu.",
                                               "paddle_tpu_torch.")
+
+
+# The fluid path's data parallelism: the transpilers, the strategy, the
+# role makers and the incubate re-exports are stdlib-only in the JAX
+# package and copied as FLUID_COPIES are (a two-line header naming the
+# source, the body with paddle_tpu. read as paddle_tpu_torch.; nothing
+# else differs). fleet.py, spmd_executor.py and core/compiler.py are
+# ports, not copies.
+DP_COPIES = ["parallel/collective.py", "parallel/strategy.py",
+             "parallel/role_maker.py",
+             "incubate/fleet/collective/__init__.py",
+             "incubate/fleet/base/role_maker.py"]
+
+
+@pytest.mark.parametrize("rel", DP_COPIES)
+def test_copied_data_parallel_module_matches_its_source(rel):
+    test_copied_fluid_module_matches_its_source(rel)
 
 
 def test_chip_smoke_prints_no_result_without_a_gpu(tmp_path):

@@ -22,7 +22,7 @@ from paddle_tpu.parallel import sharding as jsharding
 from paddle_tpu_torch.ops import attention as ta
 from paddle_tpu_torch.parallel import mesh as tmesh
 from paddle_tpu_torch.parallel import sharding as tsharding
-from paddle_tpu_torch.parallel.ring import InProcessRing, check_backend
+from paddle_tpu_torch.core.ring import InProcessRing, check_backend
 
 CPU = torch.device("cpu")
 
@@ -334,7 +334,7 @@ rank, world = int(rank), int(world)
 dist.init_process_group("gloo", init_method="file://" + rdv,
                         world_size=world, rank=rank)
 try:
-    from paddle_tpu_torch.parallel.ring import ProcessRing
+    from paddle_tpu_torch.core.ring import ProcessRing
 
     ring = ProcessRing(None, world, rank)
     x = (torch.arange(4.0) * (rank + 1)).requires_grad_()

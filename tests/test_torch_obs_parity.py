@@ -5,6 +5,7 @@ owner rows of a decode engine, the decode phases' FLOP formula against
 XLA's cost analysis, the decode engine's and the executor's telemetry,
 and the profiler with POST /v1/profile."""
 
+import concurrent.futures
 import json
 import os
 import threading
@@ -517,6 +518,64 @@ def test_profiler_state_machine(tmp_path):
         assert json.load(f)["traceEvents"]
     profiler.reset_profiler()
     assert profiler.trace_dir() is None
+
+
+def test_trace_starts_and_stops_only_between_device_steps(tmp_path):
+    """A start or stop waits for another thread's running device step,
+    and a step asked for meanwhile waits for it (ROADMAP F12: a stop
+    overlapping a CUDA-graph replay hung the process on the card); steps
+    nest, and a thread inside one starts and stops a trace itself."""
+    profiler.reset_profiler()
+    seen = []
+    held, release = threading.Event(), threading.Event()
+
+    def step(name, hold=False):
+        with profiler.device_step():
+            seen.append((name, profiler._prof is not None))
+            if hold:
+                held.set()
+                assert release.wait(30)
+
+    def waiting():
+        t0 = time.monotonic()
+        while not profiler._waiting and time.monotonic() - t0 < 30:
+            time.sleep(0.001)
+        return profiler._waiting
+
+    def traces():
+        return [f for f in os.listdir(tmp_path) if f.endswith(".trace.json")]
+
+    # torch.profiler stops a trace on the thread that started it
+    switcher = concurrent.futures.ThreadPoolExecutor(1)
+    for switch in (lambda: profiler.start_profiler(
+            profile_path=str(tmp_path)), profiler.stop_profiler):
+        held.clear()
+        release.clear()
+        seen.clear()
+        on = profiler._prof is None         # the state after the switch
+        a = threading.Thread(target=step, args=("a", True))
+        a.start()
+        assert held.wait(30)
+        done = switcher.submit(switch)
+        assert waiting() == 1
+        b = threading.Thread(target=step, args=("b",))
+        b.start()
+        time.sleep(0.2)
+        # the switch waits for a's step, and b's step for the switch
+        assert seen == [("a", not on)] and not traces()
+        release.set()
+        done.result(30)
+        for t in (a, b):
+            t.join(30)
+        assert seen == [("a", not on), ("b", on)]
+        assert bool(traces()) == (not on)
+    switcher.shutdown()
+    with profiler.device_step(), profiler.device_step():
+        profiler.start_profiler(profile_path=str(tmp_path / "own"))
+        profiler.stop_profiler()
+    assert profiler._steps == 0 and not profiler._switching
+    assert os.listdir(tmp_path / "own")
+    profiler.reset_profiler()
 
 
 def test_export_chrome_tracing_roundtrip(tmp_path):
