@@ -3177,6 +3177,162 @@ def lenet_rung_program(pt):
     return main, startup, loss
 
 
+# The Paddle book's image classifier (book/test_image_classification.py,
+# `vgg_bn_drop`) on CIFAR-10 shapes: each block's conv widths and
+# batch-norm drop rates
+VGG_BLOCKS = ((64, (0.3, 0.0)), (128, (0.4, 0.0)), (256, (0.4, 0.4, 0.0)),
+              (512, (0.4, 0.4, 0.0)), (512, (0.4, 0.4, 0.0)))
+
+
+def vgg_bn_program(pt, drop=1.0, width=1):
+    """The book's VGG-16-BN classifier built with the fluid package `pt`:
+    five `nets.img_conv_group` blocks (3 x 3 convs with batch norm, ReLU
+    and the block's drop rates, max pool 2/2), dropout 0.5, fc 512,
+    batch_norm(relu), dropout 0.5, fc 512, fc 10 softmax,
+    `cross_entropy`, `mean`, `accuracy`, Adam 1e-3; input [3, 32, 32]
+    f32, int64 labels. `drop` scales every drop rate (0 where two
+    packages must give the same numbers: their dropout streams differ)
+    and `width` divides every width but the classes'. The `for_test`
+    clone is taken before the optimizer, as the book takes it:
+    (main, startup, test_program, loss, acc)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        net = img
+        for filters, drops in VGG_BLOCKS:
+            net = pt.nets.img_conv_group(
+                input=net, pool_size=2, pool_stride=2,
+                conv_num_filter=[filters // width] * len(drops),
+                conv_filter_size=3, conv_act="relu",
+                conv_with_batchnorm=True,
+                conv_batchnorm_drop_rate=[d * drop for d in drops],
+                pool_type="max")
+        net = pt.layers.dropout(x=net, dropout_prob=0.5 * drop)
+        net = pt.layers.fc(input=net, size=512 // width, act=None)
+        net = pt.layers.batch_norm(input=net, act="relu")
+        net = pt.layers.dropout(x=net, dropout_prob=0.5 * drop)
+        net = pt.layers.fc(input=net, size=512 // width, act=None)
+        predict = pt.layers.fc(input=net, size=10, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(input=predict,
+                                                      label=label))
+        acc = pt.layers.accuracy(input=predict, label=label)
+        test_program = main.clone(for_test=True)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, test_program, loss, acc
+
+
+def bn_stat_names(main):
+    """The running mean and variance of every batch_norm op of `main`."""
+    return [op.outputs[slot][0] for op in main.desc.block(0).ops
+            if op.type == "batch_norm" for slot in ("MeanOut", "VarianceOut")]
+
+
+def vgg_grad_errors(main, params, got, want):
+    """The largest differences of two steps' gradients (`got`, `want`:
+    one array a name of `params`) against the step's largest gradient,
+    in two classes. "grad": the params no batch norm's statistics stand
+    between and the loss (those the forward ops after the last
+    batch_norm read, and its Scale and Bias). "grad_under_bn": the
+    rest. The JAX package's batch norm takes a one-pass f32 variance,
+    whose gradient carries a per-channel term set by rounding, so the
+    second class moves with the order of the reductions (ROADMAP F13);
+    a ReLU at its kink moves one element's term in either."""
+    ops = [op for op in main.desc.block(0).ops
+           if not op.type.endswith("_grad") and op.type != "adam"]
+    last = max(i for i, op in enumerate(ops) if op.type == "batch_norm")
+    above = {n for op in ops[last + 1:] for n in op.input_names()}
+    above.update(ops[last].inputs["Scale"] + ops[last].inputs["Bias"])
+    scale = max(float(np.abs(b).max()) for b in want)
+    out = {"grad": (0.0, None), "grad_under_bn": (0.0, None)}
+    for n, a, b in zip(params, got, want):
+        err = float(np.abs(np.asarray(a, np.float64) - b).max())
+        key = "grad" if n in above else "grad_under_bn"
+        out[key] = max(out[key], (err / scale, n), key=lambda t: t[0])
+    return {**{k: v[0] for k, v in out.items()},
+            "worst_params": {k: v[1] for k, v in out.items()}}
+
+
+# The book's embedding programs (tests/test_book.py): word2vec on
+# (word, next word) pairs, the recommender's cos_sim towers, the
+# imikolov N-gram model under hierarchical sigmoid; each (main, startup,
+# loss), built with the fluid package `pt`
+W2V_V, W2V_E = 100, 16
+REC_USERS, REC_MOVIES, REC_N = 30, 40, 128
+IMIKOLOV_VOCAB, IMIKOLOV_N = 2073, 5
+
+
+def word2vec_program(pt):
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        w = pt.layers.data(name="w", shape=[1], dtype="int64")
+        ctx = pt.layers.data(name="ctx", shape=[1], dtype="int64")
+        emb = pt.layers.embedding(input=w, size=[W2V_V, W2V_E])
+        emb = pt.layers.reshape(emb, shape=[-1, W2V_E])
+        logits = pt.layers.fc(input=emb, size=W2V_V)
+        loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(
+            logits=logits, label=ctx))
+        pt.optimizer.Adam(0.02).minimize(loss)
+    return main, startup, loss
+
+
+def recommender_program(pt):
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        u = pt.layers.data(name="u", shape=[1], dtype="int64")
+        m = pt.layers.data(name="m", shape=[1], dtype="int64")
+        r = pt.layers.data(name="r", shape=[1], dtype="float32")
+        uemb = pt.layers.reshape(pt.layers.embedding(
+            u, size=[REC_USERS, 16]), [-1, 16])
+        memb = pt.layers.reshape(pt.layers.embedding(
+            m, size=[REC_MOVIES, 16]), [-1, 16])
+        utower = pt.layers.fc(uemb, size=16, act="tanh")
+        mtower = pt.layers.fc(memb, size=16, act="tanh")
+        pred = pt.layers.scale(pt.layers.cos_sim(utower, mtower), scale=5.0)
+        loss = pt.layers.mean(pt.layers.square_error_cost(input=pred,
+                                                          label=r))
+        pt.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
+def hsigmoid_program(pt):
+    n = IMIKOLOV_N
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        words = pt.layers.data(name="w", shape=[n - 1], dtype="int64")
+        target = pt.layers.data(name="t", shape=[1], dtype="int64")
+        emb = pt.layers.embedding(words, size=[IMIKOLOV_VOCAB, 32])
+        feat = pt.layers.reshape(emb, [-1, (n - 1) * 32])
+        hidden = pt.layers.fc(feat, size=64, act="relu")
+        loss = pt.layers.mean(pt.layers.hsigmoid(hidden, target,
+                                                 num_classes=IMIKOLOV_VOCAB))
+        pt.optimizer.Adam(learning_rate=0.02).minimize(loss)
+    return main, startup, loss
+
+
+def book_embedding_feeds():
+    """The three programs' feeds as tests/test_book.py makes them:
+    {name: (feed, steps, the share of the first loss the last must be
+    under)}."""
+    rng = np.random.RandomState(0)
+    w = rng.randint(0, W2V_V, (256, 1)).astype("int64")
+    rng = np.random.RandomState(13)
+    usr = rng.randint(0, REC_USERS, (REC_N, 1)).astype("int64")
+    mov = rng.randint(0, REC_MOVIES, (REC_N, 1)).astype("int64")
+    score = (rng.randn(REC_USERS, 4)[usr[:, 0]] *
+             rng.randn(REC_MOVIES, 4)[mov[:, 0]]).sum(1)
+    rating = (2.5 + 2.5 * np.tanh(score)).astype("float32")[:, None]
+    grams = synthetic_imikolov(256)
+    return {"word2vec": ({"w": w, "ctx": (w + 1) % W2V_V}, 40, 0.5),
+            "recommender": ({"u": usr, "m": mov, "r": rating}, 60, 0.5),
+            "hsigmoid": ({"w": grams[:, :-1], "t": grams[:, -1:]}, 40, 0.7)}
+
+
+BOOK_EMBEDDING = {"word2vec": word2vec_program,
+                  "recommender": recommender_program,
+                  "hsigmoid": hsigmoid_program}
+
+
 def lenet_rung_logits(main):
     """The name of the rung's logits: the Logits input of its
     softmax_with_cross_entropy op."""
@@ -3215,6 +3371,24 @@ def synthetic_housing(n=404, seed=0):
     x = rng.normal(0, 1, size=(n, 13)).astype(np.float32)
     y = x @ w + 3.0 + rng.normal(0, 0.1, size=n).astype(np.float32)
     return x, y.astype(np.float32).reshape(n, 1)
+
+
+def synthetic_imikolov(n, gram_n=IMIKOLOV_N):
+    """The first `n` N-grams of the JAX package's synthetic imikolov
+    train reader (`dataset/imikolov.py`): 500 Markov sentences, next word
+    (2 w + U{0..4}) mod 2073, seed 0: an int64 [n, gram_n] array."""
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(500):
+        length = rng.randint(gram_n + 1, 30)
+        sent = [int(rng.randint(0, IMIKOLOV_VOCAB))]
+        for _ in range(length - 1):
+            sent.append((2 * sent[-1] + rng.randint(0, 5)) % IMIKOLOV_VOCAB)
+        for i in range(len(sent) - gram_n + 1):
+            out.append(sent[i:i + gram_n])
+            if len(out) == n:
+                return np.array(out, "int64")
+    return np.array(out, "int64")
 
 
 def _scope_copy(pt, scope):
@@ -5968,6 +6142,220 @@ def phase_fluid_dp():
         **out, "limits": FLUID_TOL, "seconds": time.perf_counter() - t0}))
 
 
+# Phase 29: the fluid op library's core on the card, f32 with cuDNN's
+# TF32 off for the whole phase: the book's VGG-16-BN at full width
+# (batch 128 of CIFAR-10 shapes) on one rank and on 2 in-process ranks
+# with sync batch norm, and the book's three embedding programs.
+VGG_B = 128
+VGG_STEPS = 20
+VGG_DP_RANKS = 2
+VGG_TIMED = 5
+# the card against the CPU (and 2 ranks against one) at f32: the loss
+# relative; the gradients in `vgg_grad_errors`' two classes, against the
+# step's largest; the running stats against their largest values. The
+# JAX package's own one-device and 8-device steps differ by up to 2.5e-2
+# of the step's largest gradient under a batch norm (channels / 8,
+# batch 32; ROADMAP F13); on the card the ReLUs after the last batch
+# norm, at their kinks, moved its bias gradient by up to 4.3e-3 of it
+VGG_TOL = {"loss": 1e-5, "grad": 1e-2, "grad_under_bn": 5e-2,
+           "stats": 1e-5}
+
+
+def synthetic_cifar(n, seed=0):
+    """CIFAR-10 shapes with a learnable signal: class k adds a fixed
+    random pattern k to N(0, 1) noise: (images [n, 3, 32, 32] f32,
+    labels [n, 1] int64)."""
+    patterns = np.random.RandomState(99).standard_normal((10, 3, 32, 32))
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, n)
+    img = rng.standard_normal((n, 3, 32, 32)) + patterns[labels]
+    return img.astype("float32"), labels.astype("int64").reshape(n, 1)
+
+
+def _vgg_worst(main, got, want, params, stats, s_got, s_want):
+    """The largest relative differences of a VGG step: loss, gradients
+    (`vgg_grad_errors`) and running stats."""
+    return {
+        "loss": float(abs(got[0][0] - want[0][0]) / abs(want[0][0])),
+        **vgg_grad_errors(main, params, got[2:], want[2:]),
+        "stats": max(float(np.abs(s_got.get(n) - s_want.get(n)).max() /
+                           np.abs(s_want.get(n)).max()) for n in stats)}
+
+
+def _vgg_gate(label, worst):
+    for key, lim in VGG_TOL.items():
+        check(worst[key] <= lim, f"fluid book ({label}): {key} differs by "
+              f"{worst[key]} (limit {lim}): {worst}")
+
+
+def _vgg_one_rank(pt, exe):
+    """Phase 29 (a): the card's first step against the CPU's from one
+    scope (drop rates 0), then 20 steps at the book's drop rates, the
+    for_test clone once."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    cuda, cpu = pt.CUDAPlace(0), pt.CPUPlace()
+    main, startup, _, loss, acc = vgg_bn_program(pt, drop=0.0)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    stats = bn_stat_names(main)
+    fetch = [loss, acc] + [n + "@GRAD" for n in params]
+    s0 = pt.Scope()
+    exe.run(startup, scope=s0)
+    init = {v.name: s0.get(v.name) for v in startup.list_vars()
+            if v.persistable}
+    img, label = synthetic_cifar(VGG_B, seed=1)
+    feed = {"img": img, "label": label}
+    sc = scope_from_numpy(pt.Scope(), init, cuda)
+    sh = scope_from_numpy(pt.Scope(), init, cpu)
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=sc)
+    want = pt.Executor(cpu).run(main, feed=feed, fetch_list=fetch, scope=sh)
+    worst = _vgg_worst(main, got, want, params, stats, sc, sh)
+    _vgg_gate("a, card vs CPU", worst)
+
+    main, startup, test_prog, loss, acc = vgg_bn_program(pt)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    img, label = synthetic_cifar(VGG_B * VGG_STEPS, seed=2)
+    losses, ms = [], []
+    for i in range(VGG_STEPS):
+        b = slice(i * VGG_B, (i + 1) * VGG_B)
+        t0 = time.perf_counter()
+        out = exe.run(main, feed={"img": img[b], "label": label[b]},
+                      fetch_list=[loss], scope=scope)
+        losses.append(float(out[0][0]))        # read back: the step's end
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and
+          np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"fluid book (a): VGG-16-BN's loss did not fall: {losses}")
+    traced = _profiled_step(lambda: exe.run(
+        main, feed={"img": img[:VGG_B], "label": label[:VGG_B]},
+        fetch_list=[loss], scope=scope))
+    before = {n: scope.get(n) for n in bn_stat_names(main)}
+    predict = next(op.inputs["X"][0] for op in test_prog.desc.block(0).ops
+                   if op.type == "cross_entropy")
+    probs = exe.run(test_prog, feed={"img": img[:VGG_B],
+                                     "label": label[:VGG_B]},
+                    fetch_list=[predict], scope=scope)[0]
+    check(probs.shape == (VGG_B, 10) and np.isfinite(probs).all() and
+          np.allclose(probs.sum(1), 1.0, atol=1e-4),
+          f"fluid book (a): the for_test clone's predictions {probs.shape}")
+    moved = [n for n, v in before.items()
+             if not np.array_equal(scope.get(n), v)]
+    check(not moved, f"fluid book (a): the for_test clone moved {moved}")
+    return {"card_vs_cpu_worst": worst, "losses": losses,
+            "step_ms_median": statistics.median(ms[2:]),
+            "step_ms": ms, "ops_a_step": len(main.desc.block(0).ops),
+            "for_test_ops": len(test_prog.desc.block(0).ops),
+            "traced_step": {k: traced[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "device_events")},
+            "top_kernels": traced["top_kernels"][:6]}
+
+
+def _vgg_two_ranks(pt, exe):
+    """Phase 29 (b): the drop-0 program under with_data_parallel on 2
+    in-process ranks against one rank's whole-batch step, 2 steps each
+    from the one rank's state; the ranks' running stats one tensor."""
+    from paddle_tpu_torch.core import lockstep
+
+    cuda = pt.CUDAPlace(0)
+    main, startup, _, loss, acc = vgg_bn_program(pt, drop=0.0)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    stats = bn_stat_names(main)
+    fetch = [loss, acc] + [n + "@GRAD" for n in params]
+    prog = pt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=[cuda] * VGG_DP_RANKS)
+    one = pt.Scope()
+    exe.run(startup, scope=one)
+    img, label = synthetic_cifar(VGG_B, seed=3)
+    feed = {"img": img, "label": label}
+    seen, run_ranks = [], lockstep.RankStep.run_ranks
+
+    def spy(self, envs, seeds, device):
+        out = run_ranks(self, envs, seeds, device)
+        seen.append(out)
+        return out
+
+    worst, steps = dict.fromkeys(VGG_TOL, 0.0), []
+    lockstep.RankStep.run_ranks = spy
+    try:
+        for _ in range(2):
+            split = _scope_copy(pt, one)
+            got = exe.run(prog, feed=feed, fetch_list=fetch, scope=split)
+            want = exe.run(main, feed=feed, fetch_list=fetch, scope=one)
+            steps.append(_vgg_worst(main, got, want, params, stats, split,
+                                    one))
+            worst = {k: max(worst[k], steps[-1][k]) for k in VGG_TOL}
+    finally:
+        lockstep.RankStep.run_ranks = run_ranks
+    _vgg_gate("b, 2 ranks vs one", worst)
+    envs, split_names = seen[-1]
+    shared = all(n not in split_names and envs[1][n] is envs[0][n]
+                 for n in stats)
+    check(len(envs) == VGG_DP_RANKS and shared,
+          "fluid book (b): the ranks hold different running stats")
+    scope = _scope_copy(pt, one)
+    ms = []
+    for _ in range(VGG_TIMED):
+        t0 = time.perf_counter()
+        float(exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)[0][0])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"two_ranks_vs_one_worst": worst, "two_ranks_vs_one": steps,
+            "two_ranks_share_bn_stats": shared,
+            "two_ranks_step_ms": ms}
+
+
+def _book_embedding(pt, exe):
+    """Phase 29 (c): the book's three embedding programs train on the
+    card as tests/test_book.py requires of the JAX package."""
+    out = {}
+    feeds = book_embedding_feeds()
+    for name, build in BOOK_EMBEDDING.items():
+        main, startup, loss = build(pt)
+        feed, steps, share = feeds[name]
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0].reshape(()))
+                  for _ in range(steps)]
+        check(losses[-1] < losses[0] * share,
+              f"fluid book (c): {name}'s loss {losses[0]} -> {losses[-1]} "
+              f"(must fall under {share} of the first)")
+        out[name] = {"loss_first": losses[0], "loss_last": losses[-1],
+                     "steps": steps,
+                     "ops_a_step": len(main.desc.block(0).ops)}
+    return out
+
+
+def phase_fluid_book():
+    """Phase 29: (a) VGG-16-BN on one rank, (b) on 2 ranks with sync
+    batch norm, (c) the book's embedding programs."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        exe = pt.Executor(pt.CUDAPlace(0))
+        one = _vgg_one_rank(pt, exe)
+        two = _vgg_two_ranks(pt, exe)
+        book = _book_embedding(pt, exe)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    print(json.dumps({
+        "phase": "fluid_book", "card": card(),
+        "program": "book vgg_bn_drop (VGG-16-BN), CIFAR-10 shapes, batch "
+                   f"{VGG_B}, Adam 1e-3, f32, TF32 off",
+        **one, **two, "book_embedding": book, "limits": VGG_TOL,
+        "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+
+
 def _leftovers():
     """The threads other than this one still alive, and the processes
     whose parent is this one, each as a short description."""
@@ -6045,6 +6433,7 @@ def main() -> int:
     launches["flash_attention_fwd"] += timed(phase_fleet)
     launches["flash_attention_fwd"] += timed(phase_observability)
     timed(phase_fluid_dp)
+    timed(phase_fluid_book)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

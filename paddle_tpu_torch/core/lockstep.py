@@ -28,7 +28,12 @@ Two modes:
   a replicated input computed from split ones (`mul`'s and `conv2d`'s
   weights, a bias) is a partial sum, all-reduced as soon as it is made.
   `dropout` takes each rank's rows of the whole batch's mask, so it
-  drops what the one step over the whole batch drops. An op with a
+  drops what the one step over the whole batch drops. `batch_norm` (and
+  `sync_batch_norm`) in training takes the whole batch's mean and mean
+  of squares from the ranks' all-reduced sums, and its gradient the
+  whole batch's sums of the cotangent's terms through them (the JAX
+  package's batch norm is sync-BN under GSPMD, `ops/nn.py:379`). A
+  shape op is a row op only while dim 0 stays the batch. An op with a
   split input that the rules do not classify raises, naming itself and
   ROADMAP item 20c-v. A `c_*` op raises in this
   mode: the JAX package's GSPMD step has no manual axis to reduce over.
@@ -37,6 +42,7 @@ Two modes:
 from __future__ import annotations
 
 import collections
+import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -47,7 +53,7 @@ from ..ops import nn as _nn
 from . import lowering, registry
 from . import precision as _precision
 from .executor import _Step
-from .registry import GRAD_PREFIX_IG, GRAD_PREFIX_IN, OpDef
+from .registry import GRAD_PREFIX_IG, GRAD_PREFIX_IN, GRAD_PREFIX_OG, OpDef
 from .ring import InProcessRing
 
 SPMD, GSPMD = "spmd", "gspmd"
@@ -65,12 +71,19 @@ ROW_OPS: Dict[str, tuple] = {t: _EACH for t in (
     "softplus", "softshrink", "hard_shrink", "thresholded_relu",
     "hard_sigmoid", "hard_swish", "swish", "stanh", "pow", "maxout",
     "soft_relu", "cast", "scale", "assign", "increment", "one_hot_v2",
-    "pool2d", "softmax", "reshape2", "top_k", "sum")}
+    "pool2d", "softmax", "reshape2", "top_k", "sum", "one_hot",
+    "log_softmax", "logical_not", "isinf_v2", "isnan_v2", "pool3d",
+    # shape ops, while dim 0 stays the batch (`_row_problem`)
+    "concat", "split", "stack", "transpose2", "flatten2", "squeeze2",
+    "unsqueeze2", "expand")}
+COMPARISONS = ("equal", "not_equal", "less_than", "less_equal",
+               "greater_than", "greater_equal", "logical_and",
+               "logical_or", "logical_xor")
 ROW_OPS.update({t: ({"X", "Y"}, {"Y"}) for t in (
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
-    "equal")})
+    "elementwise_pow", "elementwise_mod", "elementwise_floordiv")
+    + COMPARISONS})
 ROW_OPS.update({
     "prelu": ({"X"}, {"Alpha"}),
     "mul": ({"X"}, {"Y"}),
@@ -80,7 +93,30 @@ ROW_OPS.update({
     "softmax_with_cross_entropy": ({"Logits", "Label"}, set()),
     "square_error_cost": ({"X", "Y"}, set()),
     "lookup_table_v2": ({"Ids"}, {"W"}),
+    "lookup_table": ({"Ids"}, {"W"}),
+    "gather": ({"Index"}, {"X"}),
+    "slice": ({"Input"}, set()),
+    "layer_norm": ({"X"}, {"Scale", "Bias"}),
+    "group_norm": ({"X"}, {"Scale", "Bias"}),
+    "instance_norm": ({"X"}, {"Scale", "Bias"}),
+    "depthwise_conv2d": ({"Input"}, {"Filter"}),
+    "conv3d": ({"Input"}, {"Filter"}),
+    "conv2d_transpose": ({"Input"}, {"Filter"}),
+    "cross_entropy": ({"X", "Label"}, set()),
+    "cross_entropy2": ({"X", "Label"}, set()),
+    "sigmoid_cross_entropy_with_logits": ({"X", "Label"}, set()),
+    "bce_loss": ({"X", "Label"}, set()),
+    "huber_loss": ({"X", "Y"}, set()),
+    "smooth_l1_loss": ({"X", "Y", "InsideWeight", "OutsideWeight"}, set()),
+    "margin_rank_loss": ({"X1", "X2", "Label"}, set()),
+    "hinge_loss": ({"Logits", "Labels"}, set()),
+    "kldiv_loss": ({"X", "Target"}, set()),
+    "label_smooth": ({"X"}, {"PriorDist"}),
+    "cos_sim": ({"X", "Y"}, {"Y"}),
 })
+# sync BN in training, rows under is_test or use_global_stats
+# (`Lockstep._batch_norm`)
+BATCH_NORMS = ("batch_norm", "sync_batch_norm")
 
 # reductions: over the batch dim they are rule (a)'s (logsumexp's and
 # frobenius_norm's raise); over other dims they act on each row
@@ -116,15 +152,50 @@ def _row_problem(op_type, attrs, vals, split) -> Optional[str]:
     """Why `op_type` cannot run on each rank's rows (None when it can).
     `vals`: slot -> rank 0's first value; `split`: the split slots."""
     x = vals.get("X")
-    if op_type.startswith("elementwise_") or op_type == "equal":
+    if op_type.startswith("elementwise_") or op_type in COMPARISONS:
         y = vals["Y"]
         if "Y" not in split and y.ndim:
             axis = int(attrs.get("axis", -1))
             start = axis if axis != -1 else x.ndim - y.ndim
             if start == 0 and y.shape[0] != 1:
                 return "its replicated Y spans the batch dim"
-    elif op_type in ("softmax",) and _axis_is_batch(attrs, x):
+    elif op_type in ("softmax", "log_softmax") and _axis_is_batch(attrs, x):
         return "it normalizes over the batch dim"
+    elif op_type in ("concat", "split", "stack") and \
+            int(attrs.get("axis", 0)) % (x.ndim + (op_type == "stack")) == 0:
+        return "it joins or cuts along the batch dim"
+    elif op_type == "transpose2" and int(attrs["axis"][0]) % x.ndim != 0:
+        return "it moves the batch dim"
+    elif op_type == "flatten2" and int(attrs.get("axis", 1)) != 1:
+        return "it folds the batch dim into another"
+    elif op_type == "squeeze2":
+        axes = [int(a) for a in attrs.get("axes", [])]
+        if not axes or any(a % x.ndim == 0 for a in axes):
+            return "it may squeeze the batch dim"
+    elif op_type == "unsqueeze2" and any(int(a) <= 0
+                                         for a in attrs["axes"]):
+        return "it may insert a dim before the batch dim"
+    elif op_type == "slice" and any(
+            int(a) % vals["Input"].ndim == 0
+            for a in list(attrs["axes"]) + list(attrs.get("decrease_axis",
+                                                          []))):
+        return "it slices the batch dim"
+    elif op_type == "expand" and int(attrs["expand_times"][0]) != 1:
+        return "it tiles the batch dim"
+    elif op_type == "layer_norm" and int(attrs.get("begin_norm_axis", 1)) \
+            % x.ndim == 0:
+        return "it normalizes over the batch dim"
+    elif op_type == "instance_norm" and 1 in tuple(x.shape[:2]):
+        return "its saved stats squeeze a size-1 batch or channel dim"
+    elif op_type == "sigmoid_cross_entropy_with_logits" and \
+            attrs.get("normalize", False):
+        return "it divides by the batch's count of labels"
+    elif op_type == "kldiv_loss" and attrs.get("reduction",
+                                                "mean") != "none":
+        return "it reduces over the batch dim"
+    elif op_type == "cos_sim" and "Y" not in split and \
+            vals["Y"].shape[0] != 1:
+        return "its replicated Y spans the batch dim"
     elif op_type == "softmax_with_cross_entropy" and \
             _axis_is_batch(attrs, vals["Logits"]):
         return "it normalizes over the batch dim"
@@ -356,6 +427,8 @@ class Lockstep:
             return self._batch_reduce(op, envs)
         if t == "accuracy":
             return self._accuracy(op, envs, block)
+        if base in BATCH_NORMS:
+            return self._batch_norm(op, envs, block, first_grad)
         if base == "dropout":
             return self._dropout(op, envs, block, first_grad)
         if _is_random(t):
@@ -369,8 +442,12 @@ class Lockstep:
         if not first_grad:
             self.split.update(outs)
             return
-        # rule (c): the gradient of a replicated input is this rank's
-        # partial sum, all-reduced before anything reads it
+        self._grad_outputs(op, envs)
+
+    def _grad_outputs(self, op, envs):
+        """After a gradient op ran on every rank: the gradient of a split
+        input is split; that of a replicated input is this rank's partial
+        sum (rule (c)), all-reduced before anything reads it."""
         for slot, dsts in op.outputs.items():
             if not slot.startswith(GRAD_PREFIX_IG):
                 continue
@@ -482,6 +559,138 @@ class Lockstep:
         self._bind(envs, op.outputs["Accuracy"][0],
                    (sums["Correct"].to(torch.float32) /
                     sums["Total"].to(torch.float32)).reshape(1))
+
+    # -- batch norm ----------------------------------------------------
+
+    def _bn_uses_batch(self, op) -> bool:
+        attrs = op.attrs
+        return not (self.is_test or bool(attrs.get("is_test", False)) or
+                    bool(attrs.get("use_global_stats", False)))
+
+    def _bn_stats(self, xs, attrs):
+        """The whole batch's (mean, mean of squares) of each channel, in
+        f32, from the ranks' all-reduced sums; and the batch's count."""
+        axes, _ = _nn.channel_layout(attrs, xs[0])
+        xfs = [x.to(torch.float32) for x in xs]
+        count = sum(math.prod(x.shape[a] for a in axes) for x in xs)
+        s1 = self.ring.all_reduce([x.sum(dim=axes) for x in xfs])[0]
+        s2 = self.ring.all_reduce([torch.square(x).sum(dim=axes)
+                                   for x in xfs])[0]
+        return s1 / count, s2 / count, count
+
+    @staticmethod
+    def _cast(op_type, ins):
+        """`ins` as `lowering.run_op` hands them to a kernel under the
+        active precision policy."""
+        pol = _precision.active_autocast()
+        return ins if pol is None else _precision.autocast_op_inputs(
+            op_type, ins, pol)
+
+    def _bn_ctx(self, op):
+        return registry.KernelCtx(op, is_test=self.is_test,
+                                  device=self.device)
+
+    def _batch_norm(self, op, envs, block, grad):
+        """Rule for `batch_norm`: under is_test or use_global_stats a row
+        op (the running stats normalize each row); in training the
+        forward normalizes by the whole batch's statistics
+        (`_bn_stats`), and MeanOut, VarianceOut and the saved stats are
+        one tensor on every rank."""
+        prefix = GRAD_PREFIX_IN if grad else ""
+        x_name = op.inputs[prefix + "X"][0]
+        if x_name not in self.split:
+            self._refuse(op, [n for n in op.input_names() if n in self.split],
+                         "its X is replicated beside a split input")
+        repl = [n for slot in ("Scale", "Bias", "Mean", "Variance")
+                for n in op.inputs.get(prefix + slot, []) if n]
+        if any(n in self.split for n in repl):
+            self._refuse(op, [n for n in repl if n in self.split],
+                         "its per-channel inputs are split")
+        if not self._bn_uses_batch(op):
+            return self._bn_rows(op, envs, block, grad)
+        if grad:
+            return self._batch_norm_grad(op, envs)
+        xs = self._values(envs, x_name, op)
+        m, sq, _ = self._bn_stats(xs, op.attrs)
+        fwd = registry.get_op_def(_base_type(op.type))
+        attrs = {**fwd.default_attrs, **op.attrs}
+        ins = {slot: self._values(envs, names[0], op)[:1]
+               for slot, names in op.inputs.items() if slot != "X"}
+        outs = [_nn.batch_norm_kernel(
+            self._cast(op.type, {"X": [x], **ins}), attrs,
+            self._bn_ctx(op), stats=lambda xf, axes: (m, sq)) for x in xs]
+        for slot, names in op.outputs.items():
+            if not names or not names[0]:
+                continue
+            if slot == "Y":
+                for env, o in zip(envs, outs):
+                    env[names[0]] = o["Y"]
+                self.split.add(names[0])
+            else:
+                self._bind(envs, names[0], outs[0][slot])
+
+    def _bn_rows(self, op, envs, block, grad):
+        self._per_rank(op, envs, block)
+        if not grad:
+            for slot, names in op.outputs.items():
+                for n in names:
+                    if n and slot == "Y":
+                        self.split.add(n)
+                    elif n:
+                        self._bind(envs, n, envs[0][n])
+            return
+        self._grad_outputs(op, envs)
+
+    def _batch_norm_grad(self, op, envs):
+        """The gradient of the training forward over the whole batch: each
+        rank replays its rows with the global (mean, mean of squares) as
+        leaves; their gradients (the cotangent's sums through the
+        statistics) and Scale's and Bias's are all-reduced, and each
+        rank's X gradient gains the terms through the statistics, d/dx
+        of mean(x) and of mean(x^2)."""
+        fwd = registry.get_op_def(_base_type(op.type))
+        attrs = {**fwd.default_attrs, **op.attrs}
+        x_name = op.inputs[GRAD_PREFIX_IN + "X"][0]
+        xs = self._values(envs, x_name, op)
+        m, sq, count = self._bn_stats(xs, attrs)
+        ins = {slot: self._values(envs, op.inputs[GRAD_PREFIX_IN + slot][0],
+                                  op)[0]
+               for slot in ("Scale", "Bias", "Mean", "Variance")}
+        og = op.inputs.get(GRAD_PREFIX_OG + "Y", [""])[0]
+        _, ch = _nn.channel_layout(attrs, xs[0])
+        parts = []
+        with torch.enable_grad():
+            for env, x in zip(envs, xs):
+                leaves = [t.detach().requires_grad_() for t in
+                          (x, ins["Scale"], ins["Bias"], m, sq)]
+                y = _nn.batch_norm_kernel(self._cast(op.type[:-5], {
+                    "X": [leaves[0]], "Scale": [leaves[1]],
+                    "Bias": [leaves[2]], "Mean": [ins["Mean"]],
+                    "Variance": [ins["Variance"]]}), attrs,
+                    self._bn_ctx(op),
+                    stats=lambda xf, axes, l=leaves: (l[3], l[4]))["Y"]
+                cot = env[og].to(y.dtype) if og and og in env \
+                    else torch.zeros_like(y)
+                parts.append([torch.zeros_like(t) if g is None else g
+                              for t, g in zip(leaves, torch.autograd.grad(
+                                  y, leaves, cot, allow_unused=True))])
+        total = [self.ring.all_reduce([p[i] for p in parts])[0]
+                 for i in range(1, 5)]
+        d_mean = (total[2] / count).reshape(ch)
+        d_sq = (total[3] * (2.0 / count)).reshape(ch)
+        grads = {"X": [(p[0] + d_mean + d_sq * x.to(torch.float32)).to(
+                     x.dtype) for p, x in zip(parts, xs)],
+                 "Scale": total[0], "Bias": total[1]}
+        for slot, names in op.outputs.items():
+            key = slot[len(GRAD_PREFIX_IG):]
+            if not names or not names[0] or key not in grads:
+                continue
+            if key == "X":
+                for env, g in zip(envs, grads["X"]):
+                    env[names[0]] = g
+                self.split.add(names[0])
+            else:
+                self._bind(envs, names[0], grads[key])
 
 
 class RankStep(_Step):

@@ -13,5 +13,6 @@ from . import optimizer_ops
 from . import metrics_ops
 from . import quant
 from . import compare
+from . import classify
 from . import control_flow
 from . import collective

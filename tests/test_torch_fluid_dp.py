@@ -3,7 +3,9 @@ on its 8-device CPU mesh: `CompiledProgram.with_data_parallel` (and
 `ParallelExecutor`) on 8 in-process CPU ranks, `SPMDRunner` with the
 `GradAllReduce` and `LocalSGD` transpilers, the 17 `c_*` ops, the five
 ops the slice's modules emit, the fleet facade, the top-level fluid
-conveniences, the refusals and the telemetry rows.
+conveniences, the refusals and the telemetry rows; then the op library
+core's rules (ROADMAP item 20c-v): the book's VGG-16-BN with sync batch
+norm on 2 and 4 ranks, and a program around each new row rule on 4.
 
 Initial persistables come from the JAX scope (`convert.scope_from_numpy`),
 feeds from a numpy seed. Tolerances: the loss at rtol 1e-5; a gradient,
@@ -541,6 +543,26 @@ def test_sparse_embedding_gradient_raises():
                 scope=scope)
 
 
+def test_sparse_lookup_table_v1_gradient_raises():
+    """`lookup_table` (v1, `layers.embedding`) with is_sparse=True: the
+    JAX package's W gradient is a SelectedRows; the port raises, naming
+    the op and item 16."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
+        ids = ptt.layers.data(name="ids", shape=[1], dtype="int64")
+        emb = ptt.layers.embedding(ids, size=[10, 4], is_sparse=True)
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(
+            ptt.layers.reduce_sum(emb))
+    assert "lookup_table" in {op.type for op in main.desc.block(0).ops}
+    exe = ptt.Executor(ptt.CPUPlace())
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(NotImplementedError,
+                       match="lookup_table with is_sparse.*item 16"):
+        exe.run(main, feed={"ids": np.arange(4).reshape(4, 1)},
+                scope=scope)
+
+
 def _cond_program(pkg):
     main, startup = pkg.Program(), pkg.Program()
     with pkg.framework.unique_name.guard(), pkg.program_guard(main, startup):
@@ -832,12 +854,15 @@ def _split_op_program(kind):
             out = blk.create_var(name="kron_out", dtype="float32")
             blk.append_op(type="kron", inputs={"X": [x], "Y": [x]},
                           outputs={"Out": [out]})
+        elif kind == "transpose_batch":
+            out = ptt.layers.transpose(x, perm=[1, 0])
         else:
             out = ptt.layers.reshape(x, [2, -1])
     return main, startup, out
 
 
-@pytest.mark.parametrize("kind", ["softmax_axis0", "kron", "reshape"])
+@pytest.mark.parametrize("kind", ["softmax_axis0", "kron", "reshape",
+                                  "transpose_batch"])
 def test_an_op_no_rule_covers_raises(kind):
     """An op with a batch-split input that lockstep's rules do not
     classify raises under CompiledProgram, naming itself and 20c-v,
@@ -846,7 +871,7 @@ def test_an_op_no_rule_covers_raises(kind):
     prog = ptt.CompiledProgram(main).with_data_parallel(
         places=ptt.cpu_places(RANKS))
     op = {"softmax_axis0": "softmax", "kron": "kron",
-          "reshape": "reshape2"}[kind]
+          "reshape": "reshape2", "transpose_batch": "transpose2"}[kind]
     with pytest.raises(NotImplementedError, match=f"{op}:.*item 20c-v"):
         ptt.Executor(ptt.CPUPlace()).run(
             prog, feed={"x": np.ones((8, 6), "float32")}, fetch_list=[out],
@@ -979,3 +1004,222 @@ def test_spmd_and_sharded_telemetry_rows_match_jax():
     assert grew["torch"] == grew["jax"] == [3, 3 * 4, 2]
     spmd = tperf.snapshot()["spmd"]
     assert spmd["steps"] >= 3 and spmd["device_kind"] == "cpu"
+
+
+# -- the library core's rules (ROADMAP item 20c-v): sync batch norm on
+# the book's VGG-16-BN, and a row-op case for each new rule
+
+
+def _vgg_pair():
+    """The narrow VGG-16-BN of tests/test_torch_fluid_book.py (channels
+    / 8, drop rates 0) in both packages."""
+    narrow = dict(drop=0.0, width=8)
+    jp, tp = (chip_smoke.vgg_bn_program(pkg, **narrow) for pkg in (pt, ptt))
+    assert tp[0].desc.to_dict() == jp[0].desc.to_dict()
+    scj = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(jp[1], scope=scj)
+    pers = [v.name for v in jp[1].list_vars() if v.persistable]
+    return jp, tp, scj, pers
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_vgg_sync_batch_norm_matches_the_whole_batch(ranks, monkeypatch):
+    """The narrow VGG-16-BN under `with_data_parallel` on 2 and 4 CPU
+    ranks against the JAX package's one-device step over the whole
+    batch of 8, three steps each from the JAX state: the loss at rtol
+    1e-5, the accuracy exactly, the gradients and the batch norms'
+    running stats at tests/test_torch_fluid_book.py's limits (its
+    docstring: a gradient under a batch norm moves with the order of
+    the reductions); the running stats are one tensor on every rank."""
+    from paddle_tpu_torch.core import lockstep
+
+    (mj, _, _, lj, aj), (mt, _, _, lt, _), scj, pers = _vgg_pair()
+    params = [p.name for p in mj.all_parameters() if p.trainable]
+    stats = chip_smoke.bn_stat_names(mj)
+    fetch = [lj.name, aj.name] + [p + "@GRAD" for p in params]
+    ct = ptt.CompiledProgram(mt).with_data_parallel(
+        loss_name=lt.name, places=ptt.cpu_places(ranks))
+    seen = []
+    run_ranks = lockstep.RankStep.run_ranks
+
+    def spy(self, envs, seeds, device):
+        out = run_ranks(self, envs, seeds, device)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(lockstep.RankStep, "run_ranks", spy)
+    exej, exet = pt.Executor(pt.CPUPlace()), ptt.Executor(ptt.CPUPlace())
+    sct = ptt.Scope()
+    rng = np.random.RandomState(0)
+    for step in range(3):
+        feed = {"img": rng.standard_normal((8, 3, 32, 32)).astype(
+                    "float32"),
+                "label": rng.randint(0, 10, (8, 1)).astype("int64")}
+        _resync(sct, scj, pers)
+        want = exej.run(mj, feed=feed, fetch_list=fetch, scope=scj)
+        got = exet.run(ct, feed=feed, fetch_list=fetch, scope=sct)
+        np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+        np.testing.assert_array_equal(got[1], want[1])
+        errs = chip_smoke.vgg_grad_errors(mj, params, got[2:], want[2:])
+        assert errs["grad"] <= 1e-4 and errs["grad_under_bn"] <= 1e-3, \
+            (step + 1, errs)
+        for n in stats:
+            _close(sct.get(n), scj.get(n), f"{n} step {step + 1}")
+        envs, split = seen[-1]
+        for n in stats:
+            assert n not in split and all(env[n] is envs[0][n]
+                                          for env in envs), n
+    sstep = next(iter(ct._cache.values()))
+    assert sstep.rank_feed_shapes["img"][0] == 8 // ranks
+
+
+def _row_case(pkg, kind):
+    """A program around one op of a new row rule, with a float input x
+    [N, 6] (or [N, 4, 3, 3] for the image ops), a label y [N, 1] and,
+    for the binary ops, a second float input z [N, 6]; its loss is the
+    mean of an fc of the op's output to one column, so the gradients
+    pass through it (a plain mean of a normalized output would be 0)."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 5
+    L = pkg.layers
+    img = kind in _IMG_KINDS
+    with pkg.framework.unique_name.guard(), pkg.program_guard(main, startup):
+        x = L.data(name="x", shape=[4, 3, 3] if img else [6],
+                   dtype="float32")
+        z = L.data(name="z", shape=[6], dtype="float32")
+        y = L.data(name="y", shape=[1], dtype="int64")
+        h = L.fc(x, size=6) if not img else L.scale(x, scale=1.5)
+        if kind == "layer_norm":
+            out = L.layer_norm(h)
+        elif kind == "group_norm":
+            out = L.group_norm(h, groups=2)
+        elif kind == "instance_norm":
+            out = L.instance_norm(h)
+        elif kind == "batch_norm_global":
+            out = L.batch_norm(h, use_global_stats=True)
+        elif kind == "log_softmax":
+            out = L.log_softmax(h)
+        elif kind == "cross_entropy":
+            out = L.cross_entropy(L.softmax(h), y)
+        elif kind == "cross_entropy2":
+            blk = main.global_block()
+            out = blk.create_var(name="xe2", dtype="float32")
+            blk.append_op(type="cross_entropy2",
+                          inputs={"X": [L.softmax(h)], "Label": [y]},
+                          outputs={"Y": [out], "MatchX": [blk.create_var(
+                              name="xe2_match", dtype="float32")]})
+        elif kind == "sigmoid_xent":
+            out = L.sigmoid_cross_entropy_with_logits(h, L.sigmoid(z))
+        elif kind == "smooth_l1":
+            out = L.smooth_l1(h, z)
+        elif kind == "huber_loss":
+            out = L.huber_loss(h, z, delta=0.5)
+        elif kind == "bce_loss":
+            out = L.bce_loss(L.sigmoid(h), L.sigmoid(z))
+        elif kind == "margin_rank_loss":
+            out = L.margin_rank_loss(L.sign(z), h, L.scale(h, scale=0.5))
+        elif kind == "hinge_loss":
+            out = L.hinge_loss(h, L.cast(L.less_than(z, h), "float32"))
+        elif kind == "kldiv_loss":
+            out = L.kldiv_loss(L.log_softmax(h), L.softmax(z),
+                               reduction="none")
+        elif kind == "label_smooth":
+            out = L.label_smooth(L.softmax(h), epsilon=0.1)
+        elif kind == "lookup_table":
+            out = L.fc(L.reshape(L.embedding(y, size=[10, 5]), [-1, 5]),
+                       size=3)
+        elif kind == "one_hot":
+            out = L.elementwise_mul(L.fc(h, size=10), L.one_hot(y, 10))
+        elif kind == "comparisons":
+            masks = [L.cast(f(h, z), "float32") for f in (
+                L.less_than, L.less_equal, L.greater_than,
+                L.greater_equal, L.not_equal)]
+            total = masks[0]
+            for m in masks[1:]:
+                total = L.elementwise_add(total, m)
+            out = L.elementwise_mul(h, total)
+        elif kind == "cos_sim":
+            out = L.cos_sim(h, z)
+        elif kind == "concat_split":
+            a, b = L.split(L.concat([h, z], axis=1), [4, 8], dim=1)
+            out = L.elementwise_add(L.reduce_sum(a, dim=1, keep_dim=True),
+                                    L.reduce_sum(b, dim=1, keep_dim=True))
+        elif kind == "stack_transpose":
+            out = L.transpose(L.stack([h, z], axis=1), perm=[0, 2, 1])
+        elif kind == "unsqueeze_squeeze_flatten":
+            u = L.unsqueeze(h, axes=[2, 3])
+            out = L.flatten(L.squeeze(L.expand(u, [1, 1, 2, 1]), axes=[3]),
+                            axis=1)
+        elif kind == "slice":
+            out = L.slice(h, axes=[1], starts=[1], ends=[4])
+        elif kind == "gather":
+            table = L.create_parameter([10, 6], "float32", name="table")
+            out = L.elementwise_mul(L.gather(table, L.reshape(y, [-1])), h)
+        elif kind == "image_convs":
+            parts = [L.depthwise_conv2d(h, 4, 3, padding=1),
+                     L.conv2d_transpose(h, num_filters=2, filter_size=2),
+                     L.pool3d(L.conv3d(L.unsqueeze(h, axes=[2]), 2, 1),
+                              pool_size=1)]
+            out = L.concat([L.flatten(t, axis=1) for t in parts], axis=1)
+        elif kind == "logical":
+            lt, gt = L.less_than(h, z), L.greater_than(h, z)
+            both = L.logical_or(L.logical_and(lt, L.logical_not(gt)),
+                                L.logical_xor(lt, gt))
+            blk = main.global_block()
+            flags = []
+            for op in ("isnan_v2", "isinf_v2"):
+                flags.append(blk.create_var(name=op + "_out", dtype="bool"))
+                blk.append_op(type=op, inputs={"X": [h]},
+                              outputs={"Out": [flags[-1]]})
+            out = L.elementwise_mul(h, L.elementwise_add(
+                L.cast(both, "float32"), L.cast(L.logical_or(*flags),
+                                                "float32")))
+        loss = L.mean(L.fc(out, size=1))
+        pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+_IMG_KINDS = ("group_norm", "instance_norm", "batch_norm_global",
+              "image_convs")
+ROW_KINDS = ["layer_norm", "group_norm", "instance_norm",
+             "batch_norm_global", "log_softmax", "cross_entropy",
+             "cross_entropy2", "sigmoid_xent", "smooth_l1", "huber_loss",
+             "bce_loss", "margin_rank_loss", "hinge_loss", "kldiv_loss",
+             "label_smooth", "lookup_table", "one_hot", "comparisons",
+             "cos_sim", "concat_split", "stack_transpose",
+             "unsqueeze_squeeze_flatten", "slice", "gather", "image_convs",
+             "logical"]
+
+
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_row_rule_matches_jax(kind):
+    """Each new row rule under `with_data_parallel` on 4 CPU ranks
+    against the JAX package's one-device step over the batch of 8:
+    the loss at rtol 1e-5, every parameter gradient within 1e-5 of its
+    tensor's largest value."""
+    jm, js, jl = _row_case(pt, kind)
+    tm, ts, tl = _row_case(ptt, kind)
+    assert tm.desc.to_dict() == jm.desc.to_dict()
+    scj = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(js, scope=scj)
+    pers = [v.name for v in js.list_vars() if v.persistable]
+    sct = _resync(ptt.Scope(), scj, pers) or ptt.Scope()
+    _resync(sct, scj, pers)
+    params = [p.name for p in jm.all_parameters()
+              if jm.global_block().has_var(p.name + "@GRAD")]
+    fetch = [jl.name] + [p + "@GRAD" for p in params]
+    rng = np.random.RandomState(len(kind))
+    img = kind in _IMG_KINDS
+    feed = {"x": rng.standard_normal((8, 4, 3, 3) if img else (8, 6))
+            .astype("float32"),
+            "z": rng.standard_normal((8, 6)).astype("float32"),
+            "y": rng.randint(0, 6, (8, 1)).astype("int64")}
+    want = pt.Executor(pt.CPUPlace()).run(jm, feed=feed, fetch_list=fetch,
+                                          scope=scj)
+    ct = ptt.CompiledProgram(tm).with_data_parallel(
+        loss_name=tl.name, places=ptt.cpu_places(4))
+    got = ptt.Executor(ptt.CPUPlace()).run(ct, feed=feed, fetch_list=fetch,
+                                           scope=sct)
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    for n, a, b in zip(params, got[1:], want[1:]):
+        _close(a, b, f"{kind}: {n}@GRAD")

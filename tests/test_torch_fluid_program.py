@@ -245,11 +245,13 @@ def test_unported_op_raises_naming_itself():
     and `Executor.run` raises naming the op."""
     main, startup = ptt.Program(), ptt.Program()
     with ptt.program_guard(main, startup):
-        x = ptt.layers.data(name="x", shape=[3, 4], dtype="float32")
-        out = ptt.layers.transpose(x, perm=[0, 2, 1])
+        x = ptt.layers.data(name="x", shape=[4], dtype="float32")
+        y = ptt.layers.data(name="y", shape=[4], dtype="float32")
+        out = ptt.layers.iou_similarity(x, y)
     exe = ptt.Executor(ptt.CPUPlace())
-    with pytest.raises(KeyError, match="transpose2.*ROADMAP item 15"):
-        exe.run(main, feed={"x": np.zeros((2, 3, 4), "float32")},
+    with pytest.raises(KeyError, match="iou_similarity.*ROADMAP item 15"):
+        exe.run(main, feed={"x": np.zeros((2, 4), "float32"),
+                            "y": np.zeros((3, 4), "float32")},
                 fetch_list=[out])
 
 
