@@ -500,8 +500,9 @@ ATTN_F16_TOL = (2 ** -10, 3e-3)
 # drawn after the others so that they keep their inputs, then phase
 # 25's per-rank blocks of BERT-base 256 x 128 under dp=2 and under
 # dp=2 tp=2 (GPT's per-rank block under dp=2 in the pipeline is
-# "gpt1"). The gradients are held under ELEM_TOL, or under the limit
-# the case names.
+# "gpt1") and of Transformer-big's causal decoder self-attention at
+# 128 x 128 under dp=2 tp=2 ("nmt_dp2tp2"). The gradients are held
+# under ELEM_TOL, or under the limit the case names.
 TRAIN_KERNEL_CASES = (
     ("bert", 256, 128, 12, 64, False, "bfloat16", True, None),
     ("bert512", 32, 512, 12, 64, False, "bfloat16", True, None),
@@ -514,7 +515,8 @@ TRAIN_KERNEL_CASES = (
     ("ragged_f16", 2, 300, 12, 64, False, "float16", False, ATTN_F16_TOL),
     ("gpt_moe_mb", 2, 1024, 12, 64, True, "bfloat16", True, None),
     ("bert_dp2", 128, 128, 12, 64, False, "bfloat16", True, None),
-    ("bert_dp2tp2", 128, 128, 6, 64, False, "bfloat16", True, None))
+    ("bert_dp2tp2", 128, 128, 6, 64, False, "bfloat16", True, None),
+    ("nmt_dp2tp2", 64, 128, 8, 64, True, "bfloat16", True, None))
 
 
 def held(got, want, dname, tol=None):
@@ -854,9 +856,10 @@ def _k1_bwd_long():
 # against 128 source keys), "bert512" padded BERT-base (lengths uniform
 # in [256, 512], BERT's bf16 fill of -3e4); then causal with a full
 # [B, N, T, T] bias at f32 and f16, a ragged pair, the bias gradient at
-# f32, head_dim 128 with 300 keys, and the bias gradient at bf16 (the
-# Hopper dq writes it). The first three are
-# timed. Outputs and gradients are held under ELEM_TOL, or under the
+# f32, head_dim 128 with 300 keys, the bias gradient at bf16 (the
+# Hopper dq writes it), and last phase 25's per-rank block of the
+# "nmt" calls under dp=2 tp=2 ("nmt_dp2tp2"). The first three and the
+# last are timed. Outputs and gradients are held under ELEM_TOL, or under the
 # limit the case names (ROADMAP F4: K2's f16 causal case).
 K2_KERNEL_CASES = (
     ("nmt", 128, 128, 128, 16, 64, False, "bfloat16", "src_len", None),
@@ -869,8 +872,13 @@ K2_KERNEL_CASES = (
     ("dbias", 2, 128, 128, 4, 64, False, "float32", "full", None),
     ("h128_ragged", 4, 256, 300, 8, 128, False, "bfloat16", "src_len",
      None),
-    ("dbias_bf16", 2, 128, 128, 4, 64, False, "bfloat16", "full", None))
-K2_TIMED = ("nmt", "beam", "bert512")
+    ("dbias_bf16", 2, 128, 128, 4, 64, False, "bfloat16", "full", None),
+    ("nmt_dp2tp2", 64, 128, 128, 8, 64, False, "bfloat16", "src_len",
+     None))
+K2_TIMED = ("nmt", "beam", "bert512", "nmt_dp2tp2")
+# the per-rank shape whose times the kernels line carries beside each
+# attention kernel's main one: Transformer-big under dp=2 tp=2
+PER_RANK_SHAPE = "nmt_dp2tp2"
 # traced steps a K2 phase may take to see every K2 launch (`_train_run`)
 TRACE_TRIES = 3
 # each K2 launch's kernels by the name the profiler shows: the Hopper one
@@ -1944,7 +1952,7 @@ def _profiled_step(run):
 def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
                steps, per_step, optimizer=None, precision="mixed_bf16",
                has_aux=False, trace_ok=None, after=None, mesh=None,
-               param_axes=None):
+               param_axes=None, rules=None):
     """`warmup` + `steps` steps on one fixed batch (AdamW and mixed_bf16
     unless given; `has_aux` for a loss_fn that also returns state
     updates); the kernels' counts are set to 0 just before the
@@ -1960,8 +1968,8 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     `per_step` names no standalone delta launch (the bf16 paths, whose
     dq kernels fold the delta pass in), a traced step that shows a
     `delta_kernel` record fails. `after(step, state, batch)`, run last,
-    returns more entries for the row. `mesh` and `param_axes` go to
-    make_train_step (in-process rings on the card)."""
+    returns more entries for the row. `mesh`, `param_axes` and `rules`
+    go to make_train_step (in-process rings on the card)."""
     import torch
 
     from paddle_tpu_torch.parallel.train import make_train_step
@@ -1969,7 +1977,7 @@ def _train_run(label, loss_fn, params, batch, flops_per_sample, warmup,
     init, step = make_train_step(loss_fn, optimizer or _adamw,
                                  device="cuda", precision=precision,
                                  has_aux=has_aux, mesh=mesh,
-                                 param_axes=param_axes)
+                                 param_axes=param_axes, rules=rules)
     state = init(params)
     del params
     n = next(iter(batch.values())).shape[0]
@@ -4214,17 +4222,20 @@ def _mesh(dev="cuda", **axes):
                      devices=[torch.device(dev)] * n)
 
 
-def _loss_grads(loss_fn, params, batch, mesh=None):
+def _loss_grads(loss_fn, params, batch, mesh=None, rules=None):
     """The loss and every gradient at `params` on the card, under
-    `mesh` when given."""
+    `mesh` (and `rules`) when given."""
     import contextlib
 
     import torch
 
     from paddle_tpu_torch.parallel.mesh import mesh_guard
+    from paddle_tpu_torch.parallel.sharding import with_rules
 
     p = {k: v.detach().requires_grad_() for k, v in params.items()}
-    with mesh_guard(mesh) if mesh is not None else contextlib.nullcontext():
+    with mesh_guard(mesh) if mesh is not None else contextlib.nullcontext(), \
+            with_rules(rules) if rules is not None \
+            else contextlib.nullcontext():
         loss = loss_fn(p, batch, None)
         if isinstance(loss, tuple):
             loss = loss[0]
@@ -4467,18 +4478,305 @@ def _dptp_moe():
     return {"parity": parity, "run": row}
 
 
+# Transformer-big under dp and tp: phase_nmt_train's batch (128 pairs of
+# 128 x 128 tokens, make_batch's ragged lengths); each mesh's f32 step
+# (TF32 off) against no mesh at phase 9's f32 limits
+# (`_hold_loss_grads`: loss 1e-5 relative, each gradient 2e-4 of its
+# largest value plus 1e-7), then timed mixed_bf16 steps. The beam search
+# (4 sources, beam 4, 16 steps) at f32 under dp=2 tp=2: the tokens of no
+# mesh, the scores within 1e-5 relative.
+DPTP_MESHES = (dict(dp=2), dict(tp=2), dict(dp=2, tp=2))
+DPTP_BEAM = (4, 4, 16)
+# ResNet-50's head under tp: 64 images of 224^2 at f32, the loss within
+# DPTP_RESNET_TOL["loss"] of no mesh, the head's gradients within phase
+# 14's f32 limit, 1e-5 of each tensor's largest value, against the run
+# whose head is whole and whose BN sums are the same: no mesh for tp=2,
+# dp=2 for dp=2 tp=2. Against no mesh, dp=2 tp=2's head gradients
+# carry sync BN's f32 sums in another order through 50 layers (6.3e-5
+# of the largest in the first run on an H100; reported, not gated).
+DPTP_RESNET_TP_B = 64
+DPTP_HEAD_GRAD_TOL = 1e-5
+# VGG-16 (224^2, 1000 classes) and LeNet (MNIST) batches
+DPTP_VGG_B = 32
+DPTP_LENET_B = 256
+
+
+def _dptp_transformer():
+    """(e) Transformer-big at full width (6 + 6 layers, hidden 1024, 16
+    heads, mlp 4096, vocab 32000) under dp=2, tp=2 and dp=2 tp=2 (see
+    DPTP_MESHES): the f32 loss and every gradient against no mesh, `mha`
+    counted on "splash_shardmap" (the decoder's causal self-attention:
+    K1 once per (dp, tp) rank) and "flash_bias_cuda" (the padded
+    encoder self- and cross-attention: K2 once per rank on its rows and
+    heads), the beam search under dp=2 tp=2 against no mesh, then each
+    mesh's timed steps under mixed_bf16 with Adam, K1 and K2 launched
+    `nmt_per_step` times the mesh's dp x tp ranks a step."""
+    import torch
+
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.parallel.mesh import mesh_guard
+
+    out = {"parity": [], "runs": []}
+    cfg32 = transformer.TransformerConfig.big()
+    cfg32.dtype = "float32"
+    params, _ = transformer.init(
+        torch.Generator(device="cuda").manual_seed(7), cfg32, device="cuda")
+    batch = transformer.make_batch(
+        torch.Generator(device="cuda").manual_seed(8), cfg32, 128, 128, 128)
+
+    def loss32(p, b, g):
+        return transformer.nmt_loss(p, cfg32, b, rng=g)
+
+    ref = _loss_grads(loss32, params, batch)
+    gates_want = {"splash_shardmap": cfg32.dec_layers,
+                  "flash_bias_cuda": cfg32.enc_layers + cfg32.dec_layers}
+    for mesh_axes in DPTP_MESHES:
+        attn.GATE_COUNTS.clear()
+        got = _loss_grads(loss32, params, batch, _mesh(**mesh_axes))
+        gates = dict(attn.GATE_COUNTS)
+        check(gates == gates_want,
+              f"dp-tp transformer {mesh_axes}: mha routes {gates}")
+        out["parity"].append({
+            "mesh": mesh_axes, "gates": gates,
+            **_hold_loss_grads(f"dp-tp transformer {mesh_axes}", got, ref)})
+        del got
+    del ref
+    torch.cuda.empty_cache()
+    n_src, beam, steps = DPTP_BEAM
+    src, sl = batch["src_ids"][:n_src], batch["src_len"][:n_src]
+    with torch.inference_mode():
+        want_t, want_s = transformer.beam_search(
+            params, cfg32, src, sl, beam_size=beam, max_len=steps)
+        with mesh_guard(_mesh(dp=2, tp=2)):
+            got_t, got_s = transformer.beam_search(
+                params, cfg32, src, sl, beam_size=beam, max_len=steps)
+    score_err = ((got_s - want_s).abs() / want_s.abs()).max().item()
+    check(torch.equal(got_t, want_t) and score_err <= 1e-5,
+          f"dp-tp transformer beam under dp=2 tp=2: tokens equal "
+          f"{torch.equal(got_t, want_t)}, score error {score_err}")
+    out["beam"] = {"sources": n_src, "beam": beam, "max_len": steps,
+                   "mesh": {"dp": 2, "tp": 2}, "tokens_equal": True,
+                   "score_max_rel_err": score_err}
+    del params, batch
+    torch.cuda.empty_cache()
+    cfg = transformer.TransformerConfig.big()
+
+    def loss_fn(p, b, g):
+        return transformer.nmt_loss(p, cfg, b, rng=g)
+
+    for mesh_axes in DPTP_MESHES:
+        params, axes = transformer.init(
+            torch.Generator(device="cuda").manual_seed(7), cfg,
+            device="cuda")
+        batch = transformer.make_batch(
+            torch.Generator(device="cuda").manual_seed(8), cfg, 128, 128,
+            128)
+        ranks = mesh_axes.get("dp", 1) * mesh_axes.get("tp", 1)
+        per_step = {k: v * ranks for k, v in nmt_per_step(cfg).items()}
+        label = f"transformer-big 128x(128,128) {mesh_axes}"
+        attn.GATE_COUNTS.clear()
+        row = _train_run(label, loss_fn, params, batch,
+                         cfg.train_flops_per_seq(128, 128), 2, 5, per_step,
+                         optimizer=_adam, trace_ok=_k2_trace_ok(label,
+                                                                per_step),
+                         mesh=_mesh(**mesh_axes), param_axes=axes)
+        row["gates"] = dict(attn.GATE_COUNTS)
+        check(row["gates"].get("splash_shardmap", 0) > 0,
+              f"dp-tp transformer {mesh_axes}: mha routes {row['gates']}")
+        out["runs"].append(row)
+        del params, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dptp_resnet_tp():
+    """(f) ResNet-50's head under tp: DPTP_RESNET_TP_B images of 224^2,
+    NHWC, f32 (TF32 off), under tp=2 and dp=2 tp=2 (sync BN): the loss
+    within DPTP_RESNET_TOL["loss"] of no mesh, the head's weight and
+    bias gradients within DPTP_HEAD_GRAD_TOL of each tensor's largest
+    value against the same mesh with the head whole (no mesh for tp=2,
+    dp=2 for dp=2 tp=2), and against no mesh reported."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.models import resnet
+
+    cfg32 = dataclasses.replace(resnet.ResNetConfig.resnet50(),
+                                dtype="float32")
+    params, _ = resnet.init(torch.Generator(device="cuda").manual_seed(0),
+                            cfg32, device="cuda")
+    batch = resnet.make_batch(torch.Generator(device="cuda").manual_seed(1),
+                              cfg32, DPTP_RESNET_TP_B, hw=224,
+                              data_format="NHWC")
+
+    def loss32(p, b, g):
+        return resnet.loss_fn(p, cfg32, b, g, data_format="NHWC")
+
+    def head(mesh_axes=None):
+        got = _loss_grads(loss32, params, batch,
+                          _mesh(**mesh_axes) if mesh_axes else None)
+        return got["loss"], {k: got["grads"][k] for k in ("head.w", "head.b")}
+
+    def ratio(got, want):
+        return max(((got[k] - g).abs().max() /
+                    (DPTP_HEAD_GRAD_TOL * g.abs().max())).item()
+                   for k, g in want.items())
+
+    ref = head()
+    out = {"batch": DPTP_RESNET_TP_B, "parity": []}
+    for mesh_axes, whole in ((dict(tp=2), None), (dict(dp=2, tp=2),
+                                                  dict(dp=2))):
+        loss, grads = head(mesh_axes)
+        want = head(whole) if whole else ref
+        row = {"mesh": mesh_axes, "loss_got": loss, "loss_want": ref[0],
+               "loss_rel": abs(loss - ref[0]) / abs(ref[0]),
+               "head_grad_against": whole or "no mesh",
+               "head_grad_err_over_tol": ratio(grads, want[1]),
+               "head_grad_err_over_tol_no_mesh": ratio(grads, ref[1])}
+        check(row["loss_rel"] <= DPTP_RESNET_TOL["loss"]
+              and row["head_grad_err_over_tol"] <= 1.0,
+              f"dp-tp resnet head under {mesh_axes}: {row}")
+        out["parity"].append(row)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def vgg_train_flops_per_image(cfg):
+    """Training FLOPs of one image through VGG: 3x forward; forward = 2
+    x the convs' multiply-adds at each block's resolution (SAME 3x3) and
+    the fc layers'."""
+    from paddle_tpu_torch.models import vgg
+
+    hw, cin, macs = cfg.image_hw, 3, 0
+    for n_convs, cout in vgg.BLOCKS:
+        cout = cfg.channels(cout)
+        for _ in range(n_convs):
+            macs += hw * hw * 9 * cin * cout
+            cin = cout
+        hw //= 2
+    fc = max(64, int(4096 * cfg.width_mult))
+    macs += cin * hw * hw * fc + fc * fc + fc * cfg.n_classes
+    return 3 * 2 * macs
+
+
+def _vgg_loss(cfg):
+    """VGG's mean softmax cross-entropy (the model has none of its own):
+    the global batch's mean under dp."""
+    import torch
+
+    from paddle_tpu_torch.models import vgg
+    from paddle_tpu_torch.models.common import dp_mean
+
+    def loss_fn(p, b, g):
+        logp = torch.log_softmax(vgg.apply(p, cfg, b["img"]).float(), -1)
+        return -dp_mean(logp.gather(1, b["label"][:, None]))
+    return loss_fn
+
+
+def _dptp_vgg():
+    """(g) VGG-16 at 224^2 (phase 23's `VGGConfig.vgg16()`): under dp=2
+    with the default rules `make_train_step` refuses its params (fc2.w
+    ("mlp", "mlp") would map "tp" onto both dims, ROADMAP F14); under
+    dp=2 tp=2 with "mlp" mapped to None (fc1 and fc2 whole, the head
+    column-parallel over the classes), the f32 loss and every gradient
+    against no mesh at `_hold_loss_grads`' limits, then timed bf16
+    steps (mixed_bf16, AdamW)."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.models import vgg
+    from paddle_tpu_torch.parallel.sharding import DEFAULT_RULES
+    from paddle_tpu_torch.parallel.train import make_train_step
+
+    cfg = vgg.VGGConfig.vgg16()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params, axes = vgg.init(torch.Generator(device="cuda").manual_seed(23),
+                            cfg32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    batch = {"img": torch.randn(DPTP_VGG_B, 3, 224, 224, generator=gen,
+                                device="cuda"),
+             "label": torch.randint(0, cfg.n_classes, (DPTP_VGG_B,),
+                                    generator=gen, device="cuda")}
+    refused = None
+    try:
+        make_train_step(_vgg_loss(cfg32), _adamw, device="cuda",
+                        mesh=_mesh(dp=2), param_axes=axes)
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "'tp'" in refused and "fc2.w" in refused,
+          f"dp-tp vgg: make_train_step under dp=2 and the default rules "
+          f"did not refuse fc2.w: {refused}")
+    rules = DEFAULT_RULES.updated(mlp=None)
+    mesh_axes = dict(dp=2, tp=2)
+    ref = _loss_grads(_vgg_loss(cfg32), params, batch)
+    got = _loss_grads(_vgg_loss(cfg32), params, batch, _mesh(**mesh_axes),
+                      rules)
+    parity = {"mesh": mesh_axes, "rules": "mlp -> None",
+              **_hold_loss_grads(f"dp-tp vgg {mesh_axes}", got, ref)}
+    del ref, got
+    torch.cuda.empty_cache()
+    row = _train_run(f"vgg-16 {DPTP_VGG_B}x224^2 {mesh_axes} mlp whole",
+                     _vgg_loss(cfg), params, batch,
+                     vgg_train_flops_per_image(cfg), 2, 3, {},
+                     mesh=_mesh(**mesh_axes), param_axes=axes, rules=rules)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"refused_default_rules": refused, "parity": parity,
+            "runs": [row]}
+
+
+def _dptp_lenet():
+    """(h) LeNet (MNIST shapes, DPTP_LENET_B images) under dp=2 tp=2:
+    fc1 column-parallel over its 500 outputs, fc2 whole, the loss the
+    global batch's mean; the f32 loss and every gradient against no
+    mesh at `_hold_loss_grads`' limits."""
+    import torch
+
+    from paddle_tpu_torch.models import lenet
+
+    params, _ = lenet.init(torch.Generator(device="cuda").manual_seed(25),
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    batch = {"img": torch.randn(DPTP_LENET_B, 1, 28, 28, generator=gen,
+                                device="cuda"),
+             "label": torch.randint(0, 10, (DPTP_LENET_B,), generator=gen,
+                                    device="cuda")}
+
+    def loss_fn(p, b, g):
+        return lenet.loss_fn(p, b)
+
+    ref = _loss_grads(loss_fn, params, batch)
+    got = _loss_grads(loss_fn, params, batch, _mesh(dp=2, tp=2))
+    return {"batch": DPTP_LENET_B, "parity": {
+        "mesh": {"dp": 2, "tp": 2},
+        **_hold_loss_grads("dp-tp lenet dp=2 tp=2", got, ref)}}
+
+
+def _part_runs(part):
+    return part.get("runs") or ([part["run"]] if "run" in part else [])
+
+
 def phase_dp_tp():
     """Phase 25: graft paths 1-4 on in-process dp/tp rings (see
-    `_dptp_bert`, `_dptp_resnet`, `_dptp_gpt`, `_dptp_moe`)."""
+    `_dptp_bert`, `_dptp_resnet`, `_dptp_gpt`, `_dptp_moe`), then the
+    models the JAX package also trains under a mesh: Transformer-big,
+    ResNet-50's head under tp, VGG-16 and LeNet (`_dptp_transformer`,
+    `_dptp_resnet_tp`, `_dptp_vgg`, `_dptp_lenet`)."""
     t0 = time.perf_counter()
     out, counts = {}, collections.Counter()
     for name, part in (("bert", _dptp_bert), ("resnet", _dptp_resnet),
-                       ("gpt", _dptp_gpt), ("gpt_moe", _dptp_moe)):
+                       ("gpt", _dptp_gpt), ("gpt_moe", _dptp_moe),
+                       ("transformer", _dptp_transformer),
+                       ("resnet_tp", _dptp_resnet_tp), ("vgg", _dptp_vgg),
+                       ("lenet", _dptp_lenet)):
         t1 = time.perf_counter()
         out[name] = part()
         out[name]["seconds"] = time.perf_counter() - t1
-        runs = out[name].get("runs") or [out[name]["run"]]
-        for row in runs:
+        for row in _part_runs(out[name]):
             counts.update(row["launches"])
         print(json.dumps({"phase": "dp-tp", "part": name, **out[name]}))
     print(json.dumps({
@@ -4486,8 +4784,7 @@ def phase_dp_tp():
         "note": "every mesh's ranks run on this one card: no byte moves "
                 "between ranks",
         "step_ms": {row["run"]: row["step_ms_median"]
-                    for part in out.values()
-                    for row in (part.get("runs") or [part["run"]])},
+                    for part in out.values() for row in _part_runs(part)},
         "seconds": time.perf_counter() - t0}))
     return counts
 
@@ -5953,6 +6250,108 @@ def phase_observability():
 FLUID_DP_RANKS = 4
 FLUID_DP_TIMED = 10
 FLUID_DP_FLEET_STEPS = 20
+# (e) rule (d): a program of ops that only the gather rule takes, at
+# batch x width f32 on 2 and 4 ranks against one rank: the loss and
+# every gradient within GATHER_TOL of each tensor's largest value
+GATHER_B, GATHER_W = 256, 1024
+GATHER_RANKS = (2, 4)
+GATHER_TOL = 1e-6
+GATHER_OPS = ("softmax", "transpose2", "concat", "kron", "top_k_v2",
+              "kldiv_loss")
+
+
+def gather_rule_program(pt, B=GATHER_B, W=GATHER_W):
+    """x [B, W] through three fcs (64, 4 and 64 wide), then GATHER_OPS
+    across the batch: a softmax over dim 0, its transpose and its
+    concat with h along dim 0, kron of the 4-wide fc with a [2, 2]
+    param, top_k_v2 over dim 0 and a reducing kldiv_loss; the loss sums
+    the mean squares of an fc to one column of each (the softmax over
+    dim 0 sees h squared: it would not see h's bias, a shift of each
+    column), the top-k's mean and the KL term. SGD 0.1. Returns (main,
+    startup, loss)."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 28
+    L = pt.layers
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        blk = main.global_block()
+        x = L.data(name="x", shape=[B, W], dtype="float32",
+                   append_batch_size=False)
+        h = L.fc(x, size=64)
+        p = L.softmax(L.square(h), axis=0)
+        t = L.transpose(p, perm=[1, 0])
+        c = L.concat([p, h], axis=0)
+        kron = blk.create_var(name="kron_out", dtype="float32")
+        blk.append_op(type="kron", inputs={
+            "X": [L.fc(x, size=4)],
+            "Y": [L.create_parameter([2, 2], "float32", name="kron_w")]},
+            outputs={"Out": [kron]})
+        top = blk.create_var(name="top_out", dtype="float32")
+        blk.append_op(type="top_k_v2", inputs={"X": [h]},
+                      outputs={"Out": [top], "Indices": [blk.create_var(
+                          name="top_idx", dtype="int64")]},
+                      attrs={"k": 8, "axis": 0})
+        kl = L.kldiv_loss(L.log_softmax(h), L.softmax(L.fc(x, size=64)),
+                          reduction="mean")
+        loss = L.mean(top)
+        for v in (t, c, kron):
+            loss = L.elementwise_add(loss, L.mean(L.square(L.fc(v, 1))))
+        loss = L.elementwise_add(loss, kl)
+        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+def _fluid_gather(pt, exe, place):
+    """(e) `gather_rule_program` through CompiledProgram on each of
+    GATHER_RANKS against one rank from the same state: the loss and
+    every gradient within GATHER_TOL of each tensor's largest value,
+    every op of GATHER_OPS taken by rule (d); then each's step ms."""
+    from paddle_tpu_torch.core import lockstep
+
+    main, startup, loss = gather_rule_program(pt)
+    # kldiv_loss's target takes no gradient: its fc's params have none
+    params = [p.name for p in main.all_parameters()
+              if main.global_block().has_var(p.name + "@GRAD")]
+    fetch = [loss] + [n + "@GRAD" for n in params]
+    rng = np.random.RandomState(28)
+    feed = {"x": rng.standard_normal((GATHER_B, GATHER_W))
+            .astype("float32")}
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    want = exe.run(main, feed=feed, fetch_list=fetch,
+                   scope=_scope_copy(pt, scope))
+    one_scope = _scope_copy(pt, scope)
+    out = {"batch": GATHER_B, "width": GATHER_W, "limit": GATHER_TOL,
+           "step_ms": {"one_rank": _fluid_dp_ms(lambda: exe.run(
+               main, feed=feed, fetch_list=[loss], scope=one_scope))}}
+    real = lockstep.Lockstep._gather
+    for n in GATHER_RANKS:
+        prog = pt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, places=[place] * n)
+        gathered = []
+
+        def spy(self, op, envs, block, first_grad):
+            gathered.append(op.type)
+            return real(self, op, envs, block, first_grad)
+
+        lockstep.Lockstep._gather = spy
+        try:
+            got = exe.run(prog, feed=feed, fetch_list=fetch,
+                          scope=_scope_copy(pt, scope))
+        finally:
+            lockstep.Lockstep._gather = real
+        worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(got, want))
+        missed = sorted(set(GATHER_OPS) - set(gathered))
+        check(worst <= GATHER_TOL and not missed,
+              f"fluid dp (e) on {n} ranks: worst error {worst} of the "
+              f"largest value (limit {GATHER_TOL}); not gathered {missed}")
+        out[f"{n}_ranks"] = {"worst": worst, "gathered": sorted(
+            set(gathered))}
+        split_scope = _scope_copy(pt, scope)
+        out["step_ms"][f"compiled_{n}_ranks"] = _fluid_dp_ms(
+            lambda: exe.run(prog, feed=feed, fetch_list=[loss],
+                            scope=split_scope))
+    return out
 
 
 def _fluid_dp_parity(pt, label, run_split, feed, main, startup, loss):
@@ -6003,8 +6402,9 @@ def phase_fluid_dp():
     """Phase 28: (a) CompiledProgram.with_data_parallel on 4 in-process
     ranks of the card, (b) the GradAllReduce-transpiled program under
     SPMDRunner, each against one rank; (c) the fleet facade with
-    LocalSGD(k_steps=2); (d) step ms at 1 and 4 ranks, one traced step's
-    idle share, the spmd telemetry and perfwatch rows."""
+    LocalSGD(k_steps=2); (e) rule (d), the gather, on 2 and 4 ranks
+    against one (`_fluid_gather`); (d) step ms at 1 and 4 ranks, one
+    traced step's idle share, the spmd telemetry and perfwatch rows."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -6101,6 +6501,9 @@ def phase_fluid_dp():
         "loss_first": flosses[0], "loss_last": flosses[-1],
         "steps": FLUID_DP_FLEET_STEPS, "params_apart": diverged,
         "c_allreduce_sum": fstep.launches["c_allreduce_sum"]}
+
+    # (e) rule (d): the ops no cheaper rule takes, gathered
+    out["gather_rule"] = _fluid_gather(pt, exe, cuda)
 
     # (d) step ms: one rank, CompiledProgram and SPMDRunner at 4 ranks
     scope = pt.Scope()
@@ -6378,6 +6781,15 @@ def _leftovers():
     return {"threads": threads, "children": children}
 
 
+def _per_rank_times(row):
+    """A K1 or K2 row's times at PER_RANK_SHAPE (ms, plain_ms, bound_ms,
+    bound_by, library_ms)."""
+    t = row["timings"][PER_RANK_SHAPE]
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -6473,6 +6885,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            PER_RANK_SHAPE: _per_rank_times(row),
             # the delta pass runs as the prologue of K1's and K2's dq
             # kernels: its launches are their folds, its ms the folded dq
             # launch's time less the external-delta one's
@@ -6494,6 +6907,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            PER_RANK_SHAPE: _per_rank_times(row),
             # the kernel of each dtype: "sm90" bf16 and f16, "fma" f32
             "kernels": row["kernels"]})
     # K3's times at phase 17's block (8 x 1024 x 12 heads, bf16)

@@ -76,7 +76,7 @@ def _refuse_mesh():
 
     refuse_dp_tp("the fluid Executor (one rank; a data-parallel run is "
                  "CompiledProgram.with_data_parallel or parallel.SPMDRunner)",
-                 "20c-iii")
+                 "ROADMAP item 20c-iii")
 
 
 def _health_scan(site: str, named_values, level: int):

@@ -33,10 +33,23 @@ Two modes:
   of squares from the ranks' all-reduced sums, and its gradient the
   whole batch's sums of the cotangent's terms through them (the JAX
   package's batch norm is sync-BN under GSPMD, `ops/nn.py:379`). A
-  shape op is a row op only while dim 0 stays the batch. An op with a
-  split input that the rules do not classify raises, naming itself and
-  ROADMAP item 20c-v. A `c_*` op raises in this
-  mode: the JAX package's GSPMD step has no manual axis to reduce over.
+  shape op is a row op only while dim 0 stays the batch. (d) Any other
+  op with a split input (a shape op that moves or mixes dim 0, a
+  softmax or top_k over it, `kron`, `bmm`, `instance_norm` on a batch
+  of 1 a rank, a normalizing or reducing loss, a control-flow op, ...)
+  gathers: each split input is joined over the ranks in rank order,
+  the op runs once over the whole batch, and every rank gets its
+  outputs, an output whose dim 0 is a split input's whole batch split
+  again by the ranks' rows, any other whole. Its gradient op gathers
+  too: the gradient of a split input is split by rows, that of a
+  replicated input is whole already (no all-reduce, unlike (c)). A
+  split tensor's ranks' rows joined are the whole tensor under every
+  rule, so a re-split output is exact for whatever reads it: a row
+  rule acts on each row, (a) and (b) sum over all of them, any other
+  op gathers again. The cheaper rules keep precedence. A random op
+  other than `dropout` with a split input raises: its draws over the
+  whole batch are not split by rank. A `c_*` op raises in this mode:
+  the JAX package's GSPMD step has no manual axis to reduce over.
 """
 
 from __future__ import annotations
@@ -154,11 +167,13 @@ def _row_problem(op_type, attrs, vals, split) -> Optional[str]:
     x = vals.get("X")
     if op_type.startswith("elementwise_") or op_type in COMPARISONS:
         y = vals["Y"]
+        axis = int(attrs.get("axis", -1))
+        start = axis if axis != -1 else x.ndim - y.ndim
         if "Y" not in split and y.ndim:
-            axis = int(attrs.get("axis", -1))
-            start = axis if axis != -1 else x.ndim - y.ndim
             if start == 0 and y.shape[0] != 1:
                 return "its replicated Y spans the batch dim"
+        elif "Y" in split and start != 0:
+            return "its split Y meets X past X's rows"
     elif op_type in ("softmax", "log_softmax") and _axis_is_batch(attrs, x):
         return "it normalizes over the batch dim"
     elif op_type in ("concat", "split", "stack") and \
@@ -381,9 +396,9 @@ class Lockstep:
     def _refuse(self, op, names, why):
         raise NotImplementedError(
             f"{op.type}: no data-parallel rule for this op with the "
-            f"batch-split input(s) {sorted(set(names))} ({why}); ROADMAP "
-            f"item 20c-v. Running it on each rank's rows would give "
-            f"another result than the whole batch does")
+            f"batch-split input(s) {sorted(set(names))} ({why}). Running "
+            f"it on each rank's rows would give another result than the "
+            f"whole batch does")
 
     def _row_ok(self, op_type, op, env, prefix=""):
         """None when `op_type`'s row rule takes this op's inputs (those
@@ -425,24 +440,63 @@ class Lockstep:
             if first_grad:
                 return self._batch_reduce_grad(op, envs, block, base)
             return self._batch_reduce(op, envs)
-        if t == "accuracy":
+        if t == "accuracy" and all(
+                n in self.split for s in ("Indices", "Label")
+                for n in op.inputs.get(s, [])):
             return self._accuracy(op, envs, block)
-        if base in BATCH_NORMS:
+        if base in BATCH_NORMS and self._bn_takes(op, first_grad):
             return self._batch_norm(op, envs, block, first_grad)
         if base == "dropout":
             return self._dropout(op, envs, block, first_grad)
         if _is_random(t):
-            self._refuse(op, split_in, "its draws over the whole batch "
-                         "cannot be split by rank")
-        why = self._row_ok(base, op, envs[0],
-                           GRAD_PREFIX_IN if first_grad else "")
-        if why is not None:
-            self._refuse(op, split_in, why)
+            self._refuse(op, split_in, "a random op's draws over the whole "
+                         "batch are not split by rank; only dropout's are")
+        if self._row_ok(base, op, envs[0],
+                        GRAD_PREFIX_IN if first_grad else "") is not None:
+            return self._gather(op, envs, block, first_grad)
         self._per_rank(op, envs, block)
         if not first_grad:
             self.split.update(outs)
             return
         self._grad_outputs(op, envs)
+
+    def _gather(self, op, envs, block, first_grad):
+        """Rule (d): `op` once over the whole batch. Its split inputs
+        joined over the ranks in rank order, it runs on rank 0's env
+        (and rng key); each output it wrote goes to every rank, split
+        by the ranks' rows where it is the gradient of a split input
+        (a gradient op) or where its dim 0 is a split input's whole
+        batch (any other op), else whole."""
+        env, sizes, rows = dict(envs[0]), set(), set()
+        for n in dict.fromkeys(n for n in op.input_names()
+                               if n and n in self.split):
+            parts = self._values(envs, n, op)
+            if not all(isinstance(p, torch.Tensor) for p in parts):
+                self._refuse(op, [n], "its split input is no tensor")
+            env[n] = self.ring.join(parts, 0)
+            sizes.add(env[n].shape[0])
+        if first_grad:
+            rows = {dst for slot, dsts in op.outputs.items()
+                    if slot.startswith(GRAD_PREFIX_IG)
+                    for src, dst in zip(op.inputs.get(
+                        GRAD_PREFIX_IN + slot[len(GRAD_PREFIX_IG):], []),
+                        dsts) if dst and src in self.split}
+        outs = [n for n in op.output_names() if n]
+        before = {n: env.get(n) for n in outs}
+        self._run(op, env, 0, block)
+        n_ranks = self.ring.size
+        for n in dict.fromkeys(outs):
+            v = env.get(n)
+            if v is before[n]:
+                continue
+            tensor = isinstance(v, torch.Tensor) and v.ndim > 0 and \
+                v.shape[0] % n_ranks == 0
+            if tensor and (n in rows if first_grad else v.shape[0] in sizes):
+                for e, part in zip(envs, self.ring.split(v, 0)):
+                    e[n] = part
+                self.split.add(n)
+            else:
+                self._bind(envs, n, v)
 
     def _grad_outputs(self, op, envs):
         """After a gradient op ran on every rank: the gradient of a split
@@ -545,11 +599,8 @@ class Lockstep:
         self.split.update(n for n in op.output_names() if n)
 
     def _accuracy(self, op, envs, block):
-        """Rule (a) for `accuracy`: the counts summed over the ranks."""
-        names = [n for s in ("Indices", "Label") for n in op.inputs.get(s, [])]
-        if not all(n in self.split for n in names):
-            self._refuse(op, [n for n in names if n in self.split],
-                         "its indices and labels must both be split")
+        """Rule (a) for `accuracy` (its indices and labels split): the
+        counts summed over the ranks."""
         self._per_rank(op, envs, block)
         sums = {}
         for slot in ("Correct", "Total"):
@@ -590,6 +641,14 @@ class Lockstep:
         return registry.KernelCtx(op, is_test=self.is_test,
                                   device=self.device)
 
+    def _bn_takes(self, op, grad) -> bool:
+        """The batch norms' rule takes a split X beside replicated
+        per-channel inputs; rule (d) anything else."""
+        prefix = GRAD_PREFIX_IN if grad else ""
+        return op.inputs[prefix + "X"][0] in self.split and not any(
+            n in self.split for slot in ("Scale", "Bias", "Mean", "Variance")
+            for n in op.inputs.get(prefix + slot, []))
+
     def _batch_norm(self, op, envs, block, grad):
         """Rule for `batch_norm`: under is_test or use_global_stats a row
         op (the running stats normalize each row); in training the
@@ -598,14 +657,6 @@ class Lockstep:
         one tensor on every rank."""
         prefix = GRAD_PREFIX_IN if grad else ""
         x_name = op.inputs[prefix + "X"][0]
-        if x_name not in self.split:
-            self._refuse(op, [n for n in op.input_names() if n in self.split],
-                         "its X is replicated beside a split input")
-        repl = [n for slot in ("Scale", "Bias", "Mean", "Variance")
-                for n in op.inputs.get(prefix + slot, []) if n]
-        if any(n in self.split for n in repl):
-            self._refuse(op, [n for n in repl if n in self.split],
-                         "its per-channel inputs are split")
         if not self._bn_uses_batch(op):
             return self._bn_rows(op, envs, block, grad)
         if grad:

@@ -17,7 +17,11 @@ summed by `ring.all_reduce`), and the vocab axis of an embedding is
 split by rows (ids outside a rank's rows masked, the lookups summed).
 A rule of None for the axis keeps the param whole. A param axis other
 than those three that the rules map to a mesh axis larger than 1 (for
-example "embed" -> "tp") raises: no helper splits it. Each helper holds
+example "embed" -> "tp") raises: no helper splits it. So do a spec
+that maps one mesh axis onto two dims of a param (VGG's `fc2.w`,
+("mlp", "mlp"), under rules that map "mlp" to "tp") and a split dim
+that its ring does not divide, where the JAX package's placement
+refuses them. Each helper holds
 whole tensors on the ring and returns the whole result, so a model's
 math is the same with or without a mesh, up to the order of the sums.
 """
@@ -33,7 +37,8 @@ import torch.nn.functional as F
 
 from ..ops.int8 import conv2d_int8, conv_operands
 from ..parallel.mesh import current_mesh
-from ..parallel.sharding import axis_ring, current_rules, in_manual_region
+from ..parallel.sharding import (axis_ring, check_param_spec, current_rules,
+                                 in_manual_region)
 
 Params = Dict[str, torch.Tensor]
 ParamAxes = Dict[str, Tuple[Optional[str], ...]]
@@ -160,9 +165,13 @@ def dp_mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean() if batch_ring() is None else dp_sum(x) / x.numel()
 
 
-def _param_split(name: str, axes) -> Tuple[Optional[int], object]:
-    """(dim, ring) of the one dim of param `name` (logical `axes`) that
-    the rules split over a ring larger than 1, or (None, None)."""
+def _param_split(name: str, axes, shape) -> Tuple[Optional[int], object]:
+    """(dim, ring) of the one dim of param `name` (logical `axes`, of
+    `shape`) that the rules split over a ring larger than 1, or (None,
+    None). A spec that maps one mesh axis onto two dims raises
+    ValueError whatever the axis's size (`check_param_spec`, as the JAX
+    package's placement refuses it), and so does a split dim that its
+    ring does not divide."""
     m = current_mesh()
     if m is None:
         return None, None
@@ -177,7 +186,12 @@ def _param_split(name: str, axes) -> Tuple[Optional[int], object]:
                 f"the rule {a!r} -> {ax!r} splits {name} along {a!r}, "
                 f"which no helper of the port splits (they split "
                 f"{list(TP_AXES)}); map {a!r} to None")
+        if shape[d] % m.shape[ax]:
+            raise ValueError(
+                f"dim {d} ({a!r}) of {name}, of size {shape[d]}, does not "
+                f"split over mesh axis {ax!r} of {m.shape[ax]}")
         found = (d, m.rings[ax])
+    check_param_spec(name, axes, rules)
     return found
 
 
@@ -188,7 +202,7 @@ def tp_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     (the bias split with it, `act` on each rank's slice), row-parallel
     on a split in axis (x's last dim split with it, the partial
     products all-reduced, the bias added once), whole with neither."""
-    d, ring = _param_split(name, axes)
+    d, ring = _param_split(name, axes, w.shape)
     w = w.to(x.dtype)
     if ring is None:
         y = x @ w
@@ -221,7 +235,7 @@ def vocab_embed(w: torch.Tensor, ids: torch.Tensor, name: str,
     r looks up the ids inside its rows (zeros elsewhere) and
     `ring.all_reduce` adds the ranks' lookups, each id's row coming
     from the one rank that holds it."""
-    _, ring = _param_split(name, axes)
+    _, ring = _param_split(name, axes, w.shape)
     if ring is None:
         return w[ids]
     parts = ring.split(w, 0)
@@ -242,7 +256,7 @@ def vocab_logits(x: torch.Tensor, w: torch.Tensor,
                  axes) -> torch.Tensor:
     """`x @ w.T (+ bias)` for a tied embedding `w` [vocab, embed]: on a
     split vocab, each rank's logits over its rows, joined."""
-    _, ring = _param_split(name, axes)
+    _, ring = _param_split(name, axes, w.shape)
     wt = w.to(x.dtype)
     if ring is None:
         y = x @ wt.T

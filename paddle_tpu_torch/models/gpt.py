@@ -41,8 +41,9 @@ Under a mesh (`parallel/mesh.py::mesh_guard`):
   microbatches split over dp (so a pipelined MoE's capacity is a dp
   shard's), and `lm_loss` the global batch's mean.
 The decode phases share the blocks' qkv and MLP (`_qkv`, `_mlp`) and
-raise under dp or tp larger than 1 (ROADMAP item 20c-iv): their
-attention over the KV cache has no split.
+raise under dp or tp larger than 1: the JAX package's serving path
+(`serving/decode.py`) builds no mesh and its decode phases no
+`shard()`, so there is no split of them to port.
 """
 
 from __future__ import annotations
@@ -124,7 +125,9 @@ def _refuse_for_decode(cfg: GPTConfig):
         raise ValueError("mixture-of-experts GPT configs have no decode "
                          "path (the JAX engine refuses them at boot): "
                          "serve a dense config (n_experts=0)")
-    refuse_dp_tp("GPT's decode paths", "20c-iv")
+    refuse_dp_tp("GPT's decode paths",
+                 "the JAX package's serving path, serving/decode.py, runs "
+                 "on no mesh: there is no split of them to port")
 
 
 # The logical axes of the weights that `models/common.py`'s helpers

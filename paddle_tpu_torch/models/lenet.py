@@ -4,6 +4,12 @@
 Both API levels, as there: `build_program` builds the fluid static
 graph (run by `Executor`), and `init`/`apply`/`loss_fn` are the native
 path on a flat param dict with the JAX package's names and layouts.
+
+Under a mesh (`models/common.py`'s helpers, by `SPLIT_AXES`, which
+`init` records): `fc1` ("embed", "mlp") is column-parallel over tp,
+`fc2` ("embed", None) whole, taking fc1's joined output as GSPMD
+gathers it for the JAX package; `loss_fn` is the global batch's mean
+under dp.
 """
 
 from __future__ import annotations
@@ -13,8 +19,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import refuse_dp_tp
-from .common import ParamAxes, Params, ParamStore, conv2d_nhwc, dense
+from .common import (ParamAxes, Params, ParamStore, conv2d_nhwc, dp_mean,
+                     tp_dense)
+
+# the logical axes of the fc weights, which `init` records and `apply`
+# hands to `tp_dense`: one source for both
+SPLIT_AXES = {"fc1": ("embed", "mlp"), "fc2": ("embed", None)}
 
 
 def build_program(pt, img_shape=(1, 28, 28), n_classes=10, lr=0.01):
@@ -46,21 +56,20 @@ def init(generator: torch.Generator, n_classes: int = 10, device=None
     s = ParamStore(generator, resolve_device(device))
     s.conv("conv1", 5, 5, 1, 20)
     s.conv("conv2", 5, 5, 20, 50)
-    s.dense("fc1", 4 * 4 * 50, 500)
-    s.dense("fc2", 500, n_classes, axes=("embed", None))
+    s.dense("fc1", 4 * 4 * 50, 500, axes=SPLIT_AXES["fc1"])
+    s.dense("fc2", 500, n_classes, axes=SPLIT_AXES["fc2"])
     return s.params, s.axes
 
 
 def apply(params: Params, img: torch.Tensor) -> torch.Tensor:
     """img: [B, 1, 28, 28] -> logits [B, 10]."""
-    refuse_dp_tp("lenet.apply", "20c-iv")
     x = img.permute(0, 2, 3, 1)  # NHWC, as the JAX package
     for name in ("conv1", "conv2"):
         x = torch.relu(conv2d_nhwc(x, params[f"{name}.w"], padding="VALID"))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
     x = x.reshape(x.shape[0], -1)
-    x = dense(params, "fc1", x, act=torch.relu)
-    return dense(params, "fc2", x)
+    x = tp_dense(params, "fc1", x, SPLIT_AXES["fc1"], act=torch.relu)
+    return tp_dense(params, "fc2", x, SPLIT_AXES["fc2"])
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], rng=None
@@ -70,4 +79,4 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], rng=None
     logits = apply(params, batch["img"]).to(torch.float32)
     labels = batch["label"].reshape(-1)
     logp = torch.log_softmax(logits, dim=-1)
-    return -torch.take_along_dim(logp, labels[:, None], 1).mean()
+    return -dp_mean(torch.take_along_dim(logp, labels[:, None], 1))

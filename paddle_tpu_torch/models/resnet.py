@@ -24,9 +24,10 @@ each dp rank sums its shard of the batch and its squares, the ranks'
 sums are all-reduced (`models/common.py::dp_sum`), and the mean and
 variance come from the totals, as `BuildStrategy.sync_batch_norm`
 reduces them and GSPMD gives the JAX package. The EMA and the loss are
-then the global batch's too. tp has no split here yet: a mesh whose
-"vocab" (the head's classes) ring is larger than 1 raises (ROADMAP
-item 20c-iv).
+then the global batch's too. Under tp the head (`SPLIT_AXES`, which
+`init` records) is column-parallel over the classes ("vocab"), as
+GSPMD splits it for the JAX package, and `loss_fn`'s log-softmax runs
+over the class ranks (`vocab_log_softmax`), in f32 as with no mesh.
 """
 
 from __future__ import annotations
@@ -41,13 +42,18 @@ import torch.nn.functional as F
 
 from ..kernels import fused_dense_bn as FB
 from ..parallel.mesh import current_mesh
-from .common import (ParamAxes, Params, ParamStore, axis_ring, batch_ring,
-                     conv2d_nhwc_auto, dense, dp_mean, dp_sum)
+from .common import (ParamAxes, Params, ParamStore, batch_ring,
+                     conv2d_nhwc_auto, dp_mean, dp_sum, tp_dense,
+                     vocab_log_softmax)
 
-__all__ = ["DEPTHS", "ResNetConfig", "init", "param_shapes", "apply",
-           "loss_fn", "make_batch"]
+__all__ = ["DEPTHS", "SPLIT_AXES", "ResNetConfig", "init", "param_shapes",
+           "apply", "loss_fn", "make_batch"]
 
 DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+# the logical axes of the head, which `init` records and `apply` hands
+# to `tp_dense`: one source for both
+SPLIT_AXES = {"head": ("embed", "vocab")}
 
 
 @dataclasses.dataclass
@@ -113,7 +119,7 @@ def init(generator: torch.Generator, cfg: ResNetConfig, device=None
         if bi == 0:
             s.conv(f"{p}.proj", 1, 1, cin, cout)
             s.bn(f"{p}.proj.bn", cout)
-    s.dense("head", cout, cfg.n_classes, axes=("embed", "vocab"))
+    s.dense("head", cout, cfg.n_classes, axes=SPLIT_AXES["head"])
     return s.params, s.axes
 
 
@@ -239,9 +245,6 @@ def apply(params: Params, cfg: ResNetConfig, img: torch.Tensor,
     else:
         raise ValueError(f"data_format must be NCHW or NHWC, got "
                          f"{data_format!r}")
-    if axis_ring("vocab") is not None:
-        raise NotImplementedError(
-            "resnet.apply has no tp split of its head (ROADMAP item 20c-iv)")
     upd: Dict[str, torch.Tensor] = {}
     x = conv2d_nhwc_auto(params, "stem", x, stride=2)
     x = F.relu(_bn(params, upd, "stem.bn", x, cfg, train))
@@ -269,7 +272,7 @@ def apply(params: Params, cfg: ResNetConfig, img: torch.Tensor,
                     conv2d_nhwc_auto(params, f"{p}.conv3", h), cfg, train)
         x = F.relu(h + sc)
     x = x.mean((1, 2))                   # global average pool
-    return dense(params, "head", x.float()), upd
+    return tp_dense(params, "head", x.float(), SPLIT_AXES["head"]), upd
 
 
 def loss_fn(params: Params, cfg: ResNetConfig, batch, rng=None,
@@ -280,7 +283,7 @@ def loss_fn(params: Params, cfg: ResNetConfig, batch, rng=None,
     logits, upd = apply(params, cfg, batch["img"], train=train,
                         data_format=data_format)
     labels = batch["label"].reshape(-1).long()
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = vocab_log_softmax(logits.float())
     return -dp_mean(logp.gather(1, labels[:, None])), upd
 
 

@@ -12,6 +12,23 @@ flash-attention kernels (`ops.attention.mha`); the decoder's causal
 self-attention runs K1. As in the reference, `cfg.dropout` is not
 applied anywhere and `nmt_loss`'s `rng` is unused.
 
+Under dp and tp (`models/common.py`'s helpers, by `SPLIT_AXES`, which
+`init` records, as the JAX package's GSPMD splits its params by their
+`init` axes): the embeddings' vocab rows are split (`vocab_embed`),
+each attention's q, k and v are column-parallel over the heads and its
+`o` row-parallel, each MLP's `up` column-parallel and its `down`
+row-parallel, and `decode`'s tied output is vocab-parallel
+(`vocab_logits`). Attention runs once per (dp, tp) rank on its rows and
+heads (`mha`: the causal decoder self-attention on K1 by the
+"splash_shardmap" route, the masked calls on K2 with the padding mask
+split by rows). `nmt_loss` takes its log-probs over the vocab ranks
+and divides the sum of the valid tokens' losses over the dp ranks by
+the global count of valid tokens, which differs between the ranks'
+rows. `encode` checks its batch against dp (`shard`, as the JAX
+package's constraint there), so `beam_search` and `greedy_decode`
+under dp need their sources, and so their B x beam rows, to split
+over it.
+
 `beam_search` is a Python loop over `max_len` steps with no KV cache,
 re-running `decode` on the whole prefix, as the reference's `lax.scan`
 does. Its top-k and its final ordering break ties as `lax.top_k` and
@@ -31,13 +48,33 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import mha
-from ..parallel.mesh import refuse_dp_tp, refuse_process_ring
-from .common import ParamAxes, Params, ParamStore, dense, gelu, layer_norm
+from ..parallel.mesh import refuse_process_ring
+from ..parallel.sharding import shard
+from .common import (ParamAxes, Params, ParamStore, dp_sum, gelu, layer_norm,
+                     tp_dense, vocab_embed, vocab_log_softmax, vocab_logits)
 
-__all__ = ["TransformerConfig", "init", "encode", "decode", "nmt_loss",
-           "beam_search", "greedy_decode", "make_batch"]
+__all__ = ["TransformerConfig", "SPLIT_AXES", "init", "encode", "decode",
+           "nmt_loss", "beam_search", "greedy_decode", "make_batch"]
 
 _NEG = -1e9
+
+# The logical axes of the weights that `models/common.py`'s helpers
+# split, by the last part of the name ("dec0.cross.q" -> "q"): `init`
+# records them and the ops hand them to the helpers, one source for
+# both.
+SPLIT_AXES = {"src_emb": ("vocab", "embed"), "tgt_emb": ("vocab", "embed"),
+              "q": ("embed", "heads"), "k": ("embed", "heads"),
+              "v": ("embed", "heads"), "o": ("heads", "embed"),
+              "up": ("embed", "mlp"), "down": ("mlp", "embed")}
+
+
+def _axes(name: str):
+    return SPLIT_AXES[name.rsplit(".", 1)[-1]]
+
+
+def _dense(params: Params, name: str, x: torch.Tensor, act=None):
+    """`tp_dense` of the dense `name`, split by its `SPLIT_AXES`."""
+    return tp_dense(params, name, x, _axes(name), act)
 
 
 @dataclasses.dataclass
@@ -99,19 +136,18 @@ def init(generator: torch.Generator, cfg: TransformerConfig, device=None
 
     s = ParamStore(generator, resolve_device(device))
     H = cfg.hidden
-    s.embedding("src_emb", cfg.src_vocab, H, axes=("vocab", "embed"))
-    s.embedding("tgt_emb", cfg.tgt_vocab, H, axes=("vocab", "embed"))
+    s.embedding("src_emb", cfg.src_vocab, H, axes=SPLIT_AXES["src_emb"])
+    s.embedding("tgt_emb", cfg.tgt_vocab, H, axes=SPLIT_AXES["tgt_emb"])
     s.embedding("pos", cfg.max_len, H, axes=(None, "embed"))
 
     def attn(prefix):
-        for proj in "qkv":
-            s.dense(f"{prefix}.{proj}", H, H, axes=("embed", "heads"))
-        s.dense(f"{prefix}.o", H, H, axes=("heads", "embed"))
+        for proj in "qkvo":
+            s.dense(f"{prefix}.{proj}", H, H, axes=SPLIT_AXES[proj])
         s.layer_norm(f"{prefix}.ln", H)
 
     def mlp(prefix):
-        s.dense(f"{prefix}.up", H, cfg.mlp_dim, axes=("embed", "mlp"))
-        s.dense(f"{prefix}.down", cfg.mlp_dim, H, axes=("mlp", "embed"))
+        s.dense(f"{prefix}.up", H, cfg.mlp_dim, axes=SPLIT_AXES["up"])
+        s.dense(f"{prefix}.down", cfg.mlp_dim, H, axes=SPLIT_AXES["down"])
         s.layer_norm(f"{prefix}.ln", H)
 
     for i in range(cfg.enc_layers):
@@ -133,11 +169,11 @@ def _mha(params: Params, prefix: str, q_in: torch.Tensor,
     B, Tq, H = q_in.shape
     Tk = kv_in.shape[1]
     nh, hd = cfg.heads, cfg.head_dim
-    q = dense(params, f"{prefix}.q", q_in).reshape(B, Tq, nh, hd)
-    k = dense(params, f"{prefix}.k", kv_in).reshape(B, Tk, nh, hd)
-    v = dense(params, f"{prefix}.v", kv_in).reshape(B, Tk, nh, hd)
+    q = _dense(params, f"{prefix}.q", q_in).reshape(B, Tq, nh, hd)
+    k = _dense(params, f"{prefix}.k", kv_in).reshape(B, Tk, nh, hd)
+    v = _dense(params, f"{prefix}.v", kv_in).reshape(B, Tk, nh, hd)
     ctx = mha(q, k, v, mask=mask, causal=causal, scale=1.0 / math.sqrt(hd))
-    return dense(params, f"{prefix}.o", ctx.reshape(B, Tq, H))
+    return _dense(params, f"{prefix}.o", ctx.reshape(B, Tq, H))
 
 
 def _pad_mask(lengths: torch.Tensor, T: int,
@@ -150,11 +186,11 @@ def _pad_mask(lengths: torch.Tensor, T: int,
 
 def _embed(params: Params, cfg: TransformerConfig, table: str,
            ids: torch.Tensor) -> torch.Tensor:
-    what = "transformer " + ("encode" if table == "src_emb" else "decode")
-    refuse_process_ring(what)
-    refuse_dp_tp(what, "20c-iv")
+    refuse_process_ring("transformer " + ("encode" if table == "src_emb"
+                                          else "decode"))
     T = ids.shape[1]
-    x = params[f"{table}.w"][ids] * math.sqrt(cfg.hidden) \
+    x = vocab_embed(params[f"{table}.w"], ids, f"{table}.w",
+                    SPLIT_AXES[table]) * math.sqrt(cfg.hidden) \
         + params["pos.w"][:T][None]
     return x.to(cfg.torch_dtype)
 
@@ -162,15 +198,16 @@ def _embed(params: Params, cfg: TransformerConfig, table: str,
 def encode(params: Params, cfg: TransformerConfig, src_ids: torch.Tensor,
            src_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, S] source ids -> [B, S, H] memory in cfg.dtype."""
-    x = _embed(params, cfg, "src_emb", src_ids)
+    x = shard(_embed(params, cfg, "src_emb", src_ids),
+              ("batch", "seq", "embed"))
     mask = _pad_mask(src_len, src_ids.shape[1]) if src_len is not None \
         else None
     for i in range(cfg.enc_layers):
         p = f"enc{i}"
         a = _mha(params, f"{p}.self", x, x, cfg, mask=mask)
         x = layer_norm(params, f"{p}.self.ln", x + a)
-        h = dense(params, f"{p}.mlp.up", x, act=gelu)
-        h = dense(params, f"{p}.mlp.down", h)
+        h = _dense(params, f"{p}.mlp.up", x, act=gelu)
+        h = _dense(params, f"{p}.mlp.down", h)
         x = layer_norm(params, f"{p}.mlp.ln", x + h)
     return layer_norm(params, "enc_ln", x)
 
@@ -189,11 +226,12 @@ def decode(params: Params, cfg: TransformerConfig, tgt_ids: torch.Tensor,
         x = layer_norm(params, f"{p}.self.ln", x + a)
         c = _mha(params, f"{p}.cross", x, memory, cfg, mask=cross_mask)
         x = layer_norm(params, f"{p}.cross.ln", x + c)
-        h = dense(params, f"{p}.mlp.up", x, act=gelu)
-        h = dense(params, f"{p}.mlp.down", h)
+        h = _dense(params, f"{p}.mlp.up", x, act=gelu)
+        h = _dense(params, f"{p}.mlp.down", h)
         x = layer_norm(params, f"{p}.mlp.ln", x + h)
     x = layer_norm(params, "dec_ln", x)
-    return x @ params["tgt_emb.w"].T.to(x.dtype)
+    return vocab_logits(x, params["tgt_emb.w"], None, "tgt_emb.w",
+                        SPLIT_AXES["tgt_emb"])
 
 
 def nmt_loss(params: Params, cfg: TransformerConfig,
@@ -217,12 +255,13 @@ def nmt_loss(params: Params, cfg: TransformerConfig,
     else:
         valid = torch.ones(targets.shape, dtype=torch.bool,
                            device=targets.device)
-    logp = F.log_softmax(logits, dim=-1)
+    logp = vocab_log_softmax(logits)
     eps = label_smoothing
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     smooth = -logp.mean(-1)
     tok_loss = (1 - eps) * nll + eps * smooth
-    return (tok_loss * valid).sum() / valid.sum().clamp(min=1)
+    # the global batch's: dp ranks' sums over the global count
+    return dp_sum(tok_loss * valid) / dp_sum(valid).clamp(min=1)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,6 +8,15 @@ by `quantize_conv_weights_int8` run the int8 path
 (`common.conv2d_nhwc_auto`). Params carry the JAX package's names,
 shapes and scales (not its values: torch and jax draw different
 numbers), so JAX params load through `convert.params_from_numpy`.
+
+Under a mesh the fc layers split by their `init` axes (`SPLIT_AXES`,
+through `models/common.py::tp_dense`). Under the default rules
+`fc2.w` ("mlp", "mlp") maps "tp" onto both of its dims, which the JAX
+package's placement refuses (`DuplicateSpecError`) and the port's
+`check_param_spec` too, so VGG trains on a mesh only under rules that
+map "mlp" to None: there `fc1` and `fc2` are whole and the head is
+column-parallel over the classes ("vocab"), on its f32 input. Under dp
+the model has no reduction over the batch of its own.
 """
 
 from __future__ import annotations
@@ -18,11 +27,15 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import refuse_dp_tp
-from .common import (ParamAxes, Params, ParamStore, conv2d_nhwc_auto, dense,
-                     maxpool2x2_nhwc)
+from .common import (ParamAxes, Params, ParamStore, conv2d_nhwc_auto,
+                     maxpool2x2_nhwc, tp_dense)
 
-__all__ = ["BLOCKS", "VGGConfig", "init", "apply"]
+__all__ = ["BLOCKS", "SPLIT_AXES", "VGGConfig", "init", "apply"]
+
+# the logical axes of the fc weights, which `init` records and `apply`
+# hands to `tp_dense`: one source for both
+SPLIT_AXES = {"fc1": ("embed", "mlp"), "fc2": ("mlp", "mlp"),
+              "head": ("mlp", "vocab")}
 
 # channels per conv block (VGG-16: 2-2-3-3-3 convs)
 BLOCKS = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
@@ -68,9 +81,9 @@ def init(generator: torch.Generator, cfg: VGGConfig, device=None
             cin = cout
     feat_hw = cfg.image_hw // 32        # 5 stride-2 pools
     fc_dim = max(64, int(4096 * cfg.width_mult))
-    s.dense("fc1", cin * feat_hw * feat_hw, fc_dim, axes=("embed", "mlp"))
-    s.dense("fc2", fc_dim, fc_dim, axes=("mlp", "mlp"))
-    s.dense("head", fc_dim, cfg.n_classes, axes=("mlp", "vocab"))
+    s.dense("fc1", cin * feat_hw * feat_hw, fc_dim, axes=SPLIT_AXES["fc1"])
+    s.dense("fc2", fc_dim, fc_dim, axes=SPLIT_AXES["fc2"])
+    s.dense("head", fc_dim, cfg.n_classes, axes=SPLIT_AXES["head"])
     return s.params, s.axes
 
 
@@ -82,7 +95,6 @@ def apply(params: Params, cfg: VGGConfig, img: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"VGG built for {cfg.image_hw}x{cfg.image_hw} inputs, got "
             f"{img.shape[2]}x{img.shape[3]} (fc1 fan-in is size-bound)")
-    refuse_dp_tp("vgg.apply", "20c-iv")
     adt = cfg.torch_dtype
     x = img.permute(0, 2, 3, 1).to(adt).contiguous()     # NHWC
     for bi, (n_convs, _) in enumerate(BLOCKS):
@@ -91,6 +103,6 @@ def apply(params: Params, cfg: VGGConfig, img: torch.Tensor) -> torch.Tensor:
             x = F.relu(x + params[f"b{bi}.c{ci}.b"].to(adt))
         x = maxpool2x2_nhwc(x)
     x = x.reshape(x.shape[0], -1)
-    x = F.relu(dense(params, "fc1", x))
-    x = F.relu(dense(params, "fc2", x))
-    return dense(params, "head", x.float())
+    x = F.relu(tp_dense(params, "fc1", x, SPLIT_AXES["fc1"]))
+    x = F.relu(tp_dense(params, "fc2", x, SPLIT_AXES["fc2"]))
+    return tp_dense(params, "head", x.float(), SPLIT_AXES["head"])

@@ -63,8 +63,10 @@ dp, N by tp, T and Tk multiples of 128, the head dim a multiple of 64.
 It runs the single-device route once per (dp, tp) rank on its
 [B/dp, T, N/tp, H] block and joins the blocks, with no collective
 (attention is independent across batch and heads). A masked call under
-tp runs the single-device route (K2 on CUDA) once per tp rank on its
-heads, as GSPMD splits the JAX package's `_xla_mha` by heads.
+dp or tp runs the single-device route (K2 on CUDA) once per (dp, tp)
+rank on its rows (where dp divides B) and heads (where tp divides N),
+the mask split with them, as GSPMD splits the JAX package's `_xla_mha`
+by batch and heads.
 
 Inside the `pp` pipeline's manual region
 (`parallel/sharding.py::in_manual_region`) no call takes the sp or the
@@ -169,10 +171,21 @@ def _shardmap_route(q, k, mask) -> bool:
                                 or k.shape[1] % 128 or H % 64)
 
 
-def _per_rank(fn, q, k, v, mask=None, batch=True):
+def _rank_rings(q):
+    """(batch ring, heads ring) of a call on `q`: the dp and tp rings
+    where they divide B and N, else None."""
+    b_ring, h_ring = axis_ring("batch"), axis_ring("heads")
+    return (b_ring if b_ring is not None and q.shape[0] % b_ring.size == 0
+            else None,
+            h_ring if h_ring is not None and q.shape[2] % h_ring.size == 0
+            else None)
+
+
+def _per_rank(fn, q, k, v, mask=None):
     """`fn(q, k, v, mask)` once per (dp, tp) rank on its block of the
-    batch (when `batch`) and the heads, the blocks joined. A mask splits
-    with them, or goes whole to every rank along a dim of 1."""
+    batch and the heads (each where its ring divides it), the blocks
+    joined. A mask splits with them, or goes whole to every rank along
+    a dim of 1."""
     def cut(t, dim, r):
         if r is None:
             return [t]
@@ -180,7 +193,7 @@ def _per_rank(fn, q, k, v, mask=None, batch=True):
             return [t] * r.size
         return r.split(t, dim)
 
-    b_ring, h_ring = axis_ring("batch") if batch else None, axis_ring("heads")
+    b_ring, h_ring = _rank_rings(q)
     rows = []
     for qb, kb, vb, mb in zip(*(cut(t, 0, b_ring) for t in (q, k, v, mask))):
         rows.append(torch.cat([fn(*blk) for blk in zip(
@@ -241,8 +254,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         GATE_COUNTS["splash_shardmap"] += 1
         return out
     if mask is not None and not in_manual_region() and q.ndim == 4 \
-            and _size("heads") > 1 and q.shape[2] % _size("heads") == 0:
-        out = _per_rank(one, q, k, v, mask, batch=False)
+            and _rank_rings(q) != (None, None):
+        out = _per_rank(one, q, k, v, mask)
     else:
         out = one(q, k, v, mask)
     GATE_COUNTS[route] += 1

@@ -265,9 +265,9 @@ def refuse_process_ring(what: str) -> None:
             f"level sp over processes is ROADMAP item 20b")
 
 
-def refuse_dp_tp(what: str, item: str) -> None:
+def refuse_dp_tp(what: str, why: str) -> None:
     """Raise when the current mesh has dp or tp larger than 1: `what`
-    has no split over them yet (ROADMAP `item`), and computing it whole
+    has no split over them (`why` says why), and computing it whole
     would pass for a data- or tensor-parallel run."""
     m = current_mesh()
     if m is None:
@@ -275,5 +275,4 @@ def refuse_dp_tp(what: str, item: str) -> None:
     wide = [a for a in ("dp", "tp") if m.shape.get(a, 1) > 1]
     if wide:
         raise NotImplementedError(
-            f"{what} has no split over mesh axes {wide} (ROADMAP item "
-            f"{item})")
+            f"{what} has no split over mesh axes {wide} ({why})")

@@ -13,6 +13,12 @@ a tuple of the port's own: `parallel/train.py` reads them to check the
 tp split of every param and to choose each ZeRO-1 moment's slice
 axis. `NamedSharding` pairs a spec with the port's `Mesh`.
 
+`check_param_spec(name, axes, rules)` refuses a param whose spec maps
+one mesh axis onto two dims, as `jax.sharding.NamedSharding` refuses
+such a PartitionSpec (`DuplicateSpecError`) whatever the axis's size:
+`parallel/train.py::make_train_step` checks every param with it, and
+the Megatron helpers each param they split.
+
 `shard(x, axes)` checks that each named dim divides its mesh axis and
 returns `x` itself: the in-process ring holds whole tensors, and the
 ops split them where they run (the JAX package's constraint asks GSPMD
@@ -33,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 __all__ = ["LogicalRules", "DEFAULT_RULES", "NO_SHARD", "PartitionSpec",
            "NamedSharding", "current_rules", "with_rules", "axis_ring",
            "logical_to_mesh", "shard", "shard_params_spec",
+           "check_param_spec",
            "named_sharding_tree", "in_manual_region", "manual_region"]
 
 # Logical axis marker for "never shard this axis".
@@ -160,6 +167,24 @@ def shard_params_spec(param_axes: Dict[str, LogicalAxes],
     """Map {param name: logical axes} -> {param name: PartitionSpec}."""
     rules = rules or current_rules()
     return {k: rules.spec(v) for k, v in param_axes.items()}
+
+
+def check_param_spec(name: str, axes: Sequence[Optional[str]],
+                     rules: Optional[LogicalRules] = None) -> PartitionSpec:
+    """The spec of param `name` (logical `axes`) under `rules`; a spec
+    that names one mesh axis for two dims raises ValueError, naming the
+    param, its logical axes and the mesh axis."""
+    spec = logical_to_mesh(axes, rules)
+    named = [a for entry in spec if entry is not None
+             for a in (entry if isinstance(entry, tuple) else (entry,))]
+    for a in named:
+        if named.count(a) > 1:
+            raise ValueError(
+                f"param {name!r} with logical axes {tuple(axes)} maps mesh "
+                f"axis {a!r} onto {named.count(a)} dims ({spec!r}); a "
+                f"mesh axis splits at most one dim of a tensor: map all "
+                f"but one of those logical axes to None")
+    return spec
 
 
 def named_sharding_tree(mesh, spec_tree):

@@ -11,8 +11,10 @@ policies) and `sync_loss_scale_metrics`. What differs, and why:
   `mesh_guard(mesh)` and `with_rules(rules)`. `param_axes`, `rules`
   and `batch_spec` mean what they mean in the JAX package:
   `shard_params_spec(param_axes, rules)` is checked against every
-  param at `init_state` (each split dim divides its mesh axis) and
-  chooses the ZeRO-1 slices. `batch_spec` (default
+  param at `make_train_step` (a spec that maps one mesh axis onto two
+  dims raises, as the JAX package's `NamedSharding` does:
+  `sharding.check_param_spec`) and at `init_state` (each split dim
+  divides its mesh axis), and chooses the ZeRO-1 slices. `batch_spec` (default
   `rules.spec(("batch", "seq"))`) is the layout of the step's inputs
   in the JAX package; here every rank holds the whole batch and the
   rules decide each op's split (the batch ring of `dp_sum`, `mha`'s
@@ -89,8 +91,8 @@ from ..core import precision as _precision
 from ..models.common import Params, ParamAxes, is_trainable
 from ..observability import memwatch as _memwatch
 from .mesh import mesh_guard
-from .sharding import (LogicalRules, PartitionSpec, current_rules, shard,
-                       shard_params_spec, with_rules)
+from .sharding import (LogicalRules, PartitionSpec, check_param_spec,
+                       current_rules, shard, shard_params_spec, with_rules)
 
 __all__ = ["TrainStrategy", "TrainState", "make_train_step",
            "RECOMPUTE_POLICIES", "sync_loss_scale_metrics", "train_loop",
@@ -318,6 +320,9 @@ def make_train_step(loss_fn: Callable, optimizer: Callable, device=None,
     dev = resolve_device(dev if mesh is not None else device)
     rules = rules or current_rules()
     p_specs = shard_params_spec(param_axes or {}, rules)
+    if mesh is not None:
+        for k, axes in (param_axes or {}).items():
+            check_param_spec(k, axes, rules)
     if mesh is not None and batch_spec is not None:
         for ax in batch_spec:
             for a in (ax if isinstance(ax, tuple) else (ax,)):

@@ -68,7 +68,10 @@ import jax.numpy as jnp
 from paddle_tpu.core.flags import set_flags
 from paddle_tpu.models import bert as jbert
 from paddle_tpu.models import gpt as jgpt
+from paddle_tpu.models import lenet as jlenet
 from paddle_tpu.models import resnet as jres
+from paddle_tpu.models import transformer as jtr
+from paddle_tpu.models import vgg as jvgg
 from paddle_tpu.ops.pallas import attention as jattn
 from paddle_tpu.parallel import MeshConfig as JMeshConfig
 from paddle_tpu.parallel import make_mesh as jmake_mesh
@@ -78,7 +81,10 @@ from paddle_tpu.parallel import train as jtrain
 from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tres
+from paddle_tpu_torch.models import transformer as ttr
+from paddle_tpu_torch.models import vgg as tvgg
 from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.parallel import mesh as tmesh
 from paddle_tpu_torch.parallel import train as ttrain
@@ -568,6 +574,321 @@ def test_gpt_moe_tp2_ep2_matches_the_jax_package():
     _check_gpt(jloss, jgrads, tparams, tloss)
 
 
+# -- Transformer, LeNet, VGG and ResNet's head under dp and tp ------
+
+MODEL_MESHES = [dict(dp=2), dict(tp=2), dict(dp=2, tp=2)]
+
+
+def _j(np_params):
+    return {k: jnp.asarray(v) for k, v in np_params.items()}
+
+
+def _jax_grads(loss, np_params):
+    """The JAX package's one-device loss and gradients (x64 off, as its
+    mesh runs need)."""
+    with jax.enable_x64(False):
+        jloss, jgrads = jax.jit(jax.value_and_grad(loss))(_j(np_params))
+    return float(jloss), {k: np.asarray(v) for k, v in jgrads.items()}
+
+
+def _jax_mesh_loss(loss, np_params, axes, mesh_axes, rules=None,
+                   has_aux=False):
+    """The step-0 loss of the JAX package's `make_train_step` on its
+    mesh, params placed by their `init` axes under `rules`."""
+    with jax.enable_x64(False):
+        mesh = _jmesh(**mesh_axes)
+        with jmesh_guard(mesh):
+            init, step = jtrain.make_train_step(
+                lambda p, b, r: loss(p), optax.sgd(0.1), mesh, axes,
+                rules=rules, has_aux=has_aux)
+            return float(step(init(_j(np_params)), {"i": jnp.zeros(4)},
+                              jax.random.key(0))[1])
+
+
+def _port_under(loss, np_params, mesh_axes, rules=None, axes=None):
+    """The port's loss and params under the mesh (and `rules`); with
+    `axes`, also the step-0 loss of its `make_train_step` there."""
+    from paddle_tpu_torch.parallel import sharding as tsh
+
+    tparams = params_from_numpy(np_params, "cpu")
+    for v in tparams.values():
+        v.requires_grad_()
+    rules = rules or tsh.DEFAULT_RULES
+    with tmesh.mesh_guard(_tmesh(**mesh_axes)), tsh.with_rules(rules):
+        tloss = loss(tparams)
+    if axes is None:
+        return tparams, tloss, None
+    init, step = ttrain.make_train_step(
+        lambda p, b, g: loss(p), lambda ps: torch.optim.SGD(ps, lr=0.1),
+        device="cpu", mesh=_tmesh(**mesh_axes), param_axes=axes,
+        rules=rules, has_aux=isinstance(tloss, tuple))
+    step_loss = step(init(params_from_numpy(np_params, "cpu")),
+                     {"i": torch.zeros(4)}, 0)[1].item()
+    return tparams, tloss, step_loss
+
+
+def _tr():
+    jcfg, tcfg = jtr.TransformerConfig.tiny(), ttr.TransformerConfig.tiny()
+    jcfg.dtype = tcfg.dtype = "float32"
+    jparams, axes = jtr.init(jax.random.key(21), jcfg)
+    return jcfg, tcfg, {k: np.asarray(v) for k, v in jparams.items()}, axes
+
+
+def _tr_batch(tcfg, bs=4, seed=21):
+    tb = ttr.make_batch(np.random.RandomState(seed), tcfg, bs, 16, 12,
+                        device="cpu")
+    return tb, {k: jnp.asarray(v.numpy().astype(np.int32))
+                for k, v in tb.items()}
+
+
+@pytest.mark.parametrize("mesh", MODEL_MESHES,
+                         ids=lambda m: "-".join(f"{k}{v}"
+                                                for k, v in m.items()))
+def test_transformer_matches_the_jax_package(mesh):
+    """Transformer-tiny (2 + 2 layers) at f32 on a ragged 4 x (16, 12)
+    batch under dp2, tp2 and dp2 tp2: the loss within 1e-5 relative and
+    every gradient within 1e-4 of its largest value of the JAX
+    package's one-device step (`_check_model`); the JAX package's mesh
+    step is no gradient oracle (ROADMAP F7): its loss within 2e-2, as
+    its own tests hold it, and the port's `make_train_step` loss there
+    within 1e-6 of the port's own under the mesh. Every attention call
+    runs per (dp, tp) rank: the masked ones split the mask with the
+    rows."""
+    jcfg, tcfg, np_params, axes = _tr()
+    tb, jb = _tr_batch(tcfg)
+    oloss, ograds = _jax_grads(lambda p: jtr.nmt_loss(p, jcfg, jb),
+                               np_params)
+    calls = []
+    real = tattn._per_rank
+
+    def spy(fn, q, k, v, mask=None):
+        calls.append(mask is not None)
+        return real(fn, q, k, v, mask)
+
+    tattn._per_rank = spy
+    try:
+        tparams, tloss, step_loss = _port_under(
+            lambda p: ttr.nmt_loss(p, tcfg, tb), np_params, mesh, axes=axes)
+    finally:
+        tattn._per_rank = real
+    # the encoder's and the decoder's cross-attention calls (masked) per
+    # rank; the causal self-attention's T 12 takes no shardmap route
+    assert calls.count(True) >= jcfg.enc_layers + jcfg.dec_layers, calls
+    _check_model(oloss, ograds, tparams, tloss)
+    assert abs(step_loss - tloss.item()) <= 1e-6 * abs(tloss.item())
+    want = _jax_mesh_loss(lambda p: jtr.nmt_loss(p, jcfg, jb), np_params,
+                          axes, mesh)
+    assert abs(tloss.item() - want) <= 2e-2 * abs(want)
+
+
+def test_transformer_loss_divides_by_the_global_count():
+    """`nmt_loss` under dp divides the ranks' summed token losses by the
+    global count of valid target tokens: the first dp shard's rows hold
+    11 valid tokens each and the second's 1, so the mean of the ranks'
+    own means is another loss. Under dp2 and dp2 tp2 the loss equals
+    the port's one-device loss within 1e-6 relative and the JAX
+    package's one-device loss within 1e-5; the ranks' mean of means is
+    off by more than 1e-3 relative."""
+    jcfg, tcfg, np_params, _ = _tr()
+    tb, _ = _tr_batch(tcfg)
+    tb["tgt_len"] = torch.tensor([12, 12, 2, 2])
+    jb = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in tb.items()}
+    tparams = params_from_numpy(np_params, "cpu")
+    single = ttr.nmt_loss(tparams, tcfg, tb).item()
+    with jax.enable_x64(False):
+        want = float(jax.jit(lambda p: jtr.nmt_loss(p, jcfg, jb))(
+            _j(np_params)))
+    for mesh in (dict(dp=2), dict(dp=2, tp=2)):
+        with tmesh.mesh_guard(_tmesh(**mesh)):
+            got = ttr.nmt_loss(tparams, tcfg, tb).item()
+        assert abs(got - single) <= 1e-6 * abs(single), (mesh, got, single)
+        assert abs(got - want) <= 1e-5 * abs(want), (mesh, got, want)
+    halves = [{k: v[i * 2:(i + 1) * 2] for k, v in tb.items()}
+              for i in range(2)]
+    wrong = np.mean([ttr.nmt_loss(tparams, tcfg, h).item() for h in halves])
+    assert abs(wrong - want) > 1e-3 * abs(want), (wrong, want)
+
+
+def test_transformer_beam_and_greedy_under_dp2_tp2():
+    """`beam_search` (2 sources, beam 2, 8 steps) and `greedy_decode`
+    under dp2 tp2 give the tokens of the port with no mesh and of the
+    JAX package's one-device run, the scores within 1e-5 relative; a
+    batch of sources that dp does not divide raises."""
+    jcfg, tcfg, np_params, _ = _tr()
+    tb, jb = _tr_batch(tcfg, bs=2, seed=5)
+    tparams = params_from_numpy(np_params, "cpu")
+    src, sl = tb["src_ids"], tb["src_len"]
+    with torch.no_grad():
+        want_t, want_s = ttr.beam_search(tparams, tcfg, src, sl, beam_size=2,
+                                         max_len=8)
+        want_g = ttr.greedy_decode(tparams, tcfg, src, sl, max_len=8)
+        with tmesh.mesh_guard(_tmesh(dp=2, tp=2)):
+            got_t, got_s = ttr.beam_search(tparams, tcfg, src, sl,
+                                           beam_size=2, max_len=8)
+            got_g = ttr.greedy_decode(tparams, tcfg, src, sl, max_len=8)
+            with pytest.raises(ValueError,
+                               match="does not split over mesh axis 'dp'"):
+                ttr.greedy_decode(tparams, tcfg, src[:1], sl[:1],
+                                  max_len=8)
+    with jax.enable_x64(False):
+        jt, js = jtr.beam_search(_j(np_params), jcfg, jb["src_ids"],
+                                 jb["src_len"], beam_size=2, max_len=8)
+        jg = jtr.greedy_decode(_j(np_params), jcfg, jb["src_ids"],
+                               jb["src_len"], max_len=8)
+    assert torch.equal(got_t, want_t) and torch.equal(got_g, want_g)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(got_g.numpy(), np.asarray(jg))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(js), rtol=1e-5)
+    np.testing.assert_allclose(got_s.numpy(), want_s.numpy(), rtol=1e-5)
+
+
+def test_lenet_dp2_tp2_matches_the_jax_package():
+    """LeNet under dp2 tp2 on 4 MNIST-shaped images: fc1 column-parallel
+    (its 500 outputs over tp), fc2 whole, the loss the global batch's
+    mean; the loss and every gradient against the JAX package's
+    one-device step at `_check_model`'s limits, its mesh step's loss
+    within 2e-2, the port's `make_train_step` loss within 1e-6."""
+    jparams, axes = jlenet.init(jax.random.key(22))
+    np_params = {k: np.asarray(v) for k, v in jparams.items()}
+    rng = np.random.RandomState(22)
+    img = rng.standard_normal((4, 1, 28, 28)).astype(np.float32)
+    label = rng.randint(0, 10, 4)
+    tb = {"img": torch.from_numpy(img), "label": torch.from_numpy(label)}
+    jb = {"img": jnp.asarray(img), "label": jnp.asarray(label, jnp.int32)}
+    oloss, ograds = _jax_grads(lambda p: jlenet.loss_fn(p, jb), np_params)
+    mesh = dict(dp=2, tp=2)
+    tparams, tloss, step_loss = _port_under(
+        lambda p: tlenet.loss_fn(p, tb), np_params, mesh, axes=axes)
+    _check_model(oloss, ograds, tparams, tloss)
+    assert abs(step_loss - tloss.item()) <= 1e-6 * abs(tloss.item())
+    want = _jax_mesh_loss(lambda p: jlenet.loss_fn(p, jb), np_params, axes,
+                          mesh)
+    assert abs(tloss.item() - want) <= 2e-2 * abs(want)
+
+
+def test_resnet_head_under_tp2_matches_the_jax_package():
+    """ResNet-tiny at f64 activations (the head and its log-softmax f32
+    by design) on 4 x 32^2 under tp2: the head column-parallel over the
+    classes, the log-softmax over the class ranks; the loss within 1e-6
+    relative of the port's no-mesh loss and within 1e-5 of the JAX
+    package's one-device loss, every gradient within 1e-4 of its
+    largest value of the JAX package's (`_check_model`), the JAX
+    package's tp2 step's loss within 2e-2."""
+    jcfg = dataclasses.replace(jres.ResNetConfig.tiny(), dtype="float64")
+    tcfg = tres.ResNetConfig(**vars(jcfg))
+    jparams, axes = jres.init(jax.random.key(23), jcfg)
+    np_params = {k: np.asarray(v) for k, v in jparams.items()}
+    tb = tres.make_batch(np.random.RandomState(23), tcfg, 4, hw=32,
+                         device="cpu")
+    tb["img"] = tb["img"].double()
+    jb = {"img": jnp.asarray(tb["img"].numpy()),
+          "label": jnp.asarray(tb["label"].numpy().astype(np.int32))}
+    oloss, ograds = jax.jit(jax.value_and_grad(
+        lambda p: jres.loss_fn(p, jcfg, jb)[0]))(_j(np_params))
+    ograds = {k: np.asarray(v) for k, v in ograds.items()}
+    tparams, (tloss, _), step_loss = _port_under(
+        lambda p: tres.loss_fn(p, tcfg, tb), np_params, dict(tp=2),
+        axes=axes)
+    single = tres.loss_fn(params_from_numpy(np_params, "cpu"), tcfg,
+                          tb)[0].item()
+    assert abs(tloss.item() - single) <= 1e-6 * abs(single)
+    assert abs(step_loss - tloss.item()) <= 1e-6 * abs(tloss.item())
+    _check_model(float(oloss), ograds, tparams, tloss)
+    mesh = _jmesh(tp=2)
+    with jmesh_guard(mesh):
+        init, step = jtrain.make_train_step(
+            lambda p, b, r: jres.loss_fn(p, jcfg, b, r), optax.sgd(0.1),
+            mesh, axes, has_aux=True)
+        want = float(step(init(_j(np_params)), jb, jax.random.key(0))[1])
+    assert abs(tloss.item() - want) <= 2e-2 * abs(want)
+
+
+def _vgg_loss(mod, cfg, img, label):
+    """The mean softmax cross-entropy of VGG's logits (VGG has no loss
+    of its own), in `mod`'s package."""
+    if mod is tvgg:
+        return lambda p: -tres.dp_mean(torch.log_softmax(
+            tvgg.apply(p, cfg, img), -1).gather(1, label[:, None]))
+    return lambda p: -jnp.take_along_axis(jax.nn.log_softmax(
+        jvgg.apply(p, cfg, img)), label[:, None], 1).mean()
+
+
+def _vgg():
+    jcfg = dataclasses.replace(jvgg.VGGConfig.tiny(), dtype="float32")
+    tcfg = tvgg.VGGConfig(**vars(jcfg))
+    jparams, axes = jvgg.init(jax.random.key(24), jcfg)
+    rng = np.random.RandomState(24)
+    img = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    label = rng.randint(0, 10, 4)
+    return (jcfg, tcfg, {k: np.asarray(v) for k, v in jparams.items()}, axes,
+            (jnp.asarray(img), jnp.asarray(label, jnp.int32)),
+            (torch.from_numpy(img), torch.from_numpy(label)))
+
+
+def test_vgg_dp2_tp2_with_mlp_whole_matches_the_jax_package():
+    """VGG-tiny at f32 under dp2 tp2 with "mlp" mapped to None: fc1 and
+    fc2 whole, the head column-parallel over the classes on its f32
+    input; the loss and every gradient against the JAX package's
+    one-device step (`_check_model`), the JAX package's
+    `make_train_step` under the same rules and mesh within 2e-2, the
+    port's within 1e-6 of its own loss."""
+    from paddle_tpu.parallel.sharding import DEFAULT_RULES as JRULES
+    from paddle_tpu_torch.parallel import sharding as tsh
+
+    jcfg, tcfg, np_params, axes, jb, tb = _vgg()
+    oloss, ograds = _jax_grads(_vgg_loss(jvgg, jcfg, *jb), np_params)
+    mesh = dict(dp=2, tp=2)
+    tparams, tloss, step_loss = _port_under(
+        _vgg_loss(tvgg, tcfg, *tb), np_params, mesh,
+        rules=tsh.DEFAULT_RULES.updated(mlp=None), axes=axes)
+    _check_model(oloss, ograds, tparams, tloss)
+    assert abs(step_loss - tloss.item()) <= 1e-6 * abs(tloss.item())
+    want = _jax_mesh_loss(_vgg_loss(jvgg, jcfg, *jb), np_params, axes, mesh,
+                          rules=JRULES.updated(mlp=None))
+    assert abs(tloss.item() - want) <= 2e-2 * abs(want)
+
+
+def test_vgg_under_the_default_rules_refuses_as_the_jax_package():
+    """ROADMAP F14: under `MeshConfig(dp=2)` and the default rules VGG's
+    fc2.w ("mlp", "mlp") maps "tp" onto both dims. The JAX package's
+    `make_train_step` raises DuplicateSpecError and the port's
+    `make_train_step` (and a bare forward under the mesh) raises
+    ValueError, each naming "tp". A split dim its ring does not divide
+    raises in both too: LeNet's fc1 (500 outputs) over tp=8."""
+    jcfg, tcfg, np_params, axes, jb, tb = _vgg()
+    with jax.enable_x64(False), pytest.raises(Exception) as e:
+        mesh = _jmesh(dp=2)
+        with jmesh_guard(mesh):
+            jtrain.make_train_step(lambda p, b, r: 0.0, optax.sgd(0.1),
+                                   mesh, axes)
+    assert type(e.value).__name__ == "DuplicateSpecError"
+    assert "tp" in str(e.value)
+    with pytest.raises(ValueError, match="fc2.w.*'mlp', 'mlp'.*'tp'"):
+        ttrain.make_train_step(lambda p, b, g: 0.0,
+                               lambda ps: torch.optim.SGD(ps, lr=0.1),
+                               device="cpu", mesh=_tmesh(dp=2),
+                               param_axes=axes)
+    with tmesh.mesh_guard(_tmesh(dp=2)), pytest.raises(ValueError,
+                                                       match="'tp'"):
+        _vgg_loss(tvgg, tcfg, *tb)(params_from_numpy(np_params, "cpu"))
+    jparams, laxes = jlenet.init(jax.random.key(22))
+    with jax.enable_x64(False), pytest.raises(ValueError):
+        mesh = _jmesh(tp=8)
+        with jmesh_guard(mesh):
+            jtrain.make_train_step(lambda p, b, r: 0.0, optax.sgd(0.1),
+                                   mesh, laxes)[0](jparams)
+    init, _ = ttrain.make_train_step(
+        lambda p, b, g: 0.0, lambda ps: torch.optim.SGD(ps, lr=0.1),
+        device="cpu", mesh=_tmesh(tp=8), param_axes=laxes)
+    tl = params_from_numpy({k: np.asarray(v) for k, v in jparams.items()},
+                           "cpu")
+    with pytest.raises(ValueError, match="500"):
+        init(tl)
+    with tmesh.mesh_guard(_tmesh(tp=8)), pytest.raises(
+            ValueError, match="fc1.w, of size 500"):
+        tlenet.apply(tl, torch.zeros(8, 1, 28, 28))
+
+
 def _qkv(B=4, T=128, N=4, H=64, seed=0):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(B, T, N, H, generator=g) for _ in range(3)]
@@ -601,8 +922,9 @@ def test_mha_shardmap_route_counts_and_matches(axes):
 def test_mha_shardmap_gate_and_the_masked_call_per_tp_rank():
     """The gate's other side takes the single-device route: a batch dp
     does not divide, T off a multiple of 128, a head dim off 64, the
-    manual region. A masked call under tp runs per tp rank on its
-    heads, equal to the no-mesh call."""
+    manual region. A masked call under dp and tp runs per (dp, tp)
+    rank on its rows and heads, the mask split with the rows, equal to
+    the no-mesh call."""
     mesh = _tmesh(dp=2, tp=2)
     with tmesh.mesh_guard(mesh):
         for q in (_qkv(B=3)[0], _qkv(T=96)[0], _qkv(H=16)[0]):
@@ -629,64 +951,66 @@ def test_mha_shardmap_gate_and_the_masked_call_per_tp_rank():
     assert want.shape == got.shape
 
 
-@pytest.mark.parametrize("what", ["vgg", "transformer", "lenet",
-                                  "fluid", "resnet_tp", "apply_prefill",
+@pytest.mark.parametrize("what", ["fluid", "apply_prefill",
                                   "apply_decode_step", "apply_prefill_chunk",
                                   "apply_verify_step"])
 def test_models_outside_the_slice_refuse_dp_and_tp(what):
-    """Transformer-big, VGG-16, LeNet, the fluid Executor, ResNet's
-    head under tp and GPT's four decode paths raise, naming the ROADMAP
-    item of their split, rather than compute replicated."""
-    from paddle_tpu_torch.models import lenet as tlenet
-    from paddle_tpu_torch.models import transformer as ttr
-    from paddle_tpu_torch.models import vgg as tvgg
+    """The fluid Executor and GPT's four decode paths raise under dp,
+    saying why, rather than compute replicated: the Executor runs one
+    rank (ROADMAP item 20c-iii), and the JAX package's serving path runs
+    on no mesh, so the decode paths have no split to port."""
     import paddle_tpu_torch as fluid
 
-    gen = torch.Generator().manual_seed(0)
-    calls = {
-        "vgg": (lambda: tvgg.apply(
-            tvgg.init(gen, tvgg.VGGConfig.tiny(), device="cpu")[0],
-            tvgg.VGGConfig.tiny(), torch.zeros(2, 3, 32, 32)), "20c-iv"),
-        "transformer": (lambda: ttr.encode(
-            ttr.init(gen, ttr.TransformerConfig.tiny(), device="cpu")[0],
-            ttr.TransformerConfig.tiny(), torch.zeros(2, 8).long()),
-            "20c-iv"),
-        "lenet": (lambda: tlenet.apply(tlenet.init(gen, device="cpu")[0],
-                                       torch.zeros(2, 1, 28, 28)), "20c-iv"),
-        "fluid": (lambda: fluid.Executor(fluid.CPUPlace()).run(
-            fluid.Program()), "20c-iii"),
-        "resnet_tp": (lambda: tres.apply(
-            tres.init(gen, tres.ResNetConfig.tiny(), device="cpu")[0],
-            tres.ResNetConfig.tiny(), torch.zeros(2, 3, 32, 32)), "20c-iv"),
-    }
-    # the decode paths' positional args after cfg, as test_torch_moe's
-    n_args = 6 if what == "apply_prefill_chunk" else 5
-    fn, item = calls.get(what) or (lambda: getattr(tgpt, what)(
-        None, tgpt.GPTConfig.tiny(), *[None] * n_args, block_size=8,
-        eos_id=0), "20c-iv")
-    mesh = _tmesh(tp=2) if what == "resnet_tp" else _tmesh(dp=2)
-    with tmesh.mesh_guard(mesh):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    if what == "fluid":
+        fn, why = (lambda: fluid.Executor(fluid.CPUPlace()).run(
+            fluid.Program())), "item 20c-iii"
+    else:
+        # the decode paths' positional args after cfg, as test_torch_moe's
+        n_args = 6 if what == "apply_prefill_chunk" else 5
+        fn, why = (lambda: getattr(tgpt, what)(
+            None, tgpt.GPTConfig.tiny(), *[None] * n_args, block_size=8,
+            eos_id=0)), "serving path.*runs on no mesh"
+    with tmesh.mesh_guard(_tmesh(dp=2)):
+        with pytest.raises(NotImplementedError, match=why):
             fn()
 
 
-@pytest.mark.parametrize("model", ["bert", "gpt"])
+@pytest.mark.parametrize("model", ["bert", "gpt", "transformer", "vgg",
+                                   "lenet", "resnet"])
 def test_split_axes_are_inits(model):
     """Every weight a helper splits carries, in `init`'s axes, the
     axes the model's ops hand the helper (`SPLIT_AXES`; a GPT block's
-    after its stacked "layer" axis)."""
+    after its stacked "layer" axis), and `init`'s axes are the JAX
+    package's."""
+    g = torch.Generator()
     if model == "bert":
-        _, axes = tbert.init(torch.Generator(), tbert.BertConfig.tiny(),
-                             device="cpu")
+        _, axes = tbert.init(g, tbert.BertConfig.tiny(), device="cpu")
         want = {k: v for k, v in axes.items()
                 if k.endswith(".w") and k[:-2] != "embeddings.position"
                 and k[:-2] != "embeddings.type"}
         assert {k: tbert._axes(k[:-2]) for k in want} == want
-    else:
-        _, axes = tgpt.init(torch.Generator(), tgpt.GPTConfig.tiny(),
-                            device="cpu")
+    elif model == "gpt":
+        _, axes = tgpt.init(g, tgpt.GPTConfig.tiny(), device="cpu")
         for k, v in tgpt.SPLIT_AXES.items():
             assert axes[k] == (v if k == "wte.w" else ("layer",) + v), k
+    elif model == "transformer":
+        _, axes = ttr.init(g, ttr.TransformerConfig.tiny(), device="cpu")
+        want = {k: v for k, v in axes.items()
+                if k.endswith(".w") and k != "pos.w"}
+        assert {k: ttr._axes(k[:-2]) for k in want} == want
+        assert len(want) == 2 + 4 * 2 + 8 * 2 + 2 * 4
+        assert axes == jtr.init(jax.random.key(0),
+                                jtr.TransformerConfig.tiny())[1]
+    else:
+        mod, jmod, args = {
+            "vgg": (tvgg, jvgg, (tvgg.VGGConfig.tiny(),)),
+            "lenet": (tlenet, jlenet, ()),
+            "resnet": (tres, jres, (tres.ResNetConfig.tiny(),))}[model]
+        _, axes = mod.init(g, *args, device="cpu")
+        assert {k: axes[k + ".w"] for k in mod.SPLIT_AXES} == mod.SPLIT_AXES
+        jargs = {"vgg": (jvgg.VGGConfig.tiny(),), "lenet": (),
+                 "resnet": (jres.ResNetConfig.tiny(),)}[model]
+        assert axes == jmod.init(jax.random.key(0), *jargs)[1]
 
 
 def test_a_rule_no_helper_splits_raises():

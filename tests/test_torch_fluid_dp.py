@@ -3,9 +3,11 @@ on its 8-device CPU mesh: `CompiledProgram.with_data_parallel` (and
 `ParallelExecutor`) on 8 in-process CPU ranks, `SPMDRunner` with the
 `GradAllReduce` and `LocalSGD` transpilers, the 17 `c_*` ops, the five
 ops the slice's modules emit, the fleet facade, the top-level fluid
-conveniences, the refusals and the telemetry rows; then the op library
-core's rules (ROADMAP item 20c-v): the book's VGG-16-BN with sync batch
-norm on 2 and 4 ranks, and a program around each new row rule on 4.
+conveniences, the refusals and the telemetry rows; rule (d), the
+gather, on an op of each kind no cheaper rule takes (and on phase 28
+(e)'s program); then the op library core's rules: the book's VGG-16-BN
+with sync batch norm on 2 and 4 ranks, and a program around each new
+row rule on 4.
 
 Initial persistables come from the JAX scope (`convert.scope_from_numpy`),
 feeds from a numpy seed. Tolerances: the loss at rtol 1e-5; a gradient,
@@ -841,41 +843,283 @@ def test_fluid_convenience_behaviour(name, monkeypatch):
             sorted(vars(pt.ExecutionStrategy()))
 
 
-# -- refusals ------------------------------------------------------
+# -- rule (d): the ops no cheaper rule takes gather ---------------
 
-def _split_op_program(kind):
+
+def _gather_op(pkg, kind, h, z):
+    """The output of kind's op (or ops) on h and z [N, 6] (h [N, 4, 3, 3]
+    for instance_norm); `_split_op_program` builds around it."""
+    L = pkg.layers
+    blk = pkg.default_main_program().global_block()
+
+    def op(type_, ins, attrs=None, outs=("Out",), ints=()):
+        vs = {s: blk.create_var(name=f"{kind}.{s.lower()}",
+                                dtype="int64" if s in ints else "float32")
+              for s in outs}
+        blk.append_op(type=type_, inputs=ins,
+                      outputs={s: [v] for s, v in vs.items()},
+                      attrs=attrs or {})
+        return vs[outs[0]]
+
+    if kind == "softmax_axis0":
+        # h * z: a softmax over dim 0 does not see h's bias, a shift of
+        # each column
+        return L.softmax(L.elementwise_mul(h, z), axis=0)
+    if kind == "kron":
+        return op("kron", {"X": [h], "Y": [z]})
+    if kind == "reshape":
+        return L.reshape(h, [2, -1])
+    if kind == "transpose_batch":
+        return L.transpose(h, perm=[1, 0])
+    if kind == "concat_axis0":
+        return L.concat([h, z], axis=0)
+    if kind == "split_axis0":
+        a, b = L.split(h, 2, dim=0)
+        return L.elementwise_mul(a, b)
+    if kind == "stack_axis0":
+        return L.stack([h, z], axis=0)
+    if kind == "slice_axis0":
+        return L.slice(h, axes=[0], starts=[1], ends=[7])
+    if kind == "expand_batch":
+        return L.expand(h, [2, 1])
+    if kind == "top_k_batch":
+        return L.topk(L.reshape(h, [-1]), k=5)[0]
+    if kind in ("logsumexp_batch", "frobenius_norm_batch"):
+        return op(kind[:-len("_batch")], {"X": [h]},
+                  {"dim": [0], "keep_dim": False, "reduce_all": False})
+    if kind == "instance_norm_b1":
+        return L.instance_norm(h)
+    if kind == "sigmoid_xent_normalize":
+        return L.sigmoid_cross_entropy_with_logits(h, L.sigmoid(z),
+                                                   normalize=True)
+    if kind == "kldiv_mean":
+        return L.kldiv_loss(L.log_softmax(h), L.softmax(z),
+                            reduction="mean")
+    if kind == "bmm":
+        return op("bmm", {"X": [L.reshape(h, [-1, 2, 3])],
+                          "Y": [L.reshape(z, [-1, 3, 2])]})
+    if kind == "dot":
+        return op("dot", {"X": [h], "Y": [z]})
+    if kind == "addmm":
+        w = L.create_parameter([6, 6], "float32", name="addmm_w")
+        return op("addmm", {"Input": [z], "X": [h], "Y": [w]},
+                  {"Alpha": 1.0, "Beta": 0.5})
+    if kind == "trace":
+        return op("trace", {"Input": [h]}, {"offset": 0, "axis1": 0,
+                                            "axis2": 1})
+    if kind == "where":
+        return op("where", {"Condition": [L.less_than(h, z)], "X": [h],
+                            "Y": [z]})
+    if kind == "argsort_batch":
+        return L.argsort(h, axis=0)[0]
+    if kind == "cumsum_batch":
+        return L.cumsum(h, axis=0)
+    if kind == "isinf_v1":
+        flag = blk.create_var(name="isinf.out", dtype="bool")
+        blk.append_op(type="isinf", inputs={"X": [h]},
+                      outputs={"Out": [flag]})
+        return L.elementwise_mul(h, L.scale(L.cast(flag, "float32"),
+                                            bias=1.0))
+    if kind == "maximum":
+        return op("maximum", {"X": [h], "Y": [z]})
+    if kind == "l1_norm":
+        return op("l1_norm", {"X": [h]})
+    if kind == "p_norm_batch":
+        return op("p_norm", {"X": [h]}, {"porder": 3.0, "axis": 0})
+    if kind == "clip":
+        return L.clip(h, -0.5, 0.5)
+    assert kind == "l2_normalize_batch", kind
+    return L.l2_normalize(h, axis=0)
+
+
+# kind -> (the op type rule (d) must gather, the batch)
+GATHER_KINDS = {
+    "softmax_axis0": ("softmax", 8), "kron": ("kron", 8),
+    "reshape": ("reshape2", 8), "transpose_batch": ("transpose2", 8),
+    "concat_axis0": ("concat", 8), "split_axis0": ("split", 8),
+    "stack_axis0": ("stack", 8), "slice_axis0": ("slice", 8),
+    "expand_batch": ("expand", 8), "top_k_batch": ("top_k", 8),
+    "logsumexp_batch": ("logsumexp", 8),
+    "frobenius_norm_batch": ("frobenius_norm", 8),
+    "instance_norm_b1": ("instance_norm", 2),
+    "sigmoid_xent_normalize": ("sigmoid_cross_entropy_with_logits", 8),
+    "kldiv_mean": ("kldiv_loss", 8), "bmm": ("bmm", 8), "dot": ("dot", 8),
+    "addmm": ("addmm", 8), "trace": ("trace", 8), "where": ("where", 8),
+    "argsort_batch": ("argsort", 8), "cumsum_batch": ("cumsum", 8),
+    "isinf_v1": ("isinf", 8), "maximum": ("maximum", 8),
+    "l1_norm": ("l1_norm", 8), "p_norm_batch": ("p_norm", 8),
+    "clip": ("clip", 8), "l2_normalize_batch": ("l2_normalize", 8)}
+
+
+def _split_op_program(pkg, kind):
+    """A program around kind's op: x [N, 6] (or [N, 4, 3, 3]) through an
+    fc (a scale for the image), z [N, 6], at the static batch N that
+    the feeds have, the op, and the mean square of an fc of a 2-D or
+    wider output to one column, or of a narrower output (a plain mean
+    of an fc of a normalized output would be constant). SGD 0.1."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 5
+    L = pkg.layers
+    img = kind == "instance_norm_b1"
+    with pkg.framework.unique_name.guard(), pkg.program_guard(main, startup):
+        n = GATHER_KINDS[kind][1]
+        x = L.data(name="x", shape=[n, 4, 3, 3] if img else [n, 6],
+                   dtype="float32", append_batch_size=False)
+        z = L.data(name="z", shape=[n, 6], dtype="float32",
+                   append_batch_size=False)
+        h = L.scale(x, scale=1.5) if img else L.fc(x, size=6)
+        out = _gather_op(pkg, kind, h, z)
+        loss = L.mean(L.square(L.fc(out, size=1) if len(out.shape) >= 2
+                               else out))
+        pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("kind", sorted(GATHER_KINDS))
+def test_an_op_no_rule_covers_gathers(kind, monkeypatch):
+    """Rule (d): an op with a batch-split input that no cheaper rule
+    takes (a shape op across dim 0, a softmax, top_k or norm over the
+    batch, instance_norm on a batch of 1 a rank, a normalizing or
+    reducing loss, bmm, kron, trace, where, cumsum, ...) runs once over
+    the whole batch under `with_data_parallel` on 2 CPU ranks: the loss
+    at rtol 1e-5 and every parameter gradient within 1e-5 of its
+    tensor's largest value, against the JAX package's one-device
+    Executor and against the port's one rank."""
+    from paddle_tpu_torch.core import lockstep
+
+    op_type, n = GATHER_KINDS[kind]
+    jm, js, jl = _split_op_program(pt, kind)
+    tm, ts, tl = _split_op_program(ptt, kind)
+    assert tm.desc.to_dict() == jm.desc.to_dict()
+    scj = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(js, scope=scj)
+    pers = [v.name for v in js.list_vars() if v.persistable]
+    params = [p.name for p in jm.all_parameters()
+              if jm.global_block().has_var(p.name + "@GRAD")]
+    fetch = [jl.name] + [p + "@GRAD" for p in params]
+    rng = np.random.RandomState(len(kind))
+    feed = {"x": rng.standard_normal((n, 4, 3, 3) if n == 2 else (n, 6))
+            .astype("float32"),
+            "z": rng.standard_normal((n, 6)).astype("float32")}
+    one, two = ptt.Scope(), ptt.Scope()
+    for sc in (one, two):
+        _resync(sc, scj, pers)
+    want = pt.Executor(pt.CPUPlace()).run(jm, feed=feed, fetch_list=fetch,
+                                          scope=scj)
+    gathered = []
+    real = lockstep.Lockstep._gather
+
+    def spy(self, op, envs, block, first_grad):
+        gathered.append(op.type)
+        return real(self, op, envs, block, first_grad)
+
+    monkeypatch.setattr(lockstep.Lockstep, "_gather", spy)
+    exe = ptt.Executor(ptt.CPUPlace())
+    single = exe.run(tm, feed=feed, fetch_list=fetch, scope=one)
+    ct = ptt.CompiledProgram(tm).with_data_parallel(
+        loss_name=tl.name, places=ptt.cpu_places(2))
+    got = exe.run(ct, feed=feed, fetch_list=fetch, scope=two)
+    assert op_type in gathered, gathered
+    for ref, what in ((want, "jax"), (single, "one rank")):
+        np.testing.assert_allclose(got[0], ref[0], rtol=LOSS_RTOL,
+                                   err_msg=what)
+        for name, a, b in zip(params, got[1:], ref[1:]):
+            _close(a, b, f"{kind} against {what}: {name}@GRAD")
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_the_card_gather_program_matches_jax(ranks):
+    """`chip_smoke.gather_rule_program` (phase 28 (e): softmax, transpose2,
+    concat, kron, top_k_v2 and a reducing kldiv_loss across the batch)
+    at 16 x 32 under `with_data_parallel` on 2 and 4 CPU ranks against
+    the JAX package's one-device Executor: the loss at rtol 1e-5, every
+    parameter gradient within 1e-5 of its tensor's largest value."""
+    jm, js, jl = chip_smoke.gather_rule_program(pt, 16, 32)
+    tm, ts, tl = chip_smoke.gather_rule_program(ptt, 16, 32)
+    assert tm.desc.to_dict() == jm.desc.to_dict()
+    scj = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(js, scope=scj)
+    pers = [v.name for v in js.list_vars() if v.persistable]
+    sct = ptt.Scope()
+    _resync(sct, scj, pers)
+    params = [p.name for p in jm.all_parameters()
+              if jm.global_block().has_var(p.name + "@GRAD")]
+    fetch = [jl.name] + [p + "@GRAD" for p in params]
+    feed = {"x": np.random.RandomState(28).standard_normal((16, 32))
+            .astype("float32")}
+    want = pt.Executor(pt.CPUPlace()).run(jm, feed=feed, fetch_list=fetch,
+                                          scope=scj)
+    ct = ptt.CompiledProgram(tm).with_data_parallel(
+        loss_name=tl.name, places=ptt.cpu_places(ranks))
+    got = ptt.Executor(ptt.CPUPlace()).run(ct, feed=feed, fetch_list=fetch,
+                                           scope=sct)
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    for n, a, b in zip(params, got[1:], want[1:]):
+        _close(a, b, f"{n}@GRAD")
+
+
+def test_a_gathered_output_is_split_again():
+    """A gathered op's output whose dim 0 is the whole batch (softmax
+    over dim 0, [8, 6]) is split again by the ranks' rows, so the row op
+    after it (a relu) runs on each rank's 4 rows, and one of another
+    dim 0 (the [6, 8] transpose) is whole on every rank; the fetches
+    equal the one-rank run's."""
+    from paddle_tpu_torch.core import lockstep
+
+    main, startup = ptt.Program(), ptt.Program()
+    L = ptt.layers
+    with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
+        x = L.data(name="x", shape=[6], dtype="float32")
+        sm = L.softmax(x, axis=0)
+        act = L.relu(L.scale(sm, scale=2.0, bias=-0.2))
+        tr = L.transpose(x, perm=[1, 0])
+    seen = []
+    run_ranks = lockstep.RankStep.run_ranks
+
+    def spy(self, envs, seeds, device):
+        out = run_ranks(self, envs, seeds, device)
+        seen.append(out)
+        return out
+
+    feed = {"x": np.random.RandomState(3).standard_normal((8, 6))
+            .astype("float32")}
+    exe = ptt.Executor(ptt.CPUPlace())
+    want = exe.run(main, feed=feed, fetch_list=[sm, act, tr],
+                   scope=ptt.Scope())
+    ct = ptt.CompiledProgram(main).with_data_parallel(
+        places=ptt.cpu_places(2))
+    import unittest.mock
+
+    with unittest.mock.patch.object(lockstep.RankStep, "run_ranks", spy):
+        got = exe.run(ct, feed=feed, fetch_list=[sm, act, tr],
+                      scope=ptt.Scope())
+    envs, split = seen[-1]
+    assert sm.name in split and act.name in split and tr.name not in split
+    assert [tuple(e[act.name].shape) for e in envs] == [(4, 6)] * 2
+    assert all(e[tr.name] is envs[0][tr.name] for e in envs)
+    assert tuple(envs[0][tr.name].shape) == (6, 8)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_a_random_op_still_raises_under_the_gather_rule():
+    """A random op other than dropout with a batch-split input raises
+    under CompiledProgram, naming itself: its draws over the whole batch
+    are not split by rank."""
     main, startup = ptt.Program(), ptt.Program()
     with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
         x = ptt.layers.data(name="x", shape=[6], dtype="float32")
-        if kind == "softmax_axis0":
-            out = ptt.layers.softmax(x, axis=0)
-        elif kind == "kron":
-            blk = main.global_block()
-            out = blk.create_var(name="kron_out", dtype="float32")
-            blk.append_op(type="kron", inputs={"X": [x], "Y": [x]},
-                          outputs={"Out": [out]})
-        elif kind == "transpose_batch":
-            out = ptt.layers.transpose(x, perm=[1, 0])
-        else:
-            out = ptt.layers.reshape(x, [2, -1])
-    return main, startup, out
-
-
-@pytest.mark.parametrize("kind", ["softmax_axis0", "kron", "reshape",
-                                  "transpose_batch"])
-def test_an_op_no_rule_covers_raises(kind):
-    """An op with a batch-split input that lockstep's rules do not
-    classify raises under CompiledProgram, naming itself and 20c-v,
-    rather than compute a different result."""
-    main, startup, out = _split_op_program(kind)
+        y = ptt.layers.data(name="y", shape=[1], dtype="int64")
+        out = ptt.layers.sampled_softmax_with_cross_entropy(x, y,
+                                                            num_samples=3)
     prog = ptt.CompiledProgram(main).with_data_parallel(
-        places=ptt.cpu_places(RANKS))
-    op = {"softmax_axis0": "softmax", "kron": "kron",
-          "reshape": "reshape2", "transpose_batch": "transpose2"}[kind]
-    with pytest.raises(NotImplementedError, match=f"{op}:.*item 20c-v"):
+        places=ptt.cpu_places(2))
+    with pytest.raises(NotImplementedError,
+                       match="sampled_softmax_with_cross_entropy: .*random"):
         ptt.Executor(ptt.CPUPlace()).run(
-            prog, feed={"x": np.ones((8, 6), "float32")}, fetch_list=[out],
-            scope=ptt.Scope())
+            prog, feed={"x": np.ones((8, 6), "float32"),
+                        "y": np.zeros((8, 1), "int64")},
+            fetch_list=[out], scope=ptt.Scope())
 
 
 @pytest.mark.parametrize("runner", ["compiled", "spmd"])
@@ -1006,7 +1250,7 @@ def test_spmd_and_sharded_telemetry_rows_match_jax():
     assert spmd["steps"] >= 3 and spmd["device_kind"] == "cpu"
 
 
-# -- the library core's rules (ROADMAP item 20c-v): sync batch norm on
+# -- the library core's rules: sync batch norm on
 # the book's VGG-16-BN, and a row-op case for each new rule
 
 

@@ -270,20 +270,20 @@ def test_model_matches_the_jax_package(params, train, fmt, fused):
 
 
 def test_the_f32_head_is_the_gap_to_the_jax_package(params, monkeypatch):
-    """With the head's product computed in f64 on both sides (both
-    models' `dense` patched to upcast its f32 input), the fused model's
-    loss agrees with the JAX package's within 1e-8 relative and every
-    gradient within 1e-6 of its tensor's largest value (measured: the
-    loss to the last bit, gradients 1.2e-7, one f32 step of the f32
-    params), against 1.0e-7 and 2.0e-6 with the f32 head: what remains
-    of the gap is the f32 rounding of the head's input and of the
-    gradients."""
+    """With the head's product computed in f64 on both sides (the JAX
+    package's `dense` and the port's `tp_dense` patched to upcast the
+    head's f32 input), the fused model's loss agrees with the JAX
+    package's within 1e-8 relative and every gradient within 1e-6 of
+    its tensor's largest value (measured: the loss to the last bit,
+    gradients 1.2e-7, one f32 step of the f32 params), against 1.0e-7
+    and 2.0e-6 with the f32 head: what remains of the gap is the f32
+    rounding of the head's input and of the gradients."""
     jparams, np_params, _ = params
-    jdense, tdense = jres.dense, tres.dense
+    jdense, tdense = jres.dense, tres.tp_dense
     monkeypatch.setattr(jres, "dense", lambda p, n, x: jdense(
         p, n, x.astype(jnp.float64)))
-    monkeypatch.setattr(tres, "dense", lambda p, n, x: tdense(
-        p, n, x.double()))
+    monkeypatch.setattr(tres, "tp_dense", lambda p, n, x, axes: tdense(
+        p, n, x.double(), axes))
     jcfg = _cfgs(True)[0]
     b = {k: jnp.asarray(v) for k, v in _batch("NHWC").items()}
     (jl, _), jgrads = jax.jit(jax.value_and_grad(
