@@ -268,6 +268,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (CompiledProgram and SPMDRunner), one traced step of each (idle
    share), the `spmd` and `sharded` telemetry rows and perfwatch's
    "spmd" sample;
+30. fluid-trainer: the fluid trainer's front end, f32 with TF32 off and
+   cuDNN deterministic (`phase_fluid_trainer`): (a) the book's
+   VGG-16-BN at batch 128 fed by `DataLoader.from_generator(
+   use_double_buffer=True)` on `CUDAPlace(0)` (the DevicePrefetcher)
+   through `run_stream` windows of 8 and `exe.train_from_dataset`, 24
+   steps: losses and state equal to per-step `Executor.run` bit for
+   bit, at PADDLE_TPU_STREAM_WINDOW=1 too, and a preemption at step 13
+   equal to 13 per-step runs; step ms both ways, traced idle shares,
+   the prefetch's blocked seconds; (b) the LeNet rung at batch 256
+   under each of the 17 optimizer op types and ModelAverage, EMA,
+   Lookahead, GradientMerge(k=4) and Recompute, 5 steps each from the
+   CPU's state: loss and gradients against the CPU's (`FLUID_TOL`),
+   the optimizer ops' results against the same ops run on the CPU from
+   the card's gradients (`OPT_TOL`); dpsgd at sigma 0 is clipped SGD;
+   (c) tools/ctr_bench.py's CTR program at 100,000 x 16, batch 512,
+   Zipf ids: sparse equal to dense bit for bit (sgd, momentum, adagrad,
+   adam), lazy Adam's touched rows equal to dense and the rest
+   unchanged, step ms sparse and dense; (d) `amp.decorate` on
+   VGG-16-BN (mixed_bf16: the loss falls; f16: the loss scale on the
+   card and the CPU); (e) the fleet's use_amp, recompute,
+   gradient_merge_k=2, use_dgc and lamb on the LeNet rung at 2 ranks
+   against one (`_fluid_dp_parity`; amp at `AMP_DP_TOL`), and DGC with
+   an axis under SPMDRunner against the ranks' `sparse_allreduce`;
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -6354,11 +6377,12 @@ def _fluid_gather(pt, exe, place):
     return out
 
 
-def _fluid_dp_parity(pt, label, run_split, feed, main, startup, loss):
+def _fluid_dp_parity(pt, label, run_split, feed, main, startup, loss,
+                     limits=FLUID_TOL):
     """3 Adam steps of `run_split(scope, fetch_list)` against the one-rank
     `Executor.run` from a copy of the same scope, each step from the
     one-rank state: the loss, every parameter gradient and the updated
-    params within FLUID_TOL (beyond `fluid_adam_slack` for a param)."""
+    params within `limits` (beyond `fluid_adam_slack` for a param)."""
     exe = pt.Executor(pt.CUDAPlace(0))
     one = pt.Scope()
     exe.run(startup, scope=one)
@@ -6380,7 +6404,7 @@ def _fluid_dp_parity(pt, label, run_split, feed, main, startup, loss):
             err = np.abs(split.get(n) - w) - fluid_adam_slack(2e-3, a, b)
             worst["param"] = max(worst["param"], float(
                 err.max() / max(1.0, np.abs(w).max())))
-    for key, lim in FLUID_TOL.items():
+    for key, lim in limits.items():
         check(worst[key] <= lim, f"fluid dp ({label}): the split step's "
               f"{key} differs from one rank's by {worst[key]} (limit {lim})")
     return worst
@@ -6759,6 +6783,759 @@ def phase_fluid_book():
     torch.cuda.empty_cache()
 
 
+# Phase 30: the fluid trainer's front end on the card, f32 with TF32 off
+# and cuDNN held to its deterministic algorithms (so that one step run
+# twice gives the same bits): (a) the book's VGG-16-BN fed by a
+# DataLoader through DevicePrefetcher into `train_from_dataset`'s
+# `run_stream` windows, against per-step `Executor.run`; (b) every
+# optimizer op on bench.py's LeNet rung; (c) SelectedRows gradients of
+# a CTR table; (d) `amp.decorate` on VGG-16-BN; (e) the fleet's
+# optimizer rewrites on 2 in-process ranks.
+TRAINER_STEPS = 24
+TRAINER_WINDOW = 8
+TRAINER_PREEMPT_AT = 13    # a request inside the second window (8-15)
+OPT_STEPS = 5
+# (b) each step's optimizer ops on the card against the same ops run on
+# the CPU from the same state and the card's gradients: every written
+# persistable within OPT_TOL of max(1, its largest value); the loss and
+# gradients against the CPU's step at FLUID_TOL
+OPT_TOL = 1e-5
+CTR_V, CTR_D, CTR_B = 100000, 16, 512    # BENCH_CTR.json's downpour_ctr
+CTR_STEPS = 6
+CTR_ZIPF = 1.3
+AMP_STEPS = 16
+AMP_SCALE_STEPS = 3
+AMP_F16_SCALE = 8.0
+# (e) under use_amp (mixed_bf16) the ranks' weight gradients are bf16
+# products over their own rows, summed: the loss and the updated params
+# within two bf16 ulps (2**-7) of the largest value, the gradients
+# within four (a CPU run at batch 32 read 7.7e-3 of the largest)
+AMP_DP_TOL = {"loss": 2.0 ** -7, "grad": 2.0 ** -6, "param": 2.0 ** -7}
+
+
+def _persist_state(scope, main):
+    """{name: host array} of every persistable of `main` in `scope`,
+    with the scope's RNG state."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+
+    out = {v.name: scope.get(v.name) for v in main.list_vars()
+           if v.persistable and scope.find_var(v.name) is not None}
+    out[RNG_STATE_VAR] = scope.find_var(RNG_STATE_VAR)
+    return out
+
+
+def _state_equal(label, got, want):
+    """`got` equals `want` bit for bit, name by name."""
+    check(got.keys() == want.keys(),
+          f"fluid trainer ({label}): state names differ: "
+          f"{sorted(set(got) ^ set(want))}")
+    bad = [n for n in want if not np.array_equal(got[n], want[n])]
+    check(not bad, f"fluid trainer ({label}): {len(bad)} of {len(want)} "
+          f"states differ from per-step run's, e.g. {bad[:4]}")
+
+
+def _vgg_loader(pt, main, batches, cuda):
+    """A DataLoader over `batches` with the double buffer to the card."""
+    loader = pt.DataLoader.from_generator(
+        feed_list=[main.global_block().var("img"),
+                   main.global_block().var("label")],
+        capacity=TRAINER_WINDOW, use_double_buffer=True)
+    loader.set_batch_generator(
+        lambda: iter([(f["img"], f["label"]) for f in batches]),
+        places=cuda)
+    return loader
+
+
+def _trainer_stream(pt, exe):
+    """Phase 30 (a)."""
+    import torch
+
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.observability import telemetry
+    from paddle_tpu_torch.resilience import preemption
+
+    cuda = pt.CUDAPlace(0)
+    main, startup, _, loss, _ = vgg_bn_program(pt)
+    main.random_seed = 7        # the dropout masks' stream
+    s0 = pt.Scope()
+    exe.run(startup, scope=s0)
+    init = {v.name: s0.get(v.name) for v in startup.list_vars()
+            if v.persistable}
+    img, label = synthetic_cifar(VGG_B * TRAINER_STEPS, seed=3)
+    batches = [{"img": img[i * VGG_B:(i + 1) * VGG_B],
+                "label": label[i * VGG_B:(i + 1) * VGG_B]}
+               for i in range(TRAINER_STEPS)]
+    fresh = lambda: scope_from_numpy(pt.Scope(), init, cuda)  # noqa: E731
+
+    # the reference: one Executor.run a step, each loss read back; its
+    # time from step 2 on (the first prepares the step and cuDNN)
+    ref = fresh()
+    ref_losses, at_stop = [], None
+    for i, f in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ref_losses.append(exe.run(main, feed=f, fetch_list=[loss],
+                                  scope=ref)[0])
+        if i + 1 == TRAINER_PREEMPT_AT:
+            at_stop = _persist_state(ref, main)
+    per_step_ms = (time.perf_counter() - t0) * 1e3 / (TRAINER_STEPS - 1)
+    want = _persist_state(ref, main)
+
+    # run_stream over the loader: the fetched losses too
+    blocked0 = telemetry.HOST_BLOCKED_SECONDS.value(site="prefetch:device")
+    items0 = telemetry.PREFETCH_ITEMS.value(stage="device")
+    s1 = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = list(exe.run_stream(main, _vgg_loader(pt, main, batches, cuda),
+                                  fetch_list=[loss], window=TRAINER_WINDOW,
+                                  scope=s1))
+    losses = np.concatenate([h.result()[0].reshape(-1) for h in handles])
+    stream_ms = (time.perf_counter() - t0) * 1e3 / TRAINER_STEPS
+    blocked = telemetry.HOST_BLOCKED_SECONDS.value(
+        site="prefetch:device") - blocked0
+    check([h.n_steps for h in handles] == [TRAINER_WINDOW] * (
+        TRAINER_STEPS // TRAINER_WINDOW),
+        f"fluid trainer (a): windows {[h.n_steps for h in handles]}")
+    check(np.array_equal(losses, np.concatenate(ref_losses).reshape(-1)),
+          f"fluid trainer (a): streamed losses {losses[:4]} differ from "
+          f"per-step {ref_losses[:4]}")
+    _state_equal("a, run_stream", _persist_state(s1, main), want)
+    check(telemetry.PREFETCH_ITEMS.value(stage="device") - items0
+          == TRAINER_STEPS, "fluid trainer (a): the device prefetch stage "
+          "did not pass every batch")
+
+    # train_from_dataset at the default window, then at window 1
+    out = {}
+    for window in (str(TRAINER_WINDOW), "1"):
+        os.environ["PADDLE_TPU_STREAM_WINDOW"] = window
+        try:
+            s = fresh()
+            exe.train_from_dataset(main, _vgg_loader(pt, main, batches,
+                                                     cuda),
+                                   fetch_list=[loss], scope=s)
+        finally:
+            del os.environ["PADDLE_TPU_STREAM_WINDOW"]
+        _state_equal(f"a, train_from_dataset window {window}",
+                     _persist_state(s, main), want)
+        out[f"window_{window}"] = "equal"
+
+    # a preemption requested as step TRAINER_PREEMPT_AT's batch arrives:
+    # the window is cut there and flushed
+    def preempting():
+        for i, f in enumerate(_vgg_loader(pt, main, batches, cuda)()):
+            if i == TRAINER_PREEMPT_AT:
+                preemption.request_stop("phase 30")
+            yield f
+
+    src = preempting()
+    s = fresh()
+    try:
+        exe.train_from_dataset(main, src, fetch_list=[loss], scope=s)
+    finally:
+        src.close()             # joins the loader's threads
+        preemption.reset()
+    _state_equal("a, preempted", _persist_state(s, main), at_stop)
+
+    # one window streamed and the same 8 steps run one by one, traced
+    win = batches[:TRAINER_WINDOW]
+    sa, sb = fresh(), fresh()
+    traced_stream = _profiled_step(lambda: [h.result() for h in exe.run_stream(
+        main, _vgg_loader(pt, main, win, cuda), fetch_list=[loss],
+        window=TRAINER_WINDOW, scope=sa)])
+    traced_steps = _profiled_step(lambda: [exe.run(
+        main, feed=f, fetch_list=[loss], scope=sb) for f in win])
+    keys = ("wall_ms", "device_busy_ms", "device_idle_share",
+            "device_events")
+    return {"steps": TRAINER_STEPS, "window": TRAINER_WINDOW,
+            "losses_first_last": [float(losses[0]), float(losses[-1])],
+            "stream_step_ms": stream_ms, "per_step_ms": per_step_ms,
+            "prefetch_device_blocked_s": blocked,
+            "train_from_dataset": out,
+            "preempted_at_step": TRAINER_PREEMPT_AT,
+            "traced_window_streamed": {k: traced_stream[k] for k in keys},
+            "traced_window_per_step": {k: traced_steps[k] for k in keys}}
+
+
+def _opt_maker(pt, name):
+    """A factory of the optimizer `name` for bench.py's LeNet rung,
+    whose `lenet_rung_program` calls `optimizer.Adam(learning_rate=...)`:
+    (make, holder), `holder` filled with a ModelAverage or EMA at
+    minimize.
+    adamw, proximal_gd, proximal_adagrad and average_accumulates have
+    no optimizer class in the JAX package: a minimal Optimizer subclass
+    appends each op."""
+    o = pt.optimizer
+    holder = {}
+
+    class _OpOpt(o.Optimizer):
+        def __init__(self, op, lr, accs=(), attrs=None):
+            super().__init__(lr)
+            self._op, self._accs, self._attrs = op, accs, attrs or {}
+
+        def _create_accumulators(self, block, parameters):
+            for p in parameters:
+                for slot, name, fill, shape in self._accs:
+                    self._add_accumulator(name, p, fill_value=fill,
+                                          shape=shape)
+
+        def _append_optimize_op(self, block, pg):
+            p, g = pg
+            ins = {"Param": p, "Grad": g,
+                   "LearningRate": self._create_param_lr(pg)}
+            outs = {"ParamOut": p}
+            for slot, name, _, _ in self._accs:
+                ins[slot] = outs[slot + "Out"] = self._get_accumulator(
+                    name, p)
+            return block.append_op(type=self._op, inputs=ins, outputs=outs,
+                                   attrs=self._attrs)
+
+    class _Averaged:
+        """SGD, then `average_accumulates` on each param (the
+        reference's ModelAverage op)."""
+
+        def minimize(self, loss):
+            from paddle_tpu_torch.core.framework import (OpRole,
+                                                         op_role_guard)
+
+            ops, pg = o.SGD(0.01).minimize(loss)
+            acc = o.Optimizer(0.0)
+            block = loss.block.program.global_block()
+            with op_role_guard(OpRole.Optimize):
+                for p, _ in pg:
+                    v = {k: acc._add_accumulator(k, p) for k in
+                         ("sum_1", "sum_2", "sum_3")}
+                    v.update({k: acc._add_accumulator(k, p, dtype="int64",
+                                                      shape=[1])
+                              for k in ("num_accumulates",
+                                        "old_num_accumulates",
+                                        "num_updates")})
+                    block.append_op(
+                        type="average_accumulates",
+                        inputs={"param": p, **{f"in_{k}": x
+                                               for k, x in v.items()}},
+                        outputs={f"out_{k}": x for k, x in v.items()},
+                        attrs={"average_window": 0.15,
+                               "min_average_window": 2,
+                               "max_average_window": 4})
+            return ops, pg
+
+    class _With:
+        """`inner`, then a ModelAverage or EMA built on its program."""
+
+        def __init__(self, inner, extra):
+            self.inner, self.extra = inner, extra
+
+        def minimize(self, loss):
+            out = self.inner.minimize(loss)
+            holder["extra"] = self.extra()
+            return out
+
+    adam_accs = (("Moment1", "moment1", 0.0, None),
+                 ("Moment2", "moment2", 0.0, None),
+                 ("Beta1Pow", "beta1_pow_acc", 0.9, [1]),
+                 ("Beta2Pow", "beta2_pow_acc", 0.999, [1]))
+
+    def ema():
+        e = o.ExponentialMovingAverage(decay=0.9)
+        e.update()
+        return e
+
+    table = {
+        "sgd": lambda: o.SGD(0.01),
+        "momentum": lambda: o.Momentum(0.01, momentum=0.9),
+        "lars_momentum": lambda: o.LarsMomentum(0.01, momentum=0.9),
+        "adam": lambda: o.Adam(2e-3),
+        "adamw": lambda: _OpOpt("adamw", 2e-3, adam_accs,
+                                {"beta1": 0.9, "beta2": 0.999,
+                                 "epsilon": 1e-8, "coeff": 0.01}),
+        "adamax": lambda: o.Adamax(2e-3),
+        "adagrad": lambda: o.Adagrad(0.01),
+        "decayed_adagrad": lambda: o.DecayedAdagrad(0.01),
+        "adadelta": lambda: o.Adadelta(1.0),
+        "rmsprop": lambda: o.RMSProp(1e-3, momentum=0.9, centered=True),
+        "ftrl": lambda: o.Ftrl(0.01, l1=1e-4, l2=1e-4),
+        "lamb": lambda: o.Lamb(2e-3),
+        "dpsgd": lambda: o.Dpsgd(0.01, clip=1.0, batch_size=1.0, sigma=0.0),
+        "dgc_momentum": lambda: o.DGCMomentumOptimizer(0.01, momentum=0.9,
+                                                       sparsity=[0.99]),
+        "proximal_gd": lambda: _OpOpt("proximal_gd", 0.01, (),
+                                      {"l1": 1e-4, "l2": 1e-4}),
+        "proximal_adagrad": lambda: _OpOpt(
+            "proximal_adagrad", 0.01, (("Moment", "moment", 0.1, None),),
+            {"l1": 1e-4, "l2": 1e-4}),
+        "average_accumulates": lambda: _Averaged(),
+        "ModelAverage": lambda: _With(o.SGD(0.01), lambda: o.ModelAverage(
+            0.15, min_average_window=2, max_average_window=4)),
+        "ExponentialMovingAverage": lambda: _With(o.SGD(0.01), ema),
+        "Lookahead": lambda: o.LookaheadOptimizer(o.SGD(0.01), alpha=0.5,
+                                                  k=2),
+        "GradientMerge": lambda: o.GradientMergeOptimizer(o.SGD(0.01),
+                                                          k_steps=4),
+        "Recompute": lambda: o.RecomputeOptimizer(o.Adam(2e-3)),
+    }
+    make = table[name]
+    return (lambda **kw: make()), holder
+
+
+def _optimize_section(main):
+    """The ops of block 0 in the optimizer's role, in order."""
+    from paddle_tpu_torch.core.framework import OpRole
+
+    return [op for op in main.desc.block(0).ops
+            if int(op.attrs.get(OpRole.AttrName, 0)) & OpRole.Optimize]
+
+
+def _replay_on_cpu(main, ops, state, grads):
+    """`ops` run by the CPU's kernels from `state` and the card's
+    gradients `grads`: the env after them."""
+    import torch
+
+    from paddle_tpu_torch.core import lowering
+
+    desc = main.desc
+    cpu = torch.device("cpu")
+    env = {n: torch.from_numpy(np.array(v)) for n, v in state.items()
+           if isinstance(v, np.ndarray)}
+    env.update({n: torch.from_numpy(np.array(v)) for n, v in grads.items()})
+
+    def sub(idx, sub_env, ctx):
+        return lowering.lower_block(desc, idx, sub_env, rng_key=0,
+                                    device=cpu)
+
+    with torch.no_grad():
+        for op in ops:
+            lowering.run_op(op, env, desc, 0, sub, 0, False, cpu)
+    return env
+
+
+def _trainer_optimizer(pt, exe, name, feed):
+    """Phase 30 (b) for one optimizer: OPT_STEPS steps on the card and on
+    the CPU, each from the CPU's state."""
+    import torch
+
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    cuda, cpu = pt.CUDAPlace(0), pt.CPUPlace()
+    make, holder = _opt_maker(pt, name)
+    fpt = types.SimpleNamespace(**vars(pt))
+    fpt.optimizer = types.SimpleNamespace(Adam=make)
+    main, startup, loss = lenet_rung_program(fpt)
+    params = [p.name for p in main.all_parameters()]
+    grads = [n + "@GRAD" for n in params]
+    section = _optimize_section(main)
+    persistables = sorted(v.name for v in main.list_vars() if v.persistable)
+    cpu_exe = pt.Executor(cpu)
+    host = pt.Scope()
+    cpu_exe.run(startup, scope=host)
+    worst = {"loss": 0.0, "grad": 0.0, "update": 0.0}
+    moved = []
+    card = None
+    for _ in range(OPT_STEPS):
+        before = {n: host.get(n) for n in host.local_var_names()
+                  if isinstance(host.find_var(n), torch.Tensor)}
+        card = scope_from_numpy(pt.Scope(), before, cuda)
+        got = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                      scope=card)
+        want = cpu_exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                           scope=host)
+        worst["loss"] = max(worst["loss"], float(
+            abs(got[0][0] - want[0][0]) / abs(want[0][0])))
+        for a, b in zip(got[1:], want[1:]):
+            worst["grad"] = max(worst["grad"], float(
+                np.abs(a - b).max() / np.abs(b).max()))
+        env = _replay_on_cpu(main, section, before,
+                             dict(zip(grads, got[1:])))
+        for n in persistables:
+            w = env[n].numpy()
+            err = float(np.abs(card.get(n).astype(np.float64) - w).max())
+            worst["update"] = max(worst["update"],
+                                  err / max(1.0, float(np.abs(w).max())))
+        moved.append(not np.array_equal(card.get(params[0]),
+                                        before[params[0]]))
+    limits = {"loss": FLUID_TOL["loss"], "grad": FLUID_TOL["grad"],
+              "update": OPT_TOL}
+    for key, lim in limits.items():
+        check(worst[key] <= lim, f"fluid trainer (b) {name}: {key} "
+              f"differs by {worst[key]} (limit {lim})")
+    out = {"op_types": sorted({op.type for op in section}),
+           "worst": worst}
+    if name == "GradientMerge":
+        check(moved == [False, False, False, True, False],
+              f"fluid trainer (b): GradientMerge(k=4) moved the params "
+              f"at steps {moved}")
+        out["params_moved"] = moved
+    if name == "dpsgd":
+        # sigma 0: SGD on the gradient clipped to norm 1, per tensor
+        last = {n: card.get(n) for n in params}
+        for n, g in zip(params, got[1:]):
+            g = g.astype(np.float64)
+            step = 0.01 * g / max(1.0, float(np.sqrt((g * g).sum())))
+            err = np.abs(last[n] - (before[n] - step)).max()
+            check(err <= 1e-6 * max(1.0, float(np.abs(last[n]).max())),
+                  f"fluid trainer (b): dpsgd at sigma 0 is not clipped "
+                  f"SGD on {n} ({err})")
+        out["clipped_sgd"] = "equal"
+    if name in ("ModelAverage", "ExponentialMovingAverage"):
+        out["apply_restore"] = _apply_restore(pt, exe, main, startup, card,
+                                              holder["extra"], params)
+    return out
+
+
+def _apply_restore(pt, exe, main, startup, scope, extra, params):
+    """ModelAverage or EMA on the card: inside `apply` the params are
+    the averages; after it, the params bit for bit."""
+    from paddle_tpu_torch.optimizer import ModelAverage
+
+    before = {n: scope.get(n) for n in params}
+    with pt.scope_guard(scope), pt.program_guard(main, startup):
+        with extra.apply(exe):
+            inside = {n: scope.get(n) for n in params}
+            if isinstance(extra, ModelAverage):
+                cnt = max(float(scope.get(extra._cnt_var.name)[0]), 1.0)
+                for n in params:
+                    avg = scope.get(extra._sum_vars[n].name) / cnt
+                    check(np.allclose(inside[n], avg, rtol=1e-6, atol=0),
+                          f"fluid trainer (b): ModelAverage.apply's {n} "
+                          f"is not the average")
+        restored = all(np.array_equal(scope.get(n), before[n])
+                       for n in params)
+    check(restored, "fluid trainer (b): apply did not restore the params")
+    check(any(not np.array_equal(inside[n], before[n]) for n in params),
+          "fluid trainer (b): apply swapped in the params unchanged")
+    return "restored"
+
+
+def ctr_program(pt, opt, is_sparse):
+    """tools/ctr_bench.py's downpour CTR program made local: the id slot
+    (float, as the native datafeed gives it) cast to int64, an
+    `embedding` of CTR_V x CTR_D with `is_sparse`, fc(1, sigmoid), the
+    mean log loss, and the optimizer `opt` (sgd, momentum, adagrad,
+    adam or adam_lazy): (main, startup, loss, table name)."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        w = pt.layers.data(name="wf", shape=[1], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="float32")
+        ids64 = pt.layers.cast(w, "int64")
+        emb = pt.layers.embedding(ids64, (CTR_V, CTR_D),
+                                  is_sparse=is_sparse)
+        emb = pt.layers.reshape(emb, shape=[-1, CTR_D])
+        pred = pt.layers.fc(input=emb, size=1, act="sigmoid")
+        loss = pt.layers.mean(pt.layers.log_loss(pred, label))
+        o = pt.optimizer
+        {"sgd": lambda: o.SGD(0.1),
+         "momentum": lambda: o.Momentum(0.1, momentum=0.9),
+         "adagrad": lambda: o.Adagrad(0.1),
+         "adam": lambda: o.Adam(0.01),
+         "adam_lazy": lambda: o.Adam(0.01, lazy_mode=True)}[opt]() \
+            .minimize(loss)
+    table = [p.name for p in main.all_parameters()
+             if tuple(p.shape) == (CTR_V, CTR_D)][0]
+    return main, startup, loss, table
+
+
+def ctr_feeds(steps, seed=0):
+    """Zipf-like ids (heavy repeats within a batch) and their clicks
+    (id % 3 == 0, as tools/ctr_bench.py labels them)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        ids = (rng.zipf(CTR_ZIPF, (CTR_B, 1)) - 1) % CTR_V
+        out.append({"wf": ids.astype("float32"),
+                    "label": (ids % 3 == 0).astype("float32")})
+    return out
+
+
+def _trainer_sparse(pt, exe):
+    """Phase 30 (c)."""
+    import torch
+
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    cuda = pt.CUDAPlace(0)
+    feeds = ctr_feeds(CTR_STEPS)
+    out = {"repeats_in_a_batch": int(CTR_B - len(np.unique(feeds[0]["wf"])))}
+
+    def run(opt, is_sparse):
+        main, startup, loss, table = ctr_program(pt, opt, is_sparse)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        ms = []
+        for f in feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return main, scope, table, statistics.median(ms[1:])
+
+    for opt in ("sgd", "momentum", "adagrad", "adam"):
+        dmain, dense, table, dense_ms = run(opt, False)
+        smain, sparse, _, sparse_ms = run(opt, True)
+        a, b = _persist_state(sparse, smain), _persist_state(dense, dmain)
+        _state_equal(f"c, {opt} sparse vs dense", a, b)
+        out[opt] = {"sparse_step_ms": sparse_ms, "dense_step_ms": dense_ms,
+                    "table": "equal bit for bit"}
+    # lazy Adam: each step from the dense run's state, the touched rows
+    # equal the dense step's and the others keep params and moments
+    main, startup, loss, table = ctr_program(pt, "adam_lazy", True)
+    dmain, dstart, dloss, _ = ctr_program(pt, "adam", False)
+    dense = pt.Scope()
+    exe.run(dstart, scope=dense)
+    tables = [table] + [v.name for v in main.list_vars() if v.persistable
+                        and v.name.startswith(table + "_moment")]
+    ms = []
+    for f in feeds:
+        before = _persist_state(dense, dmain)
+        lazy = scope_from_numpy(pt.Scope(), {
+            k: v for k, v in before.items() if isinstance(v, np.ndarray)},
+            cuda)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=f, fetch_list=[loss], scope=lazy)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        exe.run(dmain, feed=f, fetch_list=[dloss], scope=dense)
+        rows = np.unique(f["wf"].astype("int64"))
+        other = np.setdiff1d(np.arange(CTR_V), rows)
+        for n in tables:
+            got, step = lazy.get(n), dense.get(n)
+            check(np.array_equal(got[rows], step[rows]),
+                  f"fluid trainer (c): lazy adam's touched rows of {n} "
+                  f"differ from the dense step's")
+            check(np.array_equal(got[other], before[n][other]),
+                  f"fluid trainer (c): lazy adam moved untouched rows "
+                  f"of {n}")
+    out["adam_lazy"] = {"sparse_step_ms": statistics.median(ms[1:]),
+                        "touched_rows": "equal to dense",
+                        "untouched_rows": "unchanged"}
+    return out
+
+
+def _amp_vgg(pt, width=1, **kw):
+    """VGG-16-BN (`vgg_bn_program`) with its Adam decorated by
+    `amp.decorate(**kw)`: (main, startup, loss, the decorated
+    optimizer)."""
+    holder = {}
+
+    def adam(**a):
+        holder["opt"] = pt.amp.decorate(pt.optimizer.Adam(**a), **kw)
+        return holder["opt"]
+
+    fpt = types.SimpleNamespace(**vars(pt))
+    fpt.optimizer = types.SimpleNamespace(Adam=adam)
+    main, startup, _, loss, _ = vgg_bn_program(fpt, width=width)
+    return main, startup, loss, holder["opt"]
+
+
+def _trainer_amp(pt, exe):
+    """Phase 30 (d): amp.decorate (mixed_bf16) on VGG-16-BN trains; the
+    f16 decoration's loss scale, read each step, on the card and on the
+    CPU (the JAX package's fluid decorator keeps a static scale: no op
+    of its program updates it)."""
+    main, startup, loss, _ = _amp_vgg(pt)
+    check(main._attrs.get("precision") == "mixed_bf16",
+          f"fluid trainer (d): decorate pinned {main._attrs}")
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    img, label = synthetic_cifar(VGG_B * AMP_STEPS, seed=4)
+    losses = []
+    for i in range(AMP_STEPS):
+        b = slice(i * VGG_B, (i + 1) * VGG_B)
+        losses.append(float(exe.run(main, feed={"img": img[b],
+                                                "label": label[b]},
+                                    fetch_list=[loss], scope=scope)[0][0]))
+    check(all(np.isfinite(losses)) and
+          np.mean(losses[-4:]) < np.mean(losses[:4]),
+          f"fluid trainer (d): amp VGG-16-BN's loss did not fall: {losses}")
+    traj = {}
+    # the CPU's run at width / 8 and batch 8: an f16 VGG step at full
+    # width takes minutes on the CPU, and the scale is the program's
+    for where, width, n in (("card", 1, VGG_B), ("cpu", 8, 8)):
+        main, startup, loss, opt = _amp_vgg(
+            pt, width, use_bf16=False, init_loss_scaling=AMP_F16_SCALE)
+        scale = opt.get_loss_scaling().name
+        ex = exe if where == "card" else pt.Executor(pt.CPUPlace())
+        s = pt.Scope()
+        ex.run(startup, scope=s)
+        traj[where] = []
+        for i in range(AMP_SCALE_STEPS):
+            ex.run(main, feed={"img": img[i * n:(i + 1) * n],
+                               "label": label[i * n:(i + 1) * n]},
+                   fetch_list=[loss], scope=s)
+            traj[where].append(float(s.get(scale)[0]))
+    check(traj["card"] == traj["cpu"],
+          f"fluid trainer (d): loss scales {traj}")
+    return {"policy": "mixed_bf16", "losses_first_last": [losses[0],
+                                                           losses[-1]],
+            "loss_mean_first4_last4": [float(np.mean(losses[:4])),
+                                       float(np.mean(losses[-4:]))],
+            "f16_loss_scale": traj}
+
+
+def _trainer_fleet(pt, exe, feed):
+    """Phase 30 (e): each optimizer rewrite of DistributedStrategy on
+    bench.py's LeNet rung under with_data_parallel at 2 ranks against
+    one rank; DGC with an axis under SPMDRunner against each rank's
+    compression summed by the ring's sparse_allreduce."""
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.parallel.fleet import Fleet
+
+    cuda = pt.CUDAPlace(0)
+    out = {}
+    for knob in ("use_amp", "recompute", "gradient_merge_k", "use_dgc",
+                 "lamb"):
+        fl = Fleet()
+        fl.init(par.UserDefinedRoleMaker(current_id=0, worker_num=1))
+        st = par.DistributedStrategy(
+            **{knob: 2 if knob == "gradient_merge_k" else True})
+        fpt = types.SimpleNamespace(**vars(pt))
+        inner = (lambda **kw: pt.optimizer.DGCMomentumOptimizer(
+            0.01, momentum=0.9, sparsity=[0.99])) if knob == "use_dgc" \
+            else pt.optimizer.Adam
+        fpt.optimizer = types.SimpleNamespace(
+            Adam=lambda **kw: fl.distributed_optimizer(inner(**kw), st))
+        main, startup, loss = lenet_rung_program(fpt)
+        prog = pt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, places=[cuda] * 2)
+        out[knob] = _fluid_dp_parity(
+            pt, f"30 (e) {knob}", lambda s, f: exe.run(
+                prog, feed=feed, fetch_list=f, scope=s),
+            feed, main, startup, loss,
+            limits=AMP_DP_TOL if knob == "use_amp" else FLUID_TOL)
+    out["dgc_spmd"] = _dgc_spmd(pt, exe, feed)
+    return out
+
+
+def _dgc_spmd(pt, exe, feed):
+    """DGCMomentum with axis "dp" under SPMDRunner on 2 ranks, one step,
+    against each rank's gradient (its half of the batch, one rank)
+    compressed and summed by the ring's `sparse_allreduce` by hand."""
+    import torch
+
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.ops.collective import sparse_allreduce
+
+    cuda = pt.CUDAPlace(0)
+
+    def build(axis):
+        fpt = types.SimpleNamespace(**vars(pt))
+        fpt.optimizer = types.SimpleNamespace(
+            Adam=lambda **kw: pt.optimizer.DGCMomentumOptimizer(
+                0.01, momentum=0.9, sparsity=[0.99], axis_name=axis))
+        return lenet_rung_program(fpt)
+
+    main, startup, loss = build("dp")
+    params = [p.name for p in main.all_parameters()]
+    s0 = pt.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: s0.get(n) for n in s0.local_var_names()
+            if isinstance(s0.find_var(n), torch.Tensor)}
+    mesh = par.make_mesh(par.MeshConfig(dp=2),
+                         devices=[cuda.torch_device()] * 2)
+    runner = par.SPMDRunner(main, mesh, axis="dp")
+    s = scope_from_numpy(pt.Scope(), init, cuda)
+    runner.run(exe, feed=feed, fetch_list=[loss], scope=s)
+    # by hand: each half's gradient on one rank (no axis)
+    plain, _, ploss = build(None)
+    half = FLUID_B // 2
+    g = []
+    for r in range(2):
+        sc = scope_from_numpy(pt.Scope(), init, cuda)
+        g.append(exe.run(plain, feed={k: v[r * half:(r + 1) * half]
+                                      for k, v in feed.items()},
+                         fetch_list=[n + "@GRAD" for n in params],
+                         scope=sc))
+    worst = 0.0
+    ratio = 1.0 - 0.99          # the optimizer's sparsity_ratio
+    for i, n in enumerate(params):
+        sparse = []
+        for r in range(2):
+            # U and V start at 0: the compressed value is the gradient's
+            v = torch.from_numpy(g[r][i]).to(cuda.torch_device())
+            flat = v.abs().reshape(-1)
+            k = max(1, int(flat.numel() * ratio))
+            thresh = torch.topk(flat, k).values[-1]
+            sparse.append(torch.where(v.abs() >= thresh, v,
+                                      torch.zeros_like(v)).reshape(-1))
+        red = sparse_allreduce(sparse, k).reshape(g[0][i].shape)
+        want = init[n] - 0.01 * red.cpu().numpy()
+        err = float(np.abs(s.get(n) - want).max())
+        worst = max(worst, err / max(1.0, float(np.abs(want).max())))
+    check(worst <= OPT_TOL, f"fluid trainer (e): DGC under SPMDRunner "
+          f"differs from the ranks' sparse_allreduce by {worst}")
+    return {"worst": worst, "ranks": 2}
+
+
+def phase_fluid_trainer():
+    """Phase 30: the fluid trainer's front end ((a)-(e) above)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, secs = {}, {}
+    try:
+        exe = pt.Executor(pt.CUDAPlace(0))
+        torch.backends.cudnn.deterministic = True
+        t = time.perf_counter()
+        out["a_streamed_trainer"] = _trainer_stream(pt, exe)
+        secs["a"] = time.perf_counter() - t
+        rng = np.random.RandomState(0)
+        feed = {"x": rng.rand(FLUID_B, 1, 28, 28).astype("float32"),
+                "y": rng.randint(0, 10, (FLUID_B, 1)).astype("int64")}
+        t = time.perf_counter()
+        out["b_optimizers"] = {
+            name: _trainer_optimizer(pt, exe, name, feed)
+            for name in ("sgd", "momentum", "lars_momentum", "adam",
+                         "adamw", "adamax", "adagrad", "decayed_adagrad",
+                         "adadelta", "rmsprop", "ftrl", "lamb", "dpsgd",
+                         "dgc_momentum", "proximal_gd", "proximal_adagrad",
+                         "average_accumulates", "ModelAverage",
+                         "ExponentialMovingAverage", "Lookahead",
+                         "GradientMerge", "Recompute")}
+        types_run = set().union(*(v["op_types"]
+                                  for v in out["b_optimizers"].values()))
+        missing = set(OPTIMIZER_OPS) - types_run
+        check(not missing, f"fluid trainer (b): no run reached {missing}")
+        secs["b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["c_sparse_ctr"] = _trainer_sparse(pt, exe)
+        secs["c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["d_amp"] = _trainer_amp(pt, exe)
+        secs["d"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["e_fleet"] = _trainer_fleet(pt, exe, feed)
+        secs["e"] = time.perf_counter() - t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    print(json.dumps({
+        "phase": "fluid_trainer", "card": card(),
+        "programs": "book vgg_bn_drop (VGG-16-BN) batch 128 f32 with TF32 "
+                    "off; bench.py's LeNet rung batch 256; the CTR program "
+                    f"{CTR_V} x {CTR_D} batch {CTR_B}",
+        **out, "limits": {"fluid": FLUID_TOL, "optimizer_update": OPT_TOL,
+                          "amp_dp": AMP_DP_TOL},
+        "part_seconds": secs, "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+
+
+# the optimizer op types of the JAX package's ops/optimizer_ops.py
+OPTIMIZER_OPS = ("sgd", "momentum", "lars_momentum", "adam", "adamw",
+                 "adamax", "adagrad", "decayed_adagrad", "adadelta",
+                 "rmsprop", "ftrl", "lamb", "dpsgd", "dgc_momentum",
+                 "proximal_gd", "proximal_adagrad", "average_accumulates")
+
+
 def _leftovers():
     """The threads other than this one still alive, and the processes
     whose parent is this one, each as a short description."""
@@ -6846,6 +7623,7 @@ def main() -> int:
     launches["flash_attention_fwd"] += timed(phase_observability)
     timed(phase_fluid_dp)
     timed(phase_fluid_book)
+    timed(phase_fluid_trainer)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

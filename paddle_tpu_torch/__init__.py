@@ -24,7 +24,11 @@ Programs built with `layers` under `program_guard`, `append_backward`
 and `gradients`, the `optimizer` classes, an `Executor` that runs a
 Program op by op on the op registry's torch kernels (`core/`, `ops/`),
 model dirs in the JAX package's format (`io`), and the program
-analysis passes (`analysis`); data parallelism on in-process ranks
+analysis passes (`analysis`); the trainer's front end (every
+optimizer of the JAX package, SelectedRows sparse gradients,
+`amp.decorate`, `metrics`, `DataFeeder`, `DataLoader` / `PyReader`
+with prefetch to the card, `Executor.run_stream` and
+`train_from_dataset`); data parallelism on in-process ranks
 (`CompiledProgram.with_data_parallel`, `ParallelExecutor`, and
 `parallel.SPMDRunner` with the `GradAllReduce` / `LocalSGD` transpilers
 and the fleet facade); and the top-level conveniences (`fluid.data`,
@@ -57,7 +61,9 @@ __all__ = ["resolve_device", "Program", "Block", "Operator", "Variable",
            "parallel", "incubate", "fluid", "data", "embedding", "one_hot",
            "name_scope", "cpu_places", "cuda_places", "device_guard",
            "memory_optimize", "release_memory", "create_lod_tensor",
-           "load_op_library", "require_version", "__version__"]
+           "load_op_library", "require_version", "__version__", "metrics",
+           "data_feeder", "DataFeeder", "reader", "DataLoader", "PyReader",
+           "amp", "trainer"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -117,6 +123,13 @@ from .io import (save, load, save_inference_model,  # noqa: E402
 from . import inference  # noqa: E402
 from .inference import AnalysisConfig, create_paddle_predictor  # noqa: E402
 from . import incubate  # noqa: E402
+from . import metrics  # noqa: E402
+from . import data_feeder  # noqa: E402
+from .data_feeder import DataFeeder  # noqa: E402
+from . import reader  # noqa: E402
+from .reader import DataLoader, PyReader  # noqa: E402
+from . import amp  # noqa: E402
+from . import trainer  # noqa: E402
 
 __version__ = "0.1.0"   # the JAX package's (paddle_tpu/version.py)
 

@@ -37,8 +37,8 @@ from ..observability import tracing as _tracing
 from . import framework, lowering
 from . import precision as _precision
 from .executor import (RNG_STATE_VAR, _as_fetch_name, _finish_fetches,
-                       _normalize_feed, _post_step_health, _split_rng,
-                       global_scope)
+                       _normalize_feed, _post_step_health, _pre_run_validate,
+                       _split_rng, global_scope)
 from .framework import Program
 from .lockstep import GSPMD, RankStep
 from .ring import InProcessRing
@@ -183,6 +183,8 @@ class CompiledProgram:
             policy = _precision.resolve(program)
             norm_feed = _normalize_feed(program, feed, policy,
                                         executor.device)
+            _pre_run_validate(program, tuple(norm_feed), fetch_names,
+                              policy, where="sharded")
             rec.set_feed(norm_feed)
 
             feed_sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))

@@ -33,17 +33,28 @@ data-parallel step under `executor_step("sharded")`), as the JAX
 package's does. A plain `run` or `run_chained` runs one rank, so under
 a mesh with dp or tp larger than 1 it raises.
 
-Not ported (ROADMAP item 16): `run_stream`, the dataset entry points,
-the `listen_and_serv` branch and `PADDLE_TPU_VALIDATE`.
+`run_stream` consumes an iterator of per-step feeds and runs them in
+windows through `run_chained`, one lazy `FetchHandle` a window, at most
+`in_flight` unresolved; feeds already on the device (a
+`DevicePrefetcher` upstream) are stacked there. After the stream the
+scope and the RNG state are those of per-step `run` calls.
+`train_from_dataset` and `infer_from_dataset` hand over to `trainer.py`,
+as there. `PADDLE_TPU_VALIDATE=1|2` runs the analysis passes
+(`analysis.maybe_validate`) before a step, once a signature.
+
+Not ported: the `listen_and_serv` branch (the parameter server, ROADMAP
+item 21).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import threading
 import time
 import weakref
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +65,7 @@ from ..observability import telemetry as _telemetry
 from ..observability import tracing as _tracing
 from . import framework, lowering
 from . import precision as _precision
+from . import async_exec
 from .async_exec import FetchHandle, to_numpy
 from .framework import Program, Variable
 from .places import Place, default_place
@@ -61,10 +73,30 @@ from .registry import mix_seed, torch_dtype
 
 RNG_STATE_VAR = "__rng_state__"
 
+# the JAX package unrolls a chained window up to this many steps; the
+# port runs every window's steps eagerly, and keeps the name for the
+# streaming drivers that pass `unroll=n <= _UNROLL_WINDOW_MAX`
+_UNROLL_WINDOW_MAX = 32
+
 # every live executor, for the cache-entries gauge (the JAX package's
 # count across executors)
 _live_executors: "weakref.WeakSet[Executor]" = weakref.WeakSet()
 _live_executors_lock = threading.Lock()
+
+# a number for each live program, never given twice: the program cache's
+# identity. An id() is not one, since a freed program's id() goes to a
+# later object, which would then meet the freed one's prepared step.
+_program_serials: "weakref.WeakKeyDictionary[Program, int]" = (
+    weakref.WeakKeyDictionary())
+_next_serial = itertools.count()
+
+
+def _program_serial(program: Program) -> int:
+    with _live_executors_lock:
+        serial = _program_serials.get(program)
+        if serial is None:
+            serial = _program_serials[program] = next(_next_serial)
+        return serial
 
 
 def _refuse_mesh():
@@ -212,6 +244,43 @@ def _normalize_feed(program: Program, feed: Dict[str, Any],
                 t = t.to(want)
         norm_feed[name] = t
     return norm_feed
+
+
+def _feed_signature(feed: Dict[str, Any]) -> Tuple:
+    """Shape/dtype signature of a feed dict: what decides whether two
+    per-step feeds can share a stacked window."""
+    return tuple(sorted(
+        (k, tuple(getattr(v, "shape", ())),
+         str(getattr(v, "dtype", type(v).__name__)))
+        for k, v in feed.items()))
+
+
+def _stack_feed_window(feeds: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Collate same-signature per-step feeds with a leading [n] axis.
+    Host feeds take one memcpy (np.stack) and one transfer at dispatch;
+    feeds already on the device (prefetched) are stacked there."""
+    def _stack(vals):
+        if all(isinstance(v, np.ndarray) for v in vals):
+            return np.stack(vals)
+        dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
+        return torch.stack([_on_device(v, dev) for v in vals])
+
+    return {k: _stack([f[k] for f in feeds]) for k in feeds[0]}
+
+
+def _pre_run_validate(program: Program, feed_names, fetch_names, policy,
+                      where: str):
+    """Env-gated static analysis in front of every run path
+    (PADDLE_TPU_VALIDATE=0|1|2: off, warn, error; `analysis/`). The env
+    probe keeps the default path at one dict lookup and the analysis
+    package unimported; `maybe_validate` caches its outcome per
+    (program version, run signature)."""
+    if not os.environ.get("PADDLE_TPU_VALIDATE"):
+        return
+    from ..analysis import maybe_validate
+
+    maybe_validate(program, feed_names=feed_names,
+                   fetch_names=fetch_names, policy=policy, where=where)
 
 
 def _finish_fetches(fetches, return_numpy: bool, sync: bool):
@@ -405,13 +474,16 @@ class Executor:
         """Normalize feeds and resolve the prepared step from the program
         cache, keyed by (program identity+version, feed shapes/dtypes,
         fetches, mode, precision policy): the JAX package's key
-        (executor.py:1041-1071)."""
+        (executor.py:1041-1071), with the program's serial number for
+        its identity where that key takes its id()."""
         policy = _precision.resolve(program)
         norm_feed = _normalize_feed(program, feed, policy, self.device)
+        _pre_run_validate(program, tuple(norm_feed), fetch_names, policy,
+                          where="executor")
         feed_sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))
                                 for k, v in norm_feed.items()))
-        key = (id(program), program._version, feed_sig, fetch_names,
-               program._is_test, policy.name)
+        key = (_program_serial(program), program._version, feed_sig,
+               fetch_names, program._is_test, policy.name)
         step = self._cache.get(key) if use_program_cache else None
         hit = step is not None
         if step is None:
@@ -477,6 +549,100 @@ class Executor:
             scope.set_var(RNG_STATE_VAR, new_rng)
             _post_step_health(step.writes, fetch_names, fetches, scope)
             return _finish_fetches(fetches, return_numpy, sync)
+
+    def run_stream(self, program=None, feed_iter: Optional[Iterable] = None,
+                   fetch_list=None, window: int = 8, scope=None,
+                   in_flight: int = async_exec.DEFAULT_IN_FLIGHT):
+        """Streaming driver: consume an ITERATOR of per-step feed dicts
+        and yield one lazy FetchHandle per window of up to `window`
+        steps run back to back by `run_chained`, without stacking every
+        feed up front.
+
+        Feeds are buffered until the window fills (or the feed signature
+        changes, e.g. a short final batch, or the iterator ends),
+        collated with a leading [n] axis, and dispatched as ONE
+        `run_chained(..., per_step_feeds=True, sync=False)`. Each
+        yielded handle carries `.start_step` / `.n_steps`; its
+        `.result()` is the stacked fetch list. A bounded InFlightWindow
+        (`in_flight`, default 2) resolves the oldest handle before the
+        next window is dispatched, so no more than `in_flight` windows
+        of fetch buffers are ever on the device; the rest are drained
+        when the generator closes. Feeds may already be device tensors
+        (a DevicePrefetcher upstream): collation then stays on the
+        device.
+
+        Scope and RNG state after exhaustion match per-step `run`
+        calls."""
+        if feed_iter is None:
+            raise ValueError("run_stream needs a feed iterator")
+        program = program if program is not None \
+            else framework.default_main_program()
+        scope = scope if scope is not None else global_scope()
+        window = max(1, int(window))
+        win = async_exec.InFlightWindow(limit=in_flight, site="stream")
+
+        def gen():
+            buf: List[Dict[str, Any]] = []
+            sig = None
+            step0 = 0
+
+            def flush():
+                nonlocal buf, step0
+                feeds, buf = buf, []
+                n = len(feeds)
+                stacked = _stack_feed_window(feeds)
+                # the explicit reserve must run BEFORE run_chained makes
+                # the new handle, or limit+1 windows of buffers coexist
+                # for a moment (admit's own reserve would come too late)
+                win.reserve()
+                h = self.run_chained(program, feed=stacked,
+                                     fetch_list=fetch_list, n_steps=n,
+                                     per_step_feeds=True, scope=scope,
+                                     sync=False,
+                                     unroll=n <= _UNROLL_WINDOW_MAX)
+                h.start_step, h.n_steps = step0, n
+                step0 += n
+                return win.admit(h)
+
+            try:
+                for feed in feed_iter:
+                    feed = dict(feed)
+                    s = _feed_signature(feed)
+                    if buf and s != sig:
+                        yield flush()
+                    sig = s
+                    buf.append(feed)
+                    if len(buf) >= window:
+                        yield flush()
+                if buf:
+                    yield flush()
+            finally:
+                # resolve the stragglers, so their device buffers free
+                # even when the consumer abandons the stream midway
+                win.drain()
+
+        return gen()
+
+    # dataset entry points (reference: executor.py train_from_dataset),
+    # provided by trainer.py as in the JAX package
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        from ..trainer import train_from_dataset
+
+        return train_from_dataset(self, program, dataset, scope, thread,
+                                  debug, fetch_list, fetch_info,
+                                  print_period)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        from ..trainer import infer_from_dataset
+
+        return infer_from_dataset(self, program, dataset, scope, thread,
+                                  debug, fetch_list, fetch_info,
+                                  print_period)
 
     def _get_rng(self, scope: Scope, program: Program) -> int:
         rng = scope.find_var(RNG_STATE_VAR)

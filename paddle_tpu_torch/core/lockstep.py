@@ -242,6 +242,11 @@ def _is_random(op_type: str) -> bool:
         return False   # run_op raises for it, naming it
 
 
+def _ranked_dgc(op) -> bool:
+    """A `dgc_momentum` that reduces over the ranks (it has an axis)."""
+    return op.type == "dgc_momentum" and bool(op.attrs.get("axis_name"))
+
+
 def _call(op_type, x, attrs):
     """A reduce kernel's output on `x` (reduce kernels read no ctx)."""
     return registry.get_op_def(op_type).call({"X": [x]}, attrs, None)["Out"][0]
@@ -270,6 +275,8 @@ class Lockstep:
                 continue
             if op.type in COLLECTIVES:
                 self._collective(op, envs)
+            elif _ranked_dgc(op):
+                self._dgc_momentum(op, envs)
             elif op.type == "cond":
                 self._cond(op, envs, block)
             elif self.mode == SPMD:
@@ -319,17 +326,7 @@ class Lockstep:
     # -- collectives and control flow (both modes) ---------------------
 
     def _collective(self, op, envs):
-        if self.mode != SPMD:
-            raise RuntimeError(
-                f"{op.type}: CompiledProgram splits the batch and reduces "
-                f"the gradients itself, with no axis for an explicit "
-                f"collective; a program with c_* ops runs under "
-                f"parallel.SPMDRunner")
-        axis = op.attrs.get("axis_name", "data")
-        if axis != self.axis:
-            raise ValueError(
-                f"{op.type} reduces over mesh axis '{axis}', but the ranks "
-                f"of this run are on axis '{self.axis}'")
+        self._check_axis(op)
         grad = op.type.endswith("_grad")
         ins = op.inputs.get("out_grad::Out" if grad else "X", [])
         outs = op.outputs.get(GRAD_PREFIX_IG + "X" if grad else "Out", [])
@@ -341,9 +338,38 @@ class Lockstep:
                     env[dst] = y
         self.launches[op.type] += 1
 
+    def _dgc_momentum(self, op, envs):
+        """`dgc_momentum` with an axis: every rank compresses its own
+        gradient and applies the ring's sparse all-reduce of them all
+        (`optimizer_ops.dgc_momentum_ranks`)."""
+        from ..ops.optimizer_ops import dgc_momentum_ranks
+
+        self._check_axis(op)
+        rank_ins = [{slot: [env[n] if n else None for n in names]
+                     for slot, names in op.inputs.items()} for env in envs]
+        for env, outs in zip(envs, dgc_momentum_ranks(rank_ins, op.attrs)):
+            for slot, names in op.outputs.items():
+                for n in names:
+                    if n and slot in outs:
+                        env[n] = outs[slot]
+        self.launches[op.type] += 1
+
+    def _check_axis(self, op):
+        if self.mode != SPMD:
+            raise RuntimeError(
+                f"{op.type}: CompiledProgram splits the batch and reduces "
+                f"the gradients itself, with no axis for an explicit "
+                f"collective; a program with c_* ops runs under "
+                f"parallel.SPMDRunner")
+        axis = op.attrs.get("axis_name", "data")
+        if axis != self.axis:
+            raise ValueError(
+                f"{op.type} reduces over mesh axis '{axis}', but the ranks "
+                f"of this run are on axis '{self.axis}'")
+
     def _has_collective(self, block: int) -> bool:
         for op in self.desc.block(block).ops:
-            if op.type in COLLECTIVES or any(
+            if op.type in COLLECTIVES or _ranked_dgc(op) or any(
                     self._has_collective(b) for b in op.sub_block_ids()):
                 return True
         return False

@@ -3,9 +3,8 @@ Elementwise ops with the reference's axis broadcast, the matmul
 family, sum and scale.
 
 Reference: paddle/fluid/operators/elementwise/ (16 ops), matmul_op.cc,
-mul_op.cc, sum_op.cc, scale_op.cc. The SelectedRows branches of `_ew`
-and `sum` (sparse embedding gradients) are not ported: the port has no
-SelectedRows value (ROADMAP item 15).
+mul_op.cc, sum_op.cc, scale_op.cc, with the SelectedRows branches of
+`_ew` and `sum` (sparse embedding gradients, `core/selected_rows.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import math
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows, is_selected_rows, to_dense
 
 
 def _bcast(x, y, axis: int):
@@ -33,7 +33,16 @@ def _bcast(x, y, axis: int):
 
 def _ew(fn):
     def kernel(ins, attrs, ctx):
-        x, y = _bcast(ins["X"][0], ins["Y"][0], int(attrs.get("axis", -1)))
+        x, y = ins["X"][0], ins["Y"][0]
+        # a SelectedRows x times a scalar stays sparse (GlobalNorm clip's
+        # `g * scale`); any other SelectedRows operand densifies (a
+        # sparse grad meeting a dense regularization term: the
+        # reference's elementwise ops have no SelectedRows kernels)
+        if is_selected_rows(x) and isinstance(y, torch.Tensor) \
+                and y.numel() == 1:
+            return {"Out": SelectedRows(fn(x.rows, y.reshape(())),
+                                        x.ids, x.height)}
+        x, y = _bcast(to_dense(x), to_dense(y), int(attrs.get("axis", -1)))
         return {"Out": fn(x, y)}
 
     return kernel
@@ -53,8 +62,16 @@ register_op("elementwise_floordiv", grad=None)(_ew(torch.floor_divide))
 @register_op("sum")
 def sum_op(ins, attrs, ctx):
     """Multi-input add (reference: operators/sum_op.cc): the grad
-    accumulator emitted by backward.py."""
+    accumulator emitted by backward.py. SelectedRows inputs concatenate
+    their row sets (sum_op's SelectedRows branch); sparse and dense
+    mixed densify."""
     xs = [x for x in ins["X"] if x is not None]
+    if any(is_selected_rows(x) for x in xs):
+        if all(is_selected_rows(x) for x in xs):
+            return {"Out": SelectedRows(torch.cat([x.rows for x in xs]),
+                                        torch.cat([x.ids for x in xs]),
+                                        xs[0].height)}
+        xs = [x.to_dense() if is_selected_rows(x) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

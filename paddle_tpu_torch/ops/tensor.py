@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..core.registry import (GRAD_PREFIX_IG, GRAD_PREFIX_IN, GRAD_PREFIX_OG,
                              register_op, torch_dtype)
+from ..core.selected_rows import SelectedRows, is_selected_rows
 
 
 def _dt(attrs, key="dtype", default="float32"):
@@ -114,15 +115,13 @@ def top_k(ins, attrs, ctx):
 
 def _lookup_table_grad(ins, attrs, ctx):
     """The W gradient of `lookup_table` and `lookup_table_v2`: the output
-    gradient's rows scatter-added at their ids (rows at `padding_idx`
-    dropped; v1's trailing [., 1] of Ids leaves the flat ids as they
-    are). The JAX package's `is_sparse` branch returns a SelectedRows,
-    which the port does not have yet (ROADMAP item 16)."""
-    if bool(attrs.get("is_sparse", False)):
-        op = ctx.op.type[:-len("_grad")] if ctx is not None else "lookup_table"
-        raise NotImplementedError(
-            f"{op} with is_sparse=True: SelectedRows gradients "
-            f"are not ported (ROADMAP item 16)")
+    gradient's rows at their ids (rows at `padding_idx` zeroed; v1's
+    trailing [., 1] of Ids leaves the flat ids as they are). With
+    `is_sparse` it is a SelectedRows (reference: lookup_table_op.cc
+    declares W@GRAD SELECTED_ROWS), so the optimizer touches only those
+    rows; else the dense [V, D] gradient, made through the same merge of
+    repeated ids (`core/selected_rows.py`), which sums them in a fixed
+    order on the card too."""
     w = ins[GRAD_PREFIX_IN + "W"][0]
     ids = ins[GRAD_PREFIX_IN + "Ids"][0]
     og = ins[GRAD_PREFIX_OG + "Out"][0]
@@ -132,7 +131,9 @@ def _lookup_table_grad(ins, attrs, ctx):
     if padding_idx != -1:
         rows = torch.where((flat_ids == padding_idx)[:, None],
                            torch.zeros_like(rows), rows)
-    gw = torch.zeros_like(w).index_add_(0, flat_ids, rows)
+    gw = SelectedRows(rows, flat_ids, w.shape[0])
+    if not bool(attrs.get("is_sparse", False)):
+        gw = gw.to_dense()
     return {GRAD_PREFIX_IG + "W": [gw]}
 
 
@@ -611,23 +612,48 @@ def unique_with_counts(ins, attrs, ctx):
 
 @register_op("clip")
 def clip(ins, attrs, ctx):
-    return {"Out": torch.clamp(_x(ins), attrs.get("min"), attrs.get("max"))}
+    """A SelectedRows stays sparse: its merged rows are clipped (the
+    reference's clip_op SelectedRows kernel clips the merged value)."""
+    x = _x(ins)
+    if is_selected_rows(x):
+        ids, rows = x.merged()
+        return {"Out": SelectedRows(
+            torch.clamp(rows, attrs.get("min"), attrs.get("max")), ids,
+            x.height)}
+    return {"Out": torch.clamp(x, attrs.get("min"), attrs.get("max"))}
+
+
+def _norm_scale(norm, max_norm):
+    return torch.where(norm > max_norm,
+                       max_norm / torch.clamp(norm, min=1e-12),
+                       torch.ones_like(norm))
 
 
 @register_op("clip_by_norm")
 def clip_by_norm(ins, attrs, ctx):
+    """A SelectedRows stays sparse: repeated rows merge first (the
+    reference's clip_by_norm_op.h merges with merge_add), then scale by
+    the merged rows' norm."""
     x = _x(ins)
     max_norm = attrs["max_norm"]
-    norm = torch.sqrt(torch.sum(torch.square(x)))
-    scale = torch.where(norm > max_norm,
-                        max_norm / torch.clamp(norm, min=1e-12),
-                        torch.ones_like(norm))
+    if is_selected_rows(x):
+        ids, rows = x.merged()
+        scale = _norm_scale(torch.sqrt(torch.sum(torch.square(rows))),
+                            max_norm)
+        return {"Out": SelectedRows(rows * scale.to(rows.dtype), ids,
+                                    x.height)}
+    scale = _norm_scale(torch.sqrt(torch.sum(torch.square(x))), max_norm)
     return {"Out": x * scale.to(x.dtype)}
 
 
 @register_op("squared_l2_norm")
 def squared_l2_norm(ins, attrs, ctx):
-    return {"Out": torch.sum(torch.square(_x(ins))).reshape(1)}
+    """A SelectedRows: the norm of its merged rows (repeated ids summed
+    first, as the reference's merge_add before GlobalNorm)."""
+    x = _x(ins)
+    if is_selected_rows(x):
+        x = x.merged()[1]
+    return {"Out": torch.sum(torch.square(x)).reshape(1)}
 
 
 @register_op("norm", intermediate_outputs=("Norm",))

@@ -14,10 +14,13 @@ item 20a. `mesh()` builds the port's `make_mesh` from the strategy's
 degrees as in-process ranks on one device (dp -1 absorbs this process's
 one rank), and `distributed_optimizer` returns a wrapper that, with
 `use_graph_collectives`, transpiles the program with `GradAllReduce` or
-`LocalSGD` after `minimize`, as there, for `SPMDRunner`. The other
-rewrites raise, naming their ROADMAP items: `use_hierarchical_allreduce`
-(20a), and `use_amp`, `recompute`, `gradient_merge_k > 1`, `use_dgc`
-and `lamb` (the amp decorator and the other optimizers, item 16).
+`LocalSGD` after `minimize`, as there, for `SPMDRunner`. The strategy's
+optimizer rewrites are the JAX package's: `use_amp` decorates the inner
+optimizer (`amp.decorate`), `recompute` wraps it in a
+`RecomputeOptimizer`, `gradient_merge_k > 1` in a
+`GradientMergeOptimizer`, `use_dgc` wants a `DGCMomentumOptimizer`, and
+`lamb` is a flag the JAX package's facade reads nowhere either.
+`use_hierarchical_allreduce` raises (ROADMAP item 20a).
 """
 
 from __future__ import annotations
@@ -35,17 +38,6 @@ def _refuse_strategy(st: DistributedStrategy) -> None:
         raise NotImplementedError(
             "use_hierarchical_allreduce factors the mesh over hosts, which "
             "needs the process ring over NCCL (ROADMAP item 20a)")
-    unported = [k for k, on in (("use_amp", st.use_amp),
-                                ("recompute", st.recompute),
-                                ("gradient_merge_k > 1",
-                                 st.gradient_merge_k > 1),
-                                ("use_dgc", st.use_dgc), ("lamb", st.lamb))
-                if on]
-    if unported:
-        raise NotImplementedError(
-            f"DistributedStrategy {unported}: the amp decorator and the "
-            f"Recompute, GradientMerge, DGC and Lamb optimizers are not "
-            f"ported (ROADMAP item 16)")
 
 
 class Fleet:
@@ -183,10 +175,30 @@ class DistributedOptimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from .. import optimizer as opt_mod
+
+        inner = self._inner
         st = self._strategy
         _refuse_strategy(st)
-        ops, p2g = self._inner.minimize(loss, startup_program,
-                                        parameter_list, no_grad_set)
+        if st.use_dgc and not isinstance(inner, opt_mod.DGCMomentumOptimizer):
+            raise ValueError(
+                "use_dgc requires passing a DGCMomentumOptimizer as the "
+                "inner optimizer (reference: fleet applies DGC through the "
+                "optimizer, optimizer.py:868)")
+        if st.use_amp:
+            from ..amp import decorate as amp_decorate
+
+            inner = amp_decorate(inner,
+                                 init_loss_scaling=st.amp_loss_scale)
+        if st.recompute:
+            rc = opt_mod.RecomputeOptimizer(inner)
+            rc._set_checkpoints(st.recompute_checkpoints or [])
+            inner = rc
+        if st.gradient_merge_k > 1:
+            inner = opt_mod.GradientMergeOptimizer(
+                inner, k_steps=st.gradient_merge_k)
+        ops, p2g = inner.minimize(loss, startup_program, parameter_list,
+                                  no_grad_set)
 
         # Explicit in-graph collectives only for the SPMDRunner execution
         # mode (reference collective-transpiler semantics); the default

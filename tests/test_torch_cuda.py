@@ -1402,3 +1402,57 @@ def test_a_capture_that_fails_raises(monkeypatch):
     finally:
         eng.stop()
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_device_prefetcher_puts_batches_on_the_card_in_order():
+    """A DataLoader with the double buffer to `CUDAPlace(0)`: batches
+    arrive as CUDA tensors, in order, equal to the host's, from pinned
+    memory on the prefetch thread's side stream; the threads end with
+    the loop."""
+    _need_card()
+    import threading
+
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+
+    batches = [{"x": np.full((64, 32), i, "float32"),
+                "y": np.arange(64, dtype="int64") + i} for i in range(12)]
+    loader = pt.DataLoader.from_generator(feed_list=[], capacity=4,
+                                          use_double_buffer=True)
+    loader.set_batch_generator(lambda: iter(batches),
+                               places=pt.CUDAPlace(0))
+    got = list(loader())
+    assert len(got) == 12
+    for want, b in zip(batches, got):
+        assert b["x"].is_cuda and b["y"].dtype == torch.int64
+        # read on the consumer's stream, after the copy's event
+        assert torch.equal(b["x"].cpu(), torch.from_numpy(want["x"]))
+        assert torch.equal(b["y"].cpu(), torch.from_numpy(want["y"]))
+    assert not any(t.name.startswith("paddle-tpu-prefetch")
+                   for t in threading.enumerate() if t.is_alive())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adagrad", "adam"])
+def test_sparse_embedding_equals_dense_on_the_card(opt):
+    """chip_smoke.py's CTR program (ids repeating within a batch): the
+    sparse table equals the dense one bit for bit after 3 steps, since
+    both merge repeated ids in arrival order (`core/selected_rows.py`)."""
+    _need_card()
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from chip_smoke import ctr_feeds, ctr_program
+
+    tables = []
+    for is_sparse in (True, False):
+        main, startup, loss, table = ctr_program(pt, opt, is_sparse)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        for f in ctr_feeds(3, seed=1):
+            exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        tables.append(scope.get(table))
+    assert np.array_equal(tables[0], tables[1])

@@ -528,41 +528,80 @@ def test_new_op_kernels_match_jax(case):
         assert not gt[2].any()          # the padding row takes nothing
 
 
-def test_sparse_embedding_gradient_raises():
-    """`lookup_table_v2`'s gradient with is_sparse=True would be a
-    SelectedRows in the JAX package; the port raises, naming item 16."""
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
-        ids = ptt.data(name="ids", shape=[-1, 1], dtype="int64")
-        emb = ptt.embedding(ids, size=[10, 4], is_sparse=True)
-        ptt.optimizer.SGD(learning_rate=0.1).minimize(
-            ptt.layers.reduce_sum(emb))
-    exe = ptt.Executor(ptt.CPUPlace())
-    scope = ptt.Scope()
+def _sparse_embedding_step(pkg, v2, is_sparse):
+    """One SGD step of sum(embedding(ids)) with ids 0, 1, 2, 1 (id 1
+    twice) from the table the JAX package's startup makes: the table."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 3
+    with pkg.framework.unique_name.guard(), pkg.program_guard(main, startup):
+        if v2:
+            ids = pkg.data(name="ids", shape=[-1, 1], dtype="int64")
+            emb = pkg.embedding(ids, size=[10, 4], is_sparse=is_sparse)
+        else:
+            ids = pkg.layers.data(name="ids", shape=[1], dtype="int64")
+            emb = pkg.layers.embedding(ids, size=[10, 4],
+                                       is_sparse=is_sparse)
+        pkg.optimizer.SGD(learning_rate=0.1).minimize(
+            pkg.layers.reduce_sum(emb))
+    assert ("lookup_table_v2" if v2 else "lookup_table") in {
+        op.type for op in main.desc.block(0).ops}
+    (table,) = [p.name for p in main.all_parameters()]
+    exe = pkg.Executor(pkg.CPUPlace())
+    scope = pkg.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        exe.run(main, feed={"ids": np.arange(4).reshape(4, 1)},
-                scope=scope)
+    if pkg is ptt:
+        from paddle_tpu_torch.convert import scope_from_numpy
+
+        js = pt.Scope()
+        pt.Executor(pt.CPUPlace()).run(_sparse_embedding_startup(v2),
+                                       scope=js)
+        scope_from_numpy(scope, {table: js.get(table)}, ptt.CPUPlace())
+    w0 = scope.get(table)
+    exe.run(main, feed={"ids": np.array([0, 1, 2, 1]).reshape(4, 1)},
+            scope=scope)
+    return w0, scope.get(table)
+
+
+def _sparse_embedding_startup(v2):
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        if v2:
+            pt.embedding(pt.data(name="ids", shape=[-1, 1], dtype="int64"),
+                         size=[10, 4], is_sparse=True)
+        else:
+            pt.layers.embedding(pt.layers.data(name="ids", shape=[1],
+                                               dtype="int64"),
+                                size=[10, 4], is_sparse=True)
+    return startup
+
+
+def test_sparse_embedding_gradient_raises():
+    """`lookup_table_v2`'s gradient with is_sparse=True was refused
+    before SelectedRows came to the port (ROADMAP item 16); now it is a
+    SelectedRows, as in the JAX package: one SGD step moves only rows
+    0, 1 (twice) and 2, equal to the dense program's step bit for bit
+    and to the JAX package's within 1e-6."""
+    w0, w = _sparse_embedding_step(ptt, True, True)
+    _, w_dense = _sparse_embedding_step(ptt, True, False)
+    _, w_jax = _sparse_embedding_step(pt, True, True)
+    np.testing.assert_array_equal(w, w_dense)
+    np.testing.assert_allclose(w, w_jax, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(w0 - w, np.array([1, 2, 1] + [0] * 7)[:, None]
+                               * 0.1 * np.ones((10, 4)), atol=1e-6)
 
 
 def test_sparse_lookup_table_v1_gradient_raises():
-    """`lookup_table` (v1, `layers.embedding`) with is_sparse=True: the
-    JAX package's W gradient is a SelectedRows; the port raises, naming
-    the op and item 16."""
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
-        ids = ptt.layers.data(name="ids", shape=[1], dtype="int64")
-        emb = ptt.layers.embedding(ids, size=[10, 4], is_sparse=True)
-        ptt.optimizer.SGD(learning_rate=0.1).minimize(
-            ptt.layers.reduce_sum(emb))
-    assert "lookup_table" in {op.type for op in main.desc.block(0).ops}
-    exe = ptt.Executor(ptt.CPUPlace())
-    scope = ptt.Scope()
-    exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError,
-                       match="lookup_table with is_sparse.*item 16"):
-        exe.run(main, feed={"ids": np.arange(4).reshape(4, 1)},
-                scope=scope)
+    """`lookup_table` (v1, `layers.embedding`) with is_sparse=True: its
+    W gradient, once refused (ROADMAP item 16), is a SelectedRows; the
+    step equals the dense one bit for bit and the JAX package's within
+    1e-6."""
+    w0, w = _sparse_embedding_step(ptt, False, True)
+    _, w_dense = _sparse_embedding_step(ptt, False, False)
+    _, w_jax = _sparse_embedding_step(pt, False, True)
+    np.testing.assert_array_equal(w, w_dense)
+    np.testing.assert_allclose(w, w_jax, rtol=1e-6, atol=1e-6)
+    assert np.array_equal(w[3:], w0[3:])
 
 
 def _cond_program(pkg):
@@ -676,8 +715,13 @@ def test_fleet_facade_matches_jax(graph):
     ("use_amp", "16"), ("recompute", "16"), ("gradient_merge_k", "16"),
     ("use_dgc", "16"), ("lamb", "16")])
 def test_fleet_refusals(knob, item):
-    """Several workers, hierarchical allreduce, and the strategy's
-    rewrites the port has no optimizer for raise, naming their items."""
+    """Several workers and hierarchical allreduce raise, naming item
+    20a. The strategy's optimizer rewrites (item 16, now ported) build
+    the JAX package's program instead; `use_dgc` with an inner
+    optimizer that is not DGCMomentum raises ValueError in both."""
+    from paddle_tpu.parallel import DistributedStrategy as JStrategy
+    from paddle_tpu.parallel.fleet import Fleet as JFleet
+    from paddle_tpu.parallel.role_maker import UserDefinedRoleMaker as JRole
     from paddle_tpu_torch.parallel import DistributedStrategy
     from paddle_tpu_torch.parallel.fleet import Fleet
     from paddle_tpu_torch.parallel.role_maker import UserDefinedRoleMaker
@@ -687,16 +731,35 @@ def test_fleet_refusals(knob, item):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fl.init(UserDefinedRoleMaker(current_id=0, worker_num=2))
         return
-    fl.init(UserDefinedRoleMaker(current_id=0, worker_num=1))
     value = 2 if knob == "gradient_merge_k" else True
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
-        x = ptt.layers.data(name="x", shape=[4], dtype="float32")
-        loss = ptt.layers.mean(ptt.layers.fc(input=x, size=1))
-        opt = fl.distributed_optimizer(ptt.optimizer.SGD(learning_rate=0.1),
-                                       DistributedStrategy(**{knob: value}))
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    descs = []
+    for pkg, fleet_cls, strategy_cls, role in (
+            (ptt, Fleet, DistributedStrategy, UserDefinedRoleMaker),
+            (pt, JFleet, JStrategy, JRole)):
+        fl = fleet_cls()
+        fl.init(role(current_id=0, worker_num=1))
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.framework.unique_name.guard(), \
+                pkg.program_guard(main, startup):
+            x = pkg.layers.data(name="x", shape=[4], dtype="float32")
+            loss = pkg.layers.mean(pkg.layers.fc(input=x, size=1))
+            opt = fl.distributed_optimizer(
+                pkg.optimizer.SGD(learning_rate=0.1),
+                strategy_cls(**{knob: value}))
+            if item == "20a":
+                with pytest.raises(NotImplementedError,
+                                   match=f"item {item}"):
+                    opt.minimize(loss)
+                return
+            if knob == "use_dgc":
+                with pytest.raises(ValueError, match="DGCMomentum"):
+                    opt.minimize(loss)
+                opt = fl.distributed_optimizer(
+                    pkg.optimizer.DGCMomentumOptimizer(0.1, momentum=0.9),
+                    strategy_cls(use_dgc=True))
             opt.minimize(loss)
+        descs.append((main.desc.to_dict(), startup.desc.to_dict()))
+    assert descs[0] == descs[1]
 
 
 # -- ParallelExecutor ------------------------------------------------
@@ -1467,3 +1530,60 @@ def test_row_rule_matches_jax(kind):
     np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
     for n, a, b in zip(params, got[1:], want[1:]):
         _close(a, b, f"{kind}: {n}@GRAD")
+
+
+@pytest.mark.parametrize("knob", ["use_amp", "recompute", "gradient_merge_k",
+                                  "use_dgc", "lamb"])
+def test_fleet_strategy_rewrites_run_data_parallel(knob):
+    """Each optimizer rewrite of the strategy on the MLP under
+    `CompiledProgram.with_data_parallel` at 2 CPU ranks against one
+    rank's steps from the same start, 4 steps (gradient merge applies
+    on steps 2 and 4): the losses at LOSS_RTOL, every persistable
+    within REL of its largest value. use_amp runs mixed_bf16, where
+    each rank's weight gradient is a bf16 product over its own rows:
+    one step, held at 2**-7 of the largest value (two bf16 ulps;
+    measured 1.9e-3), since an MLP at lr 0.1 grows that difference
+    step by step (1.3e-2 after four)."""
+    from paddle_tpu_torch.parallel import DistributedStrategy
+    from paddle_tpu_torch.parallel.fleet import Fleet
+    from paddle_tpu_torch.parallel.role_maker import UserDefinedRoleMaker
+
+    fl = Fleet()
+    fl.init(UserDefinedRoleMaker(current_id=0, worker_num=1))
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = 5
+    with ptt.framework.unique_name.guard(), ptt.program_guard(main, startup):
+        x = ptt.layers.data(name="x", shape=[16], dtype="float32")
+        y = ptt.layers.data(name="y", shape=[1], dtype="float32")
+        h = ptt.layers.fc(input=x, size=32, act="relu")
+        pred = ptt.layers.fc(input=h, size=1)
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(input=pred,
+                                                            label=y))
+        inner = ptt.optimizer.DGCMomentumOptimizer(
+            0.05, momentum=0.9, sparsity=[0.5]) if knob == "use_dgc" \
+            else ptt.optimizer.SGD(learning_rate=0.1)
+        fl.distributed_optimizer(inner, DistributedStrategy(
+            **{knob: 2 if knob == "gradient_merge_k" else True})
+        ).minimize(loss)
+    exe = ptt.Executor(ptt.CPUPlace())
+    pers = sorted(v.name for v in main.list_vars() if v.persistable)
+    rng = np.random.RandomState(11)
+    feeds = [_feed("mlp", rng, 32) for _ in range(1 if knob == "use_amp"
+                                                   else 4)]
+    rel = 2.0 ** -7 if knob == "use_amp" else REL
+    runs = {}
+    for ranks in (1, 2):
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        prog = main if ranks == 1 else ptt.CompiledProgram(
+            main).with_data_parallel(loss_name=loss.name,
+                                     places=[ptt.CPUPlace()] * ranks)
+        losses = [float(np.asarray(exe.run(prog, feed=f, fetch_list=[loss],
+                                           scope=scope)[0]).reshape(()))
+                  for f in feeds]
+        runs[ranks] = losses, {n: scope.get(n) for n in pers
+                               if scope.find_var(n) is not None}
+    np.testing.assert_allclose(runs[2][0], runs[1][0], rtol=LOSS_RTOL)
+    for n, want in runs[1][1].items():
+        err = np.abs(runs[2][1][n] - want).max()
+        assert err <= rel * max(1.0, np.abs(want).max()), (n, err)

@@ -37,8 +37,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
     # the training, NMT, ResNet, sequence-parallel, resilience, fluid,
-    # KV-reuse, pipeline, inference and fleet slices' modules, and the
-    # fluid path's data parallelism, are among those imported
+    # KV-reuse, pipeline, inference and fleet slices' modules, the
+    # fluid path's data parallelism and the trainer's front end
+    # (optimizers, SelectedRows, readers, metrics, trainer) are among
+    # those imported
     for name in ("paddle_tpu_torch.models.bert",
                  "paddle_tpu_torch.parallel.train",
                  "paddle_tpu_torch.core.precision",
@@ -101,7 +103,17 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.parallel.role_maker",
                  "paddle_tpu_torch.parallel.fleet",
                  "paddle_tpu_torch.incubate.fleet.collective",
-                 "paddle_tpu_torch.incubate.fleet.base.role_maker"):
+                 "paddle_tpu_torch.incubate.fleet.base.role_maker",
+                 "paddle_tpu_torch.core.selected_rows",
+                 "paddle_tpu_torch.ops.misc",
+                 "paddle_tpu_torch.ops.optimizer_ops",
+                 "paddle_tpu_torch.amp.decorator",
+                 "paddle_tpu_torch.metrics",
+                 "paddle_tpu_torch.data_feeder",
+                 "paddle_tpu_torch.reader",
+                 "paddle_tpu_torch.reader_decorators",
+                 "paddle_tpu_torch.dataset_loader",
+                 "paddle_tpu_torch.trainer"):
         assert name in r.stdout.split(), name
 
 
@@ -145,7 +157,9 @@ def test_copied_httpbase_matches_its_source():
 FLUID_COPIES = (["core/ir.py", "core/flags.py", "core/framework.py",
                  "core/backward.py", "backward.py", "layer_helper.py",
                  "initializer.py", "param_attr.py", "regularizer.py",
-                 "clip.py", "nets.py", "amp/fp16_lists.py"]
+                 "clip.py", "nets.py", "amp/fp16_lists.py",
+                 "amp/decorator.py", "metrics.py", "data_feeder.py",
+                 "reader_decorators.py"]
                 + ["layers/" + f for f in sorted(os.listdir(
                     os.path.join(_REPO, "paddle_tpu", "layers")))
                    if f.endswith(".py")])
@@ -425,3 +439,169 @@ def test_fleet_copy_differs_only_by_its_declared_changes(rel):
     assert f"paddle_tpu/{rel}" in lines[0]
     header = 2 if rel in FLEET_VERBATIM else 3
     assert "".join(lines[header:]) == fleet_copy_text(rel)
+
+
+# The fluid trainer's front end: reader.py, dataset_loader.py and
+# trainer.py are copied with declared changes (a three-line header):
+# the device stage puts a batch on the loader's places' card
+# (`async_exec.prefetch_device`; the JAX package's `jax.device_put`
+# takes jax's default device), each Hogwild thread makes the executor's
+# card current before its first step, and the docstrings that describe
+# the XLA step or the C++ datafeed describe the port's instead.
+FRONT_END_CHANGES = {
+    "reader.py": [
+        ("""(operators/reader/buffered_reader.cc). The TPU-native pipeline keeps the
+same shape: a background thread runs the user generator into a bounded
+host queue (core/async_exec.Prefetcher — producer errors propagate to
+the iterating consumer, and the thread is joined when iteration stops
+early), and with `use_double_buffer` + places a second Prefetcher stage
+runs `jax.device_put` (sharded over the active SPMD mesh) into a
+bounded double buffer, so batch N+1 is on device while step N computes
+and batch N+2 is being collated on the host.
+""", """(operators/reader/buffered_reader.cc). The port's pipeline keeps the
+same shape: a background thread runs the user generator into a bounded
+host queue (core/async_exec.Prefetcher — producer errors propagate to
+the iterating consumer, and the thread is joined when iteration stops
+early), and with `use_double_buffer` + places a second Prefetcher stage
+(core/async_exec.DevicePrefetcher) copies each batch to the places'
+card, from pinned memory on a side stream, into a bounded double
+buffer, so batch N+1 is on device while step N computes and batch N+2
+is being collated on the host.
+"""),
+        ("""from .core.async_exec import (DevicePrefetcher, Prefetcher,
+                              device_prefetch_wanted)""",
+         """from .core.async_exec import (DevicePrefetcher, Prefetcher,
+                              device_prefetch_wanted, prefetch_device)"""),
+        ("""            # prefetch-to-device: batches go up via jax.device_put
+            # (sharded over the active SPMD mesh) two batches ahead
+            device = DevicePrefetcher(host, depth=2)""",
+         """            # prefetch-to-device: batches go up to the places' card
+            # two batches ahead
+            device = DevicePrefetcher(
+                host, depth=2, device=prefetch_device(self._places))"""),
+    ],
+    "dataset_loader.py": [
+        ("""    consumer by a bounded background thread (core/async_exec): a
+    `jax.device_put` stage (sharded over the active SPMD mesh) when""",
+         """    consumer by a bounded background thread (core/async_exec): a
+    stage that copies them to the places' card when"""),
+        ("""        from .core.async_exec import (DevicePrefetcher, Prefetcher,
+                                      device_prefetch_wanted)""",
+         """        from .core.async_exec import (DevicePrefetcher, Prefetcher,
+                                      device_prefetch_wanted,
+                                      prefetch_device)"""),
+        ("""        pf = DevicePrefetcher(src, depth=self._prefetch_depth) \\""",
+         """        pf = DevicePrefetcher(src, depth=self._prefetch_depth,
+                              device=prefetch_device(self._places)) \\"""),
+    ],
+    "trainer.py": [
+        ("""Round-1: a host-side trainer loop over a Dataset's file shards feeding the
+compiled step (HogwildWorker semantics, hogwild_worker.cc:163); the C++
+datafeed library (paddle_tpu/data/) supplies the pipelined batch source.
+""", """A host-side trainer loop over a dataset's batches feeding the executor's
+step (HogwildWorker semantics, hogwild_worker.cc:163); any object with
+`_iter_batches()`, or an iterable such as a `DataLoader`, is a source.
+"""),
+        ("""1 restores the per-step loop), dispatched as one cached executable each
+(core/executor.run_stream), with losses fetched lazily — the host only""",
+         """1 restores the per-step loop), dispatched as one run_chained call each
+(core/executor.run_stream), with losses fetched lazily — the host only"""),
+        ("""    thread_num; here the XLA step is the device worker, so the desc keeps""",
+         """    thread_num; here the executor's step is the device worker, so the desc keeps"""),
+        ("""    compiled step against the SHARED scope (reference:
+    hogwild_worker.cc:163 TrainFiles). Dispatch is serialized by a shared
+    lock — the XLA step donates parameter buffers for the in-place
+    update; with the streaming driver the lock covers the window
+    dispatch (next() on the stream) while execution itself overlaps via
+    jax async dispatch, and threads additionally overlap on the C++
+    reader pipeline and host-side batch prep.\"\"\"""",
+         """    executor's step against the SHARED scope (reference:
+    hogwild_worker.cc:163 TrainFiles). Dispatch is serialized by a shared
+    lock — a step reads the scope's params and writes their updates
+    back; with the streaming driver the lock covers the window
+    dispatch while execution itself overlaps via CUDA's asynchronous
+    launches, and threads additionally overlap on their readers and
+    host-side batch prep. Each thread makes the executor's card
+    current before its first step.\"\"\""""),
+        ("""    def train(self):
+        window = _stream_window()""",
+         """    def train(self):
+        _make_device_current(self.executor)
+        window = _stream_window()"""),
+        ("""def train_from_dataset(executor, program=None, dataset=None, scope=None,
+                       thread=0, debug=False, fetch_list=None,
+                       fetch_info=None, print_period=100):
+    from""", """def _make_device_current(executor):
+    \"\"\"A new thread's current CUDA device is card 0: make the
+    executor's card current before the thread's first CUDA work.\"\"\"
+    device = getattr(executor, "device", None)
+    if getattr(device, "type", None) == "cuda":
+        import torch
+
+        torch.cuda.set_device(device)
+
+
+def train_from_dataset(executor, program=None, dataset=None, scope=None,
+                       thread=0, debug=False, fetch_list=None,
+                       fetch_info=None, print_period=100):
+    from"""),
+        ("""    — with NativeDataset, pass trainer_id=worker_id,
+    num_trainers=num_workers so the C++ reader shards the filelist.""",
+         """    — give each worker its own shard of the data (the JAX package's
+    NativeDataset takes trainer_id=worker_id, num_trainers=num_workers)."""),
+    ],
+}
+
+
+def front_end_copy_text(rel):
+    """The text the port's copy of `rel` must hold below its header."""
+    with open(os.path.join(_REPO, "paddle_tpu", rel)) as f:
+        src = f.read().replace("paddle_tpu.", "paddle_tpu_torch.")
+    for old, new in FRONT_END_CHANGES[rel]:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
+@pytest.mark.parametrize("rel", sorted(FRONT_END_CHANGES))
+def test_front_end_copy_differs_only_by_its_declared_changes(rel):
+    with open(os.path.join(_PKG, rel)) as f:
+        lines = f.read().splitlines(keepends=True)
+    assert f"paddle_tpu/{rel}" in lines[0]
+    assert "".join(lines[3:]) == front_end_copy_text(rel)
+
+
+def _public_names(path):
+    """The public top-level names a module defines (functions, classes,
+    assignments), read from its AST."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    names = set()
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            names.update(t.id for t in n.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", [
+    "optimizer.py", "ops/optimizer_ops.py", "core/async_exec.py",
+    "core/selected_rows.py", "reader.py", "metrics.py", "data_feeder.py",
+    "reader_decorators.py", "dataset_loader.py", "trainer.py",
+    "amp/decorator.py"])
+def test_front_end_module_has_every_public_name_of_the_jax_package(rel):
+    want = _public_names(os.path.join(_REPO, "paddle_tpu", rel))
+    got = _public_names(os.path.join(_PKG, rel))
+    assert want and not want - got, sorted(want - got)
+
+
+def test_executor_has_the_streaming_and_dataset_entry_points():
+    want = _public_methods(os.path.join(_REPO, "paddle_tpu", "core",
+                                        "executor.py"), "Executor")
+    got = _public_methods(os.path.join(_PKG, "core", "executor.py"),
+                          "Executor")
+    assert {"run_stream", "train_from_dataset",
+            "infer_from_dataset"} <= got
+    assert not want - got, sorted(want - got)
