@@ -28,7 +28,9 @@ analysis passes (`analysis`); the trainer's front end (every
 optimizer of the JAX package, SelectedRows sparse gradients,
 `amp.decorate`, `metrics`, `DataFeeder`, `DataLoader` / `PyReader`
 with prefetch to the card, `Executor.run_stream` and
-`train_from_dataset`); data parallelism on in-process ranks
+`train_from_dataset`); eager mode (`dygraph`: the tracer on torch
+autograd, the layer zoo, the eager optimizers, `TracedLayer` and
+dygraph checkpoints, on the card unless `guard(CPUPlace())`); data parallelism on in-process ranks
 (`CompiledProgram.with_data_parallel`, `ParallelExecutor`, and
 `parallel.SPMDRunner` with the `GradAllReduce` / `LocalSGD` transpilers
 and the fleet facade); and the top-level conveniences (`fluid.data`,
@@ -63,7 +65,8 @@ __all__ = ["resolve_device", "Program", "Block", "Operator", "Variable",
            "memory_optimize", "release_memory", "create_lod_tensor",
            "load_op_library", "require_version", "__version__", "metrics",
            "data_feeder", "DataFeeder", "reader", "DataLoader", "PyReader",
-           "amp", "trainer"]
+           "amp", "trainer", "dygraph", "enable_dygraph",
+           "disable_dygraph", "debugger", "contrib"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -130,6 +133,10 @@ from . import reader  # noqa: E402
 from .reader import DataLoader, PyReader  # noqa: E402
 from . import amp  # noqa: E402
 from . import trainer  # noqa: E402
+from . import dygraph  # noqa: E402
+from .dygraph.base import enable_dygraph, disable_dygraph  # noqa: E402
+from . import debugger  # noqa: E402
+from . import contrib  # noqa: E402
 
 __version__ = "0.1.0"   # the JAX package's (paddle_tpu/version.py)
 

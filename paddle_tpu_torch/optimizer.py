@@ -10,13 +10,14 @@ Each optimizer appends per-parameter update ops into the program, as in
 the JAX package: `minimize` -> `append_backward` -> clip and
 regularization -> `_append_optimize_op`, which builds the same ops,
 slots, attrs and accumulator names. The classes are that file's, line
-for line, with three differences: `_create_global_learning_rate` has no
-dygraph `LearningRateDecay` check (the port has no dygraph scheduler to
-meet); `ModelAverage.apply` and `ExponentialMovingAverage.apply` compute
-the averaged params from the scope's torch tensors; and the dygraph path
-(`_minimize_dygraph` and the `_eager_*` methods, the file's only jax) is
-replaced by a `_minimize_dygraph` that raises until dygraph is ported
-(ROADMAP item 16).
+for line, with two differences: `ModelAverage.apply` and
+`ExponentialMovingAverage.apply` compute the averaged params from the
+scope's torch tensors; and the eager (dygraph) updates run on torch.
+SGD, Momentum and Adam update each parameter in place under
+`torch.no_grad()` on its device; every other optimizer replays its
+`_append_optimize_op` plan, built once per parameter in a scratch
+program, through `core/lowering.py::run_op`, with its state on the
+parameter's device (one op registry serves both modes, as there).
 """
 
 from __future__ import annotations
@@ -65,6 +66,14 @@ class Optimizer:
         if isinstance(self._learning_rate, Variable):
             self._learning_rate_var = self._learning_rate
             return
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        if isinstance(self._learning_rate, LearningRateDecay):
+            raise TypeError(
+                "a dygraph LearningRateDecay scheduler only works in "
+                "imperative mode (inside dygraph.guard()); static-graph "
+                "programs use layers.learning_rate_scheduler decays "
+                "(exponential_decay, piecewise_decay, ...)")
         if self._learning_rate_var is None:
             from .layers.tensor import create_global_var
 
@@ -162,17 +171,223 @@ class Optimizer:
         optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
 
-    def _minimize_dygraph(self, loss, parameter_list=None, no_grad_set=None):
+    # -- eager (dygraph) updates --------------------------------------------
+
+    def _eager_lr(self) -> float:
+        # per-step cache: _eager_update calls this once PER PARAMETER,
+        # but a scheduler must advance once per minimize()
+        cached = getattr(self, "_eager_lr_step_cache", None)
+        if cached is not None:
+            return cached
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        if isinstance(self._learning_rate, LearningRateDecay):
+            # advances the schedule by one step (reference: dygraph
+            # LearningRateDecay.__call__)
+            return float(self._learning_rate())
+        if isinstance(self._learning_rate, Variable):
+            raise NotImplementedError(
+                "dygraph mode uses python-number learning rates or "
+                "dygraph.LearningRateDecay schedulers")
+        return float(self._learning_rate)
+
+    def _eager_update(self, pid, value, grad):
+        # Generic imperative update (reference design: imperative/
+        # tracer.cc:45 — ONE op registry serves both static and dygraph
+        # modes). SGD, Momentum and Adam override it with a direct
+        # in-place update; everyone else reuses their
+        # _append_optimize_op via a per-parameter scratch program whose
+        # ops are replayed eagerly through the kernel registry.
+        return self._eager_update_via_registry(pid, value, grad)
+
+    def _eager_update_via_registry(self, p, value, grad):
+        from .core.lowering import run_op
+        from .core.registry import mix_seed
+
+        device = value.device
+        st = self._eager_state.setdefault(p, {})
+        plan = st.get("plan")
+        if plan is None:
+            plan = self._build_eager_plan(p, value)
+            st["plan"] = plan
+            # run the scratch startup ops once: accumulator fills + the
+            # lr var (overridden per step below)
+            env0: dict = {}
+            for op in plan["startup_ops"]:
+                run_op(op, env0, None, 0, None, None, True, device)
+            st["acc"] = {n: env0[n] for n in plan["state_vars"]
+                         if n in env0}
+        env = dict(st["acc"])
+        env[plan["param"]] = value
+        env[plan["grad"]] = grad
+        env[plan["lr"]] = torch.tensor([self._eager_lr()], dtype=torch.float32,
+                                       device=device)
+        # a fresh seed a step: stochastic kernels (dpsgd's noise) must
+        # not draw the same numbers every step
+        step = st.get("step", 0)
+        st["step"] = step + 1
+        for op in plan["main_ops"]:
+            run_op(op, env, None, 0, None, mix_seed(0, step), True, device)
+        st["acc"] = {n: env[n] for n in plan["state_vars"] if n in env}
+        return env[plan["param"]]
+
+    def _build_eager_plan(self, p, value):
+        """Author the single-parameter optimize block in a scratch static
+        program (tracer suspended) and capture its op descs."""
+        import contextlib
+
+        from .core import framework as fw
+        from .core.framework import Program, program_guard
+        from .core.registry import dtype_name
+
+        @contextlib.contextmanager
+        def static_mode():
+            t = fw._get_dygraph_tracer()
+            fw._set_dygraph_tracer(None)
+            try:
+                yield
+            finally:
+                fw._set_dygraph_tracer(t)
+
+        saved_lr = self._learning_rate
+        saved_lr_var = self._learning_rate_var
+        saved_acc = self._accumulators
+        main, startup = Program(), Program()
+        try:
+            # a scheduler cannot be materialized as a static global var;
+            # the plan's lr var is overridden with _eager_lr() per step.
+            # Accumulators build into a FRESH registry: the scratch
+            # program's vars must not leak into (or be short-circuited
+            # by) a static-mode use of the same optimizer instance.
+            self._learning_rate = float(self._eager_lr())
+            self._learning_rate_var = None
+            self._accumulators = defaultdict(dict)
+            with static_mode(), unique_name.guard(), \
+                    program_guard(main, startup):
+                blk = main.global_block()
+                pv = blk.create_var(name=p.name, shape=list(value.shape),
+                                    dtype=dtype_name(value.dtype),
+                                    persistable=True)
+                # attribute passthrough: optimize hooks may consult these
+                # (Lamb's exclude_from_weight_decay_fn, regularizers)
+                pv.optimize_attr = getattr(p, "optimize_attr",
+                                           {"learning_rate": 1.0})
+                pv.trainable = getattr(p, "trainable", True)
+                pv.regularizer = getattr(p, "regularizer", None)
+                pv.do_model_average = getattr(p, "do_model_average", None)
+                gv = blk.create_var(name=p.name + "@GRAD",
+                                    shape=list(value.shape),
+                                    dtype=dtype_name(value.dtype))
+                self._create_global_learning_rate()
+                self._create_accumulators(blk, [pv])
+                self._append_optimize_op(blk, (pv, gv))
+                self._finish_update(blk, [(pv, gv)])
+            state_vars = sorted(
+                {v.name for accs in self._accumulators.values()
+                 for pname, v in accs.items() if pname == p.name})
+            return {
+                "param": pv.name,
+                "grad": gv.name,
+                "lr": self._learning_rate_var.name,
+                "startup_ops": list(startup.desc.blocks[0].ops),
+                "main_ops": list(main.desc.blocks[0].ops),
+                "state_vars": state_vars,
+            }
+        finally:
+            self._learning_rate = saved_lr
+            self._learning_rate_var = saved_lr_var
+            self._accumulators = saved_acc
+
+    def _eager_regularize(self, p, grad):
+        reg = getattr(p, "regularizer", None) or self.regularization
+        if reg is None:
+            return grad
+        from .regularizer import L1DecayRegularizer, L2DecayRegularizer
+
+        if isinstance(reg, L2DecayRegularizer):
+            return grad + reg._coeff * p.value
+        if isinstance(reg, L1DecayRegularizer):
+            return grad + reg._coeff * torch.sign(p.value)
         raise NotImplementedError(
-            "dygraph (imperative) mode is not ported to paddle_tpu_torch "
-            "yet (ROADMAP item 16); build a Program and run it with "
-            "Executor")
+            f"dygraph regularizer {type(reg).__name__}")
+
+    def _eager_clip(self, pairs):
+        from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                           GradientClipByValue)
+
+        clip = self._grad_clip
+        if clip is None:
+            return pairs
+        if isinstance(clip, GradientClipByValue):
+            return [(p, torch.clamp(g, clip.min, clip.max)) for p, g in pairs]
+        if isinstance(clip, GradientClipByNorm):
+            out = []
+            for p, g in pairs:
+                n = torch.sqrt(torch.sum(g * g))
+                out.append((p, g * torch.clamp(
+                    clip.clip_norm / torch.clamp(n, min=1e-12), max=1.0)))
+            return out
+        if isinstance(clip, GradientClipByGlobalNorm):
+            total = sum(torch.sum(g.float() ** 2) for _, g in pairs)
+            gn = torch.sqrt(total)
+            scale = clip.clip_norm / torch.clamp(gn, min=clip.clip_norm)
+            return [(p, g * scale) for p, g in pairs]
+        raise NotImplementedError(f"dygraph clip {type(clip).__name__}")
+
+    def _minimize_dygraph(self, loss, parameter_list=None, no_grad_set=None):
+        import weakref
+
+        from .observability import health as _obs_health
+
+        if parameter_list is None:
+            raise ValueError(
+                "dygraph minimize requires parameter_list (e.g. "
+                "opt.minimize(loss, parameter_list=model.parameters())): a "
+                "global fallback would update every live model's parameters")
+        if not hasattr(self, "_eager_state"):
+            # weak keys: state dies with its parameter (no id() reuse)
+            self._eager_state = weakref.WeakKeyDictionary()
+        skip = {n if isinstance(n, str) else n.name
+                for n in (no_grad_set or ())}
+        with torch.no_grad():
+            pairs = [(p, p.grad) for p in parameter_list
+                     if not p.stop_gradient and getattr(p, "trainable", True)
+                     and p.grad is not None and p.name not in skip]
+            pairs = [(p, self._eager_regularize(p, g)) for p, g in pairs]
+            if pairs and _obs_health.check_level():
+                # PRE-clip on purpose: clipping rescales a diverging norm
+                # down to clip_norm (and maps Inf grads to NaN), masking
+                # exactly what this check watches for. One scalar covers
+                # every gradient — a single NaN/Inf element poisons the
+                # global norm. Summed on the device, so the check costs
+                # ONE host sync, not one per parameter.
+                total = sum(torch.sum(torch.square(g.float()))
+                            for _, g in pairs)
+                _obs_health.record_grad_global_norm(float(total) ** 0.5,
+                                                    n_params=len(pairs))
+            pairs = self._eager_clip(pairs)
+            # resolve the lr ONCE for this step (a LearningRateDecay
+            # scheduler advances on resolution) and pin it for the
+            # per-param update loop
+            self._eager_lr_step_cache = None
+            self._eager_lr_step_cache = self._eager_lr()
+            try:
+                for p, g in pairs:
+                    new = self._eager_update(p, p.value, g)
+                    if new is not p.value:
+                        p.set_value(new)
+            finally:
+                self._eager_lr_step_cache = None
+        return [], [(p, None) for p, _ in pairs]
 
 
 class SGDOptimizer(Optimizer):
     """reference: optimizer.py:690."""
 
     type = "sgd"
+
+    def _eager_update(self, pid, value, grad):
+        return value.sub_(self._eager_lr() * grad)
 
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
@@ -192,6 +407,16 @@ class MomentumOptimizer(Optimizer):
         super().__init__(learning_rate, **kw)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+
+    def _eager_update(self, pid, value, grad):
+        if pid not in self._eager_state:
+            self._eager_state[pid] = {"v": torch.zeros_like(value)}
+        st = self._eager_state[pid]
+        v = st["v"].mul_(self._momentum).add_(grad)
+        lr = self._eager_lr()
+        if self._use_nesterov:
+            return value.sub_(lr * (grad + self._momentum * v))
+        return value.sub_(lr * v)
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -265,6 +490,18 @@ class AdamOptimizer(Optimizer):
     """reference: optimizer.py:1340."""
 
     type = "adam"
+
+    def _eager_update(self, pid, value, grad):
+        if pid not in self._eager_state:
+            self._eager_state[pid] = {"m": torch.zeros_like(value),
+                                      "v": torch.zeros_like(value), "t": 0}
+        st = self._eager_state[pid]
+        st["t"] += 1
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        st["m"] = b1 * st["m"] + (1 - b1) * grad
+        st["v"] = b2 * st["v"] + (1 - b2) * grad * grad
+        lr_t = self._eager_lr() * (1 - b2 ** st["t"]) ** 0.5 / (1 - b1 ** st["t"])
+        return value.sub_(lr_t * st["m"] / (torch.sqrt(st["v"]) + eps))
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
@@ -488,6 +725,11 @@ class LambOptimizer(AdamOptimizer):
                          epsilon=epsilon, **kw)
         self._weight_decay = lamb_weight_decay
         self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _eager_update(self, pid, value, grad):
+        # do NOT inherit Adam's fast path: LAMB layerwise-normalizes the
+        # update and applies decoupled weight decay — replay the lamb op
+        return self._eager_update_via_registry(pid, value, grad)
 
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad

@@ -551,11 +551,32 @@ CONTROL_CASES = [
     _c("assign_skip", {"X": [N]}),
 ]
 
-# the one op of misc.py beside its SelectedRows ops that the port has:
-# the CTR program's loss
+# the ops of misc.py beside its SelectedRows ops that the port has: the
+# CTR program's loss and the three the dygraph layers reach; with them
+# sequence_conv (sequence.py) and tree_conv (text_match.py)
+_TREE_EDGES = np.array([[[1, 2], [1, 3], [2, 4], [2, 5], [0, 0]],
+                        [[1, 2], [2, 3], [2, 4], [0, 0], [0, 0]]], "int64")
 MISC_CASES = [
     _c("log_loss", {"Predicted": [_spec((6, 1), "prob01")],
                     "Labels": [_spec((6, 1), "prob01")]}, {}),
+    _c("spectral_norm", {"Weight": [_spec((6, 4, 2))], "U": [_spec((4,))],
+                         "V": [_spec((12,))]},
+       {"dim": 1, "power_iters": 3}, "mm"),
+    _c("row_conv", {"X": [_spec((2, 6, 4))], "Filter": [_spec((3, 4))]}),
+    _c("conv3d_transpose", {"Input": [_spec((2, 3, 4, 5, 4))],
+                            "Filter": [_spec((3, 2, 3, 2, 3))]},
+       {"strides": [2, 1, 2], "paddings": [1, 0, 1],
+        "dilations": [1, 2, 1]}, "mm"),
+    _c("sequence_conv", {"X": [_spec((2, 7, 3))], "Filter": [_spec((9, 4))],
+                         "Length": [_lit([7, 4], "int64")]},
+       {"contextLength": 3, "contextStart": -1}, "mm"),
+    _c("sequence_conv", {"X": [_spec((2, 7, 3))],
+                         "Filter": [_spec((12, 4))]},
+       {"contextLength": 4, "contextStart": -2}, "mm",
+       name="sequence_conv_full"),
+    _c("tree_conv", {"NodesVector": [_spec((2, 5, 3))],
+                     "EdgeSet": [_TREE_EDGES],
+                     "Filter": [_spec((3, 3, 4))]}, {"max_depth": 2}, "mm"),
 ]
 
 CASES = (CASES + COMPARE_CASES + TENSOR_CASES + NN_CASES + CLASSIFY_CASES
@@ -880,13 +901,13 @@ def test_registry_diff_names_every_unported_op():
     """The op types still to port, by the JAX module that registers them:
     none from the five modules the library's core ports nor from
     optimizer_ops.py, none of misc.py's three SelectedRows ops and
-    log_loss, 133 in all, and each raises naming itself and ROADMAP
+    log_loss, 128 in all, and each raises naming itself and ROADMAP
     item 15."""
     missing = _unported_by_module()
     print("still unported:", {m: len(v) for m, v in missing.items()})
     assert not set(missing) & set(_PORTED_MODULES), missing
     assert not set(missing["misc"]) & set(_PORTED_MISC)
-    assert sum(len(v) for v in missing.values()) == 133
+    assert sum(len(v) for v in missing.values()) == 128
     for types in missing.values():
         for t in types:
             with pytest.raises(KeyError, match=f"'{t}'.*item 15"):

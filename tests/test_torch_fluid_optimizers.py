@@ -592,12 +592,6 @@ def test_model_average_apply_and_restore():
         np.testing.assert_array_equal(scope.get(pname), w)
 
 
-def test_dygraph_minimize_raises_naming_item_16():
-    opt = ptt.optimizer.Adagrad(0.1)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        opt._minimize_dygraph(None)
-
-
 def _amp_program(pkg, mode, scale=128.0):
     main, startup = pkg.Program(), pkg.Program()
     with pkg.framework.unique_name.guard(), pkg.program_guard(main, startup):

@@ -10,6 +10,7 @@ JAX package), and the readers, `DataFeeder`, `reader_decorators` and
 inputs.
 """
 
+import gc
 import threading
 import time
 
@@ -403,6 +404,7 @@ def test_program_cache_is_not_fooled_by_a_reused_program_id():
             got = exe.run(main, feed={"x": x}, fetch_list=[y.name])[0]
             np.testing.assert_array_equal(got, i * x)
             del main, xv, y
+            gc.collect()    # free the program's cycles before the next
     assert reused  # the sweep did meet an id() that had been freed
     assert exe.cache_stats()["misses"] == 50
 

@@ -113,7 +113,23 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.reader",
                  "paddle_tpu_torch.reader_decorators",
                  "paddle_tpu_torch.dataset_loader",
-                 "paddle_tpu_torch.trainer"):
+                 "paddle_tpu_torch.trainer",
+                 # eager mode, the debugger and contrib
+                 "paddle_tpu_torch.dygraph",
+                 "paddle_tpu_torch.dygraph.tracer",
+                 "paddle_tpu_torch.dygraph.varbase",
+                 "paddle_tpu_torch.dygraph.base",
+                 "paddle_tpu_torch.dygraph.layers",
+                 "paddle_tpu_torch.dygraph.nn",
+                 "paddle_tpu_torch.dygraph.jit",
+                 "paddle_tpu_torch.dygraph.parallel",
+                 "paddle_tpu_torch.dygraph.checkpoint",
+                 "paddle_tpu_torch.dygraph.learning_rate_scheduler",
+                 "paddle_tpu_torch.ops.sequence",
+                 "paddle_tpu_torch.ops.text_match",
+                 "paddle_tpu_torch.debugger",
+                 "paddle_tpu_torch.contrib",
+                 "paddle_tpu_torch.contrib.utils"):
         assert name in r.stdout.split(), name
 
 
@@ -159,7 +175,8 @@ FLUID_COPIES = (["core/ir.py", "core/flags.py", "core/framework.py",
                  "initializer.py", "param_attr.py", "regularizer.py",
                  "clip.py", "nets.py", "amp/fp16_lists.py",
                  "amp/decorator.py", "metrics.py", "data_feeder.py",
-                 "reader_decorators.py"]
+                 "reader_decorators.py",
+                 "dygraph/learning_rate_scheduler.py", "dygraph/layers.py"]
                 + ["layers/" + f for f in sorted(os.listdir(
                     os.path.join(_REPO, "paddle_tpu", "layers")))
                    if f.endswith(".py")])
@@ -174,6 +191,35 @@ def test_copied_fluid_module_matches_its_source(rel):
         want = f.read()
     assert "".join(lines[2:]) == want.replace("paddle_tpu.",
                                               "paddle_tpu_torch.")
+
+
+def _module_names(module):
+    names = getattr(module, "__all__", None)
+    if names is None:
+        names = [n for n in vars(module) if not n.startswith("_")]
+    return sorted(names)
+
+
+@pytest.mark.parametrize("module", [
+    "dygraph", "dygraph.base", "dygraph.nn", "dygraph.layers",
+    "dygraph.jit", "dygraph.parallel", "dygraph.checkpoint",
+    "dygraph.learning_rate_scheduler", "debugger", "contrib",
+    "contrib.utils"])
+def test_port_has_every_public_name_of_the_jax_module(module):
+    """Every public name of the JAX package's eager mode, debugger and
+    contrib modules exists in the port's module of the same path (the
+    modules and typing names they import aside)."""
+    import importlib
+    import inspect
+
+    want = importlib.import_module(f"paddle_tpu.{module}")
+    got = importlib.import_module(f"paddle_tpu_torch.{module}")
+    missing = [n for n in _module_names(want)
+               if not inspect.ismodule(getattr(want, n))
+               and getattr(getattr(want, n), "__module__", "") != "typing"
+               and not hasattr(got, n)]
+    assert not missing, missing
+    assert "enable_dygraph" in dir(importlib.import_module("paddle_tpu_torch"))
 
 
 # The fluid path's data parallelism: the transpilers, the strategy, the
