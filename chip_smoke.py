@@ -3387,6 +3387,296 @@ BOOK_EMBEDDING = {"word2vec": word2vec_program,
                   "hsigmoid": hsigmoid_program}
 
 
+# The book's sequence programs in their padded form, as the JAX
+# package's tests write them (fc(..., num_flatten_dims=2) on [N, T, D],
+# the lengths fed as their own [N] input): understand_sentiment's
+# stacked_lstm_net, label_semantic_roles' db_lstm with its CRF, and
+# machine_translation's GRU encoder-decoder with a beam-search step
+# program. Each function takes the fluid package `pt` and returns a dict
+# of its programs and the variables a run fetches; the widths default
+# to the book's (the dictionaries' sizes to the JAX package's synthetic
+# readers', `dataset/imdb.py` and `dataset/conll05.py`: the book's own
+# dictionaries are not in the repository).
+SENT_VOCAB, SENT_EMB, SENT_HID, SENT_STACKED = 5147, 128, 512, 3
+SENT_B, SENT_T, SENT_LR = 128, 100, 0.002
+SRL_WORDS, SRL_VERBS, SRL_LABELS, SRL_MARKS = 1000, 50, 9, 2
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HID, SRL_DEPTH = 32, 5, 512, 8
+SRL_B, SRL_T, SRL_CRF_LR = 10, 29, 1e-3
+SRL_CHUNK_TYPES = 4            # ceil((SRL_LABELS - 1) / 2), IOB
+SRL_CTX = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+MT_VOCAB, MT_WORD, MT_HID, MT_BEAM, MT_LEN, MT_B = 30000, 16, 32, 2, 8, 2
+MT_BOS, MT_END, MT_LR = 1, 0, 0.01
+
+
+def sentiment_program(pt, emb=SENT_EMB, hid=SENT_HID, stacked=SENT_STACKED,
+                      T=SENT_T, vocab=SENT_VOCAB):
+    """understand_sentiment's stacked_lstm_net: embedding, fc and
+    dynamic_lstm (H = hid / 4), then `stacked - 1` more fc([fc, lstm])
+    and dynamic_lstm pairs, is_reverse on the even ones; max
+    sequence_pool of the last fc and lstm, a 2-class softmax fc,
+    cross_entropy, Adagrad."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        words = pt.layers.data(name="words", shape=[T], dtype="int64")
+        ln = pt.layers.data(name="ln", shape=[], dtype="int64")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        e = pt.layers.embedding(words, size=[vocab, emb], is_sparse=True)
+        fc1 = pt.layers.fc(e, size=hid, num_flatten_dims=2)
+        lstm1, _ = pt.layers.dynamic_lstm(fc1, size=hid)
+        inputs = [fc1, lstm1]
+        for i in range(2, stacked + 1):
+            fc = pt.layers.fc(inputs, size=hid, num_flatten_dims=2)
+            lstm, _ = pt.layers.dynamic_lstm(fc, size=hid,
+                                             is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        fc_last = pt.layers.sequence_pool(inputs[0], "max", length=ln)
+        lstm_last = pt.layers.sequence_pool(inputs[1], "max", length=ln)
+        pred = pt.layers.fc([fc_last, lstm_last], size=2, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        acc = pt.layers.accuracy(pred, label)
+        test = main.clone(for_test=True)
+        pt.optimizer.Adagrad(learning_rate=SENT_LR).minimize(loss)
+    return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "fetch": {"acc": acc, "pred": pred}}
+
+
+def srl_program(pt, word_dim=SRL_WORD_DIM, mark_dim=SRL_MARK_DIM,
+                hid=SRL_HID, depth=SRL_DEPTH, T=SRL_T):
+    """label_semantic_roles' db_lstm: eight embeddings (six context
+    words on the frozen `emb`, the verb, the mark), a tanh fc each,
+    summed; `depth` dynamic_lstms (H = hid / 4) with the book's relu
+    candidate and sigmoid gate and cell activations (which both packages
+    drop, ROADMAP F21), alternating is_reverse; a 2-fc emission to the
+    labels; linear_chain_crf on `crfw` (its lr 1e-3), SGD 0.01 under
+    exponential_decay; crf_decoding and chunk_eval (IOB)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        ctx = [pt.layers.data(name=n, shape=[T], dtype="int64")
+               for n in SRL_CTX]
+        verb = pt.layers.data(name="verb", shape=[T], dtype="int64")
+        mark = pt.layers.data(name="mark", shape=[T], dtype="int64")
+        target = pt.layers.data(name="target", shape=[T], dtype="int64")
+        ln = pt.layers.data(name="ln", shape=[], dtype="int64")
+        embs = [pt.layers.embedding(
+            x, size=[SRL_WORDS, word_dim],
+            param_attr=pt.ParamAttr(name="emb", trainable=False))
+            for x in ctx]
+        embs.append(pt.layers.embedding(verb, size=[SRL_VERBS, word_dim],
+                                        param_attr=pt.ParamAttr(name="vemb")))
+        embs.append(pt.layers.embedding(mark, size=[SRL_MARKS, mark_dim]))
+
+        def fc(x, size):
+            return pt.layers.fc(x, size=size, act="tanh", num_flatten_dims=2)
+
+        def lstm(x, reverse):
+            return pt.layers.dynamic_lstm(
+                x, size=hid, candidate_activation="relu",
+                gate_activation="sigmoid", cell_activation="sigmoid",
+                is_reverse=reverse)[0]
+
+        hidden = pt.layers.sum([fc(e, hid) for e in embs])
+        tmp = [hidden, lstm(hidden, False)]
+        for i in range(1, depth):
+            mix = pt.layers.sum([fc(tmp[0], hid), fc(tmp[1], hid)])
+            tmp = [mix, lstm(mix, (i % 2) == 1)]
+        feature = pt.layers.sum([fc(tmp[0], SRL_LABELS),
+                                  fc(tmp[1], SRL_LABELS)])
+        cost = pt.layers.linear_chain_crf(
+            feature, target, length=ln,
+            param_attr=pt.ParamAttr(name="crfw", learning_rate=SRL_CRF_LR))
+        loss = pt.layers.mean(cost)
+        decode = pt.layers.crf_decoding(
+            feature, param_attr=pt.ParamAttr(name="crfw"), length=ln)
+        chunk = pt.layers.chunk_eval(decode, target, "IOB", SRL_CHUNK_TYPES,
+                                     seq_length=ln)
+        test = main.clone(for_test=True)
+        pt.optimizer.SGD(learning_rate=pt.layers.exponential_decay(
+            learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+            staircase=True)).minimize(loss)
+    return {"main": main, "startup": startup, "test": test, "loss": loss,
+            "fetch": {"decode": decode, "emission": feature,
+                      "precision": chunk[0], "recall": chunk[1],
+                      "f1": chunk[2], "num_correct": chunk[5]}}
+
+
+def _mt_gru(pt, x, h0=None, side="enc"):
+    return pt.layers.gru(x, MT_HID, h0=h0,
+                         param_attr=pt.ParamAttr(name=side + "g"),
+                         bias_attr=pt.ParamAttr(name=side + "b"))
+
+
+def _mt_embedding(pt, x, name, vocab, word):
+    return pt.layers.embedding(x, size=[vocab, word],
+                               param_attr=pt.ParamAttr(name=name))
+
+
+def mt_programs(pt, vocab=MT_VOCAB, word=MT_WORD, K=MT_BEAM, T=MT_LEN):
+    """machine_translation as tests/test_beam_search.py's decode loop
+    builds it: "main" trains a GRU encoder-decoder (the decoder starts
+    from the encoder's last state) on shifted targets, Adam; "encoder"
+    gives that state; "test" is one decode step for every beam (the
+    decoder GRU one step from `h`, softmax, `beam_search` on raw
+    probabilities); "decode" assembles the steps with
+    `beam_search_decode` and backtracks them with `gather_tree`."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        s = pt.layers.data(name="s", shape=[T], dtype="int64")
+        ti = pt.layers.data(name="ti", shape=[T], dtype="int64")
+        to = pt.layers.data(name="to", shape=[T], dtype="int64")
+        _, enc = _mt_gru(pt, _mt_embedding(pt, s, "semb", vocab, word))
+        dec, _ = _mt_gru(pt, _mt_embedding(pt, ti, "temb", vocab, word),
+                         h0=enc, side="dec")
+        logits = pt.layers.fc(dec, size=vocab, num_flatten_dims=2,
+                              param_attr=pt.ParamAttr(name="proj_w"),
+                              bias_attr=pt.ParamAttr(name="proj_b"))
+        loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(
+            logits, pt.layers.unsqueeze(to, axes=[2])))
+        pt.optimizer.Adam(learning_rate=MT_LR).minimize(loss)
+    encoder = pt.Program()
+    with pt.framework.unique_name.guard(), \
+            pt.program_guard(encoder, pt.Program()):
+        s = pt.layers.data(name="s", shape=[T], dtype="int64")
+        _, enc_state = _mt_gru(pt, _mt_embedding(pt, s, "semb", vocab, word))
+    step = pt.Program()
+    with pt.framework.unique_name.guard(), \
+            pt.program_guard(step, pt.Program()):
+        h_in = pt.layers.data(name="h", shape=[K, MT_HID], dtype="float32")
+        pid = pt.layers.data(name="pid", shape=[K], dtype="int64")
+        psc = pt.layers.data(name="psc", shape=[K], dtype="float32")
+        pemb = _mt_embedding(pt, pt.layers.unsqueeze(pid, axes=[2]), "temb",
+                             vocab, word)
+        pemb = pt.layers.reshape(pemb, [-1, 1, word])
+        dec2, h_out = _mt_gru(pt, pemb, h0=pt.layers.reshape(h_in,
+                                                             [-1, MT_HID]),
+                              side="dec")
+        logits2 = pt.layers.fc(pt.layers.reshape(dec2, [-1, MT_HID]),
+                               size=vocab,
+                               param_attr=pt.ParamAttr(name="proj_w"),
+                               bias_attr=pt.ParamAttr(name="proj_b"))
+        probs = pt.layers.reshape(pt.layers.softmax(logits2), [-1, K, vocab])
+        sel, sc, par = pt.layers.beam_search(
+            pid, psc, None, probs, beam_size=K, end_id=MT_END,
+            is_accumulated=False, return_parent_idx=True)
+        h_new = pt.layers.reshape(h_out, [-1, K, MT_HID])
+    decode = pt.Program()
+    with pt.framework.unique_name.guard(), \
+            pt.program_guard(decode, pt.Program()):
+        ids, parents, scores = (pt.layers.data(
+            name=n, shape=[-1, -1, K], dtype=dt, append_batch_size=False)
+            for n, dt in (("ids", "int64"), ("parents", "int64"),
+                          ("scores", "float32")))
+        sent, sent_sc = pt.layers.beam_search_decode(ids, scores, parents,
+                                                     K, MT_END)
+        tree = pt.layers.gather_tree(ids, parents)
+    return {"main": main, "startup": startup, "test": step, "loss": loss,
+            "encoder": encoder, "decode": decode,
+            "fetch": {"enc": enc_state, "sel": sel, "sc": sc, "par": par,
+                      "h_new": h_new, "probs": probs, "sent": sent,
+                      "sent_sc": sent_sc, "tree": tree}}
+
+
+BOOK_SEQUENCE = {"sentiment": sentiment_program, "srl": srl_program,
+                 "translation": mt_programs}
+
+
+def sentiment_feed(rng, n=SENT_B, T=SENT_T, vocab=SENT_VOCAB):
+    """A padded batch drawn as `dataset/imdb.py`'s reader draws it:
+    label U{0, 1}, length U{10..T-1}, tokens normal around a
+    class-dependent centre, clipped to the dictionary."""
+    words = np.zeros((n, T), "int64")
+    ln = np.zeros((n,), "int64")
+    label = np.zeros((n, 1), "int64")
+    for i in range(n):
+        label[i] = rng.randint(0, 2)
+        ln[i] = rng.randint(min(10, T - 1), T)
+        centre = vocab // 4 if label[i] == 0 else 3 * vocab // 4
+        words[i, :ln[i]] = np.clip(rng.normal(centre, vocab // 8, ln[i]),
+                                   0, vocab - 1).astype("int64")
+    return {"words": words, "ln": ln, "label": label}
+
+
+def srl_feed(rng, n=SRL_B, T=SRL_T):
+    """A padded batch drawn as `dataset/conll05.py`'s reader draws it:
+    length U{5..T}, words, the predicate's position and its window,
+    the verb, the mark, and labels (word + distance to the predicate)
+    mod 9."""
+    feed = {k: np.zeros((n, T), "int64")
+            for k in SRL_CTX + ("verb", "mark", "target")}
+    feed["ln"] = np.zeros((n,), "int64")
+    for i in range(n):
+        length = rng.randint(min(5, T), T + 1)
+        words = rng.randint(0, SRL_WORDS, length)
+        pred = rng.randint(0, length)
+        feed["ln"][i] = length
+        feed["word"][i, :length] = words
+        for name, off in zip(SRL_CTX[1:], (-2, -1, 0, 1, 2)):
+            feed[name][i, :length] = words[np.clip(pred + off, 0, length - 1)]
+        feed["verb"][i, :length] = words[pred] % SRL_VERBS
+        feed["mark"][i, :length] = np.arange(length) == pred
+        feed["target"][i, :length] = (words + np.abs(np.arange(length) - pred)
+                                      ) % SRL_LABELS
+    return feed
+
+
+def mt_feed(rng, n=MT_B, T=MT_LEN, vocab=MT_VOCAB):
+    """A copy task: target = source, fed shifted after <s>."""
+    src = rng.randint(2, vocab, (n, T)).astype("int64")
+    ti = np.concatenate([np.full((n, 1), MT_BOS, "int64"), src[:, :-1]], 1)
+    return {"s": src, "ti": ti, "to": src.copy()}
+
+
+def crf_path_score(emission, transition, path, length):
+    """The score of one tag path under a CRF (float64): start, emissions
+    and transitions up to `length`, end."""
+    e = np.asarray(emission, np.float64)
+    tr = np.asarray(transition, np.float64)
+    p = np.asarray(path)[:length]
+    if length == 0:
+        return 0.0
+    return float(tr[0, p[0]] + e[np.arange(length), p].sum() +
+                 tr[2 + p[:-1], p[1:]].sum() + tr[1, p[-1]])
+
+
+def mt_decode(exe, prog, scope, src):
+    """The beam decode of `src` [B, T]: the encoder's state, then
+    MT_LEN steps of the step program (only beam 0 live at first; the
+    decoder state regrouped by parent between steps), then the decode
+    program. Returns {"sent": sentence ids [B, K, MT_LEN], "sent_sc":
+    their scores, "tree": the gather_tree trellis, "steps": each step's
+    selected ids [MT_LEN, B, K], "cands": each step's candidate scores
+    [B, K, V], accumulated in float64, "step_ms": each step's wall
+    ms}."""
+    f = prog["fetch"]
+    b, K = src.shape[0], MT_BEAM
+    enc = np.asarray(exe.run(prog["encoder"], feed={"s": src},
+                             fetch_list=[f["enc"]], scope=scope)[0])
+    pre_ids = np.full((b, K), MT_BOS, "int64")
+    pre_sc = np.zeros((b, K), "float32")
+    pre_sc[:, 1:] = -1e9
+    h = np.tile(enc[:, None, :], (1, K, 1)).astype("float32")
+    ids, pars, scs, cands, ms = [], [], [], [], []
+    for _ in range(MT_LEN):
+        t0 = time.perf_counter()
+        sel, sc, par, h_new, probs = (np.asarray(v) for v in exe.run(
+            prog["test"], feed={"h": h, "pid": pre_ids, "psc": pre_sc},
+            fetch_list=[f["sel"], f["sc"], f["par"], f["h_new"],
+                        f["probs"]], scope=scope))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        cands.append(pre_sc[:, :, None].astype(np.float64) +
+                     np.log(np.maximum(probs.astype(np.float64), 1e-20)))
+        h = np.take_along_axis(h_new, par[:, :, None], 1)
+        pre_ids, pre_sc = sel, sc
+        ids.append(sel)
+        pars.append(par)
+        scs.append(sc)
+    sent, sent_sc, tree = (np.asarray(v) for v in exe.run(
+        prog["decode"], feed={"ids": np.stack(ids), "parents": np.stack(pars),
+                              "scores": np.stack(scs)},
+        fetch_list=[f["sent"], f["sent_sc"], f["tree"]], scope=scope))
+    return {"sent": sent, "sent_sc": sent_sc, "tree": tree,
+            "steps": np.stack(ids), "cands": cands, "step_ms": ms}
+
+
 def lenet_rung_logits(main):
     """The name of the rung's logits: the Logits input of its
     softmax_with_cross_entropy op."""
@@ -8102,6 +8392,232 @@ def phase_dygraph():
     torch.cuda.empty_cache()
 
 
+# Phase 32: the book's sequence programs (BOOK_SEQUENCE) on the card
+# through the fluid path, f32 with TF32 off: (a) understand_sentiment's
+# stacked_lstm_net at full width, batch 128 x T 100, Adagrad; (b)
+# label_semantic_roles' db_lstm at the book's widths with its CRF,
+# batch 10; (c) machine_translation's GRU encoder-decoder at the book's
+# widths, then its beam decode. Each trains on one batch; its first
+# step is held against the port's CPU step from the same state, and
+# (b)'s and (c)'s decodes against the CPU's. No kernel of the table
+# runs here: these ops reach no Pallas kernel in the JAX package.
+SEQ_STEPS = 5
+SEQ_TOL = {"loss": 1e-4, "grad": 1e-3, "tie": 1e-5, "beam_score": 1e-5}
+SEQ_SEED = 32
+
+
+def _seq_grad_parity(pt, prog, feed, scope, exe):
+    """One step on the card from `scope`'s state against the port's CPU
+    step from a copy of it: (card fetches, loss relative error, the
+    worst gradient's error over the step's largest, its parameter)."""
+    main = prog["main"]
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    fetch = [prog["loss"].name] + [p + "@GRAD" for p in params]
+    cpu = _seq_cpu_scope(pt, prog, scope)
+    got = [_fetched(v) for v in exe.run(main, feed=feed, fetch_list=fetch,
+                                        scope=scope)]
+    want = [_fetched(v) for v in pt.Executor(pt.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=cpu)]
+    loss_rel = abs(float(got[0].reshape(())) - float(want[0].reshape(()))) \
+        / abs(float(want[0].reshape(())))
+    scale = max(float(np.abs(w).max()) for w in want[1:])
+    worst = max((float(np.abs(g.astype(np.float64) - w).max()) / scale, p)
+                for p, g, w in zip(params, got[1:], want[1:]))
+    check(loss_rel <= SEQ_TOL["loss"] and worst[0] <= SEQ_TOL["grad"],
+          f"fluid sequence: the card's step against the CPU's: loss "
+          f"{loss_rel}, gradient {worst}")
+    return float(got[0].reshape(())), {
+        "loss_rel": loss_rel, "grad_rel": worst[0], "worst_param": worst[1],
+        "params": len(params)}
+
+
+def _fetched(v):
+    """A fetched value as an array (a sparse gradient, a SelectedRows,
+    comes back in a 0-d object array)."""
+    if isinstance(v, np.ndarray) and v.dtype == object:
+        v = v.item()
+    return np.asarray(v.to_dense().cpu() if hasattr(v, "to_dense") else v)
+
+
+def _seq_train(pt, prog, feed, exe, label):
+    """Startup, a first step held against the CPU, SEQ_STEPS - 1 more on
+    the same batch (the loss finite and falling), one traced step, and
+    the peak memory. Returns (scope, the program's row)."""
+    import torch
+
+    scope = pt.Scope()
+    exe.run(prog["startup"], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, parity = _seq_grad_parity(pt, prog, feed, scope, exe)
+    torch.cuda.synchronize()
+    losses, ms = [first], [(time.perf_counter() - t0) * 1e3]
+    for _ in range(SEQ_STEPS - 1):
+        t0 = time.perf_counter()
+        out = exe.run(prog["main"], feed=feed, fetch_list=[prog["loss"]],
+                      scope=scope)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"fluid sequence ({label}): the loss did not fall: {losses}")
+    traced = _profiled_step(lambda: exe.run(
+        prog["main"], feed=feed, fetch_list=[prog["loss"]], scope=scope))
+    row = {"losses": losses, "step_ms": ms,
+           "step_ms_median": statistics.median(ms[1:]),
+           "parity": parity, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "traced_step": {k: traced[k] for k in (
+               "wall_ms", "device_busy_ms", "device_idle_share",
+               "device_events")},
+           "ops_a_step": len(prog["main"].desc.block(0).ops)}
+    return scope, row
+
+
+def _seq_cpu_scope(pt, prog, scope):
+    """A CPU scope holding a copy of `scope`'s persistables."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    pers = [v.name for v in prog["startup"].list_vars() if v.persistable]
+    return scope_from_numpy(pt.Scope(), {n: scope.get(n) for n in pers},
+                            pt.CPUPlace())
+
+
+def _srl_decode(pt, prog, feed, scope, exe):
+    """(b)'s test program (crf_decoding, chunk_eval) on the card and on
+    the CPU from the trained state: the paths equal, except a row whose
+    two paths score within SEQ_TOL["tie"] (relative) of each other under
+    the CPU's emission and transition."""
+    f = prog["fetch"]
+    keys = ("decode", "emission", "num_correct", "f1")
+    got = exe.run(prog["test"], feed=feed, fetch_list=[f[k] for k in keys],
+                  scope=scope)
+    cpu = _seq_cpu_scope(pt, prog, scope)
+    want = pt.Executor(pt.CPUPlace()).run(
+        prog["test"], feed=feed, fetch_list=[f[k] for k in keys], scope=cpu)
+    trans = cpu.get("crfw")
+    ties, worst = 0, 0.0
+    for i in range(feed["ln"].shape[0]):
+        if np.array_equal(got[0][i], want[0][i]):
+            continue
+        n = int(feed["ln"][i])
+        best = crf_path_score(want[1][i], trans, want[0][i], n)
+        other = crf_path_score(want[1][i], trans, got[0][i], n)
+        gap = abs(best - other) / max(1.0, abs(best))
+        check(gap <= SEQ_TOL["tie"],
+              f"fluid sequence (b): row {i}'s path differs from the CPU's "
+              f"with a score gap of {gap}")
+        ties += 1
+        worst = max(worst, gap)
+    return {"rows": int(feed["ln"].shape[0]), "rows_tied": ties,
+            "worst_tie_gap": worst,
+            "num_correct_chunks": [int(np.asarray(got[2]).reshape(())),
+                                   int(np.asarray(want[2]).reshape(()))],
+            "f1": [float(np.asarray(got[3]).reshape(())),
+                   float(np.asarray(want[3]).reshape(()))]}
+
+
+def _mt_tied(cands, k):
+    """Whether a step's candidates (float64 [K, V] of one sentence) have
+    two of their best k + 1 within SEQ_TOL["tie"] (relative)."""
+    top = np.sort(cands.reshape(-1))[::-1][:k + 1]
+    gaps = np.abs(np.diff(top)) / np.maximum(1.0, np.abs(top[1:]))
+    return bool((gaps <= SEQ_TOL["tie"]).any())
+
+
+def _mt_beams(pt, prog, src, scope, exe):
+    """(c)'s decode on the card and on the CPU from the trained state:
+    every sentence's steps, sentences and gather_tree trellis equal and
+    its scores within SEQ_TOL["beam_score"], except a sentence whose
+    CPU candidates tie at the first step where the two differ."""
+    got = mt_decode(exe, prog, scope, src)
+    want = mt_decode(pt.Executor(pt.CPUPlace()),
+                     prog, _seq_cpu_scope(pt, prog, scope), src)
+    tied, worst = [], 0.0
+    for b in range(src.shape[0]):
+        diff = [s for s in range(MT_LEN) if not np.array_equal(
+            got["steps"][s, b], want["steps"][s, b])]
+        if diff:
+            check(_mt_tied(want["cands"][diff[0]][b], MT_BEAM),
+                  f"fluid sequence (c): sentence {b} leaves the CPU's beams "
+                  f"at step {diff[0]} with no tie there")
+            tied.append(b)
+            continue
+        check(np.array_equal(got["sent"][b], want["sent"][b]) and
+              np.array_equal(got["tree"][:, b], want["tree"][:, b]),
+              f"fluid sequence (c): sentence {b}'s decode differs from the "
+              f"CPU's on equal steps")
+        err = float(np.abs(got["sent_sc"][b] - want["sent_sc"][b]).max() /
+                    np.abs(want["sent_sc"][b]).max())
+        check(err <= SEQ_TOL["beam_score"],
+              f"fluid sequence (c): sentence {b}'s scores {err} from the CPU's")
+        worst = max(worst, err)
+    return {"sentences": int(src.shape[0]), "sentences_tied": tied,
+            "worst_score_rel": worst, "sent_ids": got["sent"].tolist(),
+            "sent_scores": got["sent_sc"].tolist(),
+            "decode_step_ms": got["step_ms"],
+            "decode_step_ms_median": statistics.median(got["step_ms"][1:])}
+
+
+def phase_fluid_sequence():
+    """Phase 32: the book's sequence programs ((a)-(c) above)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    before = _kernel_counts()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exe = pt.Executor(pt.CUDAPlace(0))
+    out, secs = {}, {}
+    try:
+        t = time.perf_counter()
+        prog = sentiment_program(pt)
+        feed = sentiment_feed(np.random.RandomState(SEQ_SEED))
+        _, out["a_sentiment"] = _seq_train(pt, prog, feed, exe, "a")
+        secs["a"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        prog = srl_program(pt)
+        feed = srl_feed(np.random.RandomState(SEQ_SEED))
+        scope, out["b_srl"] = _seq_train(pt, prog, feed, exe, "b")
+        out["b_srl"]["decode"] = _srl_decode(pt, prog, feed, scope, exe)
+        secs["b"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        prog = mt_programs(pt)
+        feed = mt_feed(np.random.RandomState(SEQ_SEED))
+        scope, out["c_translation"] = _seq_train(pt, prog, feed, exe, "c")
+        out["c_translation"]["beams"] = _mt_beams(pt, prog, feed["s"],
+                                                  scope, exe)
+        secs["c"] = time.perf_counter() - t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    check(_kernel_counts() == before,
+          "fluid sequence: a kernel of the table launched in phase 32")
+    print(json.dumps({
+        "phase": "fluid_sequence", "card": card(),
+        "programs": "book understand_sentiment stacked_lstm_net (dict "
+                    f"{SENT_VOCAB}, emb {SENT_EMB}, hid {SENT_HID}, "
+                    f"{SENT_STACKED} lstms, batch {SENT_B} x T {SENT_T}, "
+                    f"Adagrad {SENT_LR}); label_semantic_roles db_lstm "
+                    f"(word_dim {SRL_WORD_DIM}, mark_dim {SRL_MARK_DIM}, "
+                    f"hidden {SRL_HID}, depth {SRL_DEPTH}, batch {SRL_B}, "
+                    f"T {SRL_T}; dictionaries and lengths of the JAX "
+                    "package's synthetic conll05 reader, the book's CoNLL-05 "
+                    "dictionaries not being in the repository); "
+                    f"machine_translation (dict {MT_VOCAB}, word_dim "
+                    f"{MT_WORD}, hidden {MT_HID}, beam {MT_BEAM}, max_length "
+                    f"{MT_LEN}, batch {MT_B}); f32, TF32 off",
+        **out, "limits": SEQ_TOL, "part_seconds": secs,
+        "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+
+
 def _leftovers():
     """The threads other than this one still alive, and the processes
     whose parent is this one, each as a short description."""
@@ -8191,6 +8707,7 @@ def main() -> int:
     timed(phase_fluid_book)
     timed(phase_fluid_trainer)
     timed(phase_dygraph)
+    timed(phase_fluid_sequence)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

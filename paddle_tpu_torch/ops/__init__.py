@@ -2,8 +2,10 @@
 product of the inference path (`int8.py`), and the fluid path's op
 kernels (the int8 runtime ops among them, `quant.py`; the c_* collective
 ops, `collective.py`; the SelectedRows ops, `misc.py`; the ops the dygraph layers reach,
-`misc.py`, `sequence.py` and `text_match.py`). Importing this package registers the latter
-(core/registry.py), as the JAX package's `ops/__init__.py` does."""
+`misc.py` and `text_match.py`; the sequence models' ops, `sequence.py`,
+`rnn.py`, `crf.py`, `beam.py` and `metrics_ops.py`). Importing this
+package registers the latter (core/registry.py), as the JAX package's
+`ops/__init__.py` does."""
 
 from . import tensor
 from . import math
@@ -20,3 +22,6 @@ from . import collective
 from . import misc
 from . import sequence
 from . import text_match
+from . import rnn
+from . import crf
+from . import beam

@@ -32,7 +32,8 @@ capture that fails raises. Training under each recompute policy equals no recomp
 for bit on a narrow BERT with K1 (K1-fwd run again in the recompute),
 a TrainState checkpoint restores onto its template's device, cuda
 or cpu, whichever device wrote it, the fluid path's LeNet rung
-takes one Adam step on `CUDAPlace(0)` as on `CPUPlace()`, the int8
+takes one Adam step on `CUDAPlace(0)` as on `CPUPlace()` (and the
+book's sentiment, SRL and translation programs one step each), the int8
 product (`ops/int8.py`, on `torch._int_mm`) is exact on the card, and
 int8 weights are laid out at load and run under inference mode.
 
@@ -1038,6 +1039,39 @@ def test_fluid_lenet_step_on_the_card_matches_the_cpu():
         err = np.abs(got_p[n] - want_p[n]) - fluid_adam_slack(2e-3, a, b)
         assert err.max() <= FLUID_TOL["param"] * max(
             1.0, np.abs(want_p[n]).max()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sentiment", "srl", "translation"])
+def test_fluid_sequence_step_on_the_card_matches_the_cpu(name):
+    """The book's sequence programs (`chip_smoke.BOOK_SEQUENCE`) at
+    narrow widths: one step on `CUDAPlace(0)` against `CPUPlace()` from
+    the same numpy state, the loss within SEQ_TOL["loss"] relative and
+    every gradient within SEQ_TOL["grad"] of the step's largest; the
+    LSTM, GRU, CRF and beam ops' outputs stay on the card."""
+    _need_card()
+    import numpy as np
+
+    import chip_smoke as c
+    import paddle_tpu_torch as pt
+
+    kw = {"sentiment": dict(emb=16, hid=32, T=12),
+          "srl": dict(word_dim=16, hid=32, depth=2, T=9),
+          "translation": dict(vocab=50, T=5)}[name]
+    prog = c.BOOK_SEQUENCE[name](pt, **kw)
+    rng = np.random.RandomState(0)
+    feed = {"sentiment": lambda: c.sentiment_feed(rng, 8, 12),
+            "srl": lambda: c.srl_feed(rng, 4, 9),
+            "translation": lambda: c.mt_feed(rng, 4, 5, 50)}[name]()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(prog["startup"], scope=scope)
+    first, parity = c._seq_grad_parity(pt, prog, feed, scope, exe)
+    assert np.isfinite(first)
+    assert parity["loss_rel"] <= c.SEQ_TOL["loss"]
+    assert parity["grad_rel"] <= c.SEQ_TOL["grad"]
+    params = [p.name for p in prog["main"].all_parameters() if p.trainable]
+    assert all(scope.find_var(n).is_cuda for n in params)
 
 
 def _decode_traffic(vocab):

@@ -673,7 +673,7 @@ def test_registry_watcher_adopts_a_published_version(lenets, tmp_path):
     try:
         srv.attach_registry(reg, poll_s=0.05)
         art = _warmstart(lenets[3], str(tmp_path / "m7.json"))
-        reg.publish("second", art, model_dir=lenets[3])
+        e1 = reg.publish("second", art, model_dir=lenets[3])
 
         def row():
             return {r["id"]: r for r in
@@ -691,10 +691,14 @@ def test_registry_watcher_adopts_a_published_version(lenets, tmp_path):
         assert code == 200 and all(
             _gap(reply["outputs"][n], want[n]) <= F32_REPLY_TOL
             for n in want)
-        # a corrupt blob is not adopted; the watcher lives on
-        e2 = reg.publish("second", art, model_dir=lenets[3])
-        with open(e2["path"], "ab") as f:
+        # a corrupt blob is not adopted; the watcher lives on. Blobs are
+        # stored by content, so version 2's blob is version 1's file:
+        # corrupt it before version 2 is published, or a poll between
+        # the publish and the corruption adopts an intact version 2
+        with open(e1["path"], "ab") as f:
             f.write(b" ")
+        e2 = reg.publish("second", art, model_dir=lenets[3])
+        assert e2["path"] == e1["path"]
         assert _wait(lambda: any(
             e.get("model") == "second"
             for e in tevents.recent(200, kind="model_swap_failed")))
