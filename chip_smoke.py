@@ -8618,6 +8618,1001 @@ def phase_fluid_sequence():
     torch.cuda.empty_cache()
 
 
+# Phase 33: the compression toolkit (`slim/`) and the fake-quant and misc
+# op types on the card, f32 with TF32 off: (a) quantization-aware
+# training of the book's VGG-16-BN at full width (the card's first QAT
+# step against the CPU's, 20 steps, the freeze pass, a Predictor on the
+# frozen model), (b) the Compressor on the book's LeNet (sensitivity
+# pruning then QAT, a distillation schedule, the bf16 transpiler on the
+# frozen model), (c) a CTC ladder at an OCR-like size, (d) every new op
+# type once against the port's CPU op. No kernel of the table runs
+# here: the JAX package's slim/, quant and misc ops reach no Pallas
+# kernel.
+SLIM_QAT_STEPS = 20
+# (a): a QAT step is chaotic across devices: an activation within f32
+# noise of a rounding boundary flips one quantum, the flip moves the
+# next batch norm's statistics, and the next layer's inputs then differ
+# by far more than noise (measured on the H100: 6.7% of the quantized
+# activations flipped by the last layer, the loss 1.6e-3 apart). So the
+# card's step is held against the CPU's with every activation fake-quant
+# output forced to the card's own (`forced_qat_program`): each fake op
+# still runs on its device's input and updates its state, and the rest
+# is f32 arithmetic held at VGG_TOL (loss, the gradients' F13 split,
+# running stats); the quant state vars (scale, state, accum) relative,
+# at the running stats' limit: an accum is a running statistic of its
+# activation's abs-max, which carries the activation's own f32 noise
+# (2.0e-6 on the H100, where the state's a-priori 1e-6 missed);
+# the fake ops' own outputs by the share of grid indices that differ
+# (each flip one quantum); each frozen weight against the value its
+# fake-quant op gave: the pass rounds w / (amax / 127) where the op
+# rounds w / amax * 127 (ROADMAP F24, the JAX package's), so a weight on
+# a rounding boundary moves one quantum, held by the share of such
+# weights, and the rest an ulp apart; the frozen program's
+# probabilities against the QAT test program's with its activation
+# fake-quant ops taken out (3.3e-5 and 1.1e-4 in two runs on the H100,
+# with 7 and 12 weights a quantum apart: the card's weight gradients
+# sum in a varying order, so the trained weights and their boundary
+# cases vary from run to run; freezing bakes the
+# weights' grid into them and drops the
+# activations' quantization, by the JAX package's design; against the
+# whole QAT program they move by up to 0.288 at VGG-16-BN's 16 quantized
+# layers on the H100, where tests/test_slim.py:184 holds a 2-layer MLP
+# at rtol = atol = 0.1: recorded, with the top-1 agreement); a frozen
+# weight times 127 / its channel's scale off an integer; the frozen
+# program on the card against the CPU's (probabilities, absolute)
+SLIM_TOL = {"state": VGG_TOL["stats"], "flip_share": 1e-3,
+            "baked_flip_share": 1e-3, "frozen_weights": 1e-3, "grid": 1e-4,
+            "frozen_cpu": 1e-5}
+LENET_B = 64
+# Adam 1e-3: at models/lenet's default 0.01 the card's initial draw
+# (its generator's numbers, not the CPU's) left every ReLU dead within
+# 10 steps, the loss at ln 10
+LENET_LR = 1e-3
+LENET_EPOCH_STEPS = 30
+LENET_EPOCHS = 4
+LENET_EVAL_B = 512
+LENET_TEACHER_STEPS = 30
+# tests/test_slim.py:279-291's schedule, as a dict (the card has no
+# PyYAML): sensitivity pruning at epoch 1, QAT at epoch 2, 4 epochs
+LENET_PRUNE_DROP = 0.1
+LENET_PRUNE_RATIOS = (0.3, 0.5, 0.7)
+LENET_ZERO_SHARE = 0.2
+LENET_EVAL_SLACK = 0.15
+# bf16 logits, card against CPU: steps of bf16 (8 bits of mantissa) at
+# the largest logit
+BF16_STEPS = 2
+# (c): batch 32, 64 frames, 95 characters and the blank, labels of 4-24
+# tokens, frames 48-64; Adam 0.05 for 100 steps
+CTC_B, CTC_T, CTC_C = 32, 64, 96
+CTC_LABELS = (4, 24)
+CTC_FRAMES = (48, 64)
+CTC_STEPS = 100
+CTC_LR = 0.05
+# warpctc card against CPU: loss relative; WarpCTCGrad against its
+# largest value, an infeasible row's at 5e-3 (its log-alphas sit near
+# optax's -1e5 stand-in for log 0, where f32's step is 0.0078)
+CTC_TOL = {"loss": 1e-5, "grad": 1e-5, "grad_infeasible": 5e-3,
+           "tie": 1e-5}
+# (d): card against CPU by class: exact, elementwise and losses, products
+SWEEP_TOL = {"exact": (0.0, 0.0), "ew": (1e-5, 1e-6), "mm": (1e-4, 1e-4)}
+
+
+def _peak_reset():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak():
+    import torch
+
+    return torch.cuda.max_memory_allocated()
+
+
+def quant_state_names(main):
+    return sorted(n for n in main.global_block().desc.vars
+                  if n.endswith((".quant_in_scale", ".quant_state",
+                                 ".quant_accum")))
+
+
+def _act_quant_ops(main):
+    return [op for op in main.desc.block(0).ops
+            if op.type == "fake_quantize_dequantize_moving_average_abs_max"]
+
+
+def quant_flips(ops, got, want, s_got, s_want):
+    """The outputs of the activation fake-quant `ops` of one step on two
+    devices (`got`, `want`: one array an op, each scope holding the
+    scales that step used): (elements whose grid index differs, all
+    elements, the largest index difference)."""
+    flips = total = worst = 0
+    for op, g, w in zip(ops, got, want):
+        scale = op.outputs["OutScale"][0]
+        kg = np.rint(g.astype(np.float64) * 127 / s_got.get(scale)[0])
+        kw = np.rint(w.astype(np.float64) * 127 / s_want.get(scale)[0])
+        d = np.abs(kg - kw)
+        flips += int((d > 0).sum())
+        total += d.size
+        worst = max(worst, int(d.max()))
+    return flips, total, worst
+
+
+def forced_qat_program(main):
+    """A clone of the QAT program `main` whose activation fake-quant ops
+    write `<out>.computed` in place of `<out>`, which the convs and muls
+    still read and the caller feeds. Each fake op still runs and updates
+    its state."""
+    import copy
+
+    prog = main.clone()
+    block = prog.desc.block(0)
+    for op in _act_quant_ops(prog):
+        out = op.outputs["Out"][0]
+        var = copy.deepcopy(block.vars[out])
+        var.name = out + ".computed"
+        block.vars[var.name] = var
+        op.outputs["Out"] = [var.name]
+    prog._rebuild_from_desc()
+    return prog
+
+
+def qat_vgg_parity(pt, place, cpu, width=1, batch=VGG_B):
+    """(a)'s gate: the QAT program's first step on `place` against the
+    CPU's from one scope (drop 0), the activation fake-quant outputs
+    forced to `place`'s own. Returns (program pieces, the scope on
+    `place` after that step, the row)."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.slim import QuantizationTransformPass
+
+    main, startup, test_prog, loss, acc = vgg_bn_program(pt, drop=0.0,
+                                                         width=width)
+    # taken before the pass: a program rebuilt from its desc marks every
+    # parameter trainable, the running stats too
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    QuantizationTransformPass().apply(main, startup)
+    QuantizationTransformPass().apply(test_prog)
+    stats = bn_stat_names(main)
+    ops = _act_quant_ops(main)
+    acts = [op.outputs["Out"][0] for op in ops]
+    forced = forced_qat_program(main)
+    fetch = [loss.name, acc.name] + [n + "@GRAD" for n in params] + \
+        [a + ".computed" for a in acts]
+    exe, exe_cpu = pt.Executor(place), pt.Executor(cpu)
+    s0 = pt.Scope()
+    exe_cpu.run(startup, scope=s0)
+    init = {v.name: s0.get(v.name) for v in startup.list_vars()
+            if v.persistable}
+    img, label = synthetic_cifar(batch, seed=33)
+    feed = {"img": img, "label": label}
+    own = exe.run(main, feed=feed, fetch_list=acts,
+                  scope=scope_from_numpy(pt.Scope(), init, place))
+    feed.update(zip(acts, own))
+    sc = scope_from_numpy(pt.Scope(), init, place)
+    sh = scope_from_numpy(pt.Scope(), init, cpu)
+    got = exe.run(forced, feed=feed, fetch_list=fetch, scope=sc)
+    want = exe_cpu.run(forced, feed=feed, fetch_list=fetch, scope=sh)
+    k = 2 + len(params)
+    worst = _vgg_worst(main, got[:k], want[:k], params, stats, sc, sh)
+    states = quant_state_names(main)
+    worst["state"] = max(float(np.abs(sc.get(n) - sh.get(n)).max() /
+                               np.abs(sh.get(n)).max()) for n in states)
+    flips, total, biggest = quant_flips(ops, got[k:], want[k:], sc, sh)
+    worst["flip_share"] = flips / total
+    for key, lim in list(VGG_TOL.items()) + [
+            ("state", SLIM_TOL["state"]),
+            ("flip_share", SLIM_TOL["flip_share"])]:
+        check(worst[key] <= lim, f"slim (a): the QAT step's {key} differs "
+              f"by {worst[key]} (limit {lim}): {worst}")
+    check(biggest <= 1, f"slim (a): a fake-quant output moved by {biggest} "
+          "quanta")
+    prog = {"main": main, "startup": startup, "test": test_prog,
+            "loss": loss, "params": params, "states": states}
+    return prog, sc, {"card_vs_cpu_worst": worst, "quant_ops": sum(
+        op.type.startswith("fake_") for op in main.desc.block(0).ops),
+        "state_vars": len(states), "flips": flips,
+        "quantized_elements": total,
+        # the forced step's own fake-quant outputs against the unforced
+        # step's on the same card and inputs
+        "forced_equals_own": all(np.array_equal(g, o)
+                                 for g, o in zip(got[k:], own))}
+
+
+def without_activation_quant(program):
+    """A clone of a QAT program with its activation fake-quant ops taken
+    out, their consumers reading the ops' inputs: the weights' grid
+    only."""
+    prog = program.clone(for_test=program._is_test)
+    block = prog.desc.block(0)
+    drop = {op.outputs["Out"][0]: op.inputs["X"][0]
+            for op in _act_quant_ops(prog)}
+    block.ops = [op for op in block.ops
+                 if op.type != "fake_quantize_dequantize_moving_average_"
+                 "abs_max"]
+    for op in block.ops:
+        for slot, names in op.inputs.items():
+            op.inputs[slot] = [drop.get(n, n) for n in names]
+    prog._rebuild_from_desc()
+    return prog
+
+
+def qat_vgg_freeze(pt, prog, scope, place, cpu, root, batch=VGG_B):
+    """(a)'s freeze: the QAT test program's probabilities, whole and
+    with its activation quantization taken out, then
+    QuantizationFreezePass on it: no fake op left, every frozen weight on
+    its channel's int8 grid, the frozen probabilities within
+    SLIM_TOL["frozen_weights"] of the weights-only QAT ones (the whole
+    QAT program's recorded) and within SLIM_TOL["frozen_cpu"] of the
+    CPU's from the same scope; then the model saved and served by a
+    Predictor on `place`, whose replies equal the executor's."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.core.executor import scope_guard
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.slim import QuantizationFreezePass
+
+    test = prog["test"]
+    exe = pt.Executor(place)
+    predict = next(op.inputs["X"][0] for op in test.desc.block(0).ops
+                   if op.type == "cross_entropy")
+    img, label = synthetic_cifar(batch, seed=34)
+    feed = {"img": img, "label": label}
+    qat = exe.run(test, feed=feed, fetch_list=[predict], scope=scope)[0]
+    axes = {op.inputs["X"][0]: int(op.attrs.get("quant_axis", 0))
+            for op in test.desc.block(0).ops
+            if op.type == "fake_channel_wise_quantize_dequantize_abs_max"}
+    qat_w, *faked = exe.run(without_activation_quant(test), feed=feed,
+                            fetch_list=[predict] + [w + ".quantized"
+                                                    for w in axes],
+                            scope=scope)
+    before = {w: scope.get(w) for w in axes}
+    frozen = QuantizationFreezePass().apply(test, scope)
+    left = [op.type for op in frozen.desc.block(0).ops
+            if op.type.startswith("fake_")]
+    check(not left, f"slim (a): the frozen program keeps {left}")
+    grid, flips, total, moved = 0.0, 0, 0, 0
+    for (w, axis), fake in zip(axes.items(), faked):
+        red = tuple(i for i in range(before[w].ndim) if i != axis)
+        sc = np.abs(before[w]).max(axis=red, keepdims=True) / 127.0
+        q = scope.get(w).astype(np.float64) / sc
+        grid = max(grid, float(np.abs(q - np.rint(q)).max()))
+        d = np.rint(np.abs(q - fake.astype(np.float64) / sc))
+        flips += int((d > 0).sum())
+        total += d.size
+        moved = max(moved, int(d.max()))
+    baked = flips / total
+    out = exe.run(frozen, feed=feed, fetch_list=[predict], scope=scope)[0]
+    freeze_err = float(np.abs(out - qat_w).max())
+    check(freeze_err <= SLIM_TOL["frozen_weights"] and
+          grid <= SLIM_TOL["grid"] and moved <= 1 and
+          baked <= SLIM_TOL["baked_flip_share"],
+          f"slim (a): frozen against the weights-only QAT program "
+          f"{freeze_err}, grid {grid}, baked weights off the fake op's "
+          f"grid index: {flips} of {total}, by up to {moved}")
+    pers = {v.name: scope.get(v.name) for v in frozen.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+    cpu_scope = scope_from_numpy(pt.Scope(), pers, cpu)
+    ref = pt.Executor(cpu).run(frozen, feed=feed, fetch_list=[predict],
+                               scope=cpu_scope)[0]
+    cpu_err = float(np.abs(out - ref).max())
+    check(cpu_err <= SLIM_TOL["frozen_cpu"],
+          f"slim (a): the frozen program on the card against the CPU: "
+          f"{cpu_err}")
+    d = os.path.join(root, "vgg_frozen")
+    with scope_guard(scope):
+        pt.io.save_inference_model(d, ["img"], [predict], exe,
+                                   main_program=frozen)
+    cfg = AnalysisConfig(d)
+    if place.torch_device().type == "cpu":
+        cfg.disable_gpu()
+    reply = create_paddle_predictor(cfg).predict(img=img)[predict]
+    check(np.array_equal(reply, out),
+          f"slim (a): the Predictor's replies differ from the executor's "
+          f"by {float(np.abs(reply - out).max())}")
+    return {"frozen_vs_weights_only_qat_max_abs": freeze_err,
+            "frozen_vs_qat_max_abs": float(np.abs(out - qat).max()),
+            "frozen_vs_qat_mean_abs": float(np.abs(out - qat).mean()),
+            "frozen_vs_qat_top1_agreement": float(
+                (out.argmax(1) == qat.argmax(1)).mean()),
+            "top1_accuracy": {name: float((p.argmax(1) == label[:, 0]).mean())
+                              for name, p in (("qat", qat), ("weights_only",
+                                                              qat_w),
+                                              ("frozen", out))},
+            "grid_worst": grid, "baked_flips": flips,
+            "baked_flip_share": baked,
+            "frozen_card_vs_cpu": cpu_err, "frozen_weights": len(axes),
+            "frozen_ops": len(frozen.desc.block(0).ops)}
+
+
+def slim_qat_vgg(pt, root):
+    """Phase 33 (a) on the card."""
+    import torch
+
+    cuda, cpu = pt.CUDAPlace(0), pt.CPUPlace()
+    _peak_reset()
+    prog, scope, row = qat_vgg_parity(pt, cuda, cpu)
+    exe = pt.Executor(cuda)
+    img, label = synthetic_cifar(VGG_B * SLIM_QAT_STEPS, seed=35)
+    losses, ms = [], []
+    for i in range(SLIM_QAT_STEPS):
+        b = slice(i * VGG_B, (i + 1) * VGG_B)
+        t0 = time.perf_counter()
+        out = exe.run(prog["main"], feed={"img": img[b], "label": label[b]},
+                      fetch_list=[prog["loss"]], scope=scope)
+        losses.append(float(out[0][0]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and
+          np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"slim (a): the QAT loss did not fall: {losses}")
+    traced = _profiled_step(lambda: exe.run(
+        prog["main"], feed={"img": img[:VGG_B], "label": label[:VGG_B]},
+        fetch_list=[prog["loss"]], scope=scope))
+    row.update({"losses": losses, "step_ms": ms,
+                "step_ms_median": statistics.median(ms[2:]),
+                "traced_step": {k: traced[k] for k in (
+                    "wall_ms", "device_busy_ms", "device_idle_share",
+                    "device_events")},
+                "top_kernels": traced["top_kernels"][:5],
+                "peak_bytes": _peak()})
+    row.update(qat_vgg_freeze(pt, prog, scope, cuda, cpu, root))
+    torch.cuda.empty_cache()
+    return row
+
+
+def _lenet_logits(main):
+    return next(op.inputs["Logits"][0] for op in main.desc.block(0).ops
+                if op.type == "softmax_with_cross_entropy")
+
+
+def _lenet(pt, seed):
+    from paddle_tpu_torch.models import lenet
+
+    with pt.framework.unique_name.guard():
+        main, startup, _, loss, acc = lenet.build_program(pt, lr=LENET_LR)
+    main.random_seed = startup.random_seed = seed
+    return main, startup, loss, acc
+
+
+def lenet_compress(pt, place, steps=LENET_EPOCH_STEPS, epochs=LENET_EPOCHS,
+                   batch=LENET_B, eval_b=LENET_EVAL_B):
+    """(b)'s Compressor run: the book's LeNet (Adam LENET_LR) under the
+    prune-then-QAT schedule, eval its accuracy on a held-out batch (the
+    last above 0.4, as tests/test_slim.py holds it).
+    Returns (main, scope, the row)."""
+    from paddle_tpu_torch.slim.core import Compressor
+
+    main, startup, loss, acc = _lenet(pt, seed=33)
+    x, y = synthetic_mnist(batch * steps, seed=33)
+    ex, ey = synthetic_mnist(eval_b, seed=34)
+    params = [p.name for p in main.all_parameters()
+              if p.name.endswith(".w_0")]
+
+    def train_reader():
+        for i in range(steps):
+            b = slice(i * batch, (i + 1) * batch)
+            yield {"img": x[b], "label": y[b]}
+
+    def eval_func(program, executor, scope):
+        return float(executor.run(program, feed={"img": ex, "label": ey},
+                                  fetch_list=[acc], scope=scope)[0][0])
+
+    config = {"strategies": {
+        "prune": {"class": "SensitivePruneStrategy", "start_epoch": 1,
+                  "max_metric_drop": LENET_PRUNE_DROP,
+                  "sensitivity_ratios": list(LENET_PRUNE_RATIOS),
+                  "pruned_params": params},
+        "quant": {"class": "QuantizationStrategy", "start_epoch": 2}},
+        "compressor": {"epoch": epochs}}
+    scope = pt.Scope()
+    t0 = time.perf_counter()
+    comp = Compressor(place, scope, main, startup,
+                      train_reader=train_reader, train_fetch_list=[loss],
+                      eval_func=eval_func).config(config)
+    ctx = comp.run()
+    seconds = time.perf_counter() - t0
+    fakes = sum(op.type.startswith("fake_") for op in main.desc.block(0).ops)
+    zeros = sum(int((scope.get(n) == 0).sum()) for n in params)
+    total = sum(scope.get(n).size for n in params)
+    hist = ctx.eval_history
+    check(fakes > 0 and zeros > LENET_ZERO_SHARE * total and
+          hist[-1] >= max(hist) - LENET_EVAL_SLACK and hist[-1] > 0.4,
+          f"slim (b): fake ops {fakes}, zero weights {zeros} of {total}, "
+          f"evals {hist}")
+    return main, scope, {"run_s": seconds, "eval_history": hist,
+                         "chosen_ratios": comp.strategies[0].chosen,
+                         "zero_share": zeros / total, "fake_ops": fakes,
+                         "steps": steps * epochs}
+
+
+def lenet_distill(pt, place, steps=LENET_EPOCH_STEPS // 3,
+                  teacher_steps=LENET_TEACHER_STEPS, batch=LENET_B,
+                  eval_b=LENET_EVAL_B):
+    """(b)'s distillation schedule (tests/test_slim.py:446): a LeNet
+    teacher trained `teacher_steps` steps, spliced frozen into a LeNet
+    student's program with a soft-label loss, active for epochs 1-2 of
+    4; the student's eval loss must fall."""
+    from paddle_tpu_torch.slim import distillation
+    from paddle_tpu_torch.slim.core import Compressor, _strip_training_ops
+
+    x, y = synthetic_mnist(batch * max(steps, teacher_steps), seed=36)
+    ex, ey = synthetic_mnist(eval_b, seed=37)
+    t_main, t_start, t_loss, _ = _lenet(pt, seed=21)
+    scope = pt.Scope()
+    exe = pt.Executor(place)
+    exe.run(t_start, scope=scope)
+    for i in range(teacher_steps):
+        b = slice(i * batch, (i + 1) * batch)
+        exe.run(t_main, feed={"img": x[b], "label": y[b]},
+                fetch_list=[t_loss], scope=scope)
+    t_infer = _strip_training_ops(t_main)
+    s_main, s_start, s_loss, _ = _lenet(pt, seed=22)
+    distill = s_main.clone()
+    rename = distillation.merge(t_infer, distill,
+                                data_names=["img", "label"])
+    distillation.init_teacher_scope(scope, rename)
+    with pt.program_guard(distill, s_start):
+        soft = distillation.soft_label_loss(
+            distill.global_block().var(rename[_lenet_logits(t_main)]),
+            distill.global_block().var(_lenet_logits(s_main)))
+        pt.optimizer.Adam(learning_rate=LENET_LR).minimize(
+            soft, parameter_list=[p for p in distill.all_parameters()
+                                  if not p.name.startswith("teacher_")])
+
+    def train_reader():
+        for i in range(steps):
+            b = slice(i * batch, (i + 1) * batch)
+            yield {"img": x[b], "label": y[b]}
+
+    def eval_func(program, executor, scope_):
+        return -float(executor.run(program, feed={"img": ex, "label": ey},
+                                   fetch_list=[s_loss],
+                                   scope=scope_)[0].reshape(()))
+
+    t0 = time.perf_counter()
+    comp = Compressor(place, scope, s_main, s_start,
+                      train_reader=train_reader, train_fetch_list=[s_loss],
+                      eval_func=eval_func, distill_program=distill).config({
+                          "strategies": {"distill": {
+                              "class": "DistillationStrategy",
+                              "start_epoch": 1, "end_epoch": 2}},
+                          "compressor": {"epoch": 4}})
+    ctx = comp.run()
+    hist = [-v for v in ctx.eval_history]
+    check(comp.strategies[0].distilled_epochs == [1, 2] and
+          ctx.active_program is s_main and hist[-1] < hist[0],
+          f"slim (b): distillation epochs "
+          f"{comp.strategies[0].distilled_epochs}, student losses {hist}")
+    return {"run_s": time.perf_counter() - t0, "student_losses": hist,
+            "distilled_epochs": comp.strategies[0].distilled_epochs}
+
+
+def lenet_bf16(pt, main, scope, place, cpu, root, batch=LENET_B):
+    """(b)'s float16_transpile: the compressed LeNet saved, loaded on
+    `place` and on the CPU, frozen and transpiled to bf16 in each; the
+    logits within BF16_STEPS steps of bf16 at the largest logit."""
+    from paddle_tpu_torch.core.executor import scope_guard
+    from paddle_tpu_torch.slim import QuantizationFreezePass, \
+        float16_transpile
+
+    d = os.path.join(root, "lenet_compressed")
+    logits = _lenet_logits(main)
+    with scope_guard(scope):
+        pt.io.save_inference_model(d, ["img"], [logits], pt.Executor(place),
+                                   main_program=main)
+    img, _ = synthetic_mnist(batch, seed=38)
+    outs = []
+    for where in (place, cpu):
+        exe = pt.Executor(where)
+        s = pt.Scope()
+        with scope_guard(s):
+            prog, _, _ = pt.io.load_inference_model(d, exe)
+        QuantizationFreezePass().apply(prog, s)
+        float16_transpile(prog, s, target_vars=[logits], dtype="bfloat16")
+        outs.append(exe.run(prog, feed={"img": img}, fetch_list=[logits],
+                            scope=s)[0])
+    top = float(np.abs(outs[1]).max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    err = float(np.abs(outs[0] - outs[1]).max())
+    check(outs[0].dtype == np.float32 and err <= BF16_STEPS * step,
+          f"slim (b): bf16 logits card against CPU {err} (limit "
+          f"{BF16_STEPS} x {step})")
+    return {"bf16_card_vs_cpu_max_abs": err, "bf16_step_at_top": step,
+            "largest_logit": top}
+
+
+def ctc_ladder(B=CTC_B, T=CTC_T, C=CTC_C, labels=CTC_LABELS,
+               frames=CTC_FRAMES, seed=33):
+    """tests/test_misc_ops.py:334's ladder at a given size, with lengths:
+    row i's frames one-hot on the label each of its llen_i frames
+    stretches over, plus noise N(0, 0.1): (feats [B, T, C] f32, labels
+    [B, Lmax] int64 padded with 0, label lengths, frame lengths)."""
+    rng = np.random.RandomState(seed)
+    ylen = rng.randint(labels[0], labels[1] + 1, B).astype("int64")
+    llen = rng.randint(frames[0], frames[1] + 1, B).astype("int64")
+    lab = np.zeros((B, labels[1]), "int64")
+    feats = rng.randn(B, T, C).astype("float32") * 0.1
+    for i in range(B):
+        lab[i, :ylen[i]] = rng.randint(1, C, ylen[i])
+        for t in range(llen[i]):
+            feats[i, t, lab[i, min(t * ylen[i] // llen[i], ylen[i] - 1)]] \
+                += 1.0
+    return feats, lab, ylen, llen
+
+
+def ctc_programs(pt, T, C, L, lr=CTC_LR):
+    """The ladder's train program (fc over the frames, warpctc with
+    lengths, mean, Adam) and its decode program (softmax,
+    ctc_greedy_decoder, edit_distance against the labels)."""
+    with pt.framework.unique_name.guard():
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data(name="x", shape=[T, C], dtype="float32")
+            y = pt.layers.data(name="y", shape=[L], dtype="int64")
+            yl = pt.layers.data(name="yl", shape=[1], dtype="int64")
+            xl = pt.layers.data(name="xl", shape=[1], dtype="int64")
+            logits = pt.layers.fc(x, size=C, num_flatten_dims=2)
+            loss = pt.layers.mean(pt.layers.warpctc(
+                logits, y, blank=0, input_length=xl, label_length=yl))
+            pt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    with pt.framework.unique_name.guard():
+        infer = pt.Program()
+        with pt.program_guard(infer, pt.Program()):
+            x = pt.layers.data(name="x", shape=[T, C], dtype="float32")
+            y = pt.layers.data(name="y", shape=[L], dtype="int64")
+            yl = pt.layers.data(name="yl", shape=[1], dtype="int64")
+            xl = pt.layers.data(name="xl", shape=[1], dtype="int64")
+            probs = pt.layers.softmax(pt.layers.fc(x, size=C,
+                                                   num_flatten_dims=2))
+            dec, dec_len = pt.layers.ctc_greedy_decoder(probs, blank=0,
+                                                        input_length=xl)
+            dist, _ = pt.layers.edit_distance(dec, y, normalized=False,
+                                              input_length=dec_len,
+                                              label_length=yl)
+    return main, startup, infer, loss, dist, probs
+
+
+def op_call(op_type, ins, attrs, device, outputs=None, rng_key=None):
+    """One kernel call through the port's registry on `device`, numpy in
+    and out (None stays None)."""
+    import torch
+
+    from paddle_tpu_torch.core.async_exec import to_numpy
+    from paddle_tpu_torch.core.ir import OpDesc
+    from paddle_tpu_torch.core.registry import KernelCtx, get_op_def
+
+    names = {k: [f"{k}{i}" for i in range(len(v))] for k, v in ins.items()}
+    desc = OpDesc(type=op_type, inputs=names, outputs=outputs or {},
+                  attrs=attrs)
+    ctx = KernelCtx(desc, rng_key=rng_key, device=device)
+    vals = {k: [None if a is None else torch.from_numpy(
+        np.array(a)).to(device) for a in v] for k, v in ins.items()}
+    with torch.no_grad():
+        outs = get_op_def(op_type).call(vals, attrs, ctx)
+    return {k: [None if o is None else to_numpy(o) for o in v]
+            for k, v in outs.items()}
+
+
+def ctc_op_parity(feats, lab, ylen, llen, device):
+    """warpctc's Loss and WarpCTCGrad on `device` against the CPU's on
+    the ladder's inputs, with the last row's label made infeasible (L
+    repeats of one token in L frames, where 2 L - 1 are needed; L 24 at
+    the ladder's size): the worst errors."""
+    lab, llen, ylen = lab.copy(), llen.copy(), ylen.copy()
+    lab[-1, :] = 7
+    ylen[-1] = llen[-1] = lab.shape[1]
+    ins = {"Logits": [feats], "Label": [lab], "LogitsLength": [llen],
+           "LabelLength": [ylen]}
+    outs = {"Loss": ["l"], "WarpCTCGrad": ["g"]}
+    got = op_call("warpctc", ins, {"blank": 0}, device, outs)
+    want = op_call("warpctc", ins, {"blank": 0}, "cpu", outs)
+    lg, lw = got["Loss"][0], want["Loss"][0]
+    gg, gw = got["WarpCTCGrad"][0], want["WarpCTCGrad"][0]
+    top = float(np.abs(gw).max())
+    worst = {"loss": float((np.abs(lg - lw) / np.abs(lw)).max()),
+             "grad": float(np.abs(gg[:-1] - gw[:-1]).max()) / top,
+             "grad_infeasible": float(np.abs(gg[-1] - gw[-1]).max()) / top,
+             "infeasible_loss": float(lw[-1, 0])}
+    for key in ("loss", "grad", "grad_infeasible"):
+        check(worst[key] <= CTC_TOL[key], f"slim (c): warpctc's {key} on "
+              f"the card against the CPU: {worst[key]} (limit "
+              f"{CTC_TOL[key]})")
+    check(np.isfinite(lg).all() and lw[-1, 0] > 1e4,
+          f"slim (c): the infeasible row's loss {lw[-1, 0]}")
+    return worst
+
+
+def _decode_ties(probs, got, want, xl, rel):
+    """The rows where the two decodes' distances differ and every frame
+    whose argmax differs has its top two within `rel` (relative)."""
+    tied = []
+    for i in np.nonzero(got != want)[0]:
+        top2 = np.sort(probs[i, :xl[i]], axis=-1)[:, -2:]
+        gaps = (top2[:, 1] - top2[:, 0]) / np.maximum(top2[:, 1], 1e-30)
+        check((gaps <= rel).any(), f"slim (c): row {i}'s edit distance "
+              f"{got[i]} against the CPU's {want[i]} with no tie")
+        tied.append(int(i))
+    return tied
+
+
+def slim_ctc(pt, place, cpu, steps=CTC_STEPS, **size):
+    """Phase 33 (c): the op against the CPU, 100 Adam steps (the loss
+    halves), the greedy decode's edit distances against the CPU's."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    feats, lab, ylen, llen = ctc_ladder(**size)
+    B, T, C = feats.shape
+    op = ctc_op_parity(feats, lab, ylen, llen, place.torch_device())
+    main, startup, infer, loss, dist, probs = ctc_programs(
+        pt, T, C, lab.shape[1])
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": feats, "y": lab, "yl": ylen[:, None], "xl": llen[:, None]}
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0].reshape(())))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0],
+          f"slim (c): the CTC loss {losses[0]} -> {losses[-1]} (must halve)")
+    traced = _profiled_step(lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope)) \
+        if place.torch_device().type == "cuda" else None
+    pers = {v.name: scope.get(v.name) for v in startup.list_vars()
+            if v.persistable}
+    got = exe.run(infer, feed=feed, fetch_list=[dist, probs], scope=scope)
+    want = pt.Executor(cpu).run(infer, feed=feed, fetch_list=[dist, probs],
+                                scope=scope_from_numpy(pt.Scope(), pers,
+                                                       cpu))
+    d_got, d_want = got[0][:, 0], want[0][:, 0]
+    tied = _decode_ties(want[1], d_got, d_want, llen, CTC_TOL["tie"])
+    return {"op_card_vs_cpu": op, "losses_first_last": [losses[0],
+                                                        losses[-1]],
+            "step_ms": ms[:5] + ms[-5:],
+            "step_ms_median": statistics.median(ms[1:]),
+            "traced_step": None if traced is None else {k: traced[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "device_events")},
+            "mean_edit_distance": float(d_got.mean()),
+            "rows_tied": tied, "frames": int(llen.sum()),
+            "label_tokens": int(ylen.sum())}
+
+
+def _py_funcs():
+    def fwd(x, y):
+        return np.tanh(x) * 2.0, (x.sum(1) + y.sum(1)).astype("float64")
+
+    def bwd(x, y, out0, out1, g0, g1):
+        return g0 * 2.0 * (1.0 - np.tanh(x) ** 2) + g1[:, None], None
+
+    return fwd, bwd
+
+
+def sweep_cases(rng):
+    """(d)'s cases: (op type, inputs, attrs, class), at the shapes of
+    tests/test_misc_ops.py and tests/test_round2b_ops.py; every one of
+    the 43 op types this slice adds but the four random ones, which
+    `sweep_random` holds by their law."""
+    from paddle_tpu_torch.ops.misc import register_py_func
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype("float32")
+
+    def i64(*v):
+        return np.array(v, "int64")
+
+    def f32(*v):
+        return np.array(v, "float32")
+
+    w = n(4, 3, 2, 2, scale=4.0)
+    st = {"InScale": [f32(0.7)], "InState": [f32(1.3)],
+          "InAccum": [f32(0.9)]}
+    fwd, bwd = _py_funcs()
+    hyps = i64([1, 2, 3, 0, 5], [1, 1, 1, 1, 1], [4, 0, 2, 0, 2],
+               [3, 3, 1, 2, 4])
+    refs = i64([1, 3, 3, 0, 0, 2], [2, 2, 2, 2, 0, 0], [4, 2, 0, 2, 1, 1],
+               [0, 0, 0, 0, 0, 0])
+    return [
+        ("fake_quantize_dequantize_abs_max", {"X": [w]}, {"bit_length": 8},
+         "exact"),
+        ("fake_channel_wise_quantize_dequantize_abs_max", {"X": [w]},
+         {"bit_length": 8, "quant_axis": 0}, "exact"),
+        ("fake_quantize_dequantize_moving_average_abs_max",
+         dict(st, X=[w]), {"bit_length": 8, "moving_rate": 0.9}, "exact"),
+        ("fake_quantize_abs_max", {"X": [w]}, {"bit_length": 8}, "exact"),
+        ("fake_channel_wise_quantize_abs_max", {"X": [w]},
+         {"bit_length": 8, "quant_axis": 0}, "exact"),
+        ("fake_quantize_range_abs_max",
+         {"X": [w], "InScale": [f32(3.0)], "Iter": [i64(5)],
+          "InScales": [f32(9.0, 1.0, 2.0)]},
+         {"bit_length": 8, "window_size": 3}, "exact"),
+        ("fake_quantize_moving_average_abs_max", dict(st, X=[w]),
+         {"bit_length": 8, "moving_rate": 0.8}, "exact"),
+        ("fake_dequantize_max_abs",
+         {"X": [rng.randint(-127, 128, (3, 4)).astype("float32")],
+          "Scale": [f32(2.5)]}, {"max_range": 127.0}, "exact"),
+        ("fake_channel_wise_dequantize_max_abs",
+         {"X": [rng.randint(-127, 128, (4, 3, 2, 2)).astype("float32")],
+          "Scales": [f32(1.5, 0.5, 2.0, 3.0), f32(0.25)]},
+         {"quant_bits": [8, 8], "quant_axis": 0}, "exact"),
+        ("moving_average_abs_max_scale",
+         {"X": [w], "InState": st["InState"], "InAccum": st["InAccum"]},
+         {"moving_rate": 0.9}, "exact"),
+        ("affine_channel", {"X": [n(2, 3, 4, 4)], "Scale": [n(3)],
+                            "Bias": [n(3)]}, {}, "ew"),
+        ("affine_grid", {"Theta": [n(2, 2, 3)]},
+         {"output_shape": [2, 1, 3, 4]}, "mm"),
+        ("lrn", {"X": [rng.uniform(0.5, 2.0, (1, 6, 3, 3)).astype(
+            "float32")]}, {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75},
+         "ew"),
+        ("data_norm", {"X": [n(4, 3)], "BatchSize": [f32(2.0, 3.0, 4.0)],
+                       "BatchSum": [n(3)],
+                       "BatchSquareSum": [f32(10.0, 20.0, 30.0)]}, {}, "ew"),
+        ("shuffle_channel", {"X": [n(2, 6, 2, 2)]}, {"group": 3}, "exact"),
+        ("space_to_depth", {"X": [n(1, 2, 4, 4)]}, {"blocksize": 2},
+         "exact"),
+        ("unfold", {"X": [n(1, 2, 5, 5)]},
+         {"kernel_sizes": [2, 3], "strides": [2, 1],
+          "paddings": [1, 0, 0, 1], "dilations": [1, 2]}, "exact"),
+        ("crop", {"X": [n(2, 3, 4)]}, {"shape": [1, 2, 2],
+                                      "offsets": [1, 1, 2]}, "exact"),
+        ("crop_tensor", {"X": [n(2, 3, 4)], "Offsets": [i64(1, 5, -3)]},
+         {"shape": [-1, 2, 2]}, "exact"),
+        ("add_position_encoding", {"X": [n(2, 5, 8)]},
+         {"alpha": 0.5, "beta": 2.0}, "ew"),
+        ("rank_loss", {"Label": [rng.randint(0, 2, (5, 1)).astype(
+            "float32")], "Left": [n(5, 1)], "Right": [n(5, 1)]}, {}, "ew"),
+        ("bpr_loss", {"X": [n(4, 5)], "Label": [i64([1], [0], [4], [2])]},
+         {}, "ew"),
+        ("npair_loss", {"Anchor": [n(4, 6)], "Positive": [n(4, 6)],
+                        "Labels": [i64(0, 1, 0, 2)]}, {"l2_reg": 0.002},
+         "mm"),
+        ("center_loss", {"X": [n(4, 3)], "Label": [i64([0], [2], [0], [1])],
+                         "Centers": [n(3, 3)],
+                         "CenterUpdateRate": [f32(0.5)]},
+         {"update_center": True}, "ew"),
+        ("teacher_student_sigmoid_loss",
+         {"X": [n(6, 1, scale=4.0)],
+          "Label": [f32([-2.0], [-1.0], [-0.5], [0.3], [0.7], [1.4])]},
+         {}, "ew"),
+        ("modified_huber_loss", {"X": [n(6, 1, scale=4.0)],
+                                 "Y": [rng.randint(0, 2, (6, 1)).astype(
+                                     "float32")]}, {}, "ew"),
+        ("edit_distance", {"Hyps": [hyps], "Refs": [refs],
+                           "HypsLength": [i64(3, 5, 5, 0)],
+                           "RefsLength": [i64(3, 4, 6, 2)]},
+         {"normalized": True, "ignored_tokens": [0]}, "exact"),
+        ("ctc_align", {"Input": [i64([0, 1, 1, 0, 2, 2, 3, 0],
+                                     [3, 3, 0, 3, 1, 0, 0, 2])],
+                       "InputLength": [i64(8, 6)]},
+         {"blank": 0, "merge_repeated": True}, "exact"),
+        ("warpctc", {"Logits": [n(2, 6, 5)], "Label": [i64([2, 4, 1],
+                                                           [3, 3, 1])],
+                     "LogitsLength": [i64(6, 5)],
+                     "LabelLength": [i64(3, 2)]},
+         {"blank": 0, "norm_by_times": True}, "ew"),
+        ("multiplex", {"X": [n(4, 5), n(4, 5), n(4, 5)],
+                       "Ids": [np.array([[2], [0], [1], [2]], "int32")]},
+         {}, "exact"),
+        ("minus", {"X": [n(3, 4)], "Y": [n(3, 4)]}, {}, "exact"),
+        ("fsp", {"X": [n(2, 3, 4, 5)], "Y": [n(2, 6, 4, 5)]}, {}, "mm"),
+        ("mean_iou", {"Predictions": [i64(0, 0, 1, 1, 2)],
+                      "Labels": [i64(0, 1, 1, 1, 2)]},
+         {"num_classes": 4}, "ew"),
+        ("similarity_focus", {"X": [n(2, 3, 4, 5)]},
+         {"axis": 1, "indexes": [0, 2]}, "exact"),
+        ("py_func", {"X": [n(4, 3), n(4, 2)]},
+         {"forward_callable_id": register_py_func(fwd),
+          "backward_callable_id": register_py_func(bwd),
+          "out_shapes": [[-1, 3], [-1]],
+          "out_dtypes": ["float32", "float64"]}, "ew"),
+        ("coalesce_tensor", {"Input": [n(2, 3), n(4), n(1, 2, 2)]}, {},
+         "exact"),
+        ("fake_init", {}, {"shape": [3, 4], "dtype": "float32"}, "exact"),
+        ("delete_var", {"X": [n(2, 2)]}, {}, "exact"),
+        ("ref_by_trainer_id", {"X": [n(2, 3), n(2, 3), n(2, 3)],
+                               "TrainerId": [i64(1)]}, {}, "exact"),
+    ]
+
+
+def _held_by(got, want, cls, what):
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"slim (d): {what}: {got.shape} {got.dtype} against "
+          f"{want.shape} {want.dtype}")
+    if cls == "exact" or not np.issubdtype(want.dtype, np.floating):
+        check(np.array_equal(got, want, equal_nan=True),
+              f"slim (d): {what} differs from the CPU's")
+        return 0.0
+    rtol, atol = SWEEP_TOL[cls]
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    err = float((np.abs(got - want) - rtol * np.abs(want)).max(initial=0.0))
+    check(err <= atol * scale, f"slim (d): {what} differs from the CPU's "
+          f"by {err} beyond rtol {rtol} (limit {atol * scale})")
+    return float(np.abs(got - want).max(initial=0.0))
+
+
+def sweep_op(op_type, ins, attrs, cls, device, rng):
+    """One case on `device` against the CPU: every output, then the
+    generic (or py_func's) gradient under a random cotangent where the
+    op has one. Returns the largest difference."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    got = op_call(op_type, ins, attrs, device)
+    want = op_call(op_type, ins, attrs, "cpu")
+    check(sorted(got) == sorted(want), f"slim (d): {op_type}'s outputs")
+    worst = 0.0
+    for slot, vals in want.items():
+        for i, v in enumerate(vals):
+            worst = max(worst, _held_by(got[slot][i], v, cls,
+                                        f"{op_type} {slot}[{i}]"))
+    if not get_op_def(op_type).has_grad():
+        return worst
+    gins, gouts = {}, {}
+    for slot, vals in ins.items():
+        gins["fwd_in::" + slot] = vals
+        if all(np.issubdtype(np.asarray(x).dtype, np.floating)
+               for x in vals):
+            gouts["in_grad::" + slot] = [f"g{slot}{i}"
+                                        for i in range(len(vals))]
+    for slot, vals in want.items():
+        gins["fwd_out::" + slot] = vals
+        gins["out_grad::" + slot] = [
+            None if v is None or not np.issubdtype(v.dtype, np.floating)
+            else rng.standard_normal(v.shape).astype(v.dtype) for v in vals]
+    got = op_call(op_type + "_grad", gins, attrs, device, gouts)
+    want = op_call(op_type + "_grad", gins, attrs, "cpu", gouts)
+    for slot, vals in want.items():
+        for i, v in enumerate(vals):
+            worst = max(worst, _held_by(got[slot][i], v, cls,
+                                        f"{op_type}_grad {slot}[{i}]"))
+    return worst
+
+
+def sweep_random(device):
+    """(d)'s four random op types on `device`, by their law: the
+    batch-size-like draws' shape, range and moments, random_crop's
+    windows contiguous and its offsets spread, sampling_id's one-hot rows
+    exact and a spread row's frequencies."""
+    ref = np.zeros((200, 3), "float32")
+    u = op_call("uniform_random_batch_size_like", {"Input": [ref]},
+                {"shape": [-1, 5000], "min": -0.5, "max": 1.5,
+                 "__rng_uid__": 1}, device, rng_key=33)["Out"][0]
+    g = op_call("gaussian_random_batch_size_like", {"Input": [ref]},
+                {"shape": [-1, 5000], "mean": 2.0, "std": 0.5,
+                 "__rng_uid__": 2}, device, rng_key=33)["Out"][0]
+    check(u.shape == g.shape == (200, 5000) and u.dtype == g.dtype ==
+          np.float32 and -0.5 <= u.min() and u.max() <= 1.5 and
+          abs(u.mean() - 0.5) < 5e-3 and abs(u.std() - 2 / 12 ** 0.5) < 5e-3
+          and abs(g.mean() - 2.0) < 5e-3 and abs(g.std() - 0.5) < 5e-3,
+          f"slim (d): batch-size-like draws: uniform {u.mean()} {u.std()}, "
+          f"gaussian {g.mean()} {g.std()}")
+    x = np.arange(100, dtype="float32").reshape(10, 10)
+    starts = set()
+    for key in range(64):
+        c = op_call("random_crop", {"X": [x]}, {"shape": [4, 4],
+                                                "__rng_uid__": 3},
+                    device, rng_key=key)["Out"][0]
+        r0, c0 = divmod(int(c[0, 0]), 10)
+        check(np.array_equal(c, x[r0:r0 + 4, c0:c0 + 4]),
+              "slim (d): random_crop's window is not contiguous")
+        starts.add((r0, c0))
+    check(len(starts) > 20, f"slim (d): random_crop took {len(starts)} "
+          "offsets of 64 draws")
+    p = np.tile(np.array([[0.1, 0.6, 0.3]], "float32"), (20000, 1))
+    p[:2] = [[0.0, 1.0, 0.0], [1.0, 0.0, 0.0]]
+    ids = op_call("sampling_id", {"X": [p]}, {"__rng_uid__": 4}, device,
+                  rng_key=33)["Out"][0]
+    freq = np.bincount(ids[2:], minlength=3) / (len(ids) - 2)
+    check(ids.dtype == np.int64 and list(ids[:2]) == [1, 0] and
+          np.abs(freq - p[2]).max() < 0.02,
+          f"slim (d): sampling_id {ids[:2]}, frequencies {freq}")
+    return {"uniform_mean_std": [float(u.mean()), float(u.std())],
+            "gaussian_mean_std": [float(g.mean()), float(g.std())],
+            "crop_offsets": len(starts), "sampling_freq": freq.tolist()}
+
+
+def slim_sweep(device):
+    """Phase 33 (d): every op type this slice adds, once on `device`."""
+    rng = np.random.RandomState(33)
+    cases = sweep_cases(rng)
+    worst = {}
+    for op_type, ins, attrs, cls in cases:
+        worst[op_type] = sweep_op(op_type, ins, attrs, cls, device, rng)
+    law = sweep_random(device)
+    types = set(worst) | {"uniform_random_batch_size_like",
+                          "gaussian_random_batch_size_like", "random_crop",
+                          "sampling_id"}
+    check(len(types) == 43, f"slim (d): {len(types)} op types swept")
+    return {"op_types": len(types), "worst_abs": worst, "random": law}
+
+
+def phase_slim():
+    """Phase 33: (a)-(d) above."""
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    before = _kernel_counts()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda, cpu = pt.CUDAPlace(0), pt.CPUPlace()
+    out, secs = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t = time.perf_counter()
+            out["a_qat_vgg16_bn"] = slim_qat_vgg(pt, root)
+            secs["a"] = time.perf_counter() - t
+            print(json.dumps({"phase": "slim", "part": "a", "card": card(),
+                              "step_ms_median": out["a_qat_vgg16_bn"][
+                                  "step_ms_median"],
+                              "idle_share": out["a_qat_vgg16_bn"][
+                                  "traced_step"]["device_idle_share"],
+                              "peak_bytes": out["a_qat_vgg16_bn"][
+                                  "peak_bytes"]}))
+
+            t = time.perf_counter()
+            _peak_reset()
+            main, scope, comp = lenet_compress(pt, cuda)
+            comp["distill"] = lenet_distill(pt, cuda)
+            comp["bf16"] = lenet_bf16(pt, main, scope, cuda, cpu, root)
+            comp["peak_bytes"] = _peak()
+            out["b_compressor_lenet"] = comp
+            secs["b"] = time.perf_counter() - t
+            print(json.dumps({"phase": "slim", "part": "b", "card": card(),
+                              "compressor_s": comp["run_s"],
+                              "distill_s": comp["distill"]["run_s"],
+                              "peak_bytes": comp["peak_bytes"]}))
+            torch.cuda.empty_cache()
+
+            t = time.perf_counter()
+            _peak_reset()
+            out["c_ctc"] = slim_ctc(pt, cuda, cpu)
+            out["c_ctc"]["peak_bytes"] = _peak()
+            secs["c"] = time.perf_counter() - t
+            print(json.dumps({"phase": "slim", "part": "c", "card": card(),
+                              "step_ms_median": out["c_ctc"][
+                                  "step_ms_median"],
+                              "idle_share": out["c_ctc"]["traced_step"][
+                                  "device_idle_share"],
+                              "peak_bytes": out["c_ctc"]["peak_bytes"]}))
+
+            t = time.perf_counter()
+            _peak_reset()
+            out["d_sweep"] = slim_sweep(cuda.torch_device())
+            out["d_sweep"]["peak_bytes"] = _peak()
+            secs["d"] = time.perf_counter() - t
+            print(json.dumps({"phase": "slim", "part": "d", "card": card(),
+                              "seconds": secs["d"],
+                              "peak_bytes": out["d_sweep"]["peak_bytes"]}))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    check(_kernel_counts() == before,
+          "slim: a kernel of the table launched in phase 33")
+    print(json.dumps({
+        "phase": "slim", "card": card(),
+        "programs": f"book vgg_bn_drop (VGG-16-BN) QAT, CIFAR-10 shapes, "
+                    f"batch {VGG_B}, Adam 1e-3, drop 0, {SLIM_QAT_STEPS} "
+                    f"steps, freeze, Predictor; book LeNet (models/lenet), "
+                    f"MNIST shapes, batch {LENET_B}, the Compressor's "
+                    f"prune-then-QAT schedule over {LENET_EPOCHS} epochs of "
+                    f"{LENET_EPOCH_STEPS} steps, distillation, bf16; CTC "
+                    f"ladder batch {CTC_B} x {CTC_T} frames x {CTC_C} "
+                    f"classes, labels {CTC_LABELS[0]}-{CTC_LABELS[1]}, "
+                    f"Adam {CTC_LR} x {CTC_STEPS}; 43 op types; f32, TF32 "
+                    "off",
+        **out, "limits": {"vgg": VGG_TOL, "slim": SLIM_TOL, "ctc": CTC_TOL,
+                          "sweep": SWEEP_TOL, "bf16_steps": BF16_STEPS},
+        "part_seconds": secs, "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+
+
 def _leftovers():
     """The threads other than this one still alive, and the processes
     whose parent is this one, each as a short description."""
@@ -8708,6 +9703,7 @@ def main() -> int:
     timed(phase_fluid_trainer)
     timed(phase_dygraph)
     timed(phase_fluid_sequence)
+    timed(phase_slim)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

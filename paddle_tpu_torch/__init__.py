@@ -137,6 +137,7 @@ from . import dygraph  # noqa: E402
 from .dygraph.base import enable_dygraph, disable_dygraph  # noqa: E402
 from . import debugger  # noqa: E402
 from . import contrib  # noqa: E402
+from . import slim  # noqa: E402
 
 __version__ = "0.1.0"   # the JAX package's (paddle_tpu/version.py)
 

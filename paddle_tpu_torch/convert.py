@@ -5,6 +5,12 @@ same layouts, so a conversion is a copy per tensor: no renames and no
 transposes. Callers hand over numpy arrays (`np.asarray` of each JAX
 array), which keeps this module free of any JAX import. The fluid path
 carries a scope's persistables the same way (`scope_from_numpy`).
+
+The compression passes (`slim/`) rewrite scope values on the host, as
+the JAX package's do with `np.asarray` (`core.async_exec.to_numpy`
+reads a value there): `like_value` writes an array back as the value it
+replaces was held (a tensor on its device, or an array), and
+`cast_value` changes a value's dtype where it lies.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["params_from_numpy", "scope_from_numpy"]
+__all__ = ["cast_value", "like_value", "params_from_numpy",
+           "scope_from_numpy"]
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray], device,
@@ -62,3 +69,21 @@ def scope_from_numpy(scope, arrays: Mapping[str, np.ndarray], place):
     for name, t in params_from_numpy(arrays, dev).items():
         scope.set_var(name, t)
     return scope
+
+
+def like_value(value, array: np.ndarray):
+    """`array` held as `value` is: a tensor on `value`'s device (with
+    `array`'s dtype) when `value` is a tensor, else the array."""
+    if isinstance(value, torch.Tensor):
+        return params_from_numpy({"v": array}, value.device)["v"]
+    return array
+
+
+def cast_value(value, dtype: str) -> torch.Tensor:
+    """`value` (a tensor, or an array) as a tensor of the IR dtype
+    `dtype`, where it lies (an array goes to a CPU tensor)."""
+    from .core.registry import torch_dtype
+
+    if not isinstance(value, torch.Tensor):
+        value = params_from_numpy({"v": np.asarray(value)}, "cpu")["v"]
+    return value.to(torch_dtype(dtype))

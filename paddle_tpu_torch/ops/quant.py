@@ -1,17 +1,28 @@
-"""The int8 runtime ops of the fluid path: the three of the JAX
-package's `ops/quant.py` that a calibrated inference model runs
-(`slim.quantization.calibrate_and_quantize` rewrites mul, matmul and
-conv2d into them). The ten `fake_*` quantize-dequantize ops of
-quantization-aware training are still to port (ROADMAP item 15).
+"""The quantization ops of the fluid path: all thirteen of the JAX
+package's `ops/quant.py` (reference: fake_quantize_op.cc,
+fake_dequantize_op.cc and the int8 runtime of a calibrated model).
 
-Each quantizes its activation per tensor with the calibrated `x_scale`
-attr, multiplies int8 by int8 into int32 (`ops/int8.py`), and
-dequantizes by x_scale * the weight's per-output-channel scale, in the
-JAX package's order, returning the activation's dtype. `x_scale` is
-made an f32 tensor on the activation's device once, so every division
-and product by it runs in f32 as XLA's does with the weakly typed
-Python float (a division by a Python scalar may run as a product by
-its reciprocal in torch).
+The ten `fake_*` ops of quantization-aware training (`slim/qat.py`
+inserts them) simulate the int8 grid in the activation's float dtype.
+The quantize-dequantize ones pass the gradient straight through: their
+Out is `x + (q - x).detach()`, the JAX package's `x + stop_gradient(q -
+x)` term for term, so the forward rounds the same bits and the generic
+gradient is the identity. Every constant of the grid (the bound
+`2**(bits-1) - 1`, the 1e-9 floor of a scale) is an f32 tensor on the
+activation's device, so each division is a true f32 division, as XLA
+does it with a weakly typed Python float (a division by a Python scalar
+may run as a product by its reciprocal in torch). The moving-average
+ops carry their state (scale, state, accum) in vars that are both input
+and output, so the executor writes it back once a step; a `_grad` op
+that replays the forward writes nothing.
+
+The three int8 runtime ops (`slim.quantization.calibrate_and_quantize`
+rewrites mul, matmul and conv2d into them) quantize their activation
+per tensor with the calibrated `x_scale` attr, multiply int8 by int8
+into int32 (`ops/int8.py`), and dequantize by x_scale * the weight's
+per-output-channel scale, in the JAX package's order, returning the
+activation's dtype. `x_scale` is made an f32 tensor on the activation's
+device once, for the same reason.
 """
 
 from __future__ import annotations
@@ -106,3 +117,218 @@ def quantized_conv2d(ins, attrs, ctx):
     if ins.get("Bias") and ins["Bias"][0] is not None:
         out = out + ins["Bias"][0].reshape(1, -1, 1, 1)
     return {"Output": out.to(x.dtype)}
+
+
+# -- the fake-quant ops of quantization-aware training (the JAX
+# package's ops/quant.py:24-266)
+
+
+def _const(x: torch.Tensor, v: float) -> torch.Tensor:
+    return torch.tensor(float(v), dtype=x.dtype, device=x.device)
+
+
+def _ste(x, quantized):
+    """Straight-through estimator: forward = quantized, grad = identity."""
+    return x + (quantized - x).detach()
+
+
+def _bound(x, bits):
+    return _const(x, 2 ** (int(bits) - 1) - 1)
+
+
+def _quant_only(x, scale, bits):
+    bnt = _bound(x, bits)
+    s = torch.maximum(scale, _const(scale, 1e-9))
+    return torch.clamp(torch.round(x / s * bnt), -bnt, bnt)
+
+
+def _quant_dequant(x, scale, bits):
+    s = torch.maximum(scale, _const(scale, 1e-9))
+    return _quant_only(x, scale, bits) * s / _bound(x, bits)
+
+
+def _channel_scale(x, axis):
+    red = tuple(i for i in range(x.ndim) if i != axis)
+    return torch.amax(torch.abs(x), dim=red, keepdim=True)
+
+
+def _is_test(attrs, ctx) -> bool:
+    return bool(attrs.get("is_test", False)) or ctx.is_test
+
+
+def _scalar_in(ins, slot, default):
+    """The optional one-element state input `slot` as a 0-d tensor, else
+    `default()`."""
+    if ins.get(slot) and ins[slot][0] is not None:
+        return ins[slot][0].reshape(())
+    return default()
+
+
+def _moving_average(x, attrs, ctx, in_scale, state, accum):
+    """(scale, state, accum) after this step: in training accum = accum *
+    rate + absmax and state = state * rate + 1, scale = accum / state; in
+    a test program the stored values."""
+    if _is_test(attrs, ctx):
+        return in_scale, state, accum
+    rate = float(attrs.get("moving_rate", 0.9))
+    new_state = rate * state + 1.0
+    new_accum = rate * accum + torch.amax(torch.abs(x))
+    return new_accum / new_state, new_state, new_accum
+
+
+def _ma_inputs(ins, x):
+    in_scale = ins["InScale"][0].reshape(())
+    state = _scalar_in(ins, "InState", lambda: _const(x, 1.0))
+    accum = _scalar_in(ins, "InAccum", lambda: in_scale)
+    return in_scale, state, accum
+
+
+@register_op("fake_quantize_dequantize_abs_max",
+             intermediate_outputs=("OutScale",))
+def fake_quantize_dequantize_abs_max(ins, attrs, ctx):
+    """Per-tensor abs-max quant-dequant (weights)."""
+    x = ins["X"][0]
+    bits = int(attrs.get("bit_length", 8))
+    scale = torch.amax(torch.abs(x))
+    return {"Out": _ste(x, _quant_dequant(x, scale, bits)),
+            "OutScale": scale.reshape(1)}
+
+
+@register_op("fake_channel_wise_quantize_dequantize_abs_max",
+             intermediate_outputs=("OutScale",))
+def fake_channel_wise_quantize_dequantize_abs_max(ins, attrs, ctx):
+    """Per-output-channel abs-max quant-dequant (conv weights along axis
+    0, fc weights [In, Out] along the `quant_axis` the pass gives)."""
+    x = ins["X"][0]
+    bits = int(attrs.get("bit_length", 8))
+    scale = _channel_scale(x, int(attrs.get("quant_axis", 0)))
+    return {"Out": _ste(x, _quant_dequant(x, scale, bits)),
+            "OutScale": scale.reshape(-1)}
+
+
+@register_op("fake_quantize_dequantize_moving_average_abs_max",
+             nondiff_inputs=("InScale", "InState", "InAccum"),
+             intermediate_outputs=("OutScale", "OutState", "OutAccum"))
+def fake_quantize_dequantize_moving_average_abs_max(ins, attrs, ctx):
+    """Activation quant-dequant by a moving-average abs-max scale."""
+    x = ins["X"][0]
+    bits = int(attrs.get("bit_length", 8))
+    scale, state, accum = _moving_average(x, attrs, ctx, *_ma_inputs(ins, x))
+    return {"Out": _ste(x, _quant_dequant(x, scale, bits)),
+            "OutScale": scale.reshape(1), "OutState": state.reshape(1),
+            "OutAccum": accum.reshape(1)}
+
+
+@register_op("fake_quantize_abs_max", grad=None,
+             intermediate_outputs=("OutScale",))
+def fake_quantize_abs_max(ins, attrs, ctx):
+    x = ins["X"][0]
+    scale = torch.amax(torch.abs(x))
+    return {"Out": _quant_only(x, scale, int(attrs.get("bit_length", 8))),
+            "OutScale": scale.reshape(1)}
+
+
+@register_op("fake_channel_wise_quantize_abs_max", grad=None,
+             intermediate_outputs=("OutScale",))
+def fake_channel_wise_quantize_abs_max(ins, attrs, ctx):
+    x = ins["X"][0]
+    scale = _channel_scale(x, int(attrs.get("quant_axis", 0)))
+    return {"Out": _quant_only(x, scale, int(attrs.get("bit_length", 8))),
+            "OutScale": scale.reshape(-1)}
+
+
+@register_op("fake_quantize_range_abs_max", grad=None,
+             nondiff_inputs=("InScale", "Iter", "InScales"),
+             intermediate_outputs=("OutScale", "OutScales"))
+def fake_quantize_range_abs_max(ins, attrs, ctx):
+    """reference: fake_quantize_op.cc FindRangeAbsMaxFunctor: in training
+    the abs-max of this step goes into slot Iter % window_size of the
+    window buffer `InScales` (returned as OutScales), and the scale is
+    the max over the slots filled so far, recomputed every step as the
+    JAX package does (its documented deviation from the reference's lazy
+    rescan), so it can shrink once an old maximum slides out. Without
+    InScales the scale is max(InScale, abs-max); in a test program,
+    InScale."""
+    x = ins["X"][0]
+    bits = int(attrs.get("bit_length", 8))
+    in_scale = ins["InScale"][0].reshape(())
+    window = (ins.get("InScales") or [None])[0]
+    if _is_test(attrs, ctx):
+        scale = in_scale
+        out_scales = scale.reshape(1) if window is None else window
+    elif window is None:
+        scale = torch.maximum(in_scale, torch.amax(torch.abs(x)))
+        out_scales = scale.reshape(1)
+    else:
+        wsize = window.shape[0]
+        assert wsize == int(attrs.get("window_size", wsize)), (
+            f"fake_quantize_range_abs_max: InScales buffer length {wsize} "
+            f"!= window_size attr {attrs.get('window_size')}")
+        it = ins["Iter"][0].reshape(()).to(torch.int64)
+        slot = torch.arange(wsize, device=window.device)
+        cur = torch.amax(torch.abs(x)).to(window.dtype)
+        window = torch.where(slot == torch.remainder(it, wsize), cur, window)
+        filled = slot < torch.clamp(it + 1, max=wsize)
+        scale = torch.amax(torch.where(filled, window,
+                                       torch.zeros((), dtype=window.dtype,
+                                                   device=window.device))
+                           ).to(x.dtype)
+        out_scales = window
+    return {"Out": _quant_only(x, scale, bits),
+            "OutScale": scale.reshape(1), "OutScales": out_scales}
+
+
+@register_op("fake_quantize_moving_average_abs_max", grad=None,
+             nondiff_inputs=("InScale", "InState", "InAccum"),
+             intermediate_outputs=("OutScale", "OutState", "OutAccum"))
+def fake_quantize_moving_average_abs_max(ins, attrs, ctx):
+    x = ins["X"][0]
+    bits = int(attrs.get("bit_length", 8))
+    scale, state, accum = _moving_average(x, attrs, ctx, *_ma_inputs(ins, x))
+    return {"Out": _quant_only(x, scale, bits),
+            "OutScale": scale.reshape(1), "OutState": state.reshape(1),
+            "OutAccum": accum.reshape(1)}
+
+
+@register_op("fake_dequantize_max_abs", grad=None,
+             nondiff_inputs=("Scale",))
+def fake_dequantize_max_abs(ins, attrs, ctx):
+    x = ins["X"][0]
+    scale = ins["Scale"][0].reshape(())
+    return {"Out": x * scale / _const(x, attrs.get("max_range", 127.0))}
+
+
+@register_op("fake_channel_wise_dequantize_max_abs", grad=None,
+             nondiff_inputs=("Scales",))
+def fake_channel_wise_dequantize_max_abs(ins, attrs, ctx):
+    """reference: fake_dequantize_op.cc's channel-wise form: Scales holds
+    the weight's channel scales and, optionally, the activation's scale;
+    quant_bits gives their ranges."""
+    x = ins["X"][0]
+    scales = [s for s in ins["Scales"] if s is not None]
+    bits = [int(b) for b in attrs.get("quant_bits", [8])]
+    axis = int(attrs.get("quant_axis", 0))
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    out = x * scales[0].reshape(shape) / _bound(x, bits[0])
+    if len(scales) > 1:
+        out = out * scales[1].reshape(()) / _bound(x, bits[1])
+    return {"Out": out}
+
+
+@register_op("moving_average_abs_max_scale", grad=None,
+             nondiff_inputs=("InState", "InAccum"),
+             intermediate_outputs=("OutScale", "OutState", "OutAccum"))
+def moving_average_abs_max_scale(ins, attrs, ctx):
+    """Scale observer: Out = X, and the scale state moves as the
+    moving-average quantizer's does (records activation ranges)."""
+    x = ins["X"][0]
+    state = _scalar_in(ins, "InState", lambda: _const(x, 1.0))
+    accum = _scalar_in(ins, "InAccum", lambda: _const(x, 0.0))
+    if _is_test(attrs, ctx):
+        scale = accum / torch.maximum(state, _const(state, 1e-9))
+    else:
+        scale, state, accum = _moving_average(x, attrs, ctx, None, state,
+                                              accum)
+    return {"Out": x, "OutScale": scale.reshape(1),
+            "OutState": state.reshape(1), "OutAccum": accum.reshape(1)}

@@ -877,10 +877,7 @@ def test_sampled_softmax_distribution_and_logits(op_type):
 
 _PORTED_MODULES = ("compare", "tensor", "nn", "classify", "control_flow",
                    "optimizer_ops", "sequence", "rnn", "crf", "beam",
-                   "metrics_ops")
-# the ops of the JAX package's misc.py the port has (SelectedRows)
-_PORTED_MISC = ("merge_selected_rows", "get_tensor_from_selected_rows",
-                "split_selected_rows", "log_loss")
+                   "metrics_ops", "quant", "misc")
 
 
 def _unported_by_module():
@@ -901,15 +898,16 @@ def _unported_by_module():
 def test_registry_diff_names_every_unported_op():
     """The op types still to port, by the JAX module that registers them:
     none from the five modules the library's core ports, from
-    optimizer_ops.py or from the sequence models' five (sequence, rnn,
-    crf, beam, metrics_ops), none of misc.py's three SelectedRows ops
-    and log_loss, 95 in all, and each raises naming itself and ROADMAP
-    item 15."""
+    optimizer_ops.py, from the sequence models' five (sequence, rnn,
+    crf, beam, metrics_ops), from quant.py or from misc.py; text_match
+    9, detection 32 and distributed 11, 52 in all, and each raises
+    naming itself and ROADMAP item 15."""
     missing = _unported_by_module()
     print("still unported:", {m: len(v) for m, v in missing.items()})
     assert not set(missing) & set(_PORTED_MODULES), missing
-    assert not set(missing["misc"]) & set(_PORTED_MISC)
-    assert sum(len(v) for v in missing.values()) == 95
+    assert {m: len(v) for m, v in missing.items()} == {
+        "text_match": 9, "detection": 32, "distributed": 11}
+    assert sum(len(v) for v in missing.values()) == 52
     for types in missing.values():
         for t in types:
             with pytest.raises(KeyError, match=f"'{t}'.*item 15"):

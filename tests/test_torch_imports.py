@@ -176,7 +176,8 @@ FLUID_COPIES = (["core/ir.py", "core/flags.py", "core/framework.py",
                  "clip.py", "nets.py", "amp/fp16_lists.py",
                  "amp/decorator.py", "metrics.py", "data_feeder.py",
                  "reader_decorators.py",
-                 "dygraph/learning_rate_scheduler.py", "dygraph/layers.py"]
+                 "dygraph/learning_rate_scheduler.py", "dygraph/layers.py",
+                 "slim/nas.py", "slim/core.py", "slim/distillation.py"]
                 + ["layers/" + f for f in sorted(os.listdir(
                     os.path.join(_REPO, "paddle_tpu", "layers")))
                    if f.endswith(".py")])
@@ -651,3 +652,77 @@ def test_executor_has_the_streaming_and_dataset_entry_points():
     assert {"run_stream", "train_from_dataset",
             "infer_from_dataset"} <= got
     assert not want - got, sorted(want - got)
+
+
+# The compression passes that rewrite scope values: slim/qat.py,
+# prune.py and float16.py are copied with declared changes (a four-line
+# header): a scope value is a tensor that may lie on the card, so it is
+# read with core.async_exec.to_numpy where the source takes np.asarray, and
+# written back with convert.like_value (a tensor on the value's device)
+# or convert.cast_value where the source writes a numpy or jax array.
+SLIM_COPY_CHANGES = {
+    'qat.py': [
+        ('import numpy as np\n\nfrom ..core.framework import Program\n',
+         'import numpy as np\n\nfrom ..convert import like_value\nfrom ..core.async_exec import to_numpy\nfrom ..core.framework import Program\n'),
+        ('                        w = np.asarray(val)\n',
+         '                        w = to_numpy(val)\n'),
+        ('                        scope.set_var(x, dq.astype(w.dtype))\n',
+         '                        scope.set_var(x, like_value(\n                            val, dq.astype(w.dtype)))\n'),
+    ],
+    'prune.py': [
+        ('import numpy as np\n\nfrom ..core.framework import Program\n',
+         'import numpy as np\n\nfrom ..convert import like_value\nfrom ..core.async_exec import to_numpy\nfrom ..core.framework import Program\n'),
+        ('            w = np.asarray(val)\n',
+         '            w = to_numpy(val)\n'),
+        ('            scope.set_var(name, (w * mask).astype(w.dtype))\n',
+         '            scope.set_var(name, like_value(val, (w * mask).astype(w.dtype)))\n'),
+        ('            scope.set_var(mname, mask.astype("float32"))\n',
+         '            scope.set_var(mname, like_value(scope.find_var(name),\n                                            mask.astype("float32")))\n'),
+        ('            keep = np.asarray(scope.find_var(name)).copy()\n',
+         '            val = scope.find_var(name)\n            keep = like_value(val, to_numpy(val).copy())\n'),
+    ],
+    'float16.py': [
+        ('import numpy as np\n\nfrom ..core.framework import Program\n',
+         'from ..convert import cast_value\nfrom ..core.framework import Program\n'),
+        ('    import jax.numpy as jnp\n\n    assert dtype',
+         '    assert dtype'),
+        ('            scope.set_var(name, jnp.asarray(np.asarray(val), dtype))\n',
+         '            scope.set_var(name, cast_value(val, dtype))\n'),
+    ],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLIM_COPY_CHANGES))
+def test_slim_pass_copy_differs_only_by_its_declared_changes(name):
+    with open(os.path.join(_PKG, "slim", name)) as f:
+        lines = f.read().splitlines(keepends=True)
+    assert f"paddle_tpu/slim/{name}" in lines[0]
+    with open(os.path.join(_REPO, "paddle_tpu", "slim", name)) as f:
+        src = f.read().replace("paddle_tpu.", "paddle_tpu_torch.")
+    for old, new in SLIM_COPY_CHANGES[name]:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert "".join(lines[4:]) == src
+
+
+def test_slim_exports_every_name_of_the_jax_package_without_pyyaml():
+    """`paddle_tpu_torch.slim` has every name `paddle_tpu.slim` exports
+    and imports, in a fresh interpreter, with PyYAML and jax unimportable
+    (the card has no PyYAML; only a YAML string config needs it)."""
+    import paddle_tpu.slim as jslim
+
+    want = [n for n in dir(jslim) if not n.startswith("_")]
+    code = ("import builtins, sys\n"
+            "real = builtins.__import__\n"
+            "def imp(name, *a, **k):\n"
+            "    if name.split('.')[0] in ('yaml', 'jax', 'paddle_tpu'):\n"
+            "        raise ImportError(name)\n"
+            "    return real(name, *a, **k)\n"
+            "builtins.__import__ = imp\n"
+            "import paddle_tpu_torch.slim as s, paddle_tpu_torch.slim.core\n"
+            "print(' '.join(sorted(n for n in dir(s))))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = set(r.stdout.split())
+    assert not set(want) - got, sorted(set(want) - got)
