@@ -3293,7 +3293,8 @@ def vgg_grad_errors(main, params, got, want):
     second class moves with the order of the reductions (ROADMAP F13);
     a ReLU at its kink moves one element's term in either."""
     ops = [op for op in main.desc.block(0).ops
-           if not op.type.endswith("_grad") and op.type != "adam"]
+           if not op.type.endswith("_grad")
+           and op.type not in ("adam", "rmsprop")]
     last = max(i for i, op in enumerate(ops) if op.type == "batch_norm")
     above = {n for op in ops[last + 1:] for n in op.input_names()}
     above.update(ops[last].inputs["Scale"] + ops[last].inputs["Bias"])
@@ -9416,36 +9417,41 @@ def sweep_cases(rng):
     ]
 
 
-def _held_by(got, want, cls, what):
+def _held_by(got, want, cls, what, label="slim (d)"):
     check(got.shape == want.shape and got.dtype == want.dtype,
-          f"slim (d): {what}: {got.shape} {got.dtype} against "
+          f"{label}: {what}: {got.shape} {got.dtype} against "
           f"{want.shape} {want.dtype}")
     if cls == "exact" or not np.issubdtype(want.dtype, np.floating):
         check(np.array_equal(got, want, equal_nan=True),
-              f"slim (d): {what} differs from the CPU's")
+              f"{label}: {what} differs from the CPU's")
         return 0.0
     rtol, atol = SWEEP_TOL[cls]
     scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
     err = float((np.abs(got - want) - rtol * np.abs(want)).max(initial=0.0))
-    check(err <= atol * scale, f"slim (d): {what} differs from the CPU's "
+    check(err <= atol * scale, f"{label}: {what} differs from the CPU's "
           f"by {err} beyond rtol {rtol} (limit {atol * scale})")
     return float(np.abs(got - want).max(initial=0.0))
 
 
-def sweep_op(op_type, ins, attrs, cls, device, rng):
-    """One case on `device` against the CPU: every output, then the
-    generic (or py_func's) gradient under a random cotangent where the
-    op has one. Returns the largest difference."""
+def sweep_op(op_type, ins, attrs, cls, device, rng, label="slim (d)",
+             forward=None):
+    """One case on `device` against the CPU: every output (or, given,
+    `forward(got, want)`'s own comparison of them), then the generic
+    (or py_func's) gradient under a random cotangent where the op has
+    one. Returns the largest difference."""
     from paddle_tpu_torch.core.registry import get_op_def
 
     got = op_call(op_type, ins, attrs, device)
     want = op_call(op_type, ins, attrs, "cpu")
-    check(sorted(got) == sorted(want), f"slim (d): {op_type}'s outputs")
+    check(sorted(got) == sorted(want), f"{label}: {op_type}'s outputs")
     worst = 0.0
-    for slot, vals in want.items():
-        for i, v in enumerate(vals):
-            worst = max(worst, _held_by(got[slot][i], v, cls,
-                                        f"{op_type} {slot}[{i}]"))
+    if forward is not None:
+        worst = forward(got, want)
+    else:
+        for slot, vals in want.items():
+            for i, v in enumerate(vals):
+                worst = max(worst, _held_by(got[slot][i], v, cls,
+                                            f"{op_type} {slot}[{i}]", label))
     if not get_op_def(op_type).has_grad():
         return worst
     gins, gouts = {}, {}
@@ -9465,7 +9471,8 @@ def sweep_op(op_type, ins, attrs, cls, device, rng):
     for slot, vals in want.items():
         for i, v in enumerate(vals):
             worst = max(worst, _held_by(got[slot][i], v, cls,
-                                        f"{op_type}_grad {slot}[{i}]"))
+                                        f"{op_type}_grad {slot}[{i}]",
+                                        label))
     return worst
 
 
@@ -9613,6 +9620,1238 @@ def phase_slim():
     torch.cuda.empty_cache()
 
 
+# Phase 34: the op library's text-match and detection op types on the
+# card, f32 with TF32 off: (a) MobileNet-v1 SSD as PaddleCV's
+# object_detection/mobilenet_ssd.py builds it, on Pascal VOC shapes
+# (300 x 300, 21 classes), 5 RMSProp steps and an eval pass
+# (detection_output, detection_map); (b) the Faster R-CNN proposal path
+# at Detectron's defaults on one 800 x 1333 image; (c) a text-matching
+# program with a CTR branch; (d) every op type this slice adds, and the
+# repaired top_k, top_k_v2 and sparse_allreduce on tied inputs, once
+# against the port's CPU op. No kernel of the table runs here: the JAX
+# package's detection and text-match ops reach no Pallas kernel.
+SSD_HW, SSD_CLASSES, SSD_B, SSD_G = 300, 21, 32, 16
+SSD_STEPS = 5
+SSD_LR = 1e-3
+# mobilenet_ssd.py's multi_box_head: the published sizes and aspect
+# ratios [[2.], [2., 3.] x 5], with the 1.0 that Paddle's prior_box adds
+# to every list (ExpandAspectRatios) written out: the JAX package's
+# prior_box does not add it (ROADMAP F27). The first map has no max
+# size, so 3 priors a cell there and 6 elsewhere: 1917
+SSD_MIN_SIZES = (60.0, 105.0, 150.0, 195.0, 240.0, 285.0)
+SSD_MAX_SIZES = ([], 150.0, 195.0, 240.0, 285.0, 300.0)
+SSD_RATIOS = ([1.0, 2.0],) + ([1.0, 2.0, 3.0],) * 5
+SSD_PRIORS = 1917
+SSD_NMS = {"nms_threshold": 0.45, "keep_top_k": 200, "nms_top_k": 400,
+           "score_threshold": 0.01}
+# (b): Detectron's C4 RPN and Fast R-CNN sampling defaults
+RCNN_HW = (800, 1333)
+RCNN_FEAT = (1024, 50, 84)       # C4 at stride 16 of the padded 800 x 1344
+RCNN_SIZES = (32.0, 64.0, 128.0, 256.0, 512.0)
+RCNN_GTS = 8
+# (c): query [64, 32] and title [64, 64] ids, hash (2) into 100000
+# buckets, 128-wide embeddings, match_matrix_tensor dim_t 8,
+# var_conv_2d 3 x 3 to 16 channels, top-k average pooling over 1, 3, 5
+TM_SIZE = dict(B=64, Tq=32, Tt=64, vocab=100000, emb=128, dim_t=8, ch=16,
+               hid=128, ctr_dim=16)
+TM_STEPS = 5
+TM_LR = 1e-3
+DET_SEED = 34
+# Card against CPU, f32. "loss" relative; "head" the SSD heads' outputs
+# in the training step (after 27 batch norms' one-pass variances, which
+# move with the reductions' order, ROADMAP F13; 4.9e-5 on the H100) and
+# "eval_head" in the eval network (test-mode batch norm), and
+# "head_grad" their gradients from the loss op, against their
+# largest; the gradients of the network behind the heads in
+# `vgg_grad_errors`' two classes at VGG_TOL's limits (a batch norm's
+# one-pass variance moves its gradients with the reductions' order,
+# ROADMAP F13); "tm_grad" the text program's gradients against the
+# largest; every other output of (b) and (d) at SWEEP_TOL by class. A
+# selection may differ from the CPU's only at a near tie: a hard
+# negative whose CE lies within "ce_tie" (absolute, about four f32 ulps
+# at CE 3) of the mining boundary's, or an NMS pick whose IoU with a
+# kept box lies within "iou_tie" (absolute, f32 rounding of boxes from
+# exp, a few ulps of the areas) of the threshold; each is counted, at
+# most "ties" a call.
+DET_TOL = {"loss": 1e-5, "head": 1e-3, "eval_head": 1e-4,
+           "head_grad": 1e-5,
+           "grad": VGG_TOL["grad"], "grad_under_bn": VGG_TOL["grad_under_bn"],
+           "tm_grad": 1e-3, "ce_tie": 1e-6, "iou_tie": 1e-5,
+           "ties": 2}
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _traced(dev, run):
+    """`_profiled_step(run)`'s row on the card; None on the CPU (the
+    parts' CPU runs in tests/test_torch_detection.py)."""
+    if _dev_type(dev) != "cuda":
+        return None
+    traced = _profiled_step(run)
+    return {k: traced[k] for k in ("wall_ms", "device_busy_ms",
+                                   "device_idle_share", "device_events")}
+
+
+def _dev_type(dev):
+    import torch
+
+    return torch.device(dev).type
+
+
+def _det_peak(dev, reset=False):
+    """The card's peak bytes since the last reset (None on the CPU)."""
+    if _dev_type(dev) != "cuda":
+        return None
+    if reset:
+        _peak_reset()
+        return None
+    return _peak()
+
+
+def _ssd_conv_bn(pt, x, k, filters, stride, pad, groups=1, act="relu",
+                 is_test=False):
+    """mobilenet_ssd.py's conv_bn: a conv (MSRA init, lr 0.1, no bias)
+    and a batch norm."""
+    conv = pt.layers.conv2d(
+        x, num_filters=filters, filter_size=k, stride=stride, padding=pad,
+        groups=groups, act=None, bias_attr=False,
+        param_attr=pt.ParamAttr(learning_rate=0.1,
+                                initializer=pt.initializer.MSRA()))
+    return pt.layers.batch_norm(conv, act=act, is_test=is_test)
+
+
+def ssd_body(pt, img, width=1.0, maps=6, is_test=False, repeats=5):
+    """mobilenet_ssd.py's ssd_net body at `width` (its scale): the
+    depthwise-separable MobileNet-v1 to 19 x 19 (512, module11, after
+    `repeats` 512-wide blocks) and 10 x 10 (1024, module13), then the
+    extra blocks to 5 x 5, 3 x 3, 2 x 2 and 1 x 1; the first `maps` of
+    the six maps."""
+    def cb(x, k, f, s, p, g=1):
+        return _ssd_conv_bn(pt, x, k, max(1, int(f)), s, p,
+                            max(1, int(g)), is_test=is_test)
+
+    def dws(x, f1, f2, g, s):
+        return cb(cb(x, 3, f1 * width, s, 1, g * width), 1, f2 * width, 1, 0)
+
+    def extra(x, f1, f2, s):
+        return cb(cb(x, 1, f1 * width, 1, 0), 3, f2 * width, s, 1)
+
+    x = cb(img, 3, 32 * width, 2, 1)
+    for f1, f2, s in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                      (128, 256, 2), (256, 256, 1), (256, 512, 2)):
+        x = dws(x, f1, f2, f1, s)
+    for _ in range(repeats):
+        x = dws(x, 512, 512, 512, 1)
+    feats = [x]
+    x = dws(x, 512, 1024, 512, 2)
+    feats.append(dws(x, 1024, 1024, 1024, 1))
+    for f1, f2 in ((256, 512), (128, 256), (128, 256), (64, 128))[
+            :max(0, maps - 2)]:
+        feats.append(extra(feats[-1], f1, f2, 2))
+    return feats[:maps]
+
+
+def _ssd_heads(pt, hw, classes, width, maps, is_test, repeats):
+    """The image input, the body and multi_box_head with the published
+    sizes (scaled to `hw`), kernel 3, pad 1, offset 0.5, flip: (img,
+    locs, confs, priors, variances)."""
+    scale = hw / float(SSD_HW)
+    img = pt.layers.data(name="img", shape=[3, hw, hw], dtype="float32")
+    feats = ssd_body(pt, img, width, maps, is_test, repeats)
+    locs, confs, box, var = pt.layers.multi_box_head(
+        inputs=feats, image=img, base_size=hw, num_classes=classes,
+        aspect_ratios=[list(r) for r in SSD_RATIOS[:maps]],
+        min_sizes=[v * scale for v in SSD_MIN_SIZES[:maps]],
+        max_sizes=[v if v == [] else v * scale
+                   for v in SSD_MAX_SIZES[:maps]],
+        offset=0.5, flip=True, kernel_size=3, pad=1)
+    return img, locs, confs, box, var
+
+
+def ssd_program(pt, hw=SSD_HW, classes=SSD_CLASSES, width=1.0, maps=6,
+                max_gt=SSD_G, lr=SSD_LR, repeats=5):
+    """The SSD's programs, built with the fluid package `pt`: "main"
+    (ssd_loss, its sum, RMSProp), "grad" (the same network with the
+    parameters' gradients from given head gradients, `pt.gradients`),
+    "net" (the eval network: softmax scores) and "post"
+    (detection_output and detection_map on fed heads), with the names
+    the phase fetches."""
+    out = {}
+    with pt.framework.unique_name.guard():
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            img, locs, confs, box, var = _ssd_heads(pt, hw, classes, width,
+                                                    maps, False, repeats)
+            gt_box = pt.layers.data(name="gt_box", shape=[max_gt, 4],
+                                    dtype="float32")
+            gt_label = pt.layers.data(name="gt_label", shape=[max_gt],
+                                      dtype="int64")
+            per_prior = pt.layers.ssd_loss(locs, confs, gt_box, gt_label,
+                                           box, var)
+            loss = pt.layers.reduce_sum(per_prior)
+            params = [p.name for p in main.all_parameters() if p.trainable]
+            pt.optimizer.RMSProp(learning_rate=lr).minimize(loss)
+    out.update(main=main, startup=startup, loss=loss.name, params=params,
+               per_prior=per_prior.name, locs=locs.name, confs=confs.name,
+               priors=box.name, variances=var.name,
+               fetch=[loss.name] + [p + "@GRAD" for p in params],
+               priors_n=int(locs.shape[1]))
+    with pt.framework.unique_name.guard():
+        grad = pt.Program()
+        with pt.program_guard(grad, pt.Program()):
+            img, locs, confs, box, var = _ssd_heads(pt, hw, classes, width,
+                                                    maps, False, repeats)
+            gl = pt.layers.data(name="locs_grad", shape=list(locs.shape[1:]),
+                                dtype="float32")
+            gc = pt.layers.data(name="confs_grad",
+                                shape=list(confs.shape[1:]), dtype="float32")
+            ps = [grad.global_block().var(n) for n in params]
+            gs = pt.gradients([locs, confs], ps, target_gradients=[gl, gc])
+    out.update(grad=grad, grad_fetch=[locs.name, confs.name] +
+               [g.name for g in gs])
+    with pt.framework.unique_name.guard():
+        net = pt.Program()
+        with pt.program_guard(net, pt.Program()):
+            img, locs, confs, box, var = _ssd_heads(pt, hw, classes, width,
+                                                    maps, True, repeats)
+            scores = pt.layers.softmax(confs)
+    out.update(net=net, net_fetch=[locs.name, scores.name, box.name,
+                                   var.name])
+    p, c = out["priors_n"], classes
+    with pt.framework.unique_name.guard():
+        post = pt.Program()
+        with pt.program_guard(post, pt.Program()):
+            f_locs = pt.layers.data(name="f_locs", shape=[p, 4],
+                                    dtype="float32")
+            f_scores = pt.layers.data(name="f_scores", shape=[p, c],
+                                      dtype="float32")
+            f_box = pt.layers.data(name="f_box", shape=[p, 4],
+                                   dtype="float32", append_batch_size=False)
+            f_var = pt.layers.data(name="f_var", shape=[p, 4],
+                                   dtype="float32", append_batch_size=False)
+            gt_box = pt.layers.data(name="gt_box", shape=[max_gt, 4],
+                                    dtype="float32")
+            gt_label = pt.layers.data(name="gt_label", shape=[max_gt],
+                                      dtype="int64")
+            difficult = pt.layers.data(name="difficult", shape=[max_gt],
+                                       dtype="float32")
+            nmsed = pt.layers.detection_output(
+                f_locs, f_scores, f_box, f_var, background_label=0,
+                **SSD_NMS)
+            block = post.global_block()
+            num = block.ops[-1].output("NmsRoisNum")[0]
+            label = pt.layers.concat([
+                pt.layers.unsqueeze(pt.layers.cast(gt_label, "float32"), [2]),
+                gt_box, pt.layers.unsqueeze(difficult, [2])], axis=2)
+            helper = pt.layer_helper.LayerHelper("detection_map")
+            m_ap = helper.create_variable_for_type_inference("float32")
+            state = [helper.create_variable_for_type_inference(dt)
+                     for dt in ("int32", "float32", "float32")]
+            helper.append_op(
+                type="detection_map",
+                inputs={"DetectRes": nmsed, "Label": label},
+                outputs={"MAP": m_ap, "AccumPosCount": state[0],
+                         "AccumTruePos": state[1],
+                         "AccumFalsePos": state[2]},
+                attrs={"class_num": classes, "overlap_threshold": 0.5,
+                       "evaluate_difficult": False, "ap_type": "11point",
+                       "max_dets": SSD_B * SSD_NMS["keep_top_k"]})
+    out.update(post=post, post_fetch=[nmsed.name, num, m_ap.name])
+    return out
+
+
+def ssd_feed(rng, batch=SSD_B, hw=SSD_HW, classes=SSD_CLASSES,
+             max_gt=SSD_G):
+    """Synthetic images N(0, 1) and 1-8 boxes an image (normalized
+    corners, sides 0.05-0.6 of the image, classes 1..C-1, one in ten
+    difficult), padded to `max_gt` with label -1."""
+    box = np.zeros((batch, max_gt, 4), "float32")
+    label = np.full((batch, max_gt), -1, "int64")
+    for i in range(batch):
+        n = rng.randint(1, min(8, max_gt) + 1)
+        wh = rng.uniform(0.05, 0.6, (n, 2))
+        xy = rng.uniform(0.0, 1.0, (n, 2)) * (1.0 - wh)
+        box[i, :n] = np.concatenate([xy, xy + wh], 1)
+        label[i, :n] = rng.randint(1, classes, n)
+    return {"img": rng.standard_normal((batch, 3, hw, hw)).astype("float32"),
+            "gt_box": box, "gt_label": label,
+            "difficult": (rng.uniform(size=(batch, max_gt)) < 0.1).astype(
+                "float32")}
+
+
+def _cpu_copy(pt, scope, names):
+    """A CPU scope holding copies of `names` from `scope`."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    return scope_from_numpy(pt.Scope(), {n: scope.get(n) for n in names},
+                            pt.CPUPlace())
+
+
+def _ce_ties(loss_got, loss_want, conf, tgt_rows):
+    """The images whose hard-negative selection (the nonzero per-prior
+    losses) differs between two ssd_loss runs on the same inputs, each
+    checked to differ only at priors whose CE (from `conf`, f64) lies
+    within DET_TOL["ce_tie"] of the boundary between the selected and
+    the unselected negatives. Returns ([image, prior] of the differing
+    entries, worst gap)."""
+    sel_g, sel_w = loss_got != 0, loss_want != 0
+    rows, worst = [], 0.0
+    for b in np.nonzero((sel_g != sel_w).any(1))[0]:
+        x = conf[b].astype(np.float64)
+        x -= x.max(1, keepdims=True)
+        ce = -(x[:, 0] - np.log(np.exp(x).sum(1)))     # background CE
+        cand = ~tgt_rows[b]
+        chosen = ce[sel_w[b] & cand]
+        rest = ce[~sel_w[b] & cand]
+        bound = 0.5 * (chosen.min(initial=np.inf) + rest.max(
+            initial=-np.inf))
+        for p in np.nonzero(sel_g[b] != sel_w[b])[0]:
+            gap = abs(ce[p] - bound)
+            check(gap <= DET_TOL["ce_tie"],
+                  f"detection (a): prior {p} of image {b} is mined on one "
+                  f"device only, {gap} from the boundary CE")
+            worst = max(worst, gap)
+            rows.append((int(b), int(p)))
+    return rows, worst
+
+
+def _ssd_parity(pt, prog, feed, scope, exe):
+    """(a)'s first step on the card, held in three parts against the
+    port's CPU from the same inputs: the heads (the CPU network's
+    forward), the loss op (ssd_loss on the CPU fed the card's heads:
+    the loss, the per-prior losses, the selection up to counted near
+    ties, the heads' gradients), and the network's backward (the CPU's
+    `grad` program given the card's head gradients). Returns (the card's
+    loss, the parity row)."""
+    from paddle_tpu_torch.core.registry import GRAD_PREFIX_IG
+
+    pers = [v.name for v in prog["startup"].list_vars() if v.persistable]
+    cpu = _cpu_copy(pt, scope, pers)
+    names = [prog["loss"], prog["locs"], prog["confs"], prog["per_prior"],
+             prog["locs"] + "@GRAD", prog["confs"] + "@GRAD", prog["priors"],
+             prog["variances"]] + prog["fetch"][1:]
+    got = [np.asarray(v) for v in exe.run(prog["main"], feed=feed,
+                                          fetch_list=names, scope=scope)]
+    loss, locs, confs, per_prior, g_locs, g_confs, box, var = got[:8]
+    pgrads = got[8:]
+    # the loss op on the CPU at the card's heads
+    ins = {"Location": [locs], "Confidence": [confs],
+           "GtBox": [feed["gt_box"]], "GtLabel": [feed["gt_label"]],
+           "PriorBox": [box], "PriorBoxVar": [var]}
+    want = op_call("ssd_loss", ins, {}, "cpu")["Loss"][0]
+    gins = {"fwd_in::" + k: v for k, v in ins.items()}
+    gins.update({"fwd_out::Loss": [want],
+                 "out_grad::Loss": [np.ones_like(want)]})
+    g = op_call("ssd_loss_grad", gins, {}, "cpu",
+                {GRAD_PREFIX_IG + "Location": ["gl"],
+                 GRAD_PREFIX_IG + "Confidence": ["gc"]})
+    # a prior matched to a gt is a positive on both devices (the IoUs
+    # are the same arithmetic on the same boxes); the rest are mining
+    # candidates
+    pos = _ssd_positives(feed, box)
+    tied, gap = _ce_ties(per_prior, want, confs, pos)
+    check(len(tied) <= DET_TOL["ties"],
+          f"detection (a): {len(tied)} mined priors differ (limit "
+          f"{DET_TOL['ties']})")
+    keep = np.ones(per_prior.shape, bool)
+    for b, p in tied:
+        keep[b, p] = False
+    loss = float(loss.reshape(()))
+    loss_rel = abs(loss - float(want.sum())) / abs(float(want.sum()))
+    per_err = float(np.abs(per_prior - want)[keep].max()) / float(
+        np.abs(want).max())
+    hg_scale = max(float(np.abs(g[GRAD_PREFIX_IG + k][0]).max())
+                   for k in ("Location", "Confidence"))
+    hg_err = max(float(np.abs(a - g[GRAD_PREFIX_IG + k][0])[keep].max())
+                 for a, k in ((g_locs, "Location"), (g_confs, "Confidence")))
+    hg_err /= hg_scale
+    # the network: the CPU's forward and its backward from the card's
+    # head gradients
+    gfeed = dict(feed, locs_grad=g_locs, confs_grad=g_confs)
+    cg = [np.asarray(v) for v in pt.Executor(pt.CPUPlace()).run(
+        prog["grad"], feed={k: gfeed[k] for k in ("img", "locs_grad",
+                                                   "confs_grad")},
+        fetch_list=prog["grad_fetch"], scope=cpu)]
+    head_err = max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+                   for a, b in ((locs, cg[0]), (confs, cg[1])))
+    net = vgg_grad_errors(prog["grad"], prog["params"], pgrads, cg[2:])
+    row = {"loss_rel": loss_rel, "per_prior_rel": per_err,
+           "head_rel": head_err, "head_grad_rel": hg_err,
+           "mined_ties": len(tied), "worst_ce_gap": gap,
+           "positives": int(pos.sum()), **net, "params": len(pgrads)}
+    check(loss_rel <= DET_TOL["loss"] and per_err <= DET_TOL["loss"] and
+          head_err <= DET_TOL["head"] and hg_err <= DET_TOL["head_grad"] and
+          net["grad"] <= DET_TOL["grad"] and
+          net["grad_under_bn"] <= DET_TOL["grad_under_bn"],
+          f"detection (a): the card's first step against the CPU's: {row}")
+    return loss, row
+
+
+def _ssd_positives(feed, box):
+    """ssd_loss's positives (per_prediction at 0.5, plus each gt's best
+    prior) from the feed and the priors, in numpy: [N, P] bool."""
+    gt, lab = feed["gt_box"].astype(np.float64), feed["gt_label"]
+    pr = box.astype(np.float64)
+    lt = np.maximum(gt[:, :, None, :2], pr[None, None, :, :2])
+    rb = np.minimum(gt[:, :, None, 2:], pr[None, None, :, 2:])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    ag = (gt[..., 2] - gt[..., 0]) * (gt[..., 3] - gt[..., 1])
+    ap = (pr[:, 2] - pr[:, 0]) * (pr[:, 3] - pr[:, 1])
+    iou = inter / (ag[..., None] + ap - inter + 1e-10)
+    iou = np.where(lab[..., None] >= 0, iou, -1.0)
+    pos = iou.max(1) >= 0.5
+    for b in range(gt.shape[0]):
+        for k in np.nonzero(lab[b] >= 0)[0]:
+            pos[b, iou[b, k].argmax()] = True
+    return pos
+
+
+def _nms_rows_held(label, got, want, thr, normalized, by_class, what):
+    """NMS outputs of one call on two devices (rows [label, score, box]
+    when `by_class`, else [score, box]), image by image: equal up to the
+    first difference, which must be a near tie: one of the two rows
+    there has an IoU within DET_TOL["iou_tie"] of `thr` with a row kept
+    before it (of its class). Returns (near ties, worst float error over
+    the equal rows)."""
+    ties, worst = 0, 0.0
+    one = 0.0 if normalized else 1.0
+
+    def iou(a, b):
+        w = max(min(a[2], b[2]) - max(a[0], b[0]) + one, 0.0)
+        h = max(min(a[3], b[3]) - max(a[1], b[1]) + one, 0.0)
+        inter = w * h
+        ua = (a[2] - a[0] + one) * (a[3] - a[1] + one) + \
+            (b[2] - b[0] + one) * (b[3] - b[1] + one) - inter
+        return inter / max(ua, 1e-10)
+
+    for i in range(want.shape[0]):
+        g, w = got[i].astype(np.float64), want[i].astype(np.float64)
+        key = slice(0, 2) if by_class else slice(0, 1)
+        diff = np.nonzero((g[:, key] != w[:, key]).any(1))[0]
+        k = int(diff[0]) if diff.size else g.shape[0]
+        if k:
+            err = float(np.abs(g[:k] - w[:k]).max())
+            check(err <= 1e-3 * max(1.0, float(np.abs(w[:k]).max())),
+                  f"{label}: {what} image {i}'s equal rows differ by {err}")
+            worst = max(worst, err)
+        if k == g.shape[0]:
+            continue
+        gaps = []
+        for row in (g[k], w[k]):
+            bx = row[-4:]
+            prior = [r[-4:] for r in w[:k] if not by_class or r[0] == row[0]]
+            gaps.append(min((abs(iou(bx, p) - thr) for p in prior),
+                            default=np.inf))
+        check(min(gaps) <= DET_TOL["iou_tie"],
+              f"{label}: {what} image {i} leaves the CPU's picks at row {k} "
+              f"with no IoU near {thr} (gaps {gaps})")
+        ties += 1
+    check(ties <= DET_TOL["ties"], f"{label}: {what}: {ties} near ties")
+    return ties, worst
+
+
+def _ssd_eval(pt, prog, feed, scope, exe, dev):
+    """(a)'s eval on the card: the eval network (softmax scores), then
+    detection_output and detection_map on its heads; the network against
+    the CPU's from the same state, and the post program on the CPU fed
+    the card's heads (NmsRoisNum, labels and boxes up to counted near
+    ties, the mAP and its state). Timed, traced and counted."""
+    pers = [v.name for v in prog["startup"].list_vars() if v.persistable]
+    cpu = _cpu_copy(pt, scope, pers)
+
+    def run():
+        heads = exe.run(prog["net"], feed={"img": feed["img"]},
+                        fetch_list=prog["net_fetch"], scope=scope)
+        pfeed = {"f_locs": heads[0], "f_scores": heads[1],
+                 "f_box": heads[2], "f_var": heads[3],
+                 "gt_box": feed["gt_box"], "gt_label": feed["gt_label"],
+                 "difficult": feed["difficult"]}
+        return heads, exe.run(prog["post"], feed=pfeed,
+                              fetch_list=prog["post_fetch"], scope=scope)
+
+    ms = []
+    for _ in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        heads, post = run()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    traced = _traced(dev, run)
+    heads = [np.asarray(h) for h in heads]
+    post = [np.asarray(v) for v in post]
+    want_heads = [np.asarray(v) for v in pt.Executor(pt.CPUPlace()).run(
+        prog["net"], feed={"img": feed["img"]}, fetch_list=prog["net_fetch"],
+        scope=cpu)]
+    head_err = max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+                   for a, b in zip(heads, want_heads))
+    check(head_err <= DET_TOL["eval_head"],
+          f"detection (a): the eval heads differ from the CPU's by {head_err}")
+    pfeed = {"f_locs": heads[0], "f_scores": heads[1], "f_box": heads[2],
+             "f_var": heads[3], "gt_box": feed["gt_box"],
+             "gt_label": feed["gt_label"], "difficult": feed["difficult"]}
+    want = [np.asarray(v) for v in pt.Executor(pt.CPUPlace()).run(
+        prog["post"], feed=pfeed, fetch_list=prog["post_fetch"],
+        scope=pt.Scope())]
+    ties, worst = _nms_rows_held("detection (a)", post[0], want[0],
+                                 SSD_NMS["nms_threshold"], True, True,
+                                 "detection_output")
+    if ties == 0:
+        check(np.array_equal(post[1], want[1]) and
+              np.array_equal(post[2], want[2]),
+              f"detection (a): NmsRoisNum {post[1]} or mAP {post[2]} "
+              f"against the CPU's {want[1]} {want[2]}")
+    return {"eval_ms": ms, "eval_ms_median": statistics.median(ms),
+            "eval_launches": traced and traced["device_events"],
+            "eval_traced": traced,
+            "head_rel": head_err, "nms_near_ties": ties,
+            "nms_worst_abs": worst,
+            "detections": int(post[1].sum()), "map_11point": float(
+                post[2].reshape(-1)[0]), "map_cpu": float(
+                want[2].reshape(-1)[0])}
+
+
+def det_ssd(pt, place=None, batch=SSD_B, **size):
+    """Phase 34 (a): MobileNet-v1 SSD at 300 x 300, 21 classes, batch
+    32 on `place` (the card): the prior count, the first step held
+    against the CPU, 5 RMSProp steps (the loss finite and falling), a
+    traced step, the eval. `size` (hw, classes, width, maps, max_gt)
+    shrinks it for the CPU test."""
+    place = place or pt.CUDAPlace(0)
+    dev = place.torch_device()
+    prog = ssd_program(pt, **size)
+    if not size:
+        check(prog["priors_n"] == SSD_PRIORS,
+              f"detection (a): {prog['priors_n']} priors, not {SSD_PRIORS}")
+    fsize = {k: size[k] for k in ("hw", "classes", "max_gt") if k in size}
+    feed = ssd_feed(np.random.RandomState(DET_SEED), batch=batch, **fsize)
+    tfeed = {k: feed[k] for k in ("img", "gt_box", "gt_label")}
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    exe.run(prog["startup"], scope=scope)
+    _det_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    first, parity = _ssd_parity(pt, prog, tfeed, scope, exe)
+    _sync(dev)
+    losses, ms = [first], [(time.perf_counter() - t0) * 1e3]
+    for _ in range(SSD_STEPS - 1):
+        t0 = time.perf_counter()
+        out = exe.run(prog["main"], feed=tfeed, fetch_list=[prog["loss"]],
+                      scope=scope)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    # RMSProp's first update moves every weight by about 4.5 lr (its mean
+    # square starts at 0), and the loss jumps; from there it falls
+    check(all(np.isfinite(losses)) and
+          all(b < a for a, b in zip(losses[1:], losses[2:])),
+          f"detection (a): the SSD loss did not fall: {losses}")
+    row = {"priors": prog["priors_n"], "losses": losses, "step_ms": ms,
+           "step_ms_median": statistics.median(ms[1:]),
+           "step_ms_range": [min(ms[1:]), max(ms[1:])], "parity": parity,
+           "traced_step": _traced(dev, lambda: exe.run(
+               prog["main"], feed=tfeed, fetch_list=[prog["loss"]],
+               scope=scope)),
+           "ops_a_step": len(prog["main"].desc.block(0).ops)}
+    row["eval"] = _ssd_eval(pt, prog, feed, scope, exe, dev)
+    row["peak_bytes"] = _det_peak(dev)
+    return row
+
+
+def proposal_path(run, seed=DET_SEED, hw=RCNN_HW, stride=16,
+                  feat=RCNN_FEAT, sizes=RCNN_SIZES, pre_nms=12000,
+                  post_nms=2000, rois=512, classes=81, pooled=14,
+                  gts=RCNN_GTS):
+    """(b)'s chain, each op through `run(op_type, ins, attrs)` (numpy in
+    and out): anchor_generator (sizes 32-512, ratios 0.5/1/2, stride
+    16), rpn_target_assign (batch 256, fg 0.5, 0.7/0.3), a random RPN
+    head's scores and deltas into generate_proposals (pre_nms_topN
+    12000, post_nms_topN 2000, 0.7: training's), generate_proposal_labels
+    (512 RoIs, fg 0.25, `classes`), roi_align (14 x 14, 1/16, on a
+    random C4 map), all from `seed`, use_random off. Returns the records
+    [(op type, inputs, attrs, outputs)], each op fed the outputs before
+    it."""
+    rng = np.random.RandomState(seed)
+    c, fh, fw = feat
+    a = 3 * len(sizes)
+    fmap = rng.standard_normal((1, c, fh, fw)).astype("float32")
+    wh = rng.uniform(32, 400, (gts, 2))
+    xy = rng.uniform(0, 1, (gts, 2)) * (np.array(hw[::-1]) - wh)
+    gt = np.concatenate([xy, xy + wh], 1).astype("float32")
+    gcls = rng.randint(1, classes, (1, gts)).astype("int32")
+    scores = (1 / (1 + np.exp(-2 * rng.standard_normal(
+        (1, a, fh, fw))))).astype("float32")
+    deltas = (rng.standard_normal((1, 4 * a, fh, fw)) * 0.2).astype(
+        "float32")
+    im_info = np.array([[hw[0], hw[1], 1.0]], "float32")
+    records = []
+
+    def step(op_type, ins, attrs):
+        out = run(op_type, ins, attrs)
+        records.append((op_type, ins, attrs, out))
+        return out
+
+    anc = step("anchor_generator", {"Input": [fmap]},
+               {"anchor_sizes": list(sizes), "aspect_ratios": [0.5, 1.0, 2.0],
+                "stride": [float(stride)] * 2, "offset": 0.5})
+    step("rpn_target_assign", {"Anchor": [anc["Anchors"][0]],
+                               "GtBoxes": [gt]},
+         {"rpn_batch_size_per_im": 256, "rpn_fg_fraction": 0.5,
+          "rpn_positive_overlap": 0.7, "rpn_negative_overlap": 0.3,
+          "use_random": False})
+    props = step("generate_proposals",
+                 {"Scores": [scores], "BboxDeltas": [deltas],
+                  "ImInfo": [im_info], "Anchors": [anc["Anchors"][0]],
+                  "Variances": [anc["Variances"][0]]},
+                 {"pre_nms_topN": pre_nms, "post_nms_topN": post_nms,
+                  "nms_thresh": 0.7, "min_size": 0.1})
+    labels = step("generate_proposal_labels",
+                  {"RpnRois": [props["RpnRois"][0]], "GtBoxes": [gt[None]],
+                   "GtClasses": [gcls],
+                   "IsCrowd": [np.zeros((1, gts), "int32")]},
+                  {"batch_size_per_im": rois, "fg_fraction": 0.25,
+                   "fg_thresh": 0.5, "bg_thresh_hi": 0.5, "bg_thresh_lo": 0.0,
+                   "class_nums": classes, "use_random": False})
+    step("roi_align", {"X": [fmap], "ROIs": [labels["Rois"][0][0]]},
+         {"pooled_height": pooled, "pooled_width": pooled,
+          "spatial_scale": 1.0 / stride, "sampling_ratio": 0})
+    return records
+
+
+def _op_ms(op_type, ins, attrs, device, reps):
+    """The median ms of `reps` calls of the op on `device` (inputs moved
+    there once; CUDA events on the card, the host's clock on the CPU),
+    and the call."""
+    import torch
+
+    from paddle_tpu_torch.core.ir import OpDesc
+    from paddle_tpu_torch.core.registry import KernelCtx, get_op_def
+
+    desc = OpDesc(type=op_type, inputs={k: [f"{k}{i}" for i in range(
+        len(v))] for k, v in ins.items()}, outputs={}, attrs=attrs)
+    ctx = KernelCtx(desc, device=device)
+    vals = {k: [torch.from_numpy(np.array(a)).to(device) for a in v]
+            for k, v in ins.items()}
+    op = get_op_def(op_type)
+
+    def call():
+        with torch.no_grad():
+            return op.call(vals, attrs, ctx)
+
+    if _dev_type(device) == "cuda":
+        return time_ms(call, reps=reps), call
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), call
+
+
+def det_proposals(pt, place=None, **size):
+    """Phase 34 (b): the Faster R-CNN proposal path on `place` (the
+    card), each op held against the same op on the CPU fed the same
+    inputs (the card's outputs before it): selections exactly
+    (generate_proposals' picks up to counted near ties), floats at their
+    limits; each op's time, and one generate_proposals call traced (its
+    launches). `size` (proposal_path's) shrinks it for the CPU test."""
+    import torch
+
+    dev = (place or pt.CUDAPlace(0)).torch_device()
+    _det_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    records = proposal_path(lambda t, i, a: op_call(t, i, a, dev), **size)
+    row = {"ops": {}, "chain_wall_s": time.perf_counter() - t0}
+    for op_type, ins, attrs, got in records:
+        want = op_call(op_type, ins, attrs, "cpu")
+        r = {}
+        if op_type == "generate_proposals":
+            g = np.concatenate([got["RpnRoiProbs"][0], got["RpnRois"][0]], 2)
+            w = np.concatenate([want["RpnRoiProbs"][0], want["RpnRois"][0]], 2)
+            r["near_ties"], r["worst_abs"] = _nms_rows_held(
+                "detection (b)", g, w, attrs["nms_thresh"], False, False,
+                "generate_proposals")
+            if r["near_ties"] == 0:
+                check(np.array_equal(got["RpnRoisNum"][0],
+                                     want["RpnRoisNum"][0]),
+                      "detection (b): RpnRoisNum differs from the CPU's")
+            r["proposals"] = int(got["RpnRoisNum"][0].sum())
+        else:
+            cls = "mm" if op_type == "roi_align" else "ew"
+            r["worst_abs"] = max(_held_by(got[k][i], v, cls,
+                                          f"{op_type} {k}[{i}]",
+                                          "detection (b)")
+                                 for k, vs in want.items()
+                                 for i, v in enumerate(vs))
+        reps = 3 if op_type == "generate_proposals" else 10
+        r["ms"], call = _op_ms(op_type, ins, attrs, dev, reps)
+        if op_type == "generate_proposals":
+            r["traced"] = _traced(dev, call)
+        if op_type == "rpn_target_assign":
+            r["fg"] = int((got["LocationIndex"][0] >= 0).sum())
+        if op_type == "generate_proposal_labels":
+            lab = got["LabelsInt32"][0]
+            r["fg"], r["bg"] = int((lab > 0).sum()), int((lab == 0).sum())
+        row["ops"][op_type] = r
+    row["anchors"] = int(np.prod(records[0][3]["Anchors"][0].shape[:3]))
+    if not size:
+        check(row["anchors"] == 63000,
+              f"detection (b): {row['anchors']} anchors, not 63000")
+    row["peak_bytes"] = _det_peak(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def text_match_program(pt, B=TM_SIZE["B"], Tq=TM_SIZE["Tq"],
+                       Tt=TM_SIZE["Tt"], vocab=TM_SIZE["vocab"],
+                       emb=TM_SIZE["emb"], dim_t=TM_SIZE["dim_t"],
+                       ch=TM_SIZE["ch"], hid=TM_SIZE["hid"],
+                       ctr_dim=TM_SIZE["ctr_dim"], lr=TM_LR):
+    """(c)'s program, built with the fluid package `pt`: query and title
+    ids hashed twice into `vocab` buckets, one embedding table (the two
+    hashes summed), match_matrix_tensor (dim_t), var_conv_2d (3 x 3 to
+    `ch`, ROW and COLUMN the lengths), relu, sequence_topk_avg_pooling
+    (1, 3, 5), fc `hid`, fc 2, softmax cross-entropy; a CTR branch: an
+    embedding through cvm and filter_by_instag into an fc whose squared
+    output, weighted by LossWeight, joins the loss; Adam."""
+    main, startup = pt.Program(), pt.Program()
+    L = pt.layers
+    with pt.framework.unique_name.guard(), pt.program_guard(main, startup):
+        q = L.data(name="q", shape=[Tq], dtype="int64")
+        t = L.data(name="t", shape=[Tt], dtype="int64")
+        ql = L.data(name="ql", shape=[], dtype="int64")
+        tl = L.data(name="tl", shape=[], dtype="int64")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        ctr_id = L.data(name="ctr_id", shape=[1], dtype="int64")
+        cvm_in = L.data(name="cvm_in", shape=[2], dtype="float32")
+        tag = L.data(name="tag", shape=[2], dtype="int64")
+        ftag = L.data(name="ftag", shape=[2], dtype="int64",
+                      append_batch_size=False)
+
+        def embed(ids, T):
+            h = L.hash(L.reshape(ids, [-1, 1]), hash_size=vocab, num_hash=2)
+            e = L.embedding(L.reshape(h, [-1, 1]), size=[vocab, emb],
+                            param_attr=pt.ParamAttr(name="hash_emb"))
+            return L.reduce_sum(L.reshape(e, [-1, T, 2, emb]), dim=2)
+
+        helper = pt.layer_helper.LayerHelper("match_matrix_tensor")
+        w = helper.create_parameter(pt.ParamAttr(name="mm_w"),
+                                    shape=[emb, dim_t, emb], dtype="float32")
+        mm = helper.create_variable_for_type_inference("float32")
+        tmp = helper.create_variable_for_type_inference("float32")
+        helper.append_op(type="match_matrix_tensor",
+                         inputs={"X": embed(q, Tq), "Y": embed(t, Tt),
+                                 "W": w},
+                         outputs={"Out": mm, "Tmp": tmp},
+                         attrs={"dim_t": dim_t})
+        helper = pt.layer_helper.LayerHelper("var_conv_2d")
+        cw = helper.create_parameter(pt.ParamAttr(name="conv_w"),
+                                     shape=[ch, dim_t * 9], dtype="float32")
+        conv = helper.create_variable_for_type_inference("float32")
+        helper.append_op(type="var_conv_2d",
+                         inputs={"X": mm, "ROW": ql, "COLUMN": tl, "W": cw},
+                         outputs={"Out": conv},
+                         attrs={"InputChannel": dim_t, "OutputChannel": ch,
+                                "kernel_h": 3, "kernel_w": 3,
+                                "stride_h": 1, "stride_w": 1})
+        pooled = L.sequence_topk_avg_pooling(L.relu(conv), topks=[1, 3, 5],
+                                             channel_num=ch, row=ql, col=tl)
+        logits = L.fc(L.fc(pooled, size=hid, act="relu"), size=2)
+        match_loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        ce = L.embedding(ctr_id, size=[1000, ctr_dim])
+        kept, weight, _ = L.filter_by_instag(
+            L.continuous_value_model(L.reshape(ce, [-1, ctr_dim]), cvm_in),
+            tag, ftag)
+        ctr = L.fc(kept, size=1)
+        ctr_loss = L.mean(L.elementwise_mul(L.square(ctr), weight))
+        loss = L.elementwise_add(match_loss, ctr_loss)
+        params = [p.name for p in main.all_parameters() if p.trainable]
+        pt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return {"main": main, "startup": startup, "loss": loss,
+            "params": params,
+            "fetch": [loss.name] + [p + "@GRAD" for p in params]}
+
+
+def text_match_feed(rng, B=TM_SIZE["B"], Tq=TM_SIZE["Tq"], Tt=TM_SIZE["Tt"],
+                    **_):
+    """Ids up to 2^31 - 1, lengths 1..T a row, labels, and the CTR
+    branch's ids, [show, click] counters (each instance shown once,
+    clicked or not) and tags (about half the rows carry a tag of the
+    filter)."""
+    return {"q": rng.randint(0, 2 ** 31 - 1, (B, Tq)).astype("int64"),
+            "t": rng.randint(0, 2 ** 31 - 1, (B, Tt)).astype("int64"),
+            "ql": rng.randint(1, Tq + 1, B).astype("int64"),
+            "tl": rng.randint(1, Tt + 1, B).astype("int64"),
+            "label": rng.randint(0, 2, (B, 1)).astype("int64"),
+            "ctr_id": rng.randint(0, 1000, (B, 1)).astype("int64"),
+            "cvm_in": np.stack([np.ones(B), rng.randint(0, 2, B)],
+                               1).astype("float32"),
+            "tag": rng.randint(0, 8, (B, 2)).astype("int64"),
+            "ftag": np.array([1, 2], "int64")}
+
+
+def det_text_match(pt, place=None, **size):
+    """Phase 34 (c): the text-matching program at TM_SIZE (or `size`,
+    for the CPU test) on `place` (the card), its first Adam step held
+    against the CPU's from the same state (the loss, and every gradient
+    against the step's largest), 5 steps, a traced step."""
+    place = place or pt.CUDAPlace(0)
+    dev = place.torch_device()
+    prog = text_match_program(pt, **size)
+    feed = text_match_feed(np.random.RandomState(DET_SEED), **size)
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    exe.run(prog["startup"], scope=scope)
+    pers = [v.name for v in prog["startup"].list_vars() if v.persistable]
+    cpu = _cpu_copy(pt, scope, pers)
+    _det_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    got = [np.asarray(v) for v in exe.run(prog["main"], feed=feed,
+                                          fetch_list=prog["fetch"],
+                                          scope=scope)]
+    _sync(dev)
+    ms = [(time.perf_counter() - t0) * 1e3]
+    want = [np.asarray(v) for v in pt.Executor(pt.CPUPlace()).run(
+        prog["main"], feed=feed, fetch_list=prog["fetch"], scope=cpu)]
+    g0, w0 = float(got[0].reshape(())), float(want[0].reshape(()))
+    loss_rel = abs(g0 - w0) / abs(w0)
+    scale = max(float(np.abs(w).max()) for w in want[1:])
+    worst = max((float(np.abs(g.astype(np.float64) - w).max()) / scale, p)
+                for p, g, w in zip(prog["params"], got[1:], want[1:]))
+    check(loss_rel <= DET_TOL["loss"] and worst[0] <= DET_TOL["tm_grad"],
+          f"detection (c): the card's step against the CPU's: loss "
+          f"{loss_rel}, gradient {worst}")
+    losses = [g0]
+    for _ in range(TM_STEPS - 1):
+        t0 = time.perf_counter()
+        out = exe.run(prog["main"], feed=feed, fetch_list=[prog["loss"]],
+                      scope=scope)
+        losses.append(float(np.asarray(out[0]).reshape(())))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"detection (c): the loss did not fall: {losses}")
+    return {"losses": losses, "step_ms": ms,
+            "step_ms_median": statistics.median(ms[1:]),
+            "parity": {"loss_rel": loss_rel, "grad_rel": worst[0],
+                       "worst_param": worst[1]},
+            "traced_step": _traced(dev, lambda: exe.run(
+                prog["main"], feed=feed, fetch_list=[prog["loss"]],
+                scope=scope)),
+            "peak_bytes": _det_peak(dev)}
+
+
+def _boxes_np(rng, n, size=1.0, lo=0.05, hi=0.4):
+    """n valid [x1, y1, x2, y2] boxes inside [0, size], sides lo..hi of
+    it."""
+    wh = rng.uniform(lo, hi, (n, 2)) * size
+    xy = rng.uniform(0.0, 1.0, (n, 2)) * (size - wh)
+    return np.concatenate([xy, xy + wh], 1).astype("float32")
+
+
+def det_sweep_cases(rng):
+    """(d)'s cases: (op type, inputs, attrs, class): the 41 op types
+    this slice adds and the repaired top_k and top_k_v2 on tied inputs;
+    yolov3_loss and yolo_box at YOLOv3's 608-input coarse scale [8, 255,
+    19, 19], multiclass_nms at (a)'s 1917 priors x 21 classes (batch
+    8), the rest at the shapes of tests/test_torch_detection.py. The
+    random ops at use_random=True are held by `det_sweep_random`."""
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype("float32")
+
+    def i32(*v):
+        return np.array(v, "int32")
+
+    pvar = np.tile(np.array([[0.1, 0.1, 0.2, 0.2]], "float32"), (6, 1))
+    rois = _boxes_np(rng, 5, 16.0, 0.2, 0.7)
+    ygt = np.concatenate([rng.uniform(0.1, 0.9, (8, 6, 2)),
+                          rng.uniform(0.05, 0.6, (8, 6, 2))], 2).astype(
+        "float32")
+    anchors = [116, 90, 156, 198, 373, 326, 30, 61, 62, 45, 59, 119,
+               10, 13, 16, 30, 33, 23]
+    prior = _boxes_np(rng, SSD_PRIORS, 1.0, 0.05, 0.6)
+    ssd_gt = np.stack([_boxes_np(rng, 4, 1.0, 0.1, 0.5) for _ in range(2)])
+    anc = _boxes_np(rng, 40, 64.0, 0.1, 0.5)
+    gt3 = _boxes_np(rng, 3, 64.0, 0.2, 0.5)
+    gt3[2] = gt3[1]
+    ret_anc = [np.tile(np.array([[0, 0, 31, 31]], "float32"), (8, 1)) +
+               np.arange(8, dtype="float32")[:, None] * 8,
+               np.tile(np.array([[0, 0, 63, 63]], "float32"), (4, 1)) +
+               np.arange(4, dtype="float32")[:, None] * 16]
+    det = np.concatenate([rng.randint(0, 3, (2, 6, 1)),
+                          rng.uniform(0.1, 1.0, (2, 6, 1)),
+                          np.stack([_boxes_np(rng, 6) for _ in range(2)])],
+                         2).astype("float32")
+    lab = np.concatenate([rng.randint(-1, 3, (2, 4, 1)),
+                          np.stack([_boxes_np(rng, 4) for _ in range(2)]),
+                          rng.randint(0, 2, (2, 4, 1))], 2).astype("float32")
+    tied = np.round(rng.uniform(0, 1, (4, 40)) * 5).astype("float32")
+    return [
+        ("iou_similarity", {"X": [_boxes_np(rng, 5)],
+                            "Y": [_boxes_np(rng, 6)]}, {}, "ew"),
+        ("box_coder", {"PriorBox": [_boxes_np(rng, 6)], "PriorBoxVar": [pvar],
+                       "TargetBox": [n(5, 6, 4, scale=0.5)]},
+         {"code_type": "decode_center_size"}, "ew"),
+        ("prior_box", {"Input": [n(1, 8, 19, 19)],
+                       "Image": [n(1, 3, 300, 300)]},
+         {"min_sizes": [60.0], "max_sizes": [], "aspect_ratios": [2.0],
+          "flip": True, "offset": 0.5}, "ew"),
+        ("density_prior_box", {"Input": [n(1, 8, 3, 3)],
+                               "Image": [n(1, 3, 24, 24)]},
+         {"fixed_sizes": [4.0, 8.0], "fixed_ratios": [1.0, 2.0],
+          "densities": [2, 1], "clip": True}, "ew"),
+        ("anchor_generator", {"Input": [n(1, 8, 3, 4)]},
+         {"anchor_sizes": [32.0, 64.0], "aspect_ratios": [0.5, 1.0, 2.0],
+          "stride": [16.0, 16.0]}, "ew"),
+        ("box_clip", {"Input": [n(2, 5, 4, scale=40.0)],
+                      "ImInfo": [np.array([[40, 30, 1], [20, 20, 1]],
+                                          "float32")]}, {}, "ew"),
+        ("polygon_box_transform", {"Input": [n(1, 8, 3, 4)]}, {}, "ew"),
+        ("box_decoder_and_assign",
+         {"PriorBox": [_boxes_np(rng, 6, 40.0)], "PriorBoxVar": [pvar],
+          "TargetBox": [n(6, 12, scale=0.5)], "BoxScore": [n(6, 3)]},
+         {"box_clip": 4.135}, "ew"),
+        ("yolo_box", {"X": [n(8, 255, 19, 19)],
+                      "ImgSize": [np.tile(np.array([[608, 608]], "int32"),
+                                          (8, 1))]},
+         {"anchors": anchors[:6], "class_num": 80, "conf_thresh": 0.01,
+          "downsample_ratio": 32}, "ew"),
+        ("roi_align", {"X": [n(1, 3, 8, 10)], "ROIs": [rois]},
+         {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5,
+          "sampling_ratio": 2}, "mm"),
+        ("roi_pool", {"X": [n(1, 3, 8, 10)], "ROIs": [rois]},
+         {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 0.5},
+         "ew"),
+        ("psroi_pool", {"X": [n(1, 8, 8, 8)], "ROIs": [rois]},
+         {"output_channels": 2, "pooled_height": 2, "pooled_width": 2,
+          "spatial_scale": 0.5}, "mm"),
+        ("prroi_pool", {"X": [n(1, 12, 8, 8)], "ROIs": [rois]},
+         {"output_channels": 2, "pooled_height": 2, "pooled_width": 3,
+          "spatial_scale": 0.5}, "mm"),
+        ("deformable_psroi_pooling",
+         {"Input": [n(1, 8, 8, 8)], "ROIs": [rois[:3]],
+          "Trans": [n(3, 2, 2, 2)]},
+         {"spatial_scale": 0.5, "output_dim": 2, "group_size": [2, 2],
+          "pooled_height": 2, "pooled_width": 2, "part_size": [2, 2],
+          "sample_per_part": 2, "trans_std": 0.1, "no_trans": False}, "ew"),
+        ("roi_perspective_transform",
+         {"X": [n(1, 2, 8, 8)],
+          "ROIs": [np.array([[1, 1, 6, 2, 7, 6, 2, 7],
+                             [0.5, 3, 4, 0.5, 5, 5, 1, 6]], "float32")]},
+         {"transformed_height": 4, "transformed_width": 5}, "ew"),
+        ("bipartite_match", {"DistMat": [rng.uniform(0, 1, (2, 4, 6)).astype(
+            "float32")]}, {"match_type": "per_prediction",
+                           "dist_threshold": 0.5}, "ew"),
+        ("target_assign", {"X": [n(2, 3, 4)],
+                           "MatchIndices": [rng.randint(-1, 3, (2, 5)).astype(
+                               "int32")],
+                           "NegFlag": [rng.randint(0, 2, (2, 5)).astype(
+                               "int32")]}, {"mismatch_value": 7.0}, "ew"),
+        ("mine_hard_examples",
+         {"ClsLoss": [np.round(rng.uniform(0, 1, (2, 8)) * 4).astype(
+             "float32") / 4],
+          "MatchIndices": [rng.randint(-3, 2, (2, 8)).astype("int32")]},
+         {"neg_pos_ratio": 1.5}, "ew"),
+        ("rpn_target_assign", {"Anchor": [anc], "GtBoxes": [gt3]},
+         {"rpn_batch_size_per_im": 16, "rpn_fg_fraction": 0.25,
+          "rpn_positive_overlap": 0.5, "rpn_negative_overlap": 0.3,
+          "use_random": False}, "ew"),
+        ("retinanet_target_assign",
+         {"Anchor": [anc], "GtBoxes": [np.concatenate(
+             [gt3, _boxes_np(rng, 1, 64.0, 0.2, 0.5)])],
+          "GtLabels": [i32(2, 1, 3, 0)]},
+         {"positive_overlap": 0.5, "negative_overlap": 0.4}, "ew"),
+        ("generate_proposal_labels",
+         {"RpnRois": [np.stack([_boxes_np(rng, 20, 64.0, 0.1, 0.6)] * 2)],
+          "GtBoxes": [np.stack([gt3] * 2)],
+          "GtClasses": [np.array([[1, 4, 0], [2, 2, 3]], "int32")],
+          "IsCrowd": [np.array([[0, 0, 0], [0, 1, 0]], "int32")]},
+         {"batch_size_per_im": 8, "fg_fraction": 0.25, "fg_thresh": 0.3,
+          "class_nums": 5, "use_random": False}, "ew"),
+        ("generate_mask_labels",
+         {"GtSegms": [(rng.uniform(0, 1, (3, 16, 16)) > 0.5).astype(
+             "int32")], "Rois": [_boxes_np(rng, 5, 16.0, 0.2, 0.8)],
+          "LabelsInt32": [i32(1, 0, 2, -1, 3)],
+          "MatchedGts": [i32(0, 1, 2, 0, 1)]}, {"resolution": 4}, "ew"),
+        ("sigmoid_focal_loss",
+         {"X": [n(8, 5)], "Label": [rng.randint(0, 6, (8, 1)).astype(
+             "int32")], "FgNum": [i32(5)]}, {"gamma": 2.0, "alpha": 0.25},
+         "ew"),
+        ("yolov3_loss", {"X": [n(8, 255, 19, 19)], "GTBox": [ygt],
+                         "GTLabel": [rng.randint(0, 80, (8, 6)).astype(
+                             "int32")]},
+         {"anchors": anchors, "anchor_mask": [0, 1, 2], "class_num": 80,
+          "ignore_thresh": 0.7, "downsample_ratio": 32}, "ew"),
+        ("ssd_loss", {"Location": [n(2, SSD_PRIORS, 4, scale=0.5)],
+                      "Confidence": [n(2, SSD_PRIORS, SSD_CLASSES)],
+                      "GtBox": [ssd_gt],
+                      "GtLabel": [np.array([[3, 7, 9, -1], [1, 1, 20, 5]],
+                                           "int64")],
+                      "PriorBox": [prior],
+                      "PriorBoxVar": [np.tile(pvar[:1], (SSD_PRIORS, 1))]},
+         {}, "ew"),
+        ("multiclass_nms", {"BBoxes": [np.stack([prior] * 8)],
+                            "Scores": [rng.uniform(0, 1, (
+                                8, SSD_CLASSES, SSD_PRIORS)).astype(
+                                "float32") ** 4]},
+         dict(SSD_NMS, background_label=0, normalized=True), "ew"),
+        ("multiclass_nms2", {"BBoxes": [np.stack([_boxes_np(rng, 14)] * 2)],
+                             "Scores": [np.round(rng.uniform(
+                                 0, 1, (2, 4, 14)) * 4).astype(
+                                     "float32") / 4]},
+         {"score_threshold": 0.1, "nms_top_k": 6, "nms_threshold": 0.4,
+          "keep_top_k": 8}, "ew"),
+        ("generate_proposals",
+         {"Scores": [rng.uniform(0, 1, (2, 6, 4, 4)).astype("float32")],
+          "BboxDeltas": [n(2, 24, 4, 4, scale=0.2)],
+          "ImInfo": [np.array([[64, 64, 1], [48, 60, 1.5]], "float32")],
+          "Anchors": [_boxes_np(rng, 96, 64.0).reshape(4, 4, 6, 4)],
+          "Variances": [np.ones((4, 4, 6, 4), "float32")]},
+         {"pre_nms_topN": 30, "post_nms_topN": 8, "nms_thresh": 0.5,
+          "min_size": 4.0}, "ew"),
+        ("collect_fpn_proposals",
+         {"MultiLevelRois": [np.stack([_boxes_np(rng, 5, 64.0)] * 2),
+                             np.stack([_boxes_np(rng, 4, 64.0)] * 2)],
+          "MultiLevelScores": [rng.uniform(0, 1, (2, 5)).astype("float32"),
+                               rng.uniform(0, 1, (2, 4)).astype("float32")],
+          "MultiLevelRoisNum": [i32(3, 5), i32(4, 1)]},
+         {"post_nms_topN": 6}, "ew"),
+        ("distribute_fpn_proposals",
+         {"FpnRois": [np.concatenate([_boxes_np(rng, 5, 400.0, 0.02, 0.1),
+                                      _boxes_np(rng, 5, 400.0, 0.3, 0.9)])]},
+         {"min_level": 2, "max_level": 5, "refer_level": 4,
+          "refer_scale": 224.0}, "ew"),
+        ("retinanet_detection_output",
+         {"BBoxes": [n(2, 8, 4, scale=0.1), n(2, 4, 4, scale=0.1)],
+          "Scores": [rng.uniform(0, 0.5, (2, 8, 3)).astype("float32"),
+                     rng.uniform(0, 0.5, (2, 4, 3)).astype("float32")],
+          "Anchors": ret_anc,
+          "ImInfo": [np.array([[128, 128, 1], [60, 100, 1]], "float32")]},
+         {"score_threshold": 0.05, "nms_top_k": 6, "nms_threshold": 0.3,
+          "keep_top_k": 5}, "ew"),
+        ("detection_map", {"DetectRes": [det], "Label": [lab]},
+         {"class_num": 3, "overlap_threshold": 0.5, "ap_type": "11point",
+          "evaluate_difficult": False, "max_dets": 16}, "ew"),
+        ("pad_constant_like", {"X": [n(4, 5)], "Y": [n(2, 3)]},
+         {"pad_value": 7.0}, "ew"),
+        ("squared_l2_distance", {"X": [n(5, 4)], "Y": [n(1, 4)]}, {}, "ew"),
+        ("bilinear_tensor_product", {"X": [n(3, 4)], "Y": [n(3, 5)],
+                                     "Weight": [n(2, 4, 5)],
+                                     "Bias": [n(1, 2)]}, {}, "mm"),
+        ("conv_shift", {"X": [n(2, 7)], "Y": [n(2, 3)]}, {}, "ew"),
+        ("cvm", {"X": [rng.uniform(0, 9, (5, 6)).astype("float32")],
+                 "CVM": [rng.uniform(0, 1, (5, 2)).astype("float32")]},
+         {"use_cvm": True}, "ew"),
+        ("hash", {"X": [rng.randint(0, 2 ** 31 - 1, (64, 4)).astype(
+            "int64")]}, {"num_hash": 3, "mod_by": 1000003}, "exact"),
+        ("match_matrix_tensor", {"X": [n(2, 4, 6)], "Y": [n(2, 5, 6)],
+                                 "W": [n(6, 3, 6)]}, {}, "mm"),
+        ("var_conv_2d", {"X": [n(3, 2, 7, 6)], "W": [n(4, 18)],
+                         "ROW": [np.array([7, 3, 1], "int64")],
+                         "COLUMN": [np.array([2, 6, 5], "int64")]},
+         {"kernel_h": 3, "kernel_w": 3, "stride_h": 2, "stride_w": 2}, "mm"),
+        ("filter_by_instag", {"Ins": [n(6, 3)],
+                              "Ins_tag": [np.array([[1, -1], [4, 2], [3, -1],
+                                                    [2, 2], [5, 6], [9, 1]],
+                                                   "int64")],
+                              "Filter_tag": [np.array([1, 2], "int64")]},
+         {}, "ew"),
+        ("top_k", {"X": [tied]}, {"k": 12}, "ew"),
+        ("top_k_v2", {"X": [tied.T.copy()]}, {"k": 7, "axis": 0}, "ew"),
+    ]
+
+
+def _nms_forward(op_type, attrs):
+    """The forward comparison of an NMS op's outputs in (d): its rows
+    through `_nms_rows_held`, its counts exactly where no near tie."""
+    def compare(got, want):
+        if op_type == "generate_proposals":
+            g = np.concatenate([got["RpnRoiProbs"][0], got["RpnRois"][0]], 2)
+            w = np.concatenate([want["RpnRoiProbs"][0],
+                                want["RpnRois"][0]], 2)
+            thr, norm, by_class, num = attrs["nms_thresh"], False, False, \
+                "RpnRoisNum"
+        else:
+            g, w = got["Out"][0], want["Out"][0]
+            thr = attrs.get("nms_threshold", 0.3)
+            norm = attrs.get("normalized", True) and \
+                op_type != "retinanet_detection_output"
+            by_class, num = True, "NmsRoisNum"
+        ties, worst = _nms_rows_held("detection (d)", g, w, thr, norm,
+                                     by_class, op_type)
+        if ties == 0:
+            check(all(np.array_equal(got[k][0], want[k][0])
+                      for k in want if k not in ("Out", "RpnRois",
+                                                 "RpnRoiProbs")),
+                  f"detection (d): {op_type}'s {num} or Index differ")
+        return worst
+    return compare
+
+
+def det_sweep_random(device):
+    """(d)'s random ops at use_random=True on `device`, by their laws:
+    rpn_target_assign's and generate_proposal_labels' picks inside their
+    masks (the use_random=False call's complete lists), at most the
+    quota of foreground, no repeats, the same draws for the same seed
+    and others for another."""
+    rng = np.random.RandomState(DET_SEED)
+    anchor = _boxes_np(rng, 3000, 256.0, 0.05, 0.4)
+    gt = _boxes_np(rng, 6, 256.0, 0.1, 0.4)
+    attrs = {"rpn_batch_size_per_im": 256, "rpn_fg_fraction": 0.5,
+             "rpn_positive_overlap": 0.5, "rpn_negative_overlap": 0.3,
+             "__rng_uid__": 3}
+    ins = {"Anchor": [anchor], "GtBoxes": [gt]}
+    full = op_call("rpn_target_assign", ins,
+                   dict(attrs, rpn_batch_size_per_im=6000, use_random=False),
+                   device)
+    fg_all = set(full["LocationIndex"][0][full["LocationIndex"][0] >= 0])
+    sc = full["ScoreIndex"][0][3000:]
+    bg_all = set(sc[sc >= 0])
+    draws = []
+    for key in (41, 41, 42):
+        out = op_call("rpn_target_assign", ins, dict(attrs, use_random=True),
+                      device, rng_key=key)
+        fg, bg = out["LocationIndex"][0], out["ScoreIndex"][0][128:]
+        fg, bg = fg[fg >= 0], bg[bg >= 0]
+        check(len(fg) == min(128, len(fg_all)) and
+              len(bg) == min(128, len(bg_all)) and set(fg) <= fg_all and
+              set(bg) <= bg_all and len(set(fg)) == len(fg) and
+              len(set(bg)) == len(bg),
+              f"detection (d): rpn_target_assign's draws: {len(fg)} fg of "
+              f"{len(fg_all)}, {len(bg)} bg of {len(bg_all)}")
+        draws.append(np.concatenate([fg, bg]))
+    check(np.array_equal(draws[0], draws[1]) and
+          not np.array_equal(draws[0], draws[2]),
+          "detection (d): rpn_target_assign's draws and their seeds")
+    rois = _boxes_np(rng, 400, 256.0, 0.05, 0.5)
+    rois[:60] = np.repeat(gt, 10, 0) + rng.uniform(-4, 4, (60, 4)).astype(
+        "float32")
+    gins = {"RpnRois": [rois[None]], "GtBoxes": [gt[None]],
+            "GtClasses": [np.arange(1, 7, dtype="int32")[None]]}
+    gattrs = {"batch_size_per_im": 128, "fg_fraction": 0.25,
+              "class_nums": 7, "__rng_uid__": 4}
+    ref = op_call("generate_proposal_labels", gins,
+                  dict(gattrs, batch_size_per_im=400, fg_fraction=1.0,
+                       use_random=False), device)
+    fg_rows = {tuple(r) for r, lb in zip(ref["Rois"][0][0],
+                                         ref["LabelsInt32"][0][0]) if lb > 0}
+    outs = []
+    for key in (43, 43, 44):
+        out = op_call("generate_proposal_labels", gins,
+                      dict(gattrs, use_random=True), device, rng_key=key)
+        lab = out["LabelsInt32"][0][0]
+        got = [tuple(r) for r, lb in zip(out["Rois"][0][0][:32], lab[:32])
+               if lb >= 0]
+        check(len(got) == min(32, len(fg_rows)) and set(got) <= fg_rows and
+              len(set(got)) == len(got) and (lab[:32] != 0).all() and
+              (lab[32:] <= 0).all(),
+              f"detection (d): generate_proposal_labels' draws: {len(got)} "
+              f"fg of {len(fg_rows)}")
+        outs.append(out["Rois"][0])
+    check(np.array_equal(outs[0], outs[1]) and
+          not np.array_equal(outs[0], outs[2]),
+          "detection (d): generate_proposal_labels' draws and their seeds")
+    return {"rpn_fg_bg": [int(min(128, len(fg_all))),
+                          int(min(128, len(bg_all)))],
+            "proposal_label_fg": int(min(32, len(fg_rows)))}
+
+
+def det_sweep(device):
+    """Phase 34 (d): every op type this slice adds and the repaired
+    top_k and top_k_v2 on tied inputs, once on `device` against the
+    CPU (the top-k ops also against a stable numpy sort), and
+    sparse_allreduce on tied inputs."""
+    import torch
+
+    from paddle_tpu_torch.ops.collective import sparse_allreduce
+
+    rng = np.random.RandomState(DET_SEED)
+    worst, secs = {}, {}
+    for op_type, ins, attrs, cls in det_sweep_cases(rng):
+        fwd = _nms_forward(op_type, attrs) if op_type in (
+            "multiclass_nms", "multiclass_nms2", "generate_proposals",
+            "retinanet_detection_output") else None
+        t = time.perf_counter()
+        worst[op_type] = sweep_op(op_type, ins, attrs, cls, device, rng,
+                                  "detection (d)", fwd)
+        secs[op_type] = time.perf_counter() - t
+        if op_type.startswith("top_k"):
+            x = ins["X"][0]
+            axis = attrs.get("axis", -1)
+            order = np.argsort(-x, axis=axis, kind="stable")
+            want = np.take(order, np.arange(attrs["k"]), axis=axis)
+            got = op_call(op_type, ins, attrs, device)["Indices"][0]
+            check(np.array_equal(got, want),
+                  f"detection (d): {op_type}'s tie order is not the stable "
+                  "sort's")
+    law = det_sweep_random(device)
+    flats = [np.round(rng.standard_normal(4096) * 2).astype("float32")
+             for _ in range(4)]
+    got = sparse_allreduce([torch.from_numpy(f).to(device) for f in flats],
+                           100).cpu().numpy()
+    want = sparse_allreduce([torch.from_numpy(f) for f in flats],
+                            100).numpy()
+    check(np.array_equal(got, want),
+          "detection (d): sparse_allreduce on tied inputs differs")
+    types = set(worst) | {"rpn_target_assign", "generate_proposal_labels"}
+    check(len(types) == 43, f"detection (d): {len(types)} op types swept")
+    return {"op_types": len(types), "worst_abs": worst, "random": law,
+            "seconds": secs, "sparse_allreduce_nonzero": int(
+                (got != 0).sum())}
+
+
+def phase_detection():
+    """Phase 34: (a)-(d) above."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    before = _kernel_counts()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, secs = {}, {}
+    try:
+        for part, fn in (("a", lambda: det_ssd(pt)),
+                         ("b", lambda: det_proposals(pt)),
+                         ("c", lambda: det_text_match(pt)),
+                         ("d", lambda: det_sweep(
+                             pt.CUDAPlace(0).torch_device()))):
+            t = time.perf_counter()
+            _peak_reset()
+            out[part] = fn()
+            out[part].setdefault("peak_bytes", _peak())
+            secs[part] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+            print(json.dumps({"phase": "detection", "part": part,
+                              "card": card(), "seconds": secs[part]}),
+                  flush=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    check(_kernel_counts() == before,
+          "detection: a kernel of the table launched in phase 34")
+    print(json.dumps({
+        "phase": "detection", "card": card(),
+        "programs": f"mobilenet_ssd.py's MobileNet-v1 SSD, {SSD_HW} x "
+                    f"{SSD_HW}, {SSD_CLASSES} classes, {SSD_PRIORS} priors, "
+                    f"batch {SSD_B}, RMSProp {SSD_LR} x {SSD_STEPS}, eval "
+                    f"detection_output {SSD_NMS} and detection_map 11point; "
+                    f"Faster R-CNN proposals on {RCNN_HW[0]} x {RCNN_HW[1]} "
+                    f"(C4 {RCNN_FEAT}, Detectron's defaults); text matching "
+                    f"{TM_SIZE}, Adam {TM_LR} x {TM_STEPS}; 43 op types; "
+                    "f32, TF32 off",
+        "a_ssd": out["a"], "b_proposals": out["b"], "c_text_match": out["c"],
+        "d_sweep": out["d"], "limits": DET_TOL, "part_seconds": secs,
+        "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+
+
 def _leftovers():
     """The threads other than this one still alive, and the processes
     whose parent is this one, each as a short description."""
@@ -9704,6 +10943,7 @@ def main() -> int:
     timed(phase_dygraph)
     timed(phase_fluid_sequence)
     timed(phase_slim)
+    timed(phase_detection)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

@@ -66,7 +66,9 @@ __all__ = ["resolve_device", "Program", "Block", "Operator", "Variable",
            "load_op_library", "require_version", "__version__", "metrics",
            "data_feeder", "DataFeeder", "reader", "DataLoader", "PyReader",
            "amp", "trainer", "dygraph", "enable_dygraph",
-           "disable_dygraph", "debugger", "contrib"]
+           "disable_dygraph", "debugger", "contrib", "TPUPinnedPlace",
+           "backward_module", "models", "serving", "profiler", "ps",
+           "slim"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -105,8 +107,9 @@ from .core.executor import Executor, global_scope, scope_guard, Scope  # noqa: E
 from .core.backward import append_backward, gradients  # noqa: E402
 from .core import places  # noqa: E402
 from .core.places import (CPUPlace, CUDAPlace, TPUPlace, XPUPlace,  # noqa: E402
-                          CUDAPinnedPlace, cpu_places, cuda_places,
-                          is_compiled_with_cuda, is_compiled_with_tpu)
+                          CUDAPinnedPlace, TPUPinnedPlace, cpu_places,
+                          cuda_places, is_compiled_with_cuda,
+                          is_compiled_with_tpu)
 from .core.compiler import (CompiledProgram, BuildStrategy,  # noqa: E402
                             ExecutionStrategy, ParallelExecutor)
 from . import parallel  # noqa: E402
@@ -119,6 +122,7 @@ from . import param_attr  # noqa: E402
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: E402
 from . import nets  # noqa: E402
 from . import backward  # noqa: E402
+from . import backward as backward_module  # noqa: E402
 from .core.flags import get_flags, set_flags  # noqa: E402
 from . import io  # noqa: E402
 from .io import (save, load, save_inference_model,  # noqa: E402
@@ -138,6 +142,10 @@ from .dygraph.base import enable_dygraph, disable_dygraph  # noqa: E402
 from . import debugger  # noqa: E402
 from . import contrib  # noqa: E402
 from . import slim  # noqa: E402
+from . import models  # noqa: E402
+from . import serving  # noqa: E402
+from . import profiler  # noqa: E402
+from . import ps  # noqa: E402
 
 __version__ = "0.1.0"   # the JAX package's (paddle_tpu/version.py)
 

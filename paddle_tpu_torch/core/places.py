@@ -6,7 +6,8 @@ machine without one. `TPUPlace` and `XPUPlace` alias it, as the JAX
 package aliases "the accelerator", so scripts written for either
 package run unchanged. `default_place()` is `CUDAPlace(0)`: there is no
 fallback to the CPU (the JAX package's falls back to `CPUPlace`); a CPU
-run asks for `CPUPlace()`. `CUDAPinnedPlace` is host memory, as there.
+run asks for `CPUPlace()`. `CUDAPinnedPlace` is host memory, as there,
+and `TPUPinnedPlace` aliases it.
 
 `cpu_places` and `cuda_places` list the ranks of a data-parallel run
 (`CompiledProgram.with_data_parallel`): `CPU_NUM` CPU places (default
@@ -21,7 +22,7 @@ import os
 import torch
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "XPUPlace",
-           "CUDAPinnedPlace", "is_compiled_with_cuda",
+           "CUDAPinnedPlace", "TPUPinnedPlace", "is_compiled_with_cuda",
            "is_compiled_with_tpu", "default_place", "cpu_places",
            "cuda_places"]
 
@@ -76,6 +77,7 @@ class CUDAPinnedPlace(Place):
 # reference's XPUPlace) run on the GPU unchanged.
 TPUPlace = CUDAPlace
 XPUPlace = CUDAPlace
+TPUPinnedPlace = CUDAPinnedPlace
 
 
 def is_compiled_with_cuda() -> bool:

@@ -22,7 +22,9 @@ the same inputs.
 
 An op the port has not registered still builds (the copied
 `framework.py` lets unknown ops through, as it does structural ones) and
-raises at `Executor.run`, naming itself (ROADMAP item 15).
+raises at `Executor.run`, naming itself and the ROADMAP item that ports
+it: the parameter-server ops of the JAX package's `ops/distributed.py`
+(`UNPORTED`), item 21.
 """
 
 from __future__ import annotations
@@ -32,6 +34,14 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Se
 import torch
 
 from .ir import OpDesc, VarDesc, normalize_dtype
+
+# The op types still to port, each with the ROADMAP item that ports it:
+# the parameter-server ops of the JAX package's ops/distributed.py.
+UNPORTED = {t: 21 for t in (
+    "ps_send", "ps_send_aux", "ps_send_barrier", "ps_send_many",
+    "ps_recv_many", "ps_recv", "distributed_lookup_table",
+    "pull_box_sparse", "push_box_sparse", "listen_and_serv",
+    "checkpoint_notify")}
 
 # Sentinel used to stand in for -1 dims during meta-tensor inference.
 # A distinctive prime so it never collides with a real computed dim.
@@ -242,9 +252,12 @@ def get_op_def(type: str) -> OpDef:
             _REGISTRY[type] = gd
             _MADE_AT_LOOKUP.add(type)
             return gd
-    raise KeyError(
-        f"operator '{type}' is not registered in paddle_tpu_torch: its "
-        f"kernel is not ported yet (ROADMAP item 15)")
+    if type in UNPORTED:
+        raise KeyError(
+            f"operator '{type}' is not registered in paddle_tpu_torch: its "
+            f"kernel is not ported yet (ROADMAP item {UNPORTED[type]})")
+    raise KeyError(f"operator '{type}' is not registered in "
+                   f"paddle_tpu_torch")
 
 
 def has_op(type: str) -> bool:

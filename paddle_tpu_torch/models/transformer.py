@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import mha
+from ..ops.tensor import stable_top_k
 from ..parallel.mesh import refuse_process_ring
 from ..parallel.sharding import shard
 from .common import (ParamAxes, Params, ParamStore, dp_sum, gelu, layer_norm,
@@ -264,12 +265,6 @@ def nmt_loss(params: Params, cfg: TransformerConfig,
     return dp_sum(tok_loss * valid) / dp_sum(valid).clamp(min=1)
 
 
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest of each row, ties to the lower index (lax.top_k)."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
-
-
 def beam_search(params: Params, cfg: TransformerConfig,
                 src_ids: torch.Tensor,
                 src_len: Optional[torch.Tensor] = None, beam_size: int = 4,
@@ -304,7 +299,7 @@ def beam_search(params: Params, cfg: TransformerConfig,
         logp = F.log_softmax(logits[:, t].float(), dim=-1).reshape(B, K, V)
         logp = torch.where(finished[..., None], eos_only, logp)
         cand = (scores[..., None] + logp).reshape(B, K * V)
-        scores, top_idx = _top_k(cand, K)
+        scores, top_idx = stable_top_k(cand, K)
         beam_idx, tok_idx = top_idx // V, top_idx % V
         tokens = torch.gather(tokens, 1, beam_idx[..., None].expand(
             B, K, max_len + 1))

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.registry import register_op
+from .tensor import stable_top_k
 
 __all__ = ["beam_search"]
 
@@ -68,8 +69,7 @@ def beam_search(pre_ids: torch.Tensor, pre_scores: torch.Tensor,
     if beam_size == 1:
         top_idx = flat.argmax(dim=1, keepdim=True)
     else:
-        top_idx = torch.sort(flat, dim=1, descending=True,
-                             stable=True).indices[:, :beam_size]
+        top_idx = stable_top_k(flat, beam_size, dim=1)[1]
     return {"selected_ids": torch.gather(cand_ids.reshape(b, k * w), 1,
                                          top_idx),
             "selected_scores": torch.gather(flat, 1, top_idx),

@@ -34,6 +34,7 @@ import torch
 
 from ..core.ir import normalize_dtype
 from ..core.registry import ShapeDtype, register_op
+from .tensor import stable_top_k
 
 
 def _same_shape_infer(op, input_descs):
@@ -142,7 +143,7 @@ def sparse_allreduce(flats: List[torch.Tensor], k: int) -> torch.Tensor:
     k = min(int(k), flats[0].numel())
     vals, idxs = [], []
     for flat in flats:
-        _, idx = torch.topk(flat.abs(), k)
+        _, idx = stable_top_k(flat.abs(), k)
         vals.append(flat[idx].to(torch.float32))
         idxs.append(idx)
     flat = flats[0]

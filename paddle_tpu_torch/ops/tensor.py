@@ -105,11 +105,24 @@ def reshape2(ins, attrs, ctx):
     return {"Out": torch.reshape(x, shape), "XShape": None}
 
 
+def stable_top_k(x: torch.Tensor, k: int, dim: int = -1):
+    """The k largest entries of `x` along `dim`, largest first, ties to
+    the lower index, as `jax.lax.top_k` breaks them: (values, indices).
+    `torch.topk` promises no order among ties, so this takes a stable
+    descending sort of the whole row and slices it to k. The sort costs
+    O(n log n) where topk costs O(n log k), which the ops that call it
+    (`top_k`, `top_k_v2`, `sparse_allreduce`, beam search and the
+    detection ops' selections) can afford for exact agreement with the
+    JAX package."""
+    values, idx = torch.sort(x, dim=dim, descending=True, stable=True)
+    return values.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+
+
 @register_op("top_k", nondiff_inputs=(), intermediate_outputs=("Indices",))
 def top_k(ins, attrs, ctx):
     x = _x(ins)
     k = int(attrs["k"]) if "k" in attrs else int(ins["K"][0])
-    vals, idx = torch.topk(x, k, dim=-1, largest=True, sorted=True)
+    vals, idx = stable_top_k(x, k)
     return {"Out": vals, "Indices": idx.to(torch.int64)}
 
 
@@ -542,8 +555,8 @@ def where_index(ins, attrs, ctx):
 @register_op("top_k_v2", intermediate_outputs=("Indices",))
 def top_k_v2(ins, attrs, ctx):
     x = _x(ins)
-    vals, idx = torch.topk(x, int(attrs["k"]), dim=int(attrs.get("axis", -1)),
-                           largest=True, sorted=True)
+    vals, idx = stable_top_k(x, int(attrs["k"]),
+                             dim=int(attrs.get("axis", -1)))
     return {"Out": vals, "Indices": idx.to(torch.int64)}
 
 

@@ -17,4 +17,15 @@ from .role_maker import (  # noqa: F401
 )
 from .fleet import fleet, Fleet, DistributedOptimizer  # noqa: F401
 from .spmd_executor import SPMDRunner  # noqa: F401
-from .mesh import MeshConfig, make_mesh, mesh_guard  # noqa: F401
+from .mesh import (  # noqa: F401
+    MeshConfig, auto_mesh, current_mesh, get_mesh, make_hybrid_mesh,
+    mesh_guard, make_mesh, resize_mesh,
+)
+from .sharding import (  # noqa: F401
+    LogicalRules, NO_SHARD, in_manual_region, logical_to_mesh, shard,
+    shard_params_spec, with_rules, current_rules,
+)
+from .checkpoint import (  # noqa: F401
+    latest_step_dir, restore_train_state, save_train_state,
+)
+from .train import train_loop  # noqa: F401

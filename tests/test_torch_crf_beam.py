@@ -8,7 +8,8 @@ package's kernels on the same numpy inputs from a seed:
 - `beam_search`, `gather_tree` and `beam_search_decode` on hand-built
   trellises with ties (`ops/beam.py`), and the `beam_search` op against
   the selection functions the port's models use (`ops.beam.beam_search`,
-  which `models/gpt.py` calls, and `models/transformer.py`'s `_top_k`);
+  which `models/gpt.py` calls, and `ops/tensor.py`'s `stable_top_k`,
+  which `models/transformer.py` calls);
 - `auc` (its state carried across two calls), `precision_recall` and
   `positive_negative_pair` (`ops/metrics_ops.py`).
 
@@ -136,8 +137,8 @@ def test_beam_search_op_matches_jax(attrs, with_ids):
 def test_beam_search_op_is_the_models_selection():
     """The op's outputs are `ops.beam.beam_search`'s (models/gpt.py's
     step), and on live beams the same top-k as models/transformer.py's
-    `_top_k` on the flat candidates, ties to the lower index."""
-    from paddle_tpu_torch.models.transformer import _top_k
+    `stable_top_k` on the flat candidates, ties to the lower index."""
+    from paddle_tpu_torch.models.transformer import stable_top_k
     from paddle_tpu_torch.ops.beam import beam_search
 
     pre_ids, pre_scores, scores = _beam_trellis()
@@ -151,7 +152,7 @@ def test_beam_search_op_is_the_models_selection():
                      torch.from_numpy(scores), beam_size=3, end_id=0)
     for k in _BEAM_OUTS:
         np.testing.assert_array_equal(op[k][0], fn[k].numpy(), err_msg=k)
-    vals, idx = _top_k(torch.from_numpy(scores).reshape(2, 12), 3)
+    vals, idx = stable_top_k(torch.from_numpy(scores).reshape(2, 12), 3)
     np.testing.assert_array_equal(op["selected_scores"][0], vals.numpy())
     np.testing.assert_array_equal(op["parent_idx"][0], (idx // 4).numpy())
     np.testing.assert_array_equal(op["selected_ids"][0], (idx % 4).numpy())

@@ -877,7 +877,7 @@ def test_sampled_softmax_distribution_and_logits(op_type):
 
 _PORTED_MODULES = ("compare", "tensor", "nn", "classify", "control_flow",
                    "optimizer_ops", "sequence", "rnn", "crf", "beam",
-                   "metrics_ops", "quant", "misc")
+                   "metrics_ops", "quant", "misc", "text_match", "detection")
 
 
 def _unported_by_module():
@@ -899,19 +899,89 @@ def test_registry_diff_names_every_unported_op():
     """The op types still to port, by the JAX module that registers them:
     none from the five modules the library's core ports, from
     optimizer_ops.py, from the sequence models' five (sequence, rnn,
-    crf, beam, metrics_ops), from quant.py or from misc.py; text_match
-    9, detection 32 and distributed 11, 52 in all, and each raises
-    naming itself and ROADMAP item 15."""
+    crf, beam, metrics_ops), from quant.py, misc.py, text_match.py or
+    detection.py; the 11 parameter-server ops of distributed.py, each of
+    which raises naming itself and ROADMAP item 21, the item that ports
+    them (`registry.UNPORTED`)."""
     missing = _unported_by_module()
     print("still unported:", {m: len(v) for m, v in missing.items()})
     assert not set(missing) & set(_PORTED_MODULES), missing
-    assert {m: len(v) for m, v in missing.items()} == {
-        "text_match": 9, "detection": 32, "distributed": 11}
-    assert sum(len(v) for v in missing.values()) == 52
-    for types in missing.values():
-        for t in types:
-            with pytest.raises(KeyError, match=f"'{t}'.*item 15"):
-                treg.get_op_def(t)
+    assert {m: len(v) for m, v in missing.items()} == {"distributed": 11}
+    assert sorted(treg.UNPORTED) == missing["distributed"]
+    for t in missing["distributed"]:
+        with pytest.raises(KeyError, match=f"'{t}'.*ROADMAP item 21"):
+            treg.get_op_def(t)
+    with pytest.raises(KeyError, match="'no_such_op' is not registered"):
+        treg.get_op_def("no_such_op")
+
+
+def _tied(shape, seed, levels=4):
+    """Values on a few levels: most entries tie with another."""
+    rng = np.random.RandomState(seed)
+    return np.round(rng.uniform(0, 1, shape) * levels).astype("float32")
+
+
+@pytest.mark.parametrize("op_type, shape, attrs", [
+    ("top_k", (4, 64), {"k": 12}),
+    ("top_k", (3, 5, 20), {"k": 7}),
+    ("top_k_v2", (6, 40), {"k": 9}),
+    ("top_k_v2", (30, 5), {"k": 6, "axis": 0}),
+    ("top_k_v2", (2, 25, 3), {"k": 4, "axis": 1}),
+])
+def test_top_k_breaks_ties_as_lax_top_k(op_type, shape, attrs):
+    """ROADMAP F26: top_k and top_k_v2 on tied inputs equal the JAX
+    ops, indices and values, through both registries (the port's
+    `stable_top_k`: a stable descending sort, ties to the lower
+    index)."""
+    ins = {"X": [_tied(shape, len(shape) + attrs["k"])]}
+    j = _run("jax", op_type, ins, attrs, {})
+    t = _run("torch", op_type, ins, attrs, {})
+    for k in ("Out", "Indices"):
+        np.testing.assert_array_equal(t[k][0], j[k][0], err_msg=k)
+    axis = attrs.get("axis", -1)
+    order = np.argsort(-ins["X"][0], axis=axis, kind="stable")
+    np.testing.assert_array_equal(
+        t["Indices"][0], np.take(order, np.arange(attrs["k"]), axis=axis))
+
+
+@pytest.mark.parametrize("k", [5, 40])
+def test_sparse_allreduce_breaks_ties_as_lax_top_k(k):
+    """F26: `sparse_allreduce` over four ranks of tied magnitudes picks
+    the JAX package's entries (its `lax.top_k`, under a vmapped
+    all_gather) where the ties straddle the k-th place."""
+    import jax
+
+    from paddle_tpu.ops.collective import sparse_allreduce as jsparse
+
+    from paddle_tpu_torch.ops.collective import sparse_allreduce
+
+    rng = np.random.RandomState(k)
+    flats = np.round(rng.standard_normal((4, 96)) * 2).astype("float32")
+    want = jax.vmap(lambda f: jsparse(f, k, "r"), axis_name="r")(
+        jnp.asarray(flats))
+    got = sparse_allreduce([torch.from_numpy(f) for f in flats], k)
+    for r in range(4):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want[r]))
+
+
+def test_beam_search_op_with_ties_matches_jax():
+    """F26's helper in the beam_search op (k > 1) and its argmax path (k
+    = 1) on a step whose candidates mostly tie: the JAX op's picks."""
+    pre_ids = np.array([[4, 5, 6, 7], [3, 2, 9, 1]], "int64")
+    pre_scores = np.array([[-1.0, -1.0, -2.0, -1.0],
+                           [-0.5, -0.5, -0.5, -0.5]], "float32")
+    scores = np.round(_tied((2, 4, 6), 3) * -1.0).astype("float32")
+    outs = {"selected_ids": ["i"], "selected_scores": ["s"],
+            "parent_idx": ["p"]}
+    for beam in (1, 3, 4):
+        attrs = {"beam_size": beam, "end_id": 0}
+        ins = {"pre_ids": [pre_ids[:, :beam]],
+               "pre_scores": [pre_scores[:, :beam]],
+               "scores": [scores[:, :beam]]}
+        j = _run("jax", "beam_search", ins, attrs, outs)
+        t = _run("torch", "beam_search", ins, attrs, outs)
+        for k in outs:
+            np.testing.assert_array_equal(t[k][0], j[k][0], err_msg=k)
 
 
 def _var_program(pkg, shapes):

@@ -241,17 +241,19 @@ def test_native_lenet_loss_matches_jax():
 
 
 def test_unported_op_raises_naming_itself():
-    """A layer whose op the port lacks builds, as a structural op would,
-    and `Executor.run` raises naming the op."""
+    """A program with an op the port lacks (a parameter-server op, which
+    no layer of the port builds) builds, as a structural op would, and
+    `Executor.run` raises naming the op and the ROADMAP item that ports
+    it."""
     main, startup = ptt.Program(), ptt.Program()
     with ptt.program_guard(main, startup):
         x = ptt.layers.data(name="x", shape=[4], dtype="float32")
-        y = ptt.layers.data(name="y", shape=[4], dtype="float32")
-        out = ptt.layers.iou_similarity(x, y)
+        main.global_block().append_op(type="ps_send", inputs={"X": [x]},
+                                      outputs={}, attrs={})
+        out = ptt.layers.scale(x, scale=2.0)
     exe = ptt.Executor(ptt.CPUPlace())
-    with pytest.raises(KeyError, match="iou_similarity.*ROADMAP item 15"):
-        exe.run(main, feed={"x": np.zeros((2, 4), "float32"),
-                            "y": np.zeros((3, 4), "float32")},
+    with pytest.raises(KeyError, match="ps_send.*ROADMAP item 21"):
+        exe.run(main, feed={"x": np.zeros((2, 4), "float32")},
                 fetch_list=[out])
 
 

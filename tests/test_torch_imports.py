@@ -127,6 +127,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.dygraph.learning_rate_scheduler",
                  "paddle_tpu_torch.ops.sequence",
                  "paddle_tpu_torch.ops.text_match",
+                 "paddle_tpu_torch.ops.detection",
                  "paddle_tpu_torch.debugger",
                  "paddle_tpu_torch.contrib",
                  "paddle_tpu_torch.contrib.utils"):
@@ -726,3 +727,74 @@ def test_slim_exports_every_name_of_the_jax_package_without_pyyaml():
     assert r.returncode == 0, r.stderr[-2000:]
     got = set(r.stdout.split())
     assert not set(want) - got, sorted(set(want) - got)
+
+
+# The package inits' names (ROADMAP F25): what `dir()` of each shows
+# after a fresh `import` of both packages, in a subprocess so no other
+# test's imports add submodules. The port excuses item 21's
+# parameter-server surface (`DistributeTranspiler`,
+# `DistributeTranspilerConfig`) and the JAX package's `dataset`,
+# `io_fs` and `version` modules, which it does not carry; it aliases
+# `TPUPinnedPlace` to `CUDAPinnedPlace`.
+_INIT_EXCUSED = {"": {"DistributeTranspiler", "DistributeTranspilerConfig",
+                      "dataset", "io_fs", "version"},
+                 ".parallel": set(), ".models": set(), ".core": set()}
+
+_INIT_PROBE = r"""
+import importlib, json
+out = {}
+for pkg in ("paddle_tpu", "paddle_tpu_torch"):
+    importlib.import_module(pkg)
+for sub in ("", ".parallel", ".models", ".core"):
+    out[sub] = [sorted(n for n in dir(importlib.import_module(p + sub))
+                       if not n.startswith("__"))
+                for p in ("paddle_tpu", "paddle_tpu_torch")]
+print(json.dumps(out))
+"""
+
+
+def test_package_inits_export_the_jax_packages_names():
+    """Each of the port's top-level, `parallel`, `models` and `core`
+    inits has every name the JAX package's has (F25), but the excused
+    ones; `from paddle_tpu_torch.parallel import train_loop` works."""
+    import json
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", _INIT_PROBE], cwd=_REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    names = json.loads(r.stdout.strip().splitlines()[-1])
+    for sub, (jax_names, port_names) in names.items():
+        missing = set(jax_names) - set(port_names) - _INIT_EXCUSED[sub]
+        assert not missing, (sub or "top level", sorted(missing))
+        assert not _INIT_EXCUSED[sub] & set(port_names), sub
+    from paddle_tpu_torch.core.places import CUDAPinnedPlace
+    from paddle_tpu_torch.parallel import train_loop
+    from paddle_tpu_torch.parallel.train import train_loop as defined
+
+    import paddle_tpu_torch
+
+    assert train_loop is defined
+    assert paddle_tpu_torch.TPUPinnedPlace is CUDAPinnedPlace
+    assert paddle_tpu_torch.backward_module is paddle_tpu_torch.backward
+
+
+def test_copied_detection_map_kernel_matches_its_source():
+    """`ops/detection.py`'s `_np_detection_map_update` is the JAX
+    package's, line for line, after a two-line header naming it."""
+    import inspect
+
+    from paddle_tpu.ops import detection as jdet
+
+    from paddle_tpu_torch.ops import detection as tdet
+
+    want = inspect.getsource(jdet._np_detection_map_update)
+    got = inspect.getsource(tdet._np_detection_map_update)
+    assert got == want
+    with open(os.path.join(_PKG, "ops", "detection.py")) as f:
+        text = f.read()
+    at = text.index(got)
+    header = text[:at].rstrip("\n").splitlines()[-2:]
+    assert header == [
+        "# Copied from the JAX package: paddle_tpu/ops/detection.py's",
+        "# `_np_detection_map_update` (tests/test_torch_imports.py checks it)."]
