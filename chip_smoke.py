@@ -314,6 +314,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `contrib.utils.memory_usage`'s band for the traced program beside
    its run's `max_memory_allocated`, and `summary`'s FLOPs beside (a)'s
    step ms (printed, not gated). No Pallas kernel lies on this path;
+35. tools: the serving operator's tools (`paddle_tpu_torch/tools/`) on
+   the card (`phase_tools`), at torch's default TF32 flags (the
+   replicas' environment). (a) `warmstart bake-decode` and `inspect` as
+   processes at tiny; then `bake_decode(cfg=GPTConfig())` here at
+   GPT-2-small's width for serve_bench token mode's grid, its
+   `--prefill-chunk` grid and its `--spec-k` grid: an engine of the same
+   seed adopts every phase (time to healthy cold and warm printed), one
+   of seed 1 adopts none and emits the `warmstart` reject; (b)
+   serve_bench token mode at GPT-2-small with (a)'s artifact: no error,
+   warm tokens equal to cold, every phase adopted, no eager decode step
+   in the warm replay, K1-fwd launched (its launches join the kernels
+   line); tokens/s, the speedup, TTFT and p99 printed, not gated; (c)
+   prefix-share at GPT-2-small: equal streams, prefix hits, accept rate
+   >= 0.99; (d) tenants mode, with a profile capture beside it: every
+   shed on bronze, no gold failure, no failure across the hot swap,
+   every bucket adopted; (e) fleet mode, 2 replicas up to 3, at the
+   smoke's traffic: no failed request across the kill and the
+   scale-in, the respawn and a scale-out from the artifact, the
+   generate trace one tree across processes, `slo_alert` fires and
+   clears; (f) `warmstart bake` of the
+   MLP by the CLI, its artifact adopted whole here, and `autoscale`
+   booting one replica that answers one predict through its router.
+   (a)'s and (f)'s processes run beside (a), (c) and (d); (b) runs
+   after them. (g) `obsdump` by file path renders every dump of
+   (a)-(f), each with rows;
 
 Phase 2 also holds K2 (forward, dkv, dq) per element against its plain
 versions at those paths' shapes (Transformer-big's encoder and cross
@@ -332,7 +357,7 @@ blocks of BERT-base 256 x 128 at dp=2 (128 x 128 x 12) and at dp=2
 tp=2 (128 x 128 x 6), timed.
 
 The kernels' launch counts are set to 0 just before each path's run and
-read just after (phases 3, 21 and 26 for serving, phases 7, 8, 10, 12, 15, 17,
+read just after (phases 3, 21, 26 and 35 (b), (c) for serving, phases 7, 8, 10, 12, 15, 17,
 22 (b) and 25's timed runs for training, phase 11 for beam search, phase 13 for the
 bottleneck, phase 19's first uninterrupted `train_loop` run).
 The last line is {"ok": true, "device": {...}}; the line before it
@@ -10852,6 +10877,514 @@ def phase_detection():
     torch.cuda.empty_cache()
 
 
+# phase 35: the serving operator's tools on the card
+TOOLS_CHUNK = 16                # bake-decode --prefill-chunk
+TOOLS_SPEC_K = 2                # bake-decode --spec-k
+# token mode's engine (serve_bench._build_decode_engine) at the tool's
+# default grid: block 8, max_len = the largest bucket + 64 + 8, its
+# pool; bake-decode bakes that engine's grid with these flags
+TOOLS_TOKEN_GRID = ["--slots", "4,8", "--prefill-buckets", "8,16,32",
+                    "--block-size", "8", "--max-len", "104",
+                    "--num-blocks", "109"]
+# the JAX tool's --smoke traffic for token mode, at the default grid
+TOOLS_TOKEN_TRAFFIC = ["--rate", "600", "--duration", "0.08",
+                       "--timeout-s", "120"]
+TOOLS_PROFILE_S = 1.0           # the capture taken during (d)
+TOOLS_AUTOSCALE_S = 60          # autoscale --duration: an upper bound,
+#                                 the phase interrupts it once answered
+TOOLS_OBSDUMP = {               # (g): subcommand -> text its table holds
+    "snapshot": "paddle_tpu_fleet_requests_total",
+    "events": "fleet",
+    "trace": "decode.ttft",
+    "decode": "tokens",
+    "tenants": "gold-client",
+    "fleet": "world size",
+    "top": "recording pid",
+    "slo": "predict-latency",
+    "mem": "watermark",
+    "profile": "capture dir",
+}
+
+
+def _tool_cli(args, timeout=600):
+    """(rc, stdout, stderr) of `python <args>` run from this checkout."""
+    r = subprocess.run([sys.executable] + list(args), capture_output=True,
+                       text=True, timeout=timeout,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    return r.returncode, r.stdout, r.stderr
+
+
+def _tool_lines(fn, *args, **kw):
+    """(rc, {metric: line}) of a serve_bench mode run in this process,
+    its JSON lines taken from stdout."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(*args, **kw)
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    return rc, {ln["metric"]: ln for ln in lines}
+
+
+def _tools_cli_bake(root):
+    """(a), by the CLI: `warmstart bake-decode` at tiny, then `inspect`
+    by file path on its artifact."""
+    tiny = os.path.join(root, "tiny.warmstart")
+    rc, text, err = _tool_cli(["-m", "paddle_tpu_torch.tools.warmstart",
+                               "bake-decode", "--out", tiny])
+    check(rc == 0, f"tools (a): bake-decode rc {rc}: {err[-2000:]}")
+    line = json.loads(text)
+    check(line["entries"] == line["phases_ready"] == 5,
+          f"tools (a): tiny bake {line}")
+    rc, text, err = _tool_cli([os.path.join(
+        "paddle_tpu_torch", "tools", "warmstart.py"), "inspect", tiny])
+    check(rc == 0, f"tools (a): inspect rc {rc}: {err[-2000:]}")
+    rep = json.loads(text)
+    with open(tiny) as f:
+        art = json.load(f)
+    check(rep["entries"] == len(art["entries"]) == line["entries"] and
+          sorted(s["phase"] for s in rep["signatures"]) == sorted(
+              f"{e['phase']}@{e['size']}" for e in art["entries"]) and
+          rep["device_name"] == art["device_name"],
+          f"tools (a): inspect {rep}")
+    line.pop("artifact")
+    return {"bake": line, "device_name": rep["device_name"]}
+
+
+def _tools_cli_bake_predict(model_dir, art):
+    """(f), by the CLI: `warmstart bake` of the MLP in `model_dir`."""
+    rc, text, err = _tool_cli(["-m", "paddle_tpu_torch.tools.warmstart",
+                               "bake", "--model-dir", model_dir, "--out",
+                               art])
+    check(rc == 0, f"tools (f): bake rc {rc}: {err[-2000:]}")
+    bake = json.loads(text)
+    check(bake["entries"] == bake["buckets_ready"] ==
+          len(bake["buckets"]) > 0, f"tools (f): bake {bake}")
+    for key in ("artifact", "model_dir"):
+        bake.pop(key)
+    return bake
+
+
+def _tools_bake(root):
+    """(a), in this process: the three grids at GPT-2-small, each
+    adopted whole by an engine of the same seed, time to healthy cold
+    and warm; another seed adopts none. Returns (report, the token
+    grid's artifact)."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import events
+    from paddle_tpu_torch.tools import warmstart as ws
+
+    out = {}
+    cfg = gpt.GPTConfig()                       # GPT-2-small
+    grids = {"default": TOOLS_TOKEN_GRID,
+             "chunked": TOOLS_TOKEN_GRID + ["--prefill-chunk",
+                                            str(TOOLS_CHUNK)],
+             "speculative": TOOLS_TOKEN_GRID + ["--spec-k",
+                                                str(TOOLS_SPEC_K)]}
+    for name, flags in grids.items():
+        path = os.path.join(root, f"gpt2_{name}.warmstart")
+        args = ws.build_parser().parse_args(
+            ["bake-decode", "--out", path, "--preset", "gpt2-small"]
+            + flags)
+        line = ws.bake_decode(args, cfg=cfg)
+        t = time.perf_counter()
+        eng = ws.decode_engine(args, cfg=cfg)
+        try:
+            adopted = eng.load_warmstart(path)
+            warm_s = time.perf_counter() - t
+            grid = len(eng._phase_keys())
+        finally:
+            eng.stop()
+        check(adopted == line["entries"] == line["phases_ready"] == grid,
+              f"tools (a): {name} adopted {adopted} of {line}")
+        out[name] = {"phases": grid, "bake_warmup_seconds":
+                     line["warmup_seconds"],
+                     "healthy_cold_s": line["warmup_seconds"],
+                     "healthy_warm_s": round(warm_s, 3),
+                     "artifact_bytes": line["artifact_bytes"]}
+        print(json.dumps({"phase": "tools", "part": "a", "grid": name,
+                          "card": card(), **out[name]}), flush=True)
+    args = ws.build_parser().parse_args(
+        ["bake-decode", "--out", "unused", "--seed", "1"] + TOOLS_TOKEN_GRID)
+    eng = ws.decode_engine(args, cfg=cfg)
+    try:
+        foreign = eng.load_warmstart(os.path.join(root,
+                                                  "gpt2_default.warmstart"))
+    finally:
+        eng.stop()
+    ev = events.recent(1, kind="warmstart")[-1]
+    check(foreign == 0 and ev["action"] == "reject",
+          f"tools (a): seed 1 adopted {foreign}, event {ev}")
+    out["foreign_seed"] = {"adopted": foreign, "event": ev["reason"]}
+    return out, os.path.join(root, "gpt2_default.warmstart")
+
+
+def _tools_token(art):
+    """(b): token mode at GPT-2-small with (a)'s artifact."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    args = sb._build_args(["--tokens", "--warmstart", art]
+                          + TOOLS_TOKEN_TRAFFIC)
+    rc, m = _tool_lines(sb.run_token_bench, args,
+                        device=_torch_device(), cfg=gpt.GPTConfig())
+    cont = m["decode_tokens_per_sec_continuous"]["detail"]
+    stat = m["decode_tokens_per_sec_static"]["detail"]
+    rep = m["decode_warm_replay_fresh_compiles"]
+    d = rep["detail"]
+    check(rc == 0 and cont["error"] == stat["error"] == 0 and
+          cont["tokens"] > 0, f"tools (b): rc {rc}, {cont}, {stat}")
+    check(d["bit_identical"] and d["adopted"] == d["phases"] > 0,
+          f"tools (b): warm replay {d}")
+    check(rep["value"] == 0, f"tools (b): {rep['value']} eager decode "
+          "steps in the warm replay")
+    check(d["k1_fwd_launches"] > 0 and d["k1_fwd_launches"] ==
+          d["attention_routes"].get("flash_cuda"),
+          f"tools (b): K1-fwd {d['k1_fwd_launches']}, routes "
+          f"{d['attention_routes']}")
+    keys = ("tokens_per_sec", "tokens", "ttft_p50_ms", "ttft_p99_ms",
+            "e2e_p50_ms", "e2e_p99_ms", "token_gap_p50_ms",
+            "token_gap_p99_ms")
+    return {"continuous": {k: cont[k] for k in keys},
+            "static": {k: stat[k] for k in keys},
+            "speedup": m["decode_continuous_speedup"]["value"],
+            "equal_p99_ok": m["decode_continuous_speedup"]["detail"][
+                "equal_p99_ok"],
+            "adopted": d["adopted"], "phases": d["phases"],
+            "eager_decode_steps_warm": rep["value"],
+            "requests": d["requests"], "hbm_peak_bytes": d["hbm_peak_bytes"],
+            "mfu": d["mfu"]}, d["k1_fwd_launches"]
+
+
+def _torch_device():
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _tools_prefix():
+    """(c): prefix-share at GPT-2-small."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    args = sb._build_args(["--tokens", "--prefix-share"])
+    rc, m = _tool_lines(sb.run_prefix_bench, args, device=_torch_device(),
+                        cfg=gpt.GPTConfig())
+    d = m["decode_prefix_share_ttft_speedup"]["detail"]
+    check(rc == 0 and d["bit_identical"] and d["prefix_hits"] > 0 and
+          m["decode_spec_accept_rate"]["value"] >= 0.99,
+          f"tools (c): rc {rc}, {json.dumps(d)[:3000]}")
+    return {"prefix_hits": d["prefix_hits"],
+            "spec_accept_rate": m["decode_spec_accept_rate"]["value"],
+            "ttft_warm_p50_ms": {"plain": d["plain"]["ttft_warm_p50_ms"],
+                                 "kv_reuse":
+                                 d["kv_reuse"]["ttft_warm_p50_ms"]},
+            "ttft_speedup": m["decode_prefix_share_ttft_speedup"]["value"],
+            "tokens_per_sec": {"plain": d["plain"]["tokens_per_sec"],
+                               "kv_reuse": d["kv_reuse"]["tokens_per_sec"]},
+            }, d["k1_fwd_launches"]
+
+
+def _tools_tenants(profile_dir):
+    """(d): tenants mode on the card, with a profile capture taken
+    while it runs."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    args = sb.smoke_settings(sb._build_args(["--tenants", "--smoke"]))
+    # the profiler's first start imports torch._dynamo: import it here,
+    # not in the capture thread beside the tool's first torch calls
+    import torch._dynamo  # noqa: F401
+    import torch.profiler  # noqa: F401
+
+    box = {}
+    cap = threading.Thread(target=lambda: box.update(
+        profiler.capture_profile(TOOLS_PROFILE_S, out_dir=profile_dir)),
+        daemon=True)
+    cap.start()
+    rc, m = _tool_lines(sb.run_tenants_bench, args, device=_torch_device())
+    cap.join(timeout=300)
+    d = m["tenant_gold_p99_ms"]["detail"]
+    swap = d["swap"]
+    check(rc == 0 and d["gold"]["failed"] == 0 and
+          d["shed_delta"].get("bronze", 0) > 0 and
+          d["shed_delta"].get("gold", 0) == 0 and swap["failed"] == 0 and
+          swap["warmstart_adopted"] == len(swap["buckets"] or ()) > 0,
+          f"tools (d): rc {rc}, {json.dumps(d)[:3000]}")
+    check(box.get("dir") == profile_dir, f"tools (d): capture {box}")
+    return {"gold": d["gold"], "bronze_sheds": d["shed_delta"]["bronze"],
+            "flood": d["flood"], "swap": swap}
+
+
+def _tools_fleet():
+    """(e): fleet mode on the card at the smoke's traffic."""
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    args = sb.smoke_settings(sb._build_args(
+        ["--fleet", "--smoke", "--replicas", "2", "--fleet-max", "3"]))
+    rc, m = _tool_lines(sb.run_fleet_bench, args, device=_torch_device())
+    det = {k: v["detail"] for k, v in m.items()}
+    fail = det["fleet_failover_failed_requests"]
+    out = det["fleet_scaleout_p99_recovered"]
+    trace = det["fleet_trace_reconstructed"]
+    slo = det["fleet_slo_alert_fired"]
+    check(rc == 0 and m["fleet_failover_failed_requests"]["value"] == 0 and
+          m["fleet_scalein_dropped_requests"]["value"] == 0,
+          f"tools (e): rc {rc}, failed requests "
+          f"{json.dumps({k: v['value'] for k, v in m.items()})}")
+    check(fail["killed"] and out["scale_outs"] >= 1 and
+          (out["warmstart_adopted"] or 0) > 0,
+          f"tools (e): respawn/scale-out {json.dumps(out)[:2000]}")
+    check(trace["generate_roots"] == 1 and
+          trace["generate_processes"] >= 2,
+          f"tools (e): generate trace {json.dumps(trace)[:2000]}")
+    check("fast_burn" in slo["states_seen"] and
+          slo["states_seen"][-1] == "ok",
+          f"tools (e): slo_alert {slo['states_seen']}")
+    return {
+        "respawn_s": fail["respawn_s"], "boot_s": fail["boot_s"],
+        "scaleout_s": out["scaleout_s"], "scale_outs": out["scale_outs"],
+        "warmstart_adopted": out["warmstart_adopted"],
+        "ejections": fail["ejections"], "retries": fail["retries"],
+        "trace_overhead_p50": m["fleet_trace_overhead_p50"]["value"],
+        "ts_overhead_p50": m["fleet_ts_overhead_p50"]["value"],
+        "ts_recording_pids": m["fleet_ts_recording_pids"]["value"],
+        "slo_states": slo["states_seen"],
+        "breach_detect_s": slo["breach_detect_s"],
+        "clear_s": slo["clear_s"],
+        "generate_processes": trace["generate_processes"],
+    }, {"trace_dir": trace["trace_dir"],
+        "trace_id": trace["generate_trace_id"], "ts_dir": slo["ts_dir"],
+        "slo_spec": slo["slo_spec"]}
+
+
+def _tools_autoscale(root, model_dir, art):
+    """(f): autoscale.py boots one replica of the MLP in `model_dir`
+    from the artifact `art` and answers one predict through its router;
+    interrupted once it has."""
+    import signal
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # stderr to a file: the replicas' log lines must not fill a pipe
+    # nobody reads while the phase waits on stdout
+    err_path = os.path.join(root, "autoscale.err")
+    err_f = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "paddle_tpu_torch.tools.autoscale",
+         "--model-dir", model_dir, "--warmstart", art,
+         "--replicas", "1", "--min", "1", "--max", "1", "--port", "0",
+         "--rdzv-dir", os.path.join(root, "rdzv_autoscale"),
+         "--status-every", "0.5", "--duration", str(TOOLS_AUTOSCALE_S)],
+        cwd=repo, stdout=subprocess.PIPE, stderr=err_f, text=True)
+    try:
+        up = json.loads(proc.stdout.readline())
+        port = up["router_port"]
+        body = json.dumps({"feeds": {"x": np.random.RandomState(0).rand(
+            1, 784).astype("float32").tolist()}}).encode()
+        reply, deadline = None, time.monotonic() + TOOLS_AUTOSCALE_S
+        while reply is None and time.monotonic() < deadline:
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/v1/predict", data=body,
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    reply = json.loads(r.read())
+            except (urllib.error.URLError, OSError):
+                time.sleep(0.2)
+        answered_s = time.perf_counter() - t0
+        # the first status line that counts the predict
+        status, deadline = {}, time.monotonic() + 30
+        while reply is not None and time.monotonic() < deadline and \
+                status.get("requests", {}).get("ok", 0) < 1:
+            status = json.loads(proc.stdout.readline() or "{}")
+    finally:
+        proc.send_signal(signal.SIGINT)      # the graceful shutdown
+        try:
+            proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        err_f.close()
+    with open(err_path) as f:
+        err = f.read()
+    check(reply is not None and reply.get("batch") == 1 and
+          len(reply.get("outputs") or ()) == 1,
+          f"tools (f): no predict answered ({reply}); {err[-2000:]}")
+    check(proc.returncode == 0, f"tools (f): rc {proc.returncode}: "
+          f"{err[-2000:]}")
+    check(len(up["replicas"]) == 1 and status.get("replicas") == 1 and
+          status.get("healthy") == 1, f"tools (f): {up} {status}")
+    return {"answered_s": round(answered_s, 3), "status": status,
+            "seconds": time.perf_counter() - t0}
+
+
+def _in_thread(fn, *args):
+    """`fn(*args)` started on a thread; the returned callable joins it
+    and returns its result or raises its error."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # re-raised on the phase's thread
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join(timeout=900)
+        check(not th.is_alive(), f"tools: {fn.__name__} never returned")
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+    return join
+
+
+def _tools_obsdump(dumps):
+    """(g): obsdump by file path over what (a)-(f) wrote: each
+    subcommand exits 0 with its table holding rows."""
+    tool = os.path.join("paddle_tpu_torch", "tools", "obsdump.py")
+    argvs = {
+        "snapshot": ["snapshot", dumps["metrics"]],
+        "events": ["events", dumps["events"], "-n", "50"],
+        "trace": ["trace", dumps["trace_dir"], "--trace-id",
+                  dumps["trace_id"]],
+        "decode": ["decode", dumps["metrics"]],
+        "tenants": ["tenants", dumps["metrics"]],
+        "fleet": ["fleet", dumps["metrics"]],
+        "top": ["top", dumps["ts_dir"], "--window", "3600"],
+        "slo": ["slo", dumps["ts_dir"], "--spec", dumps["slo_spec"]],
+        "mem": ["mem", dumps["metrics"]],
+        "profile": ["profile", dumps["profile_dir"]],
+    }
+    runs = {name: _in_thread(_tool_cli, [tool] + argv, 120)
+            for name, argv in argvs.items()}
+    out = {}
+    for name, join in runs.items():
+        rc, text, err = join()
+        check(rc == 0 and TOOLS_OBSDUMP[name] in text,
+              f"tools (g): obsdump {name} rc {rc}: {text[:1500]} "
+              f"{err[-1500:]}")
+        out[name] = len(text.splitlines())
+    return out
+
+
+def phase_tools():
+    """Phase 35: the serving operator's tools (`paddle_tpu_torch/tools/`)
+    driven on the card as an operator would. Returns the K1-fwd
+    launches of its in-process runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.observability import memwatch
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    dumps = {"metrics": os.path.join(root, "metrics.json"),
+             "events": os.path.join(root, "events.jsonl"),
+             "profile_dir": os.path.join(root, "profile")}
+    # the tools' replicas are processes of their own, at torch's default
+    # TF32 flags: an artifact baked here with the flags this script sets
+    # would be another environment to them
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    saved = (tempfile.tempdir, os.environ.get("PADDLE_TPU_EVENT_LOG"))
+    tempfile.tempdir = root               # the tools' scratch dirs
+    os.environ["PADDLE_TPU_EVENT_LOG"] = dumps["events"]
+    secs, out, launches = {}, {}, 0
+    try:
+        # (a)'s and (f)'s processes start first and run beside (a), (c)
+        # and (d) in this process: their boots (a torch import, a CUDA
+        # context) are most of their time. (b), whose rates this phase
+        # reports, runs after them on a quiet host.
+        from paddle_tpu_torch.serving import Engine, ServingConfig
+        from paddle_tpu_torch.tools import serve_bench as sb
+
+        t = time.perf_counter()
+        model_dir = os.path.join(root, "mlp")
+        sb._save_model(model_dir, _torch_device())
+        mlp_art = os.path.join(root, "mlp.warmstart")
+        eng = Engine(ServingConfig(model_dir))
+        eng.warmup()
+        eng.export_warmstart(mlp_art)
+        del eng
+        cli_art = os.path.join(root, "mlp_cli.warmstart")
+        cli_a = _in_thread(_tools_cli_bake, root)
+        cli_bake = _in_thread(_tools_cli_bake_predict, model_dir, cli_art)
+        cli_f = _in_thread(_tools_autoscale, root, model_dir, mlp_art)
+        out["a_warmstart"], art = _tools_bake(root)
+        out["a_warmstart"]["tiny"] = cli_a()
+        out["f_bake"] = cli_bake()
+        # the CLI's predict artifact is adopted whole here
+        eng = Engine(ServingConfig(model_dir, warmstart=cli_art))
+        check(eng.warmstart_adopted == out["f_bake"]["entries"],
+              f"tools (f): {eng.warmstart_adopted} adopted of "
+              f"{out['f_bake']}")
+        del eng
+        secs["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["c"], k1 = _tools_prefix()
+        launches += k1
+        secs["c"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["d"] = _tools_tenants(dumps["profile_dir"])
+        secs["d"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["f"] = cli_f()
+        secs["f"] = out["f"]["seconds"]
+        secs["f_wait"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["b"], k1 = _tools_token(art)
+        launches += k1
+        secs["b"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["e"], fleet = _tools_fleet()
+        dumps.update(fleet)
+        secs["e"] = time.perf_counter() - t
+        memwatch.sweep(force=True)
+        with open(dumps["metrics"], "w") as f:
+            json.dump(observability.snapshot(), f)
+        t = time.perf_counter()
+        out["g_obsdump_lines"] = _tools_obsdump(dumps)
+        secs["g"] = time.perf_counter() - t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        tempfile.tempdir = saved[0]
+        if saved[1] is None:
+            os.environ.pop("PADDLE_TPU_EVENT_LOG", None)
+        else:
+            os.environ["PADDLE_TPU_EVENT_LOG"] = saved[1]
+    print(json.dumps({
+        "phase": "tools", "card": card(),
+        "model": "GPT-2-small (GPTConfig()), weights from a CPU "
+                 "torch.Generator seeded 0; tiny for the CLI bake; the "
+                 "MLP 784-128-10 for predict, tenants, fleet, autoscale",
+        "token_grid": TOOLS_TOKEN_GRID, "token_traffic": TOOLS_TOKEN_TRAFFIC,
+        "a_warmstart": out["a_warmstart"], "b_tokens": out["b"],
+        "c_prefix_share": out["c"], "d_tenants": out["d"],
+        "e_fleet": out["e"], "f_bake": out["f_bake"],
+        "f_autoscale": out["f"],
+        "g_obsdump_lines": out["g_obsdump_lines"],
+        "launches": {"flash_attention_fwd": launches},
+        "part_seconds": secs, "seconds": time.perf_counter() - t0}),
+        flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leftovers():
     """The threads other than this one still alive, and the processes
     whose parent is this one, each as a short description."""
@@ -10944,6 +11477,7 @@ def main() -> int:
     timed(phase_fluid_sequence)
     timed(phase_slim)
     timed(phase_detection)
+    launches["flash_attention_fwd"] += timed(phase_tools)
     for counts in (bert_counts, gpt_counts, nmt_counts, beam_counts,
                    padded_counts, bottleneck_counts, resnet_counts,
                    sp_counts, resilience_counts, moe_counts, dptp_counts):

@@ -130,7 +130,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "paddle_tpu_torch.ops.detection",
                  "paddle_tpu_torch.debugger",
                  "paddle_tpu_torch.contrib",
-                 "paddle_tpu_torch.contrib.utils"):
+                 "paddle_tpu_torch.contrib.utils",
+                 # the operator's tools
+                 "paddle_tpu_torch.tools",
+                 "paddle_tpu_torch.tools.warmstart",
+                 "paddle_tpu_torch.tools.serve_bench",
+                 "paddle_tpu_torch.tools.obsdump",
+                 "paddle_tpu_torch.tools.autoscale",
+                 "paddle_tpu_torch.tools.analyze"):
         assert name in r.stdout.split(), name
 
 
@@ -798,3 +805,133 @@ def test_copied_detection_map_kernel_matches_its_source():
     assert header == [
         "# Copied from the JAX package: paddle_tpu/ops/detection.py's",
         "# `_np_detection_map_update` (tests/test_torch_imports.py checks it)."]
+
+
+# The operator's tools (`paddle_tpu_torch/tools/`). obsdump.py is the
+# JAX package's tools/obsdump.py with declared changes: a three-line
+# header (the shebang, then two lines naming the source) in place of
+# the shebang; it loads this package's observability modules by file
+# path, `--live` imports this package, and its docstrings name this
+# package's paths and the torch profiler's trace. Nothing it prints to
+# stdout differs.
+OBSDUMP_HEADER = (
+    "# Copied from the JAX package's tools/obsdump.py with declared\n"
+    "# changes (tests/test_torch_imports.py, OBSDUMP_CHANGES).\n")
+
+OBSDUMP_CHANGES = [
+    ("Offline companion to paddle_tpu/observability/: the `snapshot` and",
+     "Offline companion to paddle_tpu_torch/observability/: the `snapshot` "
+     "and"),
+    ("file path) — no framework or jax import, so they run in milliseconds "
+     "on",
+     "file path) — no framework or torch import, so they run in "
+     "milliseconds on"),
+    ("imports the framework and reads the in-process registry instead.\n"
+     "\nUsage:\n",
+     "imports the framework and reads the in-process registry instead.\n"
+     "\nUsage (`python paddle_tpu_torch/tools/obsdump.py ...` by file path,"
+     "\nor `python -m paddle_tpu_torch.tools.obsdump ...`, which imports "
+     "torch):\n"),
+    ("  obsdump.py trace RUN_DIR -o out.json      # merge spans.json + jax\n"
+     "                                            # *.trace.json(.gz) under\n",
+     "  obsdump.py trace RUN_DIR -o out.json      # merge spans.json + the\n"
+     "                                            # profiler's <host>.trace."
+     "json\n"),
+    ("RUN_DIR is typically the profiler's\n"
+     "profile_path (jax device traces) optionally holding a spans.json from",
+     "RUN_DIR is typically the profiler's\n"
+     "profile_path (the torch profiler's <host>.trace.json, "
+     "paddle_tpu_torch/profiler.py) optionally holding a spans.json from"),
+    ('    "paddle_tpu", "observability")\n', '    "observability")\n'),
+    ("    paddle_tpu package __init__ (which drags in jax). metrics.py,",
+     "    paddle_tpu_torch package __init__ (which drags in torch). "
+     "metrics.py,"),
+    ("        import paddle_tpu  # noqa: F401 — registers all telemetry "
+     "metrics\n\n        from paddle_tpu import observability\n",
+     "        import paddle_tpu_torch  # noqa: F401 — registers all "
+     "telemetry metrics\n\n        from paddle_tpu_torch import "
+     "observability\n"),
+    ("    (paddle_tpu/analysis, PADDLE_TPU_VALIDATE — ANALYSIS.md).",
+     "    (paddle_tpu_torch/analysis, PADDLE_TPU_VALIDATE — ANALYSIS.md)."),
+    ("        import paddle_tpu  # noqa: F401 — registers providers\n\n"
+     "        from paddle_tpu.observability import memwatch\n",
+     "        import paddle_tpu_torch  # noqa: F401 — registers providers\n\n"
+     "        from paddle_tpu_torch.observability import memwatch\n"),
+]
+
+
+def obsdump_copy_text():
+    """The port's tools/obsdump.py as its declared changes make it."""
+    with open(os.path.join(_REPO, "tools", "obsdump.py")) as f:
+        shebang, body = f.read().split("\n", 1)
+    for old, new in OBSDUMP_CHANGES:
+        assert body.count(old) == 1, old
+        body = body.replace(old, new)
+    return shebang + "\n" + OBSDUMP_HEADER + body
+
+
+def test_obsdump_copy_differs_only_by_its_declared_changes():
+    with open(os.path.join(_PKG, "tools", "obsdump.py")) as f:
+        assert f.read() == obsdump_copy_text()
+
+
+TOOLS = ["warmstart", "serve_bench", "obsdump", "autoscale", "analyze"]
+
+
+def test_no_jax_scan_covers_the_tools():
+    scanned = set(_sources())
+    for name in ["__init__"] + TOOLS:
+        assert os.path.join(_PKG, "tools", f"{name}.py") in scanned, name
+
+
+class _Parser(Exception):
+    """Carries the parser whose parse_args was called."""
+
+
+def _parser(path):
+    """The argparse parser that the tool at `path` builds, taken at its
+    parse_args call: nothing of the tool runs past it."""
+    import argparse
+    import importlib.util
+    from unittest import mock
+
+    spec = importlib.util.spec_from_file_location("_tool_parser", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def grab(self, *args, **kwargs):
+        raise _Parser(self)
+
+    entry = getattr(mod, "_build_args", None) or mod.main
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", grab):
+        with pytest.raises(_Parser) as got:
+            entry()
+    return got.value.args[0]
+
+
+def _surface(parser):
+    """{option strings (or dest): (dest, default, nargs, type, choices,
+    required, action, metavar)}, and each subcommand's the same."""
+    import argparse
+
+    out = {}
+    for a in parser._actions:
+        if isinstance(a, argparse._SubParsersAction):
+            out["subcommands"] = {name: _surface(sub)
+                                  for name, sub in a.choices.items()}
+        elif not isinstance(a, argparse._HelpAction):
+            out[tuple(a.option_strings) or a.dest] = (
+                a.dest, a.default, a.nargs,
+                getattr(a.type, "__name__", a.type), a.choices,
+                a.required, type(a).__name__, a.metavar)
+    return out
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tool_parser_equals_the_jax_tools(name):
+    """Subcommands, option strings, defaults, types, choices and
+    actions of the port's tool equal the JAX package's tools/<name>.py,
+    with both parsers built and neither tool run."""
+    want = _surface(_parser(os.path.join(_REPO, "tools", f"{name}.py")))
+    got = _surface(_parser(os.path.join(_PKG, "tools", f"{name}.py")))
+    assert got == want
